@@ -1,0 +1,126 @@
+"""Architecture configuration.
+
+``registry.get(name)`` resolves the assigned architectures; reduced
+variants for CPU tests come from ``ArchConfig.reduced()``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.sparsity import SparsityConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_expert: int                 # per-expert FFN hidden width
+    num_shared: int = 0           # shared (always-on) experts
+    d_shared: int = 0             # hidden width of the shared expert block
+    capacity_factor: float = 1.25
+    group_size: int = 2048        # GShard dispatch group
+    aux_loss_weight: float = 1e-2
+    first_dense_layers: int = 0   # deepseek-v2: layer 0 is a dense FFN
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                   # dense | ssm | hybrid | moe | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int                    # padded to a shardable multiple
+    raw_vocab: int = 0
+    # attention
+    attn_kind: str = "full"       # full | sliding | mla | none
+    window: int = 0               # sliding window size
+    qkv_bias: bool = False
+    partial_rotary: float = 1.0   # fraction of head_dim rotated (stablelm 0.25)
+    rope_theta: float = 1e6
+    mla: Optional[MLAConfig] = None
+    # ssm
+    ssm_kind: str = ""            # mamba1 | mamba2
+    ssm_state: int = 0
+    d_inner: int = 0
+    conv_width: int = 4
+    ssm_head_dim: int = 64        # mamba2
+    dt_rank: int = 0              # mamba1 (0 -> ceil(d_model/16))
+    # hybrid (zamba2): shared attention block every k ssm layers
+    hybrid_attn_every: int = 0
+    # moe
+    moe: Optional[MoEConfig] = None
+    # enc-dec (whisper): encoder layers + stub frame count
+    enc_layers: int = 0
+    enc_frames: int = 0
+    # vlm (llava): stub patch count
+    num_patches: int = 0
+    # misc
+    act: str = "silu"
+    norm: str = "rmsnorm"         # rmsnorm | layernorm
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    max_seq: int = 8192           # per-request sequence bound
+    # numerics
+    dtype: str = "bfloat16"       # compute dtype
+    param_dtype: str = "float32"  # master parameter dtype
+    attn_chunk: int = 1024        # online-softmax kv chunk
+    ssm_chunk: int = 128          # selective-scan chunk
+    # the paper's technique
+    sparsity: Optional[SparsityConfig] = None
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def with_sparsity(self, sp: SparsityConfig) -> "ArchConfig":
+        return dataclasses.replace(self, sparsity=sp)
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU tests."""
+        kw = dict(
+            n_layers=min(self.n_layers, 2),
+            d_model=128,
+            n_heads=4,
+            kv_heads=(min(self.kv_heads, 4) if self.kv_heads >= self.n_heads
+                      else 2),
+            head_dim=32,
+            d_ff=256,
+            vocab=256,
+            raw_vocab=256,
+            d_inner=256,
+            dt_rank=8,
+            ssm_head_dim=32,
+            enc_layers=min(self.enc_layers, 2),
+            enc_frames=16 if self.enc_frames else 0,
+            num_patches=8 if self.num_patches else 0,
+            window=min(self.window, 64) if self.window else 0,
+            max_seq=512,
+            attn_chunk=32,
+            ssm_chunk=16,
+            hybrid_attn_every=2 if self.hybrid_attn_every else 0,
+        )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe, num_experts=8, top_k=2, d_expert=64,
+                d_shared=64 if self.moe.num_shared else 0, group_size=64)
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(kv_lora_rank=32, qk_nope_head_dim=32,
+                                  qk_rope_head_dim=16, v_head_dim=32)
+        if self.sparsity is not None:
+            kw["sparsity"] = dataclasses.replace(self.sparsity, block=32)
+        return dataclasses.replace(self, **kw)

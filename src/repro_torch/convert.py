@@ -1,0 +1,40 @@
+"""Carry parameters across from the JAX reference.
+
+``from_jax_params(tree)`` takes the reference's params tree with every
+leaf already a numpy array (layers stacked on axis 0, as its ``init``
+builds them) and returns the port's params (layers as a list), so that
+both compute the same function.  Only numpy crosses the boundary.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a, device):
+    a = np.asarray(a)
+    if np.issubdtype(a.dtype, np.integer):
+        a = a.astype(np.int32)
+    return torch.tensor(a, device=device)    # a copy: the source may be read-only
+
+
+def _convert(tree, device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def _unstack(tree, i):
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def from_jax_params(tree: dict, device="cpu") -> dict:
+    """Reference params (numpy leaves, ``tree["layers"]`` stacked on axis
+    0) -> the port's params on ``device``."""
+    out = {k: _convert(v, device) for k, v in tree.items() if k != "layers"}
+    n_layers = len(np.asarray(tree["layers"]["norm1"]["scale"]))
+    out["layers"] = [_convert(_unstack(tree["layers"], i), device)
+                     for i in range(n_layers)]
+    return out

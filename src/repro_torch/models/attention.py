@@ -1,0 +1,178 @@
+"""Grouped-query attention over a block-paged KV cache: chunked prefill
+and single-token decode.
+
+The pool of one layer is ``{"k": [P, ps, Hkv, hd], "v": ...}``; token t
+of a slot lives in page ``page_table[b, t // ps]`` at offset ``t % ps``.
+Page 0 is the scratch page that free slots point at.  The pool is
+updated in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import sparse_linear as sl
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.models.layers import rope
+
+NEG_INF = -1e30
+Params = dict[str, Any]
+
+
+def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+              device="cpu", seed: int = 0) -> Params:
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    sp = cfg.sparsity
+    return {
+        "wq": sl.init_linear(gen, d, H * hd, family="attn", sp=sp,
+                             bias=cfg.qkv_bias, dtype=dtype, device=device,
+                             seed=seed),
+        "wk": sl.init_dense(gen, d, Hkv * hd, bias=cfg.qkv_bias, dtype=dtype,
+                            device=device),
+        "wv": sl.init_dense(gen, d, Hkv * hd, bias=cfg.qkv_bias, dtype=dtype,
+                            device=device),
+        "wo": sl.init_linear(gen, H * hd, d, family="attn", sp=sp,
+                             dtype=dtype, device=device, seed=seed + 1),
+    }
+
+
+def _split_heads(x, n_heads, hd):
+    return x.reshape(*x.shape[:-1], n_heads, hd)
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      chunk: int = 1024, q_pos=None, kv_pos=None):
+    """Online-softmax attention.  q [B,Sq,H,D]; k,v [B,Sk,Hkv,D].
+
+    Walks KV chunks carrying (running max, normalizer, weighted sum) in
+    fp32.  Scores are fp32 products of q and k; the probabilities are
+    rounded to q's dtype before the PV product, which sums in fp32."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    chunk = min(chunk, Sk)
+    dev = q.device
+    if q_pos is None:
+        q_pos = torch.arange(Sq, device=dev)
+    if kv_pos is None:
+        kv_pos = torch.arange(Sk, device=dev)
+    pad = (-Sk) % chunk
+    if pad:  # pad KV to a chunk multiple; the padding is masked below
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_pos = torch.cat([kv_pos, torch.full((pad,), Sk + 10**9,
+                                               dtype=kv_pos.dtype, device=dev)])
+    q5 = q.reshape(B, Sq, Hkv, rep, D).float()
+    m = torch.full((B, Hkv, rep, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, rep, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, rep, Sq, D), dtype=torch.float32, device=dev)
+    for c0 in range(0, k.shape[1], chunk):
+        kj = k[:, c0:c0 + chunk]
+        vj = v[:, c0:c0 + chunk]
+        pj = kv_pos[c0:c0 + chunk]
+        s = torch.einsum("bqgrd,bkgd->bgrqk", q5, kj.float()) * scale
+        mask = (pj <= Sk + 10**8)[None, None, None, None, :]
+        if causal:
+            mask = mask & (q_pos[None, None, None, :, None]
+                           >= pj[None, None, None, None, :])
+        if window:
+            mask = mask & (q_pos[None, None, None, :, None]
+                           - pj[None, None, None, None, :] < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        upd = torch.einsum("bgrqk,bkgd->bgrqd", p.to(q.dtype).float(),
+                           vj.float())
+        acc = acc * corr[..., None] + upd
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+    return out.to(q.dtype)
+
+
+def paged_kv_update(cache: dict, k_new, v_new, positions, page_table):
+    """Write new KV rows into the paged pool, in place.
+
+    k_new/v_new [B, S, Hkv, hd]; positions [B, S] absolute positions;
+    page_table [B, maxp].  A position past the table's last page is sent
+    to the scratch page 0, as is every row of a free slot.  Several rows
+    may thus target the same (page 0, offset) cell and index_put_ leaves
+    their order undefined; that is harmless only because page 0 is
+    scratch that no live slot reads unmasked."""
+    ps = cache["k"].shape[1]
+    maxp = page_table.shape[1]
+    positions = positions.long()
+    slot_page = positions // ps
+    pid = torch.gather(page_table.long(), 1, slot_page.clamp(max=maxp - 1))
+    pid = torch.where(slot_page < maxp, pid, 0).reshape(-1)
+    off = (positions % ps).reshape(-1)
+    for key, new in (("k", k_new), ("v", v_new)):
+        flat = new.reshape(-1, *new.shape[2:]).to(cache[key].dtype)
+        cache[key].index_put_((pid, off), flat)
+    return cache
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens):
+    """q [B,1,H,D] against the pool through ``flash_decode`` -> [B,1,H,D]."""
+    B, _, H, D = q.shape
+    rep = H // k_pool.shape[2]
+    qf = q.reshape(B, k_pool.shape[2], rep, D).contiguous()
+    out = fa.flash_decode(qf, k_pool, v_pool, page_table, seq_lens)
+    return out.reshape(B, 1, H, D)
+
+
+def _qkv(p: Params, x, cfg: ArchConfig, positions):
+    H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q = _split_heads(sl.apply(p["wq"], x), H, hd)
+    k = _split_heads(sl.apply(p["wk"], x), Hkv, hd)
+    v = _split_heads(sl.apply(p["wv"], x), Hkv, hd)
+    q = rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
+    k = rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
+    return q, k, v
+
+
+def gqa_decode_paged(p: Params, x, cfg: ArchConfig, cache: dict, positions,
+                     page_table):
+    """Single-token decode for every slot.  x [B,1,d]; positions [B] —
+    the slot's write position (the cache holds ``positions[b]`` tokens
+    before the call); page_table [B, maxp].  The slot then attends over
+    ``positions + 1`` tokens, so a free slot (position 0, all pages 0)
+    reads one token of the scratch page; the engine discards that row."""
+    B = x.shape[0]
+    pos2d = positions[:, None]                                   # [B, 1]
+    q, k_new, v_new = _qkv(p, x, cfg, pos2d)
+    cache = paged_kv_update(cache, k_new, v_new, pos2d, page_table)
+    out = paged_decode_attention(q, cache["k"], cache["v"], page_table,
+                                 (positions + 1).to(torch.int32))
+    out = sl.apply(p["wo"], out.reshape(B, 1, cfg.n_heads * cfg.head_dim))
+    return out, cache
+
+
+def gqa_prefill_paged(p: Params, x, cfg: ArchConfig, cache: dict, positions,
+                      page_table):
+    """Chunked prefill of one slot: x [1,C,d] (a fixed-size prompt chunk,
+    maybe tail-padded), positions [C] absolute, page_table [1, maxp].
+    Writes the chunk's KV, then attends causally over the slot's gathered
+    pages (earlier chunks included); padded tail tokens land past the
+    prompt and are overwritten by decode before they are ever unmasked."""
+    B, C, _ = x.shape
+    Hkv, hd = cfg.kv_heads, cfg.head_dim
+    q, k_new, v_new = _qkv(p, x, cfg, positions)
+    cache = paged_kv_update(cache, k_new, v_new, positions[None, :],
+                            page_table)
+    ps = cache["k"].shape[1]
+    maxp = page_table.shape[1]
+    rows = page_table[0].long()
+    kg = cache["k"][rows].reshape(1, maxp * ps, Hkv, hd)
+    vg = cache["v"][rows].reshape(1, maxp * ps, Hkv, hd)
+    out = chunked_attention(q, kg, vg, causal=True, chunk=cfg.attn_chunk,
+                            q_pos=positions,
+                            kv_pos=torch.arange(maxp * ps, device=x.device))
+    out = sl.apply(p["wo"], out.reshape(B, C, cfg.n_heads * hd))
+    return out, cache

@@ -1,0 +1,102 @@
+"""Common model pieces: norms, rotary embeddings, token embedding, MLP.
+
+Parameters are fp32 masters; compute runs in ``cfg.compute_dtype``
+(bf16).  The rounding points follow the reference op for op.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import sparse_linear as sl
+
+
+def norm_init(d: int, kind: str, dtype=torch.float32, device="cpu"):
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+def norm_apply(p, x: torch.Tensor, kind: str, eps: float) -> torch.Tensor:
+    """fp32 statistics, elementwise work in x's dtype: x*x is rounded to
+    x's dtype before the fp32 mean, and the mean and inverse deviation are
+    rounded to x's dtype before they meet x."""
+    ms = torch.mean(torch.square(x), dim=-1, keepdim=True, dtype=torch.float32)
+    if kind == "layernorm":
+        mu = torch.mean(x, dim=-1, keepdim=True, dtype=torch.float32)
+        inv = torch.rsqrt(ms - torch.square(mu) + eps)
+        y = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+        y = y * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+    else:  # rmsnorm
+        inv = torch.rsqrt(ms + eps)
+        y = x * inv.to(x.dtype) * p["scale"].to(x.dtype)
+    return y.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         partial: float = 1.0) -> torch.Tensor:
+    """x [..., S, H, D]; positions [..., S].  Rotates the first
+    ``partial * D`` dims (stablelm-style partial rotary); cos and sin are
+    rounded to x's dtype before the multiply."""
+    d = x.shape[-1]
+    rot = int(d * partial)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=x.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs        # [..., S, half]
+    cos = torch.cos(ang)[..., None, :].to(x.dtype)              # [..., S, 1, half]
+    sin = torch.sin(ang)[..., None, :].to(x.dtype)
+    x1, x2 = xr[..., :half], xr[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out, xp], dim=-1) if rot < d else out
+
+
+def embed_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+               device="cpu"):
+    scale = float(1.0 / math.sqrt(cfg.d_model))
+    p = {"tok": torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                            dtype=dtype, device=device) * scale}
+    if not cfg.tie_embeddings:
+        p["out"] = torch.randn((cfg.d_model, cfg.vocab), generator=gen,
+                               dtype=dtype, device=device) * scale
+    return p
+
+
+def embed_tokens(p, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return p["tok"][tokens.long()].to(cfg.compute_dtype)
+
+
+def unembed(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    w = p["tok"].T if cfg.tie_embeddings else p["out"]
+    return x @ w.to(x.dtype)
+
+
+def mlp_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+             device="cpu", seed: int = 0):
+    """(Gated) MLP; the projections are pre-defined-sparse when the
+    paper's technique applies to the 'ffn' family."""
+    d, f = cfg.d_model, cfg.d_ff
+    sp = cfg.sparsity
+    kw = dict(family="ffn", sp=sp, dtype=dtype, device=device)
+    p = {"wi": sl.init_linear(gen, d, f, seed=seed, **kw),
+         "wo": sl.init_linear(gen, f, d, seed=seed + 1, **kw)}
+    if cfg.act == "silu":
+        p["wg"] = sl.init_linear(gen, d, f, seed=seed + 2, **kw)
+    return p
+
+
+def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The activation rides as the producing junction's epilogue."""
+    if "wg" in p:
+        h = sl.apply(p["wg"], x, act="silu") * sl.apply(p["wi"], x)
+    else:
+        h = sl.apply(p["wi"], x, act="gelu")
+    return sl.apply(p["wo"], h)

@@ -1,0 +1,292 @@
+"""Continuous-batching serve engine over a block-paged KV cache.
+
+Requests carry their own prompt, max_new and arrival tick.  An admission
+loop refills free slots from the queue mid-flight, prompts prefill in
+fixed-size chunks interleaved with decode ticks, and the KV cache is a
+block-paged pool (models/model.make_paged_cache) where refilling a slot
+swaps a page-table row and never copies the cache.  Invariants:
+
+* the decode tick always has the shapes (token [B,1], positions [B],
+  page_table [B,maxp]) and a prefill chunk always [1, C]: admission,
+  refill and completion change only integers;
+* page accounting is all-or-nothing at admission (serve/paged.PagePool),
+  so there is no mid-flight exhaustion and no preemption;
+* pool page 0 is the scratch page: free and still-prefilling slots point
+  at it during a decode tick, so their writes never touch live pages;
+* decode attends through kernels/flash_attention.flash_decode, and every
+  sparse FFN junction runs through kernels/block_sparse_matmul.fwd; the
+  kernels' launch counts over a run land in ``stats["launches"]``.
+
+Sampling is greedy (first maximum) or by temperature from a
+``torch.Generator`` seeded with ``ServeConfig.seed``; a slot whose logits
+go non-finite is terminated and counted (``nonfinite_terminated``).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import model as M
+from repro_torch.serve.paged import PagePool
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    eos_token: int = -1     # -1: never stop early
+    seed: int = 0
+    # a slot whose logits go non-finite is terminated (filled with eos,
+    # or 0 when eos is unset) instead of sampling garbage; others go on
+    guard_nonfinite: bool = True
+    slots: int = 4          # decode batch width (fixed tick shape)
+    page_size: int = 16     # tokens per KV page
+    num_pages: int = 0      # pool budget; 0: full residency
+                            # (slots * ceil(max_seq/page_size) + scratch)
+    prefill_chunk: int = 32 # chunked-prefill width (fixed [1, C] shape)
+    max_seq: int = 0        # per-request prompt+new cap; 0: cfg.max_seq
+
+
+@dataclasses.dataclass
+class Request:
+    """One serving request.  ``arrival`` is in scheduler ticks: the
+    request becomes admissible once the engine's tick counter reaches it."""
+    rid: int
+    prompt: np.ndarray          # [S] int32
+    max_new_tokens: int
+    arrival: int = 0
+
+
+_FREE, _PREFILL, _DECODE = 0, 1, 2
+
+
+class _Slot:
+    __slots__ = ("state", "req", "pages", "cache_len", "prefill_pos", "out",
+                 "last_tok", "t_admit", "t_wall", "chunks")
+
+    def __init__(self):
+        self.state = _FREE
+        self.req: Request | None = None
+        self.pages: list[int] = []
+        self.cache_len = 0        # tokens written to the paged cache
+        self.prefill_pos = 0      # prompt tokens prefilled so far
+        self.out: list[int] = []
+        self.last_tok = 0         # sampled, not yet fed through decode
+        self.t_admit = 0
+        self.t_wall = 0.0
+        self.chunks = 0
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+class ContinuousEngine:
+    """``serve(requests)`` drives admission, chunked prefill and decode
+    until every request completes and returns {rid: generated tokens}.
+    ``stats`` then holds tick counts, per-request latencies, page
+    accounting and the kernels' launch counts over the run.  Runs on the
+    card unless ``device`` names another device."""
+
+    def __init__(self, cfg: ArchConfig, params,
+                 serve_cfg: ServeConfig | None = None, device=None):
+        self.device = resolve_device(device)
+        self.scfg = serve_cfg or ServeConfig()
+        ok, why = M.paged_supported(cfg)
+        if not ok:
+            raise ValueError(f"ContinuousEngine: {why}")
+        self.cfg = cfg
+        self.params = _to_device(params, self.device)
+        self.max_seq = self.scfg.max_seq or cfg.max_seq
+        self.pages_per_slot = -(-self.max_seq // self.scfg.page_size)
+        self.nonfinite_terminated = 0
+        self.stats: dict = {}
+
+    def _sample(self, logits: torch.Tensor, gen: torch.Generator
+                ) -> torch.Tensor:
+        """logits [N, V] fp32 -> tokens [N]; argmax takes the first maximum."""
+        if self.scfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        probs = torch.softmax(logits / self.scfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+    def _tick(self, pool, tokens, positions, page_table, gen):
+        logits, pool = M.paged_decode_step(self.cfg, self.params, pool,
+                                           tokens, positions, page_table)
+        lg = logits[:, -1].float()
+        bad = ~torch.isfinite(lg).all(dim=-1)
+        lg = torch.where(bad[:, None], 0.0, lg)
+        return self._sample(lg, gen), bad
+
+    # ---------------------------------------------------------- scheduler
+    def serve(self, requests: list[Request]) -> dict[int, np.ndarray]:
+        scfg, dev = self.scfg, self.device
+        B, ps = scfg.slots, scfg.page_size
+        maxp = self.pages_per_slot
+        num_pages = scfg.num_pages or (B * maxp + 1)
+        for r in requests:
+            prompt = np.asarray(r.prompt)
+            if prompt.ndim != 1 or len(prompt) == 0:
+                raise ValueError(f"request {r.rid}: prompt must be a "
+                                 "non-empty 1-D token array")
+            if prompt.min() < 0 or prompt.max() >= self.cfg.vocab:
+                raise ValueError(f"request {r.rid}: token ids must lie in "
+                                 f"[0, {self.cfg.vocab})")
+            need = len(r.prompt) + r.max_new_tokens
+            if need > self.max_seq:
+                raise ValueError(
+                    f"request {r.rid}: prompt+max_new = {need} exceeds "
+                    f"max_seq {self.max_seq}")
+            if -(-need // ps) > num_pages - 1:
+                raise ValueError(
+                    f"request {r.rid} needs more pages than the pool holds")
+        pool_acct = PagePool(num_pages, ps)
+        pool = M.make_paged_cache(self.cfg, num_pages, ps, dev)
+        slots = [_Slot() for _ in range(B)]
+        # FIFO within arrival order (stable sort keeps submission order)
+        queue = collections.deque(sorted(requests, key=lambda r: r.arrival))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(scfg.seed)
+        self.nonfinite_terminated = 0
+        eos = scfg.eos_token
+        guard = scfg.guard_nonfinite
+        outputs: dict[int, np.ndarray] = {}
+        lat: dict[int, dict] = {}
+        tick = 0
+        decode_ticks = prefill_chunks = 0
+        pf_cursor = 0               # round-robin over prefilling slots
+        launches0 = ops.launch_counts()
+        t_serve0 = time.perf_counter()
+
+        def finish(s: _Slot, outcome: str):
+            r = s.req
+            outputs[r.rid] = np.asarray(s.out, np.int32)
+            lat[r.rid] = {"arrival": r.arrival, "admitted": s.t_admit,
+                          "finished": tick, "outcome": outcome,
+                          "prefill_chunks": s.chunks,
+                          "n_tokens": len(s.out),
+                          "wall_s": time.perf_counter() - s.t_wall}
+            pool_acct.release(s.pages)
+            s.__init__()            # back to FREE
+
+        def step_done(s: _Slot, tok: int) -> str | None:
+            """Record one sampled token; the outcome ("eos" | "max_new")
+            when the request completed, else None."""
+            s.out.append(tok)
+            s.last_tok = tok
+            if eos >= 0 and tok == eos:
+                return "eos"
+            return "max_new" if len(s.out) >= s.req.max_new_tokens else None
+
+        while queue or any(s.state != _FREE for s in slots):
+            # ---- admission: refill free slots from the arrival queue
+            for s in slots:
+                if s.state != _FREE or not queue:
+                    continue
+                if queue[0].arrival > tick:
+                    break
+                need = pool_acct.pages_for(
+                    len(queue[0].prompt) + queue[0].max_new_tokens)
+                pages = pool_acct.alloc(need)
+                if pages is None:
+                    break           # pool full: stays queued, retry next tick
+                r = queue.popleft()
+                s.state = _PREFILL
+                s.req = r
+                s.pages = pages
+                s.t_admit = tick
+                s.t_wall = time.perf_counter()
+
+            # ---- one prefill chunk (round-robin), interleaved with decode
+            pf_slots = [i for i, s in enumerate(slots) if s.state == _PREFILL]
+            if pf_slots:
+                s = slots[pf_slots[pf_cursor % len(pf_slots)]]
+                pf_cursor += 1
+                prompt = s.req.prompt
+                C = scfg.prefill_chunk
+                cl = min(C, len(prompt) - s.prefill_pos)
+                buf = np.zeros((1, C), np.int32)
+                buf[0, :cl] = prompt[s.prefill_pos:s.prefill_pos + cl]
+                logits, pool = M.paged_prefill_chunk(
+                    self.cfg, self.params, pool,
+                    torch.from_numpy(buf).to(dev), s.prefill_pos,
+                    torch.from_numpy(self._page_row(s, maxp)).to(dev), cl)
+                prefill_chunks += 1
+                s.chunks += 1
+                s.prefill_pos += cl
+                s.cache_len = s.prefill_pos
+                if s.prefill_pos == len(prompt):
+                    row = logits[:, -1].float()
+                    bad = not bool(torch.isfinite(row).all())
+                    if guard and bad:
+                        self.nonfinite_terminated += 1
+                        s.out.append(eos if eos >= 0 else 0)
+                        finish(s, "guard")
+                    else:
+                        oc = step_done(s, int(self._sample(row, gen)[0]))
+                        if oc:
+                            finish(s, oc)
+                        else:
+                            s.state = _DECODE
+
+            # ---- decode tick: ONE fixed-shape call for the whole batch
+            dec = [i for i, s in enumerate(slots) if s.state == _DECODE]
+            if dec:
+                tokens = np.zeros((B, 1), np.int32)
+                positions = np.zeros((B,), np.int32)
+                pt = np.zeros((B, maxp), np.int32)   # scratch page default
+                for i in dec:
+                    s = slots[i]
+                    tokens[i, 0] = s.last_tok
+                    positions[i] = s.cache_len
+                    pt[i] = self._page_row(s, maxp)
+                tok, bad = self._tick(
+                    pool, torch.from_numpy(tokens).to(dev),
+                    torch.from_numpy(positions).to(dev),
+                    torch.from_numpy(pt).to(dev), gen)
+                decode_ticks += 1
+                tok, bad = tok.cpu().numpy(), bad.cpu().numpy()
+                for i in dec:
+                    s = slots[i]
+                    s.cache_len += 1
+                    if guard and bad[i]:
+                        self.nonfinite_terminated += 1
+                        s.out.append(eos if eos >= 0 else 0)
+                        finish(s, "guard")
+                    else:
+                        oc = step_done(s, int(tok[i]))
+                        if oc:
+                            finish(s, oc)
+            elif not pf_slots and queue:
+                # idle: jump the clock to the next arrival
+                tick = max(tick, queue[0].arrival - 1)
+            tick += 1
+
+        launches = ops.launch_counts()
+        self.stats = {
+            "ticks": tick, "decode_ticks": decode_ticks,
+            "prefill_chunks": prefill_chunks,
+            "peak_pages": pool_acct.peak_in_use,
+            "num_pages": num_pages, "page_size": ps,
+            "wall_s": time.perf_counter() - t_serve0,
+            "latency": lat,
+            "launches": {k: launches[k] - launches0[k] for k in launches},
+        }
+        return outputs
+
+    @staticmethod
+    def _page_row(s: _Slot, maxp: int) -> np.ndarray:
+        row = np.zeros((maxp,), np.int32)       # sentinel: scratch page 0
+        row[:len(s.pages)] = s.pages
+        return row
