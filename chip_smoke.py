@@ -18,7 +18,17 @@ PyTorch built for CUDA.  It
    request completes, that the kernels' launch counts are exactly what
    the path implies, and that one prefill chunk and one decode tick give
    the same logits through the kernels as through the plain versions;
-5. prints a ``kernels`` JSON line and, last, a JSON line with
+5. holds the training kernels (fwd with its saved residual, dx, dw and
+   the fused update_dw) against their plain versions at the training
+   path's shapes (M = 2048), times them, and checks every activation,
+   bias, E = 2, SGD / momentum / Adam, the health counts of poisoned
+   tiles and the bit-for-bit freeze of a zero hyp row;
+6. trains the same model at full width: 3 two-pass Adam steps, 3 fused
+   Adam steps and 3 fused SGD steps (batch 8 x 256), with finite losses,
+   no non-finite update, exact launch counts (no dw launch on the
+   unclipped fused path), and one step at 2 layers through the kernels
+   and through the plain versions within stated tolerances;
+7. prints a ``kernels`` JSON line and, last, a JSON line with
    ``"ok": true`` and the device.
 
 Any failed check raises and the exit code is not 0.  Without a card, or
@@ -301,6 +311,28 @@ def serve_phase(P, card):
     return params, counts
 
 
+def step_breakdown(step, wall_s, what, card, top=8):
+    """The device time of one more call of ``step`` by kernel name, from
+    the profiler, and its share of ``wall_s`` (the unprofiled time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"[profile] {what}: kernels {dev_ms:.1f} ms in "
+          f"{sum(e.count for e in kernels)} launches, device busy "
+          f"{dev_ms / (wall_s * 1e3):.1%} of the unprofiled "
+          f"{wall_s * 1e3:.1f} ms [{card}]")
+    for e in kernels[:top]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
+              f"{e.count:5d}x  {e.key[:90]}")
+
+
 def tick_breakdown(M, cfg, params, card):
     """One decode tick with 4 live slots of 80 cached tokens: its wall
     time and, from the profiler, the device time of its kernels by name
@@ -382,8 +414,9 @@ def compare_logits(P, cfg, params, prompt, dtype, card):
         p_pf, p_dec = _chunk_and_tick(M, cfg, params, prompt)
     torch.cuda.synchronize()
     L = cfg.n_layers
-    require(kernel_counts == {"junction_fwd": 6 * L, "flash_decode": L}
-            and ops.launch_counts() == kernel_counts,
+    want = dict(dict.fromkeys(kernel_counts, 0), junction_fwd=6 * L,
+                flash_decode=L)
+    require(kernel_counts == want and ops.launch_counts() == kernel_counts,
             f"logit comparison did not take the intended paths: "
             f"{kernel_counts} then {ops.launch_counts()}")
     for what, a, b in (("prefill", k_pf, p_pf), ("decode", k_dec, p_dec)):
@@ -398,6 +431,430 @@ def compare_logits(P, cfg, params, prompt, dtype, card):
         require(rel <= LOGIT_REL_TOL[dtype], f"{what} {dtype} logits differ")
 
 
+# ------------------------------------------------ backward kernels
+TRAIN_SHAPES = [("wg", 2560, 6912, "silu", 2), ("wi", 2560, 6912, "none", 0),
+                ("wo", 6912, 2560, "none", 1)]
+TRAIN_B, TRAIN_S = 8, 256            # launch/train.py's defaults
+TRAIN_M = TRAIN_B * TRAIN_S
+BS = 128                             # the paper's block
+# backward kernels vs plain versions, as max |got - want| / max |want|:
+# fp32 sums in another order; a bf16 output may move by one ulp; an fp32
+# sum of bf16 products (dw, db, the slots) also sees the dz elements whose
+# fp32 value differs in its last bit between the two activation gradients
+# (CUDA's expf / tanhf against PyTorch's) and rounds to the other bf16
+# neighbour
+REL_TOL = {"fp32": 1e-5, "bf16_out": 2.0 ** -7, "bf16_sum": 1e-3}
+ADAM_HYP = (1e-3, 0.9, 0.95, 1e-8, 0.01, 3.0, 0.5)
+
+
+def rel_err(got, want) -> float:
+    d = (got.float() - want.float()).abs().max()
+    return float(d / want.float().abs().max().clamp_min(1e-30))
+
+
+def _train_inputs(P, gen, shape, E, dtype):
+    name, n_in, n_out, act, pseed = shape
+    pat = P.make_block_pattern(n_in, n_out, 0.25, BS, seed=pseed)
+    nob, kb = pat.idx.shape
+    r = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    s = r(E, TRAIN_M, n_out)
+    t = {"x": r(E, TRAIN_M, n_in), "dy": r(E, TRAIN_M, n_out),
+         "w": r(E, nob, kb, BS, BS) / (kb * BS) ** 0.5,
+         "res": {"relu": s.clamp_min(0.0), "sigmoid": torch.sigmoid(s)
+                 }.get(act, s), "b": r(E, n_out)}
+    t = {k: v.to(dtype).contiguous() for k, v in t.items()}
+    pt = {k: torch.as_tensor(getattr(pat, k), device="cuda")
+          for k in ("idx", "rev_ob", "rev_t", "rev_cnt")}
+    return t, pt
+
+
+def _cost(kind, t, pt, act, n_slots=0):
+    """(bytes, operations) the function needs: each operand read once,
+    each output written once, and two operations per multiply-add over
+    the edges this pattern holds."""
+    isz = t["x"].element_size()
+    E, M, n_in = t["x"].shape
+    n_out = t["dy"].shape[2]
+    xb, yb, wb = E * M * n_in * isz, E * M * n_out * isz, t["w"].numel()
+    res = yb if act != "none" else 0
+    ints = 4 * sum(v.numel() for v in pt.values())
+    edges = int(pt["rev_cnt"].sum()) if kind == "dx" else pt["idx"].numel()
+    nops = 2 * E * M * edges * BS * BS
+    if kind == "fwd":               # x, w, bias in; y and the pre out
+        pre = yb if act in ("silu", "gelu") else 0
+        return xb + wb * isz + E * n_out * isz + yb + pre + ints, nops
+    if kind == "dx":                # dy, res, w in; dx out
+        return yb + res + wb * isz + xb + ints, nops
+    if kind == "dw":                # x, dy, res in; dw in fp32 out
+        return xb + yb + res + 4 * wb + ints, nops
+    # update_dw: x, dy, res in; w and the fp32 slots read and written
+    return xb + yb + res + 2 * wb * isz + 8 * n_slots * wb + ints, nops
+
+
+def _report(kind, name, dtype, act, err, lim, k_ms, p_ms, nbytes, nops,
+            card, extra=""):
+    bnd, by = bound_ms(nbytes, nops, dtype)
+    print(f"[kernel] junction_{kind} {name} M={TRAIN_M} {str(dtype)[6:]} "
+          f"act={act}{extra}: rel_err={err:.3g} (tol {lim:.3g}) "
+          f"ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bnd:.4f} ({by}) "
+          f"[{card}]")
+    require(err <= lim, f"junction_{kind} {name} {dtype} act={act}: "
+                        f"rel_err {err} > {lim}")
+    return bnd
+
+
+def _adam_slots(gen, shape):
+    """Slots for a kernel-vs-plain check of the update: v is kept away
+    from 0, so that m / sqrt(v) does not magnify the summation-order
+    difference of a near-zero gradient into a visible weight change."""
+    mom = torch.randn(shape, generator=gen, device="cuda") * 0.01
+    vel = 1.0 + torch.randn(shape, generator=gen, device="cuda").abs()
+    return mom, vel
+
+
+def train_kernel_phase(P, timer, card):
+    """fwd (with its saved residual), dx, dw and the fused Adam update_dw
+    at the three FFN junctions of the training path, M = 2048, bf16 and
+    fp32, each against its plain version and timed; then every
+    activation, bias, E = 2, SGD / momentum / Adam, the health counts of
+    poisoned tiles and the zero-hyp freeze, checked."""
+    bsm = P.bsm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "bytes": 0, "ops": 0}
+           for k in ("fwd", "dx", "dw", "update_dw")}
+    for dtype in (torch.bfloat16, torch.float32):
+        out_tol = REL_TOL["fp32" if dtype == torch.float32 else "bf16_out"]
+        sum_tol = REL_TOL["fp32" if dtype == torch.float32 else "bf16_sum"]
+        for shape in TRAIN_SHAPES:
+            name, _, n_out, act, _ = shape
+            t, pt = _train_inputs(P, gen, shape, 1, dtype)
+            res = t["res"] if act != "none" else None
+            zb = torch.zeros((1, n_out), dtype=dtype, device="cuda")
+            rows = []
+            # forward, with the pre-activation the backward needs
+            pre = act in bsm.ACT_NEEDS_PRE
+            got = bsm.fwd(t["x"], t["w"], pt["idx"], zb, act, save_pre=pre)
+            want = bsm.fwd_ref(t["x"], t["w"], pt["idx"], zb, act,
+                               save_pre=pre)
+            got, want = (got, want) if pre else ((got,), (want,))
+            err = max(rel_err(g, w) for g, w in zip(got, want))
+            rows.append(("fwd", err, out_tol, max_err(got[0], want[0]),
+                         lambda: bsm.fwd(t["x"], t["w"], pt["idx"], zb, act,
+                                         save_pre=pre),
+                         lambda: bsm.fwd_ref(t["x"], t["w"], pt["idx"], zb,
+                                             act, save_pre=pre),
+                         _cost("fwd", t, pt, act)))
+            rev = (pt["rev_ob"], pt["rev_t"], pt["rev_cnt"])
+            got = bsm.dx(t["dy"], t["w"], *rev, res, act)
+            want = bsm.dx_ref(t["dy"], t["w"], *rev, res, act)
+            rows.append(("dx", rel_err(got, want), out_tol,
+                         max_err(got, want),
+                         lambda: bsm.dx(t["dy"], t["w"], *rev, res, act),
+                         lambda: bsm.dx_ref(t["dy"], t["w"], *rev, res, act),
+                         _cost("dx", t, pt, act)))
+            got, _ = bsm.dw(t["x"], t["dy"], pt["idx"], res, act, False)
+            want, _ = bsm.dw_ref(t["x"], t["dy"], pt["idx"], res, act, False)
+            rows.append(("dw", rel_err(got, want), sum_tol,
+                         max_err(got, want),
+                         lambda: bsm.dw(t["x"], t["dy"], pt["idx"], res, act,
+                                        False),
+                         lambda: bsm.dw_ref(t["x"], t["dy"], pt["idx"], res,
+                                            act, False),
+                         _cost("dw", t, pt, act)))
+            hyp = torch.tensor(ADAM_HYP, device="cuda")
+            mom, vel = _adam_slots(gen, t["w"].shape)
+            k_st = [t["w"].clone(), mom.clone(), vel.clone()]
+            p_st = [t["w"].clone(), mom.clone(), vel.clone()]
+
+            def upd(fn, st):
+                return lambda: fn(t["x"], t["dy"], pt["idx"], res, st[0], None,
+                                  st[1], None, hyp, vel=st[2], act=act,
+                                  with_bias=False)
+            upd(bsm.update_dw, k_st)()
+            upd(bsm.update_dw_ref, p_st)()
+            if dtype == torch.float32:
+                w_err = rel_err(k_st[0] - t["w"], p_st[0] - t["w"])
+                w_ok = w_err <= 1e-4
+            else:
+                w_err = max_err(k_st[0], p_st[0])
+                w_ok = close(k_st[0], p_st[0], dict(atol=0.0, rtol=2.0 ** -7))
+            require(w_ok, f"update_dw {name} {dtype}: w differs ({w_err})")
+            err = max(rel_err(k_st[1], p_st[1]), rel_err(k_st[2], p_st[2]))
+            rows.append(("update_dw", err, sum_tol,
+                         max_err(k_st[1], p_st[1]), upd(bsm.update_dw, k_st),
+                         upd(bsm.update_dw_ref, p_st),
+                         _cost("update_dw", t, pt, act, n_slots=2)))
+            torch.cuda.synchronize()
+            for kind, err, lim, abs_err, kfn, pfn, (nb, no) in rows:
+                k_ms, p_ms = timer.ms(kfn), timer.ms(pfn)
+                bnd = _report(kind, name, dtype, act, err, lim, k_ms, p_ms,
+                              nb, no, card)
+                o = out[kind]
+                o["max_abs_err"] = max(o["max_abs_err"], abs_err)
+                if dtype == torch.bfloat16:     # one layer's FFN, bf16
+                    o["ms"] += k_ms
+                    o["plain_ms"] += p_ms
+                    o["bytes"] += nb
+                    o["ops"] += no
+                    o["bound_ms"] += bnd
+            del t, pt, k_st, p_st, rows
+    coverage_checks(P, gen)
+    for kind, o in out.items():
+        _, o["bound_by"] = bound_ms(o.pop("bytes"), o.pop("ops"),
+                                    torch.bfloat16)
+        o["library_ms"] = None
+        print(f"[kernel] junction_{kind} one layer's FFN (wg+wi+wo, "
+              f"M={TRAIN_M}, bf16): ms={o['ms']:.4f} "
+              f"plain_ms={o['plain_ms']:.4f} bound_ms={o['bound_ms']:.4f} "
+              f"({o['bound_by']}) [{card}]")
+    torch.cuda.empty_cache()
+    return out
+
+
+def coverage_checks(P, gen):
+    """Every activation with bias at E = 2 (fwd with its residual, dx,
+    dw and db), then update_dw under SGD, SGD+momentum and Adam with a
+    per-unit hyp table: kernel against plain version, the health counts
+    of two poisoned tiles of unit 1, and the bit-for-bit freeze of a unit
+    whose hyp row is zero."""
+    bsm = P.bsm
+    for act in bsm.ACTIVATIONS:
+        shape = TRAIN_SHAPES[0][:3] + (act, TRAIN_SHAPES[0][4])
+        t, pt = _train_inputs(P, gen, shape, 2, torch.bfloat16)
+        res = t["res"] if act != "none" else None
+        pre = act in bsm.ACT_NEEDS_PRE
+        got = bsm.fwd(t["x"], t["w"], pt["idx"], t["b"], act, save_pre=pre)
+        want = bsm.fwd_ref(t["x"], t["w"], pt["idx"], t["b"], act,
+                           save_pre=pre)
+        got, want = (got, want) if pre else ((got,), (want,))
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        rev = (pt["rev_ob"], pt["rev_t"], pt["rev_cnt"])
+        errs.append(rel_err(bsm.dx(t["dy"], t["w"], *rev, res, act),
+                            bsm.dx_ref(t["dy"], t["w"], *rev, res, act)))
+        kdw, kdb = bsm.dw(t["x"], t["dy"], pt["idx"], res, act, True)
+        pdw, pdb = bsm.dw_ref(t["x"], t["dy"], pt["idx"], res, act, True)
+        sums = [rel_err(kdw, pdw), rel_err(kdb, pdb)]
+        print(f"[check] act={act} E=2 bf16 bias: fwd/dx rel_err "
+              f"{max(errs):.3g}, dw/db rel_err {max(sums):.3g}")
+        require(max(errs) <= REL_TOL["bf16_out"]
+                and max(sums) <= REL_TOL["bf16_sum"],
+                f"activation {act} with bias at E=2 disagrees")
+    shape = TRAIN_SHAPES[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        t, pt = _train_inputs(P, gen, shape, 2, dtype)
+        for opt in ("sgd", "momentum", "adam"):
+            for case in ("poison", "freeze"):
+                _update_case(P, gen, t, pt, dtype, opt, case)
+
+
+def _update_case(P, gen, t, pt, dtype, opt, case):
+    bsm = P.bsm
+    hyp = torch.tensor([ADAM_HYP, ADAM_HYP], device="cuda")
+    hyp[1, 0] = 2e-3                                     # unit 1's own lr
+    if opt != "adam":
+        hyp[:, 2:6] = 0.0
+        hyp[:, 6] = 1.0
+        if opt == "sgd":
+            hyp[:, 1] = 0.0
+    dy = t["dy"].clone()
+    if case == "poison":
+        dy[1, 0, 3 * BS] = float("inf")
+        dy[1, 5, 7 * BS + 3] = float("inf")
+    else:
+        hyp[1] = 0.0
+    w0, b0 = t["w"], t["b"]
+    (mom, vel), (mom_b, vel_b) = (_adam_slots(gen, w0.shape),
+                                  _adam_slots(gen, b0.shape))
+    slots = [mom, mom_b, vel, vel_b]
+    use = {"sgd": (False, False), "momentum": (True, False),
+           "adam": (True, True)}[opt]
+    runs = []
+    for fn in (bsm.update_dw, bsm.update_dw_ref):
+        w, b = w0.clone(), b0.clone()
+        m, mb, v, vb = (s.clone() for s in slots)
+        h = fn(t["x"], dy, pt["idx"], t["res"], w, b,
+               m if use[0] else None, mb if use[0] else None, hyp,
+               vel=v if use[1] else None, vel_b=vb if use[1] else None,
+               act="silu", with_bias=True, with_health=True)
+        runs.append((w, b, m, v, h))
+    (kw, kb, km, kv, kh), (pw, pb, pm, pv, ph) = runs
+    torch.cuda.synchronize()
+    lim = REL_TOL["fp32" if dtype == torch.float32 else "bf16_sum"]
+    err = rel_err(km[0], pm[0]) if use[0] else 0.0
+    w_ok = close(kw[0], pw[0], dict(atol=1e-6, rtol=2.0 ** -7))
+    line = (f"[check] update_dw {opt} {case} E=2 {str(dtype)[6:]} bias: "
+            f"health kernel {kh.tolist()} plain {ph.tolist()}, unit-0 slot "
+            f"rel_err {err:.3g}")
+    if case == "poison":
+        require(kh.tolist() == ph.tolist() == [0, 2],
+                f"health counts wrong: {line}")
+    else:
+        frozen = (torch.equal(kw[1], w0[1]) and torch.equal(kb[1], b0[1])
+                  and not torch.equal(kw[0], w0[0]))
+        line += f", unit 1 frozen bit for bit: {frozen}"
+        require(frozen, f"zero hyp row did not freeze unit 1: {line}")
+        require(kh.tolist() == [0, 0], f"health counts wrong: {line}")
+    print(line)
+    require(w_ok and err <= lim, f"update_dw disagrees: {line}")
+
+
+# ------------------------------------------------------------ train phase
+def _expected_launches(cfg, n_steps, kind):
+    """Junction launches a step implies: 3 FFN junctions a layer, their
+    forward run again by the per-layer recompute, the norm pre-pass of a
+    clipped fused step a plain forward and backward of its own."""
+    J = 3 * cfg.n_layers
+    f = J * (2 if cfg.remat else 1)
+    per = {"two_pass": dict(junction_fwd=f, junction_dx=J, junction_dw=J),
+           "fused_clip": dict(junction_fwd=2 * f, junction_dx=2 * J,
+                              junction_dw=J, junction_update_dw=J),
+           "fused": dict(junction_fwd=f, junction_dx=J,
+                         junction_update_dw=J)}[kind]
+    want = {"junction_fwd": 0, "junction_dx": 0, "junction_dw": 0,
+            "junction_update_dw": 0, "flash_decode": 0}
+    want.update({k: v * n_steps for k, v in per.items()})
+    return want
+
+
+def train_run(P, cfg, opt, kind, card, n_steps=3):
+    """n_steps of make_train_step on full-width stablelm-3b (random
+    weights from seed 0, LMTokenPipeline batch 8 x 256): finite losses,
+    no non-finite update, exact launch counts."""
+    ok, why = P.steps.fused_update_eligible(cfg, opt)
+    require(ok == (kind != "two_pass"), f"{kind}: eligibility {ok} ({why})")
+    params = P.M.init(cfg, seed=0, device="cuda")
+    opt_state = opt.init(params)
+    step_fn = P.steps.make_train_step(cfg, opt)
+    pipe = P.LMTokenPipeline(cfg, TRAIN_B, TRAIN_S)
+    batches = [next(pipe) for _ in range(n_steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    P.ops.reset_launch_counts()
+    times, losses, nonfinite, held = [], [], [], []
+    for i, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch, i)
+        losses.append(float(m["loss"]))
+        nonfinite.append(float(m["nonfinite"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del m
+        held.append(torch.cuda.memory_allocated() / 2 ** 30)
+    counts = P.ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tok = TRAIN_M
+    med = statistics.median(times)
+    print(f"[train] {kind} ({why}) {cfg.name} param_dtype={cfg.param_dtype}: "
+          f"losses {[round(v, 4) for v in losses]} nonfinite {nonfinite} "
+          f"step_ms {[round(v * 1e3, 1) for v in times]} median "
+          f"{med * 1e3:.1f} ms = {tok / med:.0f} tokens/s, peak_memory "
+          f"{peak:.2f} GiB, held after each step "
+          f"{[round(v, 2) for v in held]} GiB, launches={counts} [{card}]")
+    require(held[-1] <= held[1] * 1.01 + 0.01,
+            f"{kind}: memory held grows from step to step: {held}")
+    require(all(np.isfinite(losses)), f"{kind}: non-finite loss {losses}")
+    require(nonfinite == [0.0] * n_steps, f"{kind}: nonfinite {nonfinite}")
+    want = _expected_launches(cfg, n_steps, kind)
+    require(counts == want, f"{kind}: launches {counts} != {want}")
+    batch = next(pipe)
+    step_breakdown(lambda: step_fn(params, opt_state, batch, n_steps), med,
+                   f"{kind} step", card)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def compare_train_step(P, cfg, dtype, fused, card):
+    """One step at full width and 2 layers, once through the kernels and
+    once through their plain versions, from the same weights and batch:
+    losses and, per leaf, the updated params and Adam's m."""
+    bsm = P.bsm
+    cfg = dataclasses.replace(
+        cfg, n_layers=2, dtype=dtype, fused_update=fused,
+        param_dtype=dtype if fused else "float32")
+    lr = 1e-3
+    opt = P.optim.fused_adam(P.optim.constant_schedule(lr), grad_clip=1.0)
+    batch = next(P.LMTokenPipeline(cfg, TRAIN_B, TRAIN_S))
+    step_fn = P.steps.make_train_step(cfg, opt)
+
+    def one():
+        params = P.M.init(cfg, seed=0, device="cuda")
+        p, s, m = step_fn(params, opt.init(params), batch, 0)
+        return p, s, float(m["loss"])
+
+    P.ops.reset_launch_counts()
+    kp, ks, kl = one()
+    kc = P.ops.launch_counts()
+    with mock.patch.object(bsm, "fwd", bsm.fwd_ref), \
+            mock.patch.object(bsm, "dx", bsm.dx_ref), \
+            mock.patch.object(bsm, "dw", bsm.dw_ref), \
+            mock.patch.object(bsm, "update_dw", bsm.update_dw_ref):
+        pp, ps, pl = one()
+    torch.cuda.synchronize()
+    kind = "fused_clip" if fused else "two_pass"
+    require(kc == _expected_launches(cfg, 1, kind)
+            and P.ops.launch_counts() == kc,
+            f"comparison did not take the intended paths: {kc}")
+    loss_rel = abs(kl - pl) / abs(pl)
+    m_err = max(rel_err(a, b) for (_, a), (_, b) in
+                zip(P.tree_items(ks["m"]), P.tree_items(ps["m"]))
+                if a.is_floating_point() and a.dim())
+    pairs = [(a, b) for (_, a), (_, b) in
+             zip(P.tree_items(kp), P.tree_items(pp)) if a.is_floating_point()]
+    p_err = max(max_err(a, b) for a, b in pairs)
+    # +-lr each way (2 lr, with room for lr's own fp32 rounding), plus
+    # one ulp of the stored weight
+    p_ok = all(bool(((a.float() - b.float()).abs()
+                     <= 2 * lr * (1 + 1e-5) + ULP[a.dtype] * b.float().abs()
+                     ).all())
+               for a, b in pairs)
+    tol = STEP_TOL[dtype]
+    print(f"[step] {kind} 2 layers {dtype} kernels vs plain versions: loss "
+          f"{kl:.6f} vs {pl:.6f} (rel {loss_rel:.3g}, tol {tol['loss']}), "
+          f"Adam m rel_err {m_err:.3g} (tol {tol['m']}), params max_abs_err "
+          f"{p_err:.3g} (tol 2 lr = {2 * lr} plus one ulp: {p_ok}) [{card}]")
+    require(loss_rel <= tol["loss"] and m_err <= tol["m"] and p_ok,
+            f"{kind} {dtype} step differs")
+
+
+# one train step, kernels vs plain versions: fp32 differs in summation
+# order only; in bf16 one-ulp flips in the junction outputs propagate
+# through the model into every gradient.  Params: Adam's first step
+# moves each weight by lr * m / sqrt(v) = +-lr, so a gradient near 0
+# whose sign differs moves it by 2 lr at most, and the stored weight may
+# round to the neighbouring value of its type.
+STEP_TOL = {"float32": {"loss": 1e-5, "m": 1e-3},
+            "bfloat16": {"loss": 1e-2, "m": 5e-2}}
+ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7}
+
+
+def train_phase(P, card):
+    """Full-width sparse-FFN stablelm-3b training: 3 two-pass Adam steps
+    (fp32 masters, bf16 compute), 3 fused Adam steps and 3 fused SGD
+    steps (bf16 params, fp32 slots), then one step at 2 layers through
+    the kernels and through their plain versions."""
+    cfg = P.registry.get("stablelm-3b").with_sparsity(
+        P.SparsityConfig(density=0.25, block=BS, where="ffn"))
+    sched = P.optim.cosine_schedule(3e-4, 20, 100)
+    adam = P.optim.fused_adam(sched, grad_clip=1.0)
+    fused_cfg = dataclasses.replace(cfg, fused_update=True,
+                                    param_dtype="bfloat16")
+    runs = {
+        "two_pass": train_run(P, cfg, adam, "two_pass", card),
+        "fused_clip": train_run(P, fused_cfg, adam, "fused_clip", card),
+        "fused": train_run(P, fused_cfg,
+                           P.optim.fused_sgd(sched, momentum=0.9), "fused",
+                           card)}
+    require(runs["fused"]["junction_dw"] == 0,
+            "the unclipped fused path launched junction_dw")
+    for dtype in ("bfloat16", "float32"):
+        for fused in (False, True):
+            compare_train_step(P, cfg, dtype, fused, card)
+    return {k: sum(r[k] for r in runs.values()) for k in runs["two_pass"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -409,8 +866,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 references
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import optim
     from repro_torch.configs import registry
     from repro_torch.core.sparsity import SparsityConfig, make_block_pattern
+    from repro_torch.data.pipeline import LMTokenPipeline
     from repro_torch.kernels import block_sparse_matmul as bsm
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
@@ -418,10 +877,13 @@ def main() -> int:
     from repro_torch.launch.serve import percentile
     from repro_torch.models import model as M
     from repro_torch.serve import engine
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_items
     P = types.SimpleNamespace(
         registry=registry, SparsityConfig=SparsityConfig,
         make_block_pattern=make_block_pattern, bsm=bsm, fa=fa, ops=ops,
-        M=M, engine=engine, percentile=percentile)
+        M=M, engine=engine, percentile=percentile, optim=optim, steps=steps,
+        LMTokenPipeline=LMTokenPipeline, tree_items=tree_items)
 
     card = card_line()
     print(f"card: {card}")
@@ -440,19 +902,41 @@ def main() -> int:
     timer = Timer()
     junction = junction_phase(P, timer, card)
     decode = decode_phase(P, timer, card)
-    params, counts = serve_phase(P, card)
+    params, serve_counts = serve_phase(P, card)
     weight_cast_phase(params, timer, card)
+    del params
+    torch.cuda.empty_cache()
+    bwd = train_kernel_phase(P, timer, card)
+    train_counts = train_phase(P, card)
+
+    paths = {"serve": serve_counts, "train": train_counts}
+
+    def launches(name):
+        by = {p: c[name] for p, c in paths.items() if c[name]}
+        return {"launches": sum(by.values()), "launches_by_path": by}
 
     kernels = [
         {"name": "junction_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/junction_fwd.cu",
          "replaces": "src/repro/kernels/block_sparse_matmul.py:381",
-         "launches": counts["junction_fwd"], **junction},
+         **launches("junction_fwd"), **junction,
+         "train_ms": bwd["fwd"]["ms"], "train_plain_ms": bwd["fwd"]["plain_ms"],
+         "train_bound_ms": bwd["fwd"]["bound_ms"]},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_attention.py:206",
-         "launches": counts["flash_decode"], **decode},
+         **launches("flash_decode"), **decode},
     ]
+    for name, src, line in (("dx", "junction_dx.cu", 782),
+                            ("dw", "junction_dw.cu", 949),
+                            ("update_dw", "junction_dw.cu", 1172)):
+        kernels.append({
+            "name": f"junction_{name}", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/block_sparse_matmul.py:{line}",
+            **launches(f"junction_{name}"), **bwd[name]})
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']} never ran on its path")
     print(card)                          # nvidia-smi's name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

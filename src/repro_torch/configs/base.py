@@ -82,6 +82,18 @@ class ArchConfig:
     ssm_chunk: int = 128          # selective-scan chunk
     # the paper's technique
     sparsity: Optional[SparsityConfig] = None
+    # training
+    remat: bool = True            # recompute each layer in the backward
+    loss_chunk: int = 0           # CE in sequence chunks of this size (0: off)
+    # cast fp32 params to bf16 once per step, before the layers
+    cast_params_once: bool = False
+    # junction engine: "auto" and "pallas" run the kernels on a CUDA
+    # tensor and their plain versions on a CPU tensor; "jnp" keeps the
+    # two-pass update path
+    engine: str = "auto"
+    # fused BP+UP: the optimizer step runs inside the junctions' backward
+    # (train/steps.fused_update_eligible says when it applies)
+    fused_update: bool = False
 
     @property
     def compute_dtype(self) -> torch.dtype:

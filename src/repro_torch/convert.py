@@ -3,7 +3,10 @@
 ``from_jax_params(tree)`` takes the reference's params tree with every
 leaf already a numpy array (layers stacked on axis 0, as its ``init``
 builds them) and returns the port's params (layers as a list), so that
-both compute the same function.  Only numpy crosses the boundary.
+both compute the same function.  ``from_jax_opt_state(state)`` carries
+the optimizer state the same way: Adam's ``m``/``v`` and SGD's ``mom``
+trees mirror the params (their 0-d placeholders for the integer pattern
+leaves stay unstacked).  Only numpy crosses the boundary.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ def _convert(tree, device):
 def _unstack(tree, i):
     if isinstance(tree, dict):
         return {k: _unstack(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]
+    a = np.asarray(tree)
+    return a if a.ndim == 0 else a[i]
 
 
 def from_jax_params(tree: dict, device="cpu") -> dict:
@@ -38,3 +42,11 @@ def from_jax_params(tree: dict, device="cpu") -> dict:
     out["layers"] = [_convert(_unstack(tree["layers"], i), device)
                      for i in range(n_layers)]
     return out
+
+
+def from_jax_opt_state(state, device="cpu"):
+    """Reference optimizer state (numpy leaves): () for plain SGD, or a
+    dict of params-mirroring trees -> the port's state on ``device``."""
+    if isinstance(state, tuple) and not state:
+        return ()
+    return {k: from_jax_params(v, device) for k, v in state.items()}

@@ -1,0 +1,95 @@
+// Device helpers shared by the junction kernels (junction_fwd.cu,
+// junction_dx.cu, junction_dw.cu): element conversion, rounding to the
+// operand type, and the activation table of block_sparse_matmul.act_fwd /
+// act_bwd.  Built without --use_fast_math: the Adam guards and isfinite()
+// of the update kernel need IEEE semantics.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace junction {
+
+enum Act { kNone = 0, kRelu = 1, kSigmoid = 2, kSilu = 3, kGelu = 4 };
+
+constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2/pi)
+constexpr float kGeluA = 0.044715f;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// v rounded to T and widened back (the reference's .astype(dy.dtype)).
+template <typename T>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// The activation; gelu is the tanh form.
+__device__ __forceinline__ float act_fwd(float s, int act) {
+  switch (act) {
+    case kRelu:
+      return s < 0.f ? 0.f : s;  // keeps NaN, like maximum(s, 0)
+    case kSigmoid:
+      return 1.f / (1.f + expf(-s));
+    case kSilu:
+      return s * (1.f / (1.f + expf(-s)));
+    case kGelu: {
+      const float u = kGeluC * (s + kGeluA * s * s * s);
+      return 0.5f * s * (1.f + tanhf(u));
+    }
+    default:
+      return s;
+  }
+}
+
+// d act / d s from the residual: y for relu and sigmoid, the
+// pre-activation s for silu and gelu.  Not called for kNone.
+__device__ __forceinline__ float act_bwd(float r, int act) {
+  switch (act) {
+    case kRelu:
+      return r > 0.f ? 1.f : 0.f;
+    case kSigmoid:
+      return r * (1.f - r);
+    case kSilu: {
+      const float sg = 1.f / (1.f + expf(-r));
+      return sg * (1.f + r * (1.f - sg));
+    }
+    case kGelu: {
+      const float u = kGeluC * (r + kGeluA * r * r * r);
+      const float t = tanhf(u);
+      const float du = kGeluC * (1.f + 3.f * kGeluA * r * r);
+      return 0.5f * (1.f + t) + 0.5f * r * (1.f - t * t) * du;
+    }
+    default:
+      return 1.f;
+  }
+}
+
+// dz = (dy * act'(res)) rounded to T, as the backward kernels consume it;
+// `dzf` receives the value before that rounding (db sums it).
+template <typename T>
+__device__ __forceinline__ float dz_of(const T* dy, const T* res, size_t off,
+                                       int act, float* dzf) {
+  const float d = to_f32(dy[off]);
+  if (act == kNone) {
+    *dzf = d;
+    return d;
+  }
+  const float f = d * act_bwd(to_f32(res[off]), act);
+  *dzf = f;
+  return round_to<T>(f);
+}
+
+}  // namespace junction

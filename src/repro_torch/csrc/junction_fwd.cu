@@ -9,7 +9,9 @@
 // x [E, M, nib*bs], w [E, nob, kb, bs, bs], idx [nob, kb] int32,
 // bias [E, nob*bs] (already rounded to x's dtype), y [E, M, nob*bs].
 // fp32 accumulation; the epilogue widens the bias, applies the
-// activation in fp32 and stores once in x's dtype (fp32 or bf16).
+// activation in fp32 and stores once in x's dtype (fp32 or bf16).  When
+// `pre` is not null the pre-activation s is stored there as well, in
+// x's dtype (the backward's residual for silu and gelu).
 //
 // What bounds it: on the serving path M is the decode batch (4) or the
 // prefill chunk (32), so every weight element feeds only M
@@ -31,51 +33,24 @@
 // of a column are reduced through shared memory in a fixed order, so the
 // result does not depend on scheduling.  A simple SIMT kernel: wgmma and
 // TMA are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "junction_common.cuh"
 
 namespace {
+
+using namespace junction;
 
 constexpr int kCols = 32;   // output columns per block, one per lane
 constexpr int kWarps = 8;   // warps splitting the fan-in rows
 constexpr int kRows = 8;    // rows of x per block (row tile)
 static_assert(kRows == kWarps, "the epilogue gives one row to each warp");
 
-enum Act { kNone = 0, kRelu = 1, kSigmoid = 2, kSilu = 3, kGelu = 4 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// The activation table of block_sparse_matmul.act_fwd; gelu is the tanh form.
-__device__ __forceinline__ float act_fwd(float s, int act) {
-  switch (act) {
-    case kRelu:
-      return s < 0.f ? 0.f : s;  // keeps NaN, like maximum(s, 0)
-    case kSigmoid:
-      return 1.f / (1.f + expf(-s));
-    case kSilu:
-      return s * (1.f / (1.f + expf(-s)));
-    case kGelu: {
-      const float u = 0.7978845608028654f * (s + 0.044715f * s * s * s);
-      return 0.5f * s * (1.f + tanhf(u));
-    }
-    default:
-      return s;
-  }
-}
-
 template <typename T, int BS>
 __global__ void __launch_bounds__(kCols * kWarps)
     junction_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                         const int* __restrict__ idx,
-                        const T* __restrict__ bias, T* __restrict__ y, int M,
-                        int nib, int nob, int kb, int act) {
+                        const T* __restrict__ bias, T* __restrict__ y,
+                        T* __restrict__ pre, int M, int nib, int nob, int kb,
+                        int act) {
   constexpr int kChunks = BS / kCols;
   constexpr int kPerWarp = BS / kWarps;  // fan-in rows per warp per slot
   const int lane = threadIdx.x;
@@ -124,35 +99,40 @@ __global__ void __launch_bounds__(kCols * kWarps)
     for (int v = 0; v < kWarps; ++v) s += red[v][r][lane];
     const size_t n = (size_t)o * BS + c;
     s += to_f32(bias[(size_t)e * n_out + n]);
-    store(&y[((size_t)e * M + m0 + r) * n_out + n], act_fwd(s, act));
+    const size_t out = ((size_t)e * M + m0 + r) * n_out + n;
+    if (pre != nullptr) store(&pre[out], s);
+    store(&y[out], act_fwd(s, act));
   }
 }
 
 template <typename T, int BS>
 void launch(const void* x, const void* w, const void* idx, const void* bias,
-            void* y, int E, int M, int nib, int nob, int kb, int act,
-            cudaStream_t stream) {
+            void* y, void* pre, int E, int M, int nib, int nob, int kb,
+            int act, cudaStream_t stream) {
   const dim3 block(kCols, kWarps);
   const dim3 grid(nob * (BS / kCols), (M + kRows - 1) / kRows, E);
   junction_fwd_kernel<T, BS><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const int*>(idx), static_cast<const T*>(bias),
-      static_cast<T*>(y), M, nib, nob, kb, act);
+      static_cast<T*>(y), static_cast<T*>(pre), M, nib, nob, kb, act);
 }
 
 template <typename T>
 int dispatch_bs(const void* x, const void* w, const void* idx,
-                const void* bias, void* y, int E, int M, int nib, int nob,
-                int kb, int bs, int act, cudaStream_t stream) {
+                const void* bias, void* y, void* pre, int E, int M, int nib,
+                int nob, int kb, int bs, int act, cudaStream_t stream) {
   switch (bs) {
     case 32:
-      launch<T, 32>(x, w, idx, bias, y, E, M, nib, nob, kb, act, stream);
+      launch<T, 32>(x, w, idx, bias, y, pre, E, M, nib, nob, kb, act,
+                    stream);
       break;
     case 64:
-      launch<T, 64>(x, w, idx, bias, y, E, M, nib, nob, kb, act, stream);
+      launch<T, 64>(x, w, idx, bias, y, pre, E, M, nib, nob, kb, act,
+                    stream);
       break;
     case 128:
-      launch<T, 128>(x, w, idx, bias, y, E, M, nib, nob, kb, act, stream);
+      launch<T, 128>(x, w, idx, bias, y, pre, E, M, nib, nob, kb, act,
+                     stream);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -163,17 +143,18 @@ int dispatch_bs(const void* x, const void* w, const void* idx,
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 on success).  dtype: 0 fp32,
-// 1 bf16.  Launches on `stream`, allocates nothing, does not synchronise.
+// 1 bf16; `pre` may be null.  Launches on `stream`, allocates nothing,
+// does not synchronise.
 extern "C" int junction_fwd(const void* x, const void* w, const void* idx,
-                            const void* bias, void* y, int E, int M, int nib,
-                            int nob, int kb, int bs, int act, int dtype,
-                            void* stream) {
+                            const void* bias, void* y, void* pre, int E,
+                            int M, int nib, int nob, int kb, int bs, int act,
+                            int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_bs<float>(x, w, idx, bias, y, E, M, nib, nob, kb, bs, act,
-                              s);
+    return dispatch_bs<float>(x, w, idx, bias, y, pre, E, M, nib, nob, kb, bs,
+                              act, s);
   if (dtype == 1)
-    return dispatch_bs<__nv_bfloat16>(x, w, idx, bias, y, E, M, nib, nob, kb,
-                                      bs, act, s);
+    return dispatch_bs<__nv_bfloat16>(x, w, idx, bias, y, pre, E, M, nib, nob,
+                                      kb, bs, act, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,55 @@
+"""Deterministic, restartable data pipeline.
+
+The iterator is a pure function of (seed, step): a checkpoint stores the
+two integers and a restart resumes bit for bit.  Batches are numpy, made
+exactly as the reference's pipeline makes them, so both packages train
+on the same tokens.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
+
+import numpy as np
+
+from repro_torch.configs.base import ArchConfig
+
+
+@dataclasses.dataclass
+class LMTokenPipeline:
+    """Synthetic language-model token stream (runs of consecutive tokens
+    with 15 % noise, so the loss can fall).  State = (seed, step)."""
+    cfg: ArchConfig
+    batch_size: int
+    seq_len: int
+    seed: int = 0
+    step: int = 0
+
+    def state(self) -> dict:
+        return {"seed": self.seed, "step": self.step}
+
+    @classmethod
+    def from_state(cls, cfg, batch_size, seq_len, state):
+        return cls(cfg, batch_size, seq_len, seed=state["seed"],
+                   step=state["step"])
+
+    def _make(self, step: int) -> dict:
+        if self.cfg.family != "dense":
+            raise ValueError(f"family {self.cfg.family!r}: the port's "
+                             "pipeline makes token batches only")
+        rng = np.random.default_rng((self.seed << 20) ^ step)
+        V = self.cfg.raw_vocab or self.cfg.vocab
+        B, S = self.batch_size, self.seq_len
+        base = rng.integers(0, V - S - 2, size=(B, 1))
+        runs = base + np.arange(S)[None, :]
+        noise = rng.integers(0, V, size=(B, S))
+        mask = rng.random((B, S)) < 0.15
+        return {"tokens": np.where(mask, noise, runs % V).astype(np.int32)}
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        b = self._make(self.step)
+        self.step += 1
+        return b

@@ -3,7 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, at first use, into ``build/kernels/``
 at the root of the checkout.  A library is cached under a hash of its
-source and the compiler flags, so an edit rebuilds it.  There is no
+source, the shared headers (``csrc/*.cuh``) and the compiler flags, so an
+edit rebuilds it.  No ``--use_fast_math``: the update kernel's guards and
+``isfinite`` need IEEE semantics.  There is no
 fallback: a missing ``nvcc``, a missing card or a failed build raises.
 """
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("junction_fwd", "flash_decode")
+SOURCES = ("junction_fwd", "junction_dx", "junction_dw", "flash_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +44,7 @@ def find_nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

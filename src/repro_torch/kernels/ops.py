@@ -1,14 +1,25 @@
 """Public entry of the junction kernels, and the kernels' launch counts.
 
-``junction_matmul`` is the forward of the pre-defined-sparse junction
-y = act(x @ W_sparse + bias).  A 4-D weight ``[nob, kb, bs, bs]`` is a
-single junction (the kernels' E=1 case): x may carry any leading dims and
-the result is squeezed back.  A 5-D weight ``[E, nob, kb, bs, bs]`` is E
-units sharing one pattern.  The weight is cast to x's dtype on every call
-(the masters stay fp32) and a junction without bias gets a zero bias, as
-the reference does.  ``bsm.fwd`` picks the CUDA kernel for a CUDA tensor
-and the plain version for a CPU tensor.  Forward only: the autograd
-Function comes with the backward kernels.
+``junction_matmul`` is the pre-defined-sparse junction
+y = act(x @ W_sparse + bias) as a ``torch.autograd.Function``: forward
+through ``bsm.fwd`` (saving the pre-activation for silu/gelu), backward
+through ``bsm.dx`` and ``bsm.dw``.  A 4-D weight ``[nob, kb, bs, bs]`` is
+a single junction (the kernels' E=1 case): x may carry any leading dims
+and the result is squeezed back.  A 5-D weight ``[E, nob, kb, bs, bs]``
+is E units sharing one pattern.  The weight is cast to x's dtype on every
+call, outside the Function, so its gradient is the fp32 kernel sum
+rounded to x's dtype and widened back to the master's dtype, as the
+reference's does; a junction without bias gets a zero bias that takes no
+gradient.
+
+``junction_train_update`` is the fused BP+UP twin: the same forward, but
+its backward runs ``dx`` against the old weights and then ``update_dw``,
+which applies the optimizer step to w, b and the fp32 slots in place
+(under ``no_grad``), so the weight gradient never reaches device memory.
+It returns no gradient for those tensors; with a ``health`` tensor it
+writes the per-unit count of non-finite (e, o) update tiles into it.
+The wrappers pick the CUDA kernel for a CUDA tensor and the plain
+version for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -17,31 +28,177 @@ import torch
 from repro_torch.kernels import block_sparse_matmul as bsm
 from repro_torch.kernels import flash_attention as fa
 
+_COUNTED = {"junction_fwd": bsm.fwd, "junction_dx": bsm.dx,
+            "junction_dw": bsm.dw, "junction_update_dw": bsm.update_dw,
+            "flash_decode": fa.flash_decode}
+
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last ``reset_launch_counts``."""
-    return {"junction_fwd": bsm.fwd.launches,
-            "flash_decode": fa.flash_decode.launches}
+    return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    bsm.fwd.launches = 0
-    fa.flash_decode.launches = 0
+    for fn in _COUNTED.values():
+        fn.launches = 0
 
 
-def junction_matmul(x, w, idx, *, bias=None, act: str = "none"):
-    single = w.dim() == 4
-    if single:
-        lead = x.shape[:-1]
-        x3 = x.reshape(1, -1, x.shape[-1])
-        w5 = w[None]
-        b2 = None if bias is None else bias[None]
-    else:
-        x3, w5, b2 = x, w, bias
+def resolve_engine(engine: str) -> str:
+    """'auto' and 'pallas' -> 'pallas': the kernels on a CUDA tensor and
+    their plain versions on a CPU tensor, both eligible for the fused
+    update; 'jnp' keeps the two-pass path."""
+    if engine in ("auto", "pallas"):
+        return "pallas"
+    if engine == "jnp":
+        return "jnp"
+    raise ValueError(f"unknown engine {engine!r} (pallas | jnp | auto)")
+
+
+def _forward(x3, w5, b2, idx, act):
+    """(y, residual) through the forward kernel: the residual is the
+    pre-activation for silu / gelu, y for relu / sigmoid, None for none."""
+    if act in bsm.ACT_NEEDS_PRE:
+        return bsm.fwd(x3, w5, idx, b2, act, save_pre=True)
+    y = bsm.fwd(x3, w5, idx, b2, act)
+    return y, (None if act == "none" else y)
+
+
+class _Junction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x3, w5, b2, idx, rev_ob, rev_t, rev_cnt, act,
+                has_bias):
+        y, res = _forward(x3, w5, b2, idx, act)
+        ctx.act, ctx.has_bias = act, has_bias
+        ctx.save_for_backward(x3, w5, res, idx, rev_ob, rev_t, rev_cnt)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x3, w5, res, idx, rev_ob, rev_t, rev_cnt = ctx.saved_tensors
+        dy = dy.contiguous()
+        dxv = (bsm.dx(dy, w5, rev_ob, rev_t, rev_cnt, res, ctx.act)
+               if ctx.needs_input_grad[0] else None)
+        dwv = dbv = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dwv, dbv = bsm.dw(x3, dy, idx, res, ctx.act,
+                              with_bias=ctx.has_bias)
+            dwv = dwv.to(w5.dtype)
+            if ctx.needs_input_grad[2]:
+                dbv = (torch.zeros((dy.shape[0], dy.shape[2]),
+                                   dtype=torch.float32, device=dy.device)
+                       if dbv is None else dbv).to(x3.dtype)
+        return dxv, dwv, dbv, None, None, None, None, None, None
+
+
+class _JunctionUpdate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x3, w5, b2, idx, rev_ob, rev_t, rev_cnt, act,
+                has_bias, slots, hyp, health):
+        y, res = _forward(x3, w5, b2, idx, act)
+        ctx.act, ctx.has_bias = act, has_bias
+        # the parameters and slots are updated in place by the backward:
+        # they ride as attributes, not as saved tensors
+        ctx.w5, ctx.b2, ctx.slots, ctx.hyp, ctx.health = (w5, b2, slots,
+                                                          hyp, health)
+        ctx.save_for_backward(x3, res, idx, rev_ob, rev_t, rev_cnt)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x3, res, idx, rev_ob, rev_t, rev_cnt = ctx.saved_tensors
+        dy = dy.contiguous()
+        # BP reads the old weights: dx is queued before the update
+        dxv = bsm.dx(dy, ctx.w5, rev_ob, rev_t, rev_cnt, res, ctx.act)
+        mom, mom_b, vel, vel_b = ctx.slots
+        with torch.no_grad():
+            flags = bsm.update_dw(
+                x3, dy, idx, res, ctx.w5, ctx.b2 if ctx.has_bias else None,
+                mom, mom_b, ctx.hyp, vel=vel, vel_b=vel_b, act=ctx.act,
+                with_bias=ctx.has_bias, with_health=ctx.health is not None)
+            if ctx.health is not None:
+                ctx.health.copy_(flags.to(ctx.health.dtype))
+        return (dxv,) + (None,) * 11
+
+
+def _lift(x, w, bias):
+    """(single, lead, x3, w5, b2): the E=1 squeeze of a 4-D weight."""
+    if w.dim() == 4:
+        return (True, x.shape[:-1], x.reshape(1, -1, x.shape[-1]), w[None],
+                None if bias is None else bias[None])
+    return False, None, x, w, bias
+
+
+def junction_matmul(x, w, idx, rev_ob, rev_t, rev_cnt, *, bias=None,
+                    act: str = "none"):
+    """y = act(x @ W_sparse + bias) through the pattern; differentiable
+    in x, w and bias through the dx and dw kernels."""
+    single, lead, x3, w5, b2 = _lift(x, w, bias)
     E = x3.shape[0]
     _, nob, _, bs, _ = w5.shape
     b = (torch.zeros((E, nob * bs), dtype=x.dtype, device=x.device)
          if b2 is None else b2.to(x.dtype))
-    y = bsm.fwd(x3.contiguous(), w5.to(x.dtype).contiguous(), idx,
-                b.contiguous(), act=act)
+    args = (x3.contiguous(), w5.to(x.dtype).contiguous(), b.contiguous())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        y = _Junction.apply(*args, idx, rev_ob, rev_t, rev_cnt, act,
+                            bias is not None)
+    else:       # inference: no residual to save
+        y = bsm.fwd(args[0], args[1], idx, args[2], act)
+    return y.reshape(*lead, nob * bs) if single else y
+
+
+def junction_train_update(x, w, idx, rev_ob, rev_t, rev_cnt, *, hyp,
+                          bias=None, act: str = "none", mom=None, mom_b=None,
+                          vel=None, vel_b=None, health=None):
+    """The fused BP+UP junction: forward as ``junction_matmul``; its
+    backward updates w, bias and the fp32 slots in place (mom alone:
+    SGD+momentum, mom and vel: Adam, none: SGD) from ``hyp`` (the shared
+    (HYP_K,) row, a legacy (2,) pair, or a per-unit [E, 2] / [E, HYP_K]
+    table) and writes the [E] non-finite tile counts into ``health``
+    (float32 zeros of shape (E,), (1,) for a 4-D weight) when given.
+
+    w must already be in x's dtype (a cast would update a copy), so must
+    the bias; the slots are fp32.  x must take part in autograd, or the
+    backward, and with it the update, would never run."""
+    if w.dtype != x.dtype or (bias is not None and bias.dtype != x.dtype):
+        raise ValueError(
+            "junction_train_update requires param dtype == activation dtype "
+            f"(got w={w.dtype}, x={x.dtype}) — run the two-pass path for "
+            "mixed-precision casts")
+    if not w.is_floating_point():
+        raise ValueError(
+            "junction_train_update refuses quantized (integer-code) "
+            "weights — the int8/fxp datapath is inference-only; reload "
+            "full-precision weights to train")
+    if vel is not None and mom is None:
+        raise ValueError("the Adam vel slot requires the mom slot too "
+                         "(slot layout: w, mom, vel)")
+    for name, m in (("mom", mom), ("mom_b", mom_b), ("vel", vel),
+                    ("vel_b", vel_b)):
+        if m is not None and m.dtype != torch.float32:
+            raise ValueError(f"{name} must be an fp32 accumulator "
+                             f"(got {m.dtype}) — the optimizer state stays "
+                             "full-precision even for bf16 params")
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        raise ValueError("junction_train_update needs x to take part in "
+                         "autograd: the update runs in the backward")
+    single, lead, x3, w5, b2 = _lift(x, w, bias)
+    E = x3.shape[0]
+    _, nob, _, bs, _ = w5.shape
+    if not w5.is_contiguous():
+        raise ValueError("w must be contiguous: it is updated in place")
+
+    def lift(s):
+        return None if s is None else (s[None] if single else s)
+
+    slots = (lift(mom), lift(mom_b) if bias is not None else None,
+             lift(vel), lift(vel_b) if bias is not None else None)
+    if health is not None and tuple(health.shape) != (E,):
+        raise ValueError(f"health must be ({E},) f32 zeros (one slot per "
+                         f"junction unit), got shape {tuple(health.shape)}")
+    b = (torch.zeros((E, nob * bs), dtype=x.dtype, device=x.device)
+         if b2 is None else b2)
+    hyp = bsm.normalize_hyp(hyp, E).to(x.device)
+    y = _JunctionUpdate.apply(x3.contiguous(), w5, b, idx, rev_ob, rev_t,
+                              rev_cnt, act, bias is not None, slots, hyp,
+                              health)
     return y.reshape(*lead, nob * bs) if single else y

@@ -1,0 +1,104 @@
+"""Training launcher of the PyTorch port.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
+        --sparse --steps 100 --batch 8 --seq 256
+
+runs on the card; ``--device cpu --reduce`` trains a tiny config on the
+CPU.  Weights are random, made from seed 0; batches come from the
+synthetic ``LMTokenPipeline``.  The run auto-resumes from the newest
+checkpoint under ``--ckpt`` (default: ``build/train_ckpt`` in the
+checkout).  Not ported yet: the mesh flags (``--devices``, ``--data``,
+``--model``), ``--compress-grads``, ``--obs`` and ``--profile``.
+"""
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+DEFAULT_CKPT = Path(__file__).resolve().parents[3] / "build" / "train_ckpt"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-3b")
+    ap.add_argument("--reduce", action="store_true",
+                    help="use the reduced (smoke-size) config")
+    ap.add_argument("--width", type=int, default=0,
+                    help="override d_model (d_ff = 3x, head_dim = width/heads)")
+    ap.add_argument("--layers", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--optim", choices=("sgd", "adam"), default="adam",
+                    help="fused_sgd(momentum=0.9) or fused_adam(grad_clip=1)"
+                         " (two-pass when the config is not eligible)")
+    ap.add_argument("--sparse", action="store_true",
+                    help="apply the paper's pre-defined FFN sparsity")
+    ap.add_argument("--density", type=float, default=0.25)
+    ap.add_argument("--ckpt", default=str(DEFAULT_CKPT))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--fail-at", type=int, default=None,
+                    help="inject a crash at this step (restart test)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card)")
+    args = ap.parse_args(argv)
+
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.pipeline import LMTokenPipeline
+    from repro_torch.device import resolve_device
+    from repro_torch.models import model as M
+    from repro_torch.optim import cosine_schedule, fused_adam, fused_sgd
+    from repro_torch.train.steps import fused_update_eligible, make_train_step
+    from repro_torch.train.train_loop import TrainLoopConfig, run
+
+    dev = resolve_device(args.device)
+    cfg = registry.get(args.arch)
+    if args.reduce:
+        cfg = cfg.reduced()
+    if args.width:
+        cfg = dataclasses.replace(cfg, d_model=args.width,
+                                  d_ff=args.width * 3,
+                                  head_dim=args.width // max(1, cfg.n_heads))
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.sparse:
+        block = 32 if args.reduce else 128
+        cfg = cfg.with_sparsity(SparsityConfig(density=args.density,
+                                               block=block, where="ffn"))
+
+    sched = cosine_schedule(args.lr, warmup=20, total=args.steps)
+    if args.optim == "sgd":
+        opt = fused_sgd(sched, momentum=0.9)
+    else:
+        opt = fused_adam(sched, grad_clip=1.0)
+    ok, why = fused_update_eligible(cfg, opt, args.microbatches)
+    print(f"[train] optim={args.optim} update path: "
+          f"{'fused BP+UP' if ok else f'two-pass ({why})'}")
+
+    params = M.init(cfg, 0, dev)
+    opt_state = opt.init(params)
+    train_step = make_train_step(cfg, opt, microbatches=args.microbatches)
+    pipeline = LMTokenPipeline(cfg, args.batch, args.seq)
+    loop_cfg = TrainLoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt,
+                               ckpt_every=args.ckpt_every,
+                               fail_at_step=args.fail_at)
+    result = run(loop_cfg, train_step, params, opt_state, pipeline)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    print(f"[train] finished at step {result['step']} on {dev}; "
+          f"stragglers={result['straggler_count']}")
+    if result["history"]:
+        print(f"[train] first loss {result['history'][0]['loss']:.4f} "
+              f"-> last {result['history'][-1]['loss']:.4f}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""Grouped-query attention over a block-paged KV cache: chunked prefill
-and single-token decode.
+"""Grouped-query attention: the full-sequence training path
+(``gqa_forward``) and, over a block-paged KV cache, chunked prefill and
+single-token decode.
 
 The pool of one layer is ``{"k": [P, ps, Hkv, hd], "v": ...}``; token t
 of a slot lives in page ``page_table[b, t // ps]`` at offset ``t % ps``.
@@ -135,6 +136,20 @@ def _qkv(p: Params, x, cfg: ArchConfig, positions):
     q = rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
     k = rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
     return q, k, v
+
+
+def gqa_forward(p: Params, x, cfg: ArchConfig, *, positions,
+                causal: bool = True):
+    """Training self-attention over the whole sequence: x [B,S,d],
+    positions [S].  Returns (out [B,S,d], (k, v))."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, positions)
+    window = cfg.window if cfg.attn_kind == "sliding" else 0
+    out = chunked_attention(q, k, v, causal=causal, window=window,
+                            chunk=cfg.attn_chunk, q_pos=positions,
+                            kv_pos=positions)
+    out = sl.apply(p["wo"], out.reshape(B, S, cfg.n_heads * cfg.head_dim))
+    return out, (k, v)
 
 
 def gqa_decode_paged(p: Params, x, cfg: ArchConfig, cache: dict, positions,

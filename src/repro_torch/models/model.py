@@ -1,18 +1,23 @@
-"""The dense-family model over a block-paged KV cache.
+"""The dense-family model: training forward and loss, and serving over a
+block-paged KV cache.
 
 ``init(cfg, seed, device)``       -> params (fp32 masters, a list of layers)
+``forward(cfg, params, batch)``   -> (logits [B,S,V], None, (aux, offset))
+``loss_fn(cfg, params, batch)``   -> (loss, {"ce", "aux"}) next-token CE
 ``make_paged_cache(cfg, P, ps)``  -> zeroed pool {"k","v": [L, P, ps, Hkv, hd]}
 ``paged_decode_step(...)``        -> (logits [B,1,V], pool) one decode tick
 ``paged_prefill_chunk(...)``      -> (last logits [1,1,V], pool) one chunk
 
-The layers run in a Python loop, each updating its slice ``pool[.][l]``
-of the pool in place.
+The layers run in a Python loop; with ``cfg.remat`` each training layer
+is recomputed in the backward (``torch.utils.checkpoint``).  The serving
+paths update each layer's slice ``pool[.][l]`` of the pool in place.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -43,6 +48,85 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
          "mlp": mlp_init(gen, cfg, dtype, dev)}
         for _ in range(cfg.n_layers)]
     return params
+
+
+def _attn_mlp_block(lp, x, cfg: ArchConfig, positions):
+    h = norm_apply(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+    a, _ = attn.gqa_forward(lp["attn"], h, cfg, positions=positions)
+    x = x + a
+    h = norm_apply(lp["norm2"], x, cfg.norm, cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h, cfg)
+
+
+def _tokens(params, batch):
+    return torch.as_tensor(batch["tokens"],
+                           device=params["embed"]["tok"].device)
+
+
+def forward(cfg: ArchConfig, params: Params, batch, *,
+            return_hidden: bool = False):
+    """Training forward of the dense family: batch {"tokens": [B, S]}
+    (numpy or a tensor).  Returns (logits [B,S,V] or the final-norm
+    hidden state, None, (aux, offset)); aux is 0 and offset 0 for this
+    family."""
+    if cfg.family != "dense":
+        raise ValueError(f"family {cfg.family!r}: the port trains the "
+                         "dense family only")
+    tokens = _tokens(params, batch)
+    x = embed_tokens(params["embed"], tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp in params["layers"]:
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_attn_mlp_block, lp, x, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _attn_mlp_block(lp, x, cfg, positions)
+    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    if return_hidden:
+        return x, None, (0.0, 0)
+    return unembed(params["embed"], x, cfg), None, (0.0, 0)
+
+
+def softmax_xent(logits, labels):
+    """Per-token cross entropy in fp32: logsumexp minus the label logit."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return lse - ll
+
+
+def _chunk_ce(embed, h, labels, cfg):
+    return torch.sum(softmax_xent(unembed(embed, h, cfg), labels))
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch):
+    """Mean next-token cross entropy.  With ``cfg.loss_chunk`` the
+    unembedding and CE run per sequence chunk (the largest divisor of the
+    label length not above the chunk), each recomputed in the backward,
+    so the [tokens, vocab] logits never exist at once."""
+    labels = _tokens(params, batch)[:, 1:]
+    T = labels.shape[1]
+    chunk = cfg.loss_chunk
+    if chunk:
+        c = min(chunk, T)
+        while T % c:
+            c -= 1
+        chunk = c if c > 1 else 0
+    if not chunk:
+        logits, _, (aux, _) = forward(cfg, params, batch)
+        ce = torch.mean(softmax_xent(logits[:, :-1], labels))
+        return ce + aux, {"ce": ce, "aux": aux}
+    hidden, _, (aux, _) = forward(cfg, params, batch, return_hidden=True)
+    hs = hidden[:, :-1]
+    B = hs.shape[0]
+    total = hs.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, T, chunk):
+        total = total + checkpoint(_chunk_ce, params["embed"],
+                                   hs[:, c0:c0 + chunk],
+                                   labels[:, c0:c0 + chunk], cfg,
+                                   use_reentrant=False)
+    ce = total / (B * T)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def paged_supported(cfg: ArchConfig) -> tuple[bool, str]:

@@ -1,0 +1,226 @@
+"""Train and eval step functions.
+
+``make_train_step(cfg, optimizer)`` returns
+``train_step(params, opt_state, batch, step[, lr_scale]) ->
+(params, opt_state, metrics)``.  The two-pass step materialises the
+gradients (junctions through the dx and dw kernels) and applies
+``optimizer.update``; it leaves its input trees as they were.  The fused
+BP+UP step injects the optimizer's slots and hyp row into the junction
+dicts, so the junctions' backward updates their weights and slots in
+place through the update_dw kernel, and ``optimizer.merge`` steps the
+other leaves: the input params and opt_state are consumed (their junction
+tensors now hold the updated values).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import sparse_linear as sl
+from repro_torch.kernels import block_sparse_matmul as bsm
+from repro_torch.kernels import ops
+from repro_torch.models import model as M
+from repro_torch.optim import FusedOptimizer, Optimizer, global_norm_scale
+from repro_torch.tree import tree_leaves, tree_map
+
+
+def fused_update_eligible(cfg: ArchConfig, optimizer: Optimizer,
+                          microbatches: int = 1) -> tuple[bool, str]:
+    """(ok, reason): whether the fused BP+UP path serves this step.  Every
+    refusal keeps the two-pass path; none changes the numerics silently.
+    Grad clipping runs fused through a norm pre-pass folded into the gs
+    column; microbatches > 1 run fused as the full batch (the mean of
+    equal-sized microbatch means is the full-batch mean)."""
+    if not cfg.fused_update:
+        return False, "ArchConfig.fused_update is off"
+    if ops.resolve_engine(cfg.engine) != "pallas":
+        return False, "engine is not pallas (jnp keeps the two-pass reference)"
+    if not isinstance(optimizer, FusedOptimizer):
+        return False, ("optimizer is not a FusedOptimizer "
+                       "(optim.fused_sgd / optim.fused_adam)")
+    if cfg.family == "hybrid":
+        return False, ("hybrid shares one attn/MLP block across "
+                       "super-layers — reused junction weights break the "
+                       "updated-params contract")
+    if cfg.cast_params_once:
+        return False, "cast_params_once re-materializes the weights"
+    if cfg.param_dtype != cfg.dtype:
+        return False, ("fused update requires param_dtype == dtype (the "
+                       "kernels update the compute-dtype weights in place)")
+    return True, "fused"
+
+
+def _is_trainable(t) -> bool:
+    return torch.is_tensor(t) and t.is_floating_point()
+
+
+def _alias(p, fused: bool, live: list):
+    """``p`` with each trainable leaf replaced by a grad-requiring alias
+    (appended to ``live``); with ``fused`` junction dicts stay as they
+    are.  Module-level, not a closure: a recursive closure is a reference
+    cycle that would keep ``live``, and the old params, alive until the
+    garbage collector runs."""
+    if isinstance(p, dict):
+        if fused and sl.is_junction(p):
+            return p
+        return {k: _alias(v, fused, live) for k, v in p.items()}
+    if isinstance(p, (list, tuple)):
+        return type(p)(_alias(v, fused, live) for v in p)
+    if _is_trainable(p):
+        a = p.detach().requires_grad_(True)
+        live.append(a)
+        return a
+    return p
+
+
+def _regrad(p, fused: bool, got):
+    """A tree shaped like ``p`` holding the gradients of ``got`` (in
+    ``_alias``'s order) at trainable leaves, None elsewhere."""
+    if isinstance(p, dict):
+        if fused and sl.is_junction(p):
+            return {k: None for k in p}
+        return {k: _regrad(v, fused, got) for k, v in p.items()}
+    if isinstance(p, (list, tuple)):
+        return type(p)(_regrad(v, fused, got) for v in p)
+    return next(got) if _is_trainable(p) else None
+
+
+def _value_and_grad(cfg: ArchConfig, tree, batch, *, fused: bool = False):
+    """(loss, metrics, grads) of ``M.loss_fn`` at ``tree``.  grads mirrors
+    ``tree`` with None at non-trainable leaves; with ``fused`` the
+    junction dicts are left out of the differentiation (their backward
+    updates them in place instead)."""
+    live: list = []
+    params = _alias(tree, fused, live)
+    if cfg.cast_params_once:
+        params = tree_map(lambda p: p.to(torch.bfloat16)
+                          if _is_trainable(p) and p.dtype == torch.float32
+                          else p, params)
+    with torch.enable_grad():
+        loss, metrics = M.loss_fn(cfg, params, batch)
+        got = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = _regrad(tree, fused, iter([torch.zeros_like(a) if g is None else g
+                                       for a, g in zip(live, got)]))
+    metrics = {k: (v.detach() if torch.is_tensor(v) else v)
+               for k, v in metrics.items()}
+    return loss.detach(), metrics, grads
+
+
+def _health_leaves(t, found: list):
+    if isinstance(t, dict):
+        for k, v in t.items():
+            if k in sl.HEALTH_LEAVES and torch.is_tensor(v):
+                found.append(v.float().sum())
+            elif isinstance(v, (dict, list, tuple)):
+                _health_leaves(v, found)
+    elif isinstance(t, (list, tuple)):
+        for v in t:
+            _health_leaves(v, found)
+
+
+def collect_junction_health(aug) -> torch.Tensor:
+    """Sum of the health leaves of a fused step's injected tree: the
+    update kernels' count of (e, o) tiles that went non-finite (a 0-dim
+    float32 tensor on the params' device; reading it waits for the card)."""
+    found: list = []
+    _health_leaves(aug, found)
+    return torch.stack(found).sum() if found else torch.zeros(())
+
+
+def count_nonfinite_grads(grads) -> torch.Tensor:
+    """Two-pass detector: the number of gradient leaves holding any
+    non-finite value (> 0: this update would poison the parameters)."""
+    flags = [(~torch.isfinite(g)).any() for g in tree_leaves(grads)
+             if _is_trainable(g)]
+    return torch.stack(flags).sum().float() if flags else torch.zeros(())
+
+
+def scale_params_delta(params, new_params, lr_scale):
+    """p' = p + s * (p_new - p), in fp32: the exact lr backoff of a
+    first-order update already applied (the optimizer state is lr-free)."""
+    def blend(p0, p1):
+        if not _is_trainable(p1):
+            return p1
+        d = p1.float() - p0.float()
+        return (p0.float() + lr_scale * d).to(p1.dtype)
+    return tree_map(blend, params, new_params)
+
+
+def _split(batch, microbatches):
+    return [{k: v[i * (len(v) // microbatches):(i + 1) * (len(v)
+                                                       // microbatches)]
+             for k, v in batch.items()} for i in range(microbatches)]
+
+
+def _make_fused_train_step(cfg: ArchConfig, optimizer: FusedOptimizer):
+    """The fused BP+UP step.  ``lr_scale`` multiplies the hyp row's lr
+    column; ``grad_clip`` runs a plain backward first (the norm pre-pass,
+    through dx and dw) and folds its clip scale into the gs column and
+    into merge.  metrics["nonfinite"] sums the junctions' health counts."""
+    def train_step(params, opt_state, batch, step, lr_scale=None):
+        dev = params["embed"]["tok"].device
+        hyp = optimizer.hyp(step).to(dev)
+        grad_scale = None
+        if optimizer.grad_clip is not None:
+            _, _, raw = _value_and_grad(cfg, params, batch)
+            grad_scale, _ = global_norm_scale(raw, optimizer.grad_clip)
+            del raw
+            hyp[bsm.COL_GS] *= grad_scale
+        if lr_scale is not None:
+            hyp[bsm.COL_LR] *= float(lr_scale)
+        aug = sl.inject_update_ctx(params, optimizer.slots(opt_state), hyp)
+        loss, metrics, grads = _value_and_grad(cfg, aug, batch, fused=True)
+        new_params, new_opt = optimizer.merge(grads, opt_state, params, step,
+                                              lr_scale=lr_scale,
+                                              grad_scale=grad_scale)
+        metrics = dict(metrics, loss=loss,
+                       nonfinite=collect_junction_health(aug))
+        return new_params, new_opt, metrics
+
+    return train_step
+
+
+def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
+                    microbatches: int = 1):
+    """train_step(params, opt_state, batch, step[, lr_scale]) ->
+    (params, opt_state, metrics): fused when ``fused_update_eligible``,
+    else two-pass.  ``lr_scale`` (the guardian's backoff) scales this
+    step's learning rate: folded into the hyp row on the fused path, the
+    applied delta rescaled on the two-pass path.  With microbatches > 1
+    the two-pass path splits the batch and averages fp32 gradients; the
+    fused path runs the full batch."""
+    fused, _ = fused_update_eligible(cfg, optimizer, microbatches)
+    if fused:
+        return _make_fused_train_step(cfg, optimizer)
+
+    def train_step(params, opt_state, batch, step, lr_scale=None):
+        if microbatches == 1:
+            loss, metrics, grads = _value_and_grad(cfg, params, batch)
+        else:
+            loss, grads = 0.0, None
+            for mb in _split(batch, microbatches):
+                l, metrics, g = _value_and_grad(cfg, params, mb)
+                g = tree_map(lambda t: t.float() if t is not None else None,
+                             g)
+                grads = g if grads is None else tree_map(
+                    lambda a, b: a + b if a is not None else None, grads, g)
+                loss = loss + l
+            loss = loss / microbatches
+            grads = tree_map(lambda t: t / microbatches
+                             if t is not None else None, grads)
+        new_params, new_opt = optimizer.update(grads, opt_state, params, step)
+        if lr_scale is not None:
+            new_params = scale_params_delta(params, new_params, lr_scale)
+        metrics = dict(metrics, loss=loss,
+                       nonfinite=count_nonfinite_grads(grads))
+        return new_params, new_opt, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: ArchConfig):
+    def evaluate(params, batch):
+        with torch.no_grad():
+            loss, metrics = M.loss_fn(cfg, params, batch)
+        return dict(metrics, loss=loss)
+    return evaluate

@@ -46,13 +46,18 @@ def _junction_inputs(shape, M, dtype, with_bias, seed=0):
     return pat, w, b, jx, tx
 
 
+def _pattern_tensors(pat):
+    return [torch.from_numpy(a)
+            for a in (pat.idx, pat.rev_ob, pat.rev_t, pat.rev_cnt)]
+
+
 def _check_junction(shape, M, dtype, act, with_bias):
     pat, w, b, jx, tx = _junction_inputs(shape, M, dtype, with_bias)
     want = jops.junction_matmul(
         jx, jnp.asarray(w), pat.idx, pat.rev_ob, pat.rev_t, pat.rev_cnt,
         bias=None if b is None else jnp.asarray(b), act=act, interpret=True)
     got = tops.junction_matmul(
-        tx, torch.from_numpy(w), torch.from_numpy(pat.idx),
+        tx, torch.from_numpy(w), *_pattern_tensors(pat),
         bias=None if b is None else torch.from_numpy(b), act=act)
     assert got.dtype == tx.dtype and tuple(got.shape) == tuple(want.shape)
     np.testing.assert_allclose(got.float().numpy(),
@@ -95,12 +100,12 @@ def test_junction_expert_batched_and_leading_dims():
                                 bias=jnp.asarray(b), act="relu",
                                 interpret=True)
     got = tops.junction_matmul(torch.from_numpy(x), torch.from_numpy(w),
-                               torch.from_numpy(pat.idx),
+                               *_pattern_tensors(pat),
                                bias=torch.from_numpy(b), act="relu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
     x4 = torch.from_numpy(x[0]).reshape(1, M, 128)
     y4 = tops.junction_matmul(x4, torch.from_numpy(w[0]),
-                              torch.from_numpy(pat.idx))
+                              *_pattern_tensors(pat))
     assert tuple(y4.shape) == (1, M, 256)
     ref = tbsm.fwd_ref(torch.from_numpy(x[:1]), torch.from_numpy(w[:1]),
                        torch.from_numpy(pat.idx), torch.zeros(1, 256))
@@ -135,7 +140,7 @@ def test_wrappers_use_plain_versions_only_on_cpu():
                          pt.to("meta"), lens.to("meta"))
     assert torch.equal(tfa.flash_decode(q, pool, pool, pt, lens),
                        tfa.paged_decode_ref(q, pool, pool, pt, lens))
-    assert tops.launch_counts() == {"junction_fwd": 0, "flash_decode": 0}
+    assert set(tops.launch_counts().values()) == {0}
 
 
 def test_fwd_refuses_bad_operands():
