@@ -12,7 +12,8 @@ PyTorch built for CUDA.  It
 3. holds each kernel against its plain PyTorch version on the card at
    the serving path's shapes, with the tolerances stated below, and times
    kernel, plain version, the least time the card could take (bound) and,
-   where one PyTorch call computes the same function, that call;
+   where one PyTorch call computes the same function, that call
+   (flash_decode at stablelm-3b's heads and at qwen3-moe's);
 4. serves 8 greedy requests through ``ContinuousEngine`` on full-width
    sparse-FFN stablelm-3b (random weights from a seed), checks that every
    request completes, that the kernels' launch counts are exactly what
@@ -28,7 +29,16 @@ PyTorch built for CUDA.  It
    no non-finite update, exact launch counts (no dw launch on the
    unclipped fused path), and one step at 2 layers through the kernels
    and through the plain versions within stated tolerances;
-7. prints a ``kernels`` JSON line and, last, a JSON line with
+7. holds the gated kernels (gated_fwd, gated_dx, gated_dw and the fused
+   update_gated_dw) against their plain versions at qwen3-moe's expert
+   gate junction (128 experts, 2048 -> 768) and the plain kernels at its
+   down junction, at the decode rows (M = 4) and the training rows
+   (M = 160), bf16 and fp32, timed; SGD / momentum / Adam, tiles poisoned
+   in one branch or both (each counted once) and the zero-hyp freeze;
+8. serves the same 8 requests on full-size sparse qwen3-moe-30b-a3b (48
+   layers, 128 experts, 9.6 B parameters) and trains it at full width
+   and 6 layers as in 4. and 6.;
+9. prints a ``kernels`` JSON line and, last, a JSON line with
    ``"ok": true`` and the device.
 
 Any failed check raises and the exit code is not 0.  Without a card, or
@@ -36,6 +46,7 @@ without the port's sources beside it, it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -183,12 +194,17 @@ def junction_phase(P, timer, card):
 def weight_cast_phase(params, timer, card):
     """The per-call fp32 -> bf16 cast of the FFN junction weights, as
     ops.junction_matmul does it, for one layer and per decode tick."""
-    mlp = params["layers"][0]["mlp"]
-    ws = [mlp[k]["w"] for k in ("wg", "wi", "wo")]
+    lp = params["layers"][0]
+    if "moe" in lp:
+        ws = [lp["moe"][k] for k in ("wg", "wi", "wo")]
+    else:
+        ws = [lp["mlp"][k]["w"] for k in ("wg", "wi", "wo")]
     ms = timer.ms(lambda: [w.to(torch.bfloat16) for w in ws])
     n = len(params["layers"])
-    print(f"[cast] fp32->bf16 FFN weight cast: {ms:.4f} ms per layer, "
-          f"{ms * n:.3f} ms per tick ({n} layers) [{card}]")
+    gb = sum(w.numel() for w in ws) * 6 / 1e9        # 4 bytes read, 2 written
+    print(f"[cast] fp32->bf16 FFN weight cast: {ms:.4f} ms per layer "
+          f"({gb:.3f} GB moved), {ms * n:.3f} ms per tick ({n} layers) "
+          f"[{card}]")
 
 
 # ------------------------------------------------------------ flash_decode
@@ -197,10 +213,14 @@ def decode_phase(P, timer, card):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     lens = [0, 1, 17, 128]
-    B, D, ps, maxp = 4, 80, 16, 8
-    worst, main = 0.0, None
-    for dtype, Hkv, rep in ((torch.bfloat16, 32, 1), (torch.float32, 32, 1),
-                            (torch.bfloat16, 8, 4)):
+    B, ps, maxp = 4, 16, 8
+    worst, main, qwen = 0.0, None, None
+    # stablelm-3b's heads (bf16, fp32), GQA rep 4, and qwen3-moe's
+    # (Hkv 4, rep 8, head_dim 128)
+    for dtype, Hkv, rep, D in ((torch.bfloat16, 32, 1, 80),
+                               (torch.float32, 32, 1, 80),
+                               (torch.bfloat16, 8, 4, 80),
+                               (torch.bfloat16, 4, 8, 128)):
         n_pages = 1 + B * maxp
         q, kp, vp = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                      for shape in ((B, Hkv, rep, D), (n_pages, ps, Hkv, D),
@@ -247,21 +267,36 @@ def decode_phase(P, timer, card):
         if main is None:
             main = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd,
                     "bound_by": by, "library_ms": lib_ms}
-    return {"max_abs_err": worst, **main}
+        if D == 128:
+            qwen = {"moe_ms": k_ms, "moe_plain_ms": p_ms, "moe_bound_ms": bnd,
+                    "moe_library_ms": lib_ms}
+    return {"max_abs_err": worst, **main, **qwen}
 
 
 # ------------------------------------------------------------ serve phase
-def serve_phase(P, card):
+# the arch each serving phase drives at full width, and the junction
+# launches one layer makes on every tick and every prefill chunk: three
+# plain FFN junctions a dense layer; the gate (one gated junction) and
+# the down junction a MoE layer
+SERVE_ARCHS = {"stablelm-3b": {"junction_fwd": 3},
+               "qwen3-moe-30b-a3b": {"junction_gated_fwd": 1,
+                                     "junction_fwd": 1}}
+
+
+def serve_phase(P, card, arch):
     M, engine, ops = P.M, P.engine, P.ops
     dev = torch.device("cuda")
-    cfg = P.registry.get("stablelm-3b").with_sparsity(
+    cfg = P.registry.get(arch).with_sparsity(
         P.SparsityConfig(density=0.25, block=128, where="ffn"))
     t0 = time.perf_counter()
     params = M.init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params) if t.is_floating_point())
+    moe = (f" experts={cfg.moe.num_experts} top_k={cfg.moe.top_k} "
+           f"d_expert={cfg.moe.d_expert}" if cfg.moe else "")
     print(f"[serve] {cfg.name} d_model={cfg.d_model} d_ff={cfg.d_ff} "
-          f"layers={cfg.n_layers} heads={cfg.n_heads} vocab={cfg.vocab}, "
+          f"layers={cfg.n_layers} heads={cfg.n_heads}/{cfg.kv_heads} "
+          f"head_dim={cfg.head_dim} vocab={cfg.vocab}{moe}, "
           f"sparse FFN {cfg.sparsity}: {n_params / 1e9:.3f} B params, "
           f"init {time.perf_counter() - t0:.1f} s")
     scfg = engine.ServeConfig(max_new_tokens=16, slots=4, page_size=16,
@@ -286,8 +321,9 @@ def serve_phase(P, card):
     lat = [v["wall_s"] for v in st["latency"].values()]
     p50, p99 = P.percentile(lat, 50), P.percentile(lat, 99)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[serve] {len(outs)}/8 requests, {n_tok} tokens in {dt:.3f} s: "
-          f"{n_tok / dt:.1f} tok/s, decode_ticks={st['decode_ticks']} "
+    print(f"[serve] {cfg.name}: {len(outs)}/8 requests, {n_tok} tokens in "
+          f"{dt:.3f} s: {n_tok / dt:.1f} tok/s, "
+          f"decode_ticks={st['decode_ticks']} "
           f"prefill_chunks={st['prefill_chunks']} p50_latency={p50 * 1e3:.1f} ms "
           f"p99_latency={p99 * 1e3:.1f} ms peak_memory={peak:.2f} GiB "
           f"launches={counts} [{card}]")
@@ -296,17 +332,16 @@ def serve_phase(P, card):
             f"token counts {[len(v) for v in outs.values()]}")
     require(eng.nonfinite_terminated == 0,
             f"{eng.nonfinite_terminated} slots hit non-finite logits")
-    L = cfg.n_layers               # three FFN junctions and one attention a layer
-    want_j = 3 * L * (st["decode_ticks"] + st["prefill_chunks"])
-    want_d = L * st["decode_ticks"]
-    require(counts["junction_fwd"] == want_j,
-            f"junction_fwd launches {counts['junction_fwd']} != {want_j}")
-    require(counts["flash_decode"] == want_d,
-            f"flash_decode launches {counts['flash_decode']} != {want_d}")
+    L = cfg.n_layers
+    steps = st["decode_ticks"] + st["prefill_chunks"]
+    want = dict.fromkeys(counts, 0)
+    want.update({k: n * L * steps for k, n in SERVE_ARCHS[arch].items()})
+    want["flash_decode"] = L * st["decode_ticks"]      # one attention a layer
+    require(counts == want, f"{cfg.name} launches {counts} != {want}")
     require(st["launches"] == counts, "engine stats disagree with counters")
 
     for dtype in (torch.bfloat16, torch.float32):
-        compare_logits(P, cfg, params, prompts[0], dtype, card)
+        compare_logits(P, cfg, params, prompts[0], dtype, card, arch)
     tick_breakdown(M, cfg, params, card)
     return params, counts
 
@@ -400,7 +435,7 @@ def _chunk_and_tick(M, cfg, params, prompt):
     return lp[0, -1].float(), ld[0, -1].float()
 
 
-def compare_logits(P, cfg, params, prompt, dtype, card):
+def compare_logits(P, cfg, params, prompt, dtype, card, arch):
     """The first prefill chunk and one decode tick (slot 0 live, three
     free slots on the scratch page), once through the kernels and once
     through the plain versions, on the card."""
@@ -410,12 +445,14 @@ def compare_logits(P, cfg, params, prompt, dtype, card):
     k_pf, k_dec = _chunk_and_tick(M, cfg, params, prompt)
     kernel_counts = ops.launch_counts()
     with mock.patch.object(bsm, "fwd", bsm.fwd_ref), \
+            mock.patch.object(bsm, "gated_fwd", bsm.gated_fwd_ref), \
             mock.patch.object(fa, "flash_decode", fa.paged_decode_ref):
         p_pf, p_dec = _chunk_and_tick(M, cfg, params, prompt)
     torch.cuda.synchronize()
     L = cfg.n_layers
-    want = dict(dict.fromkeys(kernel_counts, 0), junction_fwd=6 * L,
-                flash_decode=L)
+    want = dict.fromkeys(kernel_counts, 0)
+    want.update({k: 2 * n * L for k, n in SERVE_ARCHS[arch].items()})
+    want["flash_decode"] = L
     require(kernel_counts == want and ops.launch_counts() == kernel_counts,
             f"logit comparison did not take the intended paths: "
             f"{kernel_counts} then {ops.launch_counts()}")
@@ -424,7 +461,8 @@ def compare_logits(P, cfg, params, prompt, dtype, card):
                 f"{what} logits not finite")
         rel = max_err(a, b) / float(b.abs().max())
         same = int(torch.argmax(a)) == int(torch.argmax(b))
-        print(f"[logits] {what} {str(dtype)[6:]} kernels vs plain versions: "
+        print(f"[logits] {cfg.name} {what} {str(dtype)[6:]} kernels vs plain "
+              f"versions: "
               f"max_abs_err={max_err(a, b):.4g} max|logit|="
               f"{float(b.abs().max()):.4g} rel={rel:.3g} "
               f"(tol {LOGIT_REL_TOL[dtype]}) same_argmax={same} [{card}]")
@@ -492,15 +530,15 @@ def _cost(kind, t, pt, act, n_slots=0):
 
 
 def _report(kind, name, dtype, act, err, lim, k_ms, p_ms, nbytes, nops,
-            card, extra=""):
+            card, extra="", M=TRAIN_M):
     bnd, by = bound_ms(nbytes, nops, dtype)
-    print(f"[kernel] junction_{kind} {name} M={TRAIN_M} {str(dtype)[6:]} "
+    print(f"[kernel] junction_{kind} {name} M={M} {str(dtype)[6:]} "
           f"act={act}{extra}: rel_err={err:.3g} (tol {lim:.3g}) "
           f"ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bnd:.4f} ({by}) "
           f"[{card}]")
     require(err <= lim, f"junction_{kind} {name} {dtype} act={act}: "
                         f"rel_err {err} > {lim}")
-    return bnd
+    return bnd, by
 
 
 def _adam_slots(gen, shape):
@@ -589,8 +627,8 @@ def train_kernel_phase(P, timer, card):
             torch.cuda.synchronize()
             for kind, err, lim, abs_err, kfn, pfn, (nb, no) in rows:
                 k_ms, p_ms = timer.ms(kfn), timer.ms(pfn)
-                bnd = _report(kind, name, dtype, act, err, lim, k_ms, p_ms,
-                              nb, no, card)
+                bnd, _ = _report(kind, name, dtype, act, err, lim, k_ms,
+                                 p_ms, nb, no, card)
                 o = out[kind]
                 o["max_abs_err"] = max(o["max_abs_err"], abs_err)
                 if dtype == torch.bfloat16:     # one layer's FFN, bf16
@@ -700,28 +738,321 @@ def _update_case(P, gen, t, pt, dtype, opt, case):
     require(w_ok and err <= lim, f"update_dw disagrees: {line}")
 
 
+# ------------------------------------------------------ MoE expert kernels
+# the expert junctions of qwen3-moe-30b-a3b (d_model 2048, d_expert 768)
+# at density 0.25, block 128, with moe_init's pattern seeds; 128 experts
+MOE_SHAPES = [("in", 2048, 768, 0), ("out", 768, 2048, 1)]
+MOE_E = 128
+# rows an expert: the capacity C of a decode tick or a prefill chunk, and
+# of a training batch of 2048 tokens (models/moe.moe_dispatch_dims)
+MOE_M = {"decode": 4, "train": 160}
+# training depth: Adam's two-pass state for all 48 layers (9.59 B
+# parameters) would need some 154 GB; 6 layers (1.74 B) fit one card
+MOE_TRAIN_LAYERS = 6
+
+
+def _moe_inputs(P, gen, shape, E, M, dtype):
+    """Operands of both junction forms at one expert-junction shape: x,
+    dy (dh), w and wi (the gate's two streams), and the gate residuals g
+    and u as the forward leaves them."""
+    _, n_in, n_out, pseed = shape
+    pat = P.make_block_pattern(n_in, n_out, 0.25, BS, seed=pseed)
+    nob, kb = pat.idx.shape
+    r = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    t = {"x": r(E, M, n_in), "dy": r(E, M, n_out),
+         "w": r(E, nob, kb, BS, BS) / (kb * BS) ** 0.5,
+         "wi": r(E, nob, kb, BS, BS) / (kb * BS) ** 0.5,
+         "g": r(E, M, n_out), "u": r(E, M, n_out)}
+    t = {k: v.to(dtype).contiguous() for k, v in t.items()}
+    pt = {k: torch.as_tensor(getattr(pat, k), device="cuda")
+          for k in ("idx", "rev_ob", "rev_t", "rev_cnt")}
+    return t, pt
+
+
+def _gated_cost(kind, t, pt, n_slots=0, save_res=False):
+    """(bytes, operations) of a gated kernel: each operand read once, each
+    output written once; two streams of 2 operations per multiply-add over
+    the edges of the pattern."""
+    isz = t["x"].element_size()
+    E, M, n_in = t["x"].shape
+    n_out = t["dy"].shape[2]
+    xb, yb, wb = E * M * n_in * isz, E * M * n_out * isz, t["w"].numel()
+    ints = 4 * sum(v.numel() for v in pt.values())
+    edges = (int(pt["rev_cnt"].sum()) if kind == "gated_dx"
+             else pt["idx"].numel())
+    nops = 2 * 2 * E * M * edges * BS * BS
+    if kind == "gated_fwd":         # x, wg, wi in; h (and g, u) out
+        return xb + 2 * wb * isz + yb * (3 if save_res else 1) + ints, nops
+    if kind == "gated_dx":          # dh, g, u, wg, wi in; dx out
+        return 3 * yb + 2 * wb * isz + xb + ints, nops
+    if kind == "gated_dw":          # x, dh, g, u in; dwg, dwi fp32 out
+        return xb + 3 * yb + 2 * 4 * wb + ints, nops
+    # update_gated_dw: x, dh, g, u in; both streams and slots read, written
+    return (xb + 3 * yb + 2 * (2 * wb * isz + 8 * n_slots * wb) + ints,
+            nops)
+
+
+def _adam_w_ok(kw, pw, w0, km, pm, kv, pv) -> bool:
+    """Weights after one ADAM_HYP step through the kernel (kw, with its
+    slots km, kv) and through the plain version (pw, pm, pv).  fp32: the
+    two weight changes within 1e-4 of each other, relative.  bf16: each
+    weight within one bf16 rounding of the plain one, plus the step
+    difference its two sets of slots imply (the slots differ by summation
+    order; near zero that difference is more than a bf16 ulp), plus two
+    fp32 roundings of w (the kernel fuses w - lr * step into one FMA: where
+    the step cancels w almost exactly, that rounding is all that is
+    left)."""
+    if kw.dtype == torch.float32:
+        return rel_err(kw - w0, pw - w0) <= 1e-4
+    lr, b1, b2, eps, _, t, _ = ADAM_HYP
+    c1, c2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+
+    def step(m, v):
+        return (m / c1) / (torch.sqrt(v / c2) + eps)
+
+    slack = lr * (step(km, kv) - step(pm, pv)).abs() * (1 + 1e-3) \
+        + 2.0 ** -22 * w0.float().abs()
+    diff = (kw.float() - pw.float()).abs()
+    return bool((diff <= 2.0 ** -7 * pw.float().abs() + slack).all())
+
+
+def moe_kernel_phase(P, timer, card):
+    """The four gated kernels at the gate junction of qwen3-moe's experts
+    (E = 128, 2048 -> 768) and the plain kernels at its down junction
+    (768 -> 2048), at the decode rows (M = 4) and the training rows
+    (M = 160), bf16 and fp32: each against its plain version and timed.
+    Then SGD / momentum / Adam, the health counts of tiles poisoned in one
+    branch or both, and the zero-hyp freeze of the gated update."""
+    bsm = P.bsm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "bound_by": "", "library_ms": None}
+           for k in ("gated_fwd", "gated_dx", "gated_dw", "update_gated_dw")}
+    plain = {k: {} for k in ("fwd", "dx", "dw", "update_dw")}
+    hyp = torch.tensor(ADAM_HYP, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        out_tol = REL_TOL["fp32" if dtype == torch.float32 else "bf16_out"]
+        sum_tol = REL_TOL["fp32" if dtype == torch.float32 else "bf16_sum"]
+        for where, M in MOE_M.items():
+            # the gate junction through the gated kernels
+            t, pt = _moe_inputs(P, gen, MOE_SHAPES[0], MOE_E, M, dtype)
+            rev = (pt["rev_ob"], pt["rev_t"], pt["rev_cnt"])
+            save = where == "train"
+            fwd_args = (t["x"], t["w"], t["wi"], pt["idx"], save)
+            got = bsm.gated_fwd(*fwd_args)
+            want = bsm.gated_fwd_ref(*fwd_args)
+            got, want = (got, want) if save else ((got,), (want,))
+            rows = [("gated_fwd", max(rel_err(a, b) for a, b in
+                                      zip(got, want)), out_tol,
+                     max_err(got[0], want[0]),
+                     lambda: bsm.gated_fwd(*fwd_args),
+                     lambda: bsm.gated_fwd_ref(*fwd_args),
+                     _gated_cost("gated_fwd", t, pt, save_res=save))]
+            dx_args = (t["dy"], t["w"], t["wi"], *rev, t["g"], t["u"])
+            got, want = bsm.gated_dx(*dx_args), bsm.gated_dx_ref(*dx_args)
+            rows.append(("gated_dx", rel_err(got, want), out_tol,
+                         max_err(got, want), lambda: bsm.gated_dx(*dx_args),
+                         lambda: bsm.gated_dx_ref(*dx_args),
+                         _gated_cost("gated_dx", t, pt)))
+            dw_args = (t["x"], t["dy"], pt["idx"], t["g"], t["u"])
+            got, want = bsm.gated_dw(*dw_args), bsm.gated_dw_ref(*dw_args)
+            rows.append(("gated_dw", max(rel_err(a, b) for a, b in
+                                         zip(got, want)), sum_tol,
+                         max(max_err(a, b) for a, b in zip(got, want)),
+                         lambda: bsm.gated_dw(*dw_args),
+                         lambda: bsm.gated_dw_ref(*dw_args),
+                         _gated_cost("gated_dw", t, pt)))
+            mom, vel = _adam_slots(gen, t["w"].shape)
+            states = [[t["w"].clone(), t["wi"].clone(), mom.clone(),
+                       mom.clone(), vel.clone(), vel.clone()]
+                      for _ in range(2)]
+
+            def upd(fn, st):
+                return lambda: fn(*dw_args, st[0], st[1], st[2], st[3], hyp,
+                                  vg=st[4], vi=st[5])
+            upd(bsm.update_gated_dw, states[0])()
+            upd(bsm.update_gated_dw_ref, states[1])()
+            (kw, kwi, *ks), (pw, pwi, *ps) = states
+            w_ok = (_adam_w_ok(kw, pw, t["w"], ks[0], ps[0], ks[2], ps[2])
+                    and _adam_w_ok(kwi, pwi, t["wi"], ks[1], ps[1], ks[3],
+                                   ps[3]))
+            require(w_ok, f"update_gated_dw {where} {dtype}: weights differ "
+                          f"(max_abs_err {max_err(kw, pw):.3g}, "
+                          f"{max_err(kwi, pwi):.3g})")
+            rows.append(("update_gated_dw",
+                         max(rel_err(a, b) for a, b in zip(ks, ps)), sum_tol,
+                         max(max_err(a, b) for a, b in zip(ks, ps)),
+                         upd(bsm.update_gated_dw, states[0]),
+                         upd(bsm.update_gated_dw_ref, states[1]),
+                         _gated_cost("update_gated_dw", t, pt, n_slots=2)))
+            torch.cuda.synchronize()
+            for kind, err, lim, abs_err, kfn, pfn, cost in rows:
+                k_ms, p_ms = timer.ms(kfn), timer.ms(pfn)
+                bnd, by = _report(kind, f"in E={MOE_E}", dtype, "silu-gate",
+                                  err, lim, k_ms, p_ms, *cost, card, M=M)
+                o = out[kind]
+                o["max_abs_err"] = max(o["max_abs_err"], abs_err)
+                # the JSON line: the serving shape for the forward, the
+                # training shape for the backward kernels; bf16
+                if dtype == torch.bfloat16 and (
+                        (kind == "gated_fwd") == (where == "decode")):
+                    o.update(ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
+                             bound_by=by)
+                if kind == "gated_fwd" and dtype == torch.bfloat16 \
+                        and where == "train":
+                    o.update(train_ms=k_ms, train_plain_ms=p_ms,
+                             train_bound_ms=bnd)
+            del t, pt, states, rows
+            # the down junction through the plain kernels at E = 128
+            t, pt = _moe_inputs(P, gen, MOE_SHAPES[1], MOE_E, M, dtype)
+            zb = torch.zeros((MOE_E, t["dy"].shape[2]), dtype=dtype,
+                             device="cuda")
+            rev = (pt["rev_ob"], pt["rev_t"], pt["rev_cnt"])
+            checks = {
+                "fwd": (lambda: bsm.fwd(t["x"], t["w"], pt["idx"], zb),
+                        lambda: bsm.fwd_ref(t["x"], t["w"], pt["idx"], zb),
+                        out_tol),
+                "dx": (lambda: bsm.dx(t["dy"], t["w"], *rev),
+                       lambda: bsm.dx_ref(t["dy"], t["w"], *rev), out_tol),
+                "dw": (lambda: bsm.dw(t["x"], t["dy"], pt["idx"],
+                                      with_bias=False)[0],
+                       lambda: bsm.dw_ref(t["x"], t["dy"], pt["idx"],
+                                          with_bias=False)[0], sum_tol)}
+            for kind, (kfn, pfn, lim) in checks.items():
+                if kind != "fwd" and where == "decode":
+                    continue        # the backward runs at training rows only
+                err = rel_err(kfn(), pfn())
+                k_ms, p_ms = timer.ms(kfn), timer.ms(pfn)
+                bnd, _ = _report(kind, f"wo E={MOE_E}", dtype, "none", err,
+                                 lim, k_ms, p_ms, *_cost(kind, t, pt, "none"),
+                                 card, M=M)
+                if dtype == torch.bfloat16:
+                    plain[kind][where] = (k_ms, p_ms, bnd)
+            if where == "train":
+                mom, vel = _adam_slots(gen, t["w"].shape)
+                k_st = [t["w"].clone(), mom.clone(), vel.clone()]
+                p_st = [t["w"].clone(), mom.clone(), vel.clone()]
+
+                def upd1(fn, st):
+                    return lambda: fn(t["x"], t["dy"], pt["idx"], None, st[0],
+                                      None, st[1], None, hyp, vel=st[2],
+                                      with_bias=False)
+                upd1(bsm.update_dw, k_st)()
+                upd1(bsm.update_dw_ref, p_st)()
+                require(_adam_w_ok(k_st[0], p_st[0], t["w"], k_st[1],
+                                   p_st[1], k_st[2], p_st[2]),
+                        f"update_dw wo E={MOE_E} {dtype}: weights differ "
+                        f"({max_err(k_st[0], p_st[0]):.3g})")
+                err = max(rel_err(k_st[1], p_st[1]),
+                          rel_err(k_st[2], p_st[2]))
+                k_ms = timer.ms(upd1(bsm.update_dw, k_st))
+                p_ms = timer.ms(upd1(bsm.update_dw_ref, p_st))
+                bnd, _ = _report("update_dw", f"wo E={MOE_E}", dtype, "none",
+                                 err, sum_tol, k_ms, p_ms,
+                                 *_cost("update_dw", t, pt, "none",
+                                        n_slots=2), card, M=M)
+                if dtype == torch.bfloat16:
+                    plain["update_dw"][where] = (k_ms, p_ms, bnd)
+            del t, pt
+    for dtype in (torch.bfloat16, torch.float32):
+        for opt in ("sgd", "momentum", "adam"):
+            for case in ("poison", "freeze"):
+                _gated_update_case(P, gen, dtype, opt, case)
+    torch.cuda.empty_cache()
+    return out, plain
+
+
+def _gated_update_case(P, gen, dtype, opt, case):
+    """update_gated_dw at E = 2 with a per-unit hyp table, kernel against
+    plain version.  "poison": unit 1 gets a non-finite gradient in the wg
+    branch only (u = inf) of output block 1, in the wi branch only
+    (silu(g) * dh overflows) of block 3 and in both of block 5: three
+    tiles, each counted once.  "freeze": unit 1's hyp row is zero and its
+    weights stay as they were, bit for bit."""
+    bsm = P.bsm
+    t, pt = _moe_inputs(P, gen, MOE_SHAPES[0], 2, MOE_M["train"], dtype)
+    hyp = torch.tensor([ADAM_HYP, ADAM_HYP], device="cuda")
+    hyp[1, 0] = 2e-3                                     # unit 1's own lr
+    if opt != "adam":
+        hyp[:, 2:6] = 0.0
+        hyp[:, 6] = 1.0
+        if opt == "sgd":
+            hyp[:, 1] = 0.0
+    dh, g, u = t["dy"].clone(), t["g"].clone(), t["u"].clone()
+    if case == "poison":
+        for o, wg_br, wi_br in ((1, True, False), (3, False, True),
+                                (5, True, True)):
+            col = o * BS + 7
+            dh[1, 2, col] = 4.0
+            if wg_br:
+                u[1, 2, col] = float("inf")
+            if wi_br:
+                g[1, 2, col] = 3e38
+    else:
+        hyp[1] = 0.0
+    use = {"sgd": (False, False), "momentum": (True, False),
+           "adam": (True, True)}[opt]
+    mom, vel = _adam_slots(gen, t["w"].shape)
+    runs = []
+    for fn in (bsm.update_gated_dw, bsm.update_gated_dw_ref):
+        wg, wi = t["w"].clone(), t["wi"].clone()
+        mg, mi, vg, vi = mom.clone(), mom.clone(), vel.clone(), vel.clone()
+        h = fn(t["x"], dh, pt["idx"], g, u, wg, wi,
+               mg if use[0] else None, mi if use[0] else None, hyp,
+               vg=vg if use[1] else None, vi=vi if use[1] else None,
+               with_health=True)
+        runs.append((wg, wi, mg, mi, h))
+    (kwg, kwi, kmg, kmi, kh), (pwg, pwi, pmg, pmi, ph) = runs
+    torch.cuda.synchronize()
+    lim = REL_TOL["fp32" if dtype == torch.float32 else "bf16_sum"]
+    err = max(rel_err(kmg[0], pmg[0]), rel_err(kmi[0], pmi[0])) \
+        if use[0] else 0.0
+    w_ok = all(close(a[0], b[0], dict(atol=1e-6, rtol=2.0 ** -7))
+               for a, b in ((kwg, pwg), (kwi, pwi)))
+    line = (f"[check] update_gated_dw {opt} {case} E=2 {str(dtype)[6:]}: "
+            f"health kernel {kh.tolist()} plain {ph.tolist()}, unit-0 slot "
+            f"rel_err {err:.3g}")
+    if case == "poison":
+        require(kh.tolist() == ph.tolist() == [0, 3],
+                f"health counts wrong: {line}")
+    else:
+        frozen = (torch.equal(kwg[1], t["w"][1])
+                  and torch.equal(kwi[1], t["wi"][1])
+                  and not torch.equal(kwg[0], t["w"][0]))
+        line += f", unit 1 frozen bit for bit: {frozen}"
+        require(frozen, f"zero hyp row did not freeze unit 1: {line}")
+        require(kh.tolist() == [0, 0], f"health counts wrong: {line}")
+    print(line)
+    require(w_ok and err <= lim, f"update_gated_dw disagrees: {line}")
+
+
 # ------------------------------------------------------------ train phase
-def _expected_launches(cfg, n_steps, kind):
-    """Junction launches a step implies: 3 FFN junctions a layer, their
-    forward run again by the per-layer recompute, the norm pre-pass of a
-    clipped fused step a plain forward and backward of its own."""
-    J = 3 * cfg.n_layers
-    f = J * (2 if cfg.remat else 1)
-    per = {"two_pass": dict(junction_fwd=f, junction_dx=J, junction_dw=J),
-           "fused_clip": dict(junction_fwd=2 * f, junction_dx=2 * J,
-                              junction_dw=J, junction_update_dw=J),
-           "fused": dict(junction_fwd=f, junction_dx=J,
-                         junction_update_dw=J)}[kind]
-    want = {"junction_fwd": 0, "junction_dx": 0, "junction_dw": 0,
-            "junction_update_dw": 0, "flash_decode": 0}
-    want.update({k: v * n_steps for k, v in per.items()})
+def _expected_launches(P, cfg, n_steps, kind):
+    """Junction launches a step implies: per layer the family's FFN
+    junctions (three plain ones a dense layer; a gated and a plain one a
+    MoE layer), their forward run again by the per-layer recompute, the
+    norm pre-pass of a clipped fused step a plain forward and backward of
+    its own."""
+    L, r = cfg.n_layers, (2 if cfg.remat else 1)
+    per_layer = {"": 3} if cfg.family == "dense" else {"": 1, "gated_": 1}
+    want = dict.fromkeys(P.ops.launch_counts(), 0)
+    for g, n in per_layer.items():
+        J = n * L
+        fwd, dx, dw = (f"junction_{g}{k}" for k in ("fwd", "dx", "dw"))
+        upd = f"junction_update_{g}dw"
+        per = {"two_pass": {fwd: r * J, dx: J, dw: J},
+               "fused_clip": {fwd: 2 * r * J, dx: 2 * J, dw: J, upd: J},
+               "fused": {fwd: r * J, dx: J, upd: J}}[kind]
+        for k, v in per.items():
+            want[k] += v * n_steps
     return want
 
 
 def train_run(P, cfg, opt, kind, card, n_steps=3):
-    """n_steps of make_train_step on full-width stablelm-3b (random
-    weights from seed 0, LMTokenPipeline batch 8 x 256): finite losses,
-    no non-finite update, exact launch counts."""
+    """n_steps of make_train_step on ``cfg`` (random weights from seed 0,
+    LMTokenPipeline batch 8 x 256): finite losses, no non-finite update,
+    memory held flat, exact launch counts."""
     ok, why = P.steps.fused_update_eligible(cfg, opt)
     require(ok == (kind != "two_pass"), f"{kind}: eligibility {ok} ({why})")
     params = P.M.init(cfg, seed=0, device="cuda")
@@ -746,7 +1077,8 @@ def train_run(P, cfg, opt, kind, card, n_steps=3):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tok = TRAIN_M
     med = statistics.median(times)
-    print(f"[train] {kind} ({why}) {cfg.name} param_dtype={cfg.param_dtype}: "
+    print(f"[train] {kind} ({why}) {cfg.name} layers={cfg.n_layers} "
+          f"param_dtype={cfg.param_dtype}: "
           f"losses {[round(v, 4) for v in losses]} nonfinite {nonfinite} "
           f"step_ms {[round(v * 1e3, 1) for v in times]} median "
           f"{med * 1e3:.1f} ms = {tok / med:.0f} tokens/s, peak_memory "
@@ -756,7 +1088,7 @@ def train_run(P, cfg, opt, kind, card, n_steps=3):
             f"{kind}: memory held grows from step to step: {held}")
     require(all(np.isfinite(losses)), f"{kind}: non-finite loss {losses}")
     require(nonfinite == [0.0] * n_steps, f"{kind}: nonfinite {nonfinite}")
-    want = _expected_launches(cfg, n_steps, kind)
+    want = _expected_launches(P, cfg, n_steps, kind)
     require(counts == want, f"{kind}: launches {counts} != {want}")
     batch = next(pipe)
     step_breakdown(lambda: step_fn(params, opt_state, batch, n_steps), med,
@@ -787,16 +1119,24 @@ def compare_train_step(P, cfg, dtype, fused, card):
     P.ops.reset_launch_counts()
     kp, ks, kl = one()
     kc = P.ops.launch_counts()
-    with mock.patch.object(bsm, "fwd", bsm.fwd_ref), \
-            mock.patch.object(bsm, "dx", bsm.dx_ref), \
-            mock.patch.object(bsm, "dw", bsm.dw_ref), \
-            mock.patch.object(bsm, "update_dw", bsm.update_dw_ref):
+    with contextlib.ExitStack() as stack:
+        for name in ("fwd", "dx", "dw", "update_dw", "gated_fwd", "gated_dx",
+                     "gated_dw", "update_gated_dw"):
+            stack.enter_context(mock.patch.object(
+                bsm, name, getattr(bsm, f"{name}_ref")))
         pp, ps, pl = one()
     torch.cuda.synchronize()
     kind = "fused_clip" if fused else "two_pass"
-    require(kc == _expected_launches(cfg, 1, kind)
+    require(kc == _expected_launches(P, cfg, 1, kind)
             and P.ops.launch_counts() == kc,
             f"comparison did not take the intended paths: {kc}")
+    # MoE in bf16: a router score that ties another to within a bf16
+    # rounding sends a token to another expert through the kernels than
+    # through the plain versions, so single elements of Adam's m differ by
+    # their whole value; m is held in fp32 only, and a weight may be
+    # rounded on both sides
+    moe_bf16 = cfg.family == "moe" and dtype == "bfloat16"
+    tol = dict(STEP_TOL[dtype], **({"m": None} if moe_bf16 else {}))
     loss_rel = abs(kl - pl) / abs(pl)
     m_err = max(rel_err(a, b) for (_, a), (_, b) in
                 zip(P.tree_items(ks["m"]), P.tree_items(ps["m"]))
@@ -805,17 +1145,19 @@ def compare_train_step(P, cfg, dtype, fused, card):
              zip(P.tree_items(kp), P.tree_items(pp)) if a.is_floating_point()]
     p_err = max(max_err(a, b) for a, b in pairs)
     # +-lr each way (2 lr, with room for lr's own fp32 rounding), plus
-    # one ulp of the stored weight
+    # one ulp of the stored weight (of both, for MoE in bf16)
     p_ok = all(bool(((a.float() - b.float()).abs()
-                     <= 2 * lr * (1 + 1e-5) + ULP[a.dtype] * b.float().abs()
-                     ).all())
+                     <= 2 * lr * (1 + 1e-5) + ULP[a.dtype] * (
+                         b.float().abs() + (a.float().abs() if moe_bf16
+                                            else 0.0))).all())
                for a, b in pairs)
-    tol = STEP_TOL[dtype]
-    print(f"[step] {kind} 2 layers {dtype} kernels vs plain versions: loss "
+    print(f"[step] {cfg.name} {kind} 2 layers {dtype} kernels vs plain "
+          f"versions: loss "
           f"{kl:.6f} vs {pl:.6f} (rel {loss_rel:.3g}, tol {tol['loss']}), "
           f"Adam m rel_err {m_err:.3g} (tol {tol['m']}), params max_abs_err "
           f"{p_err:.3g} (tol 2 lr = {2 * lr} plus one ulp: {p_ok}) [{card}]")
-    require(loss_rel <= tol["loss"] and m_err <= tol["m"] and p_ok,
+    require(loss_rel <= tol["loss"] and p_ok
+            and (tol["m"] is None or m_err <= tol["m"]),
             f"{kind} {dtype} step differs")
 
 
@@ -830,13 +1172,16 @@ STEP_TOL = {"float32": {"loss": 1e-5, "m": 1e-3},
 ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7}
 
 
-def train_phase(P, card):
-    """Full-width sparse-FFN stablelm-3b training: 3 two-pass Adam steps
-    (fp32 masters, bf16 compute), 3 fused Adam steps and 3 fused SGD
-    steps (bf16 params, fp32 slots), then one step at 2 layers through
-    the kernels and through their plain versions."""
-    cfg = P.registry.get("stablelm-3b").with_sparsity(
+def train_phase(P, card, arch, n_layers=0):
+    """Full-width sparse-FFN training of ``arch`` (depth cut to
+    ``n_layers`` when given): 3 two-pass Adam steps (fp32 masters, bf16
+    compute), 3 fused Adam steps and 3 fused SGD steps (bf16 params, fp32
+    slots), then one step at 2 layers through the kernels and through
+    their plain versions."""
+    cfg = P.registry.get(arch).with_sparsity(
         P.SparsityConfig(density=0.25, block=BS, where="ffn"))
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     sched = P.optim.cosine_schedule(3e-4, 20, 100)
     adam = P.optim.fused_adam(sched, grad_clip=1.0)
     fused_cfg = dataclasses.replace(cfg, fused_update=True,
@@ -847,22 +1192,18 @@ def train_phase(P, card):
         "fused": train_run(P, fused_cfg,
                            P.optim.fused_sgd(sched, momentum=0.9), "fused",
                            card)}
-    require(runs["fused"]["junction_dw"] == 0,
-            "the unclipped fused path launched junction_dw")
+    require(runs["fused"]["junction_dw"] == 0
+            and runs["fused"]["junction_gated_dw"] == 0,
+            "the unclipped fused path launched a dw kernel")
     for dtype in ("bfloat16", "float32"):
         for fused in (False, True):
             compare_train_step(P, cfg, dtype, fused, card)
     return {k: sum(r[k] for r in runs.values()) for k in runs["two_pass"]}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
-        print(f"chip_smoke: the port's sources are not under {ROOT / 'src'}",
-              file=sys.stderr)
-        return 1
+def load_port() -> types.SimpleNamespace:
+    """The port's modules this script drives, from the checkout beside it;
+    fp32 products in full fp32."""
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False   # full fp32 references
     torch.backends.cudnn.allow_tf32 = False
@@ -879,41 +1220,69 @@ def main() -> int:
     from repro_torch.serve import engine
     from repro_torch.train import steps
     from repro_torch.tree import tree_items
-    P = types.SimpleNamespace(
+    return types.SimpleNamespace(
         registry=registry, SparsityConfig=SparsityConfig,
         make_block_pattern=make_block_pattern, bsm=bsm, fa=fa, ops=ops,
         M=M, engine=engine, percentile=percentile, optim=optim, steps=steps,
-        LMTokenPipeline=LMTokenPipeline, tree_items=tree_items)
+        LMTokenPipeline=LMTokenPipeline, tree_items=tree_items, build=build)
 
-    card = card_line()
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
+
+def build_kernels(P) -> None:
+    """Build every kernel source (one nvcc each, all started together) and
+    print the build times and what ptxas reports."""
     t0 = time.perf_counter()
-    secs = build.build_all()
+    secs = P.build.build_all()
     print(f"[build] {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}; "
           f"wall {time.perf_counter() - t0:.1f} s")
-    for name in build.SOURCES:
-        log = build.lib_path(name).with_suffix(".log")
+    for name in P.build.SOURCES:
+        log = P.build.lib_path(name).with_suffix(".log")
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
 
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: the port's sources are not under {ROOT / 'src'}",
+              file=sys.stderr)
+        return 1
+    P = load_port()
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    build_kernels(P)
+
     timer = Timer()
     junction = junction_phase(P, timer, card)
     decode = decode_phase(P, timer, card)
-    params, serve_counts = serve_phase(P, card)
+    paths = {}
+    params, paths["serve"] = serve_phase(P, card, "stablelm-3b")
     weight_cast_phase(params, timer, card)
     del params
     torch.cuda.empty_cache()
     bwd = train_kernel_phase(P, timer, card)
-    train_counts = train_phase(P, card)
-
-    paths = {"serve": serve_counts, "train": train_counts}
+    paths["train"] = train_phase(P, card, "stablelm-3b")
+    moe, moe_plain = moe_kernel_phase(P, timer, card)
+    params, paths["moe_serve"] = serve_phase(P, card, "qwen3-moe-30b-a3b")
+    weight_cast_phase(params, timer, card)
+    del params
+    torch.cuda.empty_cache()
+    paths["moe_train"] = train_phase(P, card, "qwen3-moe-30b-a3b",
+                                     MOE_TRAIN_LAYERS)
 
     def launches(name):
         by = {p: c[name] for p, c in paths.items() if c[name]}
         return {"launches": sum(by.values()), "launches_by_path": by}
+
+    def at_e128(kind):
+        """The kernel's times at qwen3-moe's down junction (E = 128)."""
+        return {f"moe_{where}_{k}": v
+                for where, row in moe_plain[kind].items()
+                for k, v in zip(("ms", "plain_ms", "bound_ms"), row)}
 
     kernels = [
         {"name": "junction_fwd", "route": "cuda",
@@ -921,7 +1290,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/block_sparse_matmul.py:381",
          **launches("junction_fwd"), **junction,
          "train_ms": bwd["fwd"]["ms"], "train_plain_ms": bwd["fwd"]["plain_ms"],
-         "train_bound_ms": bwd["fwd"]["bound_ms"]},
+         "train_bound_ms": bwd["fwd"]["bound_ms"], **at_e128("fwd")},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",
          "replaces": "src/repro/kernels/flash_attention.py:206",
@@ -934,7 +1303,16 @@ def main() -> int:
             "name": f"junction_{name}", "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}",
             "replaces": f"src/repro/kernels/block_sparse_matmul.py:{line}",
-            **launches(f"junction_{name}"), **bwd[name]})
+            **launches(f"junction_{name}"), **bwd[name], **at_e128(name)})
+    for name, src, line in (("gated_fwd", "junction_fwd.cu", 447),
+                            ("gated_dx", "junction_dx.cu", 876),
+                            ("gated_dw", "junction_dw.cu", 1040),
+                            ("update_gated_dw", "junction_dw.cu", 1375)):
+        kernels.append({
+            "name": f"junction_{name}", "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/block_sparse_matmul.py:{line}",
+            **launches(f"junction_{name}"), **moe[name]})
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never ran on its path")
     print(card)                          # nvidia-smi's name, power.limit

@@ -3,16 +3,22 @@
 A sparse junction's params are a dict with the weight tiles
 ``w [nob, kb, bs, bs]`` and the static pattern leaves ``idx``,
 ``rev_ob``, ``rev_t``, ``rev_cnt`` (int32); a dense layer's params hold
-``w [n_in, n_out]``.  Either may carry a bias ``b [n_out]``.
+``w [n_in, n_out]``.  Either may carry a bias ``b [n_out]``.  A MoE
+expert-FFN dict (models/moe.py) is a junction pair too: per-expert
+``wg``, ``wi`` [E, ...] over one pattern and ``wo`` over another, with
+the pattern leaves under ``MOE_PATTERN_LEAVES`` and a dense ``router``.
 
 Fused BP+UP context: a fused train step (train/steps.py) hands the model a
 copy of the params in which every junction dict also carries
 ``UPDATE_HYP_LEAF`` (the optimizer's hyp row), its optimizer slots under
 the ``FUSED_SLOT_NAMES`` leaf names (slot 0: SGD momentum or Adam m,
 slot 1: Adam v; the tensors of the optimizer state themselves) and a
-``UPDATE_HEALTH_LEAF`` of zeros.  ``apply`` routes such a dict through
-``ops.junction_train_update``, whose backward updates w, b and the slots
-in place and writes the non-finite tile counts into the health leaf.
+``UPDATE_HEALTH_LEAF`` of zeros (a MoE dict: one per junction,
+``MOE_HEALTH_LEAVES``, of shape (E,)).  ``apply`` routes such a dict
+through ``ops.junction_train_update``, whose backward updates w, b and
+the slots in place and writes the non-finite tile counts into the
+health leaf.  Every other leaf of a junction dict (a MoE router) takes
+its gradient through autograd.
 """
 from __future__ import annotations
 
@@ -27,6 +33,9 @@ from repro_torch.kernels import ops
 
 Params = dict[str, Any]
 PATTERN_LEAVES = ("idx", "rev_ob", "rev_t", "rev_cnt")
+MOE_PATTERN_LEAVES = ("idx_in", "idx_out",
+                      "rev_in_ob", "rev_in_t", "rev_in_cnt",
+                      "rev_out_ob", "rev_out_t", "rev_out_cnt")
 
 UPDATE_HYP_LEAF = "upd_hyp"
 FUSED_MOM = {"w": "mom_w", "b": "mom_b",
@@ -35,12 +44,23 @@ FUSED_VEL = {"w": "vel_w", "b": "vel_b",
              "wi": "vel_wi", "wg": "vel_wg", "wo": "vel_wo"}
 FUSED_SLOT_NAMES = (FUSED_MOM, FUSED_VEL)
 UPDATE_HEALTH_LEAF = "upd_health"
-HEALTH_LEAVES = (UPDATE_HEALTH_LEAF,)
+MOE_HEALTH_LEAVES = ("upd_health_in", "upd_health_out")
+HEALTH_LEAVES = (UPDATE_HEALTH_LEAF,) + MOE_HEALTH_LEAVES
+_CONTEXT_LEAVES = frozenset((UPDATE_HYP_LEAF, *HEALTH_LEAVES,
+                             *FUSED_MOM.values(), *FUSED_VEL.values()))
 
 
 def is_junction(p) -> bool:
-    """A pattern-bearing parameter dict (a sparse junction)."""
-    return isinstance(p, dict) and "idx" in p
+    """A pattern-bearing parameter dict: a single sparse junction ("idx")
+    or a MoE expert-FFN pair sharing patterns ("idx_in")."""
+    return isinstance(p, dict) and ("idx" in p or "idx_in" in p)
+
+
+def fused_owned(key: str) -> bool:
+    """Whether leaf ``key`` of a junction dict belongs to the fused update
+    in a fused step (a weight the kernels update in place, or injected
+    context) rather than to autograd."""
+    return key in FUSED_MOM or key in _CONTEXT_LEAVES
 
 
 def normalize_slots(slots) -> tuple:
@@ -60,9 +80,13 @@ def _inject(p, ms, hyp):
                    if isinstance(v, (dict, list, tuple)) else v)
                for k, v in p.items()}
         if is_junction(p):
+            moe = "idx_in" in p
+            wl = p["wg"] if moe else p["w"]
+            zeros = torch.zeros((wl.shape[0] if wl.dim() == 5 else 1,),
+                                dtype=torch.float32, device=wl.device)
             out[UPDATE_HYP_LEAF] = hyp
-            out[UPDATE_HEALTH_LEAF] = torch.zeros(
-                (1,), dtype=torch.float32, device=p["w"].device)
+            for hk in MOE_HEALTH_LEAVES if moe else (UPDATE_HEALTH_LEAF,):
+                out[hk] = zeros.clone()
             for m, names in zip(ms, FUSED_SLOT_NAMES):
                 for k, mk in names.items():
                     if k in p and not isinstance(p[k], dict):
@@ -78,8 +102,10 @@ def inject_update_ctx(params, slots, hyp):
     """Copy of ``params`` (the containers are new, the tensors shared)
     with the fused-update context added to every junction dict: the hyp
     row, the junction's slot tensors taken from the mirrored trees in
-    ``slots`` (anything ``normalize_slots`` accepts) and a float32 zeros
-    health leaf of shape (1,).  Dense leaves ride through untouched."""
+    ``slots`` (anything ``normalize_slots`` accepts) and float32 zeros
+    health leaves, of shape (E,) for E junction units (the experts of a
+    MoE dict; (1,) for a single junction).  Dense leaves ride through
+    untouched."""
     slots = normalize_slots(slots)
     if len(slots) > len(FUSED_SLOT_NAMES):
         raise ValueError(f"{len(slots)} accumulator slots, but the kernel "

@@ -1,7 +1,7 @@
 // Device helpers shared by the junction kernels (junction_fwd.cu,
 // junction_dx.cu, junction_dw.cu): element conversion, rounding to the
-// operand type, and the activation table of block_sparse_matmul.act_fwd /
-// act_bwd.  Built without --use_fast_math: the Adam guards and isfinite()
+// operand type, the activation table of block_sparse_matmul.act_fwd /
+// act_bwd, and the branch gradients of the gated junction.  Built without --use_fast_math: the Adam guards and isfinite()
 // of the update kernel need IEEE semantics.
 #pragma once
 
@@ -90,6 +90,18 @@ __device__ __forceinline__ float dz_of(const T* dy, const T* res, size_t off,
   const float f = d * act_bwd(to_f32(res[off]), act);
   *dzf = f;
   return round_to<T>(f);
+}
+
+// The gated junction's branch gradients at `off`, from its residuals g and
+// u (stored in T): dz_g = dh * u * silu'(g) and dz_u = dh * silu(g), each
+// computed in fp32 and rounded to T (block_sparse_matmul._gated_dz).
+template <typename T>
+__device__ __forceinline__ void gated_dz(const T* dh, const T* g, const T* u,
+                                         size_t off, float* dzg, float* dzu) {
+  const float d = to_f32(dh[off]);
+  const float gv = to_f32(g[off]);
+  *dzg = round_to<T>(d * to_f32(u[off]) * act_bwd(gv, kSilu));
+  *dzu = round_to<T>(d * act_fwd(gv, kSilu));
 }
 
 }  // namespace junction

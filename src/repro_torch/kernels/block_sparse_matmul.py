@@ -1,7 +1,7 @@
 """Block-sparse junction kernels: the activation table, the hyp-column
 registry, the plain PyTorch versions and the wrappers of the CUDA kernels
 ``csrc/junction_fwd.cu``, ``csrc/junction_dx.cu`` and
-``csrc/junction_dw.cu``.
+``csrc/junction_dw.cu``, each in a plain and a gated form.
 
 For E junction units sharing one block pattern (idx [nob, kb] and its
 reverse rev_ob / rev_t / rev_cnt [nib, fb]):
@@ -15,6 +15,21 @@ reverse rev_ob / rev_t / rev_cnt [nib, fb]):
 * ``update_dw`` the dw reduction followed by one optimizer step
                 (``_epilogue_step``) applied in place to w, b and the fp32
                 slots, with an optional [E] count of non-finite (e, o) tiles.
+
+The gated junction (the SwiGLU expert FFN) has two weight streams wg, wi
+over one pattern and no bias or activation argument:
+
+* ``gated_fwd``       h = silu(g) * u with g = x @ Wg, u = x @ Wi, both fp32
+                      sums; with ``save_res`` g and u in x's dtype;
+* ``gated_dx``        dx through both reverse weight streams from
+                      dz_g = dh * u * silu'(g) and dz_u = dh * silu(g);
+* ``gated_dw``        (dwg, dwi) in fp32;
+* ``update_gated_dw`` the gated_dw reduction and one optimizer step on
+                      both streams in place, a tile counted once when
+                      either branch goes non-finite.
+
+dz_g and dz_u are recomputed in fp32 from the saved g and u (rounded to
+x's dtype) and rounded to dh's dtype before the products.
 
 dz = (dy * act'(res)).astype(dy.dtype) is recomputed from the saved
 residual (y for relu/sigmoid, the pre-activation for silu/gelu): it is
@@ -107,20 +122,22 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check_fwd(x, w, idx, bias, act):
+    """``bias`` None: the gated forward, which takes none."""
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown activation {act!r}")
-    if x.dim() != 3 or w.dim() != 5 or idx.dim() != 2 or bias.dim() != 2:
+    if x.dim() != 3 or w.dim() != 5 or idx.dim() != 2 or (
+            bias is not None and bias.dim() != 2):
         raise ValueError("expected x [E,M,n_in], w [E,nob,kb,bs,bs], "
                          "idx [nob,kb], bias [E,n_out]")
     E, M, n_in = x.shape
     _, nob, kb, bs, bs2 = w.shape
     if (w.shape[0] != E or bs != bs2 or n_in % bs
             or tuple(idx.shape) != (nob, kb)
-            or tuple(bias.shape) != (E, nob * bs)):
+            or (bias is not None and tuple(bias.shape) != (E, nob * bs))):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, idx {tuple(idx.shape)}, "
-                         f"bias {tuple(bias.shape)}")
-    if w.dtype != x.dtype or bias.dtype != x.dtype:
+                         f"bias {None if bias is None else tuple(bias.shape)}")
+    if w.dtype != x.dtype or (bias is not None and bias.dtype != x.dtype):
         raise ValueError("w and bias must already be in x's dtype")
     if idx.dtype != torch.int32:
         raise ValueError("idx must be int32")
@@ -177,6 +194,20 @@ def _check_dw(x, dy, idx, res, act):
     _check_res(res, dy, act)
 
 
+def _check_pair(wg, wi):
+    """The gate's second weight stream matches the first."""
+    if wi.shape != wg.shape or wi.dtype != wg.dtype:
+        raise ValueError(f"wi must be shaped and typed like wg: wg "
+                         f"{tuple(wg.shape)} {wg.dtype}, wi "
+                         f"{tuple(wi.shape)} {wi.dtype}")
+
+
+def _check_u(u, g):
+    if u is None or u.shape != g.shape or u.dtype != g.dtype:
+        raise ValueError("the gated backward needs u shaped and typed like "
+                         "g and dh")
+
+
 def _check_cuda(lead, bs, blocks, name, **tensors):
     """Device, dtype, block size and contiguity checks before a launch;
     ``lead`` sets the device and the operand dtype."""
@@ -208,6 +239,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _kernel(lib: str, name: str, n_ptr: int, n_int: int):
+    """The C entry ``name`` of kernel library ``lib`` (built at first
+    use): ``n_ptr`` pointers, ``n_int`` ints, then the stream."""
+    from repro_torch.kernels import build
+    fn = getattr(build.load(lib), name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _raise_on(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -236,15 +278,6 @@ def fwd_ref(x, w, idx, bias, act: str = "none", save_pre: bool = False):
 _FWD_BLOCKS = (32, 64, 128)
 
 
-def _fwd_kernel():
-    from repro_torch.kernels import build
-    fn = build.load("junction_fwd").junction_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def fwd(x, w, idx, bias, act: str = "none", save_pre: bool = False):
     """x [E, M, nib*bs], w [E, nob, kb, bs, bs], idx [nob, kb] int32,
     bias [E, nob*bs] -> y [E, M, nob*bs] in x's dtype, or (y, pre) with
@@ -264,7 +297,7 @@ def fwd(x, w, idx, bias, act: str = "none", save_pre: bool = False):
     pre = torch.empty_like(y) if save_pre else None
     if M:
         with torch.cuda.device(x.device):
-            err = _fwd_kernel()(
+            err = _kernel("junction_fwd", "junction_fwd", 6, 8)(
                 x.data_ptr(), w.data_ptr(), idx.data_ptr(), bias.data_ptr(),
                 y.data_ptr(), _ptr(pre), E, M, n_in // bs, nob, kb, bs,
                 ACTIVATIONS.index(act), _DTYPE_CODE[x.dtype],
@@ -275,6 +308,62 @@ def fwd(x, w, idx, bias, act: str = "none", save_pre: bool = False):
 
 
 fwd.launches = 0
+
+
+# ------------------------------------------------------------- gated fwd
+def gated_fwd_ref(x, wg, wi, idx, save_res: bool = False):
+    """Plain version of the gated forward kernel: the two fp32 sums over
+    the kb slots side by side, h = silu(g) * u from the fp32 sums, one
+    cast to x's dtype.  Returns h, or (h, g, u) with ``save_res`` (g and
+    u rounded to x's dtype)."""
+    _check_fwd(x, wg, idx, None, "silu")
+    _check_pair(wg, wi)
+    E, M, n_in = x.shape
+    _, nob, kb, bs, _ = wg.shape
+    xb = x.reshape(E, M, n_in // bs, bs)
+    at = _acc(x)
+    ag = torch.zeros((E, M, nob, bs), dtype=at, device=x.device)
+    au = torch.zeros_like(ag)
+    for k in range(kb):
+        xk = xb[:, :, idx[:, k].long(), :].to(at)            # [E, M, nob, bs]
+        ag += torch.einsum("emob,eobc->emoc", xk, wg[:, :, k].to(at))
+        au += torch.einsum("emob,eobc->emoc", xk, wi[:, :, k].to(at))
+    g = ag.reshape(E, M, nob * bs)
+    u = au.reshape(E, M, nob * bs)
+    h = (act_fwd(g, "silu") * u).to(x.dtype)
+    return (h, g.to(x.dtype), u.to(x.dtype)) if save_res else h
+
+
+def gated_fwd(x, wg, wi, idx, save_res: bool = False):
+    """x [E, M, nib*bs], wg and wi [E, nob, kb, bs, bs] (x's dtype), idx
+    [nob, kb] int32 -> h = silu(x @ Wg) * (x @ Wi) [E, M, nob*bs] in x's
+    dtype, or (h, g, u) with ``save_res``.  x is read once for both
+    branches.  CPU: ``gated_fwd_ref``; CUDA: ``junction_gated_fwd``
+    (``gated_fwd.launches``)."""
+    if _route(x, "junction gated_fwd"):
+        return gated_fwd_ref(x, wg, wi, idx, save_res)
+    _check_fwd(x, wg, idx, None, "silu")
+    _check_pair(wg, wi)
+    E, M, n_in = x.shape
+    _, nob, kb, bs, _ = wg.shape
+    _check_cuda(x, bs, _FWD_BLOCKS, "junction_gated_fwd", x=x, wg=wg, wi=wi,
+                idx=idx)
+    h = torch.empty((E, M, nob * bs), dtype=x.dtype, device=x.device)
+    g = torch.empty_like(h) if save_res else None
+    u = torch.empty_like(h) if save_res else None
+    if M:
+        with torch.cuda.device(x.device):
+            err = _kernel("junction_fwd", "junction_gated_fwd", 7, 7)(
+                x.data_ptr(), wg.data_ptr(), wi.data_ptr(), idx.data_ptr(),
+                h.data_ptr(), _ptr(g), _ptr(u), E, M, n_in // bs, nob, kb,
+                bs, _DTYPE_CODE[x.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "junction_gated_fwd")
+        gated_fwd.launches += 1
+    return (h, g, u) if save_res else h
+
+
+gated_fwd.launches = 0
 
 
 # -------------------------------------------------------------------- dx
@@ -302,15 +391,6 @@ def dx_ref(dy, w, rev_ob, rev_t, rev_cnt, res=None, act: str = "none"):
 _BWD_BLOCKS = (32, 64, 128)
 
 
-def _dx_kernel():
-    from repro_torch.kernels import build
-    fn = build.load("junction_dx").junction_dx
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def dx(dy, w, rev_ob, rev_t, rev_cnt, res=None, act: str = "none"):
     """dy [E, M, nob*bs] -> dx [E, M, nib*bs] in dy's dtype, through the
     reverse pattern against the forward-layout w [E, nob, kb, bs, bs]
@@ -328,7 +408,7 @@ def dx(dy, w, rev_ob, rev_t, rev_cnt, res=None, act: str = "none"):
     out = torch.empty((E, M, nib * bs), dtype=dy.dtype, device=dy.device)
     if M:
         with torch.cuda.device(dy.device):
-            err = _dx_kernel()(
+            err = _kernel("junction_dx", "junction_dx", 7, 9)(
                 dy.data_ptr(), _ptr(res if act != "none" else None),
                 w.data_ptr(), rev_ob.data_ptr(), rev_t.data_ptr(),
                 rev_cnt.data_ptr(), out.data_ptr(), E, M, nob, kb, nib, fb,
@@ -340,6 +420,75 @@ def dx(dy, w, rev_ob, rev_t, rev_cnt, res=None, act: str = "none"):
 
 
 dx.launches = 0
+
+
+# -------------------------------------------------------------- gated dx
+def _gated_dz(dh, g, u):
+    """(dz_g, dz_u) in dh's dtype: dh * u * silu'(g) and dh * silu(g),
+    computed in the accumulation dtype from the rounded g and u."""
+    at = _acc(dh)
+    dhf, gf, uf = dh.to(at), g.to(at), u.to(at)
+    return ((dhf * uf * act_bwd(gf, "silu")).to(dh.dtype),
+            (dhf * act_fwd(gf, "silu")).to(dh.dtype))
+
+
+def _check_gated_dx(dh, wg, wi, rev_ob, rev_t, rev_cnt, g, u):
+    _check_dx(dh, wg, rev_ob, rev_t, rev_cnt, g, "silu")
+    _check_pair(wg, wi)
+    _check_u(u, g)
+
+
+def gated_dx_ref(dh, wg, wi, rev_ob, rev_t, rev_cnt, g, u):
+    """Plain version of the gated dx kernel: both branch gradients rounded
+    to dh's dtype, both reverse weight streams summed per slot in fp32,
+    padded slots masked to exact zeros, one cast to dh's dtype."""
+    _check_gated_dx(dh, wg, wi, rev_ob, rev_t, rev_cnt, g, u)
+    E, M, _ = dh.shape
+    _, nob, _, bs, _ = wg.shape
+    nib, fb = rev_ob.shape
+    at = _acc(dh)
+    dzg, dzu = (z.reshape(E, M, nob, bs) for z in _gated_dz(dh, g, u))
+    acc = torch.zeros((E, M, nib, bs), dtype=at, device=dh.device)
+    for f in range(fb):
+        ob, t = rev_ob[:, f].long(), rev_t[:, f].long()
+        part = (torch.einsum("emic,eiac->emia", dzg[:, :, ob, :].to(at),
+                             wg[:, ob, t].to(at))
+                + torch.einsum("emic,eiac->emia", dzu[:, :, ob, :].to(at),
+                               wi[:, ob, t].to(at)))
+        valid = (rev_cnt > f)[None, None, :, None]
+        acc += torch.where(valid, part, 0.0)
+    return acc.reshape(E, M, nib * bs).to(dh.dtype)
+
+
+def gated_dx(dh, wg, wi, rev_ob, rev_t, rev_cnt, g, u):
+    """dh [E, M, nob*bs] with the forward's residuals g, u (same shape and
+    dtype) -> dx [E, M, nib*bs] in dh's dtype, through the reverse
+    pattern against the forward-layout wg and wi (already in dh's dtype).
+    CPU: ``gated_dx_ref``; CUDA: ``junction_gated_dx``
+    (``gated_dx.launches``)."""
+    if _route(dh, "junction gated_dx"):
+        return gated_dx_ref(dh, wg, wi, rev_ob, rev_t, rev_cnt, g, u)
+    _check_gated_dx(dh, wg, wi, rev_ob, rev_t, rev_cnt, g, u)
+    E, M, _ = dh.shape
+    _, nob, kb, bs, _ = wg.shape
+    nib, fb = rev_ob.shape
+    _check_cuda(dh, bs, _BWD_BLOCKS, "junction_gated_dx", dh=dh, wg=wg,
+                wi=wi, rev_ob=rev_ob, rev_t=rev_t, rev_cnt=rev_cnt, g=g, u=u)
+    out = torch.empty((E, M, nib * bs), dtype=dh.dtype, device=dh.device)
+    if M:
+        with torch.cuda.device(dh.device):
+            err = _kernel("junction_dx", "junction_gated_dx", 9, 8)(
+                dh.data_ptr(), g.data_ptr(), u.data_ptr(), wg.data_ptr(),
+                wi.data_ptr(), rev_ob.data_ptr(), rev_t.data_ptr(),
+                rev_cnt.data_ptr(), out.data_ptr(), E, M, nob, kb, nib, fb,
+                bs, _DTYPE_CODE[dh.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "junction_gated_dx")
+        gated_dx.launches += 1
+    return out
+
+
+gated_dx.launches = 0
 
 
 # -------------------------------------------------------------------- dw
@@ -363,19 +512,6 @@ def dw_ref(x, dy, idx, res=None, act: str = "none", with_bias: bool = True):
     return dwv, db
 
 
-def _dw_kernel(name):
-    from repro_torch.kernels import build
-    fn = getattr(build.load("junction_dw"), name)
-    if name == "junction_dw":
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
-    else:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 \
-            + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def dw(x, dy, idx, res=None, act: str = "none", with_bias: bool = True):
     """x [E, M, nib*bs], dy [E, M, nob*bs] -> (dw [E, nob, kb, bs, bs]
     fp32, db [E, nob*bs] fp32 or None).  CPU: ``dw_ref``; CUDA:
@@ -393,7 +529,7 @@ def dw(x, dy, idx, res=None, act: str = "none", with_bias: bool = True):
     db = (torch.empty((E, nob * bs), dtype=torch.float32, device=x.device)
           if with_bias else None)
     with torch.cuda.device(x.device):
-        err = _dw_kernel("junction_dw")(
+        err = _kernel("junction_dw", "junction_dw", 6, 8)(
             x.data_ptr(), dy.data_ptr(), _ptr(res if act != "none" else None),
             idx.data_ptr(), dwv.data_ptr(), _ptr(db), E, M, n_in // bs, nob,
             kb, bs, ACTIVATIONS.index(act), _DTYPE_CODE[x.dtype],
@@ -404,6 +540,61 @@ def dw(x, dy, idx, res=None, act: str = "none", with_bias: bool = True):
 
 
 dw.launches = 0
+
+
+# -------------------------------------------------------------- gated dw
+def _check_gated_dw(x, dh, idx, g, u):
+    _check_dw(x, dh, idx, g, "silu")
+    _check_u(u, g)
+
+
+def gated_dw_ref(x, dh, idx, g, u):
+    """Plain version of the gated dw kernel: (dwg, dwi) [E, nob, kb, bs,
+    bs] fp32, each an fp32 sum over M of x against its branch gradient
+    rounded to dh's dtype."""
+    _check_gated_dw(x, dh, idx, g, u)
+    E, M, n_in = x.shape
+    nob, kb = idx.shape
+    bs = dh.shape[2] // nob
+    at = _acc(x)
+    dzg, dzu = (z.reshape(E, M, nob, bs).to(at) for z in _gated_dz(dh, g, u))
+    xb = x.reshape(E, M, n_in // bs, bs)
+    dwg = torch.empty((E, nob, kb, bs, bs), dtype=at, device=x.device)
+    dwi = torch.empty_like(dwg)
+    for k in range(kb):
+        xk = xb[:, :, idx[:, k].long(), :].to(at)            # [E, M, nob, bs]
+        dwg[:, :, k] = torch.einsum("emoa,emoc->eoac", xk, dzg)
+        dwi[:, :, k] = torch.einsum("emoa,emoc->eoac", xk, dzu)
+    return dwg, dwi
+
+
+def gated_dw(x, dh, idx, g, u):
+    """x [E, M, nib*bs], dh, g, u [E, M, nob*bs] -> (dwg, dwi)
+    [E, nob, kb, bs, bs] fp32.  CPU: ``gated_dw_ref``; CUDA:
+    ``junction_gated_dw`` (``gated_dw.launches``)."""
+    if _route(x, "junction gated_dw"):
+        return gated_dw_ref(x, dh, idx, g, u)
+    _check_gated_dw(x, dh, idx, g, u)
+    E, M, n_in = x.shape
+    nob, kb = idx.shape
+    bs = dh.shape[2] // nob
+    _check_cuda(x, bs, _BWD_BLOCKS, "junction_gated_dw", x=x, dh=dh, idx=idx,
+                g=g, u=u)
+    dwg = torch.empty((E, nob, kb, bs, bs), dtype=torch.float32,
+                      device=x.device)
+    dwi = torch.empty_like(dwg)
+    with torch.cuda.device(x.device):
+        err = _kernel("junction_dw", "junction_gated_dw", 7, 7)(
+            x.data_ptr(), dh.data_ptr(), g.data_ptr(), u.data_ptr(),
+            idx.data_ptr(), dwg.data_ptr(), dwi.data_ptr(), E, M, n_in // bs,
+            nob, kb, bs, _DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "junction_gated_dw")
+    gated_dw.launches += 1
+    return dwg, dwi
+
+
+gated_dw.launches = 0
 
 
 # ------------------------------------------------------- fused update_dw
@@ -481,6 +672,36 @@ def _check_update(x, dy, idx, res, w, b, mom, mom_b, vel, vel_b, act,
                 raise ValueError(f"{name} must be fp32 shaped like b")
 
 
+def _hyp_cols(hyp, E: int, ndim: int):
+    """h(col) of ``_epilogue_step``: hyp column ``col`` shaped to broadcast
+    against an [E, ...] tensor of ``ndim`` dims."""
+    return lambda c: hyp[:, c].reshape((E,) + (1,) * (ndim - 1))
+
+
+def _step_in_place(hyp, acc, w, mom, vel, nob: int) -> torch.Tensor:
+    """``_epilogue_step`` of one stream (w [E, ...] with its fp32 slots)
+    from its fp32 gradient ``acc``, written back in place; returns the
+    [E, nob] verdict: True where tile (e, o) stayed finite."""
+    E = w.shape[0]
+    nw, nm, nv, fin = _epilogue_step(_hyp_cols(hyp, E, w.dim()), acc,
+                                     w.float(), mom, vel)
+    ok = torch.ones((E, nob), dtype=torch.bool, device=w.device)
+    for t in fin:
+        ok &= torch.isfinite(t).reshape(E, nob, -1).all(dim=2)
+    with torch.no_grad():
+        w.copy_(nw)
+        if mom is not None:
+            mom.copy_(nm)
+        if vel is not None:
+            vel.copy_(nv)
+    return ok
+
+
+def _health(ok, with_health: bool):
+    """The [E] int32 count of non-finite (e, o) tiles, or None."""
+    return (~ok).sum(dim=1).to(torch.int32) if with_health else None
+
+
 def update_dw_ref(x, dy, idx, res, w, b, mom, mom_b, hyp, *, vel=None,
                   vel_b=None, act: str = "none", with_bias: bool = True,
                   with_health: bool = False):
@@ -490,38 +711,13 @@ def update_dw_ref(x, dy, idx, res, w, b, mom, mom_b, hyp, *, vel=None,
     update went non-finite (None unless ``with_health``)."""
     _check_update(x, dy, idx, res, w, b, mom, mom_b, vel, vel_b, act,
                   with_bias)
-    E = x.shape[0]
     nob = idx.shape[0]
-    hyp = normalize_hyp(hyp, E).to(x.device)
+    hyp = normalize_hyp(hyp, x.shape[0]).to(x.device)
     acc, accb = dw_ref(x, dy, idx, res, act, with_bias)
-
-    def hcol(ndim):
-        return lambda c: hyp[:, c].reshape((E,) + (1,) * (ndim - 1))
-
-    nw, nm, nv, fin = _epilogue_step(hcol(5), acc, w.float(), mom, vel)
-    ok = torch.ones((E, nob), dtype=torch.bool, device=x.device)
-    for t in fin:
-        ok &= torch.isfinite(t).flatten(2).all(dim=2)
+    ok = _step_in_place(hyp, acc, w, mom, vel, nob)
     if with_bias:
-        nb, nmb, nvb, finb = _epilogue_step(hcol(2), accb, b.float(), mom_b,
-                                            vel_b)
-        for t in finb:
-            ok &= torch.isfinite(t).reshape(E, nob, -1).all(dim=2)
-    with torch.no_grad():
-        w.copy_(nw)
-        if mom is not None:
-            mom.copy_(nm)
-        if vel is not None:
-            vel.copy_(nv)
-        if with_bias:
-            b.copy_(nb)
-            if mom is not None:
-                mom_b.copy_(nmb)
-            if vel is not None:
-                vel_b.copy_(nvb)
-    if not with_health:
-        return None
-    return (~ok).sum(dim=1).to(torch.int32)
+        ok &= _step_in_place(hyp, accb, b, mom_b, vel_b, nob)
+    return _health(ok, with_health)
 
 
 def update_dw(x, dy, idx, res, w, b, mom, mom_b, hyp, *, vel=None,
@@ -557,7 +753,7 @@ def update_dw(x, dy, idx, res, w, b, mom, mom_b, hyp, *, vel=None,
     bad = torch.zeros((E, nob), dtype=torch.int32, device=x.device)
     health = torch.empty((E,), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _dw_kernel("junction_update_dw")(
+        err = _kernel("junction_dw", "junction_update_dw", 13, 8)(
             x.data_ptr(), dy.data_ptr(), _ptr(res if act != "none" else None),
             idx.data_ptr(), hyp.data_ptr(), w.data_ptr(), _ptr(b), _ptr(mom),
             _ptr(mom_b), _ptr(vel), _ptr(vel_b), bad.data_ptr(),
@@ -570,3 +766,77 @@ def update_dw(x, dy, idx, res, w, b, mom, mom_b, hyp, *, vel=None,
 
 
 update_dw.launches = 0
+
+
+# ------------------------------------------------ fused update_gated_dw
+def _check_gated_update(x, dh, idx, g, u, wg, wi, mg, mi, vg, vi):
+    _check_gated_dw(x, dh, idx, g, u)
+    _check_pair(wg, wi)
+    E = x.shape[0]
+    nob, kb = idx.shape
+    bs = dh.shape[2] // nob
+    if tuple(wg.shape) != (E, nob, kb, bs, bs) or wg.dtype != x.dtype:
+        raise ValueError(f"wg must be [E, nob, kb, bs, bs] in x's dtype, got "
+                         f"{tuple(wg.shape)} {wg.dtype}")
+    if (mg is None) != (mi is None) or (vg is None) != (vi is None):
+        raise ValueError("a gated update takes each slot for both branches")
+    if vg is not None and mg is None:
+        raise ValueError("the Adam v slots require the m slots too")
+    for name, s in (("mg", mg), ("mi", mi), ("vg", vg), ("vi", vi)):
+        if s is not None and (s.dtype != torch.float32
+                              or s.shape != wg.shape):
+            raise ValueError(f"{name} must be fp32 shaped like wg")
+
+
+def update_gated_dw_ref(x, dh, idx, g, u, wg, wi, mg, mi, hyp, *, vg=None,
+                        vi=None, with_health: bool = False):
+    """Plain version of the fused gated update: ``gated_dw_ref``'s two
+    gradients, then ``_epilogue_step`` with unit e's hyp row on each
+    branch, written in place into wg, wi and their fp32 slots.  Returns
+    the [E] int32 count of (e, o) tiles where either branch went
+    non-finite, each tile counted once (None unless ``with_health``)."""
+    _check_gated_update(x, dh, idx, g, u, wg, wi, mg, mi, vg, vi)
+    nob = idx.shape[0]
+    hyp = normalize_hyp(hyp, x.shape[0]).to(x.device)
+    accg, acci = gated_dw_ref(x, dh, idx, g, u)
+    ok = _step_in_place(hyp, accg, wg, mg, vg, nob)
+    ok &= _step_in_place(hyp, acci, wi, mi, vi, nob)
+    return _health(ok, with_health)
+
+
+def update_gated_dw(x, dh, idx, g, u, wg, wi, mg, mi, hyp, *, vg=None,
+                    vi=None, with_health: bool = False):
+    """The fused BP+UP stage of the gated junction: the ``gated_dw``
+    reductions, then one optimizer step applied in place to wg and wi
+    [E, nob, kb, bs, bs] (x's dtype) and their fp32 slots (mg / mi alone:
+    SGD+momentum, plus vg / vi: Adam) from ``hyp`` (any shape
+    ``normalize_hyp`` accepts).  Returns the [E] int32 non-finite tile
+    counts, or None unless ``with_health``.  CPU:
+    ``update_gated_dw_ref``; CUDA: ``junction_update_gated_dw``
+    (``update_gated_dw.launches``)."""
+    if _route(x, "junction update_gated_dw"):
+        return update_gated_dw_ref(x, dh, idx, g, u, wg, wi, mg, mi, hyp,
+                                   vg=vg, vi=vi, with_health=with_health)
+    _check_gated_update(x, dh, idx, g, u, wg, wi, mg, mi, vg, vi)
+    E, M, n_in = x.shape
+    nob, kb = idx.shape
+    bs = dh.shape[2] // nob
+    hyp = normalize_hyp(hyp, E).to(x.device)
+    _check_cuda(x, bs, _BWD_BLOCKS, "junction_update_gated_dw", x=x, dh=dh,
+                idx=idx, g=g, u=u, wg=wg, wi=wi, mg=mg, mi=mi, vg=vg, vi=vi,
+                hyp=hyp)
+    bad = torch.zeros((E, nob), dtype=torch.int32, device=x.device)
+    health = torch.empty((E,), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernel("junction_dw", "junction_update_gated_dw", 14, 7)(
+            x.data_ptr(), dh.data_ptr(), g.data_ptr(), u.data_ptr(),
+            idx.data_ptr(), hyp.data_ptr(), wg.data_ptr(), wi.data_ptr(),
+            _ptr(mg), _ptr(mi), _ptr(vg), _ptr(vi), bad.data_ptr(),
+            health.data_ptr(), E, M, n_in // bs, nob, kb, bs,
+            _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "junction_update_gated_dw")
+    update_gated_dw.launches += 1
+    return health if with_health else None
+
+
+update_gated_dw.launches = 0

@@ -10,12 +10,17 @@ is E units sharing one pattern.  The weight is cast to x's dtype on every
 call, outside the Function, so its gradient is the fp32 kernel sum
 rounded to x's dtype and widened back to the master's dtype, as the
 reference's does; a junction without bias gets a zero bias that takes no
-gradient.
+gradient.  ``wi=`` (shaped like w) makes it the gated junction
+silu(x @ w) * (x @ wi) (the MoE expert FFN's gate), one forward through
+``bsm.gated_fwd`` saving (g, u) and a backward through ``bsm.gated_dx``
+and ``bsm.gated_dw``; it takes no bias and no activation.
 
 ``junction_train_update`` is the fused BP+UP twin: the same forward, but
 its backward runs ``dx`` against the old weights and then ``update_dw``,
 which applies the optimizer step to w, b and the fp32 slots in place
-(under ``no_grad``), so the weight gradient never reaches device memory.
+(under ``no_grad``), so the weight gradient never reaches device memory;
+with ``wi=`` its backward runs ``gated_dx`` and then ``update_gated_dw``
+on both weight streams.
 It returns no gradient for those tensors; with a ``health`` tensor it
 writes the per-unit count of non-finite (e, o) update tiles into it.
 The wrappers pick the CUDA kernel for a CUDA tensor and the plain
@@ -30,6 +35,10 @@ from repro_torch.kernels import flash_attention as fa
 
 _COUNTED = {"junction_fwd": bsm.fwd, "junction_dx": bsm.dx,
             "junction_dw": bsm.dw, "junction_update_dw": bsm.update_dw,
+            "junction_gated_fwd": bsm.gated_fwd,
+            "junction_gated_dx": bsm.gated_dx,
+            "junction_gated_dw": bsm.gated_dw,
+            "junction_update_gated_dw": bsm.update_gated_dw,
             "flash_decode": fa.flash_decode}
 
 
@@ -120,6 +129,55 @@ class _JunctionUpdate(torch.autograd.Function):
         return (dxv,) + (None,) * 11
 
 
+class _GatedJunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x3, wg5, wi5, idx, rev_ob, rev_t, rev_cnt):
+        h, g, u = bsm.gated_fwd(x3, wg5, wi5, idx, save_res=True)
+        ctx.save_for_backward(x3, wg5, wi5, g, u, idx, rev_ob, rev_t,
+                              rev_cnt)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        x3, wg5, wi5, g, u, idx, rev_ob, rev_t, rev_cnt = ctx.saved_tensors
+        dh = dh.contiguous()
+        dxv = (bsm.gated_dx(dh, wg5, wi5, rev_ob, rev_t, rev_cnt, g, u)
+               if ctx.needs_input_grad[0] else None)
+        dwg = dwi = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            dwg, dwi = bsm.gated_dw(x3, dh, idx, g, u)
+            dwg, dwi = dwg.to(wg5.dtype), dwi.to(wi5.dtype)
+        return dxv, dwg, dwi, None, None, None, None
+
+
+class _GatedJunctionUpdate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x3, wg5, wi5, idx, rev_ob, rev_t, rev_cnt, slots, hyp,
+                health):
+        h, g, u = bsm.gated_fwd(x3, wg5, wi5, idx, save_res=True)
+        # updated in place by the backward: attributes, not saved tensors
+        ctx.wg5, ctx.wi5, ctx.slots, ctx.hyp, ctx.health = (wg5, wi5, slots,
+                                                            hyp, health)
+        ctx.save_for_backward(x3, g, u, idx, rev_ob, rev_t, rev_cnt)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        x3, g, u, idx, rev_ob, rev_t, rev_cnt = ctx.saved_tensors
+        dh = dh.contiguous()
+        # BP reads the old weights: dx is queued before the update
+        dxv = bsm.gated_dx(dh, ctx.wg5, ctx.wi5, rev_ob, rev_t, rev_cnt, g,
+                           u)
+        mg, mi, vg, vi = ctx.slots
+        with torch.no_grad():
+            flags = bsm.update_gated_dw(
+                x3, dh, idx, g, u, ctx.wg5, ctx.wi5, mg, mi, ctx.hyp, vg=vg,
+                vi=vi, with_health=ctx.health is not None)
+            if ctx.health is not None:
+                ctx.health.copy_(flags.to(ctx.health.dtype))
+        return (dxv,) + (None,) * 9
+
+
 def _lift(x, w, bias):
     """(single, lead, x3, w5, b2): the E=1 squeeze of a 4-D weight."""
     if w.dim() == 4:
@@ -128,52 +186,78 @@ def _lift(x, w, bias):
     return False, None, x, w, bias
 
 
-def junction_matmul(x, w, idx, rev_ob, rev_t, rev_cnt, *, bias=None,
-                    act: str = "none"):
-    """y = act(x @ W_sparse + bias) through the pattern; differentiable
-    in x, w and bias through the dx and dw kernels."""
+def junction_matmul(x, w, idx, rev_ob, rev_t, rev_cnt, *, wi=None,
+                    bias=None, act: str = "none"):
+    """y = act(x @ W_sparse + bias) through the pattern, or with ``wi``
+    the gate silu(x @ W) * (x @ Wi); differentiable in x and the weights
+    (and bias) through the dx and dw kernels."""
+    if wi is not None and (bias is not None or act != "none"):
+        raise ValueError("gated junction fixes act=silu-gate and takes no "
+                         "bias")
     single, lead, x3, w5, b2 = _lift(x, w, bias)
     E = x3.shape[0]
     _, nob, _, bs, _ = w5.shape
+    x3 = x3.contiguous()
+    w5 = w5.to(x.dtype).contiguous()
+    if wi is not None:
+        wi5 = (wi[None] if single else wi).to(x.dtype).contiguous()
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x3, w5, wi5)):
+            y = _GatedJunction.apply(x3, w5, wi5, idx, rev_ob, rev_t,
+                                     rev_cnt)
+        else:   # inference: no residuals to save
+            y = bsm.gated_fwd(x3, w5, wi5, idx)
+        return y.reshape(*lead, nob * bs) if single else y
     b = (torch.zeros((E, nob * bs), dtype=x.dtype, device=x.device)
-         if b2 is None else b2.to(x.dtype))
-    args = (x3.contiguous(), w5.to(x.dtype).contiguous(), b.contiguous())
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        y = _Junction.apply(*args, idx, rev_ob, rev_t, rev_cnt, act,
+         if b2 is None else b2.to(x.dtype)).contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x3, w5, b)):
+        y = _Junction.apply(x3, w5, b, idx, rev_ob, rev_t, rev_cnt, act,
                             bias is not None)
     else:       # inference: no residual to save
-        y = bsm.fwd(args[0], args[1], idx, args[2], act)
+        y = bsm.fwd(x3, w5, idx, b, act)
     return y.reshape(*lead, nob * bs) if single else y
 
 
 def junction_train_update(x, w, idx, rev_ob, rev_t, rev_cnt, *, hyp,
-                          bias=None, act: str = "none", mom=None, mom_b=None,
-                          vel=None, vel_b=None, health=None):
+                          wi=None, bias=None, act: str = "none", mom=None,
+                          mom_wi=None, mom_b=None, vel=None, vel_wi=None,
+                          vel_b=None, health=None):
     """The fused BP+UP junction: forward as ``junction_matmul``; its
-    backward updates w, bias and the fp32 slots in place (mom alone:
-    SGD+momentum, mom and vel: Adam, none: SGD) from ``hyp`` (the shared
+    backward updates w (and wi, for the gate), bias and the fp32 slots in
+    place (mom alone: SGD+momentum, mom and vel: Adam, none: SGD; the
+    gate takes mom_wi / vel_wi with them) from ``hyp`` (the shared
     (HYP_K,) row, a legacy (2,) pair, or a per-unit [E, 2] / [E, HYP_K]
     table) and writes the [E] non-finite tile counts into ``health``
     (float32 zeros of shape (E,), (1,) for a 4-D weight) when given.
 
     w must already be in x's dtype (a cast would update a copy), so must
-    the bias; the slots are fp32.  x must take part in autograd, or the
-    backward, and with it the update, would never run."""
-    if w.dtype != x.dtype or (bias is not None and bias.dtype != x.dtype):
-        raise ValueError(
-            "junction_train_update requires param dtype == activation dtype "
-            f"(got w={w.dtype}, x={x.dtype}) — run the two-pass path for "
-            "mixed-precision casts")
-    if not w.is_floating_point():
+    wi and the bias; the slots are fp32.  x must take part in autograd, or
+    the backward, and with it the update, would never run."""
+    gated = wi is not None
+    if gated and (bias is not None or act != "none"):
+        raise ValueError("gated junction fixes act=silu-gate and takes no "
+                         "bias")
+    if not w.is_floating_point() or (gated and not wi.is_floating_point()):
         raise ValueError(
             "junction_train_update refuses quantized (integer-code) "
             "weights — the int8/fxp datapath is inference-only; reload "
             "full-precision weights to train")
+    if w.dtype != x.dtype or (gated and wi.dtype != x.dtype) or (
+            bias is not None and bias.dtype != x.dtype):
+        raise ValueError(
+            "junction_train_update requires param dtype == activation dtype "
+            f"(got w={w.dtype}, x={x.dtype}) — run the two-pass path for "
+            "mixed-precision casts")
+    if gated and (mom is None) != (mom_wi is None):
+        raise ValueError("gated junction needs momentum for both branches")
+    if gated and (vel is None) != (vel_wi is None):
+        raise ValueError("gated junction needs the Adam v slot for both "
+                         "branches")
     if vel is not None and mom is None:
         raise ValueError("the Adam vel slot requires the mom slot too "
                          "(slot layout: w, mom, vel)")
-    for name, m in (("mom", mom), ("mom_b", mom_b), ("vel", vel),
-                    ("vel_b", vel_b)):
+    for name, m in (("mom", mom), ("mom_wi", mom_wi), ("mom_b", mom_b),
+                    ("vel", vel), ("vel_wi", vel_wi), ("vel_b", vel_b)):
         if m is not None and m.dtype != torch.float32:
             raise ValueError(f"{name} must be an fp32 accumulator "
                              f"(got {m.dtype}) — the optimizer state stays "
@@ -184,20 +268,26 @@ def junction_train_update(x, w, idx, rev_ob, rev_t, rev_cnt, *, hyp,
     single, lead, x3, w5, b2 = _lift(x, w, bias)
     E = x3.shape[0]
     _, nob, _, bs, _ = w5.shape
-    if not w5.is_contiguous():
-        raise ValueError("w must be contiguous: it is updated in place")
 
     def lift(s):
         return None if s is None else (s[None] if single else s)
 
-    slots = (lift(mom), lift(mom_b) if bias is not None else None,
-             lift(vel), lift(vel_b) if bias is not None else None)
+    wi5 = lift(wi)
+    if not w5.is_contiguous() or (gated and not wi5.is_contiguous()):
+        raise ValueError("w must be contiguous: it is updated in place")
     if health is not None and tuple(health.shape) != (E,):
         raise ValueError(f"health must be ({E},) f32 zeros (one slot per "
                          f"junction unit), got shape {tuple(health.shape)}")
+    hyp = bsm.normalize_hyp(hyp, E).to(x.device)
+    if gated:
+        y = _GatedJunctionUpdate.apply(
+            x3.contiguous(), w5, wi5, idx, rev_ob, rev_t, rev_cnt,
+            (lift(mom), lift(mom_wi), lift(vel), lift(vel_wi)), hyp, health)
+        return y.reshape(*lead, nob * bs) if single else y
+    slots = (lift(mom), lift(mom_b) if bias is not None else None,
+             lift(vel), lift(vel_b) if bias is not None else None)
     b = (torch.zeros((E, nob * bs), dtype=x.dtype, device=x.device)
          if b2 is None else b2)
-    hyp = bsm.normalize_hyp(hyp, E).to(x.device)
     y = _JunctionUpdate.apply(x3.contiguous(), w5, b, idx, rev_ob, rev_t,
                               rev_cnt, act, bias is not None, slots, hyp,
                               health)

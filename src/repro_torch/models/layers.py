@@ -80,10 +80,11 @@ def unembed(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def mlp_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
-             device="cpu", seed: int = 0):
-    """(Gated) MLP; the projections are pre-defined-sparse when the
-    paper's technique applies to the 'ffn' family."""
-    d, f = cfg.d_model, cfg.d_ff
+             device="cpu", seed: int = 0, d_ff: int | None = None):
+    """(Gated) MLP of hidden width ``d_ff`` (default ``cfg.d_ff``; a MoE's
+    shared experts pass theirs); the projections are pre-defined-sparse
+    when the paper's technique applies to the 'ffn' family."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     sp = cfg.sparsity
     kw = dict(family="ffn", sp=sp, dtype=dtype, device=device)
     p = {"wi": sl.init_linear(gen, d, f, seed=seed, **kw),

@@ -1,5 +1,7 @@
-"""The dense-family model: training forward and loss, and serving over a
-block-paged KV cache.
+"""The dense and MoE families: training forward and loss, and serving over
+a block-paged KV cache.  A dense layer is attention and an MLP; a MoE
+layer is attention and ``models/moe.py``'s routed experts, whose
+load-balance losses sum into the forward's aux.
 
 ``init(cfg, seed, device)``       -> params (fp32 masters, a list of layers)
 ``forward(cfg, params, batch)``   -> (logits [B,S,V], None, (aux, offset))
@@ -25,15 +27,24 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (embed_init, embed_tokens, mlp_apply,
                                        mlp_init, norm_apply, norm_init,
                                        unembed)
+from repro_torch.models.moe import moe_apply, moe_init
 
 Params = dict[str, Any]
 
 
+def _check_family(cfg: ArchConfig, what: str) -> None:
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"family {cfg.family!r}: the port {what} the dense "
+                         "and moe families only")
+    if cfg.family == "moe" and (cfg.moe.first_dense_layers
+                                or cfg.attn_kind == "mla"):
+        raise ValueError(f"{cfg.name}: MLA attention and dense first layers "
+                         "of a moe model are not ported")
+
+
 def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
     """Random params from ``seed`` on ``device`` (the card by default)."""
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r}: the port builds the dense "
-                         "family only")
+    _check_family(cfg, "builds")
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
     gen = torch.Generator(device=dev)
@@ -41,13 +52,26 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
     params: Params = {"embed": embed_init(gen, cfg, dtype, dev),
                       "final_norm": norm_init(cfg.d_model, cfg.norm, dtype,
                                               dev)}
-    params["layers"] = [
-        {"norm1": norm_init(cfg.d_model, cfg.norm, dtype, dev),
-         "attn": attn.attn_init(gen, cfg, dtype, dev),
-         "norm2": norm_init(cfg.d_model, cfg.norm, dtype, dev),
-         "mlp": mlp_init(gen, cfg, dtype, dev)}
-        for _ in range(cfg.n_layers)]
+
+    def layer():
+        lp = {"norm1": norm_init(cfg.d_model, cfg.norm, dtype, dev),
+              "attn": attn.attn_init(gen, cfg, dtype, dev),
+              "norm2": norm_init(cfg.d_model, cfg.norm, dtype, dev)}
+        if cfg.family == "moe":
+            lp["moe"] = moe_init(gen, cfg, dtype, dev)
+        else:
+            lp["mlp"] = mlp_init(gen, cfg, dtype, dev)
+        return lp
+
+    params["layers"] = [layer() for _ in range(cfg.n_layers)]
     return params
+
+
+def _ffn(lp, h, cfg: ArchConfig):
+    """The layer's FFN: (output, aux loss)."""
+    if "moe" in lp:
+        return moe_apply(lp["moe"], h, cfg)
+    return mlp_apply(lp["mlp"], h, cfg), 0.0
 
 
 def _attn_mlp_block(lp, x, cfg: ArchConfig, positions):
@@ -55,7 +79,8 @@ def _attn_mlp_block(lp, x, cfg: ArchConfig, positions):
     a, _ = attn.gqa_forward(lp["attn"], h, cfg, positions=positions)
     x = x + a
     h = norm_apply(lp["norm2"], x, cfg.norm, cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg)
+    m, aux = _ffn(lp, h, cfg)
+    return x + m, aux
 
 
 def _tokens(params, batch):
@@ -65,26 +90,26 @@ def _tokens(params, batch):
 
 def forward(cfg: ArchConfig, params: Params, batch, *,
             return_hidden: bool = False):
-    """Training forward of the dense family: batch {"tokens": [B, S]}
-    (numpy or a tensor).  Returns (logits [B,S,V] or the final-norm
-    hidden state, None, (aux, offset)); aux is 0 and offset 0 for this
-    family."""
-    if cfg.family != "dense":
-        raise ValueError(f"family {cfg.family!r}: the port trains the "
-                         "dense family only")
+    """Training forward: batch {"tokens": [B, S]} (numpy or a tensor).
+    Returns (logits [B,S,V] or the final-norm hidden state, None,
+    (aux, offset)); aux is the layers' summed MoE load-balance loss (0
+    for the dense family) and offset 0."""
+    _check_family(cfg, "trains")
     tokens = _tokens(params, batch)
     x = embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = 0.0
     for lp in params["layers"]:
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_attn_mlp_block, lp, x, cfg, positions,
-                           use_reentrant=False)
+            x, a = checkpoint(_attn_mlp_block, lp, x, cfg, positions,
+                              use_reentrant=False)
         else:
-            x = _attn_mlp_block(lp, x, cfg, positions)
+            x, a = _attn_mlp_block(lp, x, cfg, positions)
+        aux = aux + a
     x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     if return_hidden:
-        return x, None, (0.0, 0)
-    return unembed(params["embed"], x, cfg), None, (0.0, 0)
+        return x, None, (aux, 0)
+    return unembed(params["embed"], x, cfg), None, (aux, 0)
 
 
 def softmax_xent(logits, labels):
@@ -131,12 +156,14 @@ def loss_fn(cfg: ArchConfig, params: Params, batch):
 
 def paged_supported(cfg: ArchConfig) -> tuple[bool, str]:
     """(ok, reason): whether the paged decode path can serve ``cfg``."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         return False, (f"family {cfg.family!r} — the port's paged path "
-                       "serves the dense family")
+                       "serves the dense and moe families")
     if cfg.attn_kind != "full":
         return False, (f"attn_kind {cfg.attn_kind!r} — paged decode covers "
                        "the full-attention GQA cache layout")
+    if cfg.family == "moe" and cfg.moe.first_dense_layers:
+        return False, "moe first_dense_layers splits the cache tree"
     return True, "paged"
 
 
@@ -161,7 +188,7 @@ def _attn_block_paged(lp, x, cfg: ArchConfig, cache_l, positions, page_table,
                                       page_table)
     x = x + a
     h = norm_apply(lp["norm2"], x, cfg.norm, cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg)
+    return x + _ffn(lp, h, cfg)[0]
 
 
 def _run_layers(cfg, params, pool, x, positions, page_table, decode):

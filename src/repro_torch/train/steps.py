@@ -56,14 +56,15 @@ def _is_trainable(t) -> bool:
 
 def _alias(p, fused: bool, live: list):
     """``p`` with each trainable leaf replaced by a grad-requiring alias
-    (appended to ``live``); with ``fused`` junction dicts stay as they
-    are.  Module-level, not a closure: a recursive closure is a reference
-    cycle that would keep ``live``, and the old params, alive until the
-    garbage collector runs."""
+    (appended to ``live``); with ``fused`` the leaves of a junction dict
+    that the fused update owns (``sl.fused_owned``) stay as they are.
+    Module-level, not a closure: a recursive closure is a reference cycle
+    that would keep ``live``, and the old params, alive until the garbage
+    collector runs."""
     if isinstance(p, dict):
-        if fused and sl.is_junction(p):
-            return p
-        return {k: _alias(v, fused, live) for k, v in p.items()}
+        own = fused and sl.is_junction(p)
+        return {k: v if own and sl.fused_owned(k) else _alias(v, fused, live)
+                for k, v in p.items()}
     if isinstance(p, (list, tuple)):
         return type(p)(_alias(v, fused, live) for v in p)
     if _is_trainable(p):
@@ -77,9 +78,9 @@ def _regrad(p, fused: bool, got):
     """A tree shaped like ``p`` holding the gradients of ``got`` (in
     ``_alias``'s order) at trainable leaves, None elsewhere."""
     if isinstance(p, dict):
-        if fused and sl.is_junction(p):
-            return {k: None for k in p}
-        return {k: _regrad(v, fused, got) for k, v in p.items()}
+        own = fused and sl.is_junction(p)
+        return {k: None if own and sl.fused_owned(k)
+                else _regrad(v, fused, got) for k, v in p.items()}
     if isinstance(p, (list, tuple)):
         return type(p)(_regrad(v, fused, got) for v in p)
     return next(got) if _is_trainable(p) else None

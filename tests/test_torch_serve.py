@@ -243,4 +243,5 @@ def test_port_init_matches_reference_structure():
             assert torch.equal(t, r), path
     assert ops.launch_counts() == dict.fromkeys(
         ("junction_fwd", "junction_dx", "junction_dw", "junction_update_dw",
-         "flash_decode"), 0)
+         "junction_gated_fwd", "junction_gated_dx", "junction_gated_dw",
+         "junction_update_gated_dw", "flash_decode"), 0)

@@ -56,6 +56,17 @@ CFG = dict(name="train-test", family="dense", n_layers=2, d_model=128,
 SEQ, BATCH = 16, 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the test workers share the
+    cores, and oversubscribed BLAS / OpenMP thread teams spin (an fp64
+    gradcheck here ran a hundred times slower beside five busy workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(**kw):
     args = dict(CFG, **kw)
     return (JArchConfig(**args, sparsity=JSparsity(0.25, 32, "ffn")),

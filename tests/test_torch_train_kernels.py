@@ -37,6 +37,17 @@ M = 16
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the test workers share the
+    cores, and oversubscribed BLAS / OpenMP thread teams spin (an fp64
+    gradcheck here ran a hundred times slower beside five busy workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _res(rng, shape, act):
     """A residual as the forward leaves it: y for relu/sigmoid, the
     pre-activation for silu/gelu, unused for none."""
