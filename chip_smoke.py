@@ -38,7 +38,16 @@ PyTorch built for CUDA.  It
 8. serves the same 8 requests on full-size sparse qwen3-moe-30b-a3b (48
    layers, 128 experts, 9.6 B parameters) and trains it at full width
    and 6 layers as in 4. and 6.;
-9. prints a ``kernels`` JSON line and, last, a JSON line with
+9. holds the quantized kernels (fwd_int8, gated_fwd_int8, fwd_fxp)
+   against their plain versions (bit for bit where the arithmetic allows)
+   at stablelm-3b's FFN junctions, qwen3-moe's expert junctions and the
+   PTQ sweep's MLP junctions (every paper triplet, and an int32 sum that
+   wraps), timed; serves both models again with ``quantize="int8"`` (on
+   the same weights: exact int8 launch counts, no floating-point junction
+   launch, logits kernels vs plain versions, greedy agreement with the fp
+   run); and runs ``launch.quant_sweep --fxp`` dynamic and calibrated to
+   a finite winner with exact launch counts;
+10. prints a ``kernels`` JSON line and, last, a JSON line with
    ``"ok": true`` and the device.
 
 Any failed check raises and the exit code is not 0.  Without a card, or
@@ -63,7 +72,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,      # dense tensor-core bf16
-                  torch.float32: 67e12}        # fp32 outside the tensor cores
+                  torch.float32: 67e12,        # fp32 outside the tensor cores
+                  torch.int8: 1979e12,         # dense tensor-core int8
+                  # the data sheet gives no int32 rate: the fp32 rate of
+                  # the CUDA cores stands in for their integer units
+                  torch.int32: 67e12}
 # kernel vs plain version: in fp32 the same sums (up to 1792 products)
 # in another order; in bf16 both sides round fp32 values that differ only
 # in summation order, so an output may move by one bf16 ulp
@@ -283,27 +296,47 @@ SERVE_ARCHS = {"stablelm-3b": {"junction_fwd": 3},
                                      "junction_fwd": 1}}
 
 
-def serve_phase(P, card, arch):
+def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None):
+    """8 requests through ContinuousEngine on full-size ``arch`` (random
+    weights from seed 0, or ``params``), with ``quantize`` as the
+    ServeConfig's; returns (params, launch counts, outputs).  Given the
+    fp run's outputs, prints the greedy agreement with them."""
     M, engine, ops = P.M, P.engine, P.ops
     dev = torch.device("cuda")
     cfg = P.registry.get(arch).with_sparsity(
         P.SparsityConfig(density=0.25, block=128, where="ffn"))
-    t0 = time.perf_counter()
-    params = M.init(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params) if t.is_floating_point())
-    moe = (f" experts={cfg.moe.num_experts} top_k={cfg.moe.top_k} "
-           f"d_expert={cfg.moe.d_expert}" if cfg.moe else "")
-    print(f"[serve] {cfg.name} d_model={cfg.d_model} d_ff={cfg.d_ff} "
-          f"layers={cfg.n_layers} heads={cfg.n_heads}/{cfg.kv_heads} "
-          f"head_dim={cfg.head_dim} vocab={cfg.vocab}{moe}, "
-          f"sparse FFN {cfg.sparsity}: {n_params / 1e9:.3f} B params, "
-          f"init {time.perf_counter() - t0:.1f} s")
+    if params is None:
+        t0 = time.perf_counter()
+        params = M.init(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in _leaves(params)
+                       if t.is_floating_point())
+        moe = (f" experts={cfg.moe.num_experts} top_k={cfg.moe.top_k} "
+               f"d_expert={cfg.moe.d_expert}" if cfg.moe else "")
+        print(f"[serve] {cfg.name} d_model={cfg.d_model} d_ff={cfg.d_ff} "
+              f"layers={cfg.n_layers} heads={cfg.n_heads}/{cfg.kv_heads} "
+              f"head_dim={cfg.head_dim} vocab={cfg.vocab}{moe}, "
+              f"sparse FFN {cfg.sparsity}: {n_params / 1e9:.3f} B params, "
+              f"init {time.perf_counter() - t0:.1f} s")
     scfg = engine.ServeConfig(max_new_tokens=16, slots=4, page_size=16,
-                              prefill_chunk=32, max_seq=128)
+                              prefill_chunk=32, max_seq=128,
+                              quantize=quantize)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, size=(8, 64)).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     eng = engine.ContinuousEngine(cfg, params, scfg, device=dev)
+    torch.cuda.synchronize()
+    name = cfg.name + (f" {quantize}" if quantize else "")
+    if quantize:
+        codes = sum(t.numel() for t in _leaves(eng.params)
+                    if t.dtype == torch.int8)
+        print(f"[serve] {name}: quantized at load in "
+              f"{time.perf_counter() - t0:.2f} s, {codes / 1e9:.3f} B int8 "
+              f"weight codes, peak_memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB with "
+              f"the caller's fp tree alive [{card}]")
     eng.serve([engine.Request(0, prompts[0][:8], 2)])          # warm-up
     reqs = [engine.Request(i, prompts[i], 16, arrival=i) for i in range(8)]
 
@@ -321,7 +354,7 @@ def serve_phase(P, card, arch):
     lat = [v["wall_s"] for v in st["latency"].values()]
     p50, p99 = P.percentile(lat, 50), P.percentile(lat, 99)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"[serve] {cfg.name}: {len(outs)}/8 requests, {n_tok} tokens in "
+    print(f"[serve] {name}: {len(outs)}/8 requests, {n_tok} tokens in "
           f"{dt:.3f} s: {n_tok / dt:.1f} tok/s, "
           f"decode_ticks={st['decode_ticks']} "
           f"prefill_chunks={st['prefill_chunks']} p50_latency={p50 * 1e3:.1f} ms "
@@ -334,16 +367,24 @@ def serve_phase(P, card, arch):
             f"{eng.nonfinite_terminated} slots hit non-finite logits")
     L = cfg.n_layers
     steps = st["decode_ticks"] + st["prefill_chunks"]
+    per_layer = (QUANT_SERVE_ARCHS if quantize else SERVE_ARCHS)[arch]
     want = dict.fromkeys(counts, 0)
-    want.update({k: n * L * steps for k, n in SERVE_ARCHS[arch].items()})
+    want.update({k: n * L * steps for k, n in per_layer.items()})
     want["flash_decode"] = L * st["decode_ticks"]      # one attention a layer
-    require(counts == want, f"{cfg.name} launches {counts} != {want}")
+    require(counts == want, f"{name} launches {counts} != {want}")
     require(st["launches"] == counts, "engine stats disagree with counters")
+    if fp_outs is not None:
+        # random weights give near ties: reported, not gated on
+        same = [float(np.mean(outs[r] == fp_outs[r])) for r in sorted(outs)]
+        print(f"[serve] {name}: greedy agreement with the fp engine on the "
+              f"same weights {float(np.mean(same)):.3f} (per request "
+              f"{[round(v, 3) for v in same]})")
 
     for dtype in (torch.bfloat16, torch.float32):
-        compare_logits(P, cfg, params, prompts[0], dtype, card, arch)
-    tick_breakdown(M, cfg, params, card)
-    return params, counts
+        compare_logits(P, cfg, eng.params, prompts[0], dtype, card,
+                       per_layer, LOGIT_REL_TOL[dtype], bool(quantize))
+    tick_breakdown(M, cfg, eng.params, card)
+    return params, counts, outs
 
 
 def step_breakdown(step, wall_s, what, card, top=8):
@@ -435,25 +476,41 @@ def _chunk_and_tick(M, cfg, params, prompt):
     return lp[0, -1].float(), ld[0, -1].float()
 
 
-def compare_logits(P, cfg, params, prompt, dtype, card, arch):
+def compare_logits(P, cfg, params, prompt, dtype, card, per_layer, tol,
+                   quantized=False):
     """The first prefill chunk and one decode tick (slot 0 live, three
     free slots on the scratch page), once through the kernels and once
-    through the plain versions, on the card."""
+    through the plain versions, on the card, within ``tol`` of max
+    |logit|; ``per_layer`` the junction launches a layer makes.
+    ``quantized`` swaps the int8 junctions alone and keeps flash_decode
+    on both sides: its summation order would move an fp32 activation by
+    an ulp, and at a rounding boundary its int8 code by a step, so the
+    comparison would read the attention's noise and not the int8
+    kernels' (flash_decode is held against its plain version at model
+    level by the fp comparison)."""
     M, ops, bsm, fa = P.M, P.ops, P.bsm, P.fa
     cfg = dataclasses.replace(cfg, dtype=str(dtype)[6:])
     ops.reset_launch_counts()
     k_pf, k_dec = _chunk_and_tick(M, cfg, params, prompt)
     kernel_counts = ops.launch_counts()
-    with mock.patch.object(bsm, "fwd", bsm.fwd_ref), \
-            mock.patch.object(bsm, "gated_fwd", bsm.gated_fwd_ref), \
-            mock.patch.object(fa, "flash_decode", fa.paged_decode_ref):
+    with contextlib.ExitStack() as stack:
+        for name in (("fwd_int8", "gated_fwd_int8") if quantized
+                     else ("fwd", "gated_fwd")):
+            stack.enter_context(mock.patch.object(
+                bsm, name, getattr(bsm, f"{name}_ref")))
+        if not quantized:
+            stack.enter_context(mock.patch.object(fa, "flash_decode",
+                                                  fa.paged_decode_ref))
         p_pf, p_dec = _chunk_and_tick(M, cfg, params, prompt)
     torch.cuda.synchronize()
     L = cfg.n_layers
     want = dict.fromkeys(kernel_counts, 0)
-    want.update({k: 2 * n * L for k, n in SERVE_ARCHS[arch].items()})
+    want.update({k: 2 * n * L for k, n in per_layer.items()})
     want["flash_decode"] = L
-    require(kernel_counts == want and ops.launch_counts() == kernel_counts,
+    plain_want = dict(kernel_counts)
+    if quantized:
+        plain_want["flash_decode"] += L
+    require(kernel_counts == want and ops.launch_counts() == plain_want,
             f"logit comparison did not take the intended paths: "
             f"{kernel_counts} then {ops.launch_counts()}")
     for what, a, b in (("prefill", k_pf, p_pf), ("decode", k_dec, p_dec)):
@@ -465,8 +522,8 @@ def compare_logits(P, cfg, params, prompt, dtype, card, arch):
               f"versions: "
               f"max_abs_err={max_err(a, b):.4g} max|logit|="
               f"{float(b.abs().max()):.4g} rel={rel:.3g} "
-              f"(tol {LOGIT_REL_TOL[dtype]}) same_argmax={same} [{card}]")
-        require(rel <= LOGIT_REL_TOL[dtype], f"{what} {dtype} logits differ")
+              f"(tol {tol}) same_argmax={same} [{card}]")
+        require(rel <= tol, f"{what} {dtype} logits differ")
 
 
 # ------------------------------------------------ backward kernels
@@ -1201,6 +1258,259 @@ def train_phase(P, card, arch, n_layers=0):
     return {k: sum(r[k] for r in runs.values()) for k in runs["two_pass"]}
 
 
+# --------------------------------------------------- quantized kernels
+# stablelm-3b's FFN junctions at decode and prefill, qwen3-moe's expert
+# junctions at E = 128, and the sweep's MLP junctions (1024 -> 512 at
+# kb 2, 512 -> 128 at kb 1; eval rows 512; the int8 cohort is E = 6)
+SWEEP_SHAPES = [("l1", 1024, 512, 0), ("l2", 512, 128, 0)]
+SWEEP_M, SWEEP_E = 512, 6
+# kernel vs plain version, int8: with act "none" the same integer dots,
+# the same two fp32 products and the same sums in slot order, so equal
+# bit for bit; with an activation CUDA's expf / tanhf against PyTorch's
+# may move an fp32 value by an ulp or two and its rounding to bf16 by one
+# bf16 ulp.  fxp: integer arithmetic and a table, equal bit for bit.
+QUANT_TOL = {torch.float32: dict(atol=1e-6, rtol=1e-5),
+             torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -7)}
+
+
+def _int8_cost(x, codes, M, n_out, E, with_bias=True):
+    """(bytes, operations) of an int8 forward: x, the codes (and their
+    fp32 scales), the fp32 bias (``fwd_int8``'s; the gate takes none) and
+    the output once each; two integer operations per multiply-add over
+    the pattern's edges."""
+    isz = x.element_size()
+    nbytes = x.numel() * isz + sum(c.numel() * (1 + 4 / (BS * BS))
+                                   for c in codes) \
+        + (4 * E * n_out if with_bias else 0) + E * M * n_out * isz
+    nops = 2 * M * sum(c.numel() for c in codes)
+    return nbytes, nops
+
+
+def _quant_case(P, gen, shape, E, M, dtype, bits=8, granularity="block",
+                n_codes=1):
+    _, n_in, n_out, pseed = shape
+    pat = P.make_block_pattern(n_in, n_out, 0.25, BS, seed=pseed)
+    nob, kb = pat.idx.shape
+    r = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    x = r(E, M, n_in).to(dtype)
+    codes = [P.qz.quantize_weights(r(E, nob, kb, BS, BS) / (kb * BS) ** 0.5,
+                                   bits=bits, granularity=granularity)
+             for _ in range(n_codes)]
+    return pat, torch.as_tensor(pat.idx, device="cuda"), x, codes, r(E, n_out)
+
+
+def quant_kernel_phase(P, timer, card):
+    """fwd_int8 at stablelm-3b's FFN junctions (decode M = 4, prefill
+    M = 32; bf16 and fp32; dynamic and static activation scales, block
+    and unit scales, 4-bit codes, bias, ragged M), at qwen3-moe's down
+    junction (E = 128) and at the sweep's int8 cohort; gated_fwd_int8 at
+    qwen3-moe's gate junction (E = 128, M = 4); fwd_fxp at the sweep's
+    junctions for every paper triplet and for a sum that wraps int32.
+    Each against its plain version, timed."""
+    bsm = P.bsm
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "bound_by": "", "library_ms": None}
+           for k in ("fwd_int8", "gated_fwd_int8", "fwd_fxp")}
+    layer = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+
+    def check(kind, what, fn, ref, exact, dtype, cost, time_it=True):
+        got, want = fn(), ref()
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        same = torch.equal(got, want)
+        ok = same if exact else close(got, want, QUANT_TOL[dtype])
+        o = out[kind]
+        o["max_abs_err"] = max(o["max_abs_err"], err)
+        k_ms = timer.ms(fn) if time_it else float("nan")
+        p_ms = timer.ms(ref) if time_it else float("nan")
+        bnd, by = bound_ms(*cost, torch.int8 if kind != "fwd_fxp"
+                           else torch.int32)
+        print(f"[kernel] junction_{kind} {what} {str(dtype)[6:]}: "
+              f"max_abs_err={err:.3g} bit_equal={same} "
+              f"({'exact' if exact else QUANT_TOL[dtype]}) ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} bound_ms={bnd:.5f} ({by}) [{card}]")
+        require(ok, f"junction_{kind} {what} {dtype} disagrees with its "
+                    f"plain version: err {err}")
+        return k_ms, p_ms, bnd, by
+
+    # fwd_int8 at stablelm-3b's three FFN junctions
+    for dtype in (torch.bfloat16, torch.float32):
+        for M in (4, 32):
+            for shape in TRAIN_SHAPES:
+                name, n_in, n_out, act, pseed = shape
+                _, idx, x, ((wq, sc),), _ = _quant_case(
+                    P, gen, (name, n_in, n_out, pseed), 1, M, dtype)
+                b = torch.zeros((1, n_out), device="cuda")
+                fn = lambda: bsm.fwd_int8(x, wq, idx, sc, b, act)
+                ref = lambda: bsm.fwd_int8_ref(x, wq, idx, sc, b, act)
+                cost = _int8_cost(x, [wq], M, n_out, 1)
+                res = check("fwd_int8", f"{name} {n_in}->{n_out} M={M} "
+                            f"act={act}", fn, ref, act == "none", dtype, cost)
+                if dtype == torch.bfloat16 and M == 4:
+                    layer["ms"] += res[0]
+                    layer["plain_ms"] += res[1]
+                    layer["bytes"] += cost[0]
+                    layer["ops"] += cost[1]
+    bnd, by = bound_ms(layer["bytes"], layer["ops"], torch.int8)
+    print(f"[kernel] junction_fwd_int8 one layer's FFN at decode (wg+wi+wo, "
+          f"M=4, bf16): ms={layer['ms']:.4f} plain_ms="
+          f"{layer['plain_ms']:.4f} bound_ms={bnd:.4f} ({by}) [{card}]")
+    out["fwd_int8"].update(ms=layer["ms"], plain_ms=layer["plain_ms"],
+                           bound_ms=bnd, bound_by=by)
+
+    # the options: static scales, unit scales, 4-bit codes, bias, ragged M
+    name, n_in, n_out, _, pseed = TRAIN_SHAPES[0]
+    for dtype, M, act, static, gran, bits in (
+            (torch.bfloat16, 5, "silu", True, "block", 8),
+            (torch.float32, 5, "none", True, "unit", 4),
+            (torch.float32, 13, "gelu", False, "unit", 8),
+            (torch.bfloat16, 32, "relu", False, "block", 4),
+            (torch.float32, 32, "sigmoid", True, "block", 8)):
+        _, idx, x, ((wq, sc),), b = _quant_case(
+            P, gen, (name, n_in, n_out, pseed), 1, M, dtype, bits, gran)
+        xs = (x.float().abs().amax(dim=(1, 2)) / 127.0).contiguous() \
+            if static else None
+        fn = lambda: bsm.fwd_int8(x, wq, idx, sc, b, act, xs)
+        ref = lambda: bsm.fwd_int8_ref(x, wq, idx, sc, b, act, xs)
+        check("fwd_int8", f"{name} M={M} act={act} bias static_x={static} "
+              f"{gran} bits={bits}", fn, ref, act == "none", dtype,
+              _int8_cost(x, [wq], M, n_out, 1), time_it=False)
+
+    # qwen3-moe at E = 128: the gate through gated_fwd_int8, the down
+    # junction through fwd_int8
+    for dtype in (torch.bfloat16, torch.float32):
+        for static in (False, True):
+            _, n_in, n_out, _ = MOE_SHAPES[0]
+            _, idx, x, ((wg, sg), (wi, si)), _ = _quant_case(
+                P, gen, MOE_SHAPES[0], MOE_E, MOE_M["decode"], dtype,
+                n_codes=2)
+            xs = (x.float().abs().amax(dim=(1, 2)) / 127.0).contiguous() \
+                if static else None
+            fn = lambda: bsm.gated_fwd_int8(x, wg, wi, idx, sg, si, xs)
+            ref = lambda: bsm.gated_fwd_int8_ref(x, wg, wi, idx, sg, si, xs)
+            res = check("gated_fwd_int8", f"gate E={MOE_E} {n_in}->{n_out} "
+                        f"M=4 static_x={static}", fn, ref, False, dtype,
+                        _int8_cost(x, [wg, wi], 4, n_out, MOE_E,
+                                   with_bias=False),
+                        time_it=not static)
+            if dtype == torch.bfloat16 and not static:
+                out["gated_fwd_int8"].update(
+                    ms=res[0], plain_ms=res[1], bound_ms=res[2],
+                    bound_by=res[3])
+        _, n_in, n_out, _ = MOE_SHAPES[1]
+        _, idx, x, ((wq, sc),), _ = _quant_case(
+            P, gen, MOE_SHAPES[1], MOE_E, MOE_M["decode"], dtype)
+        b = torch.zeros((MOE_E, n_out), device="cuda")
+        fn = lambda: bsm.fwd_int8(x, wq, idx, sc, b)
+        ref = lambda: bsm.fwd_int8_ref(x, wq, idx, sc, b)
+        res = check("fwd_int8", f"down E={MOE_E} {n_in}->{n_out} M=4", fn,
+                    ref, True, dtype, _int8_cost(x, [wq], 4, n_out, MOE_E))
+        if dtype == torch.bfloat16:
+            out["fwd_int8"].update(moe_down_ms=res[0], moe_down_plain_ms=res[1],
+                                   moe_down_bound_ms=res[2])
+
+    # the sweep's junctions: the int8 cohort (E = 6, bits 8/6/4 x block /
+    # unit) and each fxp cohort (E = 1)
+    for shape in SWEEP_SHAPES:
+        name, n_in, n_out, _ = shape
+        _, idx, x, _, b = _quant_case(P, gen, shape, SWEEP_E, SWEEP_M,
+                                      torch.float32, n_codes=0)
+        pat = P.make_block_pattern(n_in, n_out, 0.25, BS, seed=0)
+        w = torch.randn((SWEEP_E, *pat.idx.shape, BS, BS), generator=gen,
+                        device="cuda") * 0.05
+        qs = [P.qz.quantize_weights(w[e], bits=bits, granularity=g)
+              for e, (bits, g) in enumerate(
+                  [(bt, g) for bt in (8, 6, 4) for g in ("block", "unit")])]
+        wq = torch.stack([q for q, _ in qs])
+        sc = torch.stack([s for _, s in qs])
+        fn = lambda: bsm.fwd_int8(x, wq, idx, sc, b, "sigmoid")
+        ref = lambda: bsm.fwd_int8_ref(x, wq, idx, sc, b, "sigmoid")
+        res = check("fwd_int8", f"sweep {name} {n_in}->{n_out} E={SWEEP_E} "
+                    f"M={SWEEP_M} act=sigmoid", fn, ref, False, torch.float32,
+                    _int8_cost(x, [wq], SWEEP_M, n_out, SWEEP_E))
+        out["fwd_int8"][f"sweep_{name}_ms"] = res[0]
+        for fmt in P.fxp.PAPER_TRIPLETS + ["wraps"]:
+            wrap = fmt == "wraps"
+            if wrap:
+                fmt = P.fxp.PAPER_TRIPLETS[-1]
+                xf = torch.full((1, SWEEP_M, n_in), fmt.max_val, device="cuda")
+                xf[:, 1::2] = fmt.min_val
+                wf = torch.full_like(w[:1], fmt.max_val)
+            else:
+                xf = torch.rand((1, SWEEP_M, n_in), generator=gen,
+                                device="cuda")          # pixels in [0, 1)
+                wf = w[:1] * 8.0
+            wq = P.qz.fxp_encode_weights(wf, fmt)
+            bf = P.fxp.quantize(b[:1], fmt)
+            lut = P.qz.act_lut(fmt, "sigmoid", "cuda")
+            qf = torch.tensor([fmt.bf, fmt.bn], dtype=torch.int32,
+                              device="cuda")
+            fn = lambda: bsm.fwd_fxp(xf, wq, idx, qf, lut, bf)
+            ref = lambda: bsm.fwd_fxp_ref(xf, wq, idx, qf, lut, bf)
+            isz = 4
+            cost = (xf.numel() * isz + wq.numel() * 4 + lut.numel() * 4
+                    + 4 * n_out + SWEEP_M * n_out * isz,
+                    2 * SWEEP_M * wq.numel())
+            if wrap:
+                s = torch.einsum("mi,ic->mc",
+                                 torch.round(xf[0, :, :BS].double()
+                                             * fmt.scale),
+                                 wq[0, 0, 0].double())
+                require(float(s.abs().max()) > 2 ** 31,
+                        "the wrap case does not wrap")
+            res = check("fwd_fxp", f"sweep {name} {n_in}->{n_out} M={SWEEP_M} "
+                        f"fmt=({fmt.bw},{fmt.bn},{fmt.bf})"
+                        f"{' int32 sum wraps' if wrap else ''}", fn, ref, True,
+                        torch.float32, cost, time_it=not wrap)
+            if name == "l1" and fmt == P.fxp.PAPER_FMT:
+                out["fwd_fxp"].update(ms=res[0], plain_ms=res[1],
+                                      bound_ms=res[2], bound_by=res[3])
+    return out
+
+
+# quantized serving: the int8 launches a layer makes on every tick and
+# every prefill chunk; every floating-point junction launches nothing
+QUANT_SERVE_ARCHS = {"stablelm-3b": {"junction_fwd_int8": 3},
+                     "qwen3-moe-30b-a3b": {"junction_gated_fwd_int8": 1,
+                                           "junction_fwd_int8": 1}}
+
+
+def sweep_phase(P, card):
+    """launch.quant_sweep on the card with the paper triplets, once with
+    dynamic activation scales and once calibrated: a finite winner, and
+    exact launch counts (30 fused pre-training steps of the 2-layer MLP,
+    the fp eval, the calibration pass, and 4 evals of each cohort)."""
+    counts = {}
+    for extra in ([], ["--calibrate"]):
+        out = ROOT / "build" / f"QUANT_sweep{''.join(extra)}.json"
+        P.ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ledger = P.quant_sweep.main(["--fxp", "--out", str(out), *extra])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = P.ops.launch_counts()
+        want = dict.fromkeys(c, 0)
+        want.update(junction_fwd=2 * 30 + 2 + (2 if extra else 0),
+                    junction_dx=2 * 30, junction_update_dw=2 * 30,
+                    junction_fwd_int8=2 * 4, junction_fwd_fxp=2 * 4 * 5)
+        w = ledger["winner"]
+        evals = {json.dumps(r["config"]): round(r["us_per_member_eval"], 1)
+                 for r in ledger["records"]}
+        print(f"[sweep] quant_sweep --fxp {' '.join(extra)}: {dt:.1f} s, "
+              f"fp32 eval loss {ledger['fp32_eval_loss']:.5f}, winner "
+              f"{w and w['config']} loss {w and w['eval_loss']}, "
+              f"launches={c} [{card}]")
+        print(f"[sweep] us per member eval: {evals} [{card}]")
+        require(w is not None and np.isfinite(w["eval_loss"]),
+                "the sweep named no finite winner")
+        require(c == want, f"sweep launches {c} != {want}")
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
 def load_port() -> types.SimpleNamespace:
     """The port's modules this script drives, from the checkout beside it;
     fp32 products in full fp32."""
@@ -1209,12 +1519,15 @@ def load_port() -> types.SimpleNamespace:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import optim
     from repro_torch.configs import registry
+    from repro_torch.core import fixed_point as fxp
+    from repro_torch.core import quantize as qz
     from repro_torch.core.sparsity import SparsityConfig, make_block_pattern
     from repro_torch.data.pipeline import LMTokenPipeline
     from repro_torch.kernels import block_sparse_matmul as bsm
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.launch import quant_sweep
     from repro_torch.launch.serve import percentile
     from repro_torch.models import model as M
     from repro_torch.serve import engine
@@ -1224,7 +1537,8 @@ def load_port() -> types.SimpleNamespace:
         registry=registry, SparsityConfig=SparsityConfig,
         make_block_pattern=make_block_pattern, bsm=bsm, fa=fa, ops=ops,
         M=M, engine=engine, percentile=percentile, optim=optim, steps=steps,
-        LMTokenPipeline=LMTokenPipeline, tree_items=tree_items, build=build)
+        LMTokenPipeline=LMTokenPipeline, tree_items=tree_items, build=build,
+        qz=qz, fxp=fxp, quant_sweep=quant_sweep)
 
 
 def build_kernels(P) -> None:
@@ -1259,20 +1573,27 @@ def main() -> int:
     timer = Timer()
     junction = junction_phase(P, timer, card)
     decode = decode_phase(P, timer, card)
+    quant = quant_kernel_phase(P, timer, card)
     paths = {}
-    params, paths["serve"] = serve_phase(P, card, "stablelm-3b")
+    params, paths["serve"], outs = serve_phase(P, card, "stablelm-3b")
+    _, paths["serve_int8"], _ = serve_phase(P, card, "stablelm-3b", params,
+                                            "int8", outs)
     weight_cast_phase(params, timer, card)
     del params
     torch.cuda.empty_cache()
     bwd = train_kernel_phase(P, timer, card)
     paths["train"] = train_phase(P, card, "stablelm-3b")
     moe, moe_plain = moe_kernel_phase(P, timer, card)
-    params, paths["moe_serve"] = serve_phase(P, card, "qwen3-moe-30b-a3b")
+    params, paths["moe_serve"], outs = serve_phase(P, card,
+                                                   "qwen3-moe-30b-a3b")
+    _, paths["moe_serve_int8"], _ = serve_phase(
+        P, card, "qwen3-moe-30b-a3b", params, "int8", outs)
     weight_cast_phase(params, timer, card)
     del params
     torch.cuda.empty_cache()
     paths["moe_train"] = train_phase(P, card, "qwen3-moe-30b-a3b",
                                      MOE_TRAIN_LAYERS)
+    paths["sweep"] = sweep_phase(P, card)
 
     def launches(name):
         by = {p: c[name] for p, c in paths.items() if c[name]}
@@ -1313,6 +1634,13 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{src}",
             "replaces": f"src/repro/kernels/block_sparse_matmul.py:{line}",
             **launches(f"junction_{name}"), **moe[name]})
+    for name, line in (("fwd_int8", 531), ("gated_fwd_int8", 664),
+                       ("fwd_fxp", 597)):
+        kernels.append({
+            "name": f"junction_{name}", "route": "cuda",
+            "source": "src/repro_torch/csrc/junction_quant.cu",
+            "replaces": f"src/repro/kernels/block_sparse_matmul.py:{line}",
+            **launches(f"junction_{name}"), **quant[name]})
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never ran on its path")
     print(card)                          # nvidia-smi's name, power.limit

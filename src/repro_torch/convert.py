@@ -6,7 +6,8 @@ builds them) and returns the port's params (layers as a list), so that
 both compute the same function.  ``from_jax_opt_state(state)`` carries
 the optimizer state the same way: Adam's ``m``/``v`` and SGD's ``mom``
 trees mirror the params (their 0-d placeholders for the integer pattern
-leaves stay unstacked).  Only numpy crosses the boundary.
+leaves stay unstacked).  A quantized tree (int8 or fxp codes and their
+leaves) carries across the same way.  Only numpy crosses the boundary.
 """
 from __future__ import annotations
 
@@ -15,8 +16,11 @@ import torch
 
 
 def _tensor(a, device):
+    """One leaf as a tensor on ``device``.  Integer leaves keep their width
+    (int32 patterns and fxp codes, int8 weight codes) except int64, which
+    narrows to int32 as the kernels take their integer operands."""
     a = np.asarray(a)
-    if np.issubdtype(a.dtype, np.integer):
+    if a.dtype == np.int64:
         a = a.astype(np.int32)
     return torch.tensor(a, device=device)    # a copy: the source may be read-only
 

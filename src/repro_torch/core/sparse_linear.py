@@ -19,6 +19,12 @@ through ``ops.junction_train_update``, whose backward updates w, b and
 the slots in place and writes the non-finite tile counts into the
 health leaf.  Every other leaf of a junction dict (a MoE router) takes
 its gradient through autograd.
+
+A quantized junction (core/quantize.py) carries integer codes ``wq`` (a
+MoE dict ``wgq`` / ``wiq`` / ``woq``) with their scales in place of the
+fp weights; ``apply`` runs it through the quantized kernels, and both
+``apply`` and ``inject_update_ctx`` refuse it inside a fused train step:
+the quantized datapath is inference only.
 """
 from __future__ import annotations
 
@@ -80,6 +86,11 @@ def _inject(p, ms, hyp):
                    if isinstance(v, (dict, list, tuple)) else v)
                for k, v in p.items()}
         if is_junction(p):
+            if is_quantized(p):
+                raise ValueError(
+                    "fused-update context injected into a quantized "
+                    "junction: the int8/fxp datapath is inference only; "
+                    "reload full-precision weights to train")
             moe = "idx_in" in p
             wl = p["wg"] if moe else p["w"]
             zeros = torch.zeros((wl.shape[0] if wl.dim() == 5 else 1,),
@@ -115,6 +126,12 @@ def inject_update_ctx(params, slots, hyp):
 
 def is_sparse(params: Params) -> bool:
     return "idx" in params
+
+
+def is_quantized(params) -> bool:
+    """A junction whose fp weight leaves were replaced by integer codes
+    (core/quantize.py): inference only."""
+    return isinstance(params, dict) and ("wq" in params or "wgq" in params)
 
 
 def init_dense(gen: torch.Generator, n_in: int, n_out: int, *,
@@ -170,10 +187,20 @@ def apply_dense(params: Params, x: torch.Tensor) -> torch.Tensor:
 def apply(params: Params, x: torch.Tensor, *, act: str = "none"
           ) -> torch.Tensor:
     """y = act(x @ W + b): the junction kernels for a sparse layer (the
-    fused BP+UP junction when the dict carries the update context), a
-    dense product with the same activation formula otherwise."""
+    fused BP+UP junction when the dict carries the update context, the
+    quantized kernels for integer codes), a dense product with the same
+    activation formula otherwise."""
     if is_sparse(params):
         pattern = [params[k] for k in PATTERN_LEAVES]
+        if is_quantized(params):
+            if UPDATE_HYP_LEAF in params:
+                raise ValueError("quantized junction inside a fused train "
+                                 "step: the int8/fxp datapath is inference "
+                                 "only")
+            return ops.junction_matmul(
+                x, params["wq"], *pattern, bias=params.get("b"), act=act,
+                w_scale=params.get("w_scale"), x_scale=params.get("x_scale"),
+                qfmt=params.get("qfmt"), qlut=params.get("qlut"))
         if UPDATE_HYP_LEAF in params:
             return ops.junction_train_update(
                 x, params["w"], *pattern, hyp=params[UPDATE_HYP_LEAF],

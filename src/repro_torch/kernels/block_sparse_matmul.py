@@ -1,7 +1,8 @@
 """Block-sparse junction kernels: the activation table, the hyp-column
 registry, the plain PyTorch versions and the wrappers of the CUDA kernels
 ``csrc/junction_fwd.cu``, ``csrc/junction_dx.cu`` and
-``csrc/junction_dw.cu``, each in a plain and a gated form.
+``csrc/junction_dw.cu``, each in a plain and a gated form, and of the
+quantized forwards of ``csrc/junction_quant.cu``.
 
 For E junction units sharing one block pattern (idx [nob, kb] and its
 reverse rev_ob / rev_t / rev_cnt [nib, fb]):
@@ -27,6 +28,21 @@ over one pattern and no bias or activation argument:
 * ``update_gated_dw`` the gated_dw reduction and one optimizer step on
                       both streams in place, a tile counted once when
                       either branch goes non-finite.
+
+The quantized forwards (inference only; core/quantize.py makes the codes)
+take integer weight codes and an fp32 bias:
+
+* ``fwd_int8``       int8 codes with per-[nob, kb] scales against int8
+                     activation codes made per slot (per row absmax / 127,
+                     or a static per-unit x_scale), an exact integer dot
+                     per slot, dequantized into an fp32 sum in slot order,
+                     then bias and activation;
+* ``gated_fwd_int8`` both gate branches from the same activation codes,
+                     h = silu(g) * u;
+* ``fwd_fxp``        the paper's fixed point: int32 triplet codes, an int32
+                     sum (wrapping), a round-half-up shift by bf,
+                     saturation, the bias code, then a lookup table that
+                     holds the activation.
 
 dz_g and dz_u are recomputed in fp32 from the saved g and u (rounded to
 x's dtype) and rounded to dh's dtype before the products.
@@ -364,6 +380,279 @@ def gated_fwd(x, wg, wi, idx, save_res: bool = False):
 
 
 gated_fwd.launches = 0
+
+
+# ------------------------------------------------------- quantized forward
+# The int8 and fixed-point forwards of core/quantize.py's codes: forward
+# only (inference), bias in fp32, output in x's dtype.
+_QUANT_BLOCKS = (32, 64, 128)
+
+
+def _check_quant(x, wq, idx, bias, code_dtype, name):
+    if x.dim() != 3 or wq.dim() != 5 or idx.dim() != 2:
+        raise ValueError(f"{name}: expected x [E,M,n_in], wq "
+                         "[E,nob,kb,bs,bs], idx [nob,kb]")
+    E, M, n_in = x.shape
+    _, nob, kb, bs, bs2 = wq.shape
+    if (wq.shape[0] != E or bs != bs2 or n_in % bs
+            or tuple(idx.shape) != (nob, kb)):
+        raise ValueError(f"{name}: shape mismatch: x {tuple(x.shape)}, wq "
+                         f"{tuple(wq.shape)}, idx {tuple(idx.shape)}")
+    if not x.is_floating_point():
+        raise ValueError(f"{name}: x must be floating point, not {x.dtype}")
+    if wq.dtype != code_dtype:
+        raise ValueError(f"{name} takes {code_dtype} weight codes, not "
+                         f"{wq.dtype}")
+    if idx.dtype != torch.int32:
+        raise ValueError("idx must be int32")
+    if bias is not None and (bias.dtype != torch.float32
+                             or tuple(bias.shape) != (E, nob * bs)):
+        raise ValueError(f"{name}: bias must be fp32 [E, n_out] = "
+                         f"{(E, nob * bs)}, got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
+
+
+def _check_f32(t, shape, name):
+    if t is not None and (t.dtype != torch.float32
+                          or tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{name} must be fp32 of shape {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def _check_int8(x, ws, idx, scales, bias, x_scale, name):
+    for w in ws:
+        _check_quant(x, w, idx, bias, torch.int8, name)
+    if len(ws) == 2:
+        _check_pair(*ws)
+    E, nob, kb = ws[0].shape[:3]
+    for s in scales:
+        _check_f32(s, (E, nob, kb), f"{name}: w_scale")
+    _check_f32(x_scale, (E,), f"{name}: x_scale")
+
+
+def _check_codes_aligned(name, *codes):
+    for w in codes:
+        if w.data_ptr() % 16:
+            raise ValueError(f"{name}: weight codes must be 16-byte aligned")
+
+
+def _slot_scale(xk, x_scale):
+    """The activation scale of one gathered fan-in slot: per row
+    absmax / 127 (1 where the row is all zeros), or the static per-unit
+    x_scale [E]."""
+    if x_scale is None:
+        ax = xk.abs().amax(dim=-1, keepdim=True)
+        return torch.where(ax == 0.0, 1.0, true_div(ax, 127.0))
+    return x_scale.float().reshape(-1, 1, 1, 1)
+
+
+def unit_x_scale(x_scale, E: int):
+    """A calibrated activation scale as the int8 kernels and their plain
+    versions take it: None, or fp32 [E], one scale per unit (a scalar
+    serves a single unit only; the reference refuses it for experts)."""
+    if x_scale is None:
+        return None
+    xs = x_scale.float().reshape(-1).contiguous()
+    if xs.numel() != E:
+        raise ValueError(f"x_scale holds {xs.numel()} scale(s) for {E} "
+                         f"units: calibrate one per unit")
+    return xs
+
+
+def true_div(t, v: float):
+    """t / v rounded as IEEE division.  On the card PyTorch divides by a
+    Python number as a multiply by its reciprocal, which may round the
+    other way; divided by a tensor, it divides."""
+    return t / torch.full_like(t, v)
+
+
+def int8_sums(x, ws, idx, scales, x_scale):
+    """The fp32 sums of one int8 junction per (codes, scales) pair over
+    the kb slots, in slot order: per slot the activation codes, their dot
+    with the weight codes (integers: exact in fp32 below 2^24) and the
+    dequant by (sx * w_scale)."""
+    E, M, n_in = x.shape
+    _, nob, kb, bs, _ = ws[0].shape
+    if 127 * 127 * bs >= 2 ** 24:
+        raise ValueError(f"int8 block {bs}: its dots are not exact in fp32 "
+                         f"(|dot| <= 127^2 * bs < 2^24 needs bs <= 1040)")
+    xb = x.float().reshape(E, M, n_in // bs, bs)
+    accs = [None] * len(ws)
+    for k in range(kb):
+        xk = xb[:, :, idx[:, k].long(), :]                   # [E, M, nob, bs]
+        sx = _slot_scale(xk, x_scale)
+        xq = torch.clamp(torch.round(xk / sx), -127, 127)
+        for j, (w, sc) in enumerate(zip(ws, scales)):
+            dot = torch.einsum("emob,eobc->emoc", xq, w[:, :, k].float())
+            part = dot * (sx * sc[:, None, :, k, None])
+            accs[j] = part if accs[j] is None else accs[j] + part
+    return [a.reshape(E, M, nob * bs) for a in accs]
+
+
+def fwd_int8_ref(x, wq, idx, w_scale, bias, act: str = "none",
+                 x_scale=None):
+    """Plain PyTorch version of the int8 forward kernel, op for op the
+    reference's arithmetic (core/quantize._int8_apply): the fp32 sums of
+    ``int8_sums``, the fp32 bias, the activation in fp32, one cast to
+    x's dtype."""
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r}")
+    _check_int8(x, (wq,), idx, (w_scale,), bias, x_scale, "fwd_int8")
+    (s,) = int8_sums(x, (wq,), idx, (w_scale,), x_scale)
+    return act_fwd(s + bias[:, None, :], act).to(x.dtype)
+
+
+def fwd_int8(x, wq, idx, w_scale, bias, act: str = "none", x_scale=None):
+    """x [E, M, nib*bs] (fp32 / bf16), wq [E, nob, kb, bs, bs] int8, idx
+    [nob, kb] int32, w_scale [E, nob, kb] fp32, bias [E, nob*bs] fp32,
+    x_scale None (dynamic per-row activation scales) or [E] fp32 ->
+    act(dequant(xq @ wq) + bias) [E, M, nob*bs] in x's dtype.
+    CPU: ``fwd_int8_ref``; CUDA: ``junction_fwd_int8``
+    (``fwd_int8.launches``)."""
+    if _route(x, "junction fwd_int8"):
+        return fwd_int8_ref(x, wq, idx, w_scale, bias, act, x_scale)
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r}")
+    _check_int8(x, (wq,), idx, (w_scale,), bias, x_scale, "fwd_int8")
+    E, M, n_in = x.shape
+    _, nob, kb, bs, _ = wq.shape
+    _check_cuda(x, bs, _QUANT_BLOCKS, "junction_fwd_int8", x=x, wq=wq,
+                idx=idx, w_scale=w_scale, bias=bias, x_scale=x_scale)
+    _check_codes_aligned("junction_fwd_int8", wq)
+    y = torch.empty((E, M, nob * bs), dtype=x.dtype, device=x.device)
+    if M:
+        with torch.cuda.device(x.device):
+            err = _kernel("junction_quant", "junction_fwd_int8", 7, 8)(
+                x.data_ptr(), wq.data_ptr(), idx.data_ptr(),
+                w_scale.data_ptr(), bias.data_ptr(), _ptr(x_scale),
+                y.data_ptr(), E, M, n_in // bs, nob, kb, bs,
+                ACTIVATIONS.index(act), _DTYPE_CODE[x.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "junction_fwd_int8")
+        fwd_int8.launches += 1
+    return y
+
+
+fwd_int8.launches = 0
+
+
+def gated_fwd_int8_ref(x, wgq, wiq, idx, wg_scale, wi_scale, x_scale=None):
+    """Plain version of the gated int8 kernel: one set of activation codes
+    a slot for both branches, the two fp32 sums side by side, h =
+    silu(g) * u from them, one cast to x's dtype."""
+    _check_int8(x, (wgq, wiq), idx, (wg_scale, wi_scale), None, x_scale,
+                "gated_fwd_int8")
+    g, u = int8_sums(x, (wgq, wiq), idx, (wg_scale, wi_scale), x_scale)
+    return (act_fwd(g, "silu") * u).to(x.dtype)
+
+
+def gated_fwd_int8(x, wgq, wiq, idx, wg_scale, wi_scale, x_scale=None):
+    """x [E, M, nib*bs], wgq and wiq [E, nob, kb, bs, bs] int8 with their
+    [E, nob, kb] fp32 scales, idx [nob, kb] int32, x_scale None or [E]
+    -> h = silu(x @ Wg) * (x @ Wi) [E, M, nob*bs] in x's dtype, both from
+    the same activation codes.  CPU: ``gated_fwd_int8_ref``; CUDA:
+    ``junction_gated_fwd_int8`` (``gated_fwd_int8.launches``)."""
+    if _route(x, "junction gated_fwd_int8"):
+        return gated_fwd_int8_ref(x, wgq, wiq, idx, wg_scale, wi_scale,
+                                  x_scale)
+    _check_int8(x, (wgq, wiq), idx, (wg_scale, wi_scale), None, x_scale,
+                "gated_fwd_int8")
+    E, M, n_in = x.shape
+    _, nob, kb, bs, _ = wgq.shape
+    _check_cuda(x, bs, _QUANT_BLOCKS, "junction_gated_fwd_int8", x=x,
+                wgq=wgq, wiq=wiq, idx=idx, wg_scale=wg_scale,
+                wi_scale=wi_scale, x_scale=x_scale)
+    _check_codes_aligned("junction_gated_fwd_int8", wgq, wiq)
+    h = torch.empty((E, M, nob * bs), dtype=x.dtype, device=x.device)
+    if M:
+        with torch.cuda.device(x.device):
+            err = _kernel("junction_quant", "junction_gated_fwd_int8", 8, 7)(
+                x.data_ptr(), wgq.data_ptr(), wiq.data_ptr(), idx.data_ptr(),
+                wg_scale.data_ptr(), wi_scale.data_ptr(), _ptr(x_scale),
+                h.data_ptr(), E, M, n_in // bs, nob, kb, bs,
+                _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "junction_gated_fwd_int8")
+        gated_fwd_int8.launches += 1
+    return h
+
+
+gated_fwd_int8.launches = 0
+
+
+def _check_fxp(x, wq, idx, qfmt, lut, bias):
+    _check_quant(x, wq, idx, bias, torch.int32, "fwd_fxp")
+    if qfmt.dtype != torch.int32 or tuple(qfmt.shape) != (2,):
+        raise ValueError("qfmt must be int32 [bf, bn]")
+    T = lut.shape[0] if lut.dim() == 1 else 0
+    if lut.dtype != torch.float32 or T < 2 or T & (T - 1):
+        raise ValueError("lut must be fp32 with a power-of-two length "
+                         f"(2^bw), got {lut.dtype} {tuple(lut.shape)}")
+
+
+def _wrap_i32(v):
+    """int64 values wrapped into int32's range, as an int32 sum wraps."""
+    return torch.remainder(v + 2 ** 31, 2 ** 32) - 2 ** 31
+
+
+def fwd_fxp_ref(x, wq, idx, qfmt, lut, bias):
+    """Plain version of the fixed-point kernel, bit for bit the
+    reference's integer pipeline (core/quantize._fxp_apply): the codes'
+    products summed exactly in float64 and wrapped to int32 as the int32
+    dot wraps, the round-half-up shift of the wrapped (acc + 2^(bf-1)),
+    saturation, the bias code added and saturated again, the LUT.  Reads
+    bf on the host."""
+    _check_fxp(x, wq, idx, qfmt, lut, bias)
+    E, M, n_in = x.shape
+    _, nob, kb, bs, _ = wq.shape
+    T = lut.shape[0]
+    lim = T // 2
+    bf = int(qfmt[0])
+    scale = float(2 ** bf)
+    xb = x.float().reshape(E, M, n_in // bs, bs)
+    # |product| <= 2^30 for 16-bit codes: the float64 sum is exact
+    acc = torch.zeros((E, M, nob, bs), dtype=torch.float64, device=x.device)
+    for k in range(kb):
+        xk = xb[:, :, idx[:, k].long(), :]
+        xq = torch.clamp(torch.round(xk * scale), -lim, lim - 1)
+        acc += torch.einsum("emob,eobc->emoc", xq.double(),
+                            wq[:, :, k].double())
+    acc = _wrap_i32(acc.to(torch.int64)).reshape(E, M, nob * bs)
+    s = _wrap_i32(acc + (1 << (bf - 1))) >> bf
+    s = torch.clamp(s, -lim, lim - 1)
+    bcode = torch.clamp(torch.round(bias * scale), -lim, lim - 1)
+    s = torch.clamp(s + bcode.to(torch.int64)[:, None, :], -lim, lim - 1)
+    return lut[torch.bitwise_and(s, T - 1)].to(x.dtype)
+
+
+def fwd_fxp(x, wq, idx, qfmt, lut, bias):
+    """x [E, M, nib*bs], wq [E, nob, kb, bs, bs] int32 triplet codes, idx
+    [nob, kb] int32, qfmt [bf, bn] int32, lut [2^bw] fp32 (the activation
+    baked in), bias [E, nob*bs] fp32 on the grid -> lut[...] [E, M,
+    nob*bs] in x's dtype.  CPU: ``fwd_fxp_ref``; CUDA:
+    ``junction_fwd_fxp`` (``fwd_fxp.launches``), which reads bf from qfmt
+    on the card."""
+    if _route(x, "junction fwd_fxp"):
+        return fwd_fxp_ref(x, wq, idx, qfmt, lut, bias)
+    _check_fxp(x, wq, idx, qfmt, lut, bias)
+    E, M, n_in = x.shape
+    _, nob, kb, bs, _ = wq.shape
+    _check_cuda(x, bs, _QUANT_BLOCKS, "junction_fwd_fxp", x=x, wq=wq,
+                idx=idx, qfmt=qfmt, lut=lut, bias=bias)
+    _check_codes_aligned("junction_fwd_fxp", wq)
+    y = torch.empty((E, M, nob * bs), dtype=x.dtype, device=x.device)
+    if M:
+        with torch.cuda.device(x.device):
+            err = _kernel("junction_quant", "junction_fwd_fxp", 7, 8)(
+                x.data_ptr(), wq.data_ptr(), idx.data_ptr(), qfmt.data_ptr(),
+                lut.data_ptr(), bias.data_ptr(), y.data_ptr(), E, M,
+                n_in // bs, nob, kb, bs, lut.shape[0], _DTYPE_CODE[x.dtype],
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(err, "junction_fwd_fxp")
+        fwd_fxp.launches += 1
+    return y
+
+
+fwd_fxp.launches = 0
 
 
 # -------------------------------------------------------------------- dx

@@ -25,6 +25,12 @@ It returns no gradient for those tensors; with a ``health`` tensor it
 writes the per-unit count of non-finite (e, o) update tiles into it.
 The wrappers pick the CUDA kernel for a CUDA tensor and the plain
 version for a CPU tensor.
+
+Quantized junctions (core/quantize.py's integer codes) go through
+``junction_matmul`` too: ``w_scale`` (with ``wi_scale`` for the gate)
+selects the int8 kernels, ``qfmt`` with ``qlut`` the fixed-point one.
+They are forward only (no autograd Function, nothing to differentiate),
+the codes are read as they are and the bias goes in as fp32.
 """
 from __future__ import annotations
 
@@ -39,6 +45,9 @@ _COUNTED = {"junction_fwd": bsm.fwd, "junction_dx": bsm.dx,
             "junction_gated_dx": bsm.gated_dx,
             "junction_gated_dw": bsm.gated_dw,
             "junction_update_gated_dw": bsm.update_gated_dw,
+            "junction_fwd_int8": bsm.fwd_int8,
+            "junction_gated_fwd_int8": bsm.gated_fwd_int8,
+            "junction_fwd_fxp": bsm.fwd_fxp,
             "flash_decode": fa.flash_decode}
 
 
@@ -187,13 +196,31 @@ def _lift(x, w, bias):
 
 
 def junction_matmul(x, w, idx, rev_ob, rev_t, rev_cnt, *, wi=None,
-                    bias=None, act: str = "none"):
+                    bias=None, act: str = "none", w_scale=None,
+                    wi_scale=None, x_scale=None, qfmt=None, qlut=None):
     """y = act(x @ W_sparse + bias) through the pattern, or with ``wi``
     the gate silu(x @ W) * (x @ Wi); differentiable in x and the weights
-    (and bias) through the dx and dw kernels."""
+    (and bias) through the dx and dw kernels.
+
+    Quantized (forward only): int8 codes with ``w_scale`` ([nob, kb], or
+    [E, nob, kb] for 5-D codes; ``wi_scale`` for the gate's second
+    stream) and an optional calibrated ``x_scale`` (one per unit: [E],
+    or a scalar for 4-D codes);
+    int32 triplet codes with ``qfmt`` and ``qlut`` (plain junctions only:
+    the table replaces ``act``)."""
     if wi is not None and (bias is not None or act != "none"):
         raise ValueError("gated junction fixes act=silu-gate and takes no "
                          "bias")
+    if qfmt is not None or w_scale is not None:
+        return _junction_quant(x, w, idx, wi=wi, bias=bias, act=act,
+                               w_scale=w_scale, wi_scale=wi_scale,
+                               x_scale=x_scale, qfmt=qfmt, qlut=qlut)
+    if not w.is_floating_point() or (wi is not None
+                                     and not wi.is_floating_point()):
+        raise ValueError(
+            "integer-code weights need their quantization leaves (w_scale "
+            "for int8, qfmt and qlut for fixed point): refusing to cast "
+            "codes to floats")
     single, lead, x3, w5, b2 = _lift(x, w, bias)
     E = x3.shape[0]
     _, nob, _, bs, _ = w5.shape
@@ -215,6 +242,42 @@ def junction_matmul(x, w, idx, rev_ob, rev_t, rev_cnt, *, wi=None,
                             bias is not None)
     else:       # inference: no residual to save
         y = bsm.fwd(x3, w5, idx, b, act)
+    return y.reshape(*lead, nob * bs) if single else y
+
+
+def _junction_quant(x, w, idx, *, wi, bias, act, w_scale, wi_scale, x_scale,
+                    qfmt, qlut):
+    """The forward of a quantized junction: the E=1 lift of 4-D codes,
+    scales lifted alongside, bias in fp32, then one quantized kernel."""
+    gated = wi is not None
+    fxp_mode = qfmt is not None
+    if fxp_mode and gated:
+        raise ValueError("fxp quantization covers plain junctions only: the "
+                         "gate epilogue has no single-table fixed-point "
+                         "form; use the int8 path for gated junctions")
+    if fxp_mode and qlut is None:
+        raise ValueError("fxp mode needs the baked activation table (qlut)")
+    if not fxp_mode and gated and wi_scale is None:
+        raise ValueError("gated int8 junction needs wi_scale for the second "
+                         "branch")
+    single, lead, x3, w5, b2 = _lift(x, w, bias)
+    E = x3.shape[0]
+    _, nob, _, bs, _ = w5.shape
+    x3 = x3.contiguous()
+
+    def lift(s):
+        return None if s is None else (s[None] if single else s)
+
+    b = (torch.zeros((E, nob * bs), dtype=torch.float32, device=x.device)
+         if b2 is None else b2.float().contiguous())
+    xs = bsm.unit_x_scale(x_scale, E)
+    if fxp_mode:
+        y = bsm.fwd_fxp(x3, w5, idx, qfmt, qlut, b)
+    elif gated:
+        y = bsm.gated_fwd_int8(x3, w5, lift(wi), idx, lift(w_scale),
+                               lift(wi_scale), xs)
+    else:
+        y = bsm.fwd_int8(x3, w5, idx, lift(w_scale), b, act, xs)
     return y.reshape(*lead, nob * bs) if single else y
 
 

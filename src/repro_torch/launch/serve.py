@@ -5,8 +5,9 @@
         --requests 8 --prompt-len 64 --max-new 16 --arrival-every 1
 
 runs on the card; ``--device cpu --reduce`` runs a tiny config on the
-CPU.  Weights are random, made from ``--seed``.  Only the continuous
-engine is ported; the static engine is not.
+CPU.  Weights are random, made from ``--seed``.  ``--quantize int8``
+serves the sparse FFN junctions from int8 codes (quantized at load).
+Only the continuous engine is ported; the static engine is not.
 """
 from __future__ import annotations
 
@@ -34,6 +35,9 @@ def main(argv=None):
     ap.add_argument("--sparse", action="store_true",
                     help="apply the paper's pre-defined FFN sparsity")
     ap.add_argument("--density", type=float, default=0.25)
+    ap.add_argument("--quantize", default=None, choices=["int8"],
+                    help="quantize sparse junction weights at load "
+                         "(int8 codes + per-block scales)")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous-batching engine over the paged KV "
                          "cache (the only engine ported)")
@@ -77,6 +81,11 @@ def main(argv=None):
     if not ok:
         raise SystemExit(f"[serve] --continuous unsupported: {reason}")
     params = M.init(cfg, args.seed, dev)
+    quant = args.quantize if (args.quantize and cfg.sparsity) else None
+    why = ("int8 junction kernels (per-block scales)" if quant
+           else "no sparse junctions to quantize" if args.quantize
+           else "full precision")
+    print(f"[serve] quantize={args.quantize or 'off'} datapath: {why}")
 
     rng = np.random.default_rng(0)
     V = cfg.raw_vocab or cfg.vocab
@@ -86,7 +95,8 @@ def main(argv=None):
         max_new_tokens=args.max_new, temperature=args.temperature,
         seed=args.seed, slots=args.slots, page_size=args.page_size,
         num_pages=args.num_pages, prefill_chunk=args.prefill_chunk,
-        max_seq=min(cfg.max_seq, args.prompt_len + args.max_new))
+        max_seq=min(cfg.max_seq, args.prompt_len + args.max_new),
+        quantize=quant)
     reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=args.max_new,
                     arrival=i * args.arrival_every)
             for i in range(args.requests)]

@@ -13,6 +13,10 @@ block pattern is shared by all experts (per-expert weights
 kernels (``_expert_ffn``): the gate silu(x @ wg) * (x @ wi) as one gated
 junction, wo as a plain one, both with E = num_experts units.  Engine
 "jnp" keeps the plain gather-and-einsum loop (``_expert_apply``).
+Quantized experts (int8 codes ``wgq`` / ``wiq`` / ``woq``, see
+core/quantize.py) run the gate through ``gated_fwd_int8`` and wo through
+``fwd_int8`` (engine "jnp": ``quantize.expert_apply_int8``); they are
+inference only.
 
 Aux load-balance loss, Switch / GShard style: E * sum_e f_e * p_e times
 ``aux_loss_weight``.
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import quantize as qz
 from repro_torch.core import sparse_linear as sl
 from repro_torch.core.sparsity import make_block_pattern
 from repro_torch.kernels import ops
@@ -124,7 +129,16 @@ def _expert_ffn(p: Params, xd, E: int):
     xe = xd.movedim(1, 0).reshape(E, G * C, D)
     pin = [p[k] for k in sl.MOE_PATTERN_LEAVES if "_in" in k]
     pout = [p[k] for k in sl.MOE_PATTERN_LEAVES if "_out" in k]
-    if sl.UPDATE_HYP_LEAF in p:
+    if "wgq" in p:      # quantized experts: inference only
+        if sl.UPDATE_HYP_LEAF in p:
+            raise ValueError("quantized expert FFN inside a fused train "
+                             "step: the int8 datapath is inference only")
+        h = ops.junction_matmul(
+            xe, p["wgq"], *pin, wi=p["wiq"], w_scale=p["wg_scale"],
+            wi_scale=p["wi_scale"], x_scale=p.get("x_scale_in"))
+        ye = ops.junction_matmul(h, p["woq"], *pout, w_scale=p["wo_scale"],
+                                 x_scale=p.get("x_scale_out"))
+    elif sl.UPDATE_HYP_LEAF in p:
         hyp = p[sl.UPDATE_HYP_LEAF]
         h = ops.junction_train_update(
             xe, p["wg"], *pin, wi=p["wi"], hyp=hyp, mom=p.get("mom_wg"),
@@ -188,12 +202,17 @@ def moe_apply(p: Params, x, cfg: ArchConfig):
 
     xd = torch.einsum("GgEC,Ggd->GECd", dispatch.to(x.dtype), xt)
     if "idx_in" in p:   # pre-defined-sparse experts (the paper's technique)
-        if "wgq" in p:
-            raise ValueError("quantized experts ('wgq') belong to the "
-                             "quantized-inference slice of the port, which "
-                             "is not ported yet")
         if ops.resolve_engine(cfg.engine) == "pallas":
             ye = _expert_ffn(p, xd, E)
+        elif "wgq" in p:    # quantized experts, the plain int8 forms
+            xs_in, xs_out = p.get("x_scale_in"), p.get("x_scale_out")
+            gq = qz.expert_apply_int8(p["wgq"], p["wg_scale"], p["idx_in"],
+                                      xd, xs_in)
+            uq = qz.expert_apply_int8(p["wiq"], p["wi_scale"], p["idx_in"],
+                                      xd, xs_in)
+            h = (act_fwd(gq, "silu") * uq).to(x.dtype)
+            ye = qz.expert_apply_int8(p["woq"], p["wo_scale"], p["idx_out"],
+                                      h, xs_out).to(x.dtype)
         else:
             h = (act_fwd(_expert_apply(p["wg"], p["idx_in"], xd), "silu")
                  * _expert_apply(p["wi"], p["idx_in"], xd))

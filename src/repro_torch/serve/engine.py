@@ -14,8 +14,9 @@ swaps a page-table row and never copies the cache.  Invariants:
 * pool page 0 is the scratch page: free and still-prefilling slots point
   at it during a decode tick, so their writes never touch live pages;
 * decode attends through kernels/flash_attention.flash_decode, and every
-  sparse FFN junction runs through kernels/block_sparse_matmul.fwd; the
-  kernels' launch counts over a run land in ``stats["launches"]``.
+  sparse FFN junction runs through kernels/block_sparse_matmul.fwd (the
+  int8 kernels under ``ServeConfig.quantize="int8"``); the kernels'
+  launch counts over a run land in ``stats["launches"]``.
 
 Sampling is greedy (first maximum) or by temperature from a
 ``torch.Generator`` seeded with ``ServeConfig.seed``; a slot whose logits
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import quantize as qz
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
@@ -52,6 +54,14 @@ class ServeConfig:
                             # (slots * ceil(max_seq/page_size) + scratch)
     prefill_chunk: int = 32 # chunked-prefill width (fixed [1, C] shape)
     max_seq: int = 0        # per-request prompt+new cap; 0: cfg.max_seq
+    # quantize at load: "int8" turns every sparse junction's weights into
+    # int8 codes and per-block scales (core/quantize.quantize_tree) when
+    # the engine takes the params, so every FFN junction runs the int8
+    # kernels; dense layers (attention, embeddings) stay as they are.
+    # None serves the weights as given.  "fxp" is refused: its table
+    # bakes one activation per junction, which fits the paper's MLP
+    # (launch/quant_sweep.py), not a transformer's FFN.
+    quantize: str | None = None
 
 
 @dataclasses.dataclass
@@ -106,8 +116,16 @@ class ContinuousEngine:
         ok, why = M.paged_supported(cfg)
         if not ok:
             raise ValueError(f"ContinuousEngine: {why}")
+        if self.scfg.quantize not in (None, "int8"):
+            raise ValueError(
+                f"ServeConfig.quantize={self.scfg.quantize!r}: serving "
+                "supports 'int8' only (fxp bakes one table activation per "
+                "junction; use launch/quant_sweep.py for it)")
         self.cfg = cfg
         self.params = _to_device(params, self.device)
+        if self.scfg.quantize:
+            self.params = qz.quantize_tree(self.params,
+                                           qz.QuantConfig(mode="int8"))
         self.max_seq = self.scfg.max_seq or cfg.max_seq
         self.pages_per_slot = -(-self.max_seq // self.scfg.page_size)
         self.nonfinite_terminated = 0
