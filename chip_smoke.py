@@ -47,7 +47,16 @@ PyTorch built for CUDA.  It
    launch, logits kernels vs plain versions, greedy agreement with the fp
    run); and runs ``launch.quant_sweep --fxp`` dynamic and calibrated to
    a finite winner with exact launch counts;
-10. prints a ``kernels`` JSON line and, last, a JSON line with
+10. drives the four standalone kernels through the reference's own
+   entry points (``ops.fxp_qmatmul``, ``ops.sigmoid_lut``,
+   ``selective_scan``, ``mha``) at full-width shapes: attention at
+   stablelm-3b's, qwen3-moe's and llava-next-mistral-7b's heads (causal,
+   sliding window, ragged, rows with no valid key), the scan at
+   falcon-mamba-7b's d_inner, the fixed-point matmul at every paper
+   triplet (a wrapping int32 sum) and at 4096^3, the lookup on both
+   tables with out-of-range codes; exact launch counts, each kernel
+   against its plain version (bit for bit for the integer two), timed;
+11. prints a ``kernels`` JSON line and, last, a JSON line with
    ``"ok": true`` and the device.
 
 Any failed check raises and the exit code is not 0.  Without a card, or
@@ -1511,6 +1520,268 @@ def sweep_phase(P, card):
     return counts
 
 
+# ------------------------------------------------------ standalone kernels
+# The four kernels the reference calls only through their own entry
+# points (ops.fxp_qmatmul, ops.sigmoid_lut, selective_scan, mha), driven
+# at full-width shapes of configurations the registry has.
+# kernel vs plain version: the scan sums N fp32 terms a step in another
+# order with the same expf, and its decay is at most 1, so an error does
+# not grow along S; attention sums up to 8192 fp32 terms in another
+# order (TOL); bf16 outputs may move by one bf16 ulp (TOL)
+SCAN_ARCH, SCAN_SHAPES = "falcon-mamba-7b", ((1, 4096), (4, 1024))
+QMM_SHAPE, QMM_BIG = (512, 1024, 512), 4096
+LUT_SHAPES = ((512, 512), (8192, 8192))
+
+
+def _attn_cases(P):
+    """(what, B, Sq, Sk, (H, Hkv, D), causal, window, timed)."""
+    def heads(arch):
+        c = P.registry.get(arch)
+        return c.n_heads, c.kv_heads, c.head_dim
+    st, qw = heads("stablelm-3b"), heads("qwen3-moe-30b-a3b")
+    lv = P.registry.get("llava-next-mistral-7b")
+    return [
+        ("stablelm-3b train batch", 8, 256, 256, st, True, 0, True),
+        ("stablelm-3b", 1, 4096, 4096, st, True, 0, True),
+        ("qwen3-moe-30b-a3b", 1, 4096, 4096, qw, True, 0, True),
+        ("llava-next-mistral-7b", 1, 8192, 8192, heads(lv.name), True,
+         lv.window, True),
+        ("ragged non-causal", 2, 37, 53, qw, False, 0, False),
+        ("ragged window", 2, 100, 100, st, True, 48, False),
+        ("one query row", 1, 1, 4096, qw, False, 0, False),
+        ("rows with no valid key", 1, 100, 70, st, True, 5, False),
+    ]
+
+
+def attn_pairs(Sq, Sk, causal, window) -> int:
+    """(query, key) pairs the masks keep, a head."""
+    q = np.arange(Sq)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros_like(q)
+    hi = np.minimum(q, Sk - 1) if causal else np.full_like(q, Sk - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def bits_equal(got, want) -> bool:
+    """Equal bit for bit (NaN payloads included)."""
+    return got.shape == want.shape and got.dtype == want.dtype and bool(
+        torch.equal(got.view(torch.int32), want.view(torch.int32)))
+
+
+def standalone_kernel_phase(P, card):
+    """Drive the four entry points once at every shape with the launch
+    counts reset just before and read just after (exact counts); then
+    hold each result against its plain version on the same inputs and
+    time kernel, plain version and, where one PyTorch call computes the
+    same function, that call.  Returns (the four kernels' JSON entries,
+    the path's launch counts)."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    timer, slow = Timer(), Timer(reps=3)   # the plain scan steps S times
+    fxp = P.fxp
+
+    # inputs, all made before the drive
+    attn = []
+    for what, B, Sq, Sk, (H, Hkv, D), causal, window, timed in \
+            _attn_cases(P):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, Sq, H, D), generator=gen, device=dev)
+            k = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev)
+            v = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev)
+            attn.append((what, B, Sq, Sk, H, Hkv, D, causal, window, timed,
+                         dtype, *(t.to(dtype) for t in (q, k, v))))
+    c = P.registry.get(SCAN_ARCH)
+    scan = []
+    for B, S, di, N, timed in [(B, S, c.d_inner, c.ssm_state, True)
+                               for B, S in SCAN_SHAPES] + [
+            (2, 300, 1000, 8, False), (1, 129, 512, 32, False),
+            (3, 70, 96, 5, False)]:
+        for dtype in ((torch.float32, torch.bfloat16) if timed
+                      else (torch.float32,)):
+            dt = torch.nn.functional.softplus(torch.randn(
+                (B, S, di), generator=gen, device=dev)) * 0.1
+            xs = [torch.randn(shape, generator=gen, device=dev)
+                  for shape in ((B, S, di), (B, S, N), (B, S, N))]
+            a = -torch.exp(torch.randn((di, N), generator=gen,
+                                       device=dev) * 0.3)
+            h0 = torch.randn((B, di, N), generator=gen, device=dev) * 0.1
+            scan.append((B, S, di, N, timed, dtype,
+                         [t.to(dtype) for t in (dt, *xs)] + [a, h0]))
+    qmm = []
+    M, K, N = QMM_SHAPE
+    for fmt in fxp.PAPER_TRIPLETS:
+        lim = 1 << (fmt.bn + fmt.bf)
+        a = torch.randint(-lim, lim, (M, K), generator=gen, device=dev,
+                          dtype=torch.int32)
+        w = torch.randint(-lim, lim, (K, N), generator=gen, device=dev,
+                          dtype=torch.int32)
+        qmm.append((f"{M}x{K}x{N}", fmt, True, a, w))
+    big = fxp.PAPER_FMT
+    lim = 1 << (big.bn + big.bf)
+    qmm.append((f"{QMM_BIG}^3", big, True, *(
+        torch.randint(-lim, lim, (QMM_BIG, QMM_BIG), generator=gen,
+                      device=dev, dtype=torch.int32) for _ in range(2))))
+    top = fxp.PAPER_TRIPLETS[-1]
+    wa = torch.full((4, 1024), 2 ** 15 - 1, dtype=torch.int32, device=dev)
+    ww = torch.full((1024, 3), 2 ** 15 - 1, dtype=torch.int32, device=dev)
+    ww[:, 1] = -(2 ** 15)
+    qmm.append(("int32 sum wraps 4x1024x3", top, False, wa, ww))
+    qmm.append(("ragged 75x33x50", big, False, *(
+        torch.randint(-lim, lim, shape, generator=gen, device=dev,
+                      dtype=torch.int32) for shape in ((75, 33), (33, 50)))))
+    lut = []
+    for fmt in (fxp.PAPER_FMT, top):
+        table = torch.from_numpy(fxp.sigmoid_tables(fmt)[0]).to(dev)
+        T = table.shape[0]
+        for shape in LUT_SHAPES:
+            lut.append((f"{shape[0]}x{shape[1]}", fmt, True, table,
+                        torch.randint(0, T, shape, generator=gen, device=dev,
+                                      dtype=torch.int32)))
+        lut.append(("[2,3,77] out of range", fmt, False, table,
+                    torch.randint(-2 * T, 2 * T, (2, 3, 77), generator=gen,
+                                  device=dev, dtype=torch.int32)))
+        flat = torch.randint(0, T, (1 + 37 * 77,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        lut.append(("[37,77] unaligned", fmt, False, table,
+                    flat[1:].view(37, 77)))
+
+    # the path: every entry point once a case, counted
+    P.ops.reset_launch_counts()
+    attn_out = [P.fa.mha(q, k, v, causal=causal, window=window)
+                for *_, causal, window, _, _, q, k, v in attn]
+    scan_out = [P.ssk.selective_scan(*ins) for *_, ins in scan]
+    qmm_out = [P.ops.fxp_qmatmul(a, w, bf=fmt.bf, bn=fmt.bn)
+               for _, fmt, _, a, w in qmm]
+    lut_out = [P.ops.sigmoid_lut(codes, table) for *_, table, codes in lut]
+    torch.cuda.synchronize()
+    counts = P.ops.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(flash_attention=len(attn), selective_scan=len(scan),
+                qmatmul=len(qmm), lut_lookup=len(lut))
+    print(f"[standalone] launches={counts} [{card}]")
+    require(counts == want, f"standalone launches {counts} != {want}")
+
+    res = {k: {"max_abs_err": 0.0, "cases": []} for k in
+           ("flash_attention", "selective_scan", "qmatmul", "lut_lookup")}
+
+    def record(kind, what, err, k_ms, p_ms, lib_ms, nbytes, nops, dtype,
+               main):
+        bnd, by = bound_ms(nbytes, nops, dtype)
+        row = {"case": what, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd,
+               "bound_by": by, "library_ms": lib_ms}
+        r = res[kind]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["cases"].append(row)
+        if main:
+            r.update({k: v for k, v in row.items() if k != "case"})
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
+        print(f"[kernel] {kind} {what}: max_abs_err={err:.3g} ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.4f} bound_ms={bnd:.5f} ({by}) "
+              f"library_ms={lib} [{card}]")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for case, got in zip(attn, attn_out):
+        (what, B, Sq, Sk, H, Hkv, D, causal, window, timed, dtype,
+         q, k, v) = case
+        qf = q.transpose(1, 2).reshape(B * H, Sq, D).contiguous()
+        kf = k.transpose(1, 2).reshape(B * Hkv, Sk, D).contiguous()
+        vf = v.transpose(1, 2).reshape(B * Hkv, Sk, D).contiguous()
+        ref = P.fa.attention_ref(qf, kf, vf, causal=causal, window=window)
+        got = got.transpose(1, 2).reshape(B * H, Sq, D)
+        err = max_err(got, ref)
+        desc = (f"{what} B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D} "
+                f"causal={causal} window={window} {str(dtype)[6:]}")
+        require(close(got, ref, TOL[dtype]),
+                f"flash_attention {desc} disagrees: err {err}")
+        if not timed:
+            print(f"[kernel] flash_attention {desc}: max_abs_err={err:.3g} "
+                  f"(tol {TOL[dtype]}) [{card}]")
+            continue
+        k_ms = timer.ms(lambda: P.fa.flash_attention(
+            qf, kf, vf, causal=causal, window=window))
+        p_ms = timer.ms(lambda: P.fa.attention_ref(
+            qf, kf, vf, causal=causal, window=window))
+        lib_ms = None
+        if causal and not window and Sq == Sk:
+            q4, k4, v4 = (t.view(B, -1, t.shape[1], D) for t in (qf, kf, vf))
+            lib_ms = timer.ms(lambda: sdpa(q4, k4, v4, is_causal=True,
+                                           enable_gqa=True))
+        pairs = attn_pairs(Sq, Sk, causal, window) * B * H
+        nbytes = (2 * qf.numel() + 2 * kf.numel()) * q.element_size()
+        record("flash_attention", desc, err, k_ms, p_ms, lib_ms, nbytes,
+               4 * D * pairs, dtype,
+               what == "stablelm-3b" and dtype == torch.bfloat16)
+
+    for (B, S, di, N, timed, dtype, ins), (y, h) in zip(scan, scan_out):
+        ry, rh = P.ssk.selective_scan_ref(*ins)
+        err = max(max_err(y, ry), max_err(h, rh))
+        desc = f"B={B} S={S} di={di} N={N} {str(dtype)[6:]}"
+        require(y.dtype == dtype and h.dtype == torch.float32
+                and close(y, ry, TOL[dtype])
+                and close(h, rh, TOL[torch.float32]),
+                f"selective_scan {desc} disagrees: err {err}")
+        if not timed:
+            print(f"[kernel] selective_scan {desc}: max_abs_err={err:.3g} "
+                  f"(tol {TOL[dtype]}) [{card}]")
+            continue
+        k_ms = timer.ms(lambda: P.ssk.selective_scan(*ins))
+        p_ms = slow.ms(lambda: P.ssk.selective_scan_ref(*ins))
+        # every operand once: hbm_bytes' model and A [di, N], which the
+        # model leaves out
+        nbytes = sum(t.numel() * t.element_size() for t in (*ins, y, h))
+        if dtype == torch.float32:
+            require(nbytes == P.ssk.hbm_bytes(B, S, di, N) + 4 * di * N,
+                    "the scan's bytes disagree with hbm_bytes")
+        record("selective_scan", f"{SCAN_ARCH} {desc}", err, k_ms, p_ms,
+               None, nbytes, 7 * B * S * di * N, torch.float32,
+               B == 1 and dtype == torch.float32)
+
+    for (what, fmt, timed, a, w), got in zip(qmm, qmm_out):
+        ref = P.fxk.qmatmul_ref(a, w, bf=fmt.bf, bn=fmt.bn)
+        desc = f"{what} fmt=({fmt.bw},{fmt.bn},{fmt.bf})"
+        if fmt == top and what != "ragged 75x33x50":
+            s = a[:1].double() @ w.double()
+            require(float(s.abs().max()) > 2 ** 31,
+                    f"qmatmul {desc}: the int32 sum does not wrap")
+            desc += " int32 sum wraps"
+        require(bits_equal(got, ref),
+                f"qmatmul {desc} is not bit for bit its plain version")
+        if not timed:
+            print(f"[kernel] qmatmul {desc}: bit_equal=True [{card}]")
+            continue
+        M, K = a.shape
+        N = w.shape[1]
+        k_ms = timer.ms(lambda: P.fxk.qmatmul(a, w, bf=fmt.bf, bn=fmt.bn))
+        p_ms = timer.ms(lambda: P.fxk.qmatmul_ref(a, w, bf=fmt.bf,
+                                                  bn=fmt.bn))
+        record("qmatmul", desc, 0.0, k_ms, p_ms, None,
+               4 * (M * K + K * N + M * N), 2 * M * K * N, torch.int32,
+               what == f"{M}x{K}x{N}" and (M, K, N) == QMM_SHAPE
+               and fmt == fxp.PAPER_FMT)
+
+    for (what, fmt, timed, table, codes), got in zip(lut, lut_out):
+        ref = P.slut.lut_lookup_ref(codes.reshape(-1, codes.shape[-1]),
+                                    table).reshape(codes.shape)
+        desc = f"{what} T={table.shape[0]}"
+        nan = int(got.isnan().sum())
+        require(bits_equal(got, ref),
+                f"lut_lookup {desc} is not bit for bit its plain version")
+        if not timed:
+            print(f"[kernel] lut_lookup {desc}: bit_equal=True nan={nan} "
+                  f"[{card}]")
+            continue
+        k_ms = timer.ms(lambda: P.slut.lut_lookup(codes, table))
+        p_ms = timer.ms(lambda: P.slut.lut_lookup_ref(codes, table))
+        lib_ms = timer.ms(lambda: table[codes])
+        record("lut_lookup", desc, 0.0, k_ms, p_ms, lib_ms,
+               8 * codes.numel() + 4 * table.numel(), 0, torch.float32,
+               what == "{}x{}".format(*LUT_SHAPES[-1])
+               and fmt == fxp.PAPER_FMT)
+    for kind, r in res.items():
+        require("ms" in r, f"{kind}: its main case was not timed")
+    return res, counts
+
+
 def load_port() -> types.SimpleNamespace:
     """The port's modules this script drives, from the checkout beside it;
     fp32 products in full fp32."""
@@ -1526,7 +1797,10 @@ def load_port() -> types.SimpleNamespace:
     from repro_torch.kernels import block_sparse_matmul as bsm
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fxp_qmatmul as fxk
     from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ssk
+    from repro_torch.kernels import sigmoid_lut as slut
     from repro_torch.launch import quant_sweep
     from repro_torch.launch.serve import percentile
     from repro_torch.models import model as M
@@ -1538,7 +1812,8 @@ def load_port() -> types.SimpleNamespace:
         make_block_pattern=make_block_pattern, bsm=bsm, fa=fa, ops=ops,
         M=M, engine=engine, percentile=percentile, optim=optim, steps=steps,
         LMTokenPipeline=LMTokenPipeline, tree_items=tree_items, build=build,
-        qz=qz, fxp=fxp, quant_sweep=quant_sweep)
+        qz=qz, fxp=fxp, quant_sweep=quant_sweep, fxk=fxk, ssk=ssk,
+        slut=slut)
 
 
 def build_kernels(P) -> None:
@@ -1594,6 +1869,7 @@ def main() -> int:
     paths["moe_train"] = train_phase(P, card, "qwen3-moe-30b-a3b",
                                      MOE_TRAIN_LAYERS)
     paths["sweep"] = sweep_phase(P, card)
+    standalone, paths["standalone"] = standalone_kernel_phase(P, card)
 
     def launches(name):
         by = {p: c[name] for p, c in paths.items() if c[name]}
@@ -1641,6 +1917,17 @@ def main() -> int:
             "source": "src/repro_torch/csrc/junction_quant.cu",
             "replaces": f"src/repro/kernels/block_sparse_matmul.py:{line}",
             **launches(f"junction_{name}"), **quant[name]})
+    for name, src, line in (
+            ("flash_attention", "flash_attention.cu",
+             "flash_attention.py:94"),
+            ("selective_scan", "selective_scan.cu", "selective_scan.py:67"),
+            ("qmatmul", "fxp_qmatmul.cu", "fxp_qmatmul.py:42"),
+            ("lut_lookup", "sigmoid_lut.cu", "sigmoid_lut.py:22")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/{line}",
+            **launches(name), **standalone[name]})
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never ran on its path")
     print(card)                          # nvidia-smi's name, power.limit

@@ -5,7 +5,8 @@ library with a plain C interface, at first use, into ``build/kernels/``
 at the root of the checkout.  A library is cached under a hash of its
 source, the shared headers (``csrc/*.cuh``) and the compiler flags, so an
 edit rebuilds it.  No ``--use_fast_math``: the update kernel's guards and
-``isfinite`` need IEEE semantics.  There is no
+``isfinite``, and the parity of ``expf`` in the attention and scan
+kernels with their plain versions, need IEEE semantics.  There is no
 fallback: a missing ``nvcc``, a missing card or a failed build raises.
 """
 from __future__ import annotations
@@ -23,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("junction_fwd", "junction_dx", "junction_dw", "junction_quant",
-           "flash_decode")
+           "flash_decode", "flash_attention", "selective_scan",
+           "fxp_qmatmul", "sigmoid_lut")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,12 +1,23 @@
-"""Paged single-query decode attention: the plain PyTorch version
-``paged_decode_ref`` and the wrapper ``flash_decode`` of the CUDA kernel
-``csrc/flash_decode.cu``.
+"""Attention kernels: the plain PyTorch versions and the wrappers of the
+CUDA kernels ``csrc/flash_attention.cu`` and ``csrc/flash_decode.cu``.
 
-q [B, Hkv, rep, D] (one query token per slot, grouped by kv head),
-k_pool / v_pool [P, ps, Hkv, D] (one layer's page pool), page_table
-[B, maxp] int32 (pool page ids in token order), seq_lens [B] int32
-(valid tokens per slot) -> [B, Hkv, rep, D] in q's dtype.  Softmax in
-fp32; a slot with seq_len 0 gives exact zeros.
+``flash_attention`` (``attention_ref``): q [BH, Sq, D], k / v
+[BHkv, Sk, D] (BH a multiple of BHkv; query row bh reads kv row
+bh // (BH / BHkv)) -> [BH, Sq, D] in q's dtype.  Scores, probabilities
+and the weighted sum in fp32, scale 1/sqrt(D); a key is valid when
+kpos < Sk, with ``causal`` when qpos >= kpos and with ``window`` when
+qpos - kpos < window (positions from 0 on both sides, so Sq != Sk aligns
+the causal mask top-left).  A masked score is NEG_INF = -1e30, a finite
+value: a query row with no valid key (only when Sq > Sk) averages V
+uniformly over the Sk keys, as a softmax over its scores does.  ``mha``
+takes [B, S, H, D] layouts.
+
+``flash_decode`` (``paged_decode_ref``): q [B, Hkv, rep, D] (one query
+token per slot, grouped by kv head), k_pool / v_pool [P, ps, Hkv, D]
+(one layer's page pool), page_table [B, maxp] int32 (pool page ids in
+token order), seq_lens [B] int32 (valid tokens per slot) ->
+[B, Hkv, rep, D] in q's dtype.  Softmax in fp32; a slot with seq_len 0
+gives exact zeros.
 """
 from __future__ import annotations
 
@@ -15,6 +26,10 @@ import ctypes
 import torch
 
 NEG_INF = -1e30
+MAX_HEAD_DIM = 128        # the attention kernel's limit
+# the plain attention walks query rows in chunks of at most this many
+# fp32 scores, so that S = 8192 stays well inside the card's memory
+_REF_SCORES = 1 << 28
 
 
 def _check(q, k_pool, v_pool, page_table, seq_lens):
@@ -107,3 +122,117 @@ def flash_decode(q, k_pool, v_pool, page_table, seq_lens):
 
 
 flash_decode.launches = 0
+
+
+# ------------------------------------------------------------ flash_attention
+def _check_attn(q, k, v, window):
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError("expected q [BH,Sq,D] and k, v [BHkv,Sk,D]")
+    BH, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    if (tuple(v.shape) != tuple(k.shape) or k.shape[2] != D or BHkv == 0
+            or BH % BHkv):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if Sk == 0:
+        raise ValueError("attention needs at least one key")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("k and v must be in q's dtype")
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"attention takes float32 or bfloat16, not "
+                         f"{q.dtype}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """Plain version: masked scores and a softmax in fp32 over all keys at
+    once, query rows in chunks (each row's softmax is its own)."""
+    _check_attn(q, k, v, window)
+    BH, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    rep = BH // BHkv
+    kf = k.float().repeat_interleave(rep, 0)
+    vf = v.float().repeat_interleave(rep, 0)
+    kpos = torch.arange(Sk, device=q.device)
+    rows = max(1, _REF_SCORES // (BH * Sk))
+    out = []
+    for q0 in range(0, Sq, rows):
+        qc = q[:, q0:q0 + rows].float()
+        s = torch.einsum("hqd,hkd->hqk", qc, kf) * (1.0 / (D ** 0.5))
+        qpos = torch.arange(q0, q0 + qc.shape[1], device=q.device)[:, None]
+        mask = torch.ones((qc.shape[1], Sk), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= qpos >= kpos
+        if window:
+            mask &= qpos - kpos < window
+        s = torch.where(mask, s, NEG_INF)
+        out.append(torch.einsum("hqk,hkd->hqd", torch.softmax(s, -1), vf)
+                   .to(q.dtype))
+    return torch.cat(out, 1) if out else q.new_empty(q.shape)
+
+
+def _attn_kernel():
+    from repro_torch.kernels import build
+    fn = build.load("flash_attention").flash_attention
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """A CPU tensor runs ``attention_ref``.  A CUDA tensor launches the
+    ``flash_attention`` kernel on the current stream
+    (``flash_attention.launches`` counts those launches) or raises; any
+    other device raises.  The kernel takes head_dim up to 128."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not "
+                         f"{q.device}")
+    _check_attn(q, k, v, window)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    BH, Sq, D = q.shape
+    BHkv, Sk, _ = k.shape
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"the kernel takes head_dim 1..{MAX_HEAD_DIM}, "
+                         f"not {D}")
+    out = torch.empty_like(q)
+    if BH == 0 or Sq == 0:
+        return out
+    with torch.cuda.device(q.device):
+        err = _attn_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             out.data_ptr(), BH, BH // BHkv, Sq, Sk, D,
+                             int(causal), int(window),
+                             _DTYPE_CODE[q.dtype], 1.0 / (D ** 0.5),
+                             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def mha(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B,Sq,H,D], k / v [B,Sk,Hkv,D] -> [B,Sq,H,D] through
+    ``flash_attention`` (heads moved ahead of the sequence and back)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("expected q [B,Sq,H,D] and k, v [B,Sk,Hkv,D]")
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    qf = q.transpose(1, 2).reshape(B * H, Sq, D).contiguous()
+    kf = k.transpose(1, 2).reshape(B * Hkv, Sk, D).contiguous()
+    vf = v.transpose(1, 2).reshape(B * Hkv, Sk, D).contiguous()
+    o = flash_attention(qf, kf, vf, causal=causal, window=window)
+    return o.reshape(B, H, Sq, D).transpose(1, 2)

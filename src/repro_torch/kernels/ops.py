@@ -26,6 +26,10 @@ writes the per-unit count of non-finite (e, o) update tiles into it.
 The wrappers pick the CUDA kernel for a CUDA tensor and the plain
 version for a CPU tensor.
 
+``fxp_qmatmul`` and ``sigmoid_lut`` are the reference's entry points of
+the fixed-point matmul and the table lookup; ``selective_scan`` and
+``flash_attention.mha`` are called from their own modules.
+
 Quantized junctions (core/quantize.py's integer codes) go through
 ``junction_matmul`` too: ``w_scale`` (with ``wi_scale`` for the gate)
 selects the int8 kernels, ``qfmt`` with ``qlut`` the fixed-point one.
@@ -38,6 +42,9 @@ import torch
 
 from repro_torch.kernels import block_sparse_matmul as bsm
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import fxp_qmatmul as fxpk
+from repro_torch.kernels import selective_scan as ssk
+from repro_torch.kernels import sigmoid_lut as slut
 
 _COUNTED = {"junction_fwd": bsm.fwd, "junction_dx": bsm.dx,
             "junction_dw": bsm.dw, "junction_update_dw": bsm.update_dw,
@@ -48,7 +55,11 @@ _COUNTED = {"junction_fwd": bsm.fwd, "junction_dx": bsm.dx,
             "junction_fwd_int8": bsm.fwd_int8,
             "junction_gated_fwd_int8": bsm.gated_fwd_int8,
             "junction_fwd_fxp": bsm.fwd_fxp,
-            "flash_decode": fa.flash_decode}
+            "flash_decode": fa.flash_decode,
+            "flash_attention": fa.flash_attention,
+            "selective_scan": ssk.selective_scan,
+            "qmatmul": fxpk.qmatmul,
+            "lut_lookup": slut.lut_lookup}
 
 
 def launch_counts() -> dict[str, int]:
@@ -355,3 +366,20 @@ def junction_train_update(x, w, idx, rev_ob, rev_t, rev_cnt, *, hyp,
                               rev_cnt, act, bias is not None, slots, hyp,
                               health)
     return y.reshape(*lead, nob * bs) if single else y
+
+
+# ------------------------------------------------------------ fixed point
+def fxp_qmatmul(a_code, w_code, *, bf: int, bn: int):
+    """a [M, K] int32 codes @ w [K, N] int32 codes -> [M, N] int32 codes:
+    the int32 sum, the round-half-up shift by bf, saturation to the
+    triplet's range (``kernels/fxp_qmatmul.qmatmul``)."""
+    return fxpk.qmatmul(a_code, w_code, bf=bf, bn=bn)
+
+
+# ------------------------------------------------------------ LUT sigmoid
+def sigmoid_lut(codes, table):
+    """table[codes] for int32 codes of any leading dims [..., N]
+    (``kernels/sigmoid_lut.lut_lookup`` over the rows flattened)."""
+    lead = codes.shape[:-1]
+    y = slut.lut_lookup(codes.reshape(-1, codes.shape[-1]), table)
+    return y.reshape(*lead, codes.shape[-1])

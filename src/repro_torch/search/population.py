@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core import sparse_linear as sl
 from repro_torch.core.sparsity import SparsityConfig, block_fan_in
+from repro_torch.device import resolve_device
 from repro_torch.kernels import block_sparse_matmul as bsm
 
 TRAINABLE = ("w", "b")
@@ -84,9 +85,10 @@ def _init_member(spec: CandidateSpec, seed: int, device):
 
 
 def init_population(seed: int, specs: Sequence[CandidateSpec],
-                    device="cpu"):
+                    device=None):
     """E candidates stacked into population params: a list of junction
-    dicts with E-leading ``w`` and ``b`` and shared pattern leaves.
+    dicts with E-leading ``w`` and ``b`` and shared pattern leaves, on
+    ``device`` (the card unless the caller names another).
     Member e is initialized from (seed, its init_seed) as its standalone
     single model would be; ``member_slice`` gives that model back."""
     if not specs:
@@ -97,6 +99,7 @@ def init_population(seed: int, specs: Sequence[CandidateSpec],
             raise ValueError(
                 f"population members must share structure: {structure_key(s)}"
                 f" != {key0}; bucket with search/cohorts.py first")
+    device = resolve_device(device)
     members = [_init_member(s, seed * 1_000_003 + s.init_seed, device)
                for s in specs]
     pop = []
@@ -119,8 +122,9 @@ def population_size(params) -> int:
     return (p0["w"] if "w" in p0 else p0["wq"]).shape[0]
 
 
-def hyp_table(specs: Sequence[CandidateSpec], device="cpu") -> torch.Tensor:
-    """The per-member [E, HYP_K] table the update kernels read row e of.
+def hyp_table(specs: Sequence[CandidateSpec], device=None) -> torch.Tensor:
+    """The per-member [E, HYP_K] table the update kernels read row e of,
+    on ``device`` (the card unless the caller names another).
     Adam members get t = 1 as a placeholder; the caller stamps the step
     into COL_T before each step."""
     rows = []
@@ -135,7 +139,8 @@ def hyp_table(specs: Sequence[CandidateSpec], device="cpu") -> torch.Tensor:
             row[bsm.COL_WD] = s.weight_decay
             row[bsm.COL_T] = 1.0
         rows.append(row)
-    return torch.tensor(rows, dtype=torch.float32, device=device)
+    return torch.tensor(rows, dtype=torch.float32,
+                        device=resolve_device(device))
 
 
 def _zeros_like_slots(params):

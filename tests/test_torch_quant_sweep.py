@@ -116,7 +116,7 @@ def test_cohorts_match_reference():
     assert [(c.key, c.member_ids) for c in tb] == [
         (c.key, c.member_ids) for c in jb]
     assert tpop.structure_key(tspecs[0]) == jpop.structure_key(jspecs[0])
-    np.testing.assert_array_equal(tpop.hyp_table(tspecs).numpy(),
+    np.testing.assert_array_equal(tpop.hyp_table(tspecs, "cpu").numpy(),
                                   np.asarray(jpop.hyp_table(jspecs)))
 
 
@@ -212,7 +212,7 @@ def test_population_step_matches_reference(path):
         jit=False)
     jp, js, jl = jstep(pop, slots, hyp, mask, x, t)
     tstep = tpop.make_population_step("sigmoid", fused=fused)
-    tp, ts, tl = tstep(tp, ts, tpop.hyp_table(tspecs),
+    tp, ts, tl = tstep(tp, ts, tpop.hyp_table(tspecs, "cpu"),
                        torch.from_numpy(np.array(mask)),
                        torch.from_numpy(x), torch.from_numpy(t))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-6)
@@ -230,7 +230,7 @@ def test_population_step_matches_reference(path):
 
 def test_member_slice_and_init_shapes():
     _, tspecs = _specs(lrs=(0.1, 0.2))
-    pop = tpop.init_population(0, tspecs)
+    pop = tpop.init_population(0, tspecs, "cpu")
     assert [tuple(p["w"].shape) for p in pop] == [(2, 2, 2, 32, 32),
                                                  (2, 1, 1, 32, 32)]
     one = tpop.member_slice(pop, 1)
@@ -238,7 +238,7 @@ def test_member_slice_and_init_shapes():
     assert one[0]["idx"] is pop[0]["idx"]
     with pytest.raises(ValueError, match="share structure"):
         tpop.init_population(0, [tspecs[0], tpop.CandidateSpec(
-            lr=0.1, layers=(128, 32), block=32)])
+            lr=0.1, layers=(128, 32), block=32)], "cpu")
 
 
 # ------------------------------------------------------------------ launcher

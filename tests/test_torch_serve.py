@@ -245,4 +245,5 @@ def test_port_init_matches_reference_structure():
         ("junction_fwd", "junction_dx", "junction_dw", "junction_update_dw",
          "junction_gated_fwd", "junction_gated_dx", "junction_gated_dw",
          "junction_update_gated_dw", "junction_fwd_int8",
-         "junction_gated_fwd_int8", "junction_fwd_fxp", "flash_decode"), 0)
+         "junction_gated_fwd_int8", "junction_fwd_fxp", "flash_decode",
+         "flash_attention", "selective_scan", "qmatmul", "lut_lookup"), 0)
