@@ -13,7 +13,8 @@ PyTorch built for CUDA.  It
    the serving path's shapes, with the tolerances stated below, and times
    kernel, plain version, the least time the card could take (bound) and,
    where one PyTorch call computes the same function, that call
-   (flash_decode at stablelm-3b's heads and at qwen3-moe's);
+   (flash_decode at stablelm-3b's heads and at qwen3-moe's, at the
+   serving lengths and over a 4k-token cache);
 4. serves 8 greedy requests through ``ContinuousEngine`` on full-width
    sparse-FFN stablelm-3b (random weights from a seed), checks that every
    request completes, that the kernels' launch counts are exactly what
@@ -56,6 +57,7 @@ PyTorch built for CUDA.  It
    triplet (a wrapping int32 sum) and at 4096^3, the lookup on both
    tables with out-of-range codes; exact launch counts, each kernel
    against its plain version (bit for bit for the integer two), timed;
+   beside the drive, attention at a head_dim that is not a multiple of 8;
 11. prints a ``kernels`` JSON line and, last, a JSON line with
    ``"ok": true`` and the device.
 
@@ -230,29 +232,62 @@ def weight_cast_phase(params, timer, card):
 
 
 # ------------------------------------------------------------ flash_decode
+# (what, dtype, Hkv, rep, D, lens, maxp): the serving path's lengths
+# (4 slots, page 16, max_seq 128) at stablelm-3b's heads (bf16, fp32), a
+# GQA rep 4 and qwen3-moe's heads (Hkv 4, rep 8, head_dim 128); then a
+# 4k-token cache of the kind stablelm-3b is served with (maxp 256), at
+# both models' heads
+DECODE_CASES = [
+    ("serve", torch.bfloat16, 32, 1, 80, [0, 1, 17, 128], 8),
+    ("serve", torch.float32, 32, 1, 80, [0, 1, 17, 128], 8),
+    ("serve", torch.bfloat16, 8, 4, 80, [0, 1, 17, 128], 8),
+    ("serve", torch.bfloat16, 4, 8, 128, [0, 1, 17, 128], 8),
+    ("long", torch.bfloat16, 32, 1, 80, [0, 17, 2048, 4096], 256),
+    ("long", torch.bfloat16, 4, 8, 128, [0, 17, 2048, 4096], 256),
+]
+DECODE_B, DECODE_PS = 4, 16
+
+
+def decode_inputs(gen, dtype, Hkv, rep, D, lens, maxp):
+    """q, pools, page table (each slot's pages drawn at random from the
+    pool, page 0 left as scratch) and seq_lens for one decode case."""
+    dev, B, ps = "cuda", DECODE_B, DECODE_PS
+    n_pages = 1 + B * maxp
+    q, kp, vp = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((B, Hkv, rep, D), (n_pages, ps, Hkv, D),
+                               (n_pages, ps, Hkv, D)))
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    pt = torch.zeros((B, maxp), dtype=torch.int32, device=dev)
+    for b, n in enumerate(lens):
+        used = -(-n // ps)
+        pt[b, :used] = perm[b * maxp:b * maxp + used].to(torch.int32)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kp, vp, pt, sl
+
+
+def decode_sdpa(q, kp, vp, pt, sl):
+    """The yardstick's inputs: one SDPA call over the pages gathered
+    beforehand (kv heads repeated to the query heads), and its mask."""
+    B, Hkv, rep, D = q.shape
+    K = pt.shape[1] * kp.shape[1]
+    kg = kp[pt.long()].reshape(B, K, Hkv, D).transpose(1, 2)
+    vg = vp[pt.long()].reshape(B, K, Hkv, D).transpose(1, 2)
+    kg = kg.repeat_interleave(rep, 1).contiguous()
+    vg = vg.repeat_interleave(rep, 1).contiguous()
+    qs = q.reshape(B, Hkv * rep, 1, D)
+    mask = (torch.arange(K, device=q.device)[None, :] < sl[:, None]
+            )[:, None, None, :]
+    return qs, kg, vg, mask
+
+
 def decode_phase(P, timer, card):
-    dev = "cuda"
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    lens = [0, 1, 17, 128]
-    B, ps, maxp = 4, 16, 8
-    worst, main, qwen = 0.0, None, None
-    # stablelm-3b's heads (bf16, fp32), GQA rep 4, and qwen3-moe's
-    # (Hkv 4, rep 8, head_dim 128)
-    for dtype, Hkv, rep, D in ((torch.bfloat16, 32, 1, 80),
-                               (torch.float32, 32, 1, 80),
-                               (torch.bfloat16, 8, 4, 80),
-                               (torch.bfloat16, 4, 8, 128)):
-        n_pages = 1 + B * maxp
-        q, kp, vp = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                     for shape in ((B, Hkv, rep, D), (n_pages, ps, Hkv, D),
-                                   (n_pages, ps, Hkv, D)))
-        perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
-        pt = torch.zeros((B, maxp), dtype=torch.int32, device=dev)
-        for b, n in enumerate(lens):
-            used = -(-n // ps)
-            pt[b, :used] = perm[b * maxp:b * maxp + used].to(torch.int32)
-        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    worst, res = 0.0, {}
+    for what, dtype, Hkv, rep, D, lens, maxp in DECODE_CASES:
+        q, kp, vp, pt, sl = decode_inputs(gen, dtype, Hkv, rep, D, lens,
+                                          maxp)
         got = P.fa.flash_decode(q, kp, vp, pt, sl)
         want = P.fa.paged_decode_ref(q, kp, vp, pt, sl)
         torch.cuda.synchronize()
@@ -260,39 +295,41 @@ def decode_phase(P, timer, card):
         worst = max(worst, err)
         zeros = bool((got[0] == 0).all())
         ok = close(got, want, TOL[dtype])
+        again = P.fa.flash_decode(q, kp, vp, pt, sl)
+        repeats = bool(torch.equal(again, got))
         k_ms = timer.ms(lambda: P.fa.flash_decode(q, kp, vp, pt, sl))
         p_ms = timer.ms(lambda: P.fa.paged_decode_ref(q, kp, vp, pt, sl))
-        # yardstick: one SDPA call over the pages gathered beforehand
-        K = maxp * ps
-        kg = kp[pt.long()].reshape(B, K, Hkv, D).transpose(1, 2)
-        vg = vp[pt.long()].reshape(B, K, Hkv, D).transpose(1, 2)
-        kg = kg.repeat_interleave(rep, 1).contiguous()
-        vg = vg.repeat_interleave(rep, 1).contiguous()
-        qs = q.reshape(B, Hkv * rep, 1, D)
-        mask = (torch.arange(K, device=dev)[None, :] < sl[:, None]
-                )[:, None, None, :]
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = timer.ms(lambda: sdpa(qs, kg, vg, attn_mask=mask))
+        args = decode_sdpa(q, kp, vp, pt, sl)
+        lib_ms = timer.ms(lambda: sdpa(*args[:3], attn_mask=args[3]))
+        del args
         isz = q.element_size()
         tokens = sum(lens)
         nbytes = (2 * q.numel() + 2 * tokens * Hkv * D) * isz \
             + (pt.numel() + sl.numel()) * 4
         nops = 4 * D * tokens * Hkv * rep
         bnd, by = bound_ms(nbytes, nops, dtype)
-        print(f"[kernel] flash_decode B={B} Hkv={Hkv} rep={rep} D={D} ps={ps} "
-              f"maxp={maxp} lens={lens} {str(dtype)[6:]}: "
+        nsplit, pps = P.fa.decode_splits(
+            DECODE_B, Hkv, rep, DECODE_PS, maxp,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        print(f"[kernel] flash_decode {what} B={DECODE_B} Hkv={Hkv} rep={rep} "
+              f"D={D} ps={DECODE_PS} maxp={maxp} lens={lens} "
+              f"{str(dtype)[6:]} splits={nsplit}x{pps}: "
               f"max_abs_err={err:.3g} (tol {TOL[dtype]}) "
-              f"zero_slot_exact={zeros} ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"bound_ms={bnd:.5f} ({by}) library_ms={lib_ms:.4f} [{card}]")
-        require(ok, f"flash_decode disagrees: {dtype} rep={rep} err={err}")
+              f"zero_slot_exact={zeros} repeats_bit_for_bit={repeats} "
+              f"ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bnd:.5f} ({by}) "
+              f"of_bound={bnd / k_ms:.3f} library_ms={lib_ms:.4f} [{card}]")
+        require(ok, f"flash_decode disagrees: {what} {dtype} rep={rep} "
+                    f"err={err}")
         require(zeros, "flash_decode: the zero-length slot is not exact zeros")
-        if main is None:
-            main = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd,
-                    "bound_by": by, "library_ms": lib_ms}
-        if D == 128:
-            qwen = {"moe_ms": k_ms, "moe_plain_ms": p_ms, "moe_bound_ms": bnd,
-                    "moe_library_ms": lib_ms}
-    return {"max_abs_err": worst, **main, **qwen}
+        require(repeats, "flash_decode: two calls differ")
+        row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd, "bound_by": by,
+               "library_ms": lib_ms}
+        prefix = ("moe_" if D == 128 else "") + \
+            ("long_" if what == "long" else "")
+        if prefix + "ms" not in res:         # the first case of each kind
+            res.update({prefix + k: v for k, v in row.items()
+                        if prefix == "" or k != "bound_by"})
+    return {"max_abs_err": worst, **res}
 
 
 # ------------------------------------------------------------ serve phase
@@ -453,9 +490,10 @@ def tick_breakdown(M, cfg, params, card):
     print(f"[tick] decode tick, 4 live slots: wall {wall_ms:.2f} ms, kernels "
           f"{dev_ms:.2f} ms in {launches} launches, device busy "
           f"{dev_ms / wall_ms:.1%} of wall [{card}]")
-    for e in kernels[:10]:
-        print(f"[tick]   {e.self_device_time_total / 1e3:8.3f} ms "
-              f"{e.count:5d}x  {e.key[:90]}")
+    for i, e in enumerate(kernels):
+        if i < 10 or "decode_kernel" in e.key:   # and flash_decode's share
+            print(f"[tick]   {e.self_device_time_total / 1e3:8.3f} ms "
+                  f"{e.count:5d}x  {e.key[:90]}")
 
 
 def _leaves(tree):
@@ -1553,6 +1591,11 @@ def _attn_cases(P):
     ]
 
 
+# (what, B, Sq, Sk, (H, Hkv, D), causal, window), checked beside the
+# drive in both types
+ODD_ATTN = ("odd head_dim", 2, 50, 77, (4, 2, 36), True, 20)
+
+
 def attn_pairs(Sq, Sk, causal, window) -> int:
     """(query, key) pairs the masks keep, a head."""
     q = np.arange(Sq)
@@ -1679,6 +1722,27 @@ def standalone_kernel_phase(P, card):
               f"plain_ms={p_ms:.4f} bound_ms={bnd:.5f} ({by}) "
               f"library_ms={lib} [{card}]")
 
+    # a head_dim that is not a multiple of 8 (rows that are not 16-byte
+    # vectors), ragged Sq and Sk, window: checked, not on the counted path
+    what, B, Sq, Sk, (H, Hkv, D), causal, window = ODD_ATTN
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((B, S, nh, D), generator=gen, device=dev)
+                   .to(dtype) for S, nh in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
+        got = P.fa.mha(q, k, v, causal=causal, window=window)
+        qf, kf, vf = (t.transpose(1, 2).reshape(-1, t.shape[1], D)
+                      for t in (q, k, v))
+        ref = P.fa.attention_ref(qf, kf, vf, causal=causal, window=window)
+        got = got.transpose(1, 2).reshape(B * H, Sq, D)
+        err = max_err(got, ref)
+        desc = (f"{what} B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D} "
+                f"causal={causal} window={window} {str(dtype)[6:]}")
+        require(close(got, ref, TOL[dtype]),
+                f"flash_attention {desc} disagrees: err {err}")
+        res["flash_attention"]["max_abs_err"] = max(
+            res["flash_attention"]["max_abs_err"], err)
+        print(f"[kernel] flash_attention {desc}: max_abs_err={err:.3g} "
+              f"(tol {TOL[dtype]}) [{card}]")
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for case, got in zip(attn, attn_out):
         (what, B, Sq, Sk, H, Hkv, D, causal, window, timed, dtype,
@@ -1702,10 +1766,18 @@ def standalone_kernel_phase(P, card):
         p_ms = timer.ms(lambda: P.fa.attention_ref(
             qf, kf, vf, causal=causal, window=window))
         lib_ms = None
-        if causal and not window and Sq == Sk:
+        if causal and Sq == Sk:
             q4, k4, v4 = (t.view(B, -1, t.shape[1], D) for t in (qf, kf, vf))
-            lib_ms = timer.ms(lambda: sdpa(q4, k4, v4, is_causal=True,
-                                           enable_gqa=True))
+            if window:                   # one boolean [Sq, Sk] mask
+                pos = torch.arange(Sq, device=dev)
+                diff = pos[:, None] - pos[None, :]
+                mask = (diff >= 0) & (diff < window)
+                lib_ms = timer.ms(lambda: sdpa(q4, k4, v4, attn_mask=mask,
+                                               enable_gqa=True))
+                del mask, diff
+            else:
+                lib_ms = timer.ms(lambda: sdpa(q4, k4, v4, is_causal=True,
+                                               enable_gqa=True))
         pairs = attn_pairs(Sq, Sk, causal, window) * B * H
         nbytes = (2 * qf.numel() + 2 * kf.numel()) * q.element_size()
         record("flash_attention", desc, err, k_ms, p_ms, lib_ms, nbytes,

@@ -22,6 +22,7 @@ gives exact zeros.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -78,10 +79,50 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def _kernel():
     from repro_torch.kernels import build
     fn = build.load("flash_decode").flash_decode
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+# a split covers at most this many cached tokens, and the splits of all
+# (slot, kv head) blocks aim at this many blocks an SM; the kernel's
+# combine takes at most _MAX_SPLITS
+_SPLIT_TOKENS = 128
+_BLOCKS_PER_SM = 2
+_MAX_SPLITS = 256
+
+
+def decode_splits(B: int, Hkv: int, rep: int, ps: int, maxp: int,
+                  n_sms: int) -> tuple[int, int]:
+    """(nsplit, pages a split) of the ``flash_decode`` kernel, from shapes
+    alone (never from seq_lens, which would sync the card): enough splits
+    that a split holds at most ``_SPLIT_TOKENS`` tokens and that the grid
+    has ``_BLOCKS_PER_SM`` blocks an SM, at least one page and at most
+    ``_MAX_SPLITS`` splits."""
+    blocks = B * Hkv * -(-rep // 8)          # (slot, kv head, 8 q heads)
+    want = max(-(-maxp * ps // _SPLIT_TOKENS),
+               -(-_BLOCKS_PER_SM * n_sms // blocks))
+    pps = -(-maxp // min(maxp, _MAX_SPLITS, max(1, want)))
+    return -(-maxp // pps), pps
+
+
+_TICKETS: dict[int, torch.Tensor] = {}
+
+
+def _tickets(device, n: int) -> torch.Tensor:
+    """The device's int32 tickets of the split combine, allocated zero
+    once (grown when a call needs more); each call leaves them zero."""
+    t = _TICKETS.get(device.index)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device.index] = t
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_decode(q, k_pool, v_pool, page_table, seq_lens):
@@ -89,7 +130,10 @@ def flash_decode(q, k_pool, v_pool, page_table, seq_lens):
     the ``flash_decode`` kernel on the current stream
     (``flash_decode.launches`` counts those launches) or raises; any
     other device raises.  Page ids must lie in [0, P): the kernel reads
-    them on the card without a check."""
+    them on the card without a check.  The split count comes from the
+    shapes (``decode_splits``); the partials' scratch is a
+    ``torch.empty`` of the call, the combine's tickets are the device's
+    own (one stream at a time)."""
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pool, v_pool, page_table, seq_lens)
     if q.device.type != "cuda":
@@ -106,13 +150,22 @@ def flash_decode(q, k_pool, v_pool, page_table, seq_lens):
     B, Hkv, rep, D = q.shape
     ps = k_pool.shape[1]
     maxp = page_table.shape[1]
+    if ps == 0:
+        raise ValueError("flash_decode needs pages of at least one token")
+    if B == 0 or maxp == 0:               # nothing cached: exact zeros
+        return torch.zeros_like(q)
     out = torch.empty_like(q)
-    if B == 0:
-        return out
     with torch.cuda.device(q.device):
+        nsplit, pps = decode_splits(B, Hkv, rep, ps, maxp,
+                                    _n_sms(q.device.index))
+        rows = B * Hkv * rep
+        part = (torch.empty(rows * nsplit * (D + 2), dtype=torch.float32,
+                            device=q.device) if nsplit > 1 else out)
+        tickets = _tickets(q.device, rows) if nsplit > 1 else out
         err = _kernel()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                         page_table.data_ptr(), seq_lens.data_ptr(),
-                        out.data_ptr(), B, Hkv, rep, D, ps, maxp,
+                        out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+                        B, Hkv, rep, D, ps, maxp, nsplit, pps,
                         1.0 / (D ** 0.5), _DTYPE_CODE[q.dtype],
                         torch.cuda.current_stream().cuda_stream)
     if err != 0:

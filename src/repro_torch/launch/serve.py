@@ -17,9 +17,14 @@ import math
 
 def percentile(values, q: float) -> float:
     """Nearest-rank percentile, the ceil(q/100 * n)-th smallest value:
-    the p99 of fewer than 100 samples is the max."""
-    s = sorted(values)
-    return s[max(0, math.ceil(q / 100 * len(s)) - 1)]
+    the p99 of fewer than 100 samples is the max.  Raises ValueError on
+    an empty sample and on q outside (0, 100]."""
+    s = sorted(float(v) for v in values)
+    if not s:
+        raise ValueError("percentile of an empty sample set")
+    if not 0.0 < q <= 100.0:
+        raise ValueError(f"percentile q must be in (0, 100], got {q}")
+    return s[max(1, math.ceil(q / 100 * len(s))) - 1]
 
 
 def main(argv=None):
