@@ -14,7 +14,10 @@ PyTorch built for CUDA.  It
    kernel, plain version, the least time the card could take (bound) and,
    where one PyTorch call computes the same function, that call
    (flash_decode at stablelm-3b's heads and at qwen3-moe's, at the
-   serving lengths and over a 4k-token cache);
+   serving lengths and over a 4k-token cache); fwd and dx have two entry
+   points, SIMT and bf16 tensor cores (``bsm.junction_variant`` routes),
+   and both are held and timed wherever the route takes the tensor
+   cores, and the route's crossover is timed from 1 row to 2048;
 4. serves 8 greedy requests through ``ContinuousEngine`` on full-width
    sparse-FFN stablelm-3b (random weights from a seed), checks that every
    request completes, that the kernels' launch counts are exactly what
@@ -24,12 +27,15 @@ PyTorch built for CUDA.  It
    the fused update_dw) against their plain versions at the training
    path's shapes (M = 2048), times them, and checks every activation,
    bias, E = 2, SGD / momentum / Adam, the health counts of poisoned
-   tiles and the bit-for-bit freeze of a zero hyp row;
+   tiles and the bit-for-bit freeze of a zero hyp row; the tensor-core
+   fwd and dx also at a ragged M, with and without bias and save_pre,
+   and at blocks 32 and 64;
 6. trains the same model at full width: 3 two-pass Adam steps, 3 fused
    Adam steps and 3 fused SGD steps (batch 8 x 256), with finite losses,
    no non-finite update, exact launch counts (no dw launch on the
-   unclipped fused path), and one step at 2 layers through the kernels
-   and through the plain versions within stated tolerances;
+   unclipped fused path; every fwd and dx on the tensor cores), and one
+   step at 2 layers through the kernels and through the plain versions
+   within stated tolerances;
 7. holds the gated kernels (gated_fwd, gated_dx, gated_dw and the fused
    update_gated_dw) against their plain versions at qwen3-moe's expert
    gate junction (128 experts, 2048 -> 768) and the plain kernels at its
@@ -160,6 +166,21 @@ def close(got, want, tol) -> bool:
     return bool(torch.allclose(got.float(), want.float(), **tol))
 
 
+def forced(P, variant):
+    """The junction wrappers launch ``variant`` ("simt" or "tc") whatever
+    their route says: times and checks of the entry point the route does
+    not take, on the same inputs."""
+    return mock.patch.object(P.bsm, "junction_variant",
+                             lambda *_: variant)
+
+
+def with_tc(P, counts):
+    """A path's launch counts with its tensor-core launches of fwd and dx
+    beside them (``junction_fwd_tc``, ``junction_dx_tc``)."""
+    return {**counts, **{f"{k}_tc": v
+                         for k, v in P.ops.tc_launch_counts().items()}}
+
+
 # ------------------------------------------------------------ junction_fwd
 def junction_phase(P, timer, card):
     dev = "cuda"
@@ -171,7 +192,9 @@ def junction_phase(P, timer, card):
               for act in P.bsm.ACTIVATIONS]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    worst, decode = 0.0, {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    worst = 0.0
+    decode = {"ms": 0.0, "simt_ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+              "ops": 0}
     for dtype, (name, n_in, n_out, _, pseed), M, act, with_bias in cases:
         pat = P.make_block_pattern(n_in, n_out, 0.25, 128, seed=pseed)
         nob, kb, bs = pat.n_out_blocks, pat.fan_in_blocks, pat.block
@@ -181,38 +204,97 @@ def junction_phase(P, timer, card):
         idx = torch.as_tensor(pat.idx, device=dev)
         b = (torch.randn((1, n_out), generator=gen, device=dev) if with_bias
              else torch.zeros((1, n_out), device=dev)).to(dtype)
-        got = P.bsm.fwd(x, w, idx, b, act)
+        variant = P.bsm.junction_variant(dtype, M, bs)
         want = P.bsm.fwd_ref(x, w, idx, b, act)
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        ok = close(got, want, TOL[dtype])
-        worst = max(worst, err)
-        k_ms = timer.ms(lambda: P.bsm.fwd(x, w, idx, b, act))
-        p_ms = timer.ms(lambda: P.bsm.fwd_ref(x, w, idx, b, act))
+        # the routed entry point, and the SIMT one beside the tensor cores
+        variants = [variant] + (["simt"] if variant == "tc" else [])
         isz = x.element_size()
         nbytes = (x.numel() + w.numel() + b.numel() + M * n_out) * isz \
             + idx.numel() * 4
         nops = 2 * M * nob * kb * bs * bs
         bnd, by = bound_ms(nbytes, nops, dtype)
-        print(f"[kernel] junction_fwd {name} {n_in}->{n_out} kb={kb} M={M} "
-              f"{str(dtype)[6:]} act={act} bias={with_bias}: "
-              f"max_abs_err={err:.3g} (tol {TOL[dtype]}) "
-              f"ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={bnd:.4f} "
-              f"({by}) [{card}]")
-        require(ok, f"junction_fwd disagrees with fwd_ref: {name} M={M} "
-                    f"{dtype} act={act} err={err}")
+        p_ms = timer.ms(lambda: P.bsm.fwd_ref(x, w, idx, b, act))
+        k_ms = {}
+        for v in variants:
+            with forced(P, v):
+                got = P.bsm.fwd(x, w, idx, b, act)
+                torch.cuda.synchronize()
+                err = max_err(got, want)
+                ok = close(got, want, TOL[dtype])
+                k_ms[v] = timer.ms(lambda: P.bsm.fwd(x, w, idx, b, act))
+            if v == variant:
+                worst = max(worst, err)
+            tag = "_tc" if v == "tc" else ""
+            print(f"[kernel] junction_fwd{tag} {name} "
+                  f"{n_in}->{n_out} kb={kb} M={M} {str(dtype)[6:]} "
+                  f"act={act} bias={with_bias}: max_abs_err={err:.3g} "
+                  f"(tol {TOL[dtype]}) ms={k_ms[v]:.4f} plain_ms={p_ms:.4f} "
+                  f"bound_ms={bnd:.4f} ({by}) [{card}]")
+            require(ok, f"junction_fwd ({v}) disagrees with fwd_ref: {name} "
+                        f"M={M} {dtype} act={act} err={err}")
         if dtype == torch.bfloat16 and M == 4 and not with_bias:
-            decode["ms"] += k_ms
+            decode["ms"] += k_ms[variant]
+            decode["simt_ms"] += k_ms["simt"]
             decode["plain_ms"] += p_ms
             decode["bytes"] += nbytes
             decode["ops"] += nops
     bnd, by = bound_ms(decode["bytes"], decode["ops"], torch.bfloat16)
     print(f"[kernel] junction_fwd one layer's FFN at decode (wg+wi+wo, M=4, "
-          f"bf16): ms={decode['ms']:.4f} plain_ms={decode['plain_ms']:.4f} "
-          f"bound_ms={bnd:.4f} ({by}) [{card}]")
+          f"bf16): ms={decode['ms']:.4f} (SIMT {decode['simt_ms']:.4f}) "
+          f"plain_ms={decode['plain_ms']:.4f} bound_ms={bnd:.4f} ({by}) "
+          f"[{card}]")
     return {"max_abs_err": worst, "ms": decode["ms"],
-            "plain_ms": decode["plain_ms"], "bound_ms": bnd, "bound_by": by,
-            "library_ms": None}
+            "simt_ms": decode["simt_ms"], "plain_ms": decode["plain_ms"],
+            "bound_ms": bnd, "bound_by": by, "library_ms": None}
+
+
+# (name, n_in, n_out, act, pattern seed, E, rows): stablelm-3b's three FFN
+# junctions and qwen3-moe's expert down junction (E = 128), from one row
+# (a lone decode slot) to the training rows
+ROUTE_SHAPES = [("wg", 2560, 6912, "silu", 2, 1, (1, 4, 32, 64, 160, 2048)),
+                ("wi", 2560, 6912, "none", 0, 1, (1, 4, 32, 64, 160, 2048)),
+                ("wo", 6912, 2560, "none", 1, 1, (1, 4, 32, 64, 160, 2048)),
+                ("moe wo", 768, 2048, "none", 1, 128, (1, 4, 32, 64, 160))]
+
+
+def route_phase(P, timer, card):
+    """The crossover of the route: bf16 ``fwd`` through both entry points
+    on the same inputs (SIMT, tensor cores, tensor cores, SIMT), at every
+    row count from one row to the training rows.  Reported beside
+    ``bsm.TC_MIN_M``, the threshold the route uses; not gated on."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    faster = {}
+    for name, n_in, n_out, act, pseed, E, rows in ROUTE_SHAPES:
+        pat = P.make_block_pattern(n_in, n_out, 0.25, BS, seed=pseed)
+        nob, kb = pat.idx.shape
+        idx = torch.as_tensor(pat.idx, device="cuda")
+        w = (torch.randn((E, nob, kb, BS, BS), generator=gen, device="cuda")
+             / (kb * BS) ** 0.5).to(torch.bfloat16)
+        b = torch.zeros((E, n_out), dtype=torch.bfloat16, device="cuda")
+        for M in rows:
+            x = torch.randn((E, M, n_in), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            ms = []
+            for v in ("simt", "tc", "tc", "simt"):
+                with forced(P, v):
+                    ms.append(timer.ms(
+                        lambda: P.bsm.fwd(x, w, idx, b, act)))
+            simt, tc = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+            faster[(name, M)] = tc < simt
+            route = P.bsm.junction_variant(torch.bfloat16, M, BS)
+            print(f"[route] junction_fwd {name} E={E} M={M} bf16: SIMT "
+                  f"{ms[0]:.4f} / {ms[3]:.4f} ms, tensor cores "
+                  f"{ms[1]:.4f} / {ms[2]:.4f} ms ({simt / tc:.2f}x); "
+                  f"route: {route} [{card}]")
+            del x
+        del w
+    # the fewest rows from which the tensor cores win at every shape
+    lo = next((M for M in sorted({m for _, m in faster})
+               if all(f for (_, m), f in faster.items() if m >= M)), None)
+    print(f"[route] tensor cores faster at every shape from M={lo} on; the "
+          f"route's threshold TC_MIN_M={P.bsm.TC_MIN_M} [{card}]")
+    torch.cuda.empty_cache()
 
 
 def weight_cast_phase(params, timer, card):
@@ -394,6 +476,7 @@ def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = ops.launch_counts()
+    path = with_tc(P, counts)
 
     st = eng.stats
     n_tok = sum(len(v) for v in outs.values())
@@ -405,7 +488,7 @@ def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None):
           f"decode_ticks={st['decode_ticks']} "
           f"prefill_chunks={st['prefill_chunks']} p50_latency={p50 * 1e3:.1f} ms "
           f"p99_latency={p99 * 1e3:.1f} ms peak_memory={peak:.2f} GiB "
-          f"launches={counts} [{card}]")
+          f"launches={path} [{card}]")
     require(sorted(outs) == list(range(8)), f"requests missing: {sorted(outs)}")
     require(all(len(v) == 16 for v in outs.values()),
             f"token counts {[len(v) for v in outs.values()]}")
@@ -430,7 +513,7 @@ def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None):
         compare_logits(P, cfg, eng.params, prompts[0], dtype, card,
                        per_layer, LOGIT_REL_TOL[dtype], bool(quantize))
     tick_breakdown(M, cfg, eng.params, card)
-    return params, counts, outs
+    return params, path, outs
 
 
 def step_breakdown(step, wall_s, what, card, top=8):
@@ -594,14 +677,14 @@ def rel_err(got, want) -> float:
     return float(d / want.float().abs().max().clamp_min(1e-30))
 
 
-def _train_inputs(P, gen, shape, E, dtype):
+def _train_inputs(P, gen, shape, E, dtype, M=TRAIN_M, bs=BS):
     name, n_in, n_out, act, pseed = shape
-    pat = P.make_block_pattern(n_in, n_out, 0.25, BS, seed=pseed)
+    pat = P.make_block_pattern(n_in, n_out, 0.25, bs, seed=pseed)
     nob, kb = pat.idx.shape
     r = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
-    s = r(E, TRAIN_M, n_out)
-    t = {"x": r(E, TRAIN_M, n_in), "dy": r(E, TRAIN_M, n_out),
-         "w": r(E, nob, kb, BS, BS) / (kb * BS) ** 0.5,
+    s = r(E, M, n_out)
+    t = {"x": r(E, M, n_in), "dy": r(E, M, n_out),
+         "w": r(E, nob, kb, bs, bs) / (kb * bs) ** 0.5,
          "res": {"relu": s.clamp_min(0.0), "sigmoid": torch.sigmoid(s)
                  }.get(act, s), "b": r(E, n_out)}
     t = {k: v.to(dtype).contiguous() for k, v in t.items()}
@@ -616,12 +699,12 @@ def _cost(kind, t, pt, act, n_slots=0):
     the edges this pattern holds."""
     isz = t["x"].element_size()
     E, M, n_in = t["x"].shape
-    n_out = t["dy"].shape[2]
+    n_out, bs = t["dy"].shape[2], t["w"].shape[-1]
     xb, yb, wb = E * M * n_in * isz, E * M * n_out * isz, t["w"].numel()
     res = yb if act != "none" else 0
     ints = 4 * sum(v.numel() for v in pt.values())
     edges = int(pt["rev_cnt"].sum()) if kind == "dx" else pt["idx"].numel()
-    nops = 2 * E * M * edges * BS * BS
+    nops = 2 * E * M * edges * bs * bs
     if kind == "fwd":               # x, w, bias in; y and the pre out
         pre = yb if act in ("silu", "gelu") else 0
         return xb + wb * isz + E * n_out * isz + yb + pre + ints, nops
@@ -688,6 +771,9 @@ def train_kernel_phase(P, timer, card):
                          lambda: bsm.fwd_ref(t["x"], t["w"], pt["idx"], zb,
                                              act, save_pre=pre),
                          _cost("fwd", t, pt, act)))
+            simt = {}
+            if bsm.junction_variant(dtype, TRAIN_M, BS) == "tc":
+                simt["fwd"] = _simt_row(P, rows[-1][4], want)
             rev = (pt["rev_ob"], pt["rev_t"], pt["rev_cnt"])
             got = bsm.dx(t["dy"], t["w"], *rev, res, act)
             want = bsm.dx_ref(t["dy"], t["w"], *rev, res, act)
@@ -696,6 +782,8 @@ def train_kernel_phase(P, timer, card):
                          lambda: bsm.dx(t["dy"], t["w"], *rev, res, act),
                          lambda: bsm.dx_ref(t["dy"], t["w"], *rev, res, act),
                          _cost("dx", t, pt, act)))
+            if simt:
+                simt["dx"] = _simt_row(P, rows[-1][4], (want,))
             got, _ = bsm.dw(t["x"], t["dy"], pt["idx"], res, act, False)
             want, _ = bsm.dw_ref(t["x"], t["dy"], pt["idx"], res, act, False)
             rows.append(("dw", rel_err(got, want), sum_tol,
@@ -735,24 +823,114 @@ def train_kernel_phase(P, timer, card):
                                  p_ms, nb, no, card)
                 o = out[kind]
                 o["max_abs_err"] = max(o["max_abs_err"], abs_err)
+                if kind in simt:
+                    s_err, sfn = simt[kind]
+                    s_ms = timer.ms(sfn)
+                    _report_tc(kind, name, act, k_ms, s_err, lim, s_ms, bnd,
+                               nb, no, card)
+                    o["simt_ms"] = o.get("simt_ms", 0.0) + s_ms
                 if dtype == torch.bfloat16:     # one layer's FFN, bf16
                     o["ms"] += k_ms
                     o["plain_ms"] += p_ms
                     o["bytes"] += nb
                     o["ops"] += no
                     o["bound_ms"] += bnd
-            del t, pt, k_st, p_st, rows
+            del t, pt, k_st, p_st, rows, simt
     coverage_checks(P, gen)
+    tc_coverage_checks(P, gen)
     for kind, o in out.items():
-        _, o["bound_by"] = bound_ms(o.pop("bytes"), o.pop("ops"),
-                                    torch.bfloat16)
+        nb, no = o.pop("bytes"), o.pop("ops")
+        _, o["bound_by"] = bound_ms(nb, no, torch.bfloat16)
         o["library_ms"] = None
+        simt = (f" (SIMT {o['simt_ms']:.4f}; {no / o['ms'] * 1e-9:.1f} "
+                f"TFLOP/s)" if "simt_ms" in o else "")
         print(f"[kernel] junction_{kind} one layer's FFN (wg+wi+wo, "
-              f"M={TRAIN_M}, bf16): ms={o['ms']:.4f} "
+              f"M={TRAIN_M}, bf16): ms={o['ms']:.4f}{simt} "
               f"plain_ms={o['plain_ms']:.4f} bound_ms={o['bound_ms']:.4f} "
               f"({o['bound_by']}) [{card}]")
     torch.cuda.empty_cache()
     return out
+
+
+def _simt_row(P, kfn, want):
+    """The SIMT entry point of fwd or dx on the inputs of ``kfn``, where
+    the route takes the tensor cores: (its relative error against the
+    plain version's outputs ``want``, its call for the timer)."""
+    def call():
+        with forced(P, "simt"):
+            return kfn()
+    got = call()
+    got = got if isinstance(got, tuple) else (got,)
+    return max(rel_err(g, w) for g, w in zip(got, want)), call
+
+
+def _report_tc(kind, name, act, tc_ms, simt_err, lim, simt_ms, bnd, nbytes,
+               nops, card, M=TRAIN_M):
+    """The tensor-core entry point's rate beside the SIMT one's time, from
+    the same inputs; the SIMT entry point held to the same tolerance."""
+    print(f"[kernel] junction_{kind}_tc {name} M={M} bf16 act={act}: "
+          f"ms={tc_ms:.4f} ({nops / tc_ms * 1e-9:.1f} TFLOP/s, "
+          f"{100 * nops / tc_ms * 1e-9 / 989:.1f} % of the bf16 rate, "
+          f"{100 * bnd / tc_ms:.1f} % of bound_ms {bnd:.4f}; "
+          f"{nbytes / tc_ms * 1e-9:.2f} TB/s of the function's bytes); "
+          f"SIMT ms={simt_ms:.4f} ({simt_ms / tc_ms:.1f}x) "
+          f"rel_err={simt_err:.3g} (tol {lim:.3g}) [{card}]")
+    require(simt_err <= lim, f"junction_{kind} (SIMT) {name} act={act}: "
+                             f"rel_err {simt_err} > {lim}")
+
+
+def tc_coverage_checks(P, gen):
+    """The tensor-core entry points beyond the timed shapes: a ragged M
+    (2000 rows: the last 128-row tile holds 80) at E = 2 with every
+    activation, with and without bias and save_pre (fwd) and with its
+    residual (dx); then block sizes 32 and 64, which the route sends
+    there too."""
+    bsm = P.bsm
+    lim = REL_TOL["bf16_out"]
+    M = 2000
+    for act in bsm.ACTIVATIONS:
+        shape = TRAIN_SHAPES[0][:3] + (act, TRAIN_SHAPES[0][4])
+        t, pt = _train_inputs(P, gen, shape, 2, torch.bfloat16, M=M)
+        require(bsm.junction_variant(torch.bfloat16, M, BS) == "tc",
+                "the route does not take M=2000 to the tensor cores")
+        errs = []
+        for bias in (True, False):
+            b = t["b"] if bias else torch.zeros_like(t["b"])
+            for pre in (True, False):
+                args = (t["x"], t["w"], pt["idx"], b, act)
+                got, want = (bsm.fwd(*args, save_pre=pre),
+                             bsm.fwd_ref(*args, save_pre=pre))
+                got, want = (got, want) if pre else ((got,), (want,))
+                errs += [rel_err(g, w) for g, w in zip(got, want)]
+        res = t["res"] if act != "none" else None
+        rev = (pt["rev_ob"], pt["rev_t"], pt["rev_cnt"])
+        errs.append(rel_err(bsm.dx(t["dy"], t["w"], *rev, res, act),
+                            bsm.dx_ref(t["dy"], t["w"], *rev, res, act)))
+        print(f"[check] tensor cores act={act} E=2 M={M} bf16, bias and "
+              f"save_pre on and off: fwd/pre/dx rel_err {max(errs):.3g} "
+              f"(tol {lim:.3g})")
+        require(max(errs) <= lim, f"tensor-core fwd/dx act={act} at M={M} "
+                                  f"E=2 disagrees: {max(errs)}")
+        del t, pt
+    for bs in (32, 64):
+        t, pt = _train_inputs(P, gen, TRAIN_SHAPES[0], 1, torch.bfloat16,
+                              M=M, bs=bs)
+        require(bsm.junction_variant(torch.bfloat16, M, bs) == "tc",
+                f"the route does not take block {bs} to the tensor cores")
+        args = (t["x"], t["w"], pt["idx"], t["b"], "silu")
+        errs = [rel_err(g, w) for g, w in zip(bsm.fwd(*args, save_pre=True),
+                                              bsm.fwd_ref(*args,
+                                                          save_pre=True))]
+        rev = (pt["rev_ob"], pt["rev_t"], pt["rev_cnt"])
+        errs.append(rel_err(bsm.dx(t["dy"], t["w"], *rev, t["res"], "silu"),
+                            bsm.dx_ref(t["dy"], t["w"], *rev, t["res"],
+                                       "silu")))
+        print(f"[check] tensor cores block {bs} M={M} bf16 silu, bias, "
+              f"save_pre: fwd/pre/dx rel_err {max(errs):.3g} "
+              f"(tol {lim:.3g})")
+        require(max(errs) <= lim, f"tensor-core fwd/dx at block {bs} "
+                                  f"disagrees: {max(errs)}")
+        del t, pt
 
 
 def coverage_checks(P, gen):
@@ -1026,13 +1204,22 @@ def moe_kernel_phase(P, timer, card):
             for kind, (kfn, pfn, lim) in checks.items():
                 if kind != "fwd" and where == "decode":
                     continue        # the backward runs at training rows only
-                err = rel_err(kfn(), pfn())
+                want = pfn()
+                err = rel_err(kfn(), want)
                 k_ms, p_ms = timer.ms(kfn), timer.ms(pfn)
+                cost = _cost(kind, t, pt, "none")
                 bnd, _ = _report(kind, f"wo E={MOE_E}", dtype, "none", err,
-                                 lim, k_ms, p_ms, *_cost(kind, t, pt, "none"),
-                                 card, M=M)
+                                 lim, k_ms, p_ms, *cost, card, M=M)
+                row = (k_ms, p_ms, bnd)
+                if kind in ("fwd", "dx") and \
+                        bsm.junction_variant(dtype, M, BS) == "tc":
+                    s_err, sfn = _simt_row(P, kfn, (want,))
+                    s_ms = timer.ms(sfn)
+                    _report_tc(kind, f"wo E={MOE_E}", "none", k_ms, s_err,
+                               lim, s_ms, bnd, *cost, card, M=M)
+                    row += (s_ms,)
                 if dtype == torch.bfloat16:
-                    plain[kind][where] = (k_ms, p_ms, bnd)
+                    plain[kind][where] = row
             if where == "train":
                 mom, vel = _adam_slots(gen, t["w"].shape)
                 k_st = [t["w"].clone(), mom.clone(), vel.clone()]
@@ -1153,6 +1340,16 @@ def _expected_launches(P, cfg, n_steps, kind):
     return want
 
 
+def _expected_tc(P, cfg, want):
+    """Of the expected launches, those of the tensor-core entry points:
+    every fwd and dx of the path where the route takes its compute dtype
+    at its junctions' rows (M = 2048 a dense junction, the capacity
+    C = 160 an expert) to the tensor cores, else none."""
+    rows = TRAIN_M if cfg.family == "dense" else MOE_M["train"]
+    tc = P.bsm.junction_variant(getattr(torch, cfg.dtype), rows, BS) == "tc"
+    return {k: want[k] if tc else 0 for k in P.ops.tc_launch_counts()}
+
+
 def train_run(P, cfg, opt, kind, card, n_steps=3):
     """n_steps of make_train_step on ``cfg`` (random weights from seed 0,
     LMTokenPipeline batch 8 x 256): finite losses, no non-finite update,
@@ -1177,7 +1374,7 @@ def train_run(P, cfg, opt, kind, card, n_steps=3):
         times.append(time.perf_counter() - t0)
         del m
         held.append(torch.cuda.memory_allocated() / 2 ** 30)
-    counts = P.ops.launch_counts()
+    counts, tc = P.ops.launch_counts(), P.ops.tc_launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tok = TRAIN_M
     med = statistics.median(times)
@@ -1187,19 +1384,23 @@ def train_run(P, cfg, opt, kind, card, n_steps=3):
           f"step_ms {[round(v * 1e3, 1) for v in times]} median "
           f"{med * 1e3:.1f} ms = {tok / med:.0f} tokens/s, peak_memory "
           f"{peak:.2f} GiB, held after each step "
-          f"{[round(v, 2) for v in held]} GiB, launches={counts} [{card}]")
+          f"{[round(v, 2) for v in held]} GiB, launches={counts}, of them "
+          f"on tensor cores {tc} [{card}]")
     require(held[-1] <= held[1] * 1.01 + 0.01,
             f"{kind}: memory held grows from step to step: {held}")
     require(all(np.isfinite(losses)), f"{kind}: non-finite loss {losses}")
     require(nonfinite == [0.0] * n_steps, f"{kind}: nonfinite {nonfinite}")
     want = _expected_launches(P, cfg, n_steps, kind)
     require(counts == want, f"{kind}: launches {counts} != {want}")
+    want_tc = _expected_tc(P, cfg, want)
+    require(tc == want_tc,
+            f"{kind}: tensor-core launches {tc} != {want_tc}")
     batch = next(pipe)
     step_breakdown(lambda: step_fn(params, opt_state, batch, n_steps), med,
                    f"{kind} step", card)
     del params, opt_state
     torch.cuda.empty_cache()
-    return counts
+    return {**counts, **{f"{k}_tc": v for k, v in tc.items()}}
 
 
 def compare_train_step(P, cfg, dtype, fused, card):
@@ -1553,7 +1754,7 @@ def sweep_phase(P, card):
         require(w is not None and np.isfinite(w["eval_loss"]),
                 "the sweep named no finite winner")
         require(c == want, f"sweep launches {c} != {want}")
-        for k, v in c.items():
+        for k, v in with_tc(P, c).items():
             counts[k] = counts.get(k, 0) + v
     return counts
 
@@ -1919,6 +2120,7 @@ def main() -> int:
 
     timer = Timer()
     junction = junction_phase(P, timer, card)
+    route_phase(P, timer, card)
     decode = decode_phase(P, timer, card)
     quant = quant_kernel_phase(P, timer, card)
     paths = {}
@@ -1944,21 +2146,29 @@ def main() -> int:
     standalone, paths["standalone"] = standalone_kernel_phase(P, card)
 
     def launches(name):
-        by = {p: c[name] for p, c in paths.items() if c[name]}
+        by = {p: c[name] for p, c in paths.items() if c.get(name)}
         return {"launches": sum(by.values()), "launches_by_path": by}
+
+    def tc_launches(name):
+        """The launches of the kernel's tensor-core entry point."""
+        return {f"tc_{k}": v for k, v in launches(f"{name}_tc").items()}
 
     def at_e128(kind):
         """The kernel's times at qwen3-moe's down junction (E = 128)."""
         return {f"moe_{where}_{k}": v
                 for where, row in moe_plain[kind].items()
-                for k, v in zip(("ms", "plain_ms", "bound_ms"), row)}
+                for k, v in zip(("ms", "plain_ms", "bound_ms", "simt_ms"),
+                                row)}
 
     kernels = [
         {"name": "junction_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/junction_fwd.cu",
+         "tc_source": "src/repro_torch/csrc/junction_tc.cu",
          "replaces": "src/repro/kernels/block_sparse_matmul.py:381",
-         **launches("junction_fwd"), **junction,
-         "train_ms": bwd["fwd"]["ms"], "train_plain_ms": bwd["fwd"]["plain_ms"],
+         **launches("junction_fwd"), **tc_launches("junction_fwd"),
+         **junction, "train_ms": bwd["fwd"]["ms"],
+         "train_simt_ms": bwd["fwd"]["simt_ms"],
+         "train_plain_ms": bwd["fwd"]["plain_ms"],
          "train_bound_ms": bwd["fwd"]["bound_ms"], **at_e128("fwd")},
         {"name": "flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_decode.cu",
@@ -1968,11 +2178,14 @@ def main() -> int:
     for name, src, line in (("dx", "junction_dx.cu", 782),
                             ("dw", "junction_dw.cu", 949),
                             ("update_dw", "junction_dw.cu", 1172)):
+        tc = ({"tc_source": "src/repro_torch/csrc/junction_tc.cu",
+               **tc_launches("junction_dx")} if name == "dx" else {})
         kernels.append({
             "name": f"junction_{name}", "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}",
             "replaces": f"src/repro/kernels/block_sparse_matmul.py:{line}",
-            **launches(f"junction_{name}"), **bwd[name], **at_e128(name)})
+            **launches(f"junction_{name}"), **tc, **bwd[name],
+            **at_e128(name)})
     for name, src, line in (("gated_fwd", "junction_fwd.cu", 447),
                             ("gated_dx", "junction_dx.cu", 876),
                             ("gated_dw", "junction_dw.cu", 1040),
@@ -2002,6 +2215,8 @@ def main() -> int:
             **launches(name), **standalone[name]})
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} never ran on its path")
+        require("tc_source" not in k or k["tc_launches"] > 0,
+                f"{k['name']}'s tensor-core entry never ran on a path")
     print(card)                          # nvidia-smi's name, power.limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,571 @@
+// Block-sparse junction forward and backward to the input on Hopper
+// tensor cores (sm_90a), plain C interface: `junction_fwd_tc` and
+// `junction_dx_tc`, bf16 operands with fp32 accumulation.
+//
+// They compute what the SIMT entry points `junction_fwd`
+// (junction_fwd.cu) and `junction_dx` (junction_dx.cu) compute, and
+// replace the same Pallas TPU kernels, `fwd` (fwd_kernel) and `dx`
+// (dx_kernel) of src/repro/kernels/block_sparse_matmul.py, for bf16;
+// the wrappers' route (block_sparse_matmul.junction_variant) chooses the
+// entry point:
+//
+//   y[e, m, o*bs + c] = act( sum_k sum_i x[e, m, idx[o,k]*bs + i]
+//                                        * w[e, o, k, i, c]  + bias[e, o*bs + c] )
+//   dx[e, m, i*bs + a] = sum_{f < rev_cnt[i]} sum_c
+//       dz[e, m, rev_ob[i,f]*bs + c] * w[e, rev_ob[i,f], rev_t[i,f], a, c]
+//
+// with the SIMT kernels' rounding points: an fp32 sum (a product of two
+// bf16 values is exact in fp32, so only the order of the sum differs),
+// the bias widened from bf16, the activation in fp32 and one bf16 store
+// (the pre-activation too when `pre` is given); dz = (dy * act'(res))
+// rounded to bf16 before the product, dz = dy for "none".
+//
+// What bounds them: a dense training junction (M = 2048 rows, block 128,
+// 2560 -> 6912 at kb 5 or 6912 -> 2560 at kb 14) is 18-19 GFLOP, about
+// 19 us at the card's bf16 tensor-core rate, against 40-80 MB of operands
+// and outputs (12-23 us of memory); at qwen3-moe's down junction (128
+// experts, M = 160, 768 -> 2048 at kb 2) the bytes bound.  On an H100
+// these kernels reach 13-18 % of the bf16 rate (fwd) and 5-18 % (dx: with
+// an activation each thread recomputes act' once per reverse slot that
+// reads an output block, on the path between the barrier and the
+// products); the SIMT kernels ran fp32 FMAs at 1-3 % of it.
+//
+// Design.  A block of two warpgroups owns one (unit e, 128-row tile of M,
+// output block o for fwd / input block i for dx): a 128 x bs tile of the
+// output in registers, 64 rows a warpgroup, summed by wgmma m64n{bs}k16
+// in fp32.  It walks K in steps of 64 columns (32 at block 32): fwd
+// through the kb slots of idx[o], dx through the rev_cnt[i] valid slots
+// of the reverse pattern in order (a padded slot is never read, so an
+// input block that feeds no output gets exact zeros whatever dy holds;
+// no atomics).  Each step's operands go by cp.async into a ring of
+// shared-memory stages, the next steps' copies in flight while the
+// tensor cores work on this one; rows past M are zero-filled (src-size
+// 0) and masked at the store.
+// * fwd: A is the gathered x tile (128 rows x 64 columns from column
+//   idx[o,k]*bs), K-major in 32-byte swizzled atoms; B is the weight
+//   tile w[e,o,k] rows i (K) x bs columns c (N), stored with c
+//   contiguous: MN-major, read with the descriptor's transpose bit.
+//   The epilogue adds the bias, stores the pre-activation, applies the
+//   activation and stores y, from the accumulators.
+// * dx: B is the weight tile w[e,ob,t] as the forward stores it, rows a
+//   (N) x columns c (K), c contiguous: K-major, never gathered or
+//   transposed in memory.  A is dz: dy and res are staged as they are
+//   (rows padded to 72 elements, so the fragment reads are free of bank
+//   conflicts), and each thread computes exactly the dz elements of its
+//   own wgmma A fragment, rounds them to bf16 and feeds them from
+//   registers.
+// Two blocks an SM.  A deeper ring (up to 6 stages, one block an SM), a
+// wgmma group left in flight across steps, and dz of the next step
+// computed under this step's products were each slower on an H100.  TMA,
+// an mbarrier ring and a producer warp are later work.
+#include <cstdint>
+
+#include "junction_common.cuh"
+
+namespace {
+
+using namespace junction;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kBM = 128;       // rows of a block's tile, 64 a warpgroup
+constexpr int kMinBlocks = 2;  // blocks an SM
+constexpr int kFwdStages = 3;  // (x, w) stages in the ring of fwd
+constexpr int kDxStages = 2;   // (dy, res, w) stages in the ring of dx
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 writes zeros (rows past M)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// what this thread's cp.async wrote becomes visible to wgmma
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps reads of wgmma accumulators after the wait that completes them
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// shared-memory matrix descriptor of a tile in 32-byte swizzled atoms:
+// start address, leading (lbo) and stride (sbo) byte offsets
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (3ull << 62);
+}
+
+// Element (r, d) of a tile of ROWS rows: atoms of 8 rows x 16 columns
+// (32 bytes a row), the two 16-byte halves of rows 4-7 swapped (the
+// 32-byte swizzle); the atoms of one 16-column block stacked by rows.
+// A tile starts 256-byte aligned.
+template <int ROWS>
+__device__ __forceinline__ int swz(int r, int d) {
+  const int c = d >> 3;
+  return (c >> 1) * ROWS * 16 + r * 16 + (((c & 1) ^ ((r >> 2) & 1)) << 3) +
+         (d & 7);
+}
+
+// rounds of the block's threads that copy n 16-byte chunks (the x and dy
+// tiles are whole rounds; a weight tile at block 32 is half of one)
+__host__ __device__ constexpr int chunk_rounds(int n) {
+  return (n + kThreads - 1) / kThreads;
+}
+
+// One wgmma m64nNk16 (bf16 in, fp32 accumulate, D += A B) of a
+// warpgroup: SsT<N> with A in shared memory K-major and B in shared
+// memory MN-major (the transpose bit); RsK<N> with A in registers and B
+// in shared memory K-major.
+template <int N>
+struct SsT;
+template <int N>
+struct RsK;
+
+template <>
+struct SsT<32> {
+  __device__ static void run(float (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct SsT<64> {
+  __device__ static void run(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct SsT<128> {
+  __device__ static void run(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct RsK<32> {
+  __device__ static void run(float (&d)[16], const uint32_t (&a)[4],
+                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct RsK<64> {
+  __device__ static void run(float (&d)[32], const uint32_t (&a)[4],
+                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct RsK<128> {
+  __device__ static void run(float (&d)[64], const uint32_t (&a)[4],
+                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// ------------------------------------------------------------------ fwd
+template <int BS>
+struct FwdTile {
+  static constexpr int KS = BS < 64 ? BS : 64;  // K columns a step
+  static constexpr int AE = kBM * KS;           // x tile, elements
+  static constexpr int BE = KS * BS;            // weight tile, elements
+  static constexpr int SMEM = kFwdStages * (AE + BE) * 2;  // bytes
+};
+
+template <int BS>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+               const int* __restrict__ idx, const bf16* __restrict__ bias,
+               bf16* __restrict__ y, bf16* __restrict__ pre, int M, int nib,
+               int nob, int kb, int act) {
+  using L = FwdTile<BS>;
+  constexpr int KS = L::KS, KK = KS / 16, SPS = BS / KS, S = kFwdStages;
+  constexpr int AE = L::AE, BE = L::BE;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // stage s: the x tile at s (AE + BE), the weight tile after it
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+
+  const int o = blockIdx.x, m0 = blockIdx.y * kBM, e = blockIdx.z;
+  const int tid = threadIdx.x, wgi = tid >> 7;
+  const size_t n_in = (size_t)nib * BS, n_out = (size_t)nob * BS;
+  const bf16* xe = x + (size_t)e * M * n_in;
+  const bf16* wo = w + ((size_t)e * nob + o) * kb * BS * BS;
+  const int* io = idx + (size_t)o * kb;
+  const int T = kb * SPS;
+
+  // step t: K columns [j0, j0 + KS) of slot k
+  auto load = [&](int t, int st) {
+    const int k = t / SPS, j0 = (t % SPS) * KS;
+    bf16* const a = sm + st * (AE + BE);
+    bf16* const b = a + AE;
+    const bf16* xs = xe + (size_t)io[k] * BS + j0;
+    constexpr int AC = KS / 8;  // 16-byte chunks of an x row
+#pragma unroll
+    for (int u = 0; u < chunk_rounds(kBM * AC); ++u) {
+      const int q = tid + u * kThreads, r = q / AC, c = q % AC;
+      const bool in = m0 + r < M;
+      cp_async16(smem_u32(a + swz<kBM>(r, c * 8)),
+                 xs + (size_t)(in ? m0 + r : 0) * n_in + c * 8, in ? 16 : 0);
+    }
+    const bf16* ws = wo + ((size_t)k * BS + j0) * BS;
+    constexpr int BC = BS / 8;  // 16-byte chunks of a weight row
+#pragma unroll
+    for (int u = 0; u < chunk_rounds(KS * BC); ++u) {
+      const int q = tid + u * kThreads, r = q / BC, c = q % BC;
+      if (q >= KS * BC) break;
+      cp_async16(smem_u32(b + swz<KS>(r, c * 8)), ws + (size_t)r * BS + c * 8,
+                 16);
+    }
+  };
+
+  float acc[BS / 2];
+#pragma unroll
+  for (int i = 0; i < BS / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < T) load(s, s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    const int st = t % S;
+    cp_async_wait<S - 2>();  // this thread's copies of step t landed
+    proxy_fence();
+    __syncthreads();  // everyone's; and every wgmma of step t - 1 done
+    // this warpgroup's 64 rows of the x tile; B's 16-row k-steps, their
+    // 16-column atoms KS * 32 bytes apart
+    const uint32_t a_addr = smem_u32(sm + st * (AE + BE)) + wgi * 64 * 32;
+    const uint32_t b_addr = smem_u32(sm + st * (AE + BE) + AE);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      SsT<BS>::run(acc, desc(a_addr + kk * kBM * 32, 16, 256),
+                   desc(b_addr + kk * 16 * 32, KS * 32, 256));
+    wg_commit();
+    // the stage of step t - 1 is free: fill it with step t + S - 1
+    if (t + S - 1 < T) load(t + S - 1, (t + S - 1) % S);
+    cp_async_commit();
+    wg_wait0();
+    pin(acc);
+  }
+
+  // accumulator layout: warp wi of the warpgroup holds rows 16 wi + g and
+  // + 8; element 4 j + 2 h + q is column 8 j + 2 tig + q of row g + 8 h
+  const int lane = tid & 31, wi = (tid >> 5) & 3, g = lane >> 2,
+            tig = lane & 3;
+  const bf16* be = bias + (size_t)e * n_out + (size_t)o * BS;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + wgi * 64 + wi * 16 + g + 8 * h;
+    if (m >= M) continue;
+    const size_t row = ((size_t)e * M + m) * n_out + (size_t)o * BS;
+#pragma unroll
+    for (int j = 0; j < BS / 8; ++j) {
+      const int c = 8 * j + 2 * tig;
+      const float2 bv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(be + c));
+      const float s0 = acc[4 * j + 2 * h] + bv.x;
+      const float s1 = acc[4 * j + 2 * h + 1] + bv.y;
+      if (pre != nullptr)
+        *reinterpret_cast<__nv_bfloat162*>(pre + row + c) =
+            __floats2bfloat162_rn(s0, s1);
+      *reinterpret_cast<__nv_bfloat162*>(y + row + c) =
+          __floats2bfloat162_rn(act_fwd(s0, act), act_fwd(s1, act));
+    }
+  }
+}
+
+// ------------------------------------------------------------------- dx
+template <int BS>
+struct DxTile {
+  static constexpr int KS = BS < 64 ? BS : 64;  // K columns a step
+  static constexpr int LD = KS + 8;             // padded row of dy / res
+  static constexpr int DE = kBM * LD;           // dy (or res) tile
+  static constexpr int BE = BS * KS;            // weight tile
+  static constexpr int SE = 2 * DE + BE;        // a stage, elements
+  static constexpr int SMEM = kDxStages * SE * 2;  // bytes
+};
+
+// dz of elements (r, c) and (r, c + 1) of a stage, as a bf16 pair
+__device__ __forceinline__ uint32_t dz_pair(const bf16* d, const bf16* res,
+                                            int off, int act) {
+  const __nv_bfloat162 dv = *reinterpret_cast<const __nv_bfloat162*>(d + off);
+  if (act == kNone) return *reinterpret_cast<const uint32_t*>(&dv);
+  const float2 df = __bfloat1622float2(dv);
+  const float2 rf = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(res + off));
+  const __nv_bfloat162 z = __floats2bfloat162_rn(df.x * act_bwd(rf.x, act),
+                                                 df.y * act_bwd(rf.y, act));
+  return *reinterpret_cast<const uint32_t*>(&z);
+}
+
+// A fragments of the KK k-steps of a stage: rows r0 and r0 + 8, columns
+// 16 kk + 2 tig (+ 1) and + 8
+template <int KK, int LD, int DE>
+__device__ __forceinline__ void fragments(uint32_t (&af)[KK][4],
+                                          const bf16* d, int r0, int tig,
+                                          int act) {
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    const int c = 16 * kk + 2 * tig;
+    af[kk][0] = dz_pair(d, d + DE, r0 * LD + c, act);
+    af[kk][1] = dz_pair(d, d + DE, (r0 + 8) * LD + c, act);
+    af[kk][2] = dz_pair(d, d + DE, r0 * LD + c + 8, act);
+    af[kk][3] = dz_pair(d, d + DE, (r0 + 8) * LD + c + 8, act);
+  }
+}
+
+template <int BS>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    dx_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ res,
+              const bf16* __restrict__ w, const int* __restrict__ rev_ob,
+              const int* __restrict__ rev_t, const int* __restrict__ rev_cnt,
+              bf16* __restrict__ dx, int M, int nob, int kb, int nib, int fb,
+              int act) {
+  using L = DxTile<BS>;
+  constexpr int KS = L::KS, KK = KS / 16, SPS = BS / KS, S = kDxStages;
+  constexpr int LD = L::LD, DE = L::DE, SE = L::SE;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // stage s: dy at s SE, res after it, the weight tile after that
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+
+  const int i = blockIdx.x, m0 = blockIdx.y * kBM, e = blockIdx.z;
+  const int tid = threadIdx.x, wgi = tid >> 7;
+  const size_t n_out = (size_t)nob * BS, n_in = (size_t)nib * BS;
+  const bf16* dye = dy + (size_t)e * M * n_out;
+  const bf16* rese = act != kNone ? res + (size_t)e * M * n_out : nullptr;
+  const bf16* we = w + (size_t)e * nob * kb * BS * BS;
+  const int* obs = rev_ob + (size_t)i * fb;
+  const int* ts = rev_t + (size_t)i * fb;
+  const int T = rev_cnt[i] * SPS;
+
+  // step t: K columns [j0, j0 + KS) of valid reverse slot f
+  auto load = [&](int t, int st) {
+    const int f = t / SPS, j0 = (t % SPS) * KS;
+    const int ob = obs[f];
+    bf16* const d = sm + st * SE;
+    constexpr int AC = KS / 8;  // 16-byte chunks of a dy row
+    const size_t col = (size_t)ob * BS + j0;
+#pragma unroll
+    for (int u = 0; u < chunk_rounds(kBM * AC); ++u) {
+      const int q = tid + u * kThreads, r = q / AC, c = q % AC;
+      const bool in = m0 + r < M;
+      const size_t off = (size_t)(in ? m0 + r : 0) * n_out + col + c * 8;
+      cp_async16(smem_u32(d + r * LD + c * 8), dye + off, in ? 16 : 0);
+      if (rese != nullptr)
+        cp_async16(smem_u32(d + DE + r * LD + c * 8), rese + off,
+                   in ? 16 : 0);
+    }
+    bf16* const b = d + 2 * DE;
+    const bf16* ws = we + ((size_t)ob * kb + ts[f]) * BS * BS + j0;
+#pragma unroll
+    for (int u = 0; u < chunk_rounds(BS * AC); ++u) {
+      const int q = tid + u * kThreads, a = q / AC, c = q % AC;
+      if (q >= BS * AC) break;
+      cp_async16(smem_u32(b + swz<BS>(a, c * 8)), ws + (size_t)a * BS + c * 8,
+                 16);
+    }
+  };
+
+  const int lane = tid & 31, wi = (tid >> 5) & 3, g = lane >> 2,
+            tig = lane & 3;
+  const int r0 = wgi * 64 + wi * 16 + g;  // this thread's rows r0, r0 + 8
+
+  float acc[BS / 2];
+#pragma unroll
+  for (int q = 0; q < BS / 2; ++q) acc[q] = 0.f;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < T) load(s, s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    const int st = t % S;
+    cp_async_wait<S - 2>();  // this thread's copies of step t landed
+    proxy_fence();
+    __syncthreads();  // everyone's; and every wgmma of step t - 1 done
+    const bf16* d = sm + st * SE;
+    uint32_t af[KK][4];
+    fragments<KK, LD, DE>(af, d, r0, tig, act);
+    // B's 16-column k-steps, BS rows of 32 bytes each
+    const uint32_t b_addr = smem_u32(d + 2 * DE);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      RsK<BS>::run(acc, af[kk], desc(b_addr + kk * BS * 32, 16, 256));
+    wg_commit();
+    if (t + S - 1 < T) load(t + S - 1, (t + S - 1) % S);
+    cp_async_commit();
+    wg_wait0();
+    pin(acc);
+  }
+
+  bf16* const dxi = dx + (size_t)e * M * n_in + (size_t)i * BS;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + r0 + 8 * h;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < BS / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dxi + (size_t)m * n_in + 8 * j +
+                                         2 * tig) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+template <typename K>
+int set_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int BS>
+int launch_fwd(const void* x, const void* w, const void* idx,
+               const void* bias, void* y, void* pre, int E, int M, int nib,
+               int nob, int kb, int act, cudaStream_t stream) {
+  constexpr int SMEM = FwdTile<BS>::SMEM;
+  const int err = set_smem(fwd_kernel<BS>, SMEM);
+  if (err != 0) return err;
+  const dim3 grid(nob, (M + kBM - 1) / kBM, E);
+  fwd_kernel<BS><<<grid, kThreads, SMEM, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+      static_cast<const int*>(idx), static_cast<const bf16*>(bias),
+      static_cast<bf16*>(y), static_cast<bf16*>(pre), M, nib, nob, kb, act);
+  return (int)cudaGetLastError();
+}
+
+template <int BS>
+int launch_dx(const void* dy, const void* res, const void* w,
+              const void* rev_ob, const void* rev_t, const void* rev_cnt,
+              void* dx, int E, int M, int nob, int kb, int nib, int fb,
+              int act, cudaStream_t stream) {
+  constexpr int SMEM = DxTile<BS>::SMEM;
+  const int err = set_smem(dx_kernel<BS>, SMEM);
+  if (err != 0) return err;
+  const dim3 grid(nib, (M + kBM - 1) / kBM, E);
+  dx_kernel<BS><<<grid, kThreads, SMEM, stream>>>(
+      static_cast<const bf16*>(dy), static_cast<const bf16*>(res),
+      static_cast<const bf16*>(w), static_cast<const int*>(rev_ob),
+      static_cast<const int*>(rev_t), static_cast<const int*>(rev_cnt),
+      static_cast<bf16*>(dx), M, nob, kb, nib, fb, act);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+}  // namespace
+
+#define JUNCTION_TC_BS_SWITCH(CALL)  \
+  switch (bs) {                      \
+    case 32: {                       \
+      constexpr int BS = 32;         \
+      return CALL;                   \
+    }                                \
+    case 64: {                       \
+      constexpr int BS = 64;         \
+      return CALL;                   \
+    }                                \
+    case 128: {                      \
+      constexpr int BS = 128;        \
+      return CALL;                   \
+    }                                \
+    default:                         \
+      return (int)cudaErrorInvalidValue; \
+  }
+
+// Both return the cudaError_t of the launch (0 on success).  bf16 only;
+// the operands that go through cp.async start 16-byte aligned.  They
+// launch on `stream`, allocate nothing and do not synchronise.
+
+// The plain junction forward; `pre` may be null.
+extern "C" int junction_fwd_tc(const void* x, const void* w, const void* idx,
+                               const void* bias, void* y, void* pre, int E,
+                               int M, int nib, int nob, int kb, int bs,
+                               int act, void* stream) {
+  if (E <= 0 || M <= 0 || (M + kBM - 1) / kBM > 65535 || E > 65535 ||
+      !aligned16(x) || !aligned16(w) || (uintptr_t)bias % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  JUNCTION_TC_BS_SWITCH((launch_fwd<BS>(x, w, idx, bias, y, pre, E, M, nib,
+                                        nob, kb, act, s)))
+}
+
+// The plain junction's backward to the input; `res` is null for "none".
+extern "C" int junction_dx_tc(const void* dy, const void* res, const void* w,
+                              const void* rev_ob, const void* rev_t,
+                              const void* rev_cnt, void* dx, int E, int M,
+                              int nob, int kb, int nib, int fb, int bs,
+                              int act, void* stream) {
+  if (E <= 0 || M <= 0 || (M + kBM - 1) / kBM > 65535 || E > 65535 ||
+      (act != kNone && (res == nullptr || !aligned16(res))) ||
+      !aligned16(dy) || !aligned16(w))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  JUNCTION_TC_BS_SWITCH((launch_dx<BS>(dy, res, w, rev_ob, rev_t, rev_cnt,
+                                       dx, E, M, nob, kb, nib, fb, act, s)))
+}

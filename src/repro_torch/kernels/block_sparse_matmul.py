@@ -1,7 +1,9 @@
 """Block-sparse junction kernels: the activation table, the hyp-column
 registry, the plain PyTorch versions and the wrappers of the CUDA kernels
 ``csrc/junction_fwd.cu``, ``csrc/junction_dx.cu`` and
-``csrc/junction_dw.cu``, each in a plain and a gated form, and of the
+``csrc/junction_dw.cu``, each in a plain and a gated form, of the
+tensor-core forms of the plain fwd and dx in ``csrc/junction_tc.cu``
+(bf16; ``junction_variant`` routes), and of the
 quantized forwards of ``csrc/junction_quant.cu``.
 
 For E junction units sharing one block pattern (idx [nob, kb] and its
@@ -292,6 +294,24 @@ def fwd_ref(x, w, idx, bias, act: str = "none", save_pre: bool = False):
 
 
 _FWD_BLOCKS = (32, 64, 128)
+# The tensor-core entry points (csrc/junction_tc.cu: bf16 wgmma, 128-row
+# tiles) take bf16 junctions of at least TC_MIN_M rows; fp32 always goes
+# to the SIMT kernels (no TF32).  On an H100 the tensor-core fwd beat the
+# SIMT one at every shape timed from the 4 rows of a decode tick (one
+# 128-row tile, mostly zeros) to 2048; at 1 row the SIMT kernel won at
+# the 2560 -> 6912 junction (chip_smoke.route_phase; PERF.md §6).
+TC_MIN_M = 4
+_TC_BLOCKS = (32, 64, 128)
+
+
+def junction_variant(dtype: torch.dtype, M: int, bs: int) -> str:
+    """The entry point ``fwd`` and ``dx`` launch on a CUDA tensor: "tc"
+    (``junction_fwd_tc`` / ``junction_dx_tc``, bf16 on tensor cores) or
+    "simt" (``junction_fwd`` / ``junction_dx``), from the operand dtype,
+    the rows M and the block size alone (no host sync)."""
+    if dtype == torch.bfloat16 and M >= TC_MIN_M and bs in _TC_BLOCKS:
+        return "tc"
+    return "simt"
 
 
 def fwd(x, w, idx, bias, act: str = "none", save_pre: bool = False):
@@ -299,9 +319,10 @@ def fwd(x, w, idx, bias, act: str = "none", save_pre: bool = False):
     bias [E, nob*bs] -> y [E, M, nob*bs] in x's dtype, or (y, pre) with
     ``save_pre`` (pre = the pre-activation, in x's dtype).
 
-    A CPU tensor runs ``fwd_ref``.  A CUDA tensor launches
-    ``junction_fwd`` on the current stream (``fwd.launches`` counts
-    those launches) or raises; any other device raises."""
+    A CPU tensor runs ``fwd_ref``.  A CUDA tensor launches, on the
+    current stream, ``junction_fwd_tc`` or ``junction_fwd`` as
+    ``junction_variant`` says, or raises; ``fwd.launches`` counts both,
+    ``fwd.tc_launches`` the first.  Any other device raises."""
     if _route(x, "junction fwd"):
         return fwd_ref(x, w, idx, bias, act, save_pre)
     _check_fwd(x, w, idx, bias, act)
@@ -312,18 +333,26 @@ def fwd(x, w, idx, bias, act: str = "none", save_pre: bool = False):
     y = torch.empty((E, M, nob * bs), dtype=x.dtype, device=x.device)
     pre = torch.empty_like(y) if save_pre else None
     if M:
-        with torch.cuda.device(x.device):
-            err = _kernel("junction_fwd", "junction_fwd", 6, 8)(
-                x.data_ptr(), w.data_ptr(), idx.data_ptr(), bias.data_ptr(),
+        tc = junction_variant(x.dtype, M, bs) == "tc"
+        name = "junction_fwd_tc" if tc else "junction_fwd"
+        ptrs = (x.data_ptr(), w.data_ptr(), idx.data_ptr(), bias.data_ptr(),
                 y.data_ptr(), _ptr(pre), E, M, n_in // bs, nob, kb, bs,
-                ACTIVATIONS.index(act), _DTYPE_CODE[x.dtype],
-                torch.cuda.current_stream().cuda_stream)
-        _raise_on(err, "junction_fwd")
+                ACTIVATIONS.index(act))
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            if tc:
+                err = _kernel("junction_tc", name, 6, 7)(*ptrs, stream)
+            else:
+                err = _kernel("junction_fwd", name, 6, 8)(
+                    *ptrs, _DTYPE_CODE[x.dtype], stream)
+        _raise_on(err, name)
         fwd.launches += 1
+        fwd.tc_launches += tc
     return (y, pre) if save_pre else y
 
 
 fwd.launches = 0
+fwd.tc_launches = 0
 
 
 # ------------------------------------------------------------- gated fwd
@@ -685,7 +714,9 @@ def dx(dy, w, rev_ob, rev_t, rev_cnt, res=None, act: str = "none"):
     reverse pattern against the forward-layout w [E, nob, kb, bs, bs]
     (already in dy's dtype); res is the forward's residual (y for
     relu / sigmoid, the pre-activation for silu / gelu, unused for none).
-    CPU: ``dx_ref``; CUDA: ``junction_dx`` (``dx.launches``)."""
+    CPU: ``dx_ref``; CUDA: ``junction_dx_tc`` or ``junction_dx`` as
+    ``junction_variant`` says (``dx.launches`` counts both,
+    ``dx.tc_launches`` the first)."""
     if _route(dy, "junction dx"):
         return dx_ref(dy, w, rev_ob, rev_t, rev_cnt, res, act)
     _check_dx(dy, w, rev_ob, rev_t, rev_cnt, res, act)
@@ -696,19 +727,27 @@ def dx(dy, w, rev_ob, rev_t, rev_cnt, res=None, act: str = "none"):
                 rev_ob=rev_ob, rev_t=rev_t, rev_cnt=rev_cnt, res=res)
     out = torch.empty((E, M, nib * bs), dtype=dy.dtype, device=dy.device)
     if M:
-        with torch.cuda.device(dy.device):
-            err = _kernel("junction_dx", "junction_dx", 7, 9)(
-                dy.data_ptr(), _ptr(res if act != "none" else None),
+        tc = junction_variant(dy.dtype, M, bs) == "tc"
+        name = "junction_dx_tc" if tc else "junction_dx"
+        ptrs = (dy.data_ptr(), _ptr(res if act != "none" else None),
                 w.data_ptr(), rev_ob.data_ptr(), rev_t.data_ptr(),
                 rev_cnt.data_ptr(), out.data_ptr(), E, M, nob, kb, nib, fb,
-                bs, ACTIVATIONS.index(act), _DTYPE_CODE[dy.dtype],
-                torch.cuda.current_stream().cuda_stream)
-        _raise_on(err, "junction_dx")
+                bs, ACTIVATIONS.index(act))
+        with torch.cuda.device(dy.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            if tc:
+                err = _kernel("junction_tc", name, 7, 8)(*ptrs, stream)
+            else:
+                err = _kernel("junction_dx", name, 7, 9)(
+                    *ptrs, _DTYPE_CODE[dy.dtype], stream)
+        _raise_on(err, name)
         dx.launches += 1
+        dx.tc_launches += tc
     return out
 
 
 dx.launches = 0
+dx.tc_launches = 0
 
 
 # -------------------------------------------------------------- gated dx

@@ -23,9 +23,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("junction_fwd", "junction_dx", "junction_dw", "junction_quant",
-           "flash_decode", "flash_attention", "selective_scan",
-           "fxp_qmatmul", "sigmoid_lut")
+SOURCES = ("junction_fwd", "junction_dx", "junction_tc", "junction_dw",
+           "junction_quant", "flash_decode", "flash_attention",
+           "selective_scan", "fxp_qmatmul", "sigmoid_lut")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

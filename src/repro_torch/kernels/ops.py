@@ -62,14 +62,25 @@ _COUNTED = {"junction_fwd": bsm.fwd, "junction_dx": bsm.dx,
             "lut_lookup": slut.lut_lookup}
 
 
+# the kernels with a tensor-core entry point beside their SIMT one
+_TC_COUNTED = ("junction_fwd", "junction_dx")
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last ``reset_launch_counts``."""
     return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
+def tc_launch_counts() -> dict[str, int]:
+    """Of those, the launches of the tensor-core entry points."""
+    return {name: _COUNTED[name].tc_launches for name in _TC_COUNTED}
+
+
 def reset_launch_counts() -> None:
     for fn in _COUNTED.values():
         fn.launches = 0
+    for name in _TC_COUNTED:
+        _COUNTED[name].tc_launches = 0
 
 
 def resolve_engine(engine: str) -> str:
