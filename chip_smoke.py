@@ -14,14 +14,17 @@ PyTorch built for CUDA.  It
    kernel, plain version, the least time the card could take (bound) and,
    where one PyTorch call computes the same function, that call
    (flash_decode at stablelm-3b's heads and at qwen3-moe's, at the
-   serving lengths and over a 4k-token cache); fwd and dx have two entry
-   points, SIMT and bf16 tensor cores (``bsm.junction_variant`` routes),
-   and both are held and timed wherever the route takes the tensor
-   cores, and the route's crossover is timed from 1 row to 2048;
+   serving lengths and over a 4k-token cache); fwd, dx, gated_fwd and
+   update_dw have two entry points, SIMT and bf16 tensor cores
+   (``bsm.junction_variant`` routes), and both are held and timed
+   wherever the route takes the tensor cores, and the route's crossover
+   is timed from 1 row to 2048 (fwd), 1 to 160 (gated_fwd) and at the
+   training rows (update_dw);
 4. serves 8 greedy requests through ``ContinuousEngine`` on full-width
    sparse-FFN stablelm-3b (random weights from a seed), checks that every
-   request completes, that the kernels' launch counts are exactly what
-   the path implies, and that one prefill chunk and one decode tick give
+   request completes, that the kernels' launch counts (and those of the
+   tensor-core entry points) are exactly what the path implies, and that
+   one prefill chunk and one decode tick give
    the same logits through the kernels as through the plain versions;
 5. holds the training kernels (fwd with its saved residual, dx, dw and
    the fused update_dw) against their plain versions at the training
@@ -29,11 +32,14 @@ PyTorch built for CUDA.  It
    bias, E = 2, SGD / momentum / Adam, the health counts of poisoned
    tiles and the bit-for-bit freeze of a zero hyp row; the tensor-core
    fwd and dx also at a ragged M, with and without bias and save_pre,
-   and at blocks 32 and 64;
+   and at blocks 32 and 64, gated_fwd and update_dw (every optimizer,
+   health, freeze) at a ragged M and blocks 32, 64 and 128, through both
+   entry points;
 6. trains the same model at full width: 3 two-pass Adam steps, 3 fused
    Adam steps and 3 fused SGD steps (batch 8 x 256), with finite losses,
    no non-finite update, exact launch counts (no dw launch on the
-   unclipped fused path; every fwd and dx on the tensor cores), and one
+   unclipped fused path; every fwd, dx and update_dw on the tensor
+   cores), and one
    step at 2 layers through the kernels and through the plain versions
    within stated tolerances;
 7. holds the gated kernels (gated_fwd, gated_dx, gated_dw and the fused
@@ -44,7 +50,7 @@ PyTorch built for CUDA.  It
    in one branch or both (each counted once) and the zero-hyp freeze;
 8. serves the same 8 requests on full-size sparse qwen3-moe-30b-a3b (48
    layers, 128 experts, 9.6 B parameters) and trains it at full width
-   and 6 layers as in 4. and 6.;
+   and 6 layers as in 4. and 6. (every gated_fwd on the tensor cores);
 9. holds the quantized kernels (fwd_int8, gated_fwd_int8, fwd_fxp)
    against their plain versions (bit for bit where the arithmetic allows)
    at stablelm-3b's FFN junctions, qwen3-moe's expert junctions and the
@@ -168,15 +174,32 @@ def close(got, want, tol) -> bool:
 
 def forced(P, variant):
     """The junction wrappers launch ``variant`` ("simt" or "tc") whatever
-    their route says: times and checks of the entry point the route does
-    not take, on the same inputs."""
+    their route says (fwd, dx, gated_fwd and update_dw): times and checks
+    of the entry point the route does not take, on the same inputs."""
     return mock.patch.object(P.bsm, "junction_variant",
                              lambda *_: variant)
 
 
+def forced_call(P, variant, fn):
+    """``fn`` with the junction wrappers forced to ``variant``."""
+    def call():
+        with forced(P, variant):
+            return fn()
+    return call
+
+
+def in_turns(timer, tc_fn, simt_fn):
+    """(tensor-core ms, SIMT ms): both entry points timed in turns on the
+    same inputs (SIMT, tensor cores, tensor cores, SIMT), each the mean
+    of its two medians."""
+    ms = [timer.ms(f) for f in (simt_fn, tc_fn, tc_fn, simt_fn)]
+    return (ms[1] + ms[2]) / 2, (ms[0] + ms[3]) / 2
+
+
 def with_tc(P, counts):
-    """A path's launch counts with its tensor-core launches of fwd and dx
-    beside them (``junction_fwd_tc``, ``junction_dx_tc``)."""
+    """A path's launch counts with the launches of the tensor-core entry
+    points of fwd, dx, gated_fwd and update_dw beside them
+    (``junction_*_tc``)."""
     return {**counts, **{f"{k}_tc": v
                          for k, v in P.ops.tc_launch_counts().items()}}
 
@@ -255,13 +278,24 @@ ROUTE_SHAPES = [("wg", 2560, 6912, "silu", 2, 1, (1, 4, 32, 64, 160, 2048)),
                 ("wi", 2560, 6912, "none", 0, 1, (1, 4, 32, 64, 160, 2048)),
                 ("wo", 6912, 2560, "none", 1, 1, (1, 4, 32, 64, 160, 2048)),
                 ("moe wo", 768, 2048, "none", 1, 128, (1, 4, 32, 64, 160))]
+# gated_fwd at qwen3-moe's expert gate junction (E = 128, 2048 -> 768):
+# a lone decode slot, a tick's and a prefill chunk's capacity, an
+# expert's training rows
+GATED_ROUTE_ROWS = (1, 4, 32, 160)
+# update_dw (Adam) at stablelm-3b's wg junction and qwen3-moe's down
+# junction, at their training rows
+UPDATE_ROUTE = [(("wg", 2560, 6912, "silu", 2), 1, 2048),
+                (("moe wo", 768, 2048, "none", 1), 128, 160)]
 
 
 def route_phase(P, timer, card):
     """The crossover of the route: bf16 ``fwd`` through both entry points
     on the same inputs (SIMT, tensor cores, tensor cores, SIMT), at every
-    row count from one row to the training rows.  Reported beside
-    ``bsm.TC_MIN_M``, the threshold the route uses; not gated on."""
+    row count from one row to the training rows; ``gated_fwd`` likewise
+    at qwen3-moe's gate junction, and ``update_dw`` at the two training
+    shapes, each entry point also held against its plain version.
+    Reported beside ``bsm.TC_MIN_M``, the threshold the route uses; the
+    times are not gated on."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     faster = {}
@@ -292,8 +326,71 @@ def route_phase(P, timer, card):
     # the fewest rows from which the tensor cores win at every shape
     lo = next((M for M in sorted({m for _, m in faster})
                if all(f for (_, m), f in faster.items() if m >= M)), None)
-    print(f"[route] tensor cores faster at every shape from M={lo} on; the "
-          f"route's threshold TC_MIN_M={P.bsm.TC_MIN_M} [{card}]")
+    print(f"[route] junction_fwd: tensor cores faster at every shape from "
+          f"M={lo} on; the route's threshold TC_MIN_M={P.bsm.TC_MIN_M} "
+          f"[{card}]")
+    bsm, lim = P.bsm, REL_TOL["bf16_out"]
+    faster = {}
+    for M in GATED_ROUTE_ROWS:
+        t, pt = _moe_inputs(P, gen, MOE_SHAPES[0], MOE_E, M, torch.bfloat16)
+        args = (t["x"], t["w"], t["wi"], pt["idx"], True)
+        want = bsm.gated_fwd_ref(*args)
+        errs = {v: max(rel_err(a, b) for a, b in zip(
+            forced_call(P, v, lambda: bsm.gated_fwd(*args))(), want))
+            for v in ("simt", "tc")}
+        tc, simt = in_turns(timer,
+                            forced_call(P, "tc", lambda: bsm.gated_fwd(*args)),
+                            forced_call(P, "simt",
+                                        lambda: bsm.gated_fwd(*args)))
+        faster[M] = tc < simt
+        print(f"[route] junction_gated_fwd gate E={MOE_E} M={M} bf16 "
+              f"save_res: SIMT {simt:.4f} ms, tensor cores {tc:.4f} ms "
+              f"({simt / tc:.2f}x); rel_err SIMT {errs['simt']:.3g} tensor "
+              f"cores {errs['tc']:.3g} (tol {lim:.3g}); route: "
+              f"{bsm.junction_variant(torch.bfloat16, M, BS)} [{card}]")
+        require(max(errs.values()) <= lim,
+                f"gated_fwd at M={M} disagrees with its plain version: {errs}")
+        del t, pt, want
+    lo = next((M for M in sorted(faster)
+               if all(f for m, f in faster.items() if m >= M)), None)
+    print(f"[route] junction_gated_fwd: tensor cores faster from M={lo} on; "
+          f"the route's threshold TC_MIN_M={P.bsm.TC_MIN_M} [{card}]")
+    hyp = torch.tensor(ADAM_HYP, device="cuda")
+    for shape, E, M in UPDATE_ROUTE:
+        name, _, _, act, _ = shape
+        t, pt = _train_inputs(P, gen, shape, E, torch.bfloat16, M=M)
+        res = t["res"] if act != "none" else None
+        mom, vel = _adam_slots(gen, t["w"].shape)
+        init = (t["w"], mom, vel)
+        sts = {v: [x.clone() for x in init] for v in ("plain", "simt", "tc")}
+
+        def upd(st):
+            return lambda: bsm.update_dw(
+                t["x"], t["dy"], pt["idx"], res, st[0], None, st[1], None,
+                hyp, vel=st[2], act=act, with_bias=False)
+        bsm.update_dw_ref(t["x"], t["dy"], pt["idx"], res, sts["plain"][0],
+                          None, sts["plain"][1], None, hyp,
+                          vel=sts["plain"][2], act=act, with_bias=False)
+        pw, pm, pv = sts["plain"]
+        errs = {}
+        for v in ("simt", "tc"):
+            forced_call(P, v, upd(sts[v]))()
+            kw, km, kv = sts[v]
+            require(_adam_w_ok(kw, pw, t["w"], km, pm, kv, pv),
+                    f"update_dw ({v}) {name} M={M}: weights differ "
+                    f"({max_err(kw, pw):.3g})")
+            errs[v] = max(rel_err(km, pm), rel_err(kv, pv))
+        tc, simt = in_turns(timer, forced_call(P, "tc", upd(sts["tc"])),
+                            forced_call(P, "simt", upd(sts["simt"])))
+        print(f"[route] junction_update_dw {name} E={E} M={M} bf16 Adam: "
+              f"SIMT {simt:.4f} ms, tensor cores {tc:.4f} ms "
+              f"({simt / tc:.2f}x); slot rel_err SIMT {errs['simt']:.3g} "
+              f"tensor cores {errs['tc']:.3g} (tol {REL_TOL['bf16_sum']:.3g})"
+              f"; route: {bsm.junction_variant(torch.bfloat16, M, BS)} "
+              f"[{card}]")
+        require(max(errs.values()) <= REL_TOL["bf16_sum"],
+                f"update_dw {name} M={M}: slots differ {errs}")
+        del t, pt, sts
     torch.cuda.empty_cache()
 
 
@@ -422,6 +519,10 @@ def decode_phase(P, timer, card):
 SERVE_ARCHS = {"stablelm-3b": {"junction_fwd": 3},
                "qwen3-moe-30b-a3b": {"junction_gated_fwd": 1,
                                      "junction_fwd": 1}}
+# the fewest rows a serving junction call has: the 4 slots of a decode
+# tick (a prefill chunk has 32); an expert's capacity is at least 4
+# (models/moe.moe_dispatch_dims)
+SERVE_MIN_ROWS = 4
 
 
 def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None):
@@ -502,6 +603,14 @@ def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None):
     want["flash_decode"] = L * st["decode_ticks"]      # one attention a layer
     require(counts == want, f"{name} launches {counts} != {want}")
     require(st["launches"] == counts, "engine stats disagree with counters")
+    # every junction call of the path has at least SERVE_MIN_ROWS rows: on
+    # the tensor cores when the route takes the compute dtype there
+    tc = P.bsm.junction_variant(getattr(torch, cfg.dtype), SERVE_MIN_ROWS,
+                                cfg.sparsity.block) == "tc"
+    want_tc = {k: counts[k] if tc else 0 for k in P.ops.tc_launch_counts()}
+    require(P.ops.tc_launch_counts() == want_tc,
+            f"{name} tensor-core launches {P.ops.tc_launch_counts()} != "
+            f"{want_tc}")
     if fp_outs is not None:
         # random weights give near ties: reported, not gated on
         same = [float(np.mean(outs[r] == fp_outs[r])) for r in sorted(outs)]
@@ -740,9 +849,10 @@ def _adam_slots(gen, shape):
 def train_kernel_phase(P, timer, card):
     """fwd (with its saved residual), dx, dw and the fused Adam update_dw
     at the three FFN junctions of the training path, M = 2048, bf16 and
-    fp32, each against its plain version and timed; then every
-    activation, bias, E = 2, SGD / momentum / Adam, the health counts of
-    poisoned tiles and the zero-hyp freeze, checked."""
+    fp32, each against its plain version and timed (fwd, dx and update_dw
+    through both entry points in bf16, in turns); then every activation,
+    bias, E = 2, SGD / momentum / Adam, the health counts of poisoned
+    tiles and the zero-hyp freeze, checked."""
     bsm = P.bsm
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
@@ -795,37 +905,63 @@ def train_kernel_phase(P, timer, card):
                          _cost("dw", t, pt, act)))
             hyp = torch.tensor(ADAM_HYP, device="cuda")
             mom, vel = _adam_slots(gen, t["w"].shape)
-            k_st = [t["w"].clone(), mom.clone(), vel.clone()]
-            p_st = [t["w"].clone(), mom.clone(), vel.clone()]
+            init = (t["w"], mom, vel)
+            p_st = [v.clone() for v in init]
 
             def upd(fn, st):
                 return lambda: fn(t["x"], t["dy"], pt["idx"], res, st[0], None,
                                   st[1], None, hyp, vel=st[2], act=act,
                                   with_bias=False)
-            upd(bsm.update_dw, k_st)()
             upd(bsm.update_dw_ref, p_st)()
-            if dtype == torch.float32:
-                w_err = rel_err(k_st[0] - t["w"], p_st[0] - t["w"])
-                w_ok = w_err <= 1e-4
-            else:
-                w_err = max_err(k_st[0], p_st[0])
-                w_ok = close(k_st[0], p_st[0], dict(atol=0.0, rtol=2.0 ** -7))
-            require(w_ok, f"update_dw {name} {dtype}: w differs ({w_err})")
-            err = max(rel_err(k_st[1], p_st[1]), rel_err(k_st[2], p_st[2]))
+
+            def held(variant):
+                """One Adam step through the entry point ``variant`` from
+                the same state as the plain version's: (its state, the
+                slots' relative error)."""
+                st = [v.clone() for v in init]
+                forced_call(P, variant, upd(bsm.update_dw, st))()
+                if dtype == torch.float32:
+                    w_err = rel_err(st[0] - t["w"], p_st[0] - t["w"])
+                    w_ok = w_err <= 1e-4
+                elif variant == "tc":
+                    # wgmma sums in another order than the plain version
+                    # (slots some 5e-6 apart, relative, SIMT 1e-7): where
+                    # w - lr * step cancels to ~1e-8, that difference is
+                    # more than a bf16 ulp of the result; held as the
+                    # MoE update is
+                    w_err = max_err(st[0], p_st[0])
+                    w_ok = _adam_w_ok(st[0], p_st[0], t["w"], st[1],
+                                      p_st[1], st[2], p_st[2])
+                else:
+                    w_err = max_err(st[0], p_st[0])
+                    w_ok = close(st[0], p_st[0],
+                                 dict(atol=0.0, rtol=2.0 ** -7))
+                require(w_ok, f"update_dw ({variant}) {name} {dtype}: w "
+                              f"differs ({w_err})")
+                return st, max(rel_err(st[1], p_st[1]),
+                               rel_err(st[2], p_st[2]))
+            k_st, err = held(bsm.junction_variant(dtype, TRAIN_M, BS))
             rows.append(("update_dw", err, sum_tol,
                          max_err(k_st[1], p_st[1]), upd(bsm.update_dw, k_st),
                          upd(bsm.update_dw_ref, p_st),
                          _cost("update_dw", t, pt, act, n_slots=2)))
+            if simt:
+                s_st, s_err = held("simt")
+                simt["update_dw"] = (s_err, forced_call(
+                    P, "simt", upd(bsm.update_dw, s_st)))
             torch.cuda.synchronize()
             for kind, err, lim, abs_err, kfn, pfn, (nb, no) in rows:
-                k_ms, p_ms = timer.ms(kfn), timer.ms(pfn)
+                p_ms = timer.ms(pfn)
+                if kind in simt:
+                    s_err, sfn = simt[kind]
+                    k_ms, s_ms = in_turns(timer, kfn, sfn)
+                else:
+                    k_ms = timer.ms(kfn)
                 bnd, _ = _report(kind, name, dtype, act, err, lim, k_ms,
                                  p_ms, nb, no, card)
                 o = out[kind]
                 o["max_abs_err"] = max(o["max_abs_err"], abs_err)
                 if kind in simt:
-                    s_err, sfn = simt[kind]
-                    s_ms = timer.ms(sfn)
                     _report_tc(kind, name, act, k_ms, s_err, lim, s_ms, bnd,
                                nb, no, card)
                     o["simt_ms"] = o.get("simt_ms", 0.0) + s_ms
@@ -853,12 +989,11 @@ def train_kernel_phase(P, timer, card):
 
 
 def _simt_row(P, kfn, want):
-    """The SIMT entry point of fwd or dx on the inputs of ``kfn``, where
-    the route takes the tensor cores: (its relative error against the
-    plain version's outputs ``want``, its call for the timer)."""
-    def call():
-        with forced(P, "simt"):
-            return kfn()
+    """The SIMT entry point of fwd, dx or gated_fwd on the inputs of
+    ``kfn``, where the route takes the tensor cores: (its relative error
+    against the plain version's outputs ``want``, its call for the
+    timer)."""
+    call = forced_call(P, "simt", kfn)
     got = call()
     got = got if isinstance(got, tuple) else (got,)
     return max(rel_err(g, w) for g, w in zip(got, want)), call
@@ -884,7 +1019,8 @@ def tc_coverage_checks(P, gen):
     (2000 rows: the last 128-row tile holds 80) at E = 2 with every
     activation, with and without bias and save_pre (fwd) and with its
     residual (dx); then block sizes 32 and 64, which the route sends
-    there too."""
+    there too; gated_fwd and update_dw at a ragged M and blocks 128, 64
+    and 32."""
     bsm = P.bsm
     lim = REL_TOL["bf16_out"]
     M = 2000
@@ -931,6 +1067,41 @@ def tc_coverage_checks(P, gen):
         require(max(errs) <= lim, f"tensor-core fwd/dx at block {bs} "
                                   f"disagrees: {max(errs)}")
         del t, pt
+    # gated_fwd at a ragged M (157 rows: a 29-row second tile), E = 2,
+    # blocks 128, 64 and 32, with and without the saved residuals, both
+    # entry points
+    for bs in (BS, 64, 32):
+        t, pt = _moe_inputs(P, gen, MOE_SHAPES[0], 2, 157, torch.bfloat16,
+                            bs=bs)
+        require(bsm.junction_variant(torch.bfloat16, 157, bs) == "tc",
+                f"the route does not take gated_fwd at block {bs} to the "
+                f"tensor cores")
+        errs = {}
+        for save in (True, False):
+            args = (t["x"], t["w"], t["wi"], pt["idx"], save)
+            want = bsm.gated_fwd_ref(*args)
+            want = want if save else (want,)
+            for v in ("tc", "simt"):
+                got = forced_call(P, v, lambda: bsm.gated_fwd(*args))()
+                got = got if save else (got,)
+                errs[v] = max([errs.get(v, 0.0)] + [
+                    rel_err(a, b) for a, b in zip(got, want)])
+        print(f"[check] gated_fwd block {bs} E=2 M=157 bf16, save_res on "
+              f"and off: h/g/u rel_err tensor cores {errs['tc']:.3g}, SIMT "
+              f"{errs['simt']:.3g} (tol {lim:.3g})")
+        require(max(errs.values()) <= lim,
+                f"gated_fwd at block {bs} M=157 disagrees: {errs}")
+        del t, pt
+    # update_dw at a ragged M (2000), E = 2 with a per-unit hyp row and
+    # bias, blocks 128, 64 and 32: SGD / momentum / Adam, poisoned tiles,
+    # the zero-hyp freeze, through both entry points
+    for bs in (BS, 64, 32):
+        t, pt = _train_inputs(P, gen, TRAIN_SHAPES[0], 2, torch.bfloat16,
+                              M=M, bs=bs)
+        for opt in ("sgd", "momentum", "adam"):
+            for case in ("poison", "freeze"):
+                _update_case(P, gen, t, pt, torch.bfloat16, opt, case)
+        del t, pt
 
 
 def coverage_checks(P, gen):
@@ -970,7 +1141,13 @@ def coverage_checks(P, gen):
 
 
 def _update_case(P, gen, t, pt, dtype, opt, case):
+    """update_dw at E = 2 with a per-unit hyp table (silu, bias), through
+    the routed entry point and, where that is the tensor cores, the SIMT
+    one too, each against the plain version.  "poison": two tiles of unit
+    1 get an inf gradient and are counted; "freeze": unit 1's hyp row is
+    zero and its weights stay as they were, bit for bit."""
     bsm = P.bsm
+    M, bs = t["x"].shape[1], t["w"].shape[-1]
     hyp = torch.tensor([ADAM_HYP, ADAM_HYP], device="cuda")
     hyp[1, 0] = 2e-3                                     # unit 1's own lr
     if opt != "adam":
@@ -990,34 +1167,41 @@ def _update_case(P, gen, t, pt, dtype, opt, case):
     slots = [mom, mom_b, vel, vel_b]
     use = {"sgd": (False, False), "momentum": (True, False),
            "adam": (True, True)}[opt]
-    runs = []
-    for fn in (bsm.update_dw, bsm.update_dw_ref):
+    route = bsm.junction_variant(dtype, M, bs)
+    runs = {}
+    for v in [route] + (["simt"] if route == "tc" else []) + ["plain"]:
         w, b = w0.clone(), b0.clone()
-        m, mb, v, vb = (s.clone() for s in slots)
-        h = fn(t["x"], dy, pt["idx"], t["res"], w, b,
-               m if use[0] else None, mb if use[0] else None, hyp,
-               vel=v if use[1] else None, vel_b=vb if use[1] else None,
-               act="silu", with_bias=True, with_health=True)
-        runs.append((w, b, m, v, h))
-    (kw, kb, km, kv, kh), (pw, pb, pm, pv, ph) = runs
+        m, mb, vl, vb = (x.clone() for x in slots)
+
+        def run(fn):
+            return fn(t["x"], dy, pt["idx"], t["res"], w, b,
+                      m if use[0] else None, mb if use[0] else None, hyp,
+                      vel=vl if use[1] else None,
+                      vel_b=vb if use[1] else None, act="silu",
+                      with_bias=True, with_health=True)
+        h = (run(bsm.update_dw_ref) if v == "plain"
+             else forced_call(P, v, lambda: run(bsm.update_dw))())
+        runs[v] = (w, b, m, vl, h)
     torch.cuda.synchronize()
+    pw, pb, pm, pv, ph = runs.pop("plain")
     lim = REL_TOL["fp32" if dtype == torch.float32 else "bf16_sum"]
-    err = rel_err(km[0], pm[0]) if use[0] else 0.0
-    w_ok = close(kw[0], pw[0], dict(atol=1e-6, rtol=2.0 ** -7))
-    line = (f"[check] update_dw {opt} {case} E=2 {str(dtype)[6:]} bias: "
-            f"health kernel {kh.tolist()} plain {ph.tolist()}, unit-0 slot "
-            f"rel_err {err:.3g}")
-    if case == "poison":
-        require(kh.tolist() == ph.tolist() == [0, 2],
-                f"health counts wrong: {line}")
-    else:
-        frozen = (torch.equal(kw[1], w0[1]) and torch.equal(kb[1], b0[1])
-                  and not torch.equal(kw[0], w0[0]))
-        line += f", unit 1 frozen bit for bit: {frozen}"
-        require(frozen, f"zero hyp row did not freeze unit 1: {line}")
-        require(kh.tolist() == [0, 0], f"health counts wrong: {line}")
-    print(line)
-    require(w_ok and err <= lim, f"update_dw disagrees: {line}")
+    for v, (kw, kb, km, kv, kh) in runs.items():
+        err = rel_err(km[0], pm[0]) if use[0] else 0.0
+        w_ok = close(kw[0], pw[0], dict(atol=1e-6, rtol=2.0 ** -7))
+        line = (f"[check] update_dw ({v}) {opt} {case} E=2 M={M} block {bs} "
+                f"{str(dtype)[6:]} bias: health kernel {kh.tolist()} plain "
+                f"{ph.tolist()}, unit-0 slot rel_err {err:.3g}")
+        if case == "poison":
+            require(kh.tolist() == ph.tolist() == [0, 2],
+                    f"health counts wrong: {line}")
+        else:
+            frozen = (torch.equal(kw[1], w0[1]) and torch.equal(kb[1], b0[1])
+                      and not torch.equal(kw[0], w0[0]))
+            line += f", unit 1 frozen bit for bit: {frozen}"
+            require(frozen, f"zero hyp row did not freeze unit 1: {line}")
+            require(kh.tolist() == [0, 0], f"health counts wrong: {line}")
+        print(line)
+        require(w_ok and err <= lim, f"update_dw disagrees: {line}")
 
 
 # ------------------------------------------------------ MoE expert kernels
@@ -1033,17 +1217,17 @@ MOE_M = {"decode": 4, "train": 160}
 MOE_TRAIN_LAYERS = 6
 
 
-def _moe_inputs(P, gen, shape, E, M, dtype):
+def _moe_inputs(P, gen, shape, E, M, dtype, bs=BS):
     """Operands of both junction forms at one expert-junction shape: x,
     dy (dh), w and wi (the gate's two streams), and the gate residuals g
     and u as the forward leaves them."""
     _, n_in, n_out, pseed = shape
-    pat = P.make_block_pattern(n_in, n_out, 0.25, BS, seed=pseed)
+    pat = P.make_block_pattern(n_in, n_out, 0.25, bs, seed=pseed)
     nob, kb = pat.idx.shape
     r = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
     t = {"x": r(E, M, n_in), "dy": r(E, M, n_out),
-         "w": r(E, nob, kb, BS, BS) / (kb * BS) ** 0.5,
-         "wi": r(E, nob, kb, BS, BS) / (kb * BS) ** 0.5,
+         "w": r(E, nob, kb, bs, bs) / (kb * bs) ** 0.5,
+         "wi": r(E, nob, kb, bs, bs) / (kb * bs) ** 0.5,
          "g": r(E, M, n_out), "u": r(E, M, n_out)}
     t = {k: v.to(dtype).contiguous() for k, v in t.items()}
     pt = {k: torch.as_tensor(getattr(pat, k), device="cuda")
@@ -1102,7 +1286,8 @@ def moe_kernel_phase(P, timer, card):
     """The four gated kernels at the gate junction of qwen3-moe's experts
     (E = 128, 2048 -> 768) and the plain kernels at its down junction
     (768 -> 2048), at the decode rows (M = 4) and the training rows
-    (M = 160), bf16 and fp32: each against its plain version and timed.
+    (M = 160), bf16 and fp32: each against its plain version and timed,
+    fwd, dx, gated_fwd and update_dw through both entry points in bf16.
     Then SGD / momentum / Adam, the health counts of tiles poisoned in one
     branch or both, and the zero-hyp freeze of the gated update."""
     bsm = P.bsm
@@ -1131,6 +1316,8 @@ def moe_kernel_phase(P, timer, card):
                      lambda: bsm.gated_fwd(*fwd_args),
                      lambda: bsm.gated_fwd_ref(*fwd_args),
                      _gated_cost("gated_fwd", t, pt, save_res=save))]
+            simt = ({"gated_fwd": _simt_row(P, rows[0][4], want)}
+                    if bsm.junction_variant(dtype, M, BS) == "tc" else {})
             dx_args = (t["dy"], t["w"], t["wi"], *rev, t["g"], t["u"])
             got, want = bsm.gated_dx(*dx_args), bsm.gated_dx_ref(*dx_args)
             rows.append(("gated_dx", rel_err(got, want), out_tol,
@@ -1170,9 +1357,17 @@ def moe_kernel_phase(P, timer, card):
                          _gated_cost("update_gated_dw", t, pt, n_slots=2)))
             torch.cuda.synchronize()
             for kind, err, lim, abs_err, kfn, pfn, cost in rows:
-                k_ms, p_ms = timer.ms(kfn), timer.ms(pfn)
+                p_ms = timer.ms(pfn)
+                if kind in simt:
+                    s_err, sfn = simt[kind]
+                    k_ms, s_ms = in_turns(timer, kfn, sfn)
+                else:
+                    k_ms = timer.ms(kfn)
                 bnd, by = _report(kind, f"in E={MOE_E}", dtype, "silu-gate",
                                   err, lim, k_ms, p_ms, *cost, card, M=M)
+                if kind in simt:
+                    _report_tc(kind, f"in E={MOE_E}", "silu-gate", k_ms,
+                               s_err, lim, s_ms, bnd, *cost, card, M=M)
                 o = out[kind]
                 o["max_abs_err"] = max(o["max_abs_err"], abs_err)
                 # the JSON line: the serving shape for the forward, the
@@ -1181,11 +1376,15 @@ def moe_kernel_phase(P, timer, card):
                         (kind == "gated_fwd") == (where == "decode")):
                     o.update(ms=k_ms, plain_ms=p_ms, bound_ms=bnd,
                              bound_by=by)
+                    if kind in simt:
+                        o["simt_ms"] = s_ms
                 if kind == "gated_fwd" and dtype == torch.bfloat16 \
                         and where == "train":
                     o.update(train_ms=k_ms, train_plain_ms=p_ms,
                              train_bound_ms=bnd)
-            del t, pt, states, rows
+                    if kind in simt:
+                        o["train_simt_ms"] = s_ms
+            del t, pt, states, rows, simt
             # the down junction through the plain kernels at E = 128
             t, pt = _moe_inputs(P, gen, MOE_SHAPES[1], MOE_E, M, dtype)
             zb = torch.zeros((MOE_E, t["dy"].shape[2]), dtype=dtype,
@@ -1222,29 +1421,45 @@ def moe_kernel_phase(P, timer, card):
                     plain[kind][where] = row
             if where == "train":
                 mom, vel = _adam_slots(gen, t["w"].shape)
-                k_st = [t["w"].clone(), mom.clone(), vel.clone()]
-                p_st = [t["w"].clone(), mom.clone(), vel.clone()]
+                init = (t["w"], mom, vel)
+                p_st = [v.clone() for v in init]
 
                 def upd1(fn, st):
                     return lambda: fn(t["x"], t["dy"], pt["idx"], None, st[0],
                                       None, st[1], None, hyp, vel=st[2],
                                       with_bias=False)
-                upd1(bsm.update_dw, k_st)()
                 upd1(bsm.update_dw_ref, p_st)()
-                require(_adam_w_ok(k_st[0], p_st[0], t["w"], k_st[1],
-                                   p_st[1], k_st[2], p_st[2]),
-                        f"update_dw wo E={MOE_E} {dtype}: weights differ "
-                        f"({max_err(k_st[0], p_st[0]):.3g})")
-                err = max(rel_err(k_st[1], p_st[1]),
-                          rel_err(k_st[2], p_st[2]))
-                k_ms = timer.ms(upd1(bsm.update_dw, k_st))
+                route = bsm.junction_variant(dtype, M, BS)
+                sts, errs = {}, {}
+                for v in [route] + (["simt"] if route == "tc" else []):
+                    sts[v] = st = [x.clone() for x in init]
+                    forced_call(P, v, upd1(bsm.update_dw, st))()
+                    require(_adam_w_ok(st[0], p_st[0], t["w"], st[1],
+                                       p_st[1], st[2], p_st[2]),
+                            f"update_dw ({v}) wo E={MOE_E} {dtype}: weights "
+                            f"differ ({max_err(st[0], p_st[0]):.3g})")
+                    errs[v] = max(rel_err(st[1], p_st[1]),
+                                  rel_err(st[2], p_st[2]))
+                kfn = upd1(bsm.update_dw, sts[route])
                 p_ms = timer.ms(upd1(bsm.update_dw_ref, p_st))
+                cost = _cost("update_dw", t, pt, "none", n_slots=2)
+                if route == "tc":
+                    k_ms, s_ms = in_turns(timer, kfn, forced_call(
+                        P, "simt", upd1(bsm.update_dw, sts["simt"])))
+                else:
+                    k_ms = timer.ms(kfn)
                 bnd, _ = _report("update_dw", f"wo E={MOE_E}", dtype, "none",
-                                 err, sum_tol, k_ms, p_ms,
-                                 *_cost("update_dw", t, pt, "none",
-                                        n_slots=2), card, M=M)
+                                 errs[route], sum_tol, k_ms, p_ms, *cost,
+                                 card, M=M)
+                row = (k_ms, p_ms, bnd)
+                if route == "tc":
+                    _report_tc("update_dw", f"wo E={MOE_E}", "none", k_ms,
+                               errs["simt"], sum_tol, s_ms, bnd, *cost, card,
+                               M=M)
+                    row += (s_ms,)
                 if dtype == torch.bfloat16:
-                    plain["update_dw"][where] = (k_ms, p_ms, bnd)
+                    plain["update_dw"][where] = row
+                del sts
             del t, pt
     for dtype in (torch.bfloat16, torch.float32):
         for opt in ("sgd", "momentum", "adam"):
@@ -1342,9 +1557,10 @@ def _expected_launches(P, cfg, n_steps, kind):
 
 def _expected_tc(P, cfg, want):
     """Of the expected launches, those of the tensor-core entry points:
-    every fwd and dx of the path where the route takes its compute dtype
-    at its junctions' rows (M = 2048 a dense junction, the capacity
-    C = 160 an expert) to the tensor cores, else none."""
+    every fwd, dx, gated_fwd and update_dw of the path where the route
+    takes its compute dtype at its junctions' rows (M = 2048 a dense
+    junction, the capacity C = 160 an expert) to the tensor cores, else
+    none."""
     rows = TRAIN_M if cfg.family == "dense" else MOE_M["train"]
     tc = P.bsm.junction_variant(getattr(torch, cfg.dtype), rows, BS) == "tc"
     return {k: want[k] if tc else 0 for k in P.ops.tc_launch_counts()}
@@ -2160,12 +2376,18 @@ def main() -> int:
                 for k, v in zip(("ms", "plain_ms", "bound_ms", "simt_ms"),
                                 row)}
 
+    def tc_entry(name):
+        """The tensor-core entry point of a kernel that has one."""
+        if f"junction_{name}" not in P.ops.tc_launch_counts():
+            return {}
+        return {"tc_source": "src/repro_torch/csrc/junction_tc.cu",
+                **tc_launches(f"junction_{name}")}
+
     kernels = [
         {"name": "junction_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/junction_fwd.cu",
-         "tc_source": "src/repro_torch/csrc/junction_tc.cu",
          "replaces": "src/repro/kernels/block_sparse_matmul.py:381",
-         **launches("junction_fwd"), **tc_launches("junction_fwd"),
+         **launches("junction_fwd"), **tc_entry("fwd"),
          **junction, "train_ms": bwd["fwd"]["ms"],
          "train_simt_ms": bwd["fwd"]["simt_ms"],
          "train_plain_ms": bwd["fwd"]["plain_ms"],
@@ -2178,13 +2400,11 @@ def main() -> int:
     for name, src, line in (("dx", "junction_dx.cu", 782),
                             ("dw", "junction_dw.cu", 949),
                             ("update_dw", "junction_dw.cu", 1172)):
-        tc = ({"tc_source": "src/repro_torch/csrc/junction_tc.cu",
-               **tc_launches("junction_dx")} if name == "dx" else {})
         kernels.append({
             "name": f"junction_{name}", "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}",
             "replaces": f"src/repro/kernels/block_sparse_matmul.py:{line}",
-            **launches(f"junction_{name}"), **tc, **bwd[name],
+            **launches(f"junction_{name}"), **tc_entry(name), **bwd[name],
             **at_e128(name)})
     for name, src, line in (("gated_fwd", "junction_fwd.cu", 447),
                             ("gated_dx", "junction_dx.cu", 876),
@@ -2194,7 +2414,7 @@ def main() -> int:
             "name": f"junction_{name}", "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}",
             "replaces": f"src/repro/kernels/block_sparse_matmul.py:{line}",
-            **launches(f"junction_{name}"), **moe[name]})
+            **launches(f"junction_{name}"), **tc_entry(name), **moe[name]})
     for name, line in (("fwd_int8", 531), ("gated_fwd_int8", 664),
                        ("fwd_fxp", 597)):
         kernels.append({

@@ -42,16 +42,22 @@
 // for the gated form) in shared memory; each thread sums a 4 x 4 patch
 // per branch in registers.  The M reduction runs in one fixed order in
 // one block — no atomics on floats — and `dw_tile` is the one routine
-// all four entry points use, so a fused update sees bit for bit the
-// gradient its two-pass path materialises.  The blocks of slot 0 and row
-// chunk 0 also sum db for their columns.  Health: a block that writes
-// any non-finite m' / v' (Adam) or momentum-updated gradient (SGD) in
-// either branch sets the (e, o) flag with an integer atomicOr; a second
-// small kernel sums the flags of each unit, so the count is of tiles,
-// not of blocks.  Built without --use_fast_math: an all-zero hyp row
-// must give w' = w bit for bit through pow(0, 0) = 1, the c == 0 -> 1
-// guards and den == 0 -> 0.  wgmma and TMA are later work.
-#include "junction_common.cuh"
+// all four entry points use, so in fp32 (and for the gated junction) a
+// fused update sees bit for bit the gradient its two-pass path
+// materialises.  In bf16 the plain junction's fused update runs on tensor
+// cores instead (junction_tc.cu, `junction_update_dw_tc`, routed by
+// block_sparse_matmul.junction_variant), which sums over M in another
+// order than `junction_dw`: its gradient agrees with the two-pass one to
+// fp32 round-off, not bit for bit.  The blocks of slot 0 and row chunk 0
+// also sum db for their columns.  Health: a block that writes any
+// non-finite m' / v' (Adam) or momentum-updated gradient (SGD) in either
+// branch sets the (e, o) flag with an integer atomicOr; a second small
+// kernel sums the flags of each unit, so the count is of tiles, not of
+// blocks.  The optimizer step, the hyp row and that kernel are
+// junction_update.cuh's, shared with the tensor-core update.  Built
+// without --use_fast_math: an all-zero hyp row must give w' = w bit for
+// bit through pow(0, 0) = 1, the c == 0 -> 1 guards and den == 0 -> 0.
+#include "junction_update.cuh"
 
 namespace {
 
@@ -59,8 +65,6 @@ using namespace junction;
 
 constexpr int kBK = 32;        // rows of M staged per step
 constexpr int kThreads = 256;  // 16 x 16: a = ty + 16r, c = tx + 16j
-constexpr int kHypK = 7;
-enum HypCol { kLr = 0, kB1, kB2, kEps, kWd, kT, kGs };
 
 template <int BS>
 struct Tile {
@@ -231,42 +235,6 @@ __global__ void __launch_bounds__(kThreads)
     db[(size_t)e * n_out + (size_t)o * BS + p.c0 + tid] = dbs;
 }
 
-struct Hyp {
-  float lr, b1, b2, eps, wd, t, gs;
-};
-
-// One optimizer step of one element from its fp32 gradient `acc`
-// (block_sparse_matmul._epilogue_step): SGD when mom is null,
-// SGD+momentum when only vel is null, else Adam.  Updates the slots in
-// place, returns the new weight in fp32 and clears `ok` on a non-finite
-// m' / v' (Adam) or momentum-updated gradient (SGD).
-__device__ __forceinline__ float opt_step(const Hyp& h, float acc, float w32,
-                                          float* mom, float* vel, bool& ok) {
-  const float g = h.gs * acc;
-  if (vel == nullptr) {
-    float mv = g;
-    if (mom != nullptr) {
-      mv = h.b1 * *mom + g;
-      *mom = mv;
-    }
-    ok = ok && isfinite(mv);
-    return w32 - h.lr * mv;
-  }
-  const float m1 = h.b1 * *mom + (1.f - h.b1) * g;
-  const float v2 = h.b2 * *vel + (1.f - h.b2) * (g * g);
-  float c1 = 1.f - powf(h.b1, h.t);
-  float c2 = 1.f - powf(h.b2, h.t);
-  if (c1 == 0.f) c1 = 1.f;
-  if (c2 == 0.f) c2 = 1.f;
-  const float den = sqrtf(v2 / c2) + h.eps;
-  float upd = den == 0.f ? 0.f : (m1 / c1) / den;
-  upd = upd + h.wd * w32;
-  *mom = m1;
-  *vel = v2;
-  ok = ok && isfinite(m1) && isfinite(v2);
-  return w32 - h.lr * upd;
-}
-
 // One weight stream updated in place: the weights (in x's dtype) and
 // their fp32 slots (null where absent; vel needs mom).
 template <typename T>
@@ -300,8 +268,7 @@ __global__ void __launch_bounds__(kThreads)
                  M, nib, nob, o, idx[(size_t)o * kb + p.k], p.a0, p.c0,
                  want_db, acc, &dbs);
 
-  const float* hr = hyp + (size_t)e * kHypK;
-  const Hyp h{hr[kLr], hr[kB1], hr[kB2], hr[kEps], hr[kWd], hr[kT], hr[kGs]};
+  const Hyp h = hyp_row(hyp, e);
   bool ok = true;
   const size_t base = (((size_t)e * nob + o) * kb + p.k) * BS * BS;
 #pragma unroll
@@ -330,16 +297,6 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (__syncthreads_or(!ok) && tid == 0)
     atomicOr(&bad[(size_t)e * nob + o], 1);
-}
-
-// health[e] = number of flagged (e, o) tiles.
-__global__ void health_kernel(const int* __restrict__ bad,
-                              int* __restrict__ health, int nob) {
-  const int e = blockIdx.x;
-  int n = 0;
-  for (int o = threadIdx.x; o < nob; o += 32) n += bad[(size_t)e * nob + o];
-  for (int s = 16; s > 0; s >>= 1) n += __shfl_down_sync(0xffffffffu, n, s);
-  if (threadIdx.x == 0) health[e] = n;
 }
 
 template <typename T, int BS, typename Dz>

@@ -1,52 +1,72 @@
-// Block-sparse junction forward and backward to the input on Hopper
-// tensor cores (sm_90a), plain C interface: `junction_fwd_tc` and
-// `junction_dx_tc`, bf16 operands with fp32 accumulation.
+// Block-sparse junction kernels on Hopper tensor cores (sm_90a), plain C
+// interface, bf16 operands with fp32 accumulation: the forward
+// `junction_fwd_tc`, the backward to the input `junction_dx_tc`, the gated
+// (SwiGLU) forward `junction_gated_fwd_tc` and the fused BP+UP update
+// `junction_update_dw_tc`.
 //
-// They compute what the SIMT entry points `junction_fwd`
-// (junction_fwd.cu) and `junction_dx` (junction_dx.cu) compute, and
-// replace the same Pallas TPU kernels, `fwd` (fwd_kernel) and `dx`
-// (dx_kernel) of src/repro/kernels/block_sparse_matmul.py, for bf16;
-// the wrappers' route (block_sparse_matmul.junction_variant) chooses the
-// entry point:
+// They compute what the SIMT entry points `junction_fwd`, `junction_dx`,
+// `junction_gated_fwd` (junction_fwd.cu, junction_dx.cu) and
+// `junction_update_dw` (junction_dw.cu) compute, and replace the same
+// Pallas TPU kernels, `fwd`, `dx`, `gated_fwd` and `update_dw`
+// (fwd_kernel, dx_kernel, gated_fwd_kernel, fused_update_dw) of
+// src/repro/kernels/block_sparse_matmul.py, for bf16; the wrappers' route
+// (block_sparse_matmul.junction_variant) chooses the entry point:
 //
 //   y[e, m, o*bs + c] = act( sum_k sum_i x[e, m, idx[o,k]*bs + i]
 //                                        * w[e, o, k, i, c]  + bias[e, o*bs + c] )
 //   dx[e, m, i*bs + a] = sum_{f < rev_cnt[i]} sum_c
 //       dz[e, m, rev_ob[i,f]*bs + c] * w[e, rev_ob[i,f], rev_t[i,f], a, c]
+//   h = silu(g) * u, g and u the forward's sums over wg and wi
+//   w[e, o, k, a, c] <- step(sum_m x[e, m, idx[o,k]*bs + a] * dz[e, m, o*bs + c])
 //
 // with the SIMT kernels' rounding points: an fp32 sum (a product of two
 // bf16 values is exact in fp32, so only the order of the sum differs),
 // the bias widened from bf16, the activation in fp32 and one bf16 store
-// (the pre-activation too when `pre` is given); dz = (dy * act'(res))
-// rounded to bf16 before the product, dz = dy for "none".
+// (the pre-activation too when `pre` is given; g and u too when given);
+// dz = (dy * act'(res)) rounded to bf16 before the product, dz = dy for
+// "none", the bias gradient summed from the fp32 dz; the optimizer step
+// of junction_update.cuh on every element (w in bf16, the fp32 slots in
+// place, one health flag per (e, o) tile).
 //
 // What bounds them: a dense training junction (M = 2048 rows, block 128,
 // 2560 -> 6912 at kb 5 or 6912 -> 2560 at kb 14) is 18-19 GFLOP, about
 // 19 us at the card's bf16 tensor-core rate, against 40-80 MB of operands
-// and outputs (12-23 us of memory); at qwen3-moe's down junction (128
-// experts, M = 160, 768 -> 2048 at kb 2) the bytes bound.  On an H100
-// these kernels reach 13-18 % of the bf16 rate (fwd) and 5-18 % (dx: with
-// an activation each thread recomputes act' once per reverse slot that
-// reads an output block, on the path between the barrier and the
-// products); the SIMT kernels ran fp32 FMAs at 1-3 % of it.
+// and outputs (12-23 us of memory; the Adam update moves 127-155 MB,
+// 38-46 us); at qwen3-moe's expert junctions (128 experts, M = 160 or
+// 4) the bytes bound.  On an H100 at 700 W: fwd 13-18 % of the bf16 rate, dx
+// 5-18 % (with an activation each thread recomputes act' once per reverse
+// slot that reads an output block, on the path between the barrier and
+// the products); gated_fwd 0.284 ms at qwen3's gate junction, M = 160
+// (40 % of its bytes bound; 37.5 % of the tiled MMA work is the padding
+// of a 32-row second tile), 0.102 at M = 4 (60 %); update_dw 0.21 ms a
+// junction without activation (18 % of its bytes bound; 0.39 with silu,
+// whose act' the five slots' blocks each recompute), 0.80 ms at qwen3's
+// down junction (54 %).  The SIMT kernels ran fp32 FMAs at 1-3 % of the
+// bf16 rate.
 //
-// Design.  A block of two warpgroups owns one (unit e, 128-row tile of M,
-// output block o for fwd / input block i for dx): a 128 x bs tile of the
-// output in registers, 64 rows a warpgroup, summed by wgmma m64n{bs}k16
-// in fp32.  It walks K in steps of 64 columns (32 at block 32): fwd
-// through the kb slots of idx[o], dx through the rev_cnt[i] valid slots
-// of the reverse pattern in order (a padded slot is never read, so an
-// input block that feeds no output gets exact zeros whatever dy holds;
+// Design.  fwd, dx and gated_fwd: a block of two warpgroups owns one
+// (unit e, 128-row tile of M, output block o / input block i): a 128-row
+// tile of the output in registers, 64 rows a warpgroup, summed by wgmma
+// m64nNk16 in fp32.  It walks K in steps of 64 columns (32 at block 32):
+// fwd through the kb slots of idx[o], dx through the rev_cnt[i] valid
+// slots of the reverse pattern in order (a padded slot is never read, so
+// an input block that feeds no output gets exact zeros whatever dy holds;
 // no atomics).  Each step's operands go by cp.async into a ring of
-// shared-memory stages, the next steps' copies in flight while the
-// tensor cores work on this one; rows past M are zero-filled (src-size
-// 0) and masked at the store.
+// shared-memory stages, the next steps' copies in flight while the tensor
+// cores work on this one; rows past M are zero-filled (src-size 0) and
+// masked at the store.
 // * fwd: A is the gathered x tile (128 rows x 64 columns from column
 //   idx[o,k]*bs), K-major in 32-byte swizzled atoms; B is the weight
 //   tile w[e,o,k] rows i (K) x bs columns c (N), stored with c
 //   contiguous: MN-major, read with the descriptor's transpose bit.
 //   The epilogue adds the bias, stores the pre-activation, applies the
 //   activation and stores y, from the accumulators.
+// * gated_fwd: fwd's tiles with a second weight stream; a block owns 64
+//   of an output block's columns (all 32 / 64 at those blocks), so the
+//   two m64n64 accumulators fit two blocks an SM, and both products of a
+//   K step read the same x tile.  The whole 128 columns at one block an
+//   SM were 8 % faster at M = 160 with the residuals and 8 % slower at
+//   M = 4 (chip_smoke.py's shapes).
 // * dx: B is the weight tile w[e,ob,t] as the forward stores it, rows a
 //   (N) x columns c (K), c contiguous: K-major, never gathered or
 //   transposed in memory.  A is dz: dy and res are staged as they are
@@ -54,13 +74,26 @@
 //   conflicts), and each thread computes exactly the dz elements of its
 //   own wgmma A fragment, rounds them to bf16 and feeds them from
 //   registers.
+// * update_dw: a block owns one slot's weight tile (e, o, k), D = dz^T x
+//   with K = M, summed in one fixed order by 64-row steps (no atomics, no
+//   split of M across blocks).  A = dz^T from registers: dy and res are
+//   staged as stored (rows padded by 8 elements) and read transposed by
+//   ldmatrix.trans, each thread computing its fragment's dz (and, in the
+//   blocks of slot 0, adding its fp32 value to the bias sums); B = the x
+//   tile, rows m x columns a contiguous, MN-major.  The sums then leave
+//   the registers through shared memory so that the optimizer step reads
+//   and writes w and its slots in 16-byte rows, four rows' loads in
+//   flight a thread.  Splitting a slot into two 64-column blocks (twice
+//   the blocks, against 1.02 waves at two blocks an SM) and a 3-stage
+//   ring at one block an SM were slower.  `dw_tc_tile` is the reduction
+//   alone, for a dw entry point to take.
 // Two blocks an SM.  A deeper ring (up to 6 stages, one block an SM), a
 // wgmma group left in flight across steps, and dz of the next step
-// computed under this step's products were each slower on an H100.  TMA,
-// an mbarrier ring and a producer warp are later work.
+// computed under this step's products were each slower on an H100 (fwd,
+// dx).  TMA, an mbarrier ring and a producer warp are later work.
 #include <cstdint>
 
-#include "junction_common.cuh"
+#include "junction_update.cuh"
 
 namespace {
 
@@ -72,6 +105,7 @@ constexpr int kBM = 128;       // rows of a block's tile, 64 a warpgroup
 constexpr int kMinBlocks = 2;  // blocks an SM
 constexpr int kFwdStages = 3;  // (x, w) stages in the ring of fwd
 constexpr int kDxStages = 2;   // (dy, res, w) stages in the ring of dx
+constexpr int kUpdStages = 2;  // (x, dy, res) stages in the ring of update
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -140,12 +174,12 @@ __host__ __device__ constexpr int chunk_rounds(int n) {
 
 // One wgmma m64nNk16 (bf16 in, fp32 accumulate, D += A B) of a
 // warpgroup: SsT<N> with A in shared memory K-major and B in shared
-// memory MN-major (the transpose bit); RsK<N> with A in registers and B
-// in shared memory K-major.
+// memory MN-major (the transpose bit); Rs<N, TB> with A in registers and
+// B in shared memory, K-major (TB 0) or MN-major (TB 1).
 template <int N>
 struct SsT;
-template <int N>
-struct RsK;
+template <int N, int TB>
+struct Rs;
 
 template <>
 struct SsT<32> {
@@ -186,45 +220,63 @@ struct SsT<128> {
   }
 };
 
-template <>
-struct RsK<32> {
+template <int TB>
+struct Rs<16, TB> {
+  __device__ static void run(float (&d)[8], const uint32_t (&a)[4],
+                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct Rs<32, TB> {
   __device__ static void run(float (&d)[16], const uint32_t (&a)[4],
                              uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
   }
 };
 
-template <>
-struct RsK<64> {
+template <int TB>
+struct Rs<64, TB> {
   __device__ static void run(float (&d)[32], const uint32_t (&a)[4],
                              uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
   }
 };
 
-template <>
-struct RsK<128> {
+template <int TB>
+struct Rs<128, TB> {
   __device__ static void run(float (&d)[64], const uint32_t (&a)[4],
                              uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1),
+          "n"(TB));
   }
 };
 
@@ -456,7 +508,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk)
-      RsK<BS>::run(acc, af[kk], desc(b_addr + kk * BS * 32, 16, 256));
+      Rs<BS, 0>::run(acc, af[kk], desc(b_addr + kk * BS * 32, 16, 256));
     wg_commit();
     if (t + S - 1 < T) load(t + S - 1, (t + S - 1) % S);
     cp_async_commit();
@@ -475,6 +527,412 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                                          2 * tig) =
           __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
+}
+
+// ------------------------------------------------------------ gated fwd
+// A block owns NC of an output block's BS columns (a column chunk) for
+// both weight streams; the x tile is the A of both products.
+template <int BS, int NC>
+struct GatedTile {
+  static constexpr int KS = BS < 64 ? BS : 64;  // K columns a step
+  static constexpr int AE = kBM * KS;           // x tile, elements
+  static constexpr int BE = KS * NC;            // one stream's weight tile
+  static constexpr int SE = AE + 2 * BE;        // a stage, elements
+  static constexpr int SMEM = kFwdStages * SE * 2;  // bytes
+};
+
+template <int BS, int NC, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    gated_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
+                     const bf16* __restrict__ wi, const int* __restrict__ idx,
+                     bf16* __restrict__ h, bf16* __restrict__ g,
+                     bf16* __restrict__ u, int M, int nib, int nob, int kb) {
+  using L = GatedTile<BS, NC>;
+  constexpr int KS = L::KS, KK = KS / 16, SPS = BS / KS, S = kFwdStages;
+  constexpr int AE = L::AE, BE = L::BE, SE = L::SE, CH = BS / NC;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // stage s: the x tile at s SE, wg's tile after it, then wi's
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+
+  const int o = blockIdx.x / CH, c0 = (blockIdx.x % CH) * NC;
+  const int m0 = blockIdx.y * kBM, e = blockIdx.z;
+  const int tid = threadIdx.x, wgi = tid >> 7;
+  const size_t n_in = (size_t)nib * BS, n_out = (size_t)nob * BS;
+  const bf16* xe = x + (size_t)e * M * n_in;
+  const size_t wo = ((size_t)e * nob + o) * kb * BS * BS + c0;
+  const int* io = idx + (size_t)o * kb;
+  const int T = kb * SPS;
+
+  // step t: K columns [j0, j0 + KS) of slot k
+  auto load = [&](int t, int st) {
+    const int k = t / SPS, j0 = (t % SPS) * KS;
+    bf16* const a = sm + st * SE;
+    const bf16* xs = xe + (size_t)io[k] * BS + j0;
+    constexpr int AC = KS / 8;  // 16-byte chunks of an x row
+#pragma unroll
+    for (int v = 0; v < chunk_rounds(kBM * AC); ++v) {
+      const int q = tid + v * kThreads, r = q / AC, c = q % AC;
+      const bool in = m0 + r < M;
+      cp_async16(smem_u32(a + swz<kBM>(r, c * 8)),
+                 xs + (size_t)(in ? m0 + r : 0) * n_in + c * 8, in ? 16 : 0);
+    }
+    const size_t ws = wo + ((size_t)k * BS + j0) * BS;
+    constexpr int BC = NC / 8;  // 16-byte chunks of a weight row's chunk
+#pragma unroll
+    for (int v = 0; v < chunk_rounds(KS * BC); ++v) {
+      const int q = tid + v * kThreads, r = q / BC, c = q % BC;
+      if (q >= KS * BC) break;
+      const int so = swz<KS>(r, c * 8);
+      const size_t go = ws + (size_t)r * BS + c * 8;
+      cp_async16(smem_u32(a + AE + so), wg + go, 16);
+      cp_async16(smem_u32(a + AE + BE + so), wi + go, 16);
+    }
+  };
+
+  float ag[NC / 2], au[NC / 2];
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) ag[i] = au[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < T) load(s, s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    const int st = t % S;
+    cp_async_wait<S - 2>();  // this thread's copies of step t landed
+    proxy_fence();
+    __syncthreads();  // everyone's; and every wgmma of step t - 1 done
+    const uint32_t a_addr = smem_u32(sm + st * SE) + wgi * 64 * 32;
+    const uint32_t g_addr = smem_u32(sm + st * SE + AE);
+    const uint32_t i_addr = g_addr + BE * 2;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const uint64_t ad = desc(a_addr + kk * kBM * 32, 16, 256);
+      SsT<NC>::run(ag, ad, desc(g_addr + kk * 16 * 32, KS * 32, 256));
+      SsT<NC>::run(au, ad, desc(i_addr + kk * 16 * 32, KS * 32, 256));
+    }
+    wg_commit();
+    if (t + S - 1 < T) load(t + S - 1, (t + S - 1) % S);
+    cp_async_commit();
+    wg_wait0();
+    pin(ag);
+    pin(au);
+  }
+
+  // the accumulator layout of fwd_kernel, columns c0 + 8 j + 2 tig (+ 1)
+  const int lane = tid & 31, wi4 = (tid >> 5) & 3, gr = lane >> 2,
+            tig = lane & 3;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int m = m0 + wgi * 64 + wi4 * 16 + gr + 8 * hh;
+    if (m >= M) continue;
+    const size_t row = ((size_t)e * M + m) * n_out + (size_t)o * BS + c0;
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      const int c = 8 * j + 2 * tig;
+      const float g0 = ag[4 * j + 2 * hh], g1 = ag[4 * j + 2 * hh + 1];
+      const float u0 = au[4 * j + 2 * hh], u1 = au[4 * j + 2 * hh + 1];
+      if (g != nullptr) {
+        *reinterpret_cast<__nv_bfloat162*>(g + row + c) =
+            __floats2bfloat162_rn(g0, g1);
+        *reinterpret_cast<__nv_bfloat162*>(u + row + c) =
+            __floats2bfloat162_rn(u0, u1);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(h + row + c) = __floats2bfloat162_rn(
+          act_fwd(g0, kSilu) * u0, act_fwd(g1, kSilu) * u1);
+    }
+  }
+}
+
+// ------------------------------------------------------------ update_dw
+// The weight gradient of one slot, D[c, a] = sum_m dz[m, c] x[m, a] (the
+// transpose of dw[e, o, k]), as a product with K = M: A = dz^T from
+// registers, B = the gathered x tile (rows m, columns a contiguous:
+// MN-major).  A block owns (unit e, output block o, slot k, NA of the
+// slot's BS columns a).  At block 128 warpgroup w sums rows c in
+// [64 w, 64 w + 64) over the NA columns; at blocks 64 and 32 both
+// warpgroups take all the block's rows (a 32-row block pads its A with
+// zero rows) and half of the columns each.
+template <int BS, int NA>
+struct UpdTile {
+  static constexpr int KM = 64;          // rows of M a step (K)
+  static constexpr int LD = BS + 8;      // padded row of the dy / res tile
+  static constexpr int XE = KM * NA;     // x tile, elements (swizzled)
+  static constexpr int DE = KM * LD;     // dy (or res) tile, elements
+  static constexpr int SE = XE + 2 * DE;  // a stage, elements
+  static constexpr int SMEM = kUpdStages * SE * 2;  // bytes
+  static constexpr int NW = BS == 128 ? NA : NA / 2;  // columns a warpgroup
+};
+
+// ldmatrix of four 8 x 8 bf16 tiles, transposed: lane l gives the row
+// address of tile l / 8, and receives of tile j the pair (row 2 (l % 4)
+// and + 1, column l / 4) in register j
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// dz of a register's two elements (rows m and m + 1 of one column c):
+// dy * act'(res) in fp32, rounded to bf16 (dy itself for "none"); with
+// `add_db` the fp32 values are added to db, row m first
+__device__ __forceinline__ uint32_t dz_t(uint32_t dv, uint32_t rv, int act,
+                                         bool add_db, float& db) {
+  const float2 df =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dv));
+  if (act == kNone) {
+    if (add_db) {
+      db += df.x;
+      db += df.y;
+    }
+    return dv;
+  }
+  const float2 rf =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv));
+  const float f0 = df.x * act_bwd(rf.x, act), f1 = df.y * act_bwd(rf.y, act);
+  if (add_db) {
+    db += f0;
+    db += f1;
+  }
+  const __nv_bfloat162 z = __floats2bfloat162_rn(f0, f1);
+  return *reinterpret_cast<const uint32_t*>(&z);
+}
+
+// The block's part of the weight gradient of slot k on tensor cores: the
+// fp32 sum over all M rows, in order, of this warpgroup's 64 x NW tile
+// D[c, a] (accumulator layout of fwd_kernel: element 4 j + 2 h + q is
+// row c = cb + g + 8 h, column a = aw + 8 j + 2 tig + q, with cb and aw
+// from upd_place).  With `want_db` (warp-uniform), db[h] receives the
+// fp32 sum of dz over this thread's rows m of column cb + g + 8 h; the
+// four threads of a quad together hold the column's sum.  `xe`, `dye`
+// and `rese` point at unit e's rows; `rese` is null for "none".  A dw
+// entry point can take the same routine and store D.
+template <int BS, int NA>
+__device__ __forceinline__ void dw_tc_tile(
+    const bf16* __restrict__ xe, const bf16* __restrict__ dye,
+    const bf16* __restrict__ rese, int M, int nib, int nob, int o, int ib,
+    int a0, int act, bool want_db, int cb, int aw, bf16* sm,
+    float (&acc)[UpdTile<BS, NA>::NW / 2], float (&db)[2]) {
+  using L = UpdTile<BS, NA>;
+  constexpr int KM = L::KM, KK = KM / 16, LD = L::LD, XE = L::XE,
+                DE = L::DE, SE = L::SE, NW = L::NW, S = kUpdStages;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const size_t n_in = (size_t)nib * BS, n_out = (size_t)nob * BS;
+  const int T = (M + KM - 1) / KM;
+
+  // step t: rows [t KM, t KM + KM) of x (the slot's columns a0 + a), dy
+  // and res (block o's columns)
+  auto load = [&](int t, int st) {
+    const int m0 = t * KM;
+    bf16* const xs = sm + st * SE;
+    constexpr int XC = NA / 8;  // 16-byte chunks of an x row
+    const bf16* xc = xe + (size_t)ib * BS + a0;
+#pragma unroll
+    for (int v = 0; v < chunk_rounds(KM * XC); ++v) {
+      const int q = tid + v * kThreads, r = q / XC, c = q % XC;
+      if (q >= KM * XC) break;
+      const bool in = m0 + r < M;
+      cp_async16(smem_u32(xs + swz<KM>(r, c * 8)),
+                 xc + (size_t)(in ? m0 + r : 0) * n_in + c * 8, in ? 16 : 0);
+    }
+    bf16* const d = xs + XE;
+    constexpr int DC = BS / 8;  // 16-byte chunks of a dy row
+#pragma unroll
+    for (int v = 0; v < chunk_rounds(KM * DC); ++v) {
+      const int q = tid + v * kThreads, r = q / DC, c = q % DC;
+      if (q >= KM * DC) break;
+      const bool in = m0 + r < M;
+      const size_t off =
+          (size_t)(in ? m0 + r : 0) * n_out + (size_t)o * BS + c * 8;
+      cp_async16(smem_u32(d + r * LD + c * 8), dye + off, in ? 16 : 0);
+      if (rese != nullptr)
+        cp_async16(smem_u32(d + DE + r * LD + c * 8), rese + off,
+                   in ? 16 : 0);
+    }
+  };
+
+  // this lane's row address in tile j = lane / 8 of a k-step: rows m
+  // 8 (j / 2) + lane % 8, columns c from cb + 8 (j % 2)
+  const int j4 = lane >> 3;
+  const int frag_off = ((j4 >> 1) * 8 + (lane & 7)) * LD + cb + (j4 & 1) * 8;
+  const bool rows = cb < BS;  // false: the zero rows of a 32-wide block
+
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+  db[0] = db[1] = 0.f;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < T) load(s, s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    const int st = t % S;
+    cp_async_wait<S - 2>();  // this thread's copies of step t landed
+    proxy_fence();
+    __syncthreads();  // everyone's; and every wgmma of step t - 1 done
+    const bf16* d = sm + st * SE + XE;
+    uint32_t af[KK][4];
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      uint32_t dv[4] = {0u, 0u, 0u, 0u}, rv[4] = {0u, 0u, 0u, 0u};
+      if (rows) {
+        const uint32_t addr = smem_u32(d + kk * 16 * LD + frag_off);
+        ldsm_x4_t(dv, addr);
+        if (act != kNone) ldsm_x4_t(rv, addr + DE * 2);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        af[kk][q] = dz_t(dv[q], rv[q], act, want_db, db[q & 1]);
+    }
+    // B's 16-row k-steps; this warpgroup's columns from aw, their
+    // 16-column atoms KM * 32 bytes apart
+    const uint32_t b_addr = smem_u32(sm + st * SE) + (aw / 16) * KM * 32;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+      Rs<NW, 1>::run(acc, af[kk], desc(b_addr + kk * 16 * 32, KM * 32, 256));
+    wg_commit();
+    if (t + S - 1 < T) load(t + S - 1, (t + S - 1) % S);
+    cp_async_commit();
+    wg_wait0();
+    pin(acc);
+  }
+}
+
+// this warp's first row c and this warpgroup's first column a (within
+// the block's NA) of the product
+template <int BS, int NA>
+__device__ __forceinline__ void upd_place(int tid, int& cb, int& aw) {
+  const int wgi = tid >> 7, wi = (tid >> 5) & 3;
+  cb = (BS == 128 ? wgi * 64 : 0) + wi * 16;
+  aw = BS == 128 ? 0 : wgi * UpdTile<BS, NA>::NW;
+}
+
+// four floats to and from 16-byte aligned memory
+__device__ __forceinline__ void ld4(float (&r)[4], const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+}
+__device__ __forceinline__ void st4(float* p, const float (&r)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+}
+
+// The fused update of w [E, nob, kb, BS, BS] (bf16) with its fp32 slots
+// and, from the blocks of slot 0 and column chunk 0, of b with its slots:
+// opt_step on every element as it leaves the sum.  The sums leave the
+// registers through shared memory (the stage ring is free by then), so
+// that each thread steps four neighbouring elements of one row of w at a
+// time, with 16-byte loads and stores of the slots, four such groups'
+// loads issued before any of them is stepped.  One health flag per
+// (e, o) tile.
+template <int BS, int NA, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    update_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                     const bf16* __restrict__ res, const int* __restrict__ idx,
+                     const float* __restrict__ hyp, bf16* __restrict__ w,
+                     float* __restrict__ mom, float* __restrict__ vel,
+                     bf16* __restrict__ b, float* __restrict__ mom_b,
+                     float* __restrict__ vel_b, int* __restrict__ bad, int M,
+                     int nib, int nob, int kb, int act) {
+  constexpr int NW = UpdTile<BS, NA>::NW, CH = BS / NA;
+  constexpr int LDD = BS + 4;  // padded row of D^T: conflict-free writes
+  static_assert(NA * LDD * 4 <= UpdTile<BS, NA>::SMEM, "D^T fits the ring");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+  const int k = blockIdx.x / CH, a0 = (blockIdx.x % CH) * NA;
+  const int o = blockIdx.y, e = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, gr = lane >> 2,
+            tig = lane & 3;
+  const size_t n_out = (size_t)nob * BS;
+  int cb, aw;
+  upd_place<BS, NA>(tid, cb, aw);
+  // one warpgroup's rows c cover the bias columns once
+  const bool want_db = b != nullptr && k == 0 && a0 == 0 && cb < BS &&
+                       (BS == 128 || aw == 0);
+  float acc[NW / 2], db[2];
+  dw_tc_tile<BS, NA>(x + (size_t)e * M * nib * BS, dy + (size_t)e * M * n_out,
+                     act != kNone ? res + (size_t)e * M * n_out : nullptr, M,
+                     nib, nob, o, idx[(size_t)o * kb + k], a0, act, want_db,
+                     cb, aw, sm, acc, db);
+
+  // D^T [a][c] in shared memory, rows a of the block's NA columns
+  __syncthreads();  // every warpgroup's last products have read the ring
+  float* const ds = reinterpret_cast<float*>(smem_raw);
+  if (cb < BS) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          ds[(aw + 8 * j + 2 * tig + q) * LDD + cb + gr + 8 * hh] =
+              acc[4 * j + 2 * hh + q];
+  }
+  __syncthreads();
+
+  const Hyp h = hyp_row(hyp, e);
+  bool ok = true;
+  bf16* const wt = w + ((((size_t)e * nob + o) * kb + k) * BS + a0) * BS;
+  const size_t st = wt - w;  // the slots' offset of the tile
+  constexpr int C4 = BS / 4;  // groups of four columns c in a row
+  constexpr int IT = NA * C4 / kThreads;  // groups a thread steps
+  constexpr int U = IT < 4 ? IT : 4;      // a batch, loaded before stepped
+  static_assert(IT * kThreads == NA * C4 && IT % U == 0, "whole batches");
+  for (int i0 = 0; i0 < IT; i0 += U) {
+    float g[U][4], w32[U][4], mv[U][4] = {}, vv[U][4] = {};
+    size_t off[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = tid + (i0 + u) * kThreads, a = i / C4, c = (i % C4) * 4;
+      off[u] = (size_t)a * BS + c;
+      ld4(g[u], ds + a * LDD + c);
+      const uint2 wv = *reinterpret_cast<const uint2*>(wt + off[u]);
+      const float2 w01 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&wv.x));
+      const float2 w23 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&wv.y));
+      w32[u][0] = w01.x, w32[u][1] = w01.y, w32[u][2] = w23.x,
+      w32[u][3] = w23.y;
+      if (mom != nullptr) ld4(mv[u], mom + st + off[u]);
+      if (vel != nullptr) ld4(vv[u], vel + st + off[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        w32[u][q] = opt_step(h, g[u][q], w32[u][q],
+                             mom == nullptr ? nullptr : &mv[u][q],
+                             vel == nullptr ? nullptr : &vv[u][q], ok);
+      const __nv_bfloat162 n01 = __floats2bfloat162_rn(w32[u][0], w32[u][1]);
+      const __nv_bfloat162 n23 = __floats2bfloat162_rn(w32[u][2], w32[u][3]);
+      *reinterpret_cast<uint2*>(wt + off[u]) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&n01),
+                     *reinterpret_cast<const uint32_t*>(&n23));
+      if (mom != nullptr) st4(mom + st + off[u], mv[u]);
+      if (vel != nullptr) st4(vel + st + off[u], vv[u]);
+    }
+  }
+  if (want_db) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      db[hh] += __shfl_xor_sync(0xffffffffu, db[hh], 1);
+      db[hh] += __shfl_xor_sync(0xffffffffu, db[hh], 2);
+      if (tig == 0) {
+        const size_t off =
+            (size_t)e * n_out + (size_t)o * BS + cb + gr + 8 * hh;
+        const float nb =
+            opt_step(h, db[hh], __bfloat162float(b[off]),
+                     mom_b == nullptr ? nullptr : mom_b + off,
+                     vel_b == nullptr ? nullptr : vel_b + off, ok);
+        b[off] = __float2bfloat16(nb);
+      }
+    }
+  }
+  if (__syncthreads_or(!ok) && tid == 0)
+    atomicOr(&bad[(size_t)e * nob + o], 1);
 }
 
 template <typename K>
@@ -516,6 +974,47 @@ int launch_dx(const void* dy, const void* res, const void* w,
   return (int)cudaGetLastError();
 }
 
+template <int BS, int NC, int MINB>
+int launch_gated_fwd(const void* x, const void* wg, const void* wi,
+                     const void* idx, void* h, void* g, void* u, int E, int M,
+                     int nib, int nob, int kb, cudaStream_t stream) {
+  constexpr int SMEM = GatedTile<BS, NC>::SMEM;
+  const int err = set_smem(gated_fwd_kernel<BS, NC, MINB>, SMEM);
+  if (err != 0) return err;
+  const dim3 grid(nob * (BS / NC), (M + kBM - 1) / kBM, E);
+  gated_fwd_kernel<BS, NC, MINB><<<grid, kThreads, SMEM, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(wg),
+      static_cast<const bf16*>(wi), static_cast<const int*>(idx),
+      static_cast<bf16*>(h), static_cast<bf16*>(g), static_cast<bf16*>(u), M,
+      nib, nob, kb);
+  return (int)cudaGetLastError();
+}
+
+template <int BS, int NA, int MINB>
+int launch_update(const void* x, const void* dy, const void* res,
+                  const void* idx, const void* hyp, void* w, void* b,
+                  void* mom, void* mom_b, void* vel, void* vel_b, void* bad,
+                  void* health, int E, int M, int nib, int nob, int kb,
+                  int act, cudaStream_t stream) {
+  constexpr int SMEM = UpdTile<BS, NA>::SMEM;
+  const int err = set_smem(update_tc_kernel<BS, NA, MINB>, SMEM);
+  if (err != 0) return err;
+  const dim3 grid(kb * (BS / NA), nob, E);
+  update_tc_kernel<BS, NA, MINB><<<grid, kThreads, SMEM, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
+      static_cast<const bf16*>(res), static_cast<const int*>(idx),
+      static_cast<const float*>(hyp), static_cast<bf16*>(w),
+      static_cast<float*>(mom), static_cast<float*>(vel),
+      static_cast<bf16*>(b), static_cast<float*>(mom_b),
+      static_cast<float*>(vel_b), static_cast<int*>(bad), M, nib, nob, kb,
+      act);
+  const int err2 = (int)cudaGetLastError();
+  if (err2 != 0) return err2;
+  health_kernel<<<E, 32, 0, stream>>>(static_cast<const int*>(bad),
+                                      static_cast<int*>(health), nob);
+  return (int)cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 }  // namespace
@@ -538,7 +1037,7 @@ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
       return (int)cudaErrorInvalidValue; \
   }
 
-// Both return the cudaError_t of the launch (0 on success).  bf16 only;
+// Each returns the cudaError_t of its launches (0 on success).  bf16 only;
 // the operands that go through cp.async start 16-byte aligned.  They
 // launch on `stream`, allocate nothing and do not synchronise.
 
@@ -568,4 +1067,41 @@ extern "C" int junction_dx_tc(const void* dy, const void* res, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   JUNCTION_TC_BS_SWITCH((launch_dx<BS>(dy, res, w, rev_ob, rev_t, rev_cnt,
                                        dx, E, M, nob, kb, nib, fb, act, s)))
+}
+
+// The gated junction h = silu(x @ wg) * (x @ wi); g and u (the
+// residuals) are both null or both given.
+extern "C" int junction_gated_fwd_tc(const void* x, const void* wg,
+                                     const void* wi, const void* idx, void* h,
+                                     void* g, void* u, int E, int M, int nib,
+                                     int nob, int kb, int bs, void* stream) {
+  if (E <= 0 || M <= 0 || (M + kBM - 1) / kBM > 65535 || E > 65535 ||
+      (g == nullptr) != (u == nullptr) || !aligned16(x) || !aligned16(wg) ||
+      !aligned16(wi))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  JUNCTION_TC_BS_SWITCH((launch_gated_fwd<BS, (BS < 64 ? BS : 64), 2>(
+      x, wg, wi, idx, h, g, u, E, M, nib, nob, kb, s)))
+}
+
+// The fused update of the plain junction: w (bf16, 8-byte aligned), b
+// (null: no bias), the fp32 slots (null where absent; vel needs mom; mom
+// and vel 16-byte aligned); `bad` [E, nob] int32 zeros, `health` [E]
+// int32 written; `res` is null for "none".
+extern "C" int junction_update_dw_tc(const void* x, const void* dy,
+                                     const void* res, const void* idx,
+                                     const void* hyp, void* w, void* b,
+                                     void* mom, void* mom_b, void* vel,
+                                     void* vel_b, void* bad, void* health,
+                                     int E, int M, int nib, int nob, int kb,
+                                     int bs, int act, void* stream) {
+  if (E <= 0 || M <= 0 || E > 65535 || nob > 65535 ||
+      (act != kNone && (res == nullptr || !aligned16(res))) ||
+      (vel != nullptr && mom == nullptr) || !aligned16(x) || !aligned16(dy) ||
+      (uintptr_t)w % 8 != 0 || !aligned16(mom) || !aligned16(vel))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  JUNCTION_TC_BS_SWITCH((launch_update<BS, BS, 2>(
+      x, dy, res, idx, hyp, w, b, mom, mom_b, vel, vel_b, bad, health, E, M,
+      nib, nob, kb, act, s)))
 }

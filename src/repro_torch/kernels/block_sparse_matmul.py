@@ -2,8 +2,8 @@
 registry, the plain PyTorch versions and the wrappers of the CUDA kernels
 ``csrc/junction_fwd.cu``, ``csrc/junction_dx.cu`` and
 ``csrc/junction_dw.cu``, each in a plain and a gated form, of the
-tensor-core forms of the plain fwd and dx in ``csrc/junction_tc.cu``
-(bf16; ``junction_variant`` routes), and of the
+tensor-core forms of fwd, dx, gated_fwd and update_dw in
+``csrc/junction_tc.cu`` (bf16; ``junction_variant`` routes), and of the
 quantized forwards of ``csrc/junction_quant.cu``.
 
 For E junction units sharing one block pattern (idx [nob, kb] and its
@@ -299,16 +299,19 @@ _FWD_BLOCKS = (32, 64, 128)
 # to the SIMT kernels (no TF32).  On an H100 the tensor-core fwd beat the
 # SIMT one at every shape timed from the 4 rows of a decode tick (one
 # 128-row tile, mostly zeros) to 2048; at 1 row the SIMT kernel won at
-# the 2560 -> 6912 junction (chip_smoke.route_phase; PERF.md §6).
+# the 2560 -> 6912 junction (chip_smoke.route_phase; PERF.md §6).  The
+# tensor-core gated_fwd won from 1 row on at qwen3-moe's gate junction,
+# and update_dw at the training rows; no path runs either below 4 rows
+# (an expert's capacity is at least 4), so one threshold serves all four.
 TC_MIN_M = 4
 _TC_BLOCKS = (32, 64, 128)
 
 
 def junction_variant(dtype: torch.dtype, M: int, bs: int) -> str:
-    """The entry point ``fwd`` and ``dx`` launch on a CUDA tensor: "tc"
-    (``junction_fwd_tc`` / ``junction_dx_tc``, bf16 on tensor cores) or
-    "simt" (``junction_fwd`` / ``junction_dx``), from the operand dtype,
-    the rows M and the block size alone (no host sync)."""
+    """The entry point ``fwd``, ``dx``, ``gated_fwd`` and ``update_dw``
+    launch on a CUDA tensor: "tc" (``junction_*_tc``, bf16 on tensor
+    cores) or "simt" (their ``junction_*`` entry points), from the
+    operand dtype, the rows M and the block size alone (no host sync)."""
     if dtype == torch.bfloat16 and M >= TC_MIN_M and bs in _TC_BLOCKS:
         return "tc"
     return "simt"
@@ -383,8 +386,10 @@ def gated_fwd(x, wg, wi, idx, save_res: bool = False):
     """x [E, M, nib*bs], wg and wi [E, nob, kb, bs, bs] (x's dtype), idx
     [nob, kb] int32 -> h = silu(x @ Wg) * (x @ Wi) [E, M, nob*bs] in x's
     dtype, or (h, g, u) with ``save_res``.  x is read once for both
-    branches.  CPU: ``gated_fwd_ref``; CUDA: ``junction_gated_fwd``
-    (``gated_fwd.launches``)."""
+    branches.  CPU: ``gated_fwd_ref``; CUDA: ``junction_gated_fwd_tc`` or
+    ``junction_gated_fwd`` as ``junction_variant`` says
+    (``gated_fwd.launches`` counts both, ``gated_fwd.tc_launches`` the
+    first)."""
     if _route(x, "junction gated_fwd"):
         return gated_fwd_ref(x, wg, wi, idx, save_res)
     _check_fwd(x, wg, idx, None, "silu")
@@ -397,18 +402,26 @@ def gated_fwd(x, wg, wi, idx, save_res: bool = False):
     g = torch.empty_like(h) if save_res else None
     u = torch.empty_like(h) if save_res else None
     if M:
-        with torch.cuda.device(x.device):
-            err = _kernel("junction_fwd", "junction_gated_fwd", 7, 7)(
-                x.data_ptr(), wg.data_ptr(), wi.data_ptr(), idx.data_ptr(),
+        tc = junction_variant(x.dtype, M, bs) == "tc"
+        name = "junction_gated_fwd_tc" if tc else "junction_gated_fwd"
+        ptrs = (x.data_ptr(), wg.data_ptr(), wi.data_ptr(), idx.data_ptr(),
                 h.data_ptr(), _ptr(g), _ptr(u), E, M, n_in // bs, nob, kb,
-                bs, _DTYPE_CODE[x.dtype],
-                torch.cuda.current_stream().cuda_stream)
-        _raise_on(err, "junction_gated_fwd")
+                bs)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            if tc:
+                err = _kernel("junction_tc", name, 7, 6)(*ptrs, stream)
+            else:
+                err = _kernel("junction_fwd", name, 7, 7)(
+                    *ptrs, _DTYPE_CODE[x.dtype], stream)
+        _raise_on(err, name)
         gated_fwd.launches += 1
+        gated_fwd.tc_launches += tc
     return (h, g, u) if save_res else h
 
 
 gated_fwd.launches = 0
+gated_fwd.tc_launches = 0
 
 
 # ------------------------------------------------------- quantized forward
@@ -1057,8 +1070,10 @@ def update_dw(x, dy, idx, res, w, b, mom, mom_b, hyp, *, vel=None,
     vel / vel_b: Adam), from ``hyp`` (any shape ``normalize_hyp``
     accepts).  The gradient never leaves the kernel.  Returns the [E]
     int32 non-finite tile counts, or None unless ``with_health``.  CPU:
-    ``update_dw_ref``; CUDA: ``junction_update_dw``
-    (``update_dw.launches``)."""
+    ``update_dw_ref``; CUDA: ``junction_update_dw_tc`` or
+    ``junction_update_dw`` as ``junction_variant`` says
+    (``update_dw.launches`` counts both, ``update_dw.tc_launches`` the
+    first)."""
     if _route(x, "junction update_dw"):
         return update_dw_ref(x, dy, idx, res, w, b, mom, mom_b, hyp, vel=vel,
                              vel_b=vel_b, act=act, with_bias=with_bias,
@@ -1080,20 +1095,28 @@ def update_dw(x, dy, idx, res, w, b, mom, mom_b, hyp, *, vel=None,
                 vel_b=vel_b, hyp=hyp)
     bad = torch.zeros((E, nob), dtype=torch.int32, device=x.device)
     health = torch.empty((E,), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernel("junction_dw", "junction_update_dw", 13, 8)(
-            x.data_ptr(), dy.data_ptr(), _ptr(res if act != "none" else None),
+    tc = junction_variant(x.dtype, M, bs) == "tc"
+    name = "junction_update_dw_tc" if tc else "junction_update_dw"
+    ptrs = (x.data_ptr(), dy.data_ptr(), _ptr(res if act != "none" else None),
             idx.data_ptr(), hyp.data_ptr(), w.data_ptr(), _ptr(b), _ptr(mom),
             _ptr(mom_b), _ptr(vel), _ptr(vel_b), bad.data_ptr(),
             health.data_ptr(), E, M, n_in // bs, nob, kb, bs,
-            ACTIVATIONS.index(act), _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "junction_update_dw")
+            ACTIVATIONS.index(act))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if tc:
+            err = _kernel("junction_tc", name, 13, 7)(*ptrs, stream)
+        else:
+            err = _kernel("junction_dw", name, 13, 8)(
+                *ptrs, _DTYPE_CODE[x.dtype], stream)
+    _raise_on(err, name)
     update_dw.launches += 1
+    update_dw.tc_launches += tc
     return health if with_health else None
 
 
 update_dw.launches = 0
+update_dw.tc_launches = 0
 
 
 # ------------------------------------------------ fused update_gated_dw
