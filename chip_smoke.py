@@ -14,12 +14,13 @@ PyTorch built for CUDA.  It
    kernel, plain version, the least time the card could take (bound) and,
    where one PyTorch call computes the same function, that call
    (flash_decode at stablelm-3b's heads and at qwen3-moe's, at the
-   serving lengths and over a 4k-token cache); fwd, dx, gated_fwd and
-   update_dw have two entry points, SIMT and bf16 tensor cores
-   (``bsm.junction_variant`` routes), and both are held and timed
-   wherever the route takes the tensor cores, and the route's crossover
-   is timed from 1 row to 2048 (fwd), 1 to 160 (gated_fwd) and at the
-   training rows (update_dw);
+   serving lengths and over a 4k-token cache); fwd, dx, dw, update_dw,
+   gated_fwd and update_gated_dw have two entry points, SIMT and bf16
+   tensor cores (``bsm.junction_variant`` routes), and both are held and
+   timed wherever the route takes the tensor cores, and the route's
+   crossover is timed from 1 row to 2048 (fwd), 1 to 160 (gated_fwd),
+   at the training rows (dw, update_dw) and at 4 and 160 rows
+   (update_gated_dw);
 4. serves 8 greedy requests through ``ContinuousEngine`` on full-width
    sparse-FFN stablelm-3b (random weights from a seed), checks that every
    request completes, that the kernels' launch counts (and those of the
@@ -31,14 +32,15 @@ PyTorch built for CUDA.  It
    path's shapes (M = 2048), times them, and checks every activation,
    bias, E = 2, SGD / momentum / Adam, the health counts of poisoned
    tiles and the bit-for-bit freeze of a zero hyp row; the tensor-core
-   fwd and dx also at a ragged M, with and without bias and save_pre,
-   and at blocks 32 and 64, gated_fwd and update_dw (every optimizer,
-   health, freeze) at a ragged M and blocks 32, 64 and 128, through both
-   entry points;
+   fwd, dx and dw also at a ragged M, with and without bias (and
+   save_pre), and at blocks 32 and 64, gated_fwd, update_dw and
+   update_gated_dw (every optimizer, health, freeze) at a ragged M and
+   blocks 32, 64 and 128, through both entry points; and the tensor-core
+   dw equal bit for bit to the gradient the tensor-core update_dw steps;
 6. trains the same model at full width: 3 two-pass Adam steps, 3 fused
    Adam steps and 3 fused SGD steps (batch 8 x 256), with finite losses,
    no non-finite update, exact launch counts (no dw launch on the
-   unclipped fused path; every fwd, dx and update_dw on the tensor
+   unclipped fused path; every fwd, dx, dw and update_dw on the tensor
    cores), and one
    step at 2 layers through the kernels and through the plain versions
    within stated tolerances;
@@ -50,7 +52,8 @@ PyTorch built for CUDA.  It
    in one branch or both (each counted once) and the zero-hyp freeze;
 8. serves the same 8 requests on full-size sparse qwen3-moe-30b-a3b (48
    layers, 128 experts, 9.6 B parameters) and trains it at full width
-   and 6 layers as in 4. and 6. (every gated_fwd on the tensor cores);
+   and 6 layers as in 4. and 6. (every gated_fwd and update_gated_dw on
+   the tensor cores);
 9. holds the quantized kernels (fwd_int8, gated_fwd_int8, fwd_fxp)
    against their plain versions (bit for bit where the arithmetic allows)
    at stablelm-3b's FFN junctions, qwen3-moe's expert junctions and the
@@ -174,8 +177,9 @@ def close(got, want, tol) -> bool:
 
 def forced(P, variant):
     """The junction wrappers launch ``variant`` ("simt" or "tc") whatever
-    their route says (fwd, dx, gated_fwd and update_dw): times and checks
-    of the entry point the route does not take, on the same inputs."""
+    their route says (fwd, dx, dw, update_dw, gated_fwd and
+    update_gated_dw): times and checks of the entry point the route does
+    not take, on the same inputs."""
     return mock.patch.object(P.bsm, "junction_variant",
                              lambda *_: variant)
 
@@ -198,8 +202,7 @@ def in_turns(timer, tc_fn, simt_fn):
 
 def with_tc(P, counts):
     """A path's launch counts with the launches of the tensor-core entry
-    points of fwd, dx, gated_fwd and update_dw beside them
-    (``junction_*_tc``)."""
+    points beside them (``junction_*_tc``)."""
     return {**counts, **{f"{k}_tc": v
                          for k, v in P.ops.tc_launch_counts().items()}}
 
@@ -286,14 +289,24 @@ GATED_ROUTE_ROWS = (1, 4, 32, 160)
 # junction, at their training rows
 UPDATE_ROUTE = [(("wg", 2560, 6912, "silu", 2), 1, 2048),
                 (("moe wo", 768, 2048, "none", 1), 128, 160)]
+# dw at stablelm-3b's three FFN junctions and qwen3-moe's down junction,
+# at their training rows
+DW_ROUTE = [(("wg", 2560, 6912, "silu", 2), 1, 2048),
+            (("wi", 2560, 6912, "none", 0), 1, 2048),
+            (("wo", 6912, 2560, "none", 1), 1, 2048),
+            (("moe wo", 768, 2048, "none", 1), 128, 160)]
+# update_gated_dw (Adam) at qwen3-moe's gate junction: a tick's capacity
+# and an expert's training rows
+GATED_UPDATE_ROUTE_ROWS = (4, 160)
 
 
 def route_phase(P, timer, card):
     """The crossover of the route: bf16 ``fwd`` through both entry points
     on the same inputs (SIMT, tensor cores, tensor cores, SIMT), at every
     row count from one row to the training rows; ``gated_fwd`` likewise
-    at qwen3-moe's gate junction, and ``update_dw`` at the two training
-    shapes, each entry point also held against its plain version.
+    at qwen3-moe's gate junction, ``update_dw`` and ``dw`` at the
+    training shapes and ``update_gated_dw`` at the gate junction, each
+    entry point also held against its plain version.
     Reported beside ``bsm.TC_MIN_M``, the threshold the route uses; the
     times are not gated on."""
     gen = torch.Generator(device="cuda")
@@ -390,6 +403,58 @@ def route_phase(P, timer, card):
               f"[{card}]")
         require(max(errs.values()) <= REL_TOL["bf16_sum"],
                 f"update_dw {name} M={M}: slots differ {errs}")
+        del t, pt, sts
+    for shape, E, M in DW_ROUTE:
+        name, _, _, act, _ = shape
+        t, pt = _train_inputs(P, gen, shape, E, torch.bfloat16, M=M)
+        args = (t["x"], t["dy"], pt["idx"],
+                t["res"] if act != "none" else None, act, False)
+        want, _ = bsm.dw_ref(*args)
+        errs = {v: rel_err(forced_call(P, v, lambda: bsm.dw(*args))()[0],
+                           want) for v in ("simt", "tc")}
+        tc, simt = in_turns(timer, forced_call(P, "tc", lambda: bsm.dw(*args)),
+                            forced_call(P, "simt", lambda: bsm.dw(*args)))
+        print(f"[route] junction_dw {name} E={E} M={M} bf16: SIMT "
+              f"{simt:.4f} ms, tensor cores {tc:.4f} ms ({simt / tc:.2f}x); "
+              f"rel_err SIMT {errs['simt']:.3g} tensor cores "
+              f"{errs['tc']:.3g} (tol {REL_TOL['bf16_sum']:.3g}); route: "
+              f"{bsm.junction_variant(torch.bfloat16, M, BS)} [{card}]")
+        require(max(errs.values()) <= REL_TOL["bf16_sum"],
+                f"dw {name} M={M} disagrees with its plain version: {errs}")
+        del t, pt, want
+    for M in GATED_UPDATE_ROUTE_ROWS:
+        t, pt = _moe_inputs(P, gen, MOE_SHAPES[0], MOE_E, M, torch.bfloat16)
+        mom, vel = _adam_slots(gen, t["w"].shape)
+        init = (t["w"], t["wi"], mom, mom, vel, vel)
+        sts = {v: [x.clone() for x in init] for v in ("plain", "simt", "tc")}
+        dw_args = (t["x"], t["dy"], pt["idx"], t["g"], t["u"])
+
+        def gupd(fn, st):
+            return lambda: fn(*dw_args, st[0], st[1], st[2], st[3], hyp,
+                              vg=st[4], vi=st[5])
+        gupd(bsm.update_gated_dw_ref, sts["plain"])()
+        pwg, pwi, *ps = sts["plain"]
+        errs = {}
+        for v in ("simt", "tc"):
+            forced_call(P, v, gupd(bsm.update_gated_dw, sts[v]))()
+            kwg, kwi, *ks = sts[v]
+            require(_adam_w_ok(kwg, pwg, t["w"], ks[0], ps[0], ks[2], ps[2])
+                    and _adam_w_ok(kwi, pwi, t["wi"], ks[1], ps[1], ks[3],
+                                   ps[3]),
+                    f"update_gated_dw ({v}) M={M}: weights differ "
+                    f"({max_err(kwg, pwg):.3g}, {max_err(kwi, pwi):.3g})")
+            errs[v] = max(rel_err(a, b) for a, b in zip(ks, ps))
+        tc, simt = in_turns(
+            timer, forced_call(P, "tc", gupd(bsm.update_gated_dw, sts["tc"])),
+            forced_call(P, "simt", gupd(bsm.update_gated_dw, sts["simt"])))
+        print(f"[route] junction_update_gated_dw gate E={MOE_E} M={M} bf16 "
+              f"Adam: SIMT {simt:.4f} ms, tensor cores {tc:.4f} ms "
+              f"({simt / tc:.2f}x); slot rel_err SIMT {errs['simt']:.3g} "
+              f"tensor cores {errs['tc']:.3g} (tol {REL_TOL['bf16_sum']:.3g})"
+              f"; route: {bsm.junction_variant(torch.bfloat16, M, BS)} "
+              f"[{card}]")
+        require(max(errs.values()) <= REL_TOL["bf16_sum"],
+                f"update_gated_dw M={M}: slots differ {errs}")
         del t, pt, sts
     torch.cuda.empty_cache()
 
@@ -849,8 +914,8 @@ def _adam_slots(gen, shape):
 def train_kernel_phase(P, timer, card):
     """fwd (with its saved residual), dx, dw and the fused Adam update_dw
     at the three FFN junctions of the training path, M = 2048, bf16 and
-    fp32, each against its plain version and timed (fwd, dx and update_dw
-    through both entry points in bf16, in turns); then every activation,
+    fp32, each against its plain version and timed (all four through
+    both entry points in bf16, in turns); then every activation,
     bias, E = 2, SGD / momentum / Adam, the health counts of poisoned
     tiles and the zero-hyp freeze, checked."""
     bsm = P.bsm
@@ -903,6 +968,8 @@ def train_kernel_phase(P, timer, card):
                          lambda: bsm.dw_ref(t["x"], t["dy"], pt["idx"], res,
                                             act, False),
                          _cost("dw", t, pt, act)))
+            if simt:
+                simt["dw"] = _simt_row(P, rows[-1][4], (want,))
             hyp = torch.tensor(ADAM_HYP, device="cuda")
             mom, vel = _adam_slots(gen, t["w"].shape)
             init = (t["w"], mom, vel)
@@ -989,7 +1056,7 @@ def train_kernel_phase(P, timer, card):
 
 
 def _simt_row(P, kfn, want):
-    """The SIMT entry point of fwd, dx or gated_fwd on the inputs of
+    """The SIMT entry point of fwd, dx, dw or gated_fwd on the inputs of
     ``kfn``, where the route takes the tensor cores: (its relative error
     against the plain version's outputs ``want``, its call for the
     timer)."""
@@ -1017,10 +1084,12 @@ def _report_tc(kind, name, act, tc_ms, simt_err, lim, simt_ms, bnd, nbytes,
 def tc_coverage_checks(P, gen):
     """The tensor-core entry points beyond the timed shapes: a ragged M
     (2000 rows: the last 128-row tile holds 80) at E = 2 with every
-    activation, with and without bias and save_pre (fwd) and with its
-    residual (dx); then block sizes 32 and 64, which the route sends
-    there too; gated_fwd and update_dw at a ragged M and blocks 128, 64
-    and 32."""
+    activation, with and without bias and save_pre (fwd), with its
+    residual (dx), with and without db (dw, through both entry points);
+    then block sizes 32 and 64, which the route sends there too;
+    gated_fwd, update_dw and update_gated_dw at a ragged M and blocks
+    128, 64 and 32; then the identity of the tensor-core dw with the
+    gradient the tensor-core update_dw steps."""
     bsm = P.bsm
     lim = REL_TOL["bf16_out"]
     M = 2000
@@ -1042,11 +1111,15 @@ def tc_coverage_checks(P, gen):
         rev = (pt["rev_ob"], pt["rev_t"], pt["rev_cnt"])
         errs.append(rel_err(bsm.dx(t["dy"], t["w"], *rev, res, act),
                             bsm.dx_ref(t["dy"], t["w"], *rev, res, act)))
+        sums = _dw_errs(P, t, pt, res, act)
         print(f"[check] tensor cores act={act} E=2 M={M} bf16, bias and "
               f"save_pre on and off: fwd/pre/dx rel_err {max(errs):.3g} "
-              f"(tol {lim:.3g})")
+              f"(tol {lim:.3g}); dw/db rel_err tensor cores {sums['tc']:.3g}"
+              f", SIMT {sums['simt']:.3g} (tol {REL_TOL['bf16_sum']:.3g})")
         require(max(errs) <= lim, f"tensor-core fwd/dx act={act} at M={M} "
                                   f"E=2 disagrees: {max(errs)}")
+        require(max(sums.values()) <= REL_TOL["bf16_sum"],
+                f"dw act={act} at M={M} E=2 disagrees: {sums}")
         del t, pt
     for bs in (32, 64):
         t, pt = _train_inputs(P, gen, TRAIN_SHAPES[0], 1, torch.bfloat16,
@@ -1061,11 +1134,15 @@ def tc_coverage_checks(P, gen):
         errs.append(rel_err(bsm.dx(t["dy"], t["w"], *rev, t["res"], "silu"),
                             bsm.dx_ref(t["dy"], t["w"], *rev, t["res"],
                                        "silu")))
+        sums = _dw_errs(P, t, pt, t["res"], "silu")
         print(f"[check] tensor cores block {bs} M={M} bf16 silu, bias, "
               f"save_pre: fwd/pre/dx rel_err {max(errs):.3g} "
-              f"(tol {lim:.3g})")
+              f"(tol {lim:.3g}); dw/db rel_err tensor cores {sums['tc']:.3g}"
+              f", SIMT {sums['simt']:.3g} (tol {REL_TOL['bf16_sum']:.3g})")
         require(max(errs) <= lim, f"tensor-core fwd/dx at block {bs} "
                                   f"disagrees: {max(errs)}")
+        require(max(sums.values()) <= REL_TOL["bf16_sum"],
+                f"dw at block {bs} disagrees: {sums}")
         del t, pt
     # gated_fwd at a ragged M (157 rows: a 29-row second tile), E = 2,
     # blocks 128, 64 and 32, with and without the saved residuals, both
@@ -1102,6 +1179,68 @@ def tc_coverage_checks(P, gen):
             for case in ("poison", "freeze"):
                 _update_case(P, gen, t, pt, torch.bfloat16, opt, case)
         del t, pt
+    # update_gated_dw at a ragged M (157: a half-filled last K step), E = 2
+    # with a per-unit hyp row, blocks 128, 64 and 32, both entry points
+    for bs in (BS, 64, 32):
+        for opt in ("sgd", "momentum", "adam"):
+            for case in ("poison", "freeze"):
+                _gated_update_case(P, gen, torch.bfloat16, opt, case, M=157,
+                                   bs=bs)
+    gradient_identity_check(P, gen)
+
+
+def _dw_errs(P, t, pt, res, act):
+    """dw and db through each entry point at E = 2 with and without the
+    bias, against the plain version: the worst relative error of each."""
+    bsm = P.bsm
+    errs = {}
+    for bias in (True, False):
+        args = (t["x"], t["dy"], pt["idx"], res, act, bias)
+        want = bsm.dw_ref(*args)
+        for v in ("tc", "simt"):
+            got = forced_call(P, v, lambda: bsm.dw(*args))()
+            errs[v] = max([errs.get(v, 0.0)] + [
+                rel_err(a, b) for a, b in zip(got, want) if b is not None])
+    return errs
+
+
+def gradient_identity_check(P, gen):
+    """The tensor-core dw against the gradient the tensor-core update_dw
+    steps: with an SGD + momentum hyp row of lr 0, b1 0, gs 1, wd 0 and
+    zero slots, the update leaves mom = b1 * 0 + gs * acc, the fp32
+    gradient itself, and w and b as they were.  mom must equal dw, and
+    mom_b db, bit for bit, at the wg junction (silu) and qwen3-moe's down
+    junction: the clip pre-pass's norm is then the norm of the gradient
+    the fused update applies."""
+    bsm = P.bsm
+    hyp = torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0], device="cuda")
+    for shape, E, M in ((TRAIN_SHAPES[0], 1, TRAIN_M),
+                        (("moe wo", 768, 2048, "none", 1), MOE_E,
+                         MOE_M["train"])):
+        name, _, _, act, _ = shape
+        t, pt = _train_inputs(P, gen, shape, E, torch.bfloat16, M=M)
+        require(bsm.junction_variant(torch.bfloat16, M, BS) == "tc",
+                f"the route does not take {name} M={M} to the tensor cores")
+        res = t["res"] if act != "none" else None
+        tc0 = P.ops.tc_launch_counts()
+        dwv, db = bsm.dw(t["x"], t["dy"], pt["idx"], res, act, True)
+        w, b = t["w"].clone(), t["b"].clone()
+        mom = torch.zeros(w.shape, device="cuda")
+        mom_b = torch.zeros(b.shape, device="cuda")
+        bsm.update_dw(t["x"], t["dy"], pt["idx"], res, w, b, mom, mom_b, hyp,
+                      act=act, with_bias=True)
+        torch.cuda.synchronize()
+        tc1 = P.ops.tc_launch_counts()
+        on_tc = all(tc1[k] == tc0[k] + 1
+                    for k in ("junction_dw", "junction_update_dw"))
+        same = torch.equal(mom, dwv) and torch.equal(mom_b, db)
+        kept = torch.equal(w, t["w"]) and torch.equal(b, t["b"])
+        print(f"[check] dw_tc vs update_dw_tc's gradient {name} E={E} M={M} "
+              f"act={act}: dw and db bit for bit {same}, w and b kept "
+              f"{kept}, both on tensor cores {on_tc}")
+        require(same and kept and on_tc,
+                f"dw_tc and update_dw_tc's gradient differ at {name}")
+        del t, pt, dwv, db, w, b, mom, mom_b
 
 
 def coverage_checks(P, gen):
@@ -1282,12 +1421,29 @@ def _adam_w_ok(kw, pw, w0, km, pm, kv, pv) -> bool:
     return bool((diff <= 2.0 ** -7 * pw.float().abs() + slack).all())
 
 
+def _sgd_w_ok(kw, pw, w0) -> bool:
+    """bf16 weights after one SGD (+ momentum) step through a gated
+    kernel (kw) and through the plain version (pw): each weight within
+    one bf16 rounding of the plain one, plus the difference in the step
+    that the gradient's own tolerance allows (``bf16_sum`` of the largest
+    weight change: a dz element whose fp32 value differs in its last bit,
+    expf against torch.sigmoid, and rounds to the other bf16 neighbour
+    moves a whole column of the gradient by up to a bf16 ulp of dz), plus
+    two fp32 roundings of w.  The step difference matters only where
+    w - lr * g cancels w almost exactly."""
+    change = (pw.float() - w0.float()).abs().max()
+    slack = REL_TOL["bf16_sum"] * change + 2.0 ** -22 * w0.float().abs()
+    diff = (kw.float() - pw.float()).abs()
+    return bool((diff <= 2.0 ** -7 * pw.float().abs() + slack).all())
+
+
 def moe_kernel_phase(P, timer, card):
     """The four gated kernels at the gate junction of qwen3-moe's experts
     (E = 128, 2048 -> 768) and the plain kernels at its down junction
     (768 -> 2048), at the decode rows (M = 4) and the training rows
     (M = 160), bf16 and fp32: each against its plain version and timed,
-    fwd, dx, gated_fwd and update_dw through both entry points in bf16.
+    fwd, dx, dw, update_dw, gated_fwd and update_gated_dw through both
+    entry points in bf16.
     Then SGD / momentum / Adam, the health counts of tiles poisoned in one
     branch or both, and the zero-hyp freeze of the gated update."""
     bsm = P.bsm
@@ -1333,28 +1489,41 @@ def moe_kernel_phase(P, timer, card):
                          lambda: bsm.gated_dw_ref(*dw_args),
                          _gated_cost("gated_dw", t, pt)))
             mom, vel = _adam_slots(gen, t["w"].shape)
+            # the routed entry point, the plain version, the SIMT one
             states = [[t["w"].clone(), t["wi"].clone(), mom.clone(),
                        mom.clone(), vel.clone(), vel.clone()]
-                      for _ in range(2)]
+                      for _ in range(3)]
 
             def upd(fn, st):
                 return lambda: fn(*dw_args, st[0], st[1], st[2], st[3], hyp,
                                   vg=st[4], vi=st[5])
-            upd(bsm.update_gated_dw, states[0])()
             upd(bsm.update_gated_dw_ref, states[1])()
-            (kw, kwi, *ks), (pw, pwi, *ps) = states
-            w_ok = (_adam_w_ok(kw, pw, t["w"], ks[0], ps[0], ks[2], ps[2])
-                    and _adam_w_ok(kwi, pwi, t["wi"], ks[1], ps[1], ks[3],
-                                   ps[3]))
-            require(w_ok, f"update_gated_dw {where} {dtype}: weights differ "
-                          f"(max_abs_err {max_err(kw, pw):.3g}, "
-                          f"{max_err(kwi, pwi):.3g})")
-            rows.append(("update_gated_dw",
-                         max(rel_err(a, b) for a, b in zip(ks, ps)), sum_tol,
-                         max(max_err(a, b) for a, b in zip(ks, ps)),
+            pw, pwi, *ps = states[1]
+            errs = {}
+            for i, v in ((0, None), (2, "simt")):
+                if v is not None and not simt:
+                    continue
+                fn = upd(bsm.update_gated_dw, states[i])
+                (forced_call(P, v, fn) if v else fn)()
+                kw, kwi, *ks = states[i]
+                w_ok = (_adam_w_ok(kw, pw, t["w"], ks[0], ps[0], ks[2],
+                                   ps[2])
+                        and _adam_w_ok(kwi, pwi, t["wi"], ks[1], ps[1],
+                                       ks[3], ps[3]))
+                require(w_ok, f"update_gated_dw ({v or 'routed'}) {where} "
+                              f"{dtype}: weights differ (max_abs_err "
+                              f"{max_err(kw, pw):.3g}, "
+                              f"{max_err(kwi, pwi):.3g})")
+                errs[v] = (max(rel_err(a, b) for a, b in zip(ks, ps)),
+                           max(max_err(a, b) for a, b in zip(ks, ps)))
+            rows.append(("update_gated_dw", errs[None][0], sum_tol,
+                         errs[None][1],
                          upd(bsm.update_gated_dw, states[0]),
                          upd(bsm.update_gated_dw_ref, states[1]),
                          _gated_cost("update_gated_dw", t, pt, n_slots=2)))
+            if simt:
+                simt["update_gated_dw"] = (errs["simt"][0], forced_call(
+                    P, "simt", upd(bsm.update_gated_dw, states[2])))
             torch.cuda.synchronize()
             for kind, err, lim, abs_err, kfn, pfn, cost in rows:
                 p_ms = timer.ms(pfn)
@@ -1410,7 +1579,7 @@ def moe_kernel_phase(P, timer, card):
                 bnd, _ = _report(kind, f"wo E={MOE_E}", dtype, "none", err,
                                  lim, k_ms, p_ms, *cost, card, M=M)
                 row = (k_ms, p_ms, bnd)
-                if kind in ("fwd", "dx") and \
+                if kind in ("fwd", "dx", "dw") and \
                         bsm.junction_variant(dtype, M, BS) == "tc":
                     s_err, sfn = _simt_row(P, kfn, (want,))
                     s_ms = timer.ms(sfn)
@@ -1469,15 +1638,16 @@ def moe_kernel_phase(P, timer, card):
     return out, plain
 
 
-def _gated_update_case(P, gen, dtype, opt, case):
-    """update_gated_dw at E = 2 with a per-unit hyp table, kernel against
-    plain version.  "poison": unit 1 gets a non-finite gradient in the wg
-    branch only (u = inf) of output block 1, in the wi branch only
-    (silu(g) * dh overflows) of block 3 and in both of block 5: three
-    tiles, each counted once.  "freeze": unit 1's hyp row is zero and its
-    weights stay as they were, bit for bit."""
+def _gated_update_case(P, gen, dtype, opt, case, M=MOE_M["train"], bs=BS):
+    """update_gated_dw at E = 2 with a per-unit hyp table, through the
+    routed entry point and, where that is the tensor cores, the SIMT one
+    too, each against the plain version.  "poison": unit 1 gets a
+    non-finite gradient in the wg branch only (u = inf) of output block
+    1, in the wi branch only (silu(g) * dh overflows) of block 3 and in
+    both of block 5: three tiles, each counted once.  "freeze": unit 1's
+    hyp row is zero and its weights stay as they were, bit for bit."""
     bsm = P.bsm
-    t, pt = _moe_inputs(P, gen, MOE_SHAPES[0], 2, MOE_M["train"], dtype)
+    t, pt = _moe_inputs(P, gen, MOE_SHAPES[0], 2, M, dtype, bs=bs)
     hyp = torch.tensor([ADAM_HYP, ADAM_HYP], device="cuda")
     hyp[1, 0] = 2e-3                                     # unit 1's own lr
     if opt != "adam":
@@ -1489,7 +1659,7 @@ def _gated_update_case(P, gen, dtype, opt, case):
     if case == "poison":
         for o, wg_br, wi_br in ((1, True, False), (3, False, True),
                                 (5, True, True)):
-            col = o * BS + 7
+            col = o * bs + 7
             dh[1, 2, col] = 4.0
             if wg_br:
                 u[1, 2, col] = float("inf")
@@ -1500,37 +1670,54 @@ def _gated_update_case(P, gen, dtype, opt, case):
     use = {"sgd": (False, False), "momentum": (True, False),
            "adam": (True, True)}[opt]
     mom, vel = _adam_slots(gen, t["w"].shape)
-    runs = []
-    for fn in (bsm.update_gated_dw, bsm.update_gated_dw_ref):
+    route = bsm.junction_variant(dtype, M, bs)
+    runs = {}
+    for v in [route] + (["simt"] if route == "tc" else []) + ["plain"]:
         wg, wi = t["w"].clone(), t["wi"].clone()
         mg, mi, vg, vi = mom.clone(), mom.clone(), vel.clone(), vel.clone()
-        h = fn(t["x"], dh, pt["idx"], g, u, wg, wi,
-               mg if use[0] else None, mi if use[0] else None, hyp,
-               vg=vg if use[1] else None, vi=vi if use[1] else None,
-               with_health=True)
-        runs.append((wg, wi, mg, mi, h))
-    (kwg, kwi, kmg, kmi, kh), (pwg, pwi, pmg, pmi, ph) = runs
+
+        def run(fn):
+            return fn(t["x"], dh, pt["idx"], g, u, wg, wi,
+                      mg if use[0] else None, mi if use[0] else None, hyp,
+                      vg=vg if use[1] else None, vi=vi if use[1] else None,
+                      with_health=True)
+        h = (run(bsm.update_gated_dw_ref) if v == "plain"
+             else forced_call(P, v, lambda: run(bsm.update_gated_dw))())
+        runs[v] = (wg, wi, mg, mi, vg, vi, h)
     torch.cuda.synchronize()
+    pwg, pwi, pmg, pmi, pvg, pvi, ph = runs.pop("plain")
     lim = REL_TOL["fp32" if dtype == torch.float32 else "bf16_sum"]
-    err = max(rel_err(kmg[0], pmg[0]), rel_err(kmi[0], pmi[0])) \
-        if use[0] else 0.0
-    w_ok = all(close(a[0], b[0], dict(atol=1e-6, rtol=2.0 ** -7))
-               for a, b in ((kwg, pwg), (kwi, pwi)))
-    line = (f"[check] update_gated_dw {opt} {case} E=2 {str(dtype)[6:]}: "
-            f"health kernel {kh.tolist()} plain {ph.tolist()}, unit-0 slot "
-            f"rel_err {err:.3g}")
-    if case == "poison":
-        require(kh.tolist() == ph.tolist() == [0, 3],
-                f"health counts wrong: {line}")
-    else:
-        frozen = (torch.equal(kwg[1], t["w"][1])
-                  and torch.equal(kwi[1], t["wi"][1])
-                  and not torch.equal(kwg[0], t["w"][0]))
-        line += f", unit 1 frozen bit for bit: {frozen}"
-        require(frozen, f"zero hyp row did not freeze unit 1: {line}")
-        require(kh.tolist() == [0, 0], f"health counts wrong: {line}")
-    print(line)
-    require(w_ok and err <= lim, f"update_gated_dw disagrees: {line}")
+    for v, (kwg, kwi, kmg, kmi, kvg, kvi, kh) in runs.items():
+        err = max(rel_err(kmg[0], pmg[0]), rel_err(kmi[0], pmi[0])) \
+            if use[0] else 0.0
+        if dtype == torch.float32:
+            w_ok = all(close(a[0], b[0], dict(atol=1e-6, rtol=2.0 ** -7))
+                       for a, b in ((kwg, pwg), (kwi, pwi)))
+        elif use[1]:
+            # unit 0 steps at ADAM_HYP: held as the update_dw is where
+            # w - lr * step cancels to the summation-order noise
+            w_ok = (_adam_w_ok(kwg[0], pwg[0], t["w"][0], kmg[0], pmg[0],
+                               kvg[0], pvg[0])
+                    and _adam_w_ok(kwi[0], pwi[0], t["wi"][0], kmi[0],
+                                   pmi[0], kvi[0], pvi[0]))
+        else:
+            w_ok = (_sgd_w_ok(kwg[0], pwg[0], t["w"][0])
+                    and _sgd_w_ok(kwi[0], pwi[0], t["wi"][0]))
+        line = (f"[check] update_gated_dw ({v}) {opt} {case} E=2 M={M} "
+                f"block {bs} {str(dtype)[6:]}: health kernel {kh.tolist()} "
+                f"plain {ph.tolist()}, unit-0 slot rel_err {err:.3g}")
+        if case == "poison":
+            require(kh.tolist() == ph.tolist() == [0, 3],
+                    f"health counts wrong: {line}")
+        else:
+            frozen = (torch.equal(kwg[1], t["w"][1])
+                      and torch.equal(kwi[1], t["wi"][1])
+                      and not torch.equal(kwg[0], t["w"][0]))
+            line += f", unit 1 frozen bit for bit: {frozen}"
+            require(frozen, f"zero hyp row did not freeze unit 1: {line}")
+            require(kh.tolist() == [0, 0], f"health counts wrong: {line}")
+        print(line)
+        require(w_ok and err <= lim, f"update_gated_dw disagrees: {line}")
 
 
 # ------------------------------------------------------------ train phase
@@ -1557,10 +1744,10 @@ def _expected_launches(P, cfg, n_steps, kind):
 
 def _expected_tc(P, cfg, want):
     """Of the expected launches, those of the tensor-core entry points:
-    every fwd, dx, gated_fwd and update_dw of the path where the route
-    takes its compute dtype at its junctions' rows (M = 2048 a dense
-    junction, the capacity C = 160 an expert) to the tensor cores, else
-    none."""
+    every fwd, dx, dw, update_dw, gated_fwd and update_gated_dw of the
+    path where the route takes its compute dtype at its junctions' rows
+    (M = 2048 a dense junction, the capacity C = 160 an expert) to the
+    tensor cores, else none."""
     rows = TRAIN_M if cfg.family == "dense" else MOE_M["train"]
     tc = P.bsm.junction_variant(getattr(torch, cfg.dtype), rows, BS) == "tc"
     return {k: want[k] if tc else 0 for k in P.ops.tc_launch_counts()}

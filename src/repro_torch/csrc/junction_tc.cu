@@ -1,32 +1,40 @@
 // Block-sparse junction kernels on Hopper tensor cores (sm_90a), plain C
 // interface, bf16 operands with fp32 accumulation: the forward
-// `junction_fwd_tc`, the backward to the input `junction_dx_tc`, the gated
-// (SwiGLU) forward `junction_gated_fwd_tc` and the fused BP+UP update
-// `junction_update_dw_tc`.
+// `junction_fwd_tc`, the backward to the input `junction_dx_tc`, the
+// weight gradient `junction_dw_tc`, the fused BP+UP update
+// `junction_update_dw_tc`, the gated (SwiGLU) forward
+// `junction_gated_fwd_tc` and the gated fused update
+// `junction_update_gated_dw_tc`.
 //
 // They compute what the SIMT entry points `junction_fwd`, `junction_dx`,
-// `junction_gated_fwd` (junction_fwd.cu, junction_dx.cu) and
-// `junction_update_dw` (junction_dw.cu) compute, and replace the same
-// Pallas TPU kernels, `fwd`, `dx`, `gated_fwd` and `update_dw`
-// (fwd_kernel, dx_kernel, gated_fwd_kernel, fused_update_dw) of
-// src/repro/kernels/block_sparse_matmul.py, for bf16; the wrappers' route
-// (block_sparse_matmul.junction_variant) chooses the entry point:
+// `junction_dw`, `junction_update_dw`, `junction_gated_fwd` and
+// `junction_update_gated_dw` (junction_fwd.cu, junction_dx.cu,
+// junction_dw.cu) compute, and replace the same Pallas TPU kernels, `fwd`,
+// `dx`, `dw`, `update_dw`, `gated_fwd` and `update_gated_dw` (fwd_kernel,
+// dx_kernel, dw_kernel, fused_update_dw, gated_fwd_kernel,
+// fused_update_gated_dw) of src/repro/kernels/block_sparse_matmul.py, for
+// bf16; the wrappers' route (block_sparse_matmul.junction_variant) chooses
+// the entry point:
 //
 //   y[e, m, o*bs + c] = act( sum_k sum_i x[e, m, idx[o,k]*bs + i]
 //                                        * w[e, o, k, i, c]  + bias[e, o*bs + c] )
 //   dx[e, m, i*bs + a] = sum_{f < rev_cnt[i]} sum_c
 //       dz[e, m, rev_ob[i,f]*bs + c] * w[e, rev_ob[i,f], rev_t[i,f], a, c]
 //   h = silu(g) * u, g and u the forward's sums over wg and wi
-//   w[e, o, k, a, c] <- step(sum_m x[e, m, idx[o,k]*bs + a] * dz[e, m, o*bs + c])
+//   dw[e, o, k, a, c] = sum_m x[e, m, idx[o,k]*bs + a] * dz[e, m, o*bs + c]
+//   w[e, o, k, a, c] <- step(dw[e, o, k, a, c]); the gated form steps wg
+//       and wi from dz_g = dh * u * silu'(g) and dz_u = dh * silu(g)
 //
 // with the SIMT kernels' rounding points: an fp32 sum (a product of two
 // bf16 values is exact in fp32, so only the order of the sum differs),
 // the bias widened from bf16, the activation in fp32 and one bf16 store
 // (the pre-activation too when `pre` is given; g and u too when given);
 // dz = (dy * act'(res)) rounded to bf16 before the product, dz = dy for
-// "none", the bias gradient summed from the fp32 dz; the optimizer step
-// of junction_update.cuh on every element (w in bf16, the fp32 slots in
-// place, one health flag per (e, o) tile).
+// "none", the bias gradient summed from the fp32 dz; dz_g and dz_u
+// computed in fp32 from the stored g and u and each rounded to bf16 once;
+// the optimizer step of junction_update.cuh on every element (w in bf16,
+// the fp32 slots in place, one health flag per (e, o) tile, whichever
+// branch of a gated tile went non-finite).
 //
 // What bounds them: a dense training junction (M = 2048 rows, block 128,
 // 2560 -> 6912 at kb 5 or 6912 -> 2560 at kb 14) is 18-19 GFLOP, about
@@ -41,8 +49,10 @@
 // of a 32-row second tile), 0.102 at M = 4 (60 %); update_dw 0.21 ms a
 // junction without activation (18 % of its bytes bound; 0.39 with silu,
 // whose act' the five slots' blocks each recompute), 0.80 ms at qwen3's
-// down junction (54 %).  The SIMT kernels ran fp32 FMAs at 1-3 % of the
-// bf16 rate.
+// down junction (54 %); dw 0.15 ms a junction without activation, 0.34
+// with silu, 0.29 at qwen3's down junction; update_gated_dw (Adam) 1.17
+// ms at qwen3's gate junction, M = 160 (56 % of its bytes bound).  The
+// SIMT kernels ran fp32 FMAs at 1-3 % of the bf16 rate.
 //
 // Design.  fwd, dx and gated_fwd: a block of two warpgroups owns one
 // (unit e, 128-row tile of M, output block o / input block i): a 128-row
@@ -85,8 +95,17 @@
 //   and writes w and its slots in 16-byte rows, four rows' loads in
 //   flight a thread.  Splitting a slot into two 64-column blocks (twice
 //   the blocks, against 1.02 waves at two blocks an SM) and a 3-stage
-//   ring at one block an SM were slower.  `dw_tc_tile` is the reduction
-//   alone, for a dw entry point to take.
+//   ring at one block an SM were slower.
+// * dw: the update's reduction (`dw_tc_tile`, the same layout and order)
+//   and the same staging through shared memory, then fp32 rows of dw in
+//   16-byte stores; so a fused update steps bit for bit the gradient dw
+//   stores (the clip pre-pass measures the norm of what it applies).
+// * update_gated_dw: two accumulators over one staged x tile; dh, g and u
+//   staged as stored and each thread computing its fragments' dz_g and
+//   dz_u (silu's sigmoid once for both).  Each branch's sums are staged
+//   and stepped in turn.  At block 128 a block owns 64 of a slot's
+//   columns in 32-row K steps (two m64n64 accumulators, 60 KB of ring),
+//   two blocks an SM.
 // Two blocks an SM.  A deeper ring (up to 6 stages, one block an SM), a
 // wgmma group left in flight across steps, and dz of the next step
 // computed under this step's products were each slower on an H100 (fwd,
@@ -663,6 +682,7 @@ struct UpdTile {
   static constexpr int SE = XE + 2 * DE;  // a stage, elements
   static constexpr int SMEM = kUpdStages * SE * 2;  // bytes
   static constexpr int NW = BS == 128 ? NA : NA / 2;  // columns a warpgroup
+  static constexpr int LDD = BS + 4;  // padded row of D^T: conflict-free
 };
 
 // ldmatrix of four 8 x 8 bf16 tiles, transposed: lane l gives the row
@@ -708,8 +728,8 @@ __device__ __forceinline__ uint32_t dz_t(uint32_t dv, uint32_t rv, int act,
 // from upd_place).  With `want_db` (warp-uniform), db[h] receives the
 // fp32 sum of dz over this thread's rows m of column cb + g + 8 h; the
 // four threads of a quad together hold the column's sum.  `xe`, `dye`
-// and `rese` point at unit e's rows; `rese` is null for "none".  A dw
-// entry point can take the same routine and store D.
+// and `rese` point at unit e's rows; `rese` is null for "none".  The
+// update and dw both take this routine, so their sums are one order.
 template <int BS, int NA>
 __device__ __forceinline__ void dw_tc_tile(
     const bf16* __restrict__ xe, const bf16* __restrict__ dye,
@@ -820,14 +840,94 @@ __device__ __forceinline__ void st4(float* p, const float (&r)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
 }
 
+// The block's sums D[c, a] (dw_tc_tile's accumulator layout) to shared
+// memory as D^T [a][c], rows of LDD floats, so that an epilogue reads
+// four neighbouring columns c of one row a at a time.  The caller
+// synchronises before (the ring is free) and after.
+template <int BS, int NA>
+__device__ __forceinline__ void stage_dt(
+    float* ds, const float (&acc)[UpdTile<BS, NA>::NW / 2], int cb, int aw) {
+  constexpr int NW = UpdTile<BS, NA>::NW, LDD = UpdTile<BS, NA>::LDD;
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tig = lane & 3;
+  if (cb >= BS) return;  // the zero rows of a 32-wide block
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        ds[(aw + 8 * j + 2 * tig + q) * LDD + cb + gr + 8 * hh] =
+            acc[4 * j + 2 * hh + q];
+}
+
+// db of dw_tc_tile summed over the four threads of a quad: each then
+// holds the column's fp32 sum over all M rows
+__device__ __forceinline__ void quad_sum(float (&db)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    db[hh] += __shfl_xor_sync(0xffffffffu, db[hh], 1);
+    db[hh] += __shfl_xor_sync(0xffffffffu, db[hh], 2);
+  }
+}
+
+// opt_step on the block's NA rows a of one weight tile, from D^T staged
+// at ds: each thread steps four neighbouring elements of one row at a
+// time, with 16-byte loads and stores of the slots, four such groups'
+// loads issued before any of them is stepped.  `wt`, `mom` and `vel`
+// point at the tile's row a0 (the slots null where absent).
+template <int BS, int NA>
+__device__ __forceinline__ void step_tile(const Hyp& h, const float* ds,
+                                          bf16* __restrict__ wt,
+                                          float* __restrict__ mom,
+                                          float* __restrict__ vel,
+                                          bool& ok) {
+  constexpr int LDD = UpdTile<BS, NA>::LDD;
+  constexpr int C4 = BS / 4;  // groups of four columns c in a row
+  constexpr int IT = NA * C4 / kThreads;  // groups a thread steps
+  constexpr int U = IT < 4 ? IT : 4;      // a batch, loaded before stepped
+  static_assert(IT * kThreads == NA * C4 && IT % U == 0, "whole batches");
+  const int tid = threadIdx.x;
+  for (int i0 = 0; i0 < IT; i0 += U) {
+    float g[U][4], w32[U][4], mv[U][4] = {}, vv[U][4] = {};
+    size_t off[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = tid + (i0 + u) * kThreads, a = i / C4, c = (i % C4) * 4;
+      off[u] = (size_t)a * BS + c;
+      ld4(g[u], ds + a * LDD + c);
+      const uint2 wv = *reinterpret_cast<const uint2*>(wt + off[u]);
+      const float2 w01 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&wv.x));
+      const float2 w23 = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&wv.y));
+      w32[u][0] = w01.x, w32[u][1] = w01.y, w32[u][2] = w23.x,
+      w32[u][3] = w23.y;
+      if (mom != nullptr) ld4(mv[u], mom + off[u]);
+      if (vel != nullptr) ld4(vv[u], vel + off[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        w32[u][q] = opt_step(h, g[u][q], w32[u][q],
+                             mom == nullptr ? nullptr : &mv[u][q],
+                             vel == nullptr ? nullptr : &vv[u][q], ok);
+      const __nv_bfloat162 n01 = __floats2bfloat162_rn(w32[u][0], w32[u][1]);
+      const __nv_bfloat162 n23 = __floats2bfloat162_rn(w32[u][2], w32[u][3]);
+      *reinterpret_cast<uint2*>(wt + off[u]) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&n01),
+                     *reinterpret_cast<const uint32_t*>(&n23));
+      if (mom != nullptr) st4(mom + off[u], mv[u]);
+      if (vel != nullptr) st4(vel + off[u], vv[u]);
+    }
+  }
+}
+
 // The fused update of w [E, nob, kb, BS, BS] (bf16) with its fp32 slots
 // and, from the blocks of slot 0 and column chunk 0, of b with its slots:
 // opt_step on every element as it leaves the sum.  The sums leave the
-// registers through shared memory (the stage ring is free by then), so
-// that each thread steps four neighbouring elements of one row of w at a
-// time, with 16-byte loads and stores of the slots, four such groups'
-// loads issued before any of them is stepped.  One health flag per
-// (e, o) tile.
+// registers through shared memory (the stage ring is free by then) for
+// step_tile's 16-byte rows.  One health flag per (e, o) tile.
 template <int BS, int NA, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
     update_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
@@ -838,8 +938,8 @@ __global__ void __launch_bounds__(kThreads, MINB)
                      float* __restrict__ vel_b, int* __restrict__ bad, int M,
                      int nib, int nob, int kb, int act) {
   constexpr int NW = UpdTile<BS, NA>::NW, CH = BS / NA;
-  constexpr int LDD = BS + 4;  // padded row of D^T: conflict-free writes
-  static_assert(NA * LDD * 4 <= UpdTile<BS, NA>::SMEM, "D^T fits the ring");
+  static_assert(NA * UpdTile<BS, NA>::LDD * 4 <= UpdTile<BS, NA>::SMEM,
+                "D^T fits the ring");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
   const int k = blockIdx.x / CH, a0 = (blockIdx.x % CH) * NA;
@@ -858,68 +958,20 @@ __global__ void __launch_bounds__(kThreads, MINB)
                      nib, nob, o, idx[(size_t)o * kb + k], a0, act, want_db,
                      cb, aw, sm, acc, db);
 
-  // D^T [a][c] in shared memory, rows a of the block's NA columns
-  __syncthreads();  // every warpgroup's last products have read the ring
   float* const ds = reinterpret_cast<float*>(smem_raw);
-  if (cb < BS) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-      for (int j = 0; j < NW / 8; ++j)
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-          ds[(aw + 8 * j + 2 * tig + q) * LDD + cb + gr + 8 * hh] =
-              acc[4 * j + 2 * hh + q];
-  }
+  __syncthreads();  // every warpgroup's last products have read the ring
+  stage_dt<BS, NA>(ds, acc, cb, aw);
   __syncthreads();
 
   const Hyp h = hyp_row(hyp, e);
   bool ok = true;
-  bf16* const wt = w + ((((size_t)e * nob + o) * kb + k) * BS + a0) * BS;
-  const size_t st = wt - w;  // the slots' offset of the tile
-  constexpr int C4 = BS / 4;  // groups of four columns c in a row
-  constexpr int IT = NA * C4 / kThreads;  // groups a thread steps
-  constexpr int U = IT < 4 ? IT : 4;      // a batch, loaded before stepped
-  static_assert(IT * kThreads == NA * C4 && IT % U == 0, "whole batches");
-  for (int i0 = 0; i0 < IT; i0 += U) {
-    float g[U][4], w32[U][4], mv[U][4] = {}, vv[U][4] = {};
-    size_t off[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = tid + (i0 + u) * kThreads, a = i / C4, c = (i % C4) * 4;
-      off[u] = (size_t)a * BS + c;
-      ld4(g[u], ds + a * LDD + c);
-      const uint2 wv = *reinterpret_cast<const uint2*>(wt + off[u]);
-      const float2 w01 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&wv.x));
-      const float2 w23 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&wv.y));
-      w32[u][0] = w01.x, w32[u][1] = w01.y, w32[u][2] = w23.x,
-      w32[u][3] = w23.y;
-      if (mom != nullptr) ld4(mv[u], mom + st + off[u]);
-      if (vel != nullptr) ld4(vv[u], vel + st + off[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        w32[u][q] = opt_step(h, g[u][q], w32[u][q],
-                             mom == nullptr ? nullptr : &mv[u][q],
-                             vel == nullptr ? nullptr : &vv[u][q], ok);
-      const __nv_bfloat162 n01 = __floats2bfloat162_rn(w32[u][0], w32[u][1]);
-      const __nv_bfloat162 n23 = __floats2bfloat162_rn(w32[u][2], w32[u][3]);
-      *reinterpret_cast<uint2*>(wt + off[u]) =
-          make_uint2(*reinterpret_cast<const uint32_t*>(&n01),
-                     *reinterpret_cast<const uint32_t*>(&n23));
-      if (mom != nullptr) st4(mom + st + off[u], mv[u]);
-      if (vel != nullptr) st4(vel + st + off[u], vv[u]);
-    }
-  }
+  const size_t st = (((((size_t)e * nob + o) * kb + k) * BS + a0) * BS);
+  step_tile<BS, NA>(h, ds, w + st, mom == nullptr ? nullptr : mom + st,
+                    vel == nullptr ? nullptr : vel + st, ok);
   if (want_db) {
+    quad_sum(db);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      db[hh] += __shfl_xor_sync(0xffffffffu, db[hh], 1);
-      db[hh] += __shfl_xor_sync(0xffffffffu, db[hh], 2);
       if (tig == 0) {
         const size_t off =
             (size_t)e * n_out + (size_t)o * BS + cb + gr + 8 * hh;
@@ -932,6 +984,254 @@ __global__ void __launch_bounds__(kThreads, MINB)
     }
   }
   if (__syncthreads_or(!ok) && tid == 0)
+    atomicOr(&bad[(size_t)e * nob + o], 1);
+}
+
+// ------------------------------------------------------------------- dw
+// The plain junction's weight gradient, dw [E, nob, kb, BS, BS] in fp32,
+// and from the blocks of slot 0 db [E, nob * BS]: dw_tc_tile's sums (the
+// routine, the order and the layout of update_tc_kernel, so that a fused
+// update steps bit for bit the gradient this kernel stores), staged
+// through shared memory and written in 16-byte rows of c.
+template <int BS, int NA, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                 const bf16* __restrict__ res, const int* __restrict__ idx,
+                 float* __restrict__ dw, float* __restrict__ db, int M,
+                 int nib, int nob, int kb, int act) {
+  using L = UpdTile<BS, NA>;
+  constexpr int NW = L::NW, CH = BS / NA, LDD = L::LDD;
+  static_assert(NA * LDD * 4 <= L::SMEM, "D^T fits the ring");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+  const int k = blockIdx.x / CH, a0 = (blockIdx.x % CH) * NA;
+  const int o = blockIdx.y, e = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, gr = lane >> 2,
+            tig = lane & 3;
+  const size_t n_out = (size_t)nob * BS;
+  int cb, aw;
+  upd_place<BS, NA>(tid, cb, aw);
+  const bool want_db = db != nullptr && k == 0 && a0 == 0 && cb < BS &&
+                       (BS == 128 || aw == 0);
+  float acc[NW / 2], dbs[2];
+  dw_tc_tile<BS, NA>(x + (size_t)e * M * nib * BS, dy + (size_t)e * M * n_out,
+                     act != kNone ? res + (size_t)e * M * n_out : nullptr, M,
+                     nib, nob, o, idx[(size_t)o * kb + k], a0, act, want_db,
+                     cb, aw, sm, acc, dbs);
+
+  float* const ds = reinterpret_cast<float*>(smem_raw);
+  __syncthreads();  // every warpgroup's last products have read the ring
+  stage_dt<BS, NA>(ds, acc, cb, aw);
+  __syncthreads();
+  float* const dt = dw + ((((size_t)e * nob + o) * kb + k) * BS + a0) * BS;
+  constexpr int C4 = BS / 4, IT = NA * C4 / kThreads;
+  static_assert(IT * kThreads == NA * C4, "whole rounds");
+#pragma unroll
+  for (int i = 0; i < IT; ++i) {
+    const int q = tid + i * kThreads, a = q / C4, c = (q % C4) * 4;
+    float v[4];
+    ld4(v, ds + a * LDD + c);
+    st4(dt + (size_t)a * BS + c, v);
+  }
+  if (want_db) {
+    quad_sum(dbs);
+    if (tig == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        db[(size_t)e * n_out + (size_t)o * BS + cb + gr + 8 * hh] = dbs[hh];
+    }
+  }
+}
+
+// ------------------------------------------------------ update_gated_dw
+// The gated junction's two weight gradients of one slot side by side,
+// D_g[c, a] = sum_m dz_g[m, c] x[m, a] and D_u from dz_u likewise, both
+// products of a K step reading the same x tile (as gated_fwd shares its
+// x tile between two weight streams).  dh, g and u are staged as stored,
+// rows padded by 8 elements; each thread computes the dz_g and dz_u of
+// its own A fragments.  K steps of KM rows of M; NA and the block's place
+// as in update_dw (upd_place).
+template <int BS, int NA, int KM>
+struct GatedUpdTile {
+  static constexpr int LD = BS + 8;        // padded row of dh / g / u
+  static constexpr int XE = KM * NA;       // x tile, elements (swizzled)
+  static constexpr int DE = KM * LD;       // dh (or g, u) tile, elements
+  static constexpr int SE = XE + 3 * DE;   // a stage, elements
+  static constexpr int RING = kUpdStages * SE * 2;     // bytes
+  static constexpr int DT = NA * UpdTile<BS, NA>::LDD * 4;  // one D^T
+  static constexpr int SMEM = RING > DT ? RING : DT;
+  static constexpr int NW = UpdTile<BS, NA>::NW;
+};
+
+// dz_g and dz_u of a register's two elements (rows m and m + 1 of one
+// column c): dh * u * silu'(g) and dh * silu(g) in fp32 from the stored
+// bf16 values, each rounded to bf16 once (junction_common.cuh's
+// gated_dz), silu's sigmoid taken once for both
+__device__ __forceinline__ void gated_dz_t(uint32_t dv, uint32_t gv,
+                                           uint32_t uv, uint32_t& zg,
+                                           uint32_t& zu) {
+  const float2 d =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dv));
+  const float2 g =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gv));
+  const float2 u =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&uv));
+  const float s0 = 1.f / (1.f + expf(-g.x)), s1 = 1.f / (1.f + expf(-g.y));
+  const __nv_bfloat162 a =
+      __floats2bfloat162_rn(d.x * u.x * (s0 * (1.f + g.x * (1.f - s0))),
+                            d.y * u.y * (s1 * (1.f + g.y * (1.f - s1))));
+  const __nv_bfloat162 b =
+      __floats2bfloat162_rn(d.x * (g.x * s0), d.y * (g.y * s1));
+  zg = *reinterpret_cast<const uint32_t*>(&a);
+  zu = *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// The block's part of both gradients of slot k: the fp32 sums over all M
+// rows, in order, of this warpgroup's 64 x NW tiles of D_g and D_u (the
+// accumulator layout of dw_tc_tile).  `xe`, `dhe`, `ge` and `ue` point at
+// unit e's rows.
+template <int BS, int NA, int KM>
+__device__ __forceinline__ void gated_dw_tc_tile(
+    const bf16* __restrict__ xe, const bf16* __restrict__ dhe,
+    const bf16* __restrict__ ge, const bf16* __restrict__ ue, int M, int nib,
+    int nob, int o, int ib, int a0, int cb, int aw, bf16* sm,
+    float (&accg)[GatedUpdTile<BS, NA, KM>::NW / 2],
+    float (&accu)[GatedUpdTile<BS, NA, KM>::NW / 2]) {
+  using L = GatedUpdTile<BS, NA, KM>;
+  constexpr int KK = KM / 16, LD = L::LD, XE = L::XE, DE = L::DE,
+                SE = L::SE, NW = L::NW, S = kUpdStages;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const size_t n_in = (size_t)nib * BS, n_out = (size_t)nob * BS;
+  const int T = (M + KM - 1) / KM;
+
+  // step t: rows [t KM, t KM + KM) of x (the slot's columns a0 + a), dh,
+  // g and u (block o's columns)
+  auto load = [&](int t, int st) {
+    const int m0 = t * KM;
+    bf16* const xs = sm + st * SE;
+    constexpr int XC = NA / 8;  // 16-byte chunks of an x row
+    const bf16* xc = xe + (size_t)ib * BS + a0;
+#pragma unroll
+    for (int v = 0; v < chunk_rounds(KM * XC); ++v) {
+      const int q = tid + v * kThreads, r = q / XC, c = q % XC;
+      if (q >= KM * XC) break;
+      const bool in = m0 + r < M;
+      cp_async16(smem_u32(xs + swz<KM>(r, c * 8)),
+                 xc + (size_t)(in ? m0 + r : 0) * n_in + c * 8, in ? 16 : 0);
+    }
+    bf16* const d = xs + XE;
+    constexpr int DC = BS / 8;  // 16-byte chunks of a dh row
+#pragma unroll
+    for (int v = 0; v < chunk_rounds(KM * DC); ++v) {
+      const int q = tid + v * kThreads, r = q / DC, c = q % DC;
+      if (q >= KM * DC) break;
+      const bool in = m0 + r < M;
+      const size_t off =
+          (size_t)(in ? m0 + r : 0) * n_out + (size_t)o * BS + c * 8;
+      const uint32_t so = smem_u32(d + r * LD + c * 8);
+      cp_async16(so, dhe + off, in ? 16 : 0);
+      cp_async16(so + DE * 2, ge + off, in ? 16 : 0);
+      cp_async16(so + 2 * DE * 2, ue + off, in ? 16 : 0);
+    }
+  };
+
+  // this lane's row address in tile j = lane / 8 of a k-step (as in
+  // dw_tc_tile)
+  const int j4 = lane >> 3;
+  const int frag_off = ((j4 >> 1) * 8 + (lane & 7)) * LD + cb + (j4 & 1) * 8;
+  const bool rows = cb < BS;  // false: the zero rows of a 32-wide block
+
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) accg[i] = accu[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < T) load(s, s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    const int st = t % S;
+    cp_async_wait<S - 2>();  // this thread's copies of step t landed
+    proxy_fence();
+    __syncthreads();  // everyone's; and every wgmma of step t - 1 done
+    const bf16* d = sm + st * SE + XE;
+    uint32_t ag[KK][4], au[KK][4];
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      uint32_t dv[4] = {0u, 0u, 0u, 0u}, gv[4] = {0u, 0u, 0u, 0u},
+               uv[4] = {0u, 0u, 0u, 0u};
+      if (rows) {
+        const uint32_t addr = smem_u32(d + kk * 16 * LD + frag_off);
+        ldsm_x4_t(dv, addr);
+        ldsm_x4_t(gv, addr + DE * 2);
+        ldsm_x4_t(uv, addr + 2 * DE * 2);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        gated_dz_t(dv[q], gv[q], uv[q], ag[kk][q], au[kk][q]);
+    }
+    // B's 16-row k-steps; this warpgroup's columns from aw, their
+    // 16-column atoms KM * 32 bytes apart
+    const uint32_t b_addr = smem_u32(sm + st * SE) + (aw / 16) * KM * 32;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      const uint64_t bd = desc(b_addr + kk * 16 * 32, KM * 32, 256);
+      Rs<NW, 1>::run(accg, ag[kk], bd);
+      Rs<NW, 1>::run(accu, au[kk], bd);
+    }
+    wg_commit();
+    if (t + S - 1 < T) load(t + S - 1, (t + S - 1) % S);
+    cp_async_commit();
+    wg_wait0();
+    pin(accg);
+    pin(accu);
+  }
+}
+
+// The fused update of the gated junction: wg and wi [E, nob, kb, BS, BS]
+// (bf16) with their fp32 slots, opt_step on every element of both; each
+// branch's sums staged through shared memory in turn and stepped in
+// step_tile's 16-byte rows.  One health flag per (e, o) tile, whichever
+// branch went non-finite.
+template <int BS, int NA, int KM, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    update_gated_tc_kernel(
+        const bf16* __restrict__ x, const bf16* __restrict__ dh,
+        const bf16* __restrict__ g, const bf16* __restrict__ u,
+        const int* __restrict__ idx, const float* __restrict__ hyp,
+        bf16* __restrict__ wg, bf16* __restrict__ wi, float* __restrict__ mg,
+        float* __restrict__ mi, float* __restrict__ vg,
+        float* __restrict__ vi, int* __restrict__ bad, int M, int nib,
+        int nob, int kb) {
+  constexpr int NW = GatedUpdTile<BS, NA, KM>::NW, CH = BS / NA;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+  const int k = blockIdx.x / CH, a0 = (blockIdx.x % CH) * NA;
+  const int o = blockIdx.y, e = blockIdx.z;
+  const size_t ofs = (size_t)e * M * nob * BS;
+  int cb, aw;
+  upd_place<BS, NA>(threadIdx.x, cb, aw);
+  float accg[NW / 2], accu[NW / 2];
+  gated_dw_tc_tile<BS, NA, KM>(x + (size_t)e * M * nib * BS, dh + ofs,
+                               g + ofs, u + ofs, M, nib, nob, o,
+                               idx[(size_t)o * kb + k], a0, cb, aw, sm, accg,
+                               accu);
+
+  const Hyp h = hyp_row(hyp, e);
+  bool ok = true;
+  const size_t st = (((((size_t)e * nob + o) * kb + k) * BS + a0) * BS);
+  float* const ds = reinterpret_cast<float*>(smem_raw);
+  __syncthreads();  // every warpgroup's last products have read the ring
+  stage_dt<BS, NA>(ds, accg, cb, aw);
+  __syncthreads();
+  step_tile<BS, NA>(h, ds, wg + st, mg == nullptr ? nullptr : mg + st,
+                    vg == nullptr ? nullptr : vg + st, ok);
+  __syncthreads();  // every thread's reads of D_g^T done
+  stage_dt<BS, NA>(ds, accu, cb, aw);
+  __syncthreads();
+  step_tile<BS, NA>(h, ds, wi + st, mi == nullptr ? nullptr : mi + st,
+                    vi == nullptr ? nullptr : vi + st, ok);
+  if (__syncthreads_or(!ok) && threadIdx.x == 0)
     atomicOr(&bad[(size_t)e * nob + o], 1);
 }
 
@@ -1014,6 +1314,52 @@ int launch_update(const void* x, const void* dy, const void* res,
                                       static_cast<int*>(health), nob);
   return (int)cudaGetLastError();
 }
+
+template <int BS, int NA, int MINB>
+int launch_dw(const void* x, const void* dy, const void* res,
+              const void* idx, void* dw, void* db, int E, int M, int nib,
+              int nob, int kb, int act, cudaStream_t stream) {
+  constexpr int SMEM = UpdTile<BS, NA>::SMEM;
+  const int err = set_smem(dw_tc_kernel<BS, NA, MINB>, SMEM);
+  if (err != 0) return err;
+  const dim3 grid(kb * (BS / NA), nob, E);
+  dw_tc_kernel<BS, NA, MINB><<<grid, kThreads, SMEM, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
+      static_cast<const bf16*>(res), static_cast<const int*>(idx),
+      static_cast<float*>(dw), static_cast<float*>(db), M, nib, nob, kb, act);
+  return (int)cudaGetLastError();
+}
+
+template <int BS, int NA, int KM, int MINB>
+int launch_update_gated(const void* x, const void* dh, const void* g,
+                        const void* u, const void* idx, const void* hyp,
+                        void* wg, void* wi, void* mg, void* mi, void* vg,
+                        void* vi, void* bad, void* health, int E, int M,
+                        int nib, int nob, int kb, cudaStream_t stream) {
+  constexpr int SMEM = GatedUpdTile<BS, NA, KM>::SMEM;
+  const int err = set_smem(update_gated_tc_kernel<BS, NA, KM, MINB>, SMEM);
+  if (err != 0) return err;
+  const dim3 grid(kb * (BS / NA), nob, E);
+  update_gated_tc_kernel<BS, NA, KM, MINB><<<grid, kThreads, SMEM, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dh),
+      static_cast<const bf16*>(g), static_cast<const bf16*>(u),
+      static_cast<const int*>(idx), static_cast<const float*>(hyp),
+      static_cast<bf16*>(wg), static_cast<bf16*>(wi), static_cast<float*>(mg),
+      static_cast<float*>(mi), static_cast<float*>(vg),
+      static_cast<float*>(vi), static_cast<int*>(bad), M, nib, nob, kb);
+  const int err2 = (int)cudaGetLastError();
+  if (err2 != 0) return err2;
+  health_kernel<<<E, 32, 0, stream>>>(static_cast<const int*>(bad),
+                                      static_cast<int*>(health), nob);
+  return (int)cudaGetLastError();
+}
+
+// The gated update's layout at block 128: 64-column halves of a slot in
+// 32-row K steps, two blocks an SM (a block's epilogue overlaps another's
+// products).  Whole slots at one block an SM (64- or 32-row steps) and
+// halves in 64-row steps at one block an SM were 29-53 % slower on an
+// H100 at qwen3-moe's gate junction, M 4 and 160 (PERF.md §6).
+constexpr int kGatedNA = 64, kGatedKM = 32, kGatedMinB = 2;
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
@@ -1104,4 +1450,55 @@ extern "C" int junction_update_dw_tc(const void* x, const void* dy,
   JUNCTION_TC_BS_SWITCH((launch_update<BS, BS, 2>(
       x, dy, res, idx, hyp, w, b, mom, mom_b, vel, vel_b, bad, health, E, M,
       nib, nob, kb, act, s)))
+}
+
+// The plain junction's weight gradient: dw fp32 [E, nob, kb, bs, bs]
+// (16-byte aligned) and, when db is not null, db fp32 [E, nob * bs];
+// `res` is null for "none".
+extern "C" int junction_dw_tc(const void* x, const void* dy, const void* res,
+                              const void* idx, void* dw, void* db, int E,
+                              int M, int nib, int nob, int kb, int bs,
+                              int act, void* stream) {
+  if (E <= 0 || M <= 0 || E > 65535 || nob > 65535 ||
+      (act != kNone && (res == nullptr || !aligned16(res))) ||
+      !aligned16(x) || !aligned16(dy) || !aligned16(dw))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  JUNCTION_TC_BS_SWITCH((launch_dw<BS, BS, 2>(x, dy, res, idx, dw, db, E, M,
+                                              nib, nob, kb, act, s)))
+}
+
+// The gated junction's fused update: wg and wi (bf16, 8-byte aligned)
+// with their fp32 slots (16-byte aligned; mg / mi both null or both
+// given, vg / vi likewise, v needs m); `bad` [E, nob] int32 zeros,
+// `health` [E] int32 written.
+extern "C" int junction_update_gated_dw_tc(
+    const void* x, const void* dh, const void* g, const void* u,
+    const void* idx, const void* hyp, void* wg, void* wi, void* mg, void* mi,
+    void* vg, void* vi, void* bad, void* health, int E, int M, int nib,
+    int nob, int kb, int bs, void* stream) {
+  if (E <= 0 || M <= 0 || E > 65535 || nob > 65535 || g == nullptr ||
+      u == nullptr || (mg == nullptr) != (mi == nullptr) ||
+      (vg == nullptr) != (vi == nullptr) || (vg != nullptr && mg == nullptr) ||
+      !aligned16(x) || !aligned16(dh) || !aligned16(g) || !aligned16(u) ||
+      (uintptr_t)wg % 8 != 0 || (uintptr_t)wi % 8 != 0 || !aligned16(mg) ||
+      !aligned16(mi) || !aligned16(vg) || !aligned16(vi))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bs) {
+    case 32:
+      return launch_update_gated<32, 32, 64, 2>(x, dh, g, u, idx, hyp, wg, wi,
+                                                mg, mi, vg, vi, bad, health, E,
+                                                M, nib, nob, kb, s);
+    case 64:
+      return launch_update_gated<64, 64, 64, 2>(x, dh, g, u, idx, hyp, wg, wi,
+                                                mg, mi, vg, vi, bad, health, E,
+                                                M, nib, nob, kb, s);
+    case 128:
+      return launch_update_gated<128, kGatedNA, kGatedKM, kGatedMinB>(
+          x, dh, g, u, idx, hyp, wg, wi, mg, mi, vg, vi, bad, health, E, M,
+          nib, nob, kb, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -2,9 +2,9 @@
 registry, the plain PyTorch versions and the wrappers of the CUDA kernels
 ``csrc/junction_fwd.cu``, ``csrc/junction_dx.cu`` and
 ``csrc/junction_dw.cu``, each in a plain and a gated form, of the
-tensor-core forms of fwd, dx, gated_fwd and update_dw in
-``csrc/junction_tc.cu`` (bf16; ``junction_variant`` routes), and of the
-quantized forwards of ``csrc/junction_quant.cu``.
+tensor-core forms of fwd, dx, dw, update_dw, gated_fwd and
+update_gated_dw in ``csrc/junction_tc.cu`` (bf16; ``junction_variant``
+routes), and of the quantized forwards of ``csrc/junction_quant.cu``.
 
 For E junction units sharing one block pattern (idx [nob, kb] and its
 reverse rev_ob / rev_t / rev_cnt [nib, fb]):
@@ -301,17 +301,19 @@ _FWD_BLOCKS = (32, 64, 128)
 # 128-row tile, mostly zeros) to 2048; at 1 row the SIMT kernel won at
 # the 2560 -> 6912 junction (chip_smoke.route_phase; PERF.md §6).  The
 # tensor-core gated_fwd won from 1 row on at qwen3-moe's gate junction,
-# and update_dw at the training rows; no path runs either below 4 rows
-# (an expert's capacity is at least 4), so one threshold serves all four.
+# and dw, update_dw and update_gated_dw at the training rows; no path
+# runs the backward kernels below 4 rows (an expert's capacity is at
+# least 4), so one threshold serves all six.
 TC_MIN_M = 4
 _TC_BLOCKS = (32, 64, 128)
 
 
 def junction_variant(dtype: torch.dtype, M: int, bs: int) -> str:
-    """The entry point ``fwd``, ``dx``, ``gated_fwd`` and ``update_dw``
-    launch on a CUDA tensor: "tc" (``junction_*_tc``, bf16 on tensor
-    cores) or "simt" (their ``junction_*`` entry points), from the
-    operand dtype, the rows M and the block size alone (no host sync)."""
+    """The entry point ``fwd``, ``dx``, ``dw``, ``update_dw``,
+    ``gated_fwd`` and ``update_gated_dw`` launch on a CUDA tensor: "tc"
+    (``junction_*_tc``, bf16 on tensor cores) or "simt" (their
+    ``junction_*`` entry points), from the operand dtype, the rows M and
+    the block size alone (no host sync)."""
     if dtype == torch.bfloat16 and M >= TC_MIN_M and bs in _TC_BLOCKS:
         return "tc"
     return "simt"
@@ -856,7 +858,10 @@ def dw_ref(x, dy, idx, res=None, act: str = "none", with_bias: bool = True):
 def dw(x, dy, idx, res=None, act: str = "none", with_bias: bool = True):
     """x [E, M, nib*bs], dy [E, M, nob*bs] -> (dw [E, nob, kb, bs, bs]
     fp32, db [E, nob*bs] fp32 or None).  CPU: ``dw_ref``; CUDA:
-    ``junction_dw`` (``dw.launches``)."""
+    ``junction_dw_tc`` or ``junction_dw`` as ``junction_variant`` says
+    (``dw.launches`` counts both, ``dw.tc_launches`` the first).  The
+    tensor-core dw sums in the order of ``junction_update_dw_tc``: the
+    gradient a fused update steps, bit for bit."""
     if _route(x, "junction dw"):
         return dw_ref(x, dy, idx, res, act, with_bias)
     _check_dw(x, dy, idx, res, act)
@@ -869,18 +874,26 @@ def dw(x, dy, idx, res=None, act: str = "none", with_bias: bool = True):
                       device=x.device)
     db = (torch.empty((E, nob * bs), dtype=torch.float32, device=x.device)
           if with_bias else None)
-    with torch.cuda.device(x.device):
-        err = _kernel("junction_dw", "junction_dw", 6, 8)(
-            x.data_ptr(), dy.data_ptr(), _ptr(res if act != "none" else None),
+    tc = junction_variant(x.dtype, M, bs) == "tc"
+    name = "junction_dw_tc" if tc else "junction_dw"
+    ptrs = (x.data_ptr(), dy.data_ptr(), _ptr(res if act != "none" else None),
             idx.data_ptr(), dwv.data_ptr(), _ptr(db), E, M, n_in // bs, nob,
-            kb, bs, ACTIVATIONS.index(act), _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "junction_dw")
+            kb, bs, ACTIVATIONS.index(act))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if tc:
+            err = _kernel("junction_tc", name, 6, 7)(*ptrs, stream)
+        else:
+            err = _kernel("junction_dw", name, 6, 8)(
+                *ptrs, _DTYPE_CODE[x.dtype], stream)
+    _raise_on(err, name)
     dw.launches += 1
+    dw.tc_launches += tc
     return dwv, db
 
 
 dw.launches = 0
+dw.tc_launches = 0
 
 
 # -------------------------------------------------------------- gated dw
@@ -1163,8 +1176,10 @@ def update_gated_dw(x, dh, idx, g, u, wg, wi, mg, mi, hyp, *, vg=None,
     SGD+momentum, plus vg / vi: Adam) from ``hyp`` (any shape
     ``normalize_hyp`` accepts).  Returns the [E] int32 non-finite tile
     counts, or None unless ``with_health``.  CPU:
-    ``update_gated_dw_ref``; CUDA: ``junction_update_gated_dw``
-    (``update_gated_dw.launches``)."""
+    ``update_gated_dw_ref``; CUDA: ``junction_update_gated_dw_tc`` or
+    ``junction_update_gated_dw`` as ``junction_variant`` says
+    (``update_gated_dw.launches`` counts both,
+    ``update_gated_dw.tc_launches`` the first)."""
     if _route(x, "junction update_gated_dw"):
         return update_gated_dw_ref(x, dh, idx, g, u, wg, wi, mg, mi, hyp,
                                    vg=vg, vi=vi, with_health=with_health)
@@ -1178,16 +1193,24 @@ def update_gated_dw(x, dh, idx, g, u, wg, wi, mg, mi, hyp, *, vg=None,
                 hyp=hyp)
     bad = torch.zeros((E, nob), dtype=torch.int32, device=x.device)
     health = torch.empty((E,), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _kernel("junction_dw", "junction_update_gated_dw", 14, 7)(
-            x.data_ptr(), dh.data_ptr(), g.data_ptr(), u.data_ptr(),
+    tc = junction_variant(x.dtype, M, bs) == "tc"
+    name = "junction_update_gated_dw_tc" if tc else "junction_update_gated_dw"
+    ptrs = (x.data_ptr(), dh.data_ptr(), g.data_ptr(), u.data_ptr(),
             idx.data_ptr(), hyp.data_ptr(), wg.data_ptr(), wi.data_ptr(),
             _ptr(mg), _ptr(mi), _ptr(vg), _ptr(vi), bad.data_ptr(),
-            health.data_ptr(), E, M, n_in // bs, nob, kb, bs,
-            _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "junction_update_gated_dw")
+            health.data_ptr(), E, M, n_in // bs, nob, kb, bs)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if tc:
+            err = _kernel("junction_tc", name, 14, 6)(*ptrs, stream)
+        else:
+            err = _kernel("junction_dw", name, 14, 7)(
+                *ptrs, _DTYPE_CODE[x.dtype], stream)
+    _raise_on(err, name)
     update_gated_dw.launches += 1
+    update_gated_dw.tc_launches += tc
     return health if with_health else None
 
 
 update_gated_dw.launches = 0
+update_gated_dw.tc_launches = 0

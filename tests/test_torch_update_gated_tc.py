@@ -384,12 +384,13 @@ def test_wrapper_route_at_every_path_shape(monkeypatch, kernel, M):
     tops.reset_launch_counts()
 
 
-def test_tensor_core_counts_have_four_keys_beside_the_sixteen():
+def test_tensor_core_counts_have_six_keys_beside_the_sixteen():
     assert len(tops.launch_counts()) == 16
     tops.reset_launch_counts()
     assert tops.tc_launch_counts() == {
-        "junction_fwd": 0, "junction_dx": 0, "junction_gated_fwd": 0,
-        "junction_update_dw": 0}
+        "junction_fwd": 0, "junction_dx": 0, "junction_dw": 0,
+        "junction_update_dw": 0, "junction_gated_fwd": 0,
+        "junction_update_gated_dw": 0}
     assert set(tops.tc_launch_counts()) <= set(tops.launch_counts())
 
 
