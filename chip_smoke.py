@@ -177,9 +177,9 @@ def close(got, want, tol) -> bool:
 
 def forced(P, variant):
     """The junction wrappers launch ``variant`` ("simt" or "tc") whatever
-    their route says (fwd, dx, dw, update_dw, gated_fwd and
-    update_gated_dw): times and checks of the entry point the route does
-    not take, on the same inputs."""
+    their route says (the plain and gated fwd, dx, dw and update): times
+    and checks of the entry point the route does not take, on the same
+    inputs."""
     return mock.patch.object(P.bsm, "junction_variant",
                              lambda *_: variant)
 
@@ -192,12 +192,16 @@ def forced_call(P, variant, fn):
     return call
 
 
-def in_turns(timer, tc_fn, simt_fn):
-    """(tensor-core ms, SIMT ms): both entry points timed in turns on the
-    same inputs (SIMT, tensor cores, tensor cores, SIMT), each the mean
-    of its two medians."""
-    ms = [timer.ms(f) for f in (simt_fn, tc_fn, tc_fn, simt_fn)]
-    return (ms[1] + ms[2]) / 2, (ms[0] + ms[3]) / 2
+def in_turns(timer, *fns):
+    """The ms of each of ``fns``, timed in turns on the same inputs, last
+    to first and then first to last (for a tensor-core and a SIMT entry
+    point: SIMT, tensor cores, tensor cores, SIMT), each the mean of its
+    two medians."""
+    order = list(range(len(fns)))[::-1]
+    ms = [0.0] * len(fns)
+    for k in order + order[::-1]:
+        ms[k] += timer.ms(fns[k]) / 2
+    return ms
 
 
 def with_tc(P, counts):
@@ -281,9 +285,9 @@ ROUTE_SHAPES = [("wg", 2560, 6912, "silu", 2, 1, (1, 4, 32, 64, 160, 2048)),
                 ("wi", 2560, 6912, "none", 0, 1, (1, 4, 32, 64, 160, 2048)),
                 ("wo", 6912, 2560, "none", 1, 1, (1, 4, 32, 64, 160, 2048)),
                 ("moe wo", 768, 2048, "none", 1, 128, (1, 4, 32, 64, 160))]
-# gated_fwd at qwen3-moe's expert gate junction (E = 128, 2048 -> 768):
-# a lone decode slot, a tick's and a prefill chunk's capacity, an
-# expert's training rows
+# gated_fwd and gated_dx at qwen3-moe's expert gate junction (E = 128,
+# 2048 -> 768): a lone decode slot, a tick's and a prefill chunk's
+# capacity, an expert's training rows
 GATED_ROUTE_ROWS = (1, 4, 32, 160)
 # update_dw (Adam) at stablelm-3b's wg junction and qwen3-moe's down
 # junction, at their training rows
@@ -295,8 +299,8 @@ DW_ROUTE = [(("wg", 2560, 6912, "silu", 2), 1, 2048),
             (("wi", 2560, 6912, "none", 0), 1, 2048),
             (("wo", 6912, 2560, "none", 1), 1, 2048),
             (("moe wo", 768, 2048, "none", 1), 128, 160)]
-# update_gated_dw (Adam) at qwen3-moe's gate junction: a tick's capacity
-# and an expert's training rows
+# update_gated_dw (Adam) and gated_dw at qwen3-moe's gate junction: a
+# tick's capacity and an expert's training rows
 GATED_UPDATE_ROUTE_ROWS = (4, 160)
 
 
@@ -305,8 +309,9 @@ def route_phase(P, timer, card):
     on the same inputs (SIMT, tensor cores, tensor cores, SIMT), at every
     row count from one row to the training rows; ``gated_fwd`` likewise
     at qwen3-moe's gate junction, ``update_dw`` and ``dw`` at the
-    training shapes and ``update_gated_dw`` at the gate junction, each
-    entry point also held against its plain version.
+    training shapes, ``update_gated_dw``, ``gated_dx`` and ``gated_dw``
+    at the gate junction, each entry point also held against its plain
+    version.
     Reported beside ``bsm.TC_MIN_M``, the threshold the route uses; the
     times are not gated on."""
     gen = torch.Generator(device="cuda")
@@ -456,6 +461,36 @@ def route_phase(P, timer, card):
         require(max(errs.values()) <= REL_TOL["bf16_sum"],
                 f"update_gated_dw M={M}: slots differ {errs}")
         del t, pt, sts
+    for M in GATED_ROUTE_ROWS:
+        t, pt = _moe_inputs(P, gen, MOE_SHAPES[0], MOE_E, M, torch.bfloat16)
+        cases = [("gated_dx", bsm.gated_dx, bsm.gated_dx_ref,
+                  (t["dy"], t["w"], t["wi"], pt["rev_ob"], pt["rev_t"],
+                   pt["rev_cnt"], t["g"], t["u"]), REL_TOL["bf16_out"])]
+        if M in GATED_UPDATE_ROUTE_ROWS:
+            cases.append(("gated_dw", bsm.gated_dw, bsm.gated_dw_ref,
+                          (t["x"], t["dy"], pt["idx"], t["g"], t["u"]),
+                          REL_TOL["bf16_sum"]))
+        for kind, fn, ref, args, tol in cases:
+            call = lambda: fn(*args)
+            want = ref(*args)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = {}
+            for v in ("simt", "tc"):
+                got = forced_call(P, v, call)()
+                got = got if isinstance(got, tuple) else (got,)
+                errs[v] = max(rel_err(a, b) for a, b in zip(got, want))
+            del got, want
+            tc, simt = in_turns(timer, forced_call(P, "tc", call),
+                                forced_call(P, "simt", call))
+            print(f"[route] junction_{kind} gate E={MOE_E} M={M} bf16: SIMT "
+                  f"{simt:.4f} ms, tensor cores {tc:.4f} ms "
+                  f"({simt / tc:.2f}x); rel_err SIMT {errs['simt']:.3g} "
+                  f"tensor cores {errs['tc']:.3g} (tol {tol:.3g}); route: "
+                  f"{bsm.junction_variant(torch.bfloat16, M, BS)} [{card}]")
+            require(max(errs.values()) <= tol,
+                    f"{kind} at M={M} disagrees with its plain version: "
+                    f"{errs}")
+        del t, pt, cases
     torch.cuda.empty_cache()
 
 
@@ -1056,7 +1091,7 @@ def train_kernel_phase(P, timer, card):
 
 
 def _simt_row(P, kfn, want):
-    """The SIMT entry point of fwd, dx, dw or gated_fwd on the inputs of
+    """The SIMT entry point of a junction kernel on the inputs of
     ``kfn``, where the route takes the tensor cores: (its relative error
     against the plain version's outputs ``want``, its call for the
     timer)."""
@@ -1087,9 +1122,10 @@ def tc_coverage_checks(P, gen):
     activation, with and without bias and save_pre (fwd), with its
     residual (dx), with and without db (dw, through both entry points);
     then block sizes 32 and 64, which the route sends there too;
-    gated_fwd, update_dw and update_gated_dw at a ragged M and blocks
-    128, 64 and 32; then the identity of the tensor-core dw with the
-    gradient the tensor-core update_dw steps."""
+    gated_fwd, update_dw, update_gated_dw, gated_dx and gated_dw at a
+    ragged M and blocks 128, 64 and 32, gated_dx's exact zeros for an
+    input block that feeds nothing; then the identity of the tensor-core
+    dw and gated_dw with the gradients the tensor-core updates step."""
     bsm = P.bsm
     lim = REL_TOL["bf16_out"]
     M = 2000
@@ -1186,6 +1222,53 @@ def tc_coverage_checks(P, gen):
             for case in ("poison", "freeze"):
                 _gated_update_case(P, gen, torch.bfloat16, opt, case, M=157,
                                    bs=bs)
+    # gated_dx and gated_dw at a ragged M (157: a 29-row second tile, a
+    # half-filled last K step), E = 2, blocks 128, 64 and 32, both entry
+    # points
+    for bs in (BS, 64, 32):
+        t, pt = _moe_inputs(P, gen, MOE_SHAPES[0], 2, 157, torch.bfloat16,
+                            bs=bs)
+        dx_args = (t["dy"], t["w"], t["wi"], pt["rev_ob"], pt["rev_t"],
+                   pt["rev_cnt"], t["g"], t["u"])
+        dw_args = (t["x"], t["dy"], pt["idx"], t["g"], t["u"])
+        dx_want, dw_want = bsm.gated_dx_ref(*dx_args), bsm.gated_dw_ref(
+            *dw_args)
+        errs = {}
+        for v in ("tc", "simt"):
+            dxv = forced_call(P, v, lambda: bsm.gated_dx(*dx_args))()
+            dwv = forced_call(P, v, lambda: bsm.gated_dw(*dw_args))()
+            errs[v] = (rel_err(dxv, dx_want),
+                       max(rel_err(a, b) for a, b in zip(dwv, dw_want)))
+        print(f"[check] gated_dx / gated_dw block {bs} E=2 M=157 bf16: "
+              f"rel_err tensor cores {errs['tc'][0]:.3g} / "
+              f"{errs['tc'][1]:.3g}, SIMT {errs['simt'][0]:.3g} / "
+              f"{errs['simt'][1]:.3g} (tol {lim:.3g} / "
+              f"{REL_TOL['bf16_sum']:.3g})")
+        require(all(e[0] <= lim and e[1] <= REL_TOL["bf16_sum"]
+                    for e in errs.values()),
+                f"gated_dx / gated_dw at block {bs} M=157 disagree: {errs}")
+        del t, pt, dx_want, dw_want, dxv, dwv
+    # input blocks 1 and 2 feed no output block (both outputs read block
+    # 0) and dh is inf everywhere: their dx is exact zeros, block 0's is
+    # not finite, through both entry points
+    idx = np.zeros((2, 1), np.int32)
+    rev = P.reverse_block_pattern(idx, 3)
+    require(list(rev[2]) == [2, 0, 0], f"reverse pattern {rev}")
+    rev = [torch.as_tensor(v, device="cuda") for v in rev]
+    r = lambda *sh: torch.randn(sh, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dh = torch.full((2, 157, 2 * BS), float("inf"), device="cuda").to(
+        torch.bfloat16)
+    args = (dh, r(2, 2, 1, BS, BS), r(2, 2, 1, BS, BS), *rev,
+            r(2, 157, 2 * BS), r(2, 157, 2 * BS))
+    for v in ("tc", "simt"):
+        got = forced_call(P, v, lambda: bsm.gated_dx(*args))().float()
+        zeros = bool((got[..., BS:] == 0).all()) and not bool(
+            torch.signbit(got[..., BS:]).any())
+        fed = not bool(torch.isfinite(got[..., :BS]).any())
+        print(f"[check] gated_dx ({v}) input blocks that feed nothing, dh "
+              f"inf: exact zeros {zeros}, the fed block non-finite {fed}")
+        require(zeros and fed, f"gated_dx ({v}): padded reverse slots read")
     gradient_identity_check(P, gen)
 
 
@@ -1211,7 +1294,9 @@ def gradient_identity_check(P, gen):
     gradient itself, and w and b as they were.  mom must equal dw, and
     mom_b db, bit for bit, at the wg junction (silu) and qwen3-moe's down
     junction: the clip pre-pass's norm is then the norm of the gradient
-    the fused update applies."""
+    the fused update applies.  Likewise the tensor-core gated_dw's dwg
+    and dwi against the mg and mi of the tensor-core update_gated_dw at
+    qwen3-moe's gate junction."""
     bsm = P.bsm
     hyp = torch.tensor([0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0], device="cuda")
     for shape, E, M in ((TRAIN_SHAPES[0], 1, TRAIN_M),
@@ -1241,6 +1326,27 @@ def gradient_identity_check(P, gen):
         require(same and kept and on_tc,
                 f"dw_tc and update_dw_tc's gradient differ at {name}")
         del t, pt, dwv, db, w, b, mom, mom_b
+    M = MOE_M["train"]
+    t, pt = _moe_inputs(P, gen, MOE_SHAPES[0], MOE_E, M, torch.bfloat16)
+    args = (t["x"], t["dy"], pt["idx"], t["g"], t["u"])
+    tc0 = P.ops.tc_launch_counts()
+    dwg, dwi = bsm.gated_dw(*args)
+    wg, wi = t["w"].clone(), t["wi"].clone()
+    mg, mi = torch.zeros(wg.shape, device="cuda"), torch.zeros(
+        wi.shape, device="cuda")
+    bsm.update_gated_dw(*args, wg, wi, mg, mi, hyp)
+    torch.cuda.synchronize()
+    tc1 = P.ops.tc_launch_counts()
+    on_tc = all(tc1[k] == tc0[k] + 1
+                for k in ("junction_gated_dw", "junction_update_gated_dw"))
+    same = torch.equal(mg, dwg) and torch.equal(mi, dwi)
+    kept = torch.equal(wg, t["w"]) and torch.equal(wi, t["wi"])
+    print(f"[check] gated_dw_tc vs update_gated_dw_tc's gradients gate "
+          f"E={MOE_E} M={M}: dwg and dwi bit for bit {same}, wg and wi kept "
+          f"{kept}, both on tensor cores {on_tc}")
+    require(same and kept and on_tc,
+            "gated_dw_tc and update_gated_dw_tc's gradients differ")
+    del t, pt, dwg, dwi, wg, wi, mg, mi
 
 
 def coverage_checks(P, gen):
@@ -1426,9 +1532,10 @@ def _sgd_w_ok(kw, pw, w0) -> bool:
     kernel (kw) and through the plain version (pw): each weight within
     one bf16 rounding of the plain one, plus the difference in the step
     that the gradient's own tolerance allows (``bf16_sum`` of the largest
-    weight change: a dz element whose fp32 value differs in its last bit,
-    expf against torch.sigmoid, and rounds to the other bf16 neighbour
-    moves a whole column of the gradient by up to a bf16 ulp of dz), plus
+    weight change: a dz element whose fp32 value differs in its last bit
+    (the kernels' one FMA of 1 + g (1 - s) against the plain version's two
+    roundings) and rounds to the other bf16 neighbour moves a whole
+    column of the gradient by up to a bf16 ulp of dz), plus
     two fp32 roundings of w.  The step difference matters only where
     w - lr * g cancels w almost exactly."""
     change = (pw.float() - w0.float()).abs().max()
@@ -1442,8 +1549,7 @@ def moe_kernel_phase(P, timer, card):
     (E = 128, 2048 -> 768) and the plain kernels at its down junction
     (768 -> 2048), at the decode rows (M = 4) and the training rows
     (M = 160), bf16 and fp32: each against its plain version and timed,
-    fwd, dx, dw, update_dw, gated_fwd and update_gated_dw through both
-    entry points in bf16.
+    all eight through both entry points in bf16.
     Then SGD / momentum / Adam, the health counts of tiles poisoned in one
     branch or both, and the zero-hyp freeze of the gated update."""
     bsm = P.bsm
@@ -1480,6 +1586,8 @@ def moe_kernel_phase(P, timer, card):
                          max_err(got, want), lambda: bsm.gated_dx(*dx_args),
                          lambda: bsm.gated_dx_ref(*dx_args),
                          _gated_cost("gated_dx", t, pt)))
+            if simt:
+                simt["gated_dx"] = _simt_row(P, rows[-1][4], (want,))
             dw_args = (t["x"], t["dy"], pt["idx"], t["g"], t["u"])
             got, want = bsm.gated_dw(*dw_args), bsm.gated_dw_ref(*dw_args)
             rows.append(("gated_dw", max(rel_err(a, b) for a, b in
@@ -1488,6 +1596,9 @@ def moe_kernel_phase(P, timer, card):
                          lambda: bsm.gated_dw(*dw_args),
                          lambda: bsm.gated_dw_ref(*dw_args),
                          _gated_cost("gated_dw", t, pt)))
+            if simt:
+                simt["gated_dw"] = _simt_row(P, rows[-1][4], want)
+            del got, want
             mom, vel = _adam_slots(gen, t["w"].shape)
             # the routed entry point, the plain version, the SIMT one
             states = [[t["w"].clone(), t["wi"].clone(), mom.clone(),
@@ -1744,7 +1855,7 @@ def _expected_launches(P, cfg, n_steps, kind):
 
 def _expected_tc(P, cfg, want):
     """Of the expected launches, those of the tensor-core entry points:
-    every fwd, dx, dw, update_dw, gated_fwd and update_gated_dw of the
+    every junction launch (plain and gated fwd, dx, dw and update) of the
     path where the route takes its compute dtype at its junctions' rows
     (M = 2048 a dense junction, the capacity C = 160 an expert) to the
     tensor cores, else none."""
@@ -2467,6 +2578,7 @@ def load_port() -> types.SimpleNamespace:
     from repro_torch import optim
     from repro_torch.configs import registry
     from repro_torch.core import fixed_point as fxp
+    from repro_torch.core.interleaver import reverse_block_pattern
     from repro_torch.core import quantize as qz
     from repro_torch.core.sparsity import SparsityConfig, make_block_pattern
     from repro_torch.data.pipeline import LMTokenPipeline
@@ -2485,7 +2597,8 @@ def load_port() -> types.SimpleNamespace:
     from repro_torch.tree import tree_items
     return types.SimpleNamespace(
         registry=registry, SparsityConfig=SparsityConfig,
-        make_block_pattern=make_block_pattern, bsm=bsm, fa=fa, ops=ops,
+        make_block_pattern=make_block_pattern,
+        reverse_block_pattern=reverse_block_pattern, bsm=bsm, fa=fa, ops=ops,
         M=M, engine=engine, percentile=percentile, optim=optim, steps=steps,
         LMTokenPipeline=LMTokenPipeline, tree_items=tree_items, build=build,
         qz=qz, fxp=fxp, quant_sweep=quant_sweep, fxk=fxk, ssk=ssk,

@@ -3,18 +3,20 @@
 // `junction_fwd_tc`, the backward to the input `junction_dx_tc`, the
 // weight gradient `junction_dw_tc`, the fused BP+UP update
 // `junction_update_dw_tc`, the gated (SwiGLU) forward
-// `junction_gated_fwd_tc` and the gated fused update
-// `junction_update_gated_dw_tc`.
+// `junction_gated_fwd_tc`, its backward to the input
+// `junction_gated_dx_tc`, its weight gradients `junction_gated_dw_tc` and
+// the gated fused update `junction_update_gated_dw_tc`.
 //
 // They compute what the SIMT entry points `junction_fwd`, `junction_dx`,
-// `junction_dw`, `junction_update_dw`, `junction_gated_fwd` and
-// `junction_update_gated_dw` (junction_fwd.cu, junction_dx.cu,
-// junction_dw.cu) compute, and replace the same Pallas TPU kernels, `fwd`,
-// `dx`, `dw`, `update_dw`, `gated_fwd` and `update_gated_dw` (fwd_kernel,
+// `junction_dw`, `junction_update_dw`, `junction_gated_fwd`,
+// `junction_gated_dx`, `junction_gated_dw` and `junction_update_gated_dw`
+// (junction_fwd.cu, junction_dx.cu, junction_dw.cu) compute, and replace
+// the same Pallas TPU kernels, `fwd`, `dx`, `dw`, `update_dw`,
+// `gated_fwd`, `gated_dx`, `gated_dw` and `update_gated_dw` (fwd_kernel,
 // dx_kernel, dw_kernel, fused_update_dw, gated_fwd_kernel,
-// fused_update_gated_dw) of src/repro/kernels/block_sparse_matmul.py, for
-// bf16; the wrappers' route (block_sparse_matmul.junction_variant) chooses
-// the entry point:
+// gated_dx_kernel, gated_dw_kernel, fused_update_gated_dw) of
+// src/repro/kernels/block_sparse_matmul.py, for bf16; the wrappers' route
+// (block_sparse_matmul.junction_variant) chooses the entry point:
 //
 //   y[e, m, o*bs + c] = act( sum_k sum_i x[e, m, idx[o,k]*bs + i]
 //                                        * w[e, o, k, i, c]  + bias[e, o*bs + c] )
@@ -22,8 +24,10 @@
 //       dz[e, m, rev_ob[i,f]*bs + c] * w[e, rev_ob[i,f], rev_t[i,f], a, c]
 //   h = silu(g) * u, g and u the forward's sums over wg and wi
 //   dw[e, o, k, a, c] = sum_m x[e, m, idx[o,k]*bs + a] * dz[e, m, o*bs + c]
-//   w[e, o, k, a, c] <- step(dw[e, o, k, a, c]); the gated form steps wg
-//       and wi from dz_g = dh * u * silu'(g) and dz_u = dh * silu(g)
+//   w[e, o, k, a, c] <- step(dw[e, o, k, a, c]); the gated forms take
+//       dz_g = dh * u * silu'(g) (against wg) and dz_u = dh * silu(g)
+//       (against wi): dx sums both streams' products, dw and the update
+//       keep one gradient a stream
 //
 // with the SIMT kernels' rounding points: an fp32 sum (a product of two
 // bf16 values is exact in fp32, so only the order of the sum differs),
@@ -51,8 +55,9 @@
 // whose act' the five slots' blocks each recompute), 0.80 ms at qwen3's
 // down junction (54 %); dw 0.15 ms a junction without activation, 0.34
 // with silu, 0.29 at qwen3's down junction; update_gated_dw (Adam) 1.17
-// ms at qwen3's gate junction, M = 160 (56 % of its bytes bound).  The
-// SIMT kernels ran fp32 FMAs at 1-3 % of the bf16 rate.
+// ms at qwen3's gate junction, M = 160 (56 % of its bytes bound);
+// gated_dx 0.37 ms there (31 %), gated_dw 0.42 (41 %).  The SIMT kernels
+// ran fp32 FMAs at 1-3 % of the bf16 rate.
 //
 // Design.  fwd, dx and gated_fwd: a block of two warpgroups owns one
 // (unit e, 128-row tile of M, output block o / input block i): a 128-row
@@ -106,6 +111,17 @@
 //   and stepped in turn.  At block 128 a block owns 64 of a slot's
 //   columns in 32-row K steps (two m64n64 accumulators, 60 KB of ring),
 //   two blocks an SM.
+// * gated_dw: the gated update's reduction (`gated_dw_tc_tile`, at the
+//   update's template arguments), so the clipped fused step measures the
+//   norm of the gradients it applies; dwg and dwi stored straight from the
+//   accumulators.  Bound by its fp32 stores (403 MB at qwen3-moe's gate
+//   junction).
+// * gated_dx: dx's kernel (`reverse_kernel`) with a second weight
+//   stream and dh, g, u staged in place of dy and res; both streams'
+//   products of a K step go into one accumulator.  The reverse fan-in of
+//   qwen3-moe's gate junction is 1-2 slots, so a block makes only 2-8 K
+//   steps, and the ring's fill and the epilogue are much of its life:
+//   blocks an SM matter more than ring depth (kGatedDxKS / kGatedDxNA / kGatedDxMinB; chip_layouts.py).
 // Two blocks an SM.  A deeper ring (up to 6 stages, one block an SM), a
 // wgmma group left in flight across steps, and dz of the next step
 // computed under this step's products were each slower on an H100 (fwd,
@@ -411,17 +427,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 }
 
 // ------------------------------------------------------------------- dx
-template <int BS>
-struct DxTile {
-  static constexpr int KS = BS < 64 ? BS : 64;  // K columns a step
-  static constexpr int LD = KS + 8;             // padded row of dy / res
-  static constexpr int DE = kBM * LD;           // dy (or res) tile
-  static constexpr int BE = BS * KS;            // weight tile
-  static constexpr int SE = 2 * DE + BE;        // a stage, elements
-  static constexpr int SMEM = kDxStages * SE * 2;  // bytes
-};
-
-// dz of elements (r, c) and (r, c + 1) of a stage, as a bf16 pair
+// dx's A producer (reverse_kernel with one weight stream, below): dz of
+// elements (r, c) and (r, c + 1) of a stage, as a bf16 pair
 __device__ __forceinline__ uint32_t dz_pair(const bf16* d, const bf16* res,
                                             int off, int act) {
   const __nv_bfloat162 dv = *reinterpret_cast<const __nv_bfloat162*>(d + off);
@@ -447,104 +454,6 @@ __device__ __forceinline__ void fragments(uint32_t (&af)[KK][4],
     af[kk][1] = dz_pair(d, d + DE, (r0 + 8) * LD + c, act);
     af[kk][2] = dz_pair(d, d + DE, r0 * LD + c + 8, act);
     af[kk][3] = dz_pair(d, d + DE, (r0 + 8) * LD + c + 8, act);
-  }
-}
-
-template <int BS>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    dx_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ res,
-              const bf16* __restrict__ w, const int* __restrict__ rev_ob,
-              const int* __restrict__ rev_t, const int* __restrict__ rev_cnt,
-              bf16* __restrict__ dx, int M, int nob, int kb, int nib, int fb,
-              int act) {
-  using L = DxTile<BS>;
-  constexpr int KS = L::KS, KK = KS / 16, SPS = BS / KS, S = kDxStages;
-  constexpr int LD = L::LD, DE = L::DE, SE = L::SE;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  // stage s: dy at s SE, res after it, the weight tile after that
-  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
-
-  const int i = blockIdx.x, m0 = blockIdx.y * kBM, e = blockIdx.z;
-  const int tid = threadIdx.x, wgi = tid >> 7;
-  const size_t n_out = (size_t)nob * BS, n_in = (size_t)nib * BS;
-  const bf16* dye = dy + (size_t)e * M * n_out;
-  const bf16* rese = act != kNone ? res + (size_t)e * M * n_out : nullptr;
-  const bf16* we = w + (size_t)e * nob * kb * BS * BS;
-  const int* obs = rev_ob + (size_t)i * fb;
-  const int* ts = rev_t + (size_t)i * fb;
-  const int T = rev_cnt[i] * SPS;
-
-  // step t: K columns [j0, j0 + KS) of valid reverse slot f
-  auto load = [&](int t, int st) {
-    const int f = t / SPS, j0 = (t % SPS) * KS;
-    const int ob = obs[f];
-    bf16* const d = sm + st * SE;
-    constexpr int AC = KS / 8;  // 16-byte chunks of a dy row
-    const size_t col = (size_t)ob * BS + j0;
-#pragma unroll
-    for (int u = 0; u < chunk_rounds(kBM * AC); ++u) {
-      const int q = tid + u * kThreads, r = q / AC, c = q % AC;
-      const bool in = m0 + r < M;
-      const size_t off = (size_t)(in ? m0 + r : 0) * n_out + col + c * 8;
-      cp_async16(smem_u32(d + r * LD + c * 8), dye + off, in ? 16 : 0);
-      if (rese != nullptr)
-        cp_async16(smem_u32(d + DE + r * LD + c * 8), rese + off,
-                   in ? 16 : 0);
-    }
-    bf16* const b = d + 2 * DE;
-    const bf16* ws = we + ((size_t)ob * kb + ts[f]) * BS * BS + j0;
-#pragma unroll
-    for (int u = 0; u < chunk_rounds(BS * AC); ++u) {
-      const int q = tid + u * kThreads, a = q / AC, c = q % AC;
-      if (q >= BS * AC) break;
-      cp_async16(smem_u32(b + swz<BS>(a, c * 8)), ws + (size_t)a * BS + c * 8,
-                 16);
-    }
-  };
-
-  const int lane = tid & 31, wi = (tid >> 5) & 3, g = lane >> 2,
-            tig = lane & 3;
-  const int r0 = wgi * 64 + wi * 16 + g;  // this thread's rows r0, r0 + 8
-
-  float acc[BS / 2];
-#pragma unroll
-  for (int q = 0; q < BS / 2; ++q) acc[q] = 0.f;
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < T) load(s, s);
-    cp_async_commit();
-  }
-  for (int t = 0; t < T; ++t) {
-    const int st = t % S;
-    cp_async_wait<S - 2>();  // this thread's copies of step t landed
-    proxy_fence();
-    __syncthreads();  // everyone's; and every wgmma of step t - 1 done
-    const bf16* d = sm + st * SE;
-    uint32_t af[KK][4];
-    fragments<KK, LD, DE>(af, d, r0, tig, act);
-    // B's 16-column k-steps, BS rows of 32 bytes each
-    const uint32_t b_addr = smem_u32(d + 2 * DE);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk)
-      Rs<BS, 0>::run(acc, af[kk], desc(b_addr + kk * BS * 32, 16, 256));
-    wg_commit();
-    if (t + S - 1 < T) load(t + S - 1, (t + S - 1) % S);
-    cp_async_commit();
-    wg_wait0();
-    pin(acc);
-  }
-
-  bf16* const dxi = dx + (size_t)e * M * n_in + (size_t)i * BS;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = m0 + r0 + 8 * h;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < BS / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dxi + (size_t)m * n_in + 8 * j +
-                                         2 * tig) =
-          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
 }
 
@@ -1064,9 +973,13 @@ struct GatedUpdTile {
 };
 
 // dz_g and dz_u of a register's two elements (rows m and m + 1 of one
-// column c): dh * u * silu'(g) and dh * silu(g) in fp32 from the stored
-// bf16 values, each rounded to bf16 once (junction_common.cuh's
-// gated_dz), silu's sigmoid taken once for both
+// column c in gated_dw_tc_tile, columns c and c + 1 of one row in
+// reverse_kernel): dh * u * silu'(g) and dh * silu(g) in fp32 from the
+// stored bf16 values, each rounded to bf16 once (junction_common.cuh's
+// gated_dz), silu's sigmoid taken once for both; both backward kernels
+// round dz through this one routine.  nvcc contracts 1 + g (1 - s) into
+// one FMA, which the plain version rounds twice: about one dz_g in 10^5
+// lands on the other bf16 neighbour (chip_layouts.py counts them)
 __device__ __forceinline__ void gated_dz_t(uint32_t dv, uint32_t gv,
                                            uint32_t uv, uint32_t& zg,
                                            uint32_t& zu) {
@@ -1235,6 +1148,217 @@ __global__ void __launch_bounds__(kThreads, MINB)
     atomicOr(&bad[(size_t)e * nob + o], 1);
 }
 
+// ------------------------------------------------------------- gated_dw
+// The gated junction's weight gradients, dwg and dwi [E, nob, kb, BS, BS]
+// in fp32: gated_dw_tc_tile's sums (the routine, the order and the layout
+// of update_gated_tc_kernel at the same template arguments, so that the
+// fused gated update steps bit for bit the gradients this kernel stores),
+// stored straight from the accumulators: a warp's store writes 8
+// neighbouring columns c (a 32-byte sector) of 4 rows a.  Staging D^T
+// through shared memory for 16-byte rows (dw's epilogue), one branch or
+// both at a time, was 3-23 % slower at qwen3-moe's gate junction, M 160,
+// on an H100 (PERF.md §6).
+template <int BS, int NA, int KM, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    gated_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dh,
+                       const bf16* __restrict__ g, const bf16* __restrict__ u,
+                       const int* __restrict__ idx, float* __restrict__ dwg,
+                       float* __restrict__ dwi, int M, int nib, int nob,
+                       int kb) {
+  constexpr int NW = GatedUpdTile<BS, NA, KM>::NW, CH = BS / NA;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+  const int k = blockIdx.x / CH, a0 = (blockIdx.x % CH) * NA;
+  const int o = blockIdx.y, e = blockIdx.z;
+  const size_t ofs = (size_t)e * M * nob * BS;
+  int cb, aw;
+  upd_place<BS, NA>(threadIdx.x, cb, aw);
+  float accg[NW / 2], accu[NW / 2];
+  gated_dw_tc_tile<BS, NA, KM>(x + (size_t)e * M * nib * BS, dh + ofs,
+                               g + ofs, u + ofs, M, nib, nob, o,
+                               idx[(size_t)o * kb + k], a0, cb, aw, sm, accg,
+                               accu);
+  if (cb >= BS) return;  // the zero rows of a 32-wide block
+
+  // element 4 j + 2 hh + q: row c = cb + gr + 8 hh, column a = aw + 8 j +
+  // 2 tig + q of D (dw_tc_tile's layout), dw[a][c] of the tile
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tig = lane & 3;
+  const size_t st = (((((size_t)e * nob + o) * kb + k) * BS + a0) * BS);
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const size_t off =
+            st + (size_t)(aw + 8 * j + 2 * tig + q) * BS + cb + gr + 8 * hh;
+        dwg[off] = accg[4 * j + 2 * hh + q];
+        dwi[off] = accu[4 * j + 2 * hh + q];
+      }
+}
+
+// ------------------------------------------------- dx and gated_dx
+// One kernel for both backward junctions to the input: a block owns
+// (unit e, 128-row tile of M, NA of input block i's BS columns a) and
+// sums the reverse products of every K step of its NW weight streams into
+// one fp32 accumulator,
+//   dx[m, a] = sum_{f < rev_cnt[i]} sum_c dz[m, c] w[ob, t][a, c]  (NW 1)
+//   dx[m, a] = sum_{f < rev_cnt[i]} sum_c dz_g[m, c] wg[ob, t][a, c]
+//                                       + dz_u[m, c] wi[ob, t][a, c]  (NW 2),
+// walking only the valid reverse slots (an input block that feeds no
+// output block gets exact zeros).  K steps of KS of an output block's
+// columns c.  B is each stream's forward-layout tile rows a (N) x
+// columns c (K), K-major: never transposed in memory.  A = dz from
+// registers: the NW + 1 activation tiles (dy and res; dh, g and u) are
+// staged as stored, rows padded to KS + 8 elements so that the fragment
+// reads are free of bank conflicts, and each thread computes the dz of
+// its own A fragments (dz_pair; gated_dz_t).
+template <int BS, int KS, int NA, int NW>
+struct RevTile {
+  static constexpr int LD = KS + 8;      // padded row of an activation tile
+  static constexpr int DE = kBM * LD;    // one activation tile
+  static constexpr int BE = NA * KS;     // one stream's weight tile
+  static constexpr int SE = (NW + 1) * DE + NW * BE;  // a stage, elements
+  static constexpr int SMEM = kDxStages * SE * 2;     // bytes
+};
+
+// gated_dx's A producer: the dz_g and dz_u A fragments of the KK k-steps
+// of a stage (rows r0 and r0 + 8, columns 16 kk + 2 tig (+ 1) and + 8, as
+// dx's `fragments`)
+template <int KK, int LD, int DE>
+__device__ __forceinline__ void gated_fragments(uint32_t (&ag)[KK][4],
+                                                uint32_t (&au)[KK][4],
+                                                const bf16* d, int r0,
+                                                int tig) {
+  const auto pair = [&](int off) {
+    return *reinterpret_cast<const uint32_t*>(d + off);
+  };
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    const int c = 16 * kk + 2 * tig;
+    const int off[4] = {r0 * LD + c, (r0 + 8) * LD + c, r0 * LD + c + 8,
+                        (r0 + 8) * LD + c + 8};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      gated_dz_t(pair(off[q]), pair(DE + off[q]), pair(2 * DE + off[q]),
+                 ag[kk][q], au[kk][q]);
+  }
+}
+
+template <int BS, int KS, int NA, int NW, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    reverse_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ res,
+                   const bf16* __restrict__ u, const bf16* __restrict__ w0,
+                   const bf16* __restrict__ w1,
+                   const int* __restrict__ rev_ob,
+                   const int* __restrict__ rev_t,
+                   const int* __restrict__ rev_cnt, bf16* __restrict__ dx,
+                   int M, int nob, int kb, int nib, int fb, int act) {
+  using L = RevTile<BS, KS, NA, NW>;
+  constexpr int KK = KS / 16, SPS = BS / KS, S = kDxStages, CH = BS / NA;
+  constexpr int LD = L::LD, DE = L::DE, BE = L::BE, SE = L::SE;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // stage s: the activation tiles at s SE (dy, res; dh, g, u), then the
+  // weight tiles (w; wg, wi)
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+
+  const int i = blockIdx.x / CH, a0 = (blockIdx.x % CH) * NA;
+  const int m0 = blockIdx.y * kBM, e = blockIdx.z;
+  const int tid = threadIdx.x, wgi = tid >> 7;
+  const size_t n_out = (size_t)nob * BS, n_in = (size_t)nib * BS;
+  const size_t ofs = (size_t)e * M * n_out;
+  // unit e's activation tiles: dx stages res only for an activation
+  const int NT = NW == 2 ? 3 : (act != kNone ? 2 : 1);
+  const bf16* const ae[3] = {dy + ofs, NT > 1 ? res + ofs : nullptr,
+                             NT > 2 ? u + ofs : nullptr};
+  // unit e's weights from row a0 of a tile
+  const size_t we = (size_t)e * nob * kb * BS * BS + (size_t)a0 * BS;
+  const int* obs = rev_ob + (size_t)i * fb;
+  const int* ts = rev_t + (size_t)i * fb;
+  const int T = rev_cnt[i] * SPS;
+
+  // step t: K columns [j0, j0 + KS) of valid reverse slot f
+  auto load = [&](int t, int st) {
+    const int f = t / SPS, j0 = (t % SPS) * KS;
+    const int ob = obs[f];
+    bf16* const d = sm + st * SE;
+    constexpr int AC = KS / 8;  // 16-byte chunks of an activation row
+    const size_t col = (size_t)ob * BS + j0;
+#pragma unroll
+    for (int v = 0; v < chunk_rounds(kBM * AC); ++v) {
+      const int q = tid + v * kThreads, r = q / AC, c = q % AC;
+      const bool in = m0 + r < M;
+      const size_t off = (size_t)(in ? m0 + r : 0) * n_out + col + c * 8;
+      const uint32_t so = smem_u32(d + r * LD + c * 8);
+#pragma unroll
+      for (int p = 0; p < NW + 1; ++p)
+        if (p < NT) cp_async16(so + p * DE * 2, ae[p] + off, in ? 16 : 0);
+    }
+    bf16* const b = d + (NW + 1) * DE;
+    const size_t ws = we + ((size_t)ob * kb + ts[f]) * BS * BS + j0;
+#pragma unroll
+    for (int v = 0; v < chunk_rounds(NA * AC); ++v) {
+      const int q = tid + v * kThreads, a = q / AC, c = q % AC;
+      if (q >= NA * AC) break;
+      const int so = swz<NA>(a, c * 8);
+      const size_t go = ws + (size_t)a * BS + c * 8;
+      cp_async16(smem_u32(b + so), w0 + go, 16);
+      if (NW == 2) cp_async16(smem_u32(b + BE + so), w1 + go, 16);
+    }
+  };
+
+  const int lane = tid & 31, wi4 = (tid >> 5) & 3, gr = lane >> 2,
+            tig = lane & 3;
+  const int r0 = wgi * 64 + wi4 * 16 + gr;  // this thread's rows r0, r0 + 8
+
+  float acc[NA / 2];
+#pragma unroll
+  for (int q = 0; q < NA / 2; ++q) acc[q] = 0.f;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < T) load(s, s);
+    cp_async_commit();
+  }
+  for (int t = 0; t < T; ++t) {
+    const int st = t % S;
+    cp_async_wait<S - 2>();  // this thread's copies of step t landed
+    proxy_fence();
+    __syncthreads();  // everyone's; and every wgmma of step t - 1 done
+    const bf16* d = sm + st * SE;
+    uint32_t af[NW][KK][4];
+    if constexpr (NW == 1)
+      fragments<KK, LD, DE>(af[0], d, r0, tig, act);
+    else
+      gated_fragments<KK, LD, DE>(af[0], af[1], d, r0, tig);
+    // B's 16-column k-steps, NA rows of 32 bytes each, stream after stream
+    const uint32_t b_addr = smem_u32(d + (NW + 1) * DE);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+        Rs<NA, 0>::run(acc, af[w][kk],
+                       desc(b_addr + w * BE * 2 + kk * NA * 32, 16, 256));
+    wg_commit();
+    if (t + S - 1 < T) load(t + S - 1, (t + S - 1) % S);
+    cp_async_commit();
+    wg_wait0();
+    pin(acc);
+  }
+
+  bf16* const dxi = dx + (size_t)e * M * n_in + (size_t)i * BS + a0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + r0 + 8 * h;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < NA / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dxi + (size_t)m * n_in + 8 * j +
+                                         2 * tig) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
 template <typename K>
 int set_smem(K kernel, int bytes) {
   if (bytes <= 48 * 1024) return 0;
@@ -1254,23 +1378,6 @@ int launch_fwd(const void* x, const void* w, const void* idx,
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const int*>(idx), static_cast<const bf16*>(bias),
       static_cast<bf16*>(y), static_cast<bf16*>(pre), M, nib, nob, kb, act);
-  return (int)cudaGetLastError();
-}
-
-template <int BS>
-int launch_dx(const void* dy, const void* res, const void* w,
-              const void* rev_ob, const void* rev_t, const void* rev_cnt,
-              void* dx, int E, int M, int nob, int kb, int nib, int fb,
-              int act, cudaStream_t stream) {
-  constexpr int SMEM = DxTile<BS>::SMEM;
-  const int err = set_smem(dx_kernel<BS>, SMEM);
-  if (err != 0) return err;
-  const dim3 grid(nib, (M + kBM - 1) / kBM, E);
-  dx_kernel<BS><<<grid, kThreads, SMEM, stream>>>(
-      static_cast<const bf16*>(dy), static_cast<const bf16*>(res),
-      static_cast<const bf16*>(w), static_cast<const int*>(rev_ob),
-      static_cast<const int*>(rev_t), static_cast<const int*>(rev_cnt),
-      static_cast<bf16*>(dx), M, nob, kb, nib, fb, act);
   return (int)cudaGetLastError();
 }
 
@@ -1354,12 +1461,58 @@ int launch_update_gated(const void* x, const void* dh, const void* g,
   return (int)cudaGetLastError();
 }
 
+template <int BS, int NA, int KM, int MINB>
+int launch_gated_dw(const void* x, const void* dh, const void* g,
+                    const void* u, const void* idx, void* dwg, void* dwi,
+                    int E, int M, int nib, int nob, int kb,
+                    cudaStream_t stream) {
+  constexpr int SMEM = GatedUpdTile<BS, NA, KM>::RING;
+  const int err = set_smem(gated_dw_tc_kernel<BS, NA, KM, MINB>, SMEM);
+  if (err != 0) return err;
+  const dim3 grid(kb * (BS / NA), nob, E);
+  gated_dw_tc_kernel<BS, NA, KM, MINB><<<grid, kThreads, SMEM, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(dh),
+      static_cast<const bf16*>(g), static_cast<const bf16*>(u),
+      static_cast<const int*>(idx), static_cast<float*>(dwg),
+      static_cast<float*>(dwi), M, nib, nob, kb);
+  return (int)cudaGetLastError();
+}
+
+// reverse_kernel: dx (NW 1: dy, res, w; u and w1 null) or gated_dx (NW 2:
+// dh, g, u, wg, wi)
+template <int BS, int KS, int NA, int NW, int MINB>
+int launch_reverse(const void* dy, const void* res, const void* u,
+                   const void* w0, const void* w1, const void* rev_ob,
+                   const void* rev_t, const void* rev_cnt, void* dx, int E,
+                   int M, int nob, int kb, int nib, int fb, int act,
+                   cudaStream_t stream) {
+  constexpr int SMEM = RevTile<BS, KS, NA, NW>::SMEM;
+  const int err = set_smem(reverse_kernel<BS, KS, NA, NW, MINB>, SMEM);
+  if (err != 0) return err;
+  const dim3 grid(nib * (BS / NA), (M + kBM - 1) / kBM, E);
+  reverse_kernel<BS, KS, NA, NW, MINB><<<grid, kThreads, SMEM, stream>>>(
+      static_cast<const bf16*>(dy), static_cast<const bf16*>(res),
+      static_cast<const bf16*>(u), static_cast<const bf16*>(w0),
+      static_cast<const bf16*>(w1), static_cast<const int*>(rev_ob),
+      static_cast<const int*>(rev_t), static_cast<const int*>(rev_cnt),
+      static_cast<bf16*>(dx), M, nob, kb, nib, fb, act);
+  return (int)cudaGetLastError();
+}
+
 // The gated update's layout at block 128: 64-column halves of a slot in
 // 32-row K steps, two blocks an SM (a block's epilogue overlaps another's
 // products).  Whole slots at one block an SM (64- or 32-row steps) and
 // halves in 64-row steps at one block an SM were 29-53 % slower on an
-// H100 at qwen3-moe's gate junction, M 4 and 160 (PERF.md §6).
+// H100 at qwen3-moe's gate junction, M 4 and 160 (PERF.md §6).  gated_dw
+// launches the same layout, so that its sums are the update's.
 constexpr int kGatedNA = 64, kGatedKM = 32, kGatedMinB = 2;
+
+// The gated dx's layout at block 128: the whole input block a block, K
+// steps of 32 columns (94 KB of ring), two blocks an SM.  On an H100 at
+// qwen3-moe's gate junction, M 160 and 4 (chip_layouts.py, PERF.md §6),
+// 64-column K steps (176 KB, one block an SM) were 36-37 % slower and
+// 64-column halves of the input block (dz made twice) 64-136 % slower.
+constexpr int kGatedDxKS = 32, kGatedDxNA = 128, kGatedDxMinB = 2;
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
@@ -1411,8 +1564,10 @@ extern "C" int junction_dx_tc(const void* dy, const void* res, const void* w,
       !aligned16(dy) || !aligned16(w))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  JUNCTION_TC_BS_SWITCH((launch_dx<BS>(dy, res, w, rev_ob, rev_t, rev_cnt,
-                                       dx, E, M, nob, kb, nib, fb, act, s)))
+  JUNCTION_TC_BS_SWITCH((launch_reverse<BS, (BS < 64 ? BS : 64), BS, 1,
+                                        kMinBlocks>(
+      dy, res, nullptr, w, nullptr, rev_ob, rev_t, rev_cnt, dx, E, M, nob, kb,
+      nib, fb, act, s)))
 }
 
 // The gated junction h = silu(x @ wg) * (x @ wi); g and u (the
@@ -1498,6 +1653,65 @@ extern "C" int junction_update_gated_dw_tc(
       return launch_update_gated<128, kGatedNA, kGatedKM, kGatedMinB>(
           x, dh, g, u, idx, hyp, wg, wi, mg, mi, vg, vi, bad, health, E, M,
           nib, nob, kb, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The gated junction's backward to the input, from dh and the residuals
+// g and u (all [E, M, nob * bs]) through the forward-layout wg and wi.
+extern "C" int junction_gated_dx_tc(const void* dh, const void* g,
+                                    const void* u, const void* wg,
+                                    const void* wi, const void* rev_ob,
+                                    const void* rev_t, const void* rev_cnt,
+                                    void* dx, int E, int M, int nob, int kb,
+                                    int nib, int fb, int bs, void* stream) {
+  if (E <= 0 || M <= 0 || (M + kBM - 1) / kBM > 65535 || E > 65535 ||
+      !aligned16(dh) || !aligned16(g) || !aligned16(u) || !aligned16(wg) ||
+      !aligned16(wi))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bs) {
+    case 32:
+      return launch_reverse<32, 32, 32, 2, 2>(dh, g, u, wg, wi, rev_ob, rev_t,
+                                              rev_cnt, dx, E, M, nob, kb, nib,
+                                              fb, kNone, s);
+    case 64:
+      return launch_reverse<64, 32, 64, 2, 2>(dh, g, u, wg, wi, rev_ob, rev_t,
+                                              rev_cnt, dx, E, M, nob, kb, nib,
+                                              fb, kNone, s);
+    case 128:
+      return launch_reverse<128, kGatedDxKS, kGatedDxNA, 2, kGatedDxMinB>(
+          dh, g, u, wg, wi, rev_ob, rev_t, rev_cnt, dx, E, M, nob, kb, nib,
+          fb, kNone, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The gated junction's weight gradients: dwg and dwi fp32 [E, nob, kb,
+// bs, bs] (16-byte aligned), in the layout and order of
+// junction_update_gated_dw_tc, from dh and the residuals g and u.
+extern "C" int junction_gated_dw_tc(const void* x, const void* dh,
+                                    const void* g, const void* u,
+                                    const void* idx, void* dwg, void* dwi,
+                                    int E, int M, int nib, int nob, int kb,
+                                    int bs, void* stream) {
+  if (E <= 0 || M <= 0 || E > 65535 || nob > 65535 || !aligned16(x) ||
+      !aligned16(dh) || !aligned16(g) || !aligned16(u) || !aligned16(dwg) ||
+      !aligned16(dwi))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bs) {
+    case 32:
+      return launch_gated_dw<32, 32, 64, 2>(x, dh, g, u, idx, dwg, dwi, E, M,
+                                            nib, nob, kb, s);
+    case 64:
+      return launch_gated_dw<64, 64, 64, 2>(x, dh, g, u, idx, dwg, dwi, E, M,
+                                            nib, nob, kb, s);
+    case 128:
+      return launch_gated_dw<128, kGatedNA, kGatedKM, kGatedMinB>(
+          x, dh, g, u, idx, dwg, dwi, E, M, nib, nob, kb, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,9 +1,8 @@
 """Block-sparse junction kernels: the activation table, the hyp-column
 registry, the plain PyTorch versions and the wrappers of the CUDA kernels
 ``csrc/junction_fwd.cu``, ``csrc/junction_dx.cu`` and
-``csrc/junction_dw.cu``, each in a plain and a gated form, of the
-tensor-core forms of fwd, dx, dw, update_dw, gated_fwd and
-update_gated_dw in ``csrc/junction_tc.cu`` (bf16; ``junction_variant``
+``csrc/junction_dw.cu``, each in a plain and a gated form, of their
+tensor-core forms in ``csrc/junction_tc.cu`` (bf16; ``junction_variant``
 routes), and of the quantized forwards of ``csrc/junction_quant.cu``.
 
 For E junction units sharing one block pattern (idx [nob, kb] and its
@@ -301,16 +300,16 @@ _FWD_BLOCKS = (32, 64, 128)
 # 128-row tile, mostly zeros) to 2048; at 1 row the SIMT kernel won at
 # the 2560 -> 6912 junction (chip_smoke.route_phase; PERF.md §6).  The
 # tensor-core gated_fwd won from 1 row on at qwen3-moe's gate junction,
-# and dw, update_dw and update_gated_dw at the training rows; no path
-# runs the backward kernels below 4 rows (an expert's capacity is at
-# least 4), so one threshold serves all six.
+# and dw, update_dw, update_gated_dw, gated_dx and gated_dw at the
+# training rows; no path runs the backward kernels below 4 rows (an
+# expert's capacity is at least 4), so one threshold serves all eight.
 TC_MIN_M = 4
 _TC_BLOCKS = (32, 64, 128)
 
 
 def junction_variant(dtype: torch.dtype, M: int, bs: int) -> str:
-    """The entry point ``fwd``, ``dx``, ``dw``, ``update_dw``,
-    ``gated_fwd`` and ``update_gated_dw`` launch on a CUDA tensor: "tc"
+    """The entry point the junction wrappers (``fwd``, ``dx``, ``dw``,
+    ``update_dw`` and their gated forms) launch on a CUDA tensor: "tc"
     (``junction_*_tc``, bf16 on tensor cores) or "simt" (their
     ``junction_*`` entry points), from the operand dtype, the rows M and
     the block size alone (no host sync)."""
@@ -807,8 +806,10 @@ def gated_dx(dh, wg, wi, rev_ob, rev_t, rev_cnt, g, u):
     """dh [E, M, nob*bs] with the forward's residuals g, u (same shape and
     dtype) -> dx [E, M, nib*bs] in dh's dtype, through the reverse
     pattern against the forward-layout wg and wi (already in dh's dtype).
-    CPU: ``gated_dx_ref``; CUDA: ``junction_gated_dx``
-    (``gated_dx.launches``)."""
+    CPU: ``gated_dx_ref``; CUDA: ``junction_gated_dx_tc`` or
+    ``junction_gated_dx`` as ``junction_variant`` says
+    (``gated_dx.launches`` counts both, ``gated_dx.tc_launches`` the
+    first)."""
     if _route(dh, "junction gated_dx"):
         return gated_dx_ref(dh, wg, wi, rev_ob, rev_t, rev_cnt, g, u)
     _check_gated_dx(dh, wg, wi, rev_ob, rev_t, rev_cnt, g, u)
@@ -819,19 +820,27 @@ def gated_dx(dh, wg, wi, rev_ob, rev_t, rev_cnt, g, u):
                 wi=wi, rev_ob=rev_ob, rev_t=rev_t, rev_cnt=rev_cnt, g=g, u=u)
     out = torch.empty((E, M, nib * bs), dtype=dh.dtype, device=dh.device)
     if M:
-        with torch.cuda.device(dh.device):
-            err = _kernel("junction_dx", "junction_gated_dx", 9, 8)(
-                dh.data_ptr(), g.data_ptr(), u.data_ptr(), wg.data_ptr(),
+        tc = junction_variant(dh.dtype, M, bs) == "tc"
+        name = "junction_gated_dx_tc" if tc else "junction_gated_dx"
+        ptrs = (dh.data_ptr(), g.data_ptr(), u.data_ptr(), wg.data_ptr(),
                 wi.data_ptr(), rev_ob.data_ptr(), rev_t.data_ptr(),
                 rev_cnt.data_ptr(), out.data_ptr(), E, M, nob, kb, nib, fb,
-                bs, _DTYPE_CODE[dh.dtype],
-                torch.cuda.current_stream().cuda_stream)
-        _raise_on(err, "junction_gated_dx")
+                bs)
+        with torch.cuda.device(dh.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            if tc:
+                err = _kernel("junction_tc", name, 9, 7)(*ptrs, stream)
+            else:
+                err = _kernel("junction_dx", name, 9, 8)(
+                    *ptrs, _DTYPE_CODE[dh.dtype], stream)
+        _raise_on(err, name)
         gated_dx.launches += 1
+        gated_dx.tc_launches += tc
     return out
 
 
 gated_dx.launches = 0
+gated_dx.tc_launches = 0
 
 
 # -------------------------------------------------------------------- dw
@@ -925,7 +934,11 @@ def gated_dw_ref(x, dh, idx, g, u):
 def gated_dw(x, dh, idx, g, u):
     """x [E, M, nib*bs], dh, g, u [E, M, nob*bs] -> (dwg, dwi)
     [E, nob, kb, bs, bs] fp32.  CPU: ``gated_dw_ref``; CUDA:
-    ``junction_gated_dw`` (``gated_dw.launches``)."""
+    ``junction_gated_dw_tc`` or ``junction_gated_dw`` as
+    ``junction_variant`` says (``gated_dw.launches`` counts both,
+    ``gated_dw.tc_launches`` the first).  The tensor-core gated_dw sums
+    in the order of ``junction_update_gated_dw_tc``: the gradients a
+    fused gated update steps, bit for bit."""
     if _route(x, "junction gated_dw"):
         return gated_dw_ref(x, dh, idx, g, u)
     _check_gated_dw(x, dh, idx, g, u)
@@ -937,18 +950,26 @@ def gated_dw(x, dh, idx, g, u):
     dwg = torch.empty((E, nob, kb, bs, bs), dtype=torch.float32,
                       device=x.device)
     dwi = torch.empty_like(dwg)
-    with torch.cuda.device(x.device):
-        err = _kernel("junction_dw", "junction_gated_dw", 7, 7)(
-            x.data_ptr(), dh.data_ptr(), g.data_ptr(), u.data_ptr(),
+    tc = junction_variant(x.dtype, M, bs) == "tc"
+    name = "junction_gated_dw_tc" if tc else "junction_gated_dw"
+    ptrs = (x.data_ptr(), dh.data_ptr(), g.data_ptr(), u.data_ptr(),
             idx.data_ptr(), dwg.data_ptr(), dwi.data_ptr(), E, M, n_in // bs,
-            nob, kb, bs, _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "junction_gated_dw")
+            nob, kb, bs)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if tc:
+            err = _kernel("junction_tc", name, 7, 6)(*ptrs, stream)
+        else:
+            err = _kernel("junction_dw", name, 7, 7)(
+                *ptrs, _DTYPE_CODE[x.dtype], stream)
+    _raise_on(err, name)
     gated_dw.launches += 1
+    gated_dw.tc_launches += tc
     return dwg, dwi
 
 
 gated_dw.launches = 0
+gated_dw.tc_launches = 0
 
 
 # ------------------------------------------------------- fused update_dw

@@ -65,6 +65,7 @@ _COUNTED = {"junction_fwd": bsm.fwd, "junction_dx": bsm.dx,
 # the kernels with a tensor-core entry point beside their SIMT one
 _TC_COUNTED = ("junction_fwd", "junction_dx", "junction_dw",
                "junction_update_dw", "junction_gated_fwd",
+               "junction_gated_dx", "junction_gated_dw",
                "junction_update_gated_dw")
 
 

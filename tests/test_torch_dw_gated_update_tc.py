@@ -27,18 +27,15 @@ are zeros and add nothing):
 Tolerances, ``chip_smoke.REL_TOL``, relative to max |want|: dw, db and
 the fp32 slots ``bf16_sum`` = 1e-3, fp32 sums of the same bf16 products
 in another order, where a dz element whose fp32 value differs in its
-last bit (the sigmoid as 1 / (1 + exp(-g)) against torch.sigmoid) can
-also round to the other bf16 neighbour; the bf16 weights ``bf16_out`` =
+last bit can also round to the other bf16 neighbour (here the sigmoid as
+1 / (1 + exp(-g)) against torch.sigmoid; on the card the kernels' one
+FMA of 1 + g (1 - s) against two roundings, as chip_layouts.py counts); the bf16 weights ``bf16_out`` =
 2^-7, one bf16 ulp, since both sides round fp32 values that differ only
 in that order (SGD and momentum weights also 1e-6 absolute, where w - lr
 * g cancels); Adam weights near the noise floor are held as on the card
 (``chip_smoke._adam_w_ok``).  The bit-for-bit identity with the update's
 gradient, the zero-hyp freeze and the health counts are exact.
 """
-import contextlib
-import importlib.util
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,31 +47,12 @@ from repro.kernels import block_sparse_matmul as jbsm
 from repro_torch.kernels import block_sparse_matmul as tbsm
 from repro_torch.kernels import ops as tops
 
-ROOT = Path(__file__).resolve().parents[1]
-
-
-def _load(name, path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-chip_smoke = _load("chip_smoke", ROOT / "chip_smoke.py")
-# the tensor-core update_dw's emulation and the recorder of C entry points
-ug = _load("update_gated_tc_emulation",
-           ROOT / "tests" / "test_torch_update_gated_tc.py")
-OUT_TOL = chip_smoke.REL_TOL["bf16_out"]
-SUM_TOL = chip_smoke.REL_TOL["bf16_sum"]
-W_TOL = ug.W_TOL
-KM, KM_GATED = 64, 32        # rows of M a K step: dw, update_gated_dw
-BF16 = torch.bfloat16
-# block-32 copies of qwen3-moe's expert gate and down junctions and of
-# stablelm-3b's 2560 -> 6912 and 6912 -> 2560 junctions, a block-64 and
-# a block-128 junction
-GATE, MDOWN, UP, DOWN, B64, WIDE = (ug.GATE, ug.MDOWN, ug.UP, ug.DOWN,
-                                    ug.B64, ug.WIDE)
-rel_err, _bf, _t, _pad_rows = ug.rel_err, ug._bf, ug._t, ug._pad_rows
+import torch_tc_helpers as ug
+from torch_tc_helpers import (B64, BF16, DOWN, GATE, KM, KM_GATED, MDOWN,
+                              SUM_TOL, UP, W_TOL, WIDE, _bf, _k_steps,
+                              _pad_rows, _t, chip_smoke,
+                              emulate_update_gated_dw_tc, gated_dz_tc,
+                              rel_err)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -87,10 +65,6 @@ def _one_torch_thread():
 
 
 # ------------------------------------------------------------- emulation
-def _k_steps(M, km):
-    return [slice(m0, min(m0 + km, M)) for m0 in range(0, M, km)]
-
-
 def emulate_dw_tc(x, dy, idx, res=None, act="none", with_bias=True, km=KM):
     """``junction_dw_tc``'s arithmetic: x [E, M, nib*bs], dy (and res)
     [E, M, nob*bs], bf16 -> (dw [E, nob, kb, bs, bs] fp32, db [E, nob*bs]
@@ -113,46 +87,6 @@ def emulate_dw_tc(x, dy, idx, res=None, act="none", with_bias=True, km=KM):
             xk = xb[:, rows][:, :, idx[:, k].long(), :].float()
             acc[:, :, k] += torch.einsum("emoa,emoc->eoac", xk, dzb)
     return acc, (db if with_bias else None)
-
-
-def gated_dz_tc(dh, g, u):
-    """The kernel's (dz_g, dz_u) in bf16 from bf16 dh, g, u: fp32 products
-    with silu's sigmoid 1 / (1 + exp(-g)) taken once for both branches."""
-    d, gv, uv = dh.float(), g.float(), u.float()
-    s = 1.0 / (1.0 + torch.exp(-gv))
-    return ((d * uv * (s * (1.0 + gv * (1.0 - s)))).to(dh.dtype),
-            (d * (gv * s)).to(dh.dtype))
-
-
-def emulate_update_gated_dw_tc(x, dh, idx, g, u, wg, wi, mg, mi, hyp,
-                               vg=None, vi=None, km=KM_GATED):
-    """``junction_update_gated_dw_tc``'s arithmetic on copies of the
-    operands: (wg, wi, mg, mi, vg, vi, health) after the step, the slots
-    None where absent."""
-    E, M, n_in = x.shape
-    nob, kb = idx.shape
-    bs = dh.shape[2] // nob
-    accg = torch.zeros((E, nob, kb, bs, bs))
-    accu = torch.zeros_like(accg)
-    xb = x.reshape(E, M, n_in // bs, bs)
-    for rows in _k_steps(M, km):
-        dzg, dzu = (z.float().reshape(E, -1, nob, bs) for z in
-                    gated_dz_tc(dh[:, rows], g[:, rows], u[:, rows]))
-        for k in range(kb):
-            xk = xb[:, rows][:, :, idx[:, k].long(), :].float()
-            accg[:, :, k] += torch.einsum("emoa,emoc->eoac", xk, dzg)
-            accu[:, :, k] += torch.einsum("emoa,emoc->eoac", xk, dzu)
-    hyp = tbsm.normalize_hyp(hyp, E)
-    ok = torch.ones((E, nob), dtype=torch.bool)
-    out = []
-    for acc, w, m, v in ((accg, wg, mg, vg), (accu, wi, mi, vi)):
-        nw, nm, nv, fin = tbsm._epilogue_step(tbsm._hyp_cols(hyp, E, 5), acc,
-                                              w.float(), m, v)
-        for t in fin:
-            ok &= torch.isfinite(t).reshape(E, nob, -1).all(dim=2)
-        out.append((nw.to(w.dtype), nm, nv))
-    (nwg, nmg, nvg), (nwi, nmi, nvi) = out
-    return nwg, nwi, nmg, nmi, nvg, nvi, (~ok).sum(dim=1).to(torch.int32)
 
 
 # ---------------------------------------------------------------- inputs

@@ -314,6 +314,7 @@ def test_tensor_core_counts_sit_beside_the_sixteen_kernel_counts():
     assert tops.tc_launch_counts() == {
         "junction_fwd": 0, "junction_dx": 0, "junction_dw": 0,
         "junction_update_dw": 0, "junction_gated_fwd": 0,
+        "junction_gated_dx": 0, "junction_gated_dw": 0,
         "junction_update_gated_dw": 0}
     pat, a = _inputs(UP, 1, 8, "none")
     tbsm.fwd(_t(a["x"]), _t(a["w"]), torch.from_numpy(pat.idx), _t(a["b"]))
