@@ -58,7 +58,11 @@ PyTorch built for CUDA.  It
    against their plain versions (bit for bit where the arithmetic allows)
    at stablelm-3b's FFN junctions, qwen3-moe's expert junctions and the
    PTQ sweep's MLP junctions (every paper triplet, and an int32 sum that
-   wraps), timed; serves both models again with ``quantize="int8"`` (on
+   wraps), timed; the int8 kernels also under the other split of their
+   slots than the plan's, at E 3 with blocks 32, 64 and 128 and rows 1,
+   16 and 33 (both paths, split and unsplit), and twice back to back with
+   equal bits (the split's tickets reset); serves both models again with
+   ``quantize="int8"`` (on
    the same weights: exact int8 launch counts, no floating-point junction
    launch, logits kernels vs plain versions, greedy agreement with the fp
    run); and runs ``launch.quant_sweep --fxp`` dynamic and calibrated to
@@ -2061,6 +2065,77 @@ def _quant_case(P, gen, shape, E, M, dtype, bits=8, granularity="block",
     return pat, torch.as_tensor(pat.idx, device="cuda"), x, codes, r(E, n_out)
 
 
+def int8_split_rule(P, blocks):
+    """The int8 wrappers' split aims at ``blocks`` blocks a launch
+    (``bsm._INT8_BLOCKS``): 1 leaves each output block to one block, a
+    large number splits it to one slot a block."""
+    return mock.patch.object(P.bsm, "_INT8_BLOCKS", blocks)
+
+
+UNSPLIT, ONE_SLOT = 1, 1 << 30
+# the redesign's coverage: E 3 at blocks 32, 64 and 128 (1024 -> 512 at
+# density 0.25: kb 8, 4, 2), rows 1 and 16 (dp4a: one row chunk, two) and
+# 33 (the mma path at block 128 in three row chunks, dp4a in five at
+# blocks 32 and 64), unsplit and one slot a block
+INT8_COVER = dict(E=3, n_in=1024, n_out=512, blocks=(32, 64, 128),
+                  rows=(1, 16, 33))
+
+
+def int8_coverage_checks(P, gen, card):
+    """fwd_int8 (act none: bit for bit) and gated_fwd_int8 (QUANT_TOL)
+    against their plain versions at INT8_COVER, bf16 and fp32, dynamic
+    scales (static at fp32, M 33), each plan unsplit and split; then two
+    back-to-back split calls that must give the same bits (the tickets
+    reset)."""
+    bsm = P.bsm
+    c = INT8_COVER
+    E = c["E"]
+    r = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    for bs in c["blocks"]:
+        pat = P.make_block_pattern(c["n_in"], c["n_out"], 0.25, bs, seed=3)
+        idx = torch.as_tensor(pat.idx, device="cuda")
+        nob, kb = pat.idx.shape
+        (wq, sc), (wi, si) = (
+            P.qz.quantize_weights(r(E, nob, kb, bs, bs) / (kb * bs) ** 0.5)
+            for _ in range(2))
+        b = r(E, c["n_out"])
+        for dtype in (torch.bfloat16, torch.float32):
+            for M in c["rows"]:
+                x = r(E, M, c["n_in"]).to(dtype)
+                xs = ((x.float().abs().amax(dim=(1, 2)) / 127.0).contiguous()
+                      if dtype == torch.float32 and M == 33 else None)
+                want_y = bsm.fwd_int8_ref(x, wq, idx, sc, b, "none", xs)
+                want_h = bsm.gated_fwd_int8_ref(x, wq, wi, idx, sc, si, xs)
+                for blocks in (UNSPLIT, ONE_SLOT):
+                    with int8_split_rule(P, blocks):
+                        plan = bsm.int8_plan(E, M, nob, kb, bs)
+                        y = bsm.fwd_int8(x, wq, idx, sc, b, "none", xs)
+                        h = bsm.gated_fwd_int8(x, wq, wi, idx, sc, si, xs)
+                        torch.cuda.synchronize()
+                        if blocks == ONE_SLOT:
+                            again = (bsm.fwd_int8(x, wq, idx, sc, b, "none",
+                                                  xs),
+                                     bsm.gated_fwd_int8(x, wq, wi, idx, sc,
+                                                        si, xs))
+                            torch.cuda.synchronize()
+                            require(bits_equal(again[0], y)
+                                    and bits_equal(again[1], h),
+                                    f"int8 bs={bs} M={M} {plan}: a second "
+                                    f"call gave other bits")
+                    err_h = max_err(h, want_h)
+                    print(f"[kernel] int8 coverage E={E} bs={bs} M={M} "
+                          f"{str(dtype)[6:]} static_x={xs is not None} plan="
+                          f"{plan}: fwd_int8 bit_equal="
+                          f"{torch.equal(y, want_y)}, gated max_abs_err="
+                          f"{err_h:.3g} ({QUANT_TOL[dtype]}) [{card}]")
+                    require(torch.equal(y, want_y),
+                            f"fwd_int8 bs={bs} M={M} {dtype} {plan} "
+                            f"disagrees with its plain version")
+                    require(close(h, want_h, QUANT_TOL[dtype]),
+                            f"gated_fwd_int8 bs={bs} M={M} {dtype} {plan} "
+                            f"disagrees with its plain version: {err_h}")
+
+
 def quant_kernel_phase(P, timer, card):
     """fwd_int8 at stablelm-3b's FFN junctions (decode M = 4, prefill
     M = 32; bf16 and fp32; dynamic and static activation scales, block
@@ -2068,14 +2143,25 @@ def quant_kernel_phase(P, timer, card):
     junction (E = 128) and at the sweep's int8 cohort; gated_fwd_int8 at
     qwen3-moe's gate junction (E = 128, M = 4); fwd_fxp at the sweep's
     junctions for every paper triplet and for a sum that wraps int32.
-    Each against its plain version, timed."""
+    Each against its plain version, timed; each int8 path shape again
+    under the other split (``int8_split_rule``), untimed; then
+    ``int8_coverage_checks``."""
     bsm = P.bsm
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                "bound_ms": 0.0, "bound_by": "", "library_ms": None}
            for k in ("fwd_int8", "gated_fwd_int8", "fwd_fxp")}
-    layer = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    layer = {M: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+             for M in (4, 32)}
+
+    def other_split(kind, what, fn, ref, exact, dtype, shape_args):
+        """The same call under the other split than its plan's."""
+        plan = P.bsm.int8_plan(*shape_args)
+        with int8_split_rule(P, UNSPLIT if plan[3] > 1 else ONE_SLOT):
+            other = P.bsm.int8_plan(*shape_args)
+            check(kind, f"{what}, again under plan={other}", fn, ref,
+                  exact, dtype, (0, 0), time_it=False)
 
     def check(kind, what, fn, ref, exact, dtype, cost, time_it=True):
         got, want = fn(), ref()
@@ -2108,19 +2194,31 @@ def quant_kernel_phase(P, timer, card):
                 fn = lambda: bsm.fwd_int8(x, wq, idx, sc, b, act)
                 ref = lambda: bsm.fwd_int8_ref(x, wq, idx, sc, b, act)
                 cost = _int8_cost(x, [wq], M, n_out, 1)
-                res = check("fwd_int8", f"{name} {n_in}->{n_out} M={M} "
-                            f"act={act}", fn, ref, act == "none", dtype, cost)
-                if dtype == torch.bfloat16 and M == 4:
-                    layer["ms"] += res[0]
-                    layer["plain_ms"] += res[1]
-                    layer["bytes"] += cost[0]
-                    layer["ops"] += cost[1]
-    bnd, by = bound_ms(layer["bytes"], layer["ops"], torch.int8)
-    print(f"[kernel] junction_fwd_int8 one layer's FFN at decode (wg+wi+wo, "
-          f"M=4, bf16): ms={layer['ms']:.4f} plain_ms="
-          f"{layer['plain_ms']:.4f} bound_ms={bnd:.4f} ({by}) [{card}]")
-    out["fwd_int8"].update(ms=layer["ms"], plain_ms=layer["plain_ms"],
-                           bound_ms=bnd, bound_by=by)
+                what = (f"{name} {n_in}->{n_out} M={M} act={act} plan="
+                        f"{bsm.int8_plan(1, M, *wq.shape[1:4])}")
+                res = check("fwd_int8", what, fn, ref, act == "none", dtype,
+                            cost)
+                other_split("fwd_int8", what, fn, ref, act == "none", dtype,
+                            (1, M, *wq.shape[1:4]))
+                if dtype == torch.bfloat16:
+                    lay = layer[M]
+                    lay["ms"] += res[0]
+                    lay["plain_ms"] += res[1]
+                    lay["bytes"] += cost[0]
+                    lay["ops"] += cost[1]
+    for M, where in ((4, "decode"), (32, "prefill")):
+        lay = layer[M]
+        bnd, by = bound_ms(lay["bytes"], lay["ops"], torch.int8)
+        print(f"[kernel] junction_fwd_int8 one layer's FFN at {where} "
+              f"(wg+wi+wo, M={M}, bf16): ms={lay['ms']:.4f} plain_ms="
+              f"{lay['plain_ms']:.4f} bound_ms={bnd:.4f} ({by}) [{card}]")
+        if M == 4:
+            out["fwd_int8"].update(ms=lay["ms"], plain_ms=lay["plain_ms"],
+                                   bound_ms=bnd, bound_by=by)
+        else:
+            out["fwd_int8"].update(prefill_ms=lay["ms"],
+                                   prefill_plain_ms=lay["plain_ms"],
+                                   prefill_bound_ms=bnd)
 
     # the options: static scales, unit scales, 4-bit codes, bias, ragged M
     name, n_in, n_out, _, pseed = TRAIN_SHAPES[0]
@@ -2152,11 +2250,13 @@ def quant_kernel_phase(P, timer, card):
                 if static else None
             fn = lambda: bsm.gated_fwd_int8(x, wg, wi, idx, sg, si, xs)
             ref = lambda: bsm.gated_fwd_int8_ref(x, wg, wi, idx, sg, si, xs)
-            res = check("gated_fwd_int8", f"gate E={MOE_E} {n_in}->{n_out} "
-                        f"M=4 static_x={static}", fn, ref, False, dtype,
+            what = f"gate E={MOE_E} {n_in}->{n_out} M=4 static_x={static}"
+            res = check("gated_fwd_int8", what, fn, ref, False, dtype,
                         _int8_cost(x, [wg, wi], 4, n_out, MOE_E,
                                    with_bias=False),
                         time_it=not static)
+            other_split("gated_fwd_int8", what, fn, ref, False, dtype,
+                        (MOE_E, 4, *wg.shape[1:4]))
             if dtype == torch.bfloat16 and not static:
                 out["gated_fwd_int8"].update(
                     ms=res[0], plain_ms=res[1], bound_ms=res[2],
@@ -2167,8 +2267,11 @@ def quant_kernel_phase(P, timer, card):
         b = torch.zeros((MOE_E, n_out), device="cuda")
         fn = lambda: bsm.fwd_int8(x, wq, idx, sc, b)
         ref = lambda: bsm.fwd_int8_ref(x, wq, idx, sc, b)
-        res = check("fwd_int8", f"down E={MOE_E} {n_in}->{n_out} M=4", fn,
-                    ref, True, dtype, _int8_cost(x, [wq], 4, n_out, MOE_E))
+        what = f"down E={MOE_E} {n_in}->{n_out} M=4"
+        res = check("fwd_int8", what, fn, ref, True, dtype,
+                    _int8_cost(x, [wq], 4, n_out, MOE_E))
+        other_split("fwd_int8", what, fn, ref, True, dtype,
+                    (MOE_E, 4, *wq.shape[1:4]))
         if dtype == torch.bfloat16:
             out["fwd_int8"].update(moe_down_ms=res[0], moe_down_plain_ms=res[1],
                                    moe_down_bound_ms=res[2])
@@ -2189,9 +2292,12 @@ def quant_kernel_phase(P, timer, card):
         sc = torch.stack([s for _, s in qs])
         fn = lambda: bsm.fwd_int8(x, wq, idx, sc, b, "sigmoid")
         ref = lambda: bsm.fwd_int8_ref(x, wq, idx, sc, b, "sigmoid")
-        res = check("fwd_int8", f"sweep {name} {n_in}->{n_out} E={SWEEP_E} "
-                    f"M={SWEEP_M} act=sigmoid", fn, ref, False, torch.float32,
+        what = (f"sweep {name} {n_in}->{n_out} E={SWEEP_E} M={SWEEP_M} "
+                f"act=sigmoid")
+        res = check("fwd_int8", what, fn, ref, False, torch.float32,
                     _int8_cost(x, [wq], SWEEP_M, n_out, SWEEP_E))
+        other_split("fwd_int8", what, fn, ref, False, torch.float32,
+                    (SWEEP_E, SWEEP_M, *wq.shape[1:4]))
         out["fwd_int8"][f"sweep_{name}_ms"] = res[0]
         for fmt in P.fxp.PAPER_TRIPLETS + ["wraps"]:
             wrap = fmt == "wraps"
@@ -2229,6 +2335,7 @@ def quant_kernel_phase(P, timer, card):
             if name == "l1" and fmt == P.fxp.PAPER_FMT:
                 out["fwd_fxp"].update(ms=res[0], plain_ms=res[1],
                                       bound_ms=res[2], bound_by=res[3])
+    int8_coverage_checks(P, gen, card)
     return out
 
 

@@ -1,8 +1,9 @@
 // Device helpers shared by the junction kernels (junction_fwd.cu,
 // junction_dx.cu, junction_dw.cu): element conversion, rounding to the
 // operand type, the activation table of block_sparse_matmul.act_fwd /
-// act_bwd, and the branch gradients of the gated junction.  Built without --use_fast_math: the Adam guards and isfinite()
-// of the update kernel need IEEE semantics.
+// act_bwd, and the branch gradients of the gated junction.  Built
+// without --use_fast_math: the Adam guards and isfinite() of the update
+// kernel need IEEE semantics.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +15,9 @@ enum Act { kNone = 0, kRelu = 1, kSigmoid = 2, kSilu = 3, kGelu = 4 };
 
 constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2/pi)
 constexpr float kGeluA = 0.044715f;
+// 3 * kGeluA as the plain version has it: the product in double, then
+// rounded to fp32 (3.f * kGeluA rounds to the fp32 value below it)
+constexpr float kGelu3A = static_cast<float>(3.0 * 0.044715);
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -54,23 +58,35 @@ __device__ __forceinline__ float act_fwd(float s, int act) {
   }
 }
 
+// silu'(r) = s (1 + r (1 - s)), s = sigmoid(r), one rounding a step in
+// the plain version's order: nvcc would contract 1 + r (1 - s) into one
+// FMA, which moves about one dz in 10^5 to the other bf16 neighbour.
+__device__ __forceinline__ float silu_grad(float r, float s) {
+  return __fmul_rn(s, __fadd_rn(1.f, __fmul_rn(r, __fsub_rn(1.f, s))));
+}
+
 // d act / d s from the residual: y for relu and sigmoid, the
-// pre-activation s for silu and gelu.  Not called for kNone.
+// pre-activation s for silu and gelu.  Not called for kNone.  silu and
+// gelu round every step as block_sparse_matmul.act_bwd does (no FMA).
 __device__ __forceinline__ float act_bwd(float r, int act) {
   switch (act) {
     case kRelu:
       return r > 0.f ? 1.f : 0.f;
     case kSigmoid:
       return r * (1.f - r);
-    case kSilu: {
-      const float sg = 1.f / (1.f + expf(-r));
-      return sg * (1.f + r * (1.f - sg));
-    }
+    case kSilu:
+      return silu_grad(r, 1.f / (1.f + expf(-r)));
     case kGelu: {
-      const float u = kGeluC * (r + kGeluA * r * r * r);
-      const float t = tanhf(u);
-      const float du = kGeluC * (1.f + 3.f * kGeluA * r * r);
-      return 0.5f * (1.f + t) + 0.5f * r * (1.f - t * t) * du;
+      // u = c (r + a r r r); du = c (1 + 3a r r);
+      // 0.5 (1 + t) + 0.5 r (1 - t t) du, t = tanh(u)
+      const float cube = __fmul_rn(__fmul_rn(__fmul_rn(kGeluA, r), r), r);
+      const float t = tanhf(__fmul_rn(kGeluC, __fadd_rn(r, cube)));
+      const float du = __fmul_rn(
+          kGeluC, __fadd_rn(1.f, __fmul_rn(__fmul_rn(kGelu3A, r), r)));
+      const float a = __fmul_rn(0.5f, __fadd_rn(1.f, t));
+      const float b = __fmul_rn(
+          __fmul_rn(__fmul_rn(0.5f, r), __fsub_rn(1.f, __fmul_rn(t, t))), du);
+      return __fadd_rn(a, b);
     }
     default:
       return 1.f;

@@ -977,9 +977,9 @@ struct GatedUpdTile {
 // reverse_kernel): dh * u * silu'(g) and dh * silu(g) in fp32 from the
 // stored bf16 values, each rounded to bf16 once (junction_common.cuh's
 // gated_dz), silu's sigmoid taken once for both; both backward kernels
-// round dz through this one routine.  nvcc contracts 1 + g (1 - s) into
-// one FMA, which the plain version rounds twice: about one dz_g in 10^5
-// lands on the other bf16 neighbour (chip_layouts.py counts them)
+// round dz through this one routine.  silu' rounds every step as the
+// plain version does (silu_grad: no FMA), so dz_g equals the plain dz_g
+// (chip_layouts.py counts the elements that differ)
 __device__ __forceinline__ void gated_dz_t(uint32_t dv, uint32_t gv,
                                            uint32_t uv, uint32_t& zg,
                                            uint32_t& zu) {
@@ -991,8 +991,8 @@ __device__ __forceinline__ void gated_dz_t(uint32_t dv, uint32_t gv,
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&uv));
   const float s0 = 1.f / (1.f + expf(-g.x)), s1 = 1.f / (1.f + expf(-g.y));
   const __nv_bfloat162 a =
-      __floats2bfloat162_rn(d.x * u.x * (s0 * (1.f + g.x * (1.f - s0))),
-                            d.y * u.y * (s1 * (1.f + g.y * (1.f - s1))));
+      __floats2bfloat162_rn(d.x * u.x * silu_grad(g.x, s0),
+                            d.y * u.y * silu_grad(g.y, s1));
   const __nv_bfloat162 b =
       __floats2bfloat162_rn(d.x * (g.x * s0), d.y * (g.y * s1));
   zg = *reinterpret_cast<const uint32_t*>(&a);

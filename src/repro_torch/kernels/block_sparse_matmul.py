@@ -473,6 +473,63 @@ def _check_int8(x, ws, idx, scales, bias, x_scale, name):
     _check_f32(x_scale, (E,), f"{name}: x_scale")
 
 
+# The int8 kernels' plan, from the shapes alone (no host read): which
+# path, how many rows of x a block takes, how many consecutive fan-in
+# slots, and so into how many blocks an output block's kb slots split.
+# mma.sync takes block 128 from INT8_MMA_MIN_M rows, the crossover that
+# chip_layouts.py measured on the H100 (at stablelm-3b's FFN layer dp4a
+# leads up to 16 rows, mma at 32; at qwen3-moe's 128 experts mma leads
+# from 16); the dp4a path takes all other calls.  A block takes at most
+# 8 rows on the dp4a path and 16 on the mma path (one row tile, its K
+# split over the warps).  Slots split until the grid has _INT8_BLOCKS
+# blocks (two a streaming multiprocessor of the H100), never finer than
+# one slot a block; a block's activation codes stay within
+# _INT8_XQ_BYTES of shared memory.
+INT8_MMA_MIN_M = 32
+_INT8_BLOCKS = 264
+_INT8_XQ_BYTES = 64 << 10
+
+
+def int8_variant(M: int, bs: int) -> str:
+    """"mma" (block 128 from INT8_MMA_MIN_M rows) or "dp4a"."""
+    return "mma" if bs == 128 and M >= INT8_MMA_MIN_M else "dp4a"
+
+
+def int8_rows_pad(variant: str, rows: int) -> int:
+    """The rows a block's tile holds for ``rows`` rows of x: 16 on the
+    mma path, 4 or 8 on the dp4a path."""
+    return 16 if variant == "mma" else (4 if rows <= 4 else 8)
+
+
+def int8_plan(E: int, M: int, nob: int, kb: int, bs: int):
+    """(variant, rows a block, slots a block, blocks an output block) of
+    the int8 kernels for E units, M >= 1 rows, nob output blocks of kb
+    slots at block bs; block s of an output block takes slots s * run ..
+    min(kb, (s + 1) * run) - 1."""
+    variant = int8_variant(M, bs)
+    rows = min(M, 16 if variant == "mma" else 8)
+    chunks = -(-M // rows)
+    nsplit = max(1, min(kb, -(-_INT8_BLOCKS // (E * nob * chunks))))
+    run = min(-(-kb // nsplit), max(1, _INT8_XQ_BYTES // (
+        int8_rows_pad(variant, rows) * (bs + 16))))
+    return variant, rows, run, -(-kb // run)
+
+
+def _int8_launch_args(x, nbr, E, M, nob, kb, bs):
+    """The plan's ints (mma, rows, run, nsplit) and the split's scratch
+    and tickets (None unsplit) of one int8 launch."""
+    variant, rows, run, nsplit = int8_plan(E, M, nob, kb, bs)
+    part = tickets = None
+    if nsplit > 1:
+        chunks = -(-M // rows)
+        part = torch.empty(nbr * E * chunks * nob * kb
+                           * int8_rows_pad(variant, rows) * 128,
+                           dtype=torch.float32, device=x.device)
+        from repro_torch.kernels import build
+        tickets = build.tickets(x.device, E * chunks * nob)
+    return (int(variant == "mma"), rows, run, nsplit), part, tickets
+
+
 def _check_codes_aligned(name, *codes):
     for w in codes:
         if w.data_ptr() % 16:
@@ -565,12 +622,13 @@ def fwd_int8(x, wq, idx, w_scale, bias, act: str = "none", x_scale=None):
     y = torch.empty((E, M, nob * bs), dtype=x.dtype, device=x.device)
     if M:
         with torch.cuda.device(x.device):
-            err = _kernel("junction_quant", "junction_fwd_int8", 7, 8)(
+            plan, part, tickets = _int8_launch_args(x, 1, E, M, nob, kb, bs)
+            err = _kernel("junction_quant", "junction_fwd_int8", 9, 12)(
                 x.data_ptr(), wq.data_ptr(), idx.data_ptr(),
                 w_scale.data_ptr(), bias.data_ptr(), _ptr(x_scale),
-                y.data_ptr(), E, M, n_in // bs, nob, kb, bs,
-                ACTIVATIONS.index(act), _DTYPE_CODE[x.dtype],
-                torch.cuda.current_stream().cuda_stream)
+                y.data_ptr(), _ptr(part), _ptr(tickets), E, M, n_in // bs,
+                nob, kb, bs, ACTIVATIONS.index(act), _DTYPE_CODE[x.dtype],
+                *plan, torch.cuda.current_stream().cuda_stream)
         _raise_on(err, "junction_fwd_int8")
         fwd_int8.launches += 1
     return y
@@ -609,11 +667,14 @@ def gated_fwd_int8(x, wgq, wiq, idx, wg_scale, wi_scale, x_scale=None):
     h = torch.empty((E, M, nob * bs), dtype=x.dtype, device=x.device)
     if M:
         with torch.cuda.device(x.device):
-            err = _kernel("junction_quant", "junction_gated_fwd_int8", 8, 7)(
+            plan, part, tickets = _int8_launch_args(x, 2, E, M, nob, kb, bs)
+            err = _kernel("junction_quant", "junction_gated_fwd_int8", 10,
+                          11)(
                 x.data_ptr(), wgq.data_ptr(), wiq.data_ptr(), idx.data_ptr(),
                 wg_scale.data_ptr(), wi_scale.data_ptr(), _ptr(x_scale),
-                h.data_ptr(), E, M, n_in // bs, nob, kb, bs,
-                _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+                h.data_ptr(), _ptr(part), _ptr(tickets), E, M, n_in // bs,
+                nob, kb, bs, _DTYPE_CODE[x.dtype], *plan,
+                torch.cuda.current_stream().cuda_stream)
         _raise_on(err, "junction_gated_fwd_int8")
         gated_fwd_int8.launches += 1
     return h

@@ -92,3 +92,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+_TICKETS: dict[str, torch.Tensor] = {}
+
+
+def tickets(device, n: int) -> torch.Tensor:
+    """The device's int32 tickets of a split kernel's combine (the last
+    block of a split to arrive adds the parts), allocated zero once and
+    grown when a call needs more; every kernel that takes them leaves them
+    zero, and the kernels that share them run on one stream in turn."""
+    t = _TICKETS.get(str(device))
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[str(device)] = t
+    return t

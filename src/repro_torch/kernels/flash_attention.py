@@ -26,6 +26,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels import build
+
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128        # the attention kernel's limit
 # the plain attention walks query rows in chunks of at most this many
@@ -77,7 +79,6 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _kernel():
-    from repro_torch.kernels import build
     fn = build.load("flash_decode").flash_decode
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -105,19 +106,6 @@ def decode_splits(B: int, Hkv: int, rep: int, ps: int, maxp: int,
                -(-_BLOCKS_PER_SM * n_sms // blocks))
     pps = -(-maxp // min(maxp, _MAX_SPLITS, max(1, want)))
     return -(-maxp // pps), pps
-
-
-_TICKETS: dict[int, torch.Tensor] = {}
-
-
-def _tickets(device, n: int) -> torch.Tensor:
-    """The device's int32 tickets of the split combine, allocated zero
-    once (grown when a call needs more); each call leaves them zero."""
-    t = _TICKETS.get(device.index)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _TICKETS[device.index] = t
-    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,7 +149,7 @@ def flash_decode(q, k_pool, v_pool, page_table, seq_lens):
         rows = B * Hkv * rep
         part = (torch.empty(rows * nsplit * (D + 2), dtype=torch.float32,
                             device=q.device) if nsplit > 1 else out)
-        tickets = _tickets(q.device, rows) if nsplit > 1 else out
+        tickets = build.tickets(q.device, rows) if nsplit > 1 else out
         err = _kernel()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                         page_table.data_ptr(), seq_lens.data_ptr(),
                         out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
@@ -227,7 +215,6 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def _attn_kernel():
-    from repro_torch.kernels import build
     fn = build.load("flash_attention").flash_attention
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_void_p]

@@ -253,11 +253,37 @@ def _update_case(dtype, opt, hyp=None, poison=False):
     return want, t, before, health, np.asarray(jout[6]).reshape(-1)
 
 
+def _update_failure(k, got, want, before, dtype, tol):
+    """What leaf k of ``_update_case`` holds at its worst element (the
+    element furthest past the tolerance): both results, the branch
+    gradient there from each side (the reference's gated_dw in interpret
+    mode, the port's plain one) and the weight and slots before the
+    step, so that a failure shows which side moved."""
+    g, w = _np(got), _np(want)
+    i = np.unravel_index(np.argmax(np.abs(g - w) - tol["atol"]
+                                   - tol["rtol"] * np.abs(w)), g.shape)
+    pat, a = _inputs(GATE, 2, seed=4)
+    args = [a[n] for n in ("x", "dh")]
+    res = [a[n] for n in ("g", "u")]
+    jg = jbsm.gated_dw(*(_j(v, dtype) for v in args), pat.idx,
+                       *(_j(v, dtype) for v in res), interpret=True)
+    tg = tbsm.gated_dw_ref(*(_t(v, dtype) for v in args),
+                           torch.from_numpy(pat.idx),
+                           *(_t(v, dtype) for v in res))
+    br = 0 if k.endswith("g") else 1                 # wg / mg / vg: dz_g
+    was = {n: None if before[n] is None else _np(before[n])[i]
+           for n in (c + "gi"[br] for c in "wmv")}
+    return (f"leaf {k}, element {tuple(int(j) for j in i)}: port "
+            f"{g[i]!r}, reference {w[i]!r}; gradient: port "
+            f"{_np(tg[br])[i]!r}, reference {_np(jg[br])[i]!r}; before the "
+            f"step: {was}")
+
+
 @pytest.mark.parametrize("opt,dtype", [
     ("sgd", "float32"), ("momentum", "float32"), ("adam", "float32"),
     ("adam", "bfloat16")])
 def test_update_gated_dw_ref_matches_reference(opt, dtype):
-    want, got, _, health, jhealth = _update_case(dtype, opt)
+    want, got, before, health, jhealth = _update_case(dtype, opt)
     tol = dict(atol=2e-5, rtol=1e-5) if dtype == "float32" else BF16
     for k, v in got.items():
         if v is None:
@@ -265,7 +291,12 @@ def test_update_gated_dw_ref_matches_reference(opt, dtype):
             continue
         assert v.dtype == (TDT[dtype] if k in ("wg", "wi")
                            else torch.float32)
-        np.testing.assert_allclose(_np(v), _np(want[k]), err_msg=k, **tol)
+        try:
+            np.testing.assert_allclose(_np(v), _np(want[k]), err_msg=k,
+                                       **tol)
+        except AssertionError as e:
+            raise AssertionError(f"{e}\n" + _update_failure(
+                k, v, want[k], before, dtype, tol)) from None
     assert health.tolist() == jhealth.tolist() == [0, 0]
 
 

@@ -238,7 +238,7 @@ def test_wrapper_route_at_every_path_shape(monkeypatch, kernel, M):
     tops.reset_launch_counts()
 
 
-def test_tensor_core_counts_have_six_keys_beside_the_sixteen():
+def test_tensor_core_counts_name_each_tensor_core_entry_point():
     assert len(tops.launch_counts()) == 16
     tops.reset_launch_counts()
     assert tops.tc_launch_counts() == {

@@ -1,10 +1,11 @@
-"""What the tests of the port's tensor-core junction kernels share
-(test_torch_update_gated_tc.py, test_torch_dw_gated_update_tc.py and
-test_torch_gated_bwd_tc.py): the chip script's tolerances, small copies
-of the path's junction shapes, bf16 round trips, optimizer hyp rows, the
-emulations of the two tensor-core update kernels and of the gated dz they
-and the gated backward kernels round, and a recorder of the C entry
-points the wrappers launch."""
+"""What the tests of the port's redesigned junction kernels share
+(test_torch_update_gated_tc.py, test_torch_dw_gated_update_tc.py,
+test_torch_gated_bwd_tc.py and test_torch_quant_redesign.py): the chip
+script's tolerances, small copies of the path's junction shapes, bf16
+round trips, optimizer hyp rows, the emulations of the two tensor-core
+update kernels and of the gated dz they and the gated backward kernels
+round, and a recorder of the C entry points the wrappers launch, with
+their arguments."""
 import contextlib
 import importlib.util
 import re
@@ -109,7 +110,10 @@ def emulate_update_dw_tc(x, dy, idx, res, w, b, mom, mom_b, hyp, vel=None,
 
 def gated_dz_tc(dh, g, u):
     """The kernel's (dz_g, dz_u) in bf16 from bf16 dh, g, u: fp32 products
-    with silu's sigmoid 1 / (1 + exp(-g)) taken once for both branches."""
+    with silu's sigmoid 1 / (1 + exp(-g)) taken once for both branches.
+    Each torch op rounds, so 1 + g (1 - s) is rounded twice, as the
+    kernels' ``silu_grad`` rounds it (no FMA) and as ``bsm._gated_dz``
+    does."""
     d, gv, uv = dh.float(), g.float(), u.float()
     s = 1.0 / (1.0 + torch.exp(-gv))
     return ((d * uv * (s * (1.0 + gv * (1.0 - s)))).to(dh.dtype),
@@ -191,16 +195,25 @@ def _c_prototype(name):
     raise AssertionError(f"no entry point {name}")
 
 
+class _Calls(list):
+    """The recorded launches, and in ``args`` each launch's arguments."""
+
+    def __init__(self):
+        super().__init__()
+        self.args = []
+
+
 @contextlib.contextmanager
 def _launch_recorder(monkeypatch):
     """The wrappers' CUDA branch on CPU tensors: every launch is recorded
-    as (library, entry point, pointer count, int count, argument count)
-    and returns success; nothing runs."""
-    calls = []
+    as (library, entry point, pointer count, int count, argument count),
+    its arguments in ``calls.args``, and returns success; nothing runs."""
+    calls = _Calls()
 
     def kernel(lib, name, n_ptr, n_int):
         def fn(*args):
             calls.append((lib, name, n_ptr, n_int, len(args)))
+            calls.args.append(args)
             return 0
         return fn
     monkeypatch.setattr(tbsm, "_route", lambda *_: False)
