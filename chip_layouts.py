@@ -1,7 +1,6 @@
 #!/usr/bin/env python3
-"""Time the int8 kernels' layouts on one NVIDIA card beside the parent
-commit's kernel, and read the backward's dz rounding against the plain
-versions.
+"""Time the fixed-point kernels, ``junction_fwd_fxp`` and ``fxp_qmatmul``,
+on one NVIDIA card beside the parent commit's, in turns.
 
     python3 chip_layouts.py [--parent DIR]
 
@@ -9,47 +8,36 @@ from the root of a checkout, on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA.  DIR holds the parent commit's
 ``src/repro_torch/csrc`` (for example ``git archive <parent>
 src/repro_torch/csrc | tar -x -C build/parent``, then ``--parent
-build/parent/src/repro_torch/csrc``; ``build/`` is git-ignored).  It
-builds, under ``build/layouts/``, ``csrc/junction_quant.cu`` at ring
-depths 2 and 4 (the source has 3) and, with DIR, the parent's
-``junction_quant.cu``, ``junction_tc.cu``, ``junction_dx.cu`` and
-``junction_dw.cu``, all nvcc processes started together.  Then:
+build/parent/src/repro_torch/csrc``; ``build/`` is git-ignored); its
+``junction_quant.cu`` and ``fxp_qmatmul.cu`` are built under
+``build/layouts/``, one nvcc each, started together.  Then:
 
-1. the floor of ``chip_smoke.Timer`` (a one-element fill), and each case
-   of 2. also after a flush that reads (``ReadFlush``);
-2. ``fwd_int8`` at a stablelm-3b FFN layer (wg + wi + wo) at decode (M 4)
-   and prefill (M 32), at qwen3-moe's down junction (E 128, M 4) and the
-   sweep's 1024 -> 512 junction (E 6, M 512, fp32), ``gated_fwd_int8``
-   at qwen3-moe's gate junction (E 128, M 4): the landed kernel, ring
-   depths 2 and 4, no split and one slot a block (``bsm._INT8_BLOCKS``),
-   the other path (``bsm.int8_variant``) and the parent's kernel, each
-   output equal bit for bit to the landed kernel's, timed in turns
-   (parent first and last, ``chip_smoke.in_turns``);
-3. the path's crossover: dp4a against mma.sync from 4 to 64 rows at the
-   stablelm layer and the qwen3 gate, beside ``bsm.INT8_MMA_MIN_M``;
-4. with DIR, every kernel that rounds dz through ``act_bwd`` or
-   ``gated_dz_t`` against the parent's, in turns: dx, dw and Adam
-   update_dw at stablelm-3b's wg junction (M 2048, silu and gelu), and
-   gated_dx, gated_dw and Adam update_gated_dw at qwen3-moe's gate
-   junction (M 160), through both entry points;
-5. ``gated_dw_rounding``: on seeds 1-4 at the gate junction (E 128, M
-   160), both gated_dw entry points' error against ``gated_dw_ref`` and
-   the Adam update_gated_dw's slot error against ``update_gated_dw_ref``,
-   and the dz_g / dz_u elements each entry point rounds to the other bf16
-   neighbour of the plain version's (read exactly by gated_dw of a
-   one-hot x); the same count for dw's dz under gelu (and silu) at the
-   wg junction; with DIR, the parent's counts beside them.
+1. the floor of ``chip_smoke.Timer`` (a one-element fill);
+2. the IMMA instructions of ``fxp_qmatmul_kernel`` and
+   ``junction_fxp_kernel`` in the built libraries (``cuobjdump -sass``);
+3. at every shape ``chip_smoke.py`` times (qmatmul at 512 x 1024 x 512
+   at every paper triplet and beyond 16 bits, at 4096^3 at the paper
+   triplet, bw 8 and beyond 16 bits, the K split for occupancy at 16 x
+   65536 x 16 and by the chunk at 1024 x 16384 x 1024; fwd_fxp at the
+   sweep's two layers at every triplet and
+   beyond 16 bits) and at fwd_fxp blocks 32 and 64: the landed kernel,
+   with its K split for occupancy turned off where it has one
+   (``fxp_qmatmul.TC_BLOCKS`` = 1), and, with DIR, the parent's kernels
+   at their old C signatures, each output equal bit for bit to the plain
+   version, timed in turns (``chip_smoke.in_turns``);
+4. with DIR, ``chip_smoke.sweep_phase`` with the parent's fwd_fxp and
+   the landed one, in turns: wall time and launch counts.
 
-It exits 1 without a card and 2 when a layout disagrees with the landed
-kernel or a check fails.
+It exits 1 without a card and 2 when an output disagrees with its plain
+version or a kernel holds no IMMA.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import ctypes
 import subprocess
 import sys
+import time
 from pathlib import Path
 from unittest import mock
 
@@ -57,390 +45,228 @@ import torch
 
 import chip_smoke as C
 
-RINGS = (2, 4)
-PARENT_SOURCES = ("junction_quant", "junction_tc", "junction_dx",
-                  "junction_dw")
-CROSSOVER_ROWS = (4, 8, 16, 32, 64)
+PARENT_SOURCES = ("junction_quant", "fxp_qmatmul")
 
 
-def build_libs(P, parent: Path | None) -> dict[str, ctypes.CDLL]:
-    """The ring-depth variants of junction_quant.cu and the parent's
-    sources, each its own library; one nvcc each, all started together."""
+def build_parent(P, parent: Path) -> dict[str, ctypes.CDLL]:
+    """The parent's sources, each its own library; one nvcc each, all
+    started together."""
     out = C.ROOT / "build" / "layouts"
     out.mkdir(parents=True, exist_ok=True)
-    srcs = {}
-    text = (P.build.CSRC / "junction_quant.cu").read_text()
-    landed = "constexpr int kInt8Stages = 3;"
-    if landed not in text:
-        raise RuntimeError("junction_quant.cu no longer sets kInt8Stages = 3")
-    for depth in RINGS:
-        src = out / f"junction_quant_ring{depth}.cu"
-        src.write_text(text.replace(
-            landed, f"constexpr int kInt8Stages = {depth};"))
-        srcs[f"ring{depth}"] = (src, P.build.CSRC)
-    if parent is not None:
-        for name in PARENT_SOURCES:
-            srcs[f"parent_{name}"] = (parent / f"{name}.cu", parent)
     procs = {}
-    for key, (src, inc) in srcs.items():
-        lib = out / f"lib{key}.so"
-        procs[key] = (subprocess.Popen(
-            [P.build.find_nvcc(), *P.build.NVCC_FLAGS, "-I", str(inc), "-o",
-             str(lib), str(src)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), lib)
+    for name in PARENT_SOURCES:
+        lib = out / f"libparent_{name}.so"
+        procs[name] = (subprocess.Popen(
+            [P.build.find_nvcc(), *P.build.NVCC_FLAGS, "-I", str(parent),
+             "-o", str(lib), str(parent / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
-    for key, (proc, lib) in procs.items():
+    for name, (proc, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
-        libs[key] = ctypes.CDLL(str(lib))
+            raise RuntimeError(f"nvcc failed for the parent's {name}:\n{log}")
+        libs[name] = ctypes.CDLL(str(lib))
     return libs
 
 
-@contextlib.contextmanager
-def using(P, libs: dict[str, ctypes.CDLL]):
-    """The wrappers load the given libraries in place of the landed ones
-    (by source name)."""
-    load = P.build.load
-    with mock.patch.object(P.build, "load",
-                           lambda name: libs.get(name) or load(name)):
-        yield
+def imma_counts(P, path) -> dict[str, int]:
+    """IMMA instructions a kernel function in a built library."""
+    nvcc = Path(P.build.find_nvcc())
+    sass = subprocess.run([str(nvcc.with_name("cuobjdump")), "-sass",
+                           str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts.setdefault(fn, 0)
+        elif "IMMA" in line and fn is not None:
+            counts[fn] += 1
+    return counts
 
 
-def variant_call(P, fn, libs=None, blocks=None, path=None):
-    """``fn`` under another ring library, split rule or path."""
-    def call():
-        with contextlib.ExitStack() as st:
-            if libs:
-                st.enter_context(using(P, libs))
-            if blocks is not None:
-                st.enter_context(C.int8_split_rule(P, blocks))
-            if path is not None:
-                st.enter_context(mock.patch.object(P.bsm, "int8_variant",
-                                                   lambda *_: path))
-            return fn()
+def parent_qmatmul(lib):
+    """The parent's fxp_qmatmul at its C signature (3 pointers, 5 ints)."""
+    fn = lib.fxp_qmatmul
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(a, w, bf, bn):
+        M, K = a.shape
+        N = w.shape[1]
+        out = torch.empty((M, N), dtype=torch.int32, device="cuda")
+        err = fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, bf, bn,
+                 torch.cuda.current_stream().cuda_stream)
+        C.require(err == 0, f"parent fxp_qmatmul: cudaError {err}")
+        return out
     return call
 
 
-def parent_int8(lib, gated):
-    """The parent's int8 entry point at its own C signature (fwd: 7
-    pointers, 8 ints; gated: 8 pointers, 7 ints; then the stream)."""
-    fn = getattr(lib, "junction_gated_fwd_int8" if gated
-                 else "junction_fwd_int8")
-    n_ptr, n_int = (8, 7) if gated else (7, 8)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+def parent_fwd_fxp(P, lib):
+    """The parent's junction_fwd_fxp at its C signature (7 pointers, 8
+    ints), counted on ``bsm.fwd_fxp.launches`` like the landed one."""
+    fn = lib.junction_fwd_fxp
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    counter = P.bsm.fwd_fxp          # the landed wrapper, before any patch
+
+    def call(x, wq, idx, qfmt, lut, bias):
+        E, M, n_in = x.shape
+        _, nob, kb, bs, _ = wq.shape
+        y = torch.empty((E, M, nob * bs), dtype=x.dtype, device="cuda")
+        err = fn(x.data_ptr(), wq.data_ptr(), idx.data_ptr(),
+                 qfmt.data_ptr(), lut.data_ptr(), bias.data_ptr(),
+                 y.data_ptr(), E, M, n_in // bs, nob, kb, bs, lut.shape[0],
+                 P.bsm._DTYPE_CODE[x.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+        C.require(err == 0, f"parent junction_fwd_fxp: cudaError {err}")
+        counter.launches += 1
+        return y
+    return call
 
 
-def _int8_junction(P, gen, shape, E, M, dtype, n_codes=1):
-    if len(shape) == 5:                  # a TRAIN_SHAPES entry
-        name, n_in, n_out, act, pseed = shape
-    else:
-        name, n_in, n_out, pseed = shape
-        act = "none"
-    _, idx, x, codes, _ = C._quant_case(P, gen, (name, n_in, n_out, pseed),
-                                        E, M, dtype, n_codes=n_codes)
-    b = torch.zeros((E, n_out), device="cuda")
-    return dict(idx=idx, x=x, codes=codes, b=b, act=act, E=E, M=M)
-
-
-def _int8_calls(P, j, parent_lib):
-    """(landed call, parent call or None) of one int8 junction: the
-    output tensor the call returns."""
-    bsm = P.bsm
-    x, idx, b, act = j["x"], j["idx"], j["b"], j["act"]
-    E, M, n_in = x.shape
-    if len(j["codes"]) == 2:
-        (wg, sg), (wi, si) = j["codes"]
-        nob, kb, bs = wg.shape[1:4]
-
-        def landed():
-            return bsm.gated_fwd_int8(x, wg, wi, idx, sg, si)
-
-        def parent():
-            h = torch.empty((E, M, nob * bs), dtype=x.dtype, device="cuda")
-            err = parent_int8(parent_lib, True)(
-                x.data_ptr(), wg.data_ptr(), wi.data_ptr(), idx.data_ptr(),
-                sg.data_ptr(), si.data_ptr(), None, h.data_ptr(), E, M,
-                n_in // bs, nob, kb, bs, bsm._DTYPE_CODE[x.dtype],
-                torch.cuda.current_stream().cuda_stream)
-            C.require(err == 0, f"parent gated_fwd_int8: cudaError {err}")
-            return h
-    else:
-        ((wq, sc),) = j["codes"]
-        nob, kb, bs = wq.shape[1:4]
-
-        def landed():
-            return bsm.fwd_int8(x, wq, idx, sc, b, act)
-
-        def parent():
-            y = torch.empty((E, M, nob * bs), dtype=x.dtype, device="cuda")
-            err = parent_int8(parent_lib, False)(
-                x.data_ptr(), wq.data_ptr(), idx.data_ptr(), sc.data_ptr(),
-                b.data_ptr(), None, y.data_ptr(), E, M, n_in // bs, nob, kb,
-                bs, bsm.ACTIVATIONS.index(act), bsm._DTYPE_CODE[x.dtype],
-                torch.cuda.current_stream().cuda_stream)
-            C.require(err == 0, f"parent fwd_int8: cudaError {err}")
-            return y
-    return landed, parent if parent_lib is not None else None
-
-
-def _chain(calls):
-    """One callable running several junction calls in order (a layer)."""
-    return lambda: [c() for c in calls]
-
-
-class ReadFlush:
-    """A flush for ``chip_smoke.Timer`` that reads 96 MB instead of
-    writing them: the L2 is left clean, so the timed kernel does not also
-    write back the lines the usual flush leaves dirty."""
-
-    def __init__(self):
-        self.buf = torch.zeros(96 << 20, dtype=torch.uint8, device="cuda")
-
-    def zero_(self):
-        self.buf.max()
-
-
-def int8_layouts(P, libs, timer, gen, card) -> bool:
-    """Part 2: each case's layouts, held against the landed kernel and
-    timed in turns; True when every layout gives the landed bits."""
-    bsm = P.bsm
-    parent_lib = libs.get("parent_junction_quant")
-    bf16 = torch.bfloat16
-    cases = {
-        "stablelm-3b layer decode M=4": [
-            _int8_junction(P, gen, s, 1, 4, bf16) for s in C.TRAIN_SHAPES],
-        "stablelm-3b layer prefill M=32": [
-            _int8_junction(P, gen, s, 1, 32, bf16) for s in C.TRAIN_SHAPES],
-        "qwen3-moe gate E=128 M=4": [
-            _int8_junction(P, gen, C.MOE_SHAPES[0], C.MOE_E, 4, bf16, 2)],
-        "qwen3-moe down E=128 M=4": [
-            _int8_junction(P, gen, C.MOE_SHAPES[1], C.MOE_E, 4, bf16)],
-        "sweep l1 E=6 M=512 fp32": [
-            _int8_junction(P, gen, C.SWEEP_SHAPES[0], C.SWEEP_E, C.SWEEP_M,
-                           torch.float32)],
-    }
+def fxp_layouts(P, libs, timer, card) -> bool:
+    """Parts 2-4; True when every output is its plain version's and both
+    kernels hold IMMA."""
     ok = True
-    for label, js in cases.items():
-        pairs = [_int8_calls(P, j, parent_lib) for j in js]
-        landed = _chain([p[0] for p in pairs])
-        j0 = js[0]
-        w0 = j0["codes"][0][0]
-        plan = bsm.int8_plan(j0["E"], j0["M"], *w0.shape[1:4])
-        other = "mma" if plan[0] == "dp4a" else "dp4a"
-        fns = {}
-        if parent_lib is not None:
-            fns["parent"] = _chain([p[1] for p in pairs])
-        fns[f"landed {plan}"] = landed
-        for depth in RINGS:
-            fns[f"ring {depth}"] = variant_call(
-                P, landed, libs={"junction_quant": libs[f"ring{depth}"]})
-        fns["no split"] = variant_call(P, landed, blocks=C.UNSPLIT)
-        fns["one slot a block"] = variant_call(P, landed, blocks=C.ONE_SLOT)
-        fns[f"path {other}"] = variant_call(P, landed, path=other)
-        want = landed()
-        for name, fn in fns.items():
-            got = fn()
-            same = all(C.bits_equal(a, b) for a, b in zip(got, want))
-            ok &= same
-            print(f"[layout] int8 {label} {name}: bits equal to the landed "
-                  f"kernel's: {same}")
-        for name, ms in zip(fns, C.in_turns(timer, *fns.values())):
-            print(f"[layout] int8 {label} {name}: {ms:.4f} ms [{card}]")
-        clean = C.Timer(reps=timer.reps)
-        clean.flush = ReadFlush()
-        print(f"[flush] int8 {label} landed: {timer.ms(landed):.4f} ms after "
-              f"a 96 MB write, {clean.ms(landed):.4f} ms after a 96 MB read "
-              f"[{card}]")
-    return ok
-
-
-def crossover(P, timer, gen, card) -> None:
-    """Part 3: dp4a against mma.sync by rows."""
-    bf16 = torch.bfloat16
-    for label, make in (
-            ("stablelm-3b layer", lambda M: [
-                _int8_junction(P, gen, s, 1, M, bf16)
-                for s in C.TRAIN_SHAPES]),
-            ("qwen3-moe gate E=128", lambda M: [
-                _int8_junction(P, gen, C.MOE_SHAPES[0], C.MOE_E, M, bf16,
-                               2)])):
-        for M in CROSSOVER_ROWS:
-            layer = _chain([_int8_calls(P, j, None)[0] for j in make(M)])
-            fns = [variant_call(P, layer, path=p) for p in ("dp4a", "mma")]
-            dp4a, mma = C.in_turns(timer, *fns)
-            print(f"[crossover] int8 {label} M={M}: dp4a {dp4a:.4f} ms, "
-                  f"mma {mma:.4f} ms; the route takes "
-                  f"{P.bsm.int8_variant(M, C.BS)} (INT8_MMA_MIN_M="
-                  f"{P.bsm.INT8_MMA_MIN_M}) [{card}]")
-
-
-def act_bwd_times(P, libs, timer, gen, card) -> None:
-    """Part 4: the kernels that round dz through act_bwd / gated_dz_t,
-    the parent's and the landed, in turns, through both entry points (the
-    updates step the same weights and slots again at every call)."""
-    bsm = P.bsm
-    parent = {n: libs[f"parent_{n}"] for n in PARENT_SOURCES[1:]}
-    hyp = torch.tensor(C.ADAM_HYP, device="cuda")
-    rows = []
-    for act in ("silu", "gelu"):
-        name, n_in, n_out, _, pseed = C.TRAIN_SHAPES[0]
-        t, pt = C._train_inputs(P, gen, (name, n_in, n_out, act, pseed), 1,
-                                torch.bfloat16)
-        mom, vel = C._adam_slots(gen, t["w"].shape)
-        rev = (pt["rev_ob"], pt["rev_t"], pt["rev_cnt"])
-        rows += [
-            (f"dx wg {act}", lambda t=t, act=act, rev=rev: bsm.dx(
-                t["dy"], t["w"], *rev, t["res"], act)),
-            (f"dw wg {act}", lambda t=t, act=act, idx=pt["idx"]: bsm.dw(
-                t["x"], t["dy"], idx, t["res"], act, False)),
-            (f"update_dw wg {act} Adam",
-             lambda t=t, act=act, idx=pt["idx"], m=mom, v=vel: bsm.update_dw(
-                 t["x"], t["dy"], idx, t["res"], t["w"], None, m, None, hyp,
-                 vel=v, act=act, with_bias=False))]
-    t, pt = C._moe_inputs(P, gen, C.MOE_SHAPES[0], C.MOE_E,
-                          C.MOE_M["train"], torch.bfloat16)
-    mom, vel = C._adam_slots(gen, t["w"].shape)
-    dw_args = (t["x"], t["dy"], pt["idx"], t["g"], t["u"])
-    rows += [
-        ("gated_dx gate M=160", lambda: bsm.gated_dx(
-            t["dy"], t["w"], t["wi"], pt["rev_ob"], pt["rev_t"],
-            pt["rev_cnt"], t["g"], t["u"])),
-        ("gated_dw gate M=160", lambda: bsm.gated_dw(*dw_args)),
-        ("update_gated_dw gate M=160 Adam", lambda: bsm.update_gated_dw(
-            *dw_args, t["w"], t["wi"], mom, mom.clone(), hyp, vg=vel,
-            vi=vel.clone()))]
-    for name, fn in rows:
-        for entry in ("tc", "simt"):
-            new = C.forced_call(P, entry, fn)
-
-            def old(new=new):
-                with using(P, parent):
-                    return new()
-            p, n = C.in_turns(timer, old, new)
-            print(f"[act_bwd] {name} ({entry}): parent {p:.4f} ms, landed "
-                  f"{n:.4f} ms ({100 * (n / p - 1):+.1f} %) [{card}]")
-    del t, pt
-    torch.cuda.empty_cache()
-
-
-def _dw_of(x, idx, dz, bs=C.BS):
-    """Plain fp32 sums over M of x against a given branch gradient, as
-    ``gated_dw_ref`` sums them."""
-    E, M, n_in = x.shape
-    xb = x.reshape(E, M, n_in // bs, bs).float()
-    dzb = dz.reshape(E, M, idx.shape[0], bs).float()
-    return torch.stack([torch.einsum("emoa,emoc->eoac",
-                                     xb[:, :, idx[:, k].long(), :], dzb)
-                        for k in range(idx.shape[1])], dim=2)
-
-
-def _one_hot_x(x, r0, rows, bs=C.BS):
-    """An x that is one-hot in each input block: x[m, j*bs + a] = 1 for
-    a = m - r0 (rows r0 .. r0 + rows - 1); dw of it sums one product a
-    term, so slot 0's dw rows are dz's rows r0 .. r0 + bs - 1 exactly."""
-    E, M, n_in = x.shape
-    oh = torch.zeros_like(x).reshape(E, M, n_in // bs, bs)
-    a = torch.arange(rows, device=x.device)
-    oh[:, r0 + a, :, a] = 1.0
-    return oh.reshape(E, M, n_in)
-
-
-def _kernel_dz(P, variant, x, dy, idx, extra, gated):
-    """dz as ``variant``'s gated_dw ((dz_g, dz_u)) or dw ((dz,)) rounds
-    it, [E, M, nob*bs] in dy's dtype: one call of a one-hot x a bs rows."""
-    E, M, _ = x.shape
-    nob = idx.shape[0]
-    zs = [torch.empty_like(dy) for _ in range(2 if gated else 1)]
-    for r0 in range(0, M, C.BS):
-        rows = min(C.BS, M - r0)
-        oh = _one_hot_x(x, r0, rows)
-        if gated:
-            dws = C.forced_call(P, variant, lambda: P.bsm.gated_dw(
-                oh, dy, idx, *extra))()
-        else:
-            dws = C.forced_call(P, variant, lambda: P.bsm.dw(
-                oh, dy, idx, *extra, False))()[:1]
-        for z, dwv in zip(zs, dws):
-            # dwv[e, o, 0, a, c] = dz[e, r0 + a, o*bs + c]
-            z[:, r0:r0 + rows] = (dwv[:, :, 0, :rows].permute(0, 2, 1, 3)
-                                  .reshape(E, rows, nob * C.BS)
-                                  .to(z.dtype))
-    return zs
-
-
-def gated_dw_rounding(P, libs, card, seeds=(1, 2, 3, 4)) -> bool:
-    """Part 5; True when every error is within its tolerance."""
-    bsm = P.bsm
-    parent = {n: libs[f"parent_{n}"] for n in PARENT_SOURCES[1:]
-              if f"parent_{n}" in libs}
-    sources = [("landed", {})] + ([("parent", parent)] if parent else [])
-    hyp = torch.tensor(C.ADAM_HYP, device="cuda")
-    lim = C.REL_TOL["bf16_sum"]
-    ok = True
-    M = C.MOE_M["train"]
-    for seed in seeds:
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(seed)
-        t, pt = C._moe_inputs(P, gen, C.MOE_SHAPES[0], C.MOE_E, M,
-                              torch.bfloat16)
-        args = (t["x"], t["dy"], pt["idx"], t["g"], t["u"])
-        want = bsm.gated_dw_ref(*args)
-        plain_dz = bsm._gated_dz(t["dy"], t["g"], t["u"])
-        mom, vel = C._adam_slots(gen, t["w"].shape)
-        init = (t["w"], t["wi"], mom, mom, vel, vel)
-        plain = [v.clone() for v in init]
-        bsm.update_gated_dw_ref(*args, *plain[:4], hyp, vg=plain[4],
-                                vi=plain[5])
-        for src, lib in sources:
-            for variant in ("simt", "tc"):
-                with using(P, lib):
-                    got = C.forced_call(P, variant,
-                                        lambda: bsm.gated_dw(*args))()
-                    dz = _kernel_dz(P, variant, t["x"], t["dy"], pt["idx"],
-                                    (t["g"], t["u"]), True)
-                    st = [v.clone() for v in init]
-                    C.forced_call(P, variant, lambda: bsm.update_gated_dw(
-                        *args, *st[:4], hyp, vg=st[4], vi=st[5]))()
-                err = [C.rel_err(a, b) for a, b in zip(got, want)]
-                upd = max(C.rel_err(a, b) for a, b in zip(st[2:], plain[2:]))
-                flips = [int((k != q).sum()) for k, q in zip(dz, plain_dz)]
-                own = [C.rel_err(a, _dw_of(t["x"], pt["idx"], z))
-                       for a, z in zip(got, dz)]
-                if src == "landed":
-                    ok &= max(err + [upd]) <= lim
-                print(f"[rounding] {src} gated_dw {variant} seed={seed} "
-                      f"E={C.MOE_E} M={M}: rel_err dwg {err[0]:.3g} dwi "
-                      f"{err[1]:.3g}, update_gated_dw Adam slots {upd:.3g} "
-                      f"(tol {lim:.3g}); dz elements that differ from the "
-                      f"plain dz: dz_g {flips[0]} dz_u {flips[1]} of "
-                      f"{dz[0].numel()}; rel_err against the plain sums of "
-                      f"its own dz: dwg {own[0]:.3g} dwi {own[1]:.3g} "
-                      f"[{card}]")
-        del t, pt, want, plain_dz, plain
-        torch.cuda.empty_cache()
-    # dw's dz under gelu and silu at stablelm-3b's wg junction
+    for name, kernel in (("fxp_qmatmul", "fxp_qmatmul_kernel"),
+                         ("junction_quant", "junction_fxp_kernel")):
+        counts = {fn: n for fn, n in imma_counts(
+            P, P.build.lib_path(name)).items() if kernel in fn}
+        for fn, n in counts.items():
+            print(f"[sass] {name}: {fn}: {n} IMMA instructions")
+        ok &= bool(counts) and all(n > 0 for n in counts.values())
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(seeds[0])
-    for act in ("gelu", "silu"):
-        name, n_in, n_out, _, pseed = C.TRAIN_SHAPES[0]
-        t, pt = C._train_inputs(P, gen, (name, n_in, n_out, act, pseed), 1,
-                                torch.bfloat16, M=1024)
-        plain_dz = bsm._dz(t["dy"], t["res"], act)[0]
-        for src, lib in sources:
-            for variant in ("simt", "tc"):
-                with using(P, lib):
-                    (dz,) = _kernel_dz(P, variant, t["x"], t["dy"],
-                                       pt["idx"], (t["res"], act), False)
-                print(f"[rounding] {src} dw {variant} {name} act={act} "
-                      f"M=1024: dz elements that differ from the plain dz: "
-                      f"{int((dz != plain_dz).sum())} of {dz.numel()} "
-                      f"[{card}]")
-        del t, pt, plain_dz
-        torch.cuda.empty_cache()
+    gen.manual_seed(23)
+    fxp = P.fxp
+    old_q = parent_qmatmul(libs["fxp_qmatmul"]) if libs else None
+    old_f = parent_fwd_fxp(P, libs["junction_quant"]) if libs else None
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int64).to(torch.int32)
+
+    def run(label, fns, want):
+        nonlocal ok
+        for name, fn in fns.items():
+            same = C.bits_equal(fn(), want)
+            ok &= same
+            print(f"[fxp] {label} {name}: bits equal to the plain "
+                  f"version's: {same}")
+        for name, ms in zip(fns, C.in_turns(timer, *fns.values())):
+            print(f"[fxp] {label} {name}: {ms:.4f} ms [{card}]", flush=True)
+
+    def unsplit(fn):
+        def call():
+            with mock.patch.object(P.fxk, "TC_BLOCKS", 1):
+                return fn()
+        return call
+
+    top, paper, b8 = fxp.PAPER_TRIPLETS[-1], fxp.PAPER_FMT, \
+        fxp.PAPER_TRIPLETS[0]
+    M, K, N = C.QMM_SHAPE
+    cases = []
+    for fmt in fxp.PAPER_TRIPLETS:
+        lim = 1 << (fmt.bn + fmt.bf)
+        cases.append((f"qmatmul {M}x{K}x{N} fmt=({fmt.bw},{fmt.bn},{fmt.bf})",
+                      fmt, ri(-lim, lim, (M, K)), ri(-lim, lim, (K, N))))
+    cases.append((f"qmatmul {M}x{K}x{N} beyond 16 bits", top,
+                  ri(-2 ** 31, 2 ** 31 - 1, (M, K)),
+                  ri(-2 ** 31, 2 ** 31 - 1, (K, N))))
+    B = C.QMM_BIG
+    for what, fmt, lo, hi in (("paper", paper, None, None),
+                              ("bw 8", b8, None, None),
+                              ("beyond 16 bits", top, -2 ** 31, 2 ** 31 - 1)):
+        lim = 1 << (fmt.bn + fmt.bf)
+        lo, hi = (-lim, lim) if lo is None else (lo, hi)
+        cases.append((f"qmatmul {B}^3 {what}", fmt, ri(lo, hi, (B, B)),
+                      ri(lo, hi, (B, B))))
+    cases.append(("qmatmul K split for occupancy 16x65536x16", top,
+                  (ri(0, 2 ** 23, (16, 65536)) << 8) | 0xFF,
+                  (ri(-2 ** 23, 2 ** 23, (65536, 16)) << 8) | 0xFF))
+    # the K chunk sets the split; output tile (0, 0) at the accumulators'
+    # worst case, as in chip_smoke.py
+    M, K, N = C.QMM_CHUNK
+    ca, cw = (ri(-2 ** 23, 2 ** 23, shape) << 8 | 0xFF
+              for shape in ((M, K), (K, N)))
+    ca[:P.fxk.TILE_M] = 2 ** 31 - 1
+    cw[:, :P.fxk.TILE_N] = 2 ** 31 - 1
+    cases.append((f"qmatmul K split by the chunk {M}x{K}x{N}", top, ca, cw))
+    del ca, cw
+    for label, fmt, a, w in cases:
+        new = lambda a=a, w=w, f=fmt: P.fxk.qmatmul(a, w, bf=f.bf, bn=f.bn)
+        fns = {}
+        if old_q is not None:
+            fns["parent"] = lambda a=a, w=w, f=fmt: old_q(a, w, f.bf, f.bn)
+        plan = P.fxk.qmatmul_plan(*a.shape, w.shape[1])
+        fns[f"landed plan={plan}"] = new
+        with mock.patch.object(P.fxk, "TC_BLOCKS", 1):
+            alone = P.fxk.qmatmul_plan(*a.shape, w.shape[1])
+        if alone != plan:               # the chunk's split stays
+            fns["unsplit"] = unsplit(new)
+        want = P.fxk.qmatmul_ref(a, w, bf=fmt.bf, bn=fmt.bn)
+        run(label, fns, want)
+        del a, w, want
+    del cases
+
+    for sname, n_in, n_out, pseed in C.SWEEP_SHAPES:
+        pat = P.make_block_pattern(n_in, n_out, 0.25, C.BS, seed=pseed)
+        idx = torch.from_numpy(pat.idx).to("cuda")
+        w = torch.randn((1, *pat.idx.shape, C.BS, C.BS), generator=gen,
+                        device="cuda") * 0.05
+        b = torch.randn((1, n_out), generator=gen, device="cuda")
+        for fmt in fxp.PAPER_TRIPLETS + ["wide"]:
+            kind = "wide" if fmt == "wide" else "spread"
+            fmt = top if kind == "wide" else fmt
+            args = C._fxp_operands(P, gen, w, b, fmt, kind, C.SWEEP_M, n_in)
+            xf, wq, qf, lut, bq = args
+            call = (xf, wq, idx, qf, lut, bq)
+            new = lambda call=call: P.bsm.fwd_fxp(*call)
+            fns = {}
+            if old_f is not None:
+                fns["parent"] = lambda call=call: old_f(*call)
+            fns[f"landed plan={P.bsm.fxp_plan(1, C.SWEEP_M, *wq.shape[1:4])}"] \
+                = new
+            fns["unsplit"] = unsplit(new)
+            tag = " beyond 16 bits" if kind == "wide" else \
+                f" fmt=({fmt.bw},{fmt.bn},{fmt.bf})"
+            label = f"fwd_fxp sweep {sname} {n_in}->{n_out} M={C.SWEEP_M}{tag}"
+            run(label, fns, P.bsm.fwd_fxp_ref(*call))
+    for bs in (32, 64):
+        _, n_in, n_out, pseed = C.SWEEP_SHAPES[0]
+        pat = P.make_block_pattern(n_in, n_out, 0.25, bs, seed=pseed)
+        idx = torch.from_numpy(pat.idx).to("cuda")
+        w = torch.randn((1, *pat.idx.shape, bs, bs), generator=gen,
+                        device="cuda") * 0.05
+        b = torch.randn((1, n_out), generator=gen, device="cuda")
+        xf, wq, qf, lut, bq = C._fxp_operands(P, gen, w, b, paper, "spread",
+                                              C.SWEEP_M, n_in)
+        call = (xf, wq, idx, qf, lut, bq)
+        fns = {}
+        if old_f is not None:
+            fns["parent"] = lambda call=call: old_f(*call)
+        fns[f"landed plan={P.bsm.fxp_plan(1, C.SWEEP_M, *wq.shape[1:4])}"] = \
+            lambda call=call: P.bsm.fwd_fxp(*call)
+        run(f"fwd_fxp block {bs} {n_in}->{n_out} M={C.SWEEP_M}", fns,
+            P.bsm.fwd_fxp_ref(*call))
+    if old_f is not None:
+        def sweep(kernel):
+            def call():
+                with mock.patch.object(P.bsm, "fwd_fxp", kernel):
+                    t0 = time.perf_counter()
+                    counts = C.sweep_phase(P, card)
+                    return time.perf_counter() - t0, counts
+            return call
+        for name, fn in (("parent", sweep(old_f)),
+                         ("landed", sweep(P.bsm.fwd_fxp)),
+                         ("landed", sweep(P.bsm.fwd_fxp)),
+                         ("parent", sweep(old_f))):
+            secs, counts = fn()
+            print(f"[fxp] sweep_phase with the {name} fwd_fxp: {secs:.3f} s, "
+                  f"fwd_fxp launches {counts['junction_fwd_fxp']} [{card}]",
+                  flush=True)
     return ok
 
 
@@ -452,27 +278,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_layouts: no CUDA device", file=sys.stderr)
         return 1
-    if opts.parent is not None and not (
-            opts.parent / "junction_quant.cu").is_file():
-        print(f"chip_layouts: no junction_quant.cu under {opts.parent}",
-              file=sys.stderr)
+    if opts.parent is not None and not all(
+            (opts.parent / f"{n}.cu").is_file() for n in PARENT_SOURCES):
+        print(f"chip_layouts: no {' or '.join(PARENT_SOURCES)} sources "
+              f"under {opts.parent}", file=sys.stderr)
         return 1
     P = C.load_port()
     card = C.card_line()
     print(f"card: {card}")
     P.build.build_all()
-    libs = build_libs(P, opts.parent)
+    libs = build_parent(P, opts.parent) if opts.parent is not None else {}
     timer = C.Timer(reps=10)
     tiny = torch.empty(1, device="cuda")
     print(f"[floor] chip_smoke.Timer of a one-element fill: "
           f"{timer.ms(lambda: tiny.fill_(1.0)):.4f} ms [{card}]")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(19)
-    ok = int8_layouts(P, libs, timer, gen, card)
-    crossover(P, timer, gen, card)
-    if opts.parent is not None:
-        act_bwd_times(P, libs, timer, gen, card)
-    ok &= gated_dw_rounding(P, libs, card)
+    ok = fxp_layouts(P, libs, timer, card)
     print(card)
     return 0 if ok else 2
 

@@ -58,7 +58,10 @@ PyTorch built for CUDA.  It
    against their plain versions (bit for bit where the arithmetic allows)
    at stablelm-3b's FFN junctions, qwen3-moe's expert junctions and the
    PTQ sweep's MLP junctions (every paper triplet, and an int32 sum that
-   wraps), timed; the int8 kernels also under the other split of their
+   wraps), timed; fwd_fxp also with weight codes beyond 16 bits, at a
+   ragged M, with bf16 x and at blocks 32 and 64, and beside each time
+   both of its bounds (``fxp_bounds``); the int8 kernels also under the
+   other split of their
    slots than the plan's, at E 3 with blocks 32, 64 and 128 and rows 1,
    16 and 33 (both paths, split and unsplit), and twice back to back with
    equal bits (the split's tickets reset); serves both models again with
@@ -73,7 +76,10 @@ PyTorch built for CUDA.  It
    stablelm-3b's, qwen3-moe's and llava-next-mistral-7b's heads (causal,
    sliding window, ragged, rows with no valid key), the scan at
    falcon-mamba-7b's d_inner, the fixed-point matmul at every paper
-   triplet (a wrapping int32 sum) and at 4096^3, the lookup on both
+   triplet (a wrapping int32 sum), at 4096^3, with codes beyond 16 bits,
+   with K split over blocks for occupancy (16 x 65536 x 16) and by the
+   8192 of K a block sums at most (1024 x 16384 x 1024, its int32
+   accumulators at their worst case), the lookup on both
    tables with out-of-range codes; exact launch counts, each kernel
    against its plain version (bit for bit for the integer two), timed;
    beside the drive, attention at a head_dim that is not a multiple of 8;
@@ -169,6 +175,37 @@ def bound_ms(nbytes: float, nops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def code_planes(codes) -> int:
+    """The byte planes the fixed-point kernels give these int32 codes
+    (csrc/fxp_tc.cuh): 1 within 8 bits, 2 within 16, else 4."""
+    c = codes.long()
+    mag = int((c ^ (c >> 63)).max())
+    return 1 if mag < 1 << 7 else (2 if mag < 1 << 15 else 4)
+
+
+def fxp_bounds(nbytes: float, n_mac: float, planes_a: int,
+               planes_b: int) -> dict:
+    """The two bounds of a fixed-point product of n_mac multiply-adds:
+    int32 at the CUDA cores' stand-in rate (bound_int32_ms: printed beside
+    bound_ms, kept out of the kernels JSON line), and split
+    into byte planes on the int8 tensor cores (bound_ms: 2 n_mac
+    operations a plane pair i + j <= 3 at 1,979 TOP/s; the kernels' own
+    route); each against the bytes."""
+    pairs = sum(1 for i in range(planes_a) for j in range(planes_b)
+                if i + j <= 3)
+    tc, tc_by = bound_ms(nbytes, 2 * n_mac * pairs, torch.int8)
+    i32, i32_by = bound_ms(nbytes, 2 * n_mac, torch.int32)
+    return {"bound_ms": tc, "bound_by": tc_by, "bound_int32_ms": i32,
+            "bound_int32_by": i32_by, "plane_pairs": pairs}
+
+
+def bounds_text(b: dict) -> str:
+    return (f"bound_ms={b['bound_ms']:.5f} ({b['bound_by']}; byte planes "
+            f"on int8 tensor cores, {b['plane_pairs']} plane pairs) "
+            f"bound_int32_ms={b['bound_int32_ms']:.5f} "
+            f"({b['bound_int32_by']}; int32 at the 67 T/s stand-in)")
 
 
 def max_err(got, want) -> float:
@@ -2142,13 +2179,17 @@ def quant_kernel_phase(P, timer, card):
     and unit scales, 4-bit codes, bias, ragged M), at qwen3-moe's down
     junction (E = 128) and at the sweep's int8 cohort; gated_fwd_int8 at
     qwen3-moe's gate junction (E = 128, M = 4); fwd_fxp at the sweep's
-    junctions for every paper triplet and for a sum that wraps int32.
+    junctions (both timed) for every paper triplet, for a sum that wraps
+    int32 and for weight codes beyond 16 bits, then
+    ``fxp_coverage_checks``.
     Each against its plain version, timed; each int8 path shape again
     under the other split (``int8_split_rule``), untimed; then
     ``int8_coverage_checks``."""
     bsm = P.bsm
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
+    fgen = torch.Generator(device="cuda")   # fwd_fxp's later cases
+    fgen.manual_seed(22)
     out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                "bound_ms": 0.0, "bound_by": "", "library_ms": None}
            for k in ("fwd_int8", "gated_fwd_int8", "fwd_fxp")}
@@ -2164,6 +2205,7 @@ def quant_kernel_phase(P, timer, card):
                   exact, dtype, (0, 0), time_it=False)
 
     def check(kind, what, fn, ref, exact, dtype, cost, time_it=True):
+        """cost: (bytes, operations), or fwd_fxp's fxp_bounds."""
         got, want = fn(), ref()
         torch.cuda.synchronize()
         err = max_err(got, want)
@@ -2173,12 +2215,16 @@ def quant_kernel_phase(P, timer, card):
         o["max_abs_err"] = max(o["max_abs_err"], err)
         k_ms = timer.ms(fn) if time_it else float("nan")
         p_ms = timer.ms(ref) if time_it else float("nan")
-        bnd, by = bound_ms(*cost, torch.int8 if kind != "fwd_fxp"
-                           else torch.int32)
+        if isinstance(cost, dict):
+            bnd, by, text = cost["bound_ms"], cost["bound_by"], \
+                bounds_text(cost)
+        else:
+            bnd, by = bound_ms(*cost, torch.int8)
+            text = f"bound_ms={bnd:.5f} ({by})"
         print(f"[kernel] junction_{kind} {what} {str(dtype)[6:]}: "
               f"max_abs_err={err:.3g} bit_equal={same} "
               f"({'exact' if exact else QUANT_TOL[dtype]}) ms={k_ms:.4f} "
-              f"plain_ms={p_ms:.4f} bound_ms={bnd:.5f} ({by}) [{card}]")
+              f"plain_ms={p_ms:.4f} {text} [{card}]")
         require(ok, f"junction_{kind} {what} {dtype} disagrees with its "
                     f"plain version: err {err}")
         return k_ms, p_ms, bnd, by
@@ -2299,44 +2345,101 @@ def quant_kernel_phase(P, timer, card):
         other_split("fwd_int8", what, fn, ref, False, torch.float32,
                     (SWEEP_E, SWEEP_M, *wq.shape[1:4]))
         out["fwd_int8"][f"sweep_{name}_ms"] = res[0]
-        for fmt in P.fxp.PAPER_TRIPLETS + ["wraps"]:
-            wrap = fmt == "wraps"
-            if wrap:
-                fmt = P.fxp.PAPER_TRIPLETS[-1]
-                xf = torch.full((1, SWEEP_M, n_in), fmt.max_val, device="cuda")
-                xf[:, 1::2] = fmt.min_val
-                wf = torch.full_like(w[:1], fmt.max_val)
-            else:
-                xf = torch.rand((1, SWEEP_M, n_in), generator=gen,
-                                device="cuda")          # pixels in [0, 1)
-                wf = w[:1] * 8.0
-            wq = P.qz.fxp_encode_weights(wf, fmt)
-            bf = P.fxp.quantize(b[:1], fmt)
-            lut = P.qz.act_lut(fmt, "sigmoid", "cuda")
-            qf = torch.tensor([fmt.bf, fmt.bn], dtype=torch.int32,
-                              device="cuda")
+        for fmt in P.fxp.PAPER_TRIPLETS + ["wraps", "wide"]:
+            kind = fmt if isinstance(fmt, str) else "spread"
+            fmt = P.fxp.PAPER_TRIPLETS[-1] if kind != "spread" else fmt
+            xf, wq, qf, lut, bf = _fxp_operands(
+                P, gen if kind != "wide" else fgen, w[:1], b[:1], fmt, kind,
+                SWEEP_M, n_in)
             fn = lambda: bsm.fwd_fxp(xf, wq, idx, qf, lut, bf)
             ref = lambda: bsm.fwd_fxp_ref(xf, wq, idx, qf, lut, bf)
-            isz = 4
-            cost = (xf.numel() * isz + wq.numel() * 4 + lut.numel() * 4
-                    + 4 * n_out + SWEEP_M * n_out * isz,
-                    2 * SWEEP_M * wq.numel())
-            if wrap:
+            bounds = _fxp_cost(P, xf, wq, lut, fmt)
+            if kind == "wraps":
                 s = torch.einsum("mi,ic->mc",
                                  torch.round(xf[0, :, :BS].double()
                                              * fmt.scale),
                                  wq[0, 0, 0].double())
                 require(float(s.abs().max()) > 2 ** 31,
                         "the wrap case does not wrap")
+            tag = {"spread": "", "wraps": " int32 sum wraps",
+                   "wide": " codes beyond 16 bits"}[kind]
             res = check("fwd_fxp", f"sweep {name} {n_in}->{n_out} M={SWEEP_M} "
-                        f"fmt=({fmt.bw},{fmt.bn},{fmt.bf})"
-                        f"{' int32 sum wraps' if wrap else ''}", fn, ref, True,
-                        torch.float32, cost, time_it=not wrap)
-            if name == "l1" and fmt == P.fxp.PAPER_FMT:
-                out["fwd_fxp"].update(ms=res[0], plain_ms=res[1],
-                                      bound_ms=res[2], bound_by=res[3])
+                        f"fmt=({fmt.bw},{fmt.bn},{fmt.bf}){tag}", fn, ref,
+                        True, torch.float32, bounds,
+                        time_it=kind == "spread")
+            if fmt == P.fxp.PAPER_FMT:
+                pre = "" if name == "l1" else f"{name}_"
+                out["fwd_fxp"].update({
+                    f"{pre}ms": res[0], f"{pre}plain_ms": res[1],
+                    f"{pre}bound_ms": bounds["bound_ms"],
+                    f"{pre}bound_by": bounds["bound_by"]})
+    fxp_coverage_checks(P, fgen, check)
     int8_coverage_checks(P, gen, card)
     return out
+
+
+def _fxp_operands(P, gen, w, b, fmt, kind, M, n_in):
+    """x [E, M, n_in] (pixels in [0, 1), or at the clip), the weight codes
+    of w * 8 (or at the top of the range: the sum wraps; or drawn beyond
+    16 bits), the format, the table and the bias on the grid."""
+    E = w.shape[0]
+    if kind == "wraps":
+        xf = torch.full((E, M, n_in), fmt.max_val, device="cuda")
+        xf[:, 1::2] = fmt.min_val
+        wf = torch.full_like(w, fmt.max_val)
+    else:
+        xf = torch.rand((E, M, n_in), generator=gen, device="cuda")
+        wf = w * 8.0
+    wq = P.qz.fxp_encode_weights(wf, fmt)
+    if kind == "wide":
+        xf = torch.full((E, M, n_in), fmt.max_val, device="cuda")
+        wq = torch.randint(2 ** 30, 2 ** 31 - 1, tuple(w.shape),
+                           generator=gen, device="cuda", dtype=torch.int64
+                           ).to(torch.int32)
+    lut = P.qz.act_lut(fmt, "sigmoid", "cuda")
+    qf = torch.tensor([fmt.bf, fmt.bn], dtype=torch.int32, device="cuda")
+    return xf, wq, qf, lut, P.fxp.quantize(b, fmt)
+
+
+def _fxp_cost(P, xf, wq, lut, fmt):
+    """fwd_fxp's fxp_bounds: x, the codes, the table, the bias and the
+    output once each; the planes of this run's x codes and weight codes."""
+    E, M, _ = xf.shape
+    n_out = wq.shape[1] * wq.shape[3]
+    isz = xf.element_size()
+    lim = lut.shape[0] // 2
+    xq = torch.clamp(torch.round(xf.float() * fmt.scale), -lim, lim - 1)
+    return fxp_bounds(xf.numel() * isz + wq.numel() * 4 + lut.numel() * 4
+                      + 4 * E * n_out + E * M * n_out * isz,
+                      M * wq.numel(), code_planes(xq), code_planes(wq))
+
+
+def fxp_coverage_checks(P, gen, check):
+    """fwd_fxp bit for bit, untimed: a ragged M (33) in fp32 and bf16,
+    bf16 x at the sweep's rows, and blocks 32 and 64 (E 2, M 33, bf16),
+    each with codes spread over the paper triplet's range and with weight
+    codes beyond 16 bits."""
+    fmt = P.fxp.PAPER_FMT
+    _, n_in, n_out, pseed = SWEEP_SHAPES[0]
+    for bs, E, M, dtype in ((BS, 1, 33, torch.float32),
+                            (BS, 1, 33, torch.bfloat16),
+                            (BS, 1, SWEEP_M, torch.bfloat16),
+                            (64, 2, 33, torch.bfloat16),
+                            (32, 2, 33, torch.bfloat16)):
+        pat = P.make_block_pattern(n_in, n_out, 0.25, bs, seed=pseed)
+        idx = torch.from_numpy(pat.idx).to("cuda")
+        w = torch.randn((E, *pat.idx.shape, bs, bs), generator=gen,
+                        device="cuda") * 0.05
+        b = torch.randn((E, n_out), generator=gen, device="cuda")
+        for kind in ("spread", "wide"):
+            xf, wq, qf, lut, bq = _fxp_operands(P, gen, w, b, fmt, kind, M,
+                                                n_in)
+            xf = xf.to(dtype)
+            check("fwd_fxp", f"bs={bs} E={E} M={M} {kind} plan="
+                  f"{P.bsm.fxp_plan(E, M, *wq.shape[1:4])}",
+                  lambda: P.bsm.fwd_fxp(xf, wq, idx, qf, lut, bq),
+                  lambda: P.bsm.fwd_fxp_ref(xf, wq, idx, qf, lut, bq), True,
+                  dtype, _fxp_cost(P, xf, wq, lut, fmt), time_it=False)
 
 
 # quantized serving: the int8 launches a layer makes on every tick and
@@ -2390,6 +2493,7 @@ def sweep_phase(P, card):
 # order (TOL); bf16 outputs may move by one bf16 ulp (TOL)
 SCAN_ARCH, SCAN_SHAPES = "falcon-mamba-7b", ((1, 4096), (4, 1024))
 QMM_SHAPE, QMM_BIG = (512, 1024, 512), 4096
+QMM_CHUNK = (1024, 16384, 1024)    # the K chunk sets qmatmul's split
 LUT_SHAPES = ((512, 512), (8192, 8192))
 
 
@@ -2494,6 +2598,33 @@ def standalone_kernel_phase(P, card):
     qmm.append(("ragged 75x33x50", big, False, *(
         torch.randint(-lim, lim, shape, generator=gen, device=dev,
                       dtype=torch.int32) for shape in ((75, 33), (33, 50)))))
+    # from their own generator (the cases above keep their data): codes
+    # beyond 16 bits (every product on 10 plane pairs); K split over 128
+    # blocks for occupancy (one output tile, 512 of K a block); and K
+    # split by the chunk (QMM_CHUNK: 128 tiles, 8192 of K a block, two
+    # blocks a tile), every low byte 0xff and, in output tile (0, 0),
+    # every code 2^31 - 1, which takes each int32 accumulator to its
+    # worst case (shift 3: 194820 a k, 1.596e9 over the 8192)
+    qgen = torch.Generator(device=dev)
+    qgen.manual_seed(22)
+    M, K, N = QMM_SHAPE
+    qmm.append((f"beyond 16 bits {M}x{K}x{N}", top, True, *(
+        torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=qgen,
+                      device=dev, dtype=torch.int64).to(torch.int32)
+        for shape in ((M, K), (K, N)))))
+    qmm.append(("K split for occupancy 16x65536x16", top, False, *(
+        (torch.randint(lo, 2 ** 23, shape, generator=qgen, device=dev,
+                       dtype=torch.int32) << 8) | 0xFF
+        for lo, shape in ((0, (16, 65536)), (-2 ** 23, (65536, 16))))))
+    M, K, N = QMM_CHUNK
+    ca, cw = ((torch.randint(-2 ** 23, 2 ** 23, shape, generator=qgen,
+                             device=dev, dtype=torch.int32) << 8) | 0xFF
+              for shape in ((M, K), (K, N)))
+    ca[:P.fxk.TILE_M] = 2 ** 31 - 1
+    cw[:, :P.fxk.TILE_N] = 2 ** 31 - 1
+    require(P.fxk.qmatmul_plan(M, K, N)[1:] == (P.fxk.QMM_CHUNK_TILES, 2),
+            f"qmatmul {M}x{K}x{N}: the K chunk does not set the split")
+    qmm.append((f"K split by the chunk {M}x{K}x{N}", top, False, ca, cw))
     lut = []
     for fmt in (fxp.PAPER_FMT, top):
         table = torch.from_numpy(fxp.sigmoid_tables(fmt)[0]).to(dev)
@@ -2530,10 +2661,17 @@ def standalone_kernel_phase(P, card):
            ("flash_attention", "selective_scan", "qmatmul", "lut_lookup")}
 
     def record(kind, what, err, k_ms, p_ms, lib_ms, nbytes, nops, dtype,
-               main):
-        bnd, by = bound_ms(nbytes, nops, dtype)
-        row = {"case": what, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd,
-               "bound_by": by, "library_ms": lib_ms}
+               main, bounds=None):
+        """bounds: qmatmul's fxp_bounds, in place of bytes and ops."""
+        if bounds is None:
+            bnd, by = bound_ms(nbytes, nops, dtype)
+            bounds, text = {"bound_ms": bnd, "bound_by": by}, \
+                f"bound_ms={bnd:.5f} ({by})"
+        else:
+            text = bounds_text(bounds)
+        row = {"case": what, "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": bounds["bound_ms"],
+               "bound_by": bounds["bound_by"], "library_ms": lib_ms}
         r = res[kind]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         r["cases"].append(row)
@@ -2541,8 +2679,7 @@ def standalone_kernel_phase(P, card):
             r.update({k: v for k, v in row.items() if k != "case"})
         lib = "none" if lib_ms is None else f"{lib_ms:.4f}"
         print(f"[kernel] {kind} {what}: max_abs_err={err:.3g} ms={k_ms:.4f} "
-              f"plain_ms={p_ms:.4f} bound_ms={bnd:.5f} ({by}) "
-              f"library_ms={lib} [{card}]")
+              f"plain_ms={p_ms:.4f} {text} library_ms={lib} [{card}]")
 
     # a head_dim that is not a multiple of 8 (rows that are not 16-byte
     # vectors), ragged Sq and Sk, window: checked, not on the counted path
@@ -2649,9 +2786,11 @@ def standalone_kernel_phase(P, card):
         p_ms = timer.ms(lambda: P.fxk.qmatmul_ref(a, w, bf=fmt.bf,
                                                   bn=fmt.bn))
         record("qmatmul", desc, 0.0, k_ms, p_ms, None,
-               4 * (M * K + K * N + M * N), 2 * M * K * N, torch.int32,
+               4 * (M * K + K * N + M * N), M * K * N, torch.int32,
                what == f"{M}x{K}x{N}" and (M, K, N) == QMM_SHAPE
-               and fmt == fxp.PAPER_FMT)
+               and fmt == fxp.PAPER_FMT,
+               bounds=fxp_bounds(4 * (M * K + K * N + M * N), M * K * N,
+                                 code_planes(a), code_planes(w)))
 
     for (what, fmt, timed, table, codes), got in zip(lut, lut_out):
         ref = P.slut.lut_lookup_ref(codes.reshape(-1, codes.shape[-1]),

@@ -43,7 +43,7 @@
 // output blocks (stablelm-3b's 6912 -> 2560 junction has 20), and a
 // short chain of latencies in each block: a stablelm junction is a few
 // microseconds of work, so launch, the first loads and the combine of a
-// split weigh as much as the bytes (PERF.md, chip_layouts.py).
+// split weigh as much as the bytes (PERF.md).
 //
 // Design.  A block owns one unit e, one output block o, a chunk of at most
 // 8 (dp4a) or 16 (mma) rows of x and a run of consecutive fan-in slots;
@@ -78,26 +78,29 @@
 //   part to scratch, in its threads' own order, and the last block of (e,
 //   chunk, o) to arrive, told by a self-resetting int32 ticket, adds all
 //   kb parts in slot order from 0, in the same threads, then stores.
-// The fxp kernel keeps the layout of the first port: a block owns one
-// 8-row tile and a 32-column chunk, its warps the fan-in slots in turn;
-// int32 codes, 16-byte weight loads and a uint32 multiply-add; the LUT
-// (256 KiB at bw 16, more than a block's shared memory) is read through
-// __ldg.
+// The fxp kernel is a product of int32 codes: on the CUDA cores it is
+// bound by IMAD (at most the fp32 rate), so it runs fxp_tc.cuh's byte
+// planes on the int8 tensor cores.  A block owns one unit e, one output
+// block o (BN = BS columns, 2 x BS / 32 warps) and 64 rows of x, over a
+// run of K tiles of 32 (the slots' code rows in order); `fxp_plan` in
+// block_sparse_matmul.py splits the slots over blocks when the shapes give
+// few tiles (the sweep's 512 -> 128 layer has 8), and the last block of a
+// tile adds the splits' uint32 sums (exact in any order).  x is encoded
+// (rint(x * 2^bf), clipped to the table's range) while staged, once a
+// block, K tile and row, for all BS output columns; the code tile of a
+// slot is read once a block of 64 rows.  The epilogue: the wrapped
+// round-half-up shift, saturation, the bias code, the LUT (256 KiB at
+// bw 16, more than a block's shared memory) through __ldg.
 #include <cstdint>
 
+#include "fxp_tc.cuh"
 #include "junction_common.cuh"
 
 namespace {
 
 using namespace junction;
 
-// The fxp kernel's tile: 32 output columns, 8 rows of x; lane (rq, q):
-// q = lane % 8 owns columns 4q .. 4q+3 of the chunk, rq = lane / 8 rows
-// rq and rq + 4.
-constexpr int kCols = 32;
-constexpr int kRows = 8;
-constexpr int kLaneRows = kRows / 4;
-constexpr int kFxpWarps = 4;
+using fxp_tc::transpose4x4;
 
 constexpr int kInt8Warps = 4;   // warps a block at most
 constexpr int kInt8Stages = 3;  // ring depth in code tiles (<= 4)
@@ -105,43 +108,17 @@ constexpr int kMmaVals = 64;    // int32 sums a lane's 16-row tile holds on
                                 // the mma path (16 n-tiles x 4)
 constexpr int kMaxSmem = 200 * 1024;  // dynamic shared memory a block at most
 
-// Columns 4q .. 4q+3 of four consecutive code rows a[0..3] (a word a row)
-// -> b[j] = column j over the four rows, row 0 in the low byte.
-__device__ __forceinline__ void transpose4x4(const int (&a)[4], int (&b)[4]) {
-  const int t0 = __byte_perm(a[0], a[1], 0x5140);
-  const int t1 = __byte_perm(a[0], a[1], 0x7362);
-  const int t2 = __byte_perm(a[2], a[3], 0x5140);
-  const int t3 = __byte_perm(a[2], a[3], 0x7362);
-  b[0] = __byte_perm(t0, t2, 0x5410);
-  b[1] = __byte_perm(t0, t2, 0x7632);
-  b[2] = __byte_perm(t1, t3, 0x5410);
-  b[3] = __byte_perm(t1, t3, 0x7632);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// until at most n of this thread's groups are pending (n < kInt8Stages
-// <= 4)
-__device__ __forceinline__ void cp_async_wait_n(int n) {
+// until at most n of this thread's cp.async groups are pending (n <
+// kInt8Stages <= 4)
+__device__ __forceinline__ void cp_wait_n(int n) {
   if (n <= 0)
-    cp_async_wait<0>();
+    fxp_tc::cp_wait<0>();
   else if (n == 1)
-    cp_async_wait<1>();
+    fxp_tc::cp_wait<1>();
   else if (n == 2)
-    cp_async_wait<2>();
+    fxp_tc::cp_wait<2>();
   else
-    cp_async_wait<3>();
+    fxp_tc::cp_wait<3>();
 }
 
 // D += A (16 x 16, row) * B (16 x 8, col), int8 in, int32 sums: lane (g,
@@ -172,7 +149,8 @@ __device__ __forceinline__ void stage_codes(int8_t* dst, const int8_t* src,
   constexpr int kC = BS / 16;
   for (int q = tid; q < BS * kC; q += nthreads) {
     const int i = q / kC, c = q % kC;
-    cp_async16(dst + i * BS + swz<BS>(i, c) * 16, src + (size_t)q * 16);
+    fxp_tc::cp_async<16>(dst + i * BS + swz<BS>(i, c) * 16,
+                         src + (size_t)q * 16, true);
   }
 }
 
@@ -368,7 +346,7 @@ __global__ void __launch_bounds__(32 * kInt8Warps)
   };
   for (int j = 0; j < ns - 1; ++j) {
     if (j < ntile) stage_codes<BS>(ring + j * kTile, tile_src(j), tid, 32 * kW);
-    cp_async_commit();
+    fxp_tc::cp_commit();
   }
   // the activation codes of every slot and row, while the ring fills
   {
@@ -407,8 +385,8 @@ __global__ void __launch_bounds__(32 * kInt8Warps)
     const int jn = j + ns - 1;
     if (jn < ntile)
       stage_codes<BS>(ring + (jn % ns) * kTile, tile_src(jn), tid, 32 * kW);
-    cp_async_commit();
-    cp_async_wait_n(ns - 1);
+    fxp_tc::cp_commit();
+    cp_wait_n(ns - 1);
     __syncthreads();
     const int br = j / nk, jj = j % nk, k = k0 + jj;
     const int8_t* tile = ring + (j % ns) * kTile;
@@ -501,95 +479,134 @@ __global__ void __launch_bounds__(32 * kInt8Warps)
   }
 }
 
-// The fixed-point junction.  blockDim.x = 32 * W, W <= kFxpWarps; each
-// warp sums its slots, the warps' sums are added in uint32.
+// The fixed-point junction's operands for fxp_tc::plane_sums.  A: x of
+// unit e, the thread's quad u of K tile t (row m0 + q / 8, 4 values from
+// k = 32 (t % (BS / 32)) + 4 (q % 8) of slot t / (BS / 32)'s input block,
+// q = tid + u * threads; x 16-byte aligned), encoded; rows past M are
+// zero codes.
 template <typename T, int BS>
-__global__ void __launch_bounds__(32 * kFxpWarps)
+struct FxpLoadX {
+  static constexpr int kQuadBytes = 4 * sizeof(T);
+  const T* xe;       // x[e]
+  const int* idx_o;  // idx[o]
+  size_t n_in;
+  int M, m0;
+  float scale, flim;
+  __device__ void copy(int t, int u, unsigned char* dst) const {
+    constexpr int kTS = BS / fxp_tc::kBK;  // K tiles a slot
+    const int q = threadIdx.x + u * fxp_tc::Shape<BS>::kThreads;
+    const int m = m0 + (q >> 3);
+    const bool ok = m < M;
+    const T* p = ok ? xe + (size_t)m * n_in +
+                          (size_t)__ldg(idx_o + t / kTS) * BS +
+                          (t % kTS) * fxp_tc::kBK + 4 * (q & 7)
+                    : xe;
+    fxp_tc::cp_async<kQuadBytes>(dst, p, ok);
+  }
+  __device__ int encode(float v) const {
+    return static_cast<int>(
+        fminf(fmaxf(rintf(__fmul_rn(v, scale)), -flim), flim - 1.f));
+  }
+  __device__ void codes(const unsigned char* src, int (&c)[4]) const {
+    float v[4];
+    if constexpr (sizeof(T) == 4) {
+      const float4 r = *reinterpret_cast<const float4*>(src);
+      v[0] = r.x;
+      v[1] = r.y;
+      v[2] = r.z;
+      v[3] = r.w;
+    } else {  // bf16: the high half of an fp32
+      const uint2 r = *reinterpret_cast<const uint2*>(src);
+      v[0] = __uint_as_float(r.x << 16);
+      v[1] = __uint_as_float(r.x & 0xffff0000u);
+      v[2] = __uint_as_float(r.y << 16);
+      v[3] = __uint_as_float(r.y & 0xffff0000u);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] = encode(v[i]);
+  }
+};
+
+// B: wq[e, o] as [kb * BS, BS] row-major (16-byte aligned), code row
+// 32 t + 4 kq + r of the thread's group, columns 4 nq .. 4 nq + 3.
+template <int BS>
+struct FxpLoadW {
+  const int* wo;  // wq[e, o]
+  __device__ void copy(int t, int r, unsigned char* dst) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    fxp_tc::cp_async<16>(
+        dst,
+        wo + (size_t)(t * fxp_tc::kBK + 4 * (lane & 7) + r) * BS +
+            4 * (warp * 4 + (lane >> 3)),
+        true);
+  }
+  __device__ void codes(const unsigned char* const (&rows)[4],
+                        int (&c)[4][4]) const {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int4 v = *reinterpret_cast<const int4*>(rows[r]);
+      c[r][0] = v.x;
+      c[r][1] = v.y;
+      c[r][2] = v.z;
+      c[r][3] = v.w;
+    }
+  }
+};
+
+// The fixed-point junction: grid (nob * ceil(M / 64), nsplit, E); block
+// (o * ceil(M / 64) + row tile, s, e) takes K tiles s * run ..
+// min(kb * BS / 32, (s + 1) * run) - 1 of output block o.
+template <typename T, int BS>
+__global__ void __launch_bounds__(fxp_tc::Shape<BS>::kThreads, 1)
     junction_fxp_kernel(const T* __restrict__ x, const int* __restrict__ wq,
                         const int* __restrict__ idx,
                         const int* __restrict__ qfmt,
                         const float* __restrict__ lut,
                         const float* __restrict__ bias, T* __restrict__ y,
-                        int M, int nib, int nob, int kb, int n_lut) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const int q = lane & 7;
-  const int rq = lane >> 3;
-  const int o = blockIdx.x / (BS / kCols);
-  const int c0 = (blockIdx.x % (BS / kCols)) * kCols;
-  const int m0 = blockIdx.y * kRows;
-  const int e = blockIdx.z;
-  const int rows = min(kRows, M - m0);
+                        uint32_t* __restrict__ part, int* __restrict__ tickets,
+                        int M, int nib, int nob, int kb, int n_lut, int run,
+                        int nsplit) {
+  using namespace fxp_tc;
+  extern __shared__ __align__(16) unsigned char sm[];
+  __shared__ int vote[2 * 8];
+  __shared__ int s_last;
+  const int mtiles = (M + kBM - 1) / kBM;
+  const int tile = blockIdx.x, split = blockIdx.y, e = blockIdx.z;
+  const int o = tile / mtiles, m0 = (tile % mtiles) * kBM;
+  const int t0 = split * run;
+  const int nt = min(run, kb * (BS / kBK) - t0);
   const size_t n_in = (size_t)nib * BS;
   const size_t n_out = (size_t)nob * BS;
   const int bf = qfmt[0];
   const float scale = ldexpf(1.f, bf);
   const int lim = n_lut / 2;
   const float flim = static_cast<float>(lim);
-  constexpr int kPer = BS / 32;
 
-  __shared__ __align__(16) int xq[kFxpWarps][kRows * (BS + 4)];
-  __shared__ uint32_t part[kFxpWarps][kRows][kCols];
+  uint32_t v[kVals];
+  plane_sums<BS>(
+      FxpLoadX<T, BS>{x + (size_t)e * M * n_in, idx + (size_t)o * kb, n_in, M,
+                      m0, scale, flim},
+      FxpLoadW<BS>{wq + ((size_t)e * nob + o) * kb * BS * BS}, t0, nt, sm,
+      vote, v);
+  const size_t tile_words = (size_t)kBM * BS;
+  if (!combine_splits<BS>(
+          v, part + ((size_t)e * gridDim.x + tile) * tile_words,
+          (size_t)gridDim.z * gridDim.x * tile_words, split, nsplit,
+          tickets + (size_t)e * gridDim.x + tile, &s_last))
+    return;
 
-  uint32_t d[kLaneRows][4] = {};
-  const T* xe = x + ((size_t)e * M + m0) * n_in;
-  int* xw = xq[warp];
-  for (int k = warp; k < kb; k += nw) {
-    const T* xblk = xe + (size_t)idx[(size_t)o * kb + k] * BS;
-    __syncwarp();  // the previous slot's codes are read by every lane
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int t = 0; t < kPer; ++t) {
-        const float v =
-            r < rows ? to_f32(xblk[r * n_in + lane + 32 * t]) : 0.f;
-        const float c = fminf(fmaxf(rintf(__fmul_rn(v, scale)), -flim),
-                              flim - 1.f);
-        xw[r * (BS + 4) + lane + 32 * t] = static_cast<int>(c);
-      }
-    __syncwarp();
-    const int* wk = wq + (((size_t)e * nob + o) * kb + k) * BS * BS + c0 +
-                    4 * q;
-#pragma unroll 4
-    for (int i = 0; i < BS; ++i) {
-      const int4 w4 = __ldg(reinterpret_cast<const int4*>(wk + (size_t)i * BS));
-      const uint32_t wv[4] = {(uint32_t)w4.x, (uint32_t)w4.y, (uint32_t)w4.z,
-                              (uint32_t)w4.w};
-#pragma unroll
-      for (int lr = 0; lr < kLaneRows; ++lr) {
-        const uint32_t xv = (uint32_t)xw[(rq + 4 * lr) * (BS + 4) + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) d[lr][j] += xv * wv[j];
-      }
-    }
-  }
-#pragma unroll
-  for (int lr = 0; lr < kLaneRows; ++lr)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) part[warp][rq + 4 * lr][4 * q + j] = d[lr][j];
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < kRows * kCols; t += blockDim.x) {
-    const int r = t / kCols, c = t % kCols;
-    if (r >= rows) continue;
-    uint32_t a = 0;
-    for (int w = 0; w < nw; ++w) a += part[w][r][c];
-    // round half up: (acc + 2^(bf-1)) >> bf on the wrapped int32
-    int s = static_cast<int>(a + (1u << (bf - 1))) >> bf;
-    s = min(max(s, -lim), lim - 1);
-    const size_t n = (size_t)o * BS + c0 + c;
+  for (int u = 0; u < kVals; ++u) {
+    const int m = m0 + row_of<BS>(u);
+    if (m >= M) continue;
+    const size_t n = (size_t)o * BS + col_of<BS>(u);
+    int s = min(max(round_shift(v[u], bf), -lim), lim - 1);
     const float bv = fminf(
         fmaxf(rintf(__fmul_rn(bias[(size_t)e * n_out + n], scale)), -flim),
         flim - 1.f);
     s = min(max(s + static_cast<int>(bv), -lim), lim - 1);
-    store(&y[((size_t)e * M + m0 + r) * n_out + n],
-          __ldg(lut + (s & (n_lut - 1))));
+    store(&y[((size_t)e * M + m) * n_out + n], __ldg(lut + (s & (n_lut - 1))));
   }
-}
-
-dim3 grid_of(int E, int M, int nob, int bs) {
-  return dim3(nob * (bs / kCols), (M + kRows - 1) / kRows, E);
 }
 
 // Dynamic shared memory of an int8 block: the ring, the warps' int32
@@ -654,14 +671,26 @@ int route_int8(int mma, const void* x, const void* wg, const void* wi,
 template <typename T, int BS>
 int launch_fxp(const void* x, const void* wq, const void* idx,
                const void* qfmt, const void* lut, const void* bias, void* y,
-               int E, int M, int nib, int nob, int kb, int n_lut,
-               cudaStream_t stream) {
-  const int warps = kb < kFxpWarps ? kb : kFxpWarps;
-  junction_fxp_kernel<T, BS><<<grid_of(E, M, nob, BS), 32 * warps, 0, stream>>>(
+               void* part, void* tickets, int E, int M, int nib, int nob,
+               int kb, int n_lut, int run, int nsplit, cudaStream_t stream) {
+  using S = fxp_tc::Shape<BS>;
+  constexpr size_t kSmem = S::template smem<FxpLoadX<T, BS>::kQuadBytes>();
+  auto kernel = junction_fxp_kernel<T, BS>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long tiles =
+      (long long)nob * ((M + fxp_tc::kBM - 1) / fxp_tc::kBM);
+  if (tiles > 0x7fffffffLL || nsplit > 65535 || E > 65535 ||
+      reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(wq) % 16)
+    return (int)cudaErrorInvalidValue;
+  kernel<<<dim3((unsigned)tiles, nsplit, E), S::kThreads, kSmem, stream>>>(
       static_cast<const T*>(x), static_cast<const int*>(wq),
       static_cast<const int*>(idx), static_cast<const int*>(qfmt),
       static_cast<const float*>(lut), static_cast<const float*>(bias),
-      static_cast<T*>(y), M, nib, nob, kb, n_lut);
+      static_cast<T*>(y), static_cast<uint32_t*>(part),
+      static_cast<int*>(tickets), M, nib, nob, kb, n_lut, run, nsplit);
   return (int)cudaGetLastError();
 }
 
@@ -757,22 +786,34 @@ extern "C" int junction_gated_fwd_int8(
   return (int)cudaErrorInvalidValue;
 }
 
-// The fixed-point junction; n_lut a power of two >= 2, qfmt[0] >= 1.
+// The fixed-point junction; x and wq 16-byte aligned, n_lut a power of
+// two >= 2, qfmt[0] >= 1; the split plan of block_sparse_matmul.fxp_plan:
+// 1 <= run <= 256 K tiles of 32 a block, nsplit blocks an output tile
+// covering kb * bs / 32 of them; for nsplit > 1, uint32 scratch `part` of
+// nsplit * E * nob * ceil(M / 64) * 64 * bs words and int32 `tickets`,
+// E * nob * ceil(M / 64) of them, zero, left zero.
 extern "C" int junction_fwd_fxp(const void* x, const void* wq,
                                 const void* idx, const void* qfmt,
                                 const void* lut, const void* bias, void* y,
-                                int E, int M, int nib, int nob, int kb, int bs,
-                                int n_lut, int dtype, void* stream) {
-  if (!valid(bs, kb) || n_lut < 2 || (n_lut & (n_lut - 1)))
+                                void* part, void* tickets, int E, int M,
+                                int nib, int nob, int kb, int bs, int n_lut,
+                                int dtype, int run, int nsplit, void* stream) {
+  const long long kt = (long long)kb * bs / fxp_tc::kBK;
+  if (!valid(bs, kb) || n_lut < 2 || (n_lut & (n_lut - 1)) || M <= 0 ||
+      E <= 0 || run < 1 || run > fxp_tc::kChunkTiles || nsplit < 1 ||
+      (long long)(nsplit - 1) * run >= kt || (long long)nsplit * run < kt ||
+      (nsplit > 1 && (part == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    QUANT_BS_SWITCH((launch_fxp<float, BS>(x, wq, idx, qfmt, lut, bias, y, E,
-                                           M, nib, nob, kb, n_lut, s)))
+    QUANT_BS_SWITCH((launch_fxp<float, BS>(x, wq, idx, qfmt, lut, bias, y,
+                                           part, tickets, E, M, nib, nob, kb,
+                                           n_lut, run, nsplit, s)))
   }
   if (dtype == 1) {
     QUANT_BS_SWITCH((launch_fxp<__nv_bfloat16, BS>(
-        x, wq, idx, qfmt, lut, bias, y, E, M, nib, nob, kb, n_lut, s)))
+        x, wq, idx, qfmt, lut, bias, y, part, tickets, E, M, nib, nob, kb,
+        n_lut, run, nsplit, s)))
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -121,7 +121,7 @@
 //   products of a K step go into one accumulator.  The reverse fan-in of
 //   qwen3-moe's gate junction is 1-2 slots, so a block makes only 2-8 K
 //   steps, and the ring's fill and the epilogue are much of its life:
-//   blocks an SM matter more than ring depth (kGatedDxKS / kGatedDxNA / kGatedDxMinB; chip_layouts.py).
+//   blocks an SM matter more than ring depth (kGatedDxKS / kGatedDxNA / kGatedDxMinB; PERF.md).
 // Two blocks an SM.  A deeper ring (up to 6 stages, one block an SM), a
 // wgmma group left in flight across steps, and dz of the next step
 // computed under this step's products were each slower on an H100 (fwd,
@@ -979,7 +979,7 @@ struct GatedUpdTile {
 // gated_dz), silu's sigmoid taken once for both; both backward kernels
 // round dz through this one routine.  silu' rounds every step as the
 // plain version does (silu_grad: no FMA), so dz_g equals the plain dz_g
-// (chip_layouts.py counts the elements that differ)
+// (PERF.md gives the count of elements that differed before)
 __device__ __forceinline__ void gated_dz_t(uint32_t dv, uint32_t gv,
                                            uint32_t uv, uint32_t& zg,
                                            uint32_t& zu) {
@@ -1509,7 +1509,7 @@ constexpr int kGatedNA = 64, kGatedKM = 32, kGatedMinB = 2;
 
 // The gated dx's layout at block 128: the whole input block a block, K
 // steps of 32 columns (94 KB of ring), two blocks an SM.  On an H100 at
-// qwen3-moe's gate junction, M 160 and 4 (chip_layouts.py, PERF.md §6),
+// qwen3-moe's gate junction, M 160 and 4 (PERF.md §6),
 // 64-column K steps (176 KB, one block an SM) were 36-37 % slower and
 // 64-column halves of the input block (dz made twice) 64-136 % slower.
 constexpr int kGatedDxKS = 32, kGatedDxNA = 128, kGatedDxMinB = 2;

@@ -69,6 +69,8 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import fxp_qmatmul as fxk
+
 ACTIVATIONS = ("none", "relu", "sigmoid", "silu", "gelu")
 # activations whose gradient needs the pre-activation s (saved as a second
 # forward output); relu and sigmoid rebuild their gradient from y itself
@@ -476,8 +478,8 @@ def _check_int8(x, ws, idx, scales, bias, x_scale, name):
 # The int8 kernels' plan, from the shapes alone (no host read): which
 # path, how many rows of x a block takes, how many consecutive fan-in
 # slots, and so into how many blocks an output block's kb slots split.
-# mma.sync takes block 128 from INT8_MMA_MIN_M rows, the crossover that
-# chip_layouts.py measured on the H100 (at stablelm-3b's FFN layer dp4a
+# mma.sync takes block 128 from INT8_MMA_MIN_M rows, the crossover
+# measured on the H100 (PERF.md; at stablelm-3b's FFN layer dp4a
 # leads up to 16 rows, mma at 32; at qwen3-moe's 128 experts mma leads
 # from 16); the dp4a path takes all other calls.  A block takes at most
 # 8 rows on the dp4a path and 16 on the mma path (one row tile, its K
@@ -693,18 +695,24 @@ def _check_fxp(x, wq, idx, qfmt, lut, bias):
                          f"(2^bw), got {lut.dtype} {tuple(lut.shape)}")
 
 
-def _wrap_i32(v):
-    """int64 values wrapped into int32's range, as an int32 sum wraps."""
-    return torch.remainder(v + 2 ** 31, 2 ** 32) - 2 ** 31
+def fxp_plan(E: int, M: int, nob: int, kb: int, bs: int):
+    """(output tiles, run, nsplit) of one ``junction_fwd_fxp`` launch:
+    E * nob * ceil(M / 64) tiles of 64 rows and one output block, whose
+    kb * bs / 32 K tiles (the slots' code rows in order) split over
+    nsplit blocks of run K tiles (``fxp_qmatmul.split_plan``), from the
+    shapes alone."""
+    tiles = E * nob * -(-M // fxk.TILE_M)
+    return (tiles, *fxk.split_plan(tiles, kb * bs // fxk.TILE_K))
 
 
 def fwd_fxp_ref(x, wq, idx, qfmt, lut, bias):
     """Plain version of the fixed-point kernel, bit for bit the
     reference's integer pipeline (core/quantize._fxp_apply): the codes'
-    products summed exactly in float64 and wrapped to int32 as the int32
-    dot wraps, the round-half-up shift of the wrapped (acc + 2^(bf-1)),
-    saturation, the bias code added and saturated again, the LUT.  Reads
-    bf on the host."""
+    products summed mod 2^32 as the int32 dot sums them (each slot's
+    ``fxp_qmatmul.wrapped_dot``, exact for any int32 codes; the slots'
+    sums added in int64 and wrapped), the round-half-up shift of the
+    wrapped (acc + 2^(bf-1)), saturation, the bias code added and
+    saturated again, the LUT.  Reads bf on the host."""
     _check_fxp(x, wq, idx, qfmt, lut, bias)
     E, M, n_in = x.shape
     _, nob, kb, bs, _ = wq.shape
@@ -713,15 +721,14 @@ def fwd_fxp_ref(x, wq, idx, qfmt, lut, bias):
     bf = int(qfmt[0])
     scale = float(2 ** bf)
     xb = x.float().reshape(E, M, n_in // bs, bs)
-    # |product| <= 2^30 for 16-bit codes: the float64 sum is exact
-    acc = torch.zeros((E, M, nob, bs), dtype=torch.float64, device=x.device)
+    acc = torch.zeros((E, M, nob, bs), dtype=torch.int64, device=x.device)
     for k in range(kb):
         xk = xb[:, :, idx[:, k].long(), :]
         xq = torch.clamp(torch.round(xk * scale), -lim, lim - 1)
-        acc += torch.einsum("emob,eobc->emoc", xq.double(),
-                            wq[:, :, k].double())
-    acc = _wrap_i32(acc.to(torch.int64)).reshape(E, M, nob * bs)
-    s = _wrap_i32(acc + (1 << (bf - 1))) >> bf
+        acc = fxk.wrap_i32(acc + fxk.wrapped_dot(
+            "emob,eobc->emoc", xq.long(), wq[:, :, k].long()))
+    acc = acc.reshape(E, M, nob * bs)
+    s = fxk.wrap_i32(acc + (1 << (bf - 1))) >> bf
     s = torch.clamp(s, -lim, lim - 1)
     bcode = torch.clamp(torch.round(bias * scale), -lim, lim - 1)
     s = torch.clamp(s + bcode.to(torch.int64)[:, None, :], -lim, lim - 1)
@@ -733,8 +740,8 @@ def fwd_fxp(x, wq, idx, qfmt, lut, bias):
     [nob, kb] int32, qfmt [bf, bn] int32, lut [2^bw] fp32 (the activation
     baked in), bias [E, nob*bs] fp32 on the grid -> lut[...] [E, M,
     nob*bs] in x's dtype.  CPU: ``fwd_fxp_ref``; CUDA:
-    ``junction_fwd_fxp`` (``fwd_fxp.launches``), which reads bf from qfmt
-    on the card."""
+    ``junction_fwd_fxp`` at ``fxp_plan`` (``fwd_fxp.launches``), which
+    reads bf from qfmt on the card."""
     if _route(x, "junction fwd_fxp"):
         return fwd_fxp_ref(x, wq, idx, qfmt, lut, bias)
     _check_fxp(x, wq, idx, qfmt, lut, bias)
@@ -743,13 +750,23 @@ def fwd_fxp(x, wq, idx, qfmt, lut, bias):
     _check_cuda(x, bs, _QUANT_BLOCKS, "junction_fwd_fxp", x=x, wq=wq,
                 idx=idx, qfmt=qfmt, lut=lut, bias=bias)
     _check_codes_aligned("junction_fwd_fxp", wq)
+    if x.data_ptr() % 16:         # the kernel copies x in 16-byte pieces
+        x = x.clone()
     y = torch.empty((E, M, nob * bs), dtype=x.dtype, device=x.device)
     if M:
         with torch.cuda.device(x.device):
-            err = _kernel("junction_quant", "junction_fwd_fxp", 7, 8)(
+            tiles, run, nsplit = fxp_plan(E, M, nob, kb, bs)
+            part = tickets = None
+            if nsplit > 1:
+                from repro_torch.kernels import build
+                part = torch.empty(nsplit * tiles * fxk.TILE_M * bs,
+                                   dtype=torch.int32, device=x.device)
+                tickets = build.tickets(x.device, tiles)
+            err = _kernel("junction_quant", "junction_fwd_fxp", 9, 10)(
                 x.data_ptr(), wq.data_ptr(), idx.data_ptr(), qfmt.data_ptr(),
-                lut.data_ptr(), bias.data_ptr(), y.data_ptr(), E, M,
-                n_in // bs, nob, kb, bs, lut.shape[0], _DTYPE_CODE[x.dtype],
+                lut.data_ptr(), bias.data_ptr(), y.data_ptr(), _ptr(part),
+                _ptr(tickets), E, M, n_in // bs, nob, kb, bs, lut.shape[0],
+                _DTYPE_CODE[x.dtype], run, nsplit,
                 torch.cuda.current_stream().cuda_stream)
         _raise_on(err, "junction_fwd_fxp")
         fwd_fxp.launches += 1

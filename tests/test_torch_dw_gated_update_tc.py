@@ -29,7 +29,7 @@ the fp32 slots ``bf16_sum`` = 1e-3, fp32 sums of the same bf16 products
 in another order, where a dz element whose fp32 value differs in its
 last bit can also round to the other bf16 neighbour (here the sigmoid as
 1 / (1 + exp(-g)) against torch.sigmoid; on the card the kernels' one
-FMA of 1 + g (1 - s) against two roundings, as chip_layouts.py counts); the bf16 weights ``bf16_out`` =
+FMA of 1 + g (1 - s) against two roundings); the bf16 weights ``bf16_out`` =
 2^-7, one bf16 ulp, since both sides round fp32 values that differ only
 in that order (SGD and momentum weights also 1e-6 absolute, where w - lr
 * g cancels); Adam weights near the noise floor are held as on the card

@@ -29,7 +29,7 @@ Tolerances, ``chip_smoke.REL_TOL``, relative to max |want|: dx
 differ only in order and in the dz elements whose fp32 value differs in
 its last bit and rounds to the other bf16 neighbour (here the sigmoid as
 1 / (1 + exp(-g)) against torch.sigmoid; on the card the kernels' one
-FMA of 1 + g (1 - s) against two roundings, as chip_layouts.py counts); dwg and dwi ``bf16_sum`` = 1e-3,
+FMA of 1 + g (1 - s) against two roundings); dwg and dwi ``bf16_sum`` = 1e-3,
 fp32 sums of the same bf16 products in another order with the same dz
 neighbours.  The zeros of a block that feeds nothing and the identity
 with the update's gradients are exact.

@@ -332,6 +332,70 @@ def test_fwd_fxp_bf16_input_and_no_bias():
                                   np.asarray(want.astype(jnp.float32)))
 
 
+def _codes_summing_to(bs, kb, target, x_code):
+    """One column of weight codes near 2^31 - 1 (kb slots of bs) whose
+    int32 dot with a row of x codes all equal to x_code (odd) is exactly
+    S = x_code * sum(w), S = target (mod 2^32), S in [2^53, 2^54), the
+    slots' sums even but the last one's odd: a float64 sum of the slots'
+    exact partials meets an odd S past 2^53 at its last addition and
+    rounds it to the even neighbour, S + 1 for S = 3 (mod 4)."""
+    w = np.full((kb, bs), 2 ** 31 - 1, np.int64)
+    w[-1, 0] -= 1                                  # the last slot's sum odd
+    want = target * pow(x_code, -1, 2 ** 32) % 2 ** 32
+    dec = (int(w.sum()) - want) % 2 ** 32          # even: odd - odd
+    assert dec % 2 == 0
+    flat = w.reshape(-1)
+    half = dec // 2
+    flat -= 2 * (half // flat.size + (np.arange(flat.size) < half % flat.size))
+    S = x_code * int(w.sum())
+    assert S % 2 ** 32 == target and 2 ** 53 <= S < 2 ** 54
+    assert all(int(v) % 2 == 0 for v in w[:-1].sum(1)) and w[-1].sum() % 2
+    return w
+
+
+def test_fwd_fxp_plain_exact_past_float64_for_codes_beyond_16_bits():
+    """wq codes near 2^31 - 1 and x at its clip, all positive, kb * bs =
+    256 products a column: the exact sum lies past 2^53, where summing
+    in float64 rounds.  Each column's sum is 1023 + 2048 c mod 2^32, one
+    below a rounding step of the shift by bf = 11, so a sum off by +1
+    moves every output.  The plain version equals the reference's int32
+    dot (interpret mode) bit for bit; the float64 sum of the slots does
+    not."""
+    jf = jfp.FxpFormat(16, 4, 11)
+    pat = make_block_pattern(512, 2 * BS, 0.5, BS, seed=0)
+    nob, kb = pat.idx.shape
+    assert kb * BS >= 256
+    x_code = 2 ** 15 - 1                       # x at the clip of bw 16
+    x = np.full((1, 8, 512), x_code / 2.0 ** jf.bf, np.float32)
+    q = np.zeros((1, nob, kb, BS, BS), np.int64)
+    for o in range(nob):
+        for c in range(BS):
+            q[0, o, :, :, c] = _codes_summing_to(BS, kb,
+                                                 1023 + 2048 * (o * BS + c),
+                                                 x_code)
+    q = q.astype(np.int32)
+    b = np.zeros((1, nob * BS), np.float32)
+    lut = np.asarray(jqz.act_lut(jf, "sigmoid"))
+    qfmt = np.asarray([jf.bf, jf.bn], np.int32)
+    want = jbsm.fwd_fxp(jnp.asarray(x), jnp.asarray(q), pat.idx,
+                        jnp.asarray(qfmt), jnp.asarray(lut), jnp.asarray(b),
+                        bm=8, interpret=True)
+    t = torch.from_numpy
+    got = tbsm.fwd_fxp(t(x), t(q), t(pat.idx), t(qfmt), t(lut), t(b))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # s = (S + 2^10) >> 11 = o * 32 + c exactly; a float64 sum of the
+    # slots' partials (each exact) gives S + 1 and s + 1 in every column
+    xc = np.full(BS, float(x_code))
+    for o in range(nob):
+        acc = np.zeros(BS)
+        for k in range(kb):
+            acc += xc @ q[0, o, k].astype(np.float64)
+        f64 = (acc.astype(np.int64) % 2 ** 32 + 2 ** 10) >> jf.bf
+        np.testing.assert_array_equal(f64, o * BS + np.arange(BS) + 1)
+    np.testing.assert_array_equal(
+        got.numpy()[0, 0], lut[np.arange(nob * BS)])
+
+
 # --------------------------------------------------------------- refusals
 def test_junction_refuses_codes_without_their_leaves():
     rng = np.random.default_rng(0)
