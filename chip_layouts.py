@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the fixed-point kernels, ``junction_fwd_fxp`` and ``fxp_qmatmul``,
-on one NVIDIA card beside the parent commit's, in turns.
+"""Time the selective scan, ``selective_scan``, on one NVIDIA card beside
+the parent commit's, in turns.
 
     python3 chip_layouts.py [--parent DIR]
 
@@ -9,35 +9,33 @@ PyTorch built for CUDA.  DIR holds the parent commit's
 ``src/repro_torch/csrc`` (for example ``git archive <parent>
 src/repro_torch/csrc | tar -x -C build/parent``, then ``--parent
 build/parent/src/repro_torch/csrc``; ``build/`` is git-ignored); its
-``junction_quant.cu`` and ``fxp_qmatmul.cu`` are built under
-``build/layouts/``, one nvcc each, started together.  Then:
+``selective_scan.cu`` is built under ``build/layouts/``, beside the
+landed sources.  Then:
 
 1. the floor of ``chip_smoke.Timer`` (a one-element fill);
-2. the IMMA instructions of ``fxp_qmatmul_kernel`` and
-   ``junction_fxp_kernel`` in the built libraries (``cuobjdump -sass``);
-3. at every shape ``chip_smoke.py`` times (qmatmul at 512 x 1024 x 512
-   at every paper triplet and beyond 16 bits, at 4096^3 at the paper
-   triplet, bw 8 and beyond 16 bits, the K split for occupancy at 16 x
-   65536 x 16 and by the chunk at 1024 x 16384 x 1024; fwd_fxp at the
-   sweep's two layers at every triplet and
-   beyond 16 bits) and at fwd_fxp blocks 32 and 64: the landed kernel,
-   with its K split for occupancy turned off where it has one
-   (``fxp_qmatmul.TC_BLOCKS`` = 1), and, with DIR, the parent's kernels
-   at their old C signatures, each output equal bit for bit to the plain
-   version, timed in turns (``chip_smoke.in_turns``);
-4. with DIR, ``chip_smoke.sweep_phase`` with the parent's fwd_fxp and
-   the landed one, in turns: wall time and launch counts.
+2. the static SASS counts (``cuobjdump -sass``) of MUFU.EX2 (one an
+   element), SHFL, LDS and STS in every scan kernel function of the
+   landed library and, with DIR, of the parent's, whole and in the hot
+   loop, with the shared-memory and shuffle (MIO) instructions a
+   MUFU.EX2 there;
+3. at the four cases ``chip_smoke.py`` times (falcon-mamba-7b's d_inner
+   and state, B1 x S4096 and B4 x S1024, fp32 and bf16): the landed plan,
+   the sequence split forced off (L = 1) or on (L = 2), two lanes a
+   channel at the landed split, four lanes unsplit and, at batch 1, 3
+   and 12 chunks, and, with DIR, the parent's kernel at its C signature,
+   each output against the plain version (``chip_smoke.TOL``), timed in
+   turns (``chip_smoke.in_turns``).
 
 It exits 1 without a card and 2 when an output disagrees with its plain
-version or a kernel holds no IMMA.
+version or a landed kernel holds no MUFU.EX2.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
-import time
 from pathlib import Path
 from unittest import mock
 
@@ -45,7 +43,8 @@ import torch
 
 import chip_smoke as C
 
-PARENT_SOURCES = ("junction_quant", "fxp_qmatmul")
+PARENT_SOURCES = ("selective_scan",)
+SASS_OPS = ("MUFU.EX2", "SHFL", "LDS", "STS")
 
 
 def build_parent(P, parent: Path) -> dict[str, ctypes.CDLL]:
@@ -69,204 +68,160 @@ def build_parent(P, parent: Path) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def imma_counts(P, path) -> dict[str, int]:
-    """IMMA instructions a kernel function in a built library."""
+def sass_functions(P, path) -> dict[str, list[tuple[int, str]]]:
+    """(address, instruction) of each kernel function in a built library
+    (``cuobjdump -sass``), by its name past the anonymous namespace."""
     nvcc = Path(P.build.find_nvcc())
     sass = subprocess.run([str(nvcc.with_name("cuobjdump")), "-sass",
                            str(path)], capture_output=True, text=True,
                           check=True).stdout
-    counts, fn = {}, None
+    funcs, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts.setdefault(fn, 0)
-        elif "IMMA" in line and fn is not None:
-            counts[fn] += 1
+            name = line.split("Function :")[1].strip()
+            m = re.search(r"\d+((?:selective_)?scan_\w+)", name)
+            fn = m.group(1) if m else name
+            funcs[fn] = []
+        elif fn is not None:
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+            if m:
+                funcs[fn].append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def op_counts(instrs) -> dict[str, int]:
+    """SASS_OPS among instructions (predicated ones included)."""
+    pat = re.compile(r"(?:^|\s)(MUFU\.EX2|SHFL|LDS|STS)(?:\.[A-Z0-9_.]+)?\s")
+    counts = dict.fromkeys(SASS_OPS, 0)
+    for _, text in instrs:
+        m = pat.search(text + " ")
+        if m:
+            counts[m.group(1)] += 1
     return counts
 
 
-def parent_qmatmul(lib):
-    """The parent's fxp_qmatmul at its C signature (3 pointers, 5 ints)."""
-    fn = lib.fxp_qmatmul
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+def hot_loop(instrs):
+    """The instructions of the innermost loop (a backward branch's span)
+    that holds a MUFU.EX2, or []."""
+    best = []
+    for addr, text in instrs:
+        m = re.search(r"\bBRA\s+0x([0-9a-f]+)", text)
+        if not m or int(m.group(1), 16) > addr:
+            continue
+        span = [(a, t) for a, t in instrs if int(m.group(1), 16) <= a <= addr]
+        if any("MUFU.EX2" in t for _, t in span) and (
+                not best or len(span) < len(best)):
+            best = span
+    return best
+
+
+def print_sass(label, funcs) -> None:
+    """Each kernel function's SASS_OPS, whole and in its hot loop, with
+    the MIO instructions (SHFL, LDS, STS) a MUFU.EX2 (an element) there;
+    static counts: a loop of shuffles counts once."""
+    for fn, instrs in funcs.items():
+        whole, loop = op_counts(instrs), op_counts(hot_loop(instrs))
+        mio = loop["SHFL"] + loop["LDS"] + loop["STS"]
+        per = f"{mio / loop['MUFU.EX2']:.3f}" if loop["MUFU.EX2"] else "-"
+        print(f"[sass] {label} {fn}: function "
+              + ", ".join(f"{op} {n}" for op, n in whole.items())
+              + f"; hot loop ({len(hot_loop(instrs))} instructions) "
+              + ", ".join(f"{op} {n}" for op, n in loop.items())
+              + f"; MIO a MUFU.EX2 in the loop: {per}")
+
+
+def parent_scan(lib):
+    """The parent's selective_scan at its C signature (8 pointers, 5
+    ints, the stream)."""
+    fn = lib.selective_scan
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
-    def call(a, w, bf, bn):
-        M, K = a.shape
-        N = w.shape[1]
-        out = torch.empty((M, N), dtype=torch.int32, device="cuda")
-        err = fn(a.data_ptr(), w.data_ptr(), out.data_ptr(), M, K, N, bf, bn,
+    def call(dt, x, bc, cc, a, h0):
+        B, S, di = dt.shape
+        N = bc.shape[-1]
+        y = torch.empty_like(dt)
+        h = torch.empty((B, di, N), dtype=torch.float32, device="cuda")
+        err = fn(dt.data_ptr(), x.data_ptr(), bc.data_ptr(), cc.data_ptr(),
+                 a.data_ptr(), h0.data_ptr(), y.data_ptr(), h.data_ptr(), B,
+                 S, di, N, 0 if dt.dtype == torch.float32 else 1,
                  torch.cuda.current_stream().cuda_stream)
-        C.require(err == 0, f"parent fxp_qmatmul: cudaError {err}")
-        return out
+        C.require(err == 0, f"parent selective_scan: cudaError {err}")
+        return y, h
     return call
 
 
-def parent_fwd_fxp(P, lib):
-    """The parent's junction_fwd_fxp at its C signature (7 pointers, 8
-    ints), counted on ``bsm.fwd_fxp.launches`` like the landed one."""
-    fn = lib.junction_fwd_fxp
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    counter = P.bsm.fwd_fxp          # the landed wrapper, before any patch
+def forced(P, nt, L, fn):
+    """``fn`` with the scan's plan forced to nt lanes a channel and (at
+    most) L chunks."""
+    ssk = P.ssk
 
-    def call(x, wq, idx, qfmt, lut, bias):
-        E, M, n_in = x.shape
-        _, nob, kb, bs, _ = wq.shape
-        y = torch.empty((E, M, nob * bs), dtype=x.dtype, device="cuda")
-        err = fn(x.data_ptr(), wq.data_ptr(), idx.data_ptr(),
-                 qfmt.data_ptr(), lut.data_ptr(), bias.data_ptr(),
-                 y.data_ptr(), E, M, n_in // bs, nob, kb, bs, lut.shape[0],
-                 P.bsm._DTYPE_CODE[x.dtype],
-                 torch.cuda.current_stream().cuda_stream)
-        C.require(err == 0, f"parent junction_fwd_fxp: cudaError {err}")
-        counter.launches += 1
-        return y
+    def plan(B, S, di, N):
+        return (nt, ssk.scan_ns(N, nt), ssk.SCAN_THREADS // nt,
+                *ssk.scan_chunks(S, L))
+
+    def call():
+        with mock.patch.object(ssk, "scan_plan", plan):
+            return fn()
     return call
 
 
-def fxp_layouts(P, libs, timer, card) -> bool:
-    """Parts 2-4; True when every output is its plain version's and both
-    kernels hold IMMA."""
-    ok = True
-    for name, kernel in (("fxp_qmatmul", "fxp_qmatmul_kernel"),
-                         ("junction_quant", "junction_fxp_kernel")):
-        counts = {fn: n for fn, n in imma_counts(
-            P, P.build.lib_path(name)).items() if kernel in fn}
-        for fn, n in counts.items():
-            print(f"[sass] {name}: {fn}: {n} IMMA instructions")
-        ok &= bool(counts) and all(n > 0 for n in counts.values())
+def scan_layouts(P, libs, timer, card) -> bool:
+    """Parts 2 and 3; True when every output is within TOL of the plain
+    version's and every landed kernel holds a MUFU.EX2."""
+    landed = sass_functions(P, P.build.lib_path("selective_scan"))
+    print_sass("landed", landed)
+    ok = all(op_counts(instrs)["MUFU.EX2"] > 0
+             for fn, instrs in landed.items() if "scan_kernel" in fn)
+    if libs:
+        print_sass("parent", sass_functions(
+            P, C.ROOT / "build" / "layouts"
+            / "libparent_selective_scan.so"))
+    old = parent_scan(libs["selective_scan"]) if libs else None
+    ssk = P.ssk
     gen = torch.Generator(device="cuda")
     gen.manual_seed(23)
-    fxp = P.fxp
-    old_q = parent_qmatmul(libs["fxp_qmatmul"]) if libs else None
-    old_f = parent_fwd_fxp(P, libs["junction_quant"]) if libs else None
-
-    def ri(lo, hi, shape):
-        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
-                             dtype=torch.int64).to(torch.int32)
-
-    def run(label, fns, want):
-        nonlocal ok
-        for name, fn in fns.items():
-            same = C.bits_equal(fn(), want)
-            ok &= same
-            print(f"[fxp] {label} {name}: bits equal to the plain "
-                  f"version's: {same}")
-        for name, ms in zip(fns, C.in_turns(timer, *fns.values())):
-            print(f"[fxp] {label} {name}: {ms:.4f} ms [{card}]", flush=True)
-
-    def unsplit(fn):
-        def call():
-            with mock.patch.object(P.fxk, "TC_BLOCKS", 1):
-                return fn()
-        return call
-
-    top, paper, b8 = fxp.PAPER_TRIPLETS[-1], fxp.PAPER_FMT, \
-        fxp.PAPER_TRIPLETS[0]
-    M, K, N = C.QMM_SHAPE
-    cases = []
-    for fmt in fxp.PAPER_TRIPLETS:
-        lim = 1 << (fmt.bn + fmt.bf)
-        cases.append((f"qmatmul {M}x{K}x{N} fmt=({fmt.bw},{fmt.bn},{fmt.bf})",
-                      fmt, ri(-lim, lim, (M, K)), ri(-lim, lim, (K, N))))
-    cases.append((f"qmatmul {M}x{K}x{N} beyond 16 bits", top,
-                  ri(-2 ** 31, 2 ** 31 - 1, (M, K)),
-                  ri(-2 ** 31, 2 ** 31 - 1, (K, N))))
-    B = C.QMM_BIG
-    for what, fmt, lo, hi in (("paper", paper, None, None),
-                              ("bw 8", b8, None, None),
-                              ("beyond 16 bits", top, -2 ** 31, 2 ** 31 - 1)):
-        lim = 1 << (fmt.bn + fmt.bf)
-        lo, hi = (-lim, lim) if lo is None else (lo, hi)
-        cases.append((f"qmatmul {B}^3 {what}", fmt, ri(lo, hi, (B, B)),
-                      ri(lo, hi, (B, B))))
-    cases.append(("qmatmul K split for occupancy 16x65536x16", top,
-                  (ri(0, 2 ** 23, (16, 65536)) << 8) | 0xFF,
-                  (ri(-2 ** 23, 2 ** 23, (65536, 16)) << 8) | 0xFF))
-    # the K chunk sets the split; output tile (0, 0) at the accumulators'
-    # worst case, as in chip_smoke.py
-    M, K, N = C.QMM_CHUNK
-    ca, cw = (ri(-2 ** 23, 2 ** 23, shape) << 8 | 0xFF
-              for shape in ((M, K), (K, N)))
-    ca[:P.fxk.TILE_M] = 2 ** 31 - 1
-    cw[:, :P.fxk.TILE_N] = 2 ** 31 - 1
-    cases.append((f"qmatmul K split by the chunk {M}x{K}x{N}", top, ca, cw))
-    del ca, cw
-    for label, fmt, a, w in cases:
-        new = lambda a=a, w=w, f=fmt: P.fxk.qmatmul(a, w, bf=f.bf, bn=f.bn)
-        fns = {}
-        if old_q is not None:
-            fns["parent"] = lambda a=a, w=w, f=fmt: old_q(a, w, f.bf, f.bn)
-        plan = P.fxk.qmatmul_plan(*a.shape, w.shape[1])
-        fns[f"landed plan={plan}"] = new
-        with mock.patch.object(P.fxk, "TC_BLOCKS", 1):
-            alone = P.fxk.qmatmul_plan(*a.shape, w.shape[1])
-        if alone != plan:               # the chunk's split stays
-            fns["unsplit"] = unsplit(new)
-        want = P.fxk.qmatmul_ref(a, w, bf=fmt.bf, bn=fmt.bn)
-        run(label, fns, want)
-        del a, w, want
-    del cases
-
-    for sname, n_in, n_out, pseed in C.SWEEP_SHAPES:
-        pat = P.make_block_pattern(n_in, n_out, 0.25, C.BS, seed=pseed)
-        idx = torch.from_numpy(pat.idx).to("cuda")
-        w = torch.randn((1, *pat.idx.shape, C.BS, C.BS), generator=gen,
-                        device="cuda") * 0.05
-        b = torch.randn((1, n_out), generator=gen, device="cuda")
-        for fmt in fxp.PAPER_TRIPLETS + ["wide"]:
-            kind = "wide" if fmt == "wide" else "spread"
-            fmt = top if kind == "wide" else fmt
-            args = C._fxp_operands(P, gen, w, b, fmt, kind, C.SWEEP_M, n_in)
-            xf, wq, qf, lut, bq = args
-            call = (xf, wq, idx, qf, lut, bq)
-            new = lambda call=call: P.bsm.fwd_fxp(*call)
+    arch = P.registry.get(C.SCAN_ARCH)
+    di, N = arch.d_inner, arch.ssm_state
+    for B, S in C.SCAN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = torch.nn.functional.softplus(torch.randn(
+                (B, S, di), generator=gen, device="cuda")) * 0.1
+            xs = [torch.randn(shape, generator=gen, device="cuda")
+                  for shape in ((B, S, di), (B, S, N), (B, S, N))]
+            a = -torch.exp(torch.randn((di, N), generator=gen,
+                                       device="cuda") * 0.3)
+            h0 = torch.randn((B, di, N), generator=gen, device="cuda") * 0.1
+            ins = [t.to(dtype) for t in (dt, *xs)] + [a, h0]
+            ry, rh = ssk.selective_scan_ref(*ins)
+            nt, _, _, L, chunk = ssk.scan_plan(B, S, di, N)
+            new = lambda ins=ins: ssk.selective_scan(*ins)
             fns = {}
-            if old_f is not None:
-                fns["parent"] = lambda call=call: old_f(*call)
-            fns[f"landed plan={P.bsm.fxp_plan(1, C.SWEEP_M, *wq.shape[1:4])}"] \
-                = new
-            fns["unsplit"] = unsplit(new)
-            tag = " beyond 16 bits" if kind == "wide" else \
-                f" fmt=({fmt.bw},{fmt.bn},{fmt.bf})"
-            label = f"fwd_fxp sweep {sname} {n_in}->{n_out} M={C.SWEEP_M}{tag}"
-            run(label, fns, P.bsm.fwd_fxp_ref(*call))
-    for bs in (32, 64):
-        _, n_in, n_out, pseed = C.SWEEP_SHAPES[0]
-        pat = P.make_block_pattern(n_in, n_out, 0.25, bs, seed=pseed)
-        idx = torch.from_numpy(pat.idx).to("cuda")
-        w = torch.randn((1, *pat.idx.shape, bs, bs), generator=gen,
-                        device="cuda") * 0.05
-        b = torch.randn((1, n_out), generator=gen, device="cuda")
-        xf, wq, qf, lut, bq = C._fxp_operands(P, gen, w, b, paper, "spread",
-                                              C.SWEEP_M, n_in)
-        call = (xf, wq, idx, qf, lut, bq)
-        fns = {}
-        if old_f is not None:
-            fns["parent"] = lambda call=call: old_f(*call)
-        fns[f"landed plan={P.bsm.fxp_plan(1, C.SWEEP_M, *wq.shape[1:4])}"] = \
-            lambda call=call: P.bsm.fwd_fxp(*call)
-        run(f"fwd_fxp block {bs} {n_in}->{n_out} M={C.SWEEP_M}", fns,
-            P.bsm.fwd_fxp_ref(*call))
-    if old_f is not None:
-        def sweep(kernel):
-            def call():
-                with mock.patch.object(P.bsm, "fwd_fxp", kernel):
-                    t0 = time.perf_counter()
-                    counts = C.sweep_phase(P, card)
-                    return time.perf_counter() - t0, counts
-            return call
-        for name, fn in (("parent", sweep(old_f)),
-                         ("landed", sweep(P.bsm.fwd_fxp)),
-                         ("landed", sweep(P.bsm.fwd_fxp)),
-                         ("parent", sweep(old_f))):
-            secs, counts = fn()
-            print(f"[fxp] sweep_phase with the {name} fwd_fxp: {secs:.3f} s, "
-                  f"fwd_fxp launches {counts['junction_fwd_fxp']} [{card}]",
-                  flush=True)
+            if old is not None:
+                fns["parent"] = lambda ins=ins: old(*ins)
+            fns[f"landed nt={nt} L={L} chunk={chunk}"] = new
+            variants = [(nt, 2 if L == 1 else 1), (2, L), (4, 1)]
+            if B == 1:
+                variants += [(nt, 3), (nt, 12)]
+            for vnt, vL in variants:
+                vL, vchunk = ssk.scan_chunks(S, vL)
+                fns[f"forced nt={vnt} L={vL} chunk={vchunk}"] = forced(
+                    P, vnt, vL, new)
+            label = f"{C.SCAN_ARCH} B={B} S={S} {str(dtype)[6:]}"
+            for name, fn in fns.items():
+                y, h = fn()
+                err = max(C.max_err(y, ry), C.max_err(h, rh))
+                good = C.close(y, ry, C.TOL[dtype]) and C.close(
+                    h, rh, C.TOL[torch.float32])
+                ok &= good
+                print(f"[scan] {label} {name}: max_abs_err={err:.3g} "
+                      f"within TOL: {good}")
+            for name, ms in zip(fns, C.in_turns(timer, *fns.values())):
+                print(f"[scan] {label} {name}: {ms:.4f} ms [{card}]",
+                      flush=True)
+            del ins, ry, rh, dt, xs
+            torch.cuda.empty_cache()
     return ok
 
 
@@ -286,13 +241,13 @@ def main() -> int:
     P = C.load_port()
     card = C.card_line()
     print(f"card: {card}")
-    P.build.build_all()
+    P.build.build_all(("selective_scan",))
     libs = build_parent(P, opts.parent) if opts.parent is not None else {}
     timer = C.Timer(reps=10)
     tiny = torch.empty(1, device="cuda")
     print(f"[floor] chip_smoke.Timer of a one-element fill: "
           f"{timer.ms(lambda: tiny.fill_(1.0)):.4f} ms [{card}]")
-    ok = fxp_layouts(P, libs, timer, card)
+    ok = scan_layouts(P, libs, timer, card)
     print(card)
     return 0 if ok else 2
 

@@ -75,8 +75,13 @@ PyTorch built for CUDA.  It
    ``selective_scan``, ``mha``) at full-width shapes: attention at
    stablelm-3b's, qwen3-moe's and llava-next-mistral-7b's heads (causal,
    sliding window, ragged, rows with no valid key), the scan at
-   falcon-mamba-7b's d_inner, the fixed-point matmul at every paper
-   triplet (a wrapping int32 sum), at 4096^3, with codes beyond 16 bits,
+   falcon-mamba-7b's d_inner (the batch-1 sequence split into chunks,
+   batch 4 unsplit) and at shapes that reach every plan of
+   ``selective_scan.scan_plan`` (a ragged last chunk, two lanes a
+   channel with N not a multiple of two, rows staged by plain loads),
+   its bound counting its exps (``scan_bounds``), the fixed-point matmul
+   at every paper triplet (a wrapping int32 sum), at 4096^3, with codes
+   beyond 16 bits,
    with K split over blocks for occupancy (16 x 65536 x 16) and by the
    8192 of K a block sums at most (1024 x 16384 x 1024, its int32
    accumulators at their worst case), the lookup on both
@@ -113,6 +118,11 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12,      # dense tensor-core bf16
                   # the data sheet gives no int32 rate: the fp32 rate of
                   # the CUDA cores stands in for their integer units
                   torch.int32: 67e12}
+# the special-function units' exp2 (MUFU.EX2, one an expf): 16 results a
+# clock an SM on compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput table), 132 SMs at the 1980 MHz boost
+# clock of the H100 SXM: 4.18 T/s
+SFU_EXP_PER_S = 16 * 132 * 1.98e9
 # kernel vs plain version: in fp32 the same sums (up to 1792 products)
 # in another order; in bf16 both sides round fp32 values that differ only
 # in summation order, so an output may move by one bf16 ulp
@@ -206,6 +216,22 @@ def bounds_text(b: dict) -> str:
             f"on int8 tensor cores, {b['plane_pairs']} plane pairs) "
             f"bound_int32_ms={b['bound_int32_ms']:.5f} "
             f"({b['bound_int32_by']}; int32 at the 67 T/s stand-in)")
+
+
+def scan_bounds(nbytes: float, n_el: int) -> dict:
+    """The selective scan's bound: the larger of its bytes, its n_el exps
+    (one an element) at SFU_EXP_PER_S, and its 7 fp32 operations an
+    element (dt * a, decay * h + inp, dt x * B, y += h * C) at the fp32
+    rate."""
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "exps": n_el / SFU_EXP_PER_S * 1e3,
+             "fp32": 7 * n_el / PEAK_OPS_PER_S[torch.float32] * 1e3}
+    top = max(parts, key=parts.get)
+    return {"bound_ms": parts[top],
+            "bound_by": "bytes" if top == "bytes" else "operations",
+            "text": f"bound_ms={parts[top]:.5f} ({top}; bytes "
+                    f"{parts['bytes']:.5f}, exps {parts['exps']:.5f}, fp32 "
+                    f"{parts['fp32']:.5f})"}
 
 
 def max_err(got, want) -> float:
@@ -2492,6 +2518,9 @@ def sweep_phase(P, card):
 # not grow along S; attention sums up to 8192 fp32 terms in another
 # order (TOL); bf16 outputs may move by one bf16 ulp (TOL)
 SCAN_ARCH, SCAN_SHAPES = "falcon-mamba-7b", ((1, 4096), (4, 1024))
+# what the scan's checked cases must reach between them (scan_plan_kinds)
+SCAN_KINDS = {"split", "unsplit", "ragged last chunk",
+              "NT > 1, N not a multiple of NT", "plain loads"}
 QMM_SHAPE, QMM_BIG = (512, 1024, 512), 4096
 QMM_CHUNK = (1024, 16384, 1024)    # the K chunk sets qmatmul's split
 LUT_SHAPES = ((512, 512), (8192, 8192))
@@ -2536,6 +2565,36 @@ def bits_equal(got, want) -> bool:
         torch.equal(got.view(torch.int32), want.view(torch.int32)))
 
 
+def scan_cases(registry):
+    """(B, S, di, N, timed, dtypes) of the scan: the timed cases at
+    SCAN_ARCH's d_inner and state, then checked ones; the last four reach
+    between them every plan of SCAN_KINDS (a split whose last chunk ends
+    in a part of a ring stage, NT 2 with N = 25 and 20, bf16 rows of 200
+    bytes)."""
+    c = registry.get(SCAN_ARCH)
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [(B, S, c.d_inner, c.ssm_state, True, (f32, bf16))
+            for B, S in SCAN_SHAPES] + [
+        (2, 300, 1000, 8, False, (f32,)), (1, 129, 512, 32, False, (f32,)),
+        (3, 70, 96, 5, False, (f32,)),
+        (1, 4001, c.d_inner, c.ssm_state, False, (bf16,)),
+        (2, 1000, 96, 25, False, (f32,)), (3, 70, 200, 20, False, (bf16,)),
+        (1, 37, 100, 5, False, (bf16,))]
+
+
+def scan_plan_kinds(ssk, B, S, di, N, elt) -> set:
+    """What the plan of a scan case exercises (of SCAN_KINDS)."""
+    nt, _, _, L, chunk = ssk.scan_plan(B, S, di, N)
+    kinds = {"split" if L > 1 else "unsplit"}
+    if L > 1 and (S - (L - 1) * chunk) % ssk.SCAN_STEPS:
+        kinds.add("ragged last chunk")
+    if nt > 1 and N % nt:
+        kinds.add("NT > 1, N not a multiple of NT")
+    if di * elt % 16:
+        kinds.add("plain loads")
+    return kinds
+
+
 def standalone_kernel_phase(P, card):
     """Drive the four entry points once at every shape with the launch
     counts reset just before and read just after (exact counts); then
@@ -2559,23 +2618,27 @@ def standalone_kernel_phase(P, card):
             v = torch.randn((B, Sk, Hkv, D), generator=gen, device=dev)
             attn.append((what, B, Sq, Sk, H, Hkv, D, causal, window, timed,
                          dtype, *(t.to(dtype) for t in (q, k, v))))
-    c = P.registry.get(SCAN_ARCH)
     scan = []
-    for B, S, di, N, timed in [(B, S, c.d_inner, c.ssm_state, True)
-                               for B, S in SCAN_SHAPES] + [
-            (2, 300, 1000, 8, False), (1, 129, 512, 32, False),
-            (3, 70, 96, 5, False)]:
-        for dtype in ((torch.float32, torch.bfloat16) if timed
-                      else (torch.float32,)):
+    for i, (B, S, di, N, timed, dtypes) in enumerate(scan_cases(P.registry)):
+        # the cases after the first five from their own generator (those
+        # above and below keep their data)
+        sgen = gen if i < 5 else torch.Generator(device=dev).manual_seed(
+            23 + i)
+        for dtype in dtypes:
             dt = torch.nn.functional.softplus(torch.randn(
-                (B, S, di), generator=gen, device=dev)) * 0.1
-            xs = [torch.randn(shape, generator=gen, device=dev)
+                (B, S, di), generator=sgen, device=dev)) * 0.1
+            xs = [torch.randn(shape, generator=sgen, device=dev)
                   for shape in ((B, S, di), (B, S, N), (B, S, N))]
-            a = -torch.exp(torch.randn((di, N), generator=gen,
+            a = -torch.exp(torch.randn((di, N), generator=sgen,
                                        device=dev) * 0.3)
-            h0 = torch.randn((B, di, N), generator=gen, device=dev) * 0.1
+            h0 = torch.randn((B, di, N), generator=sgen, device=dev) * 0.1
             scan.append((B, S, di, N, timed, dtype,
                          [t.to(dtype) for t in (dt, *xs)] + [a, h0]))
+    kinds = set().union(*(scan_plan_kinds(P.ssk, B, S, di, N,
+                                          ins[0].element_size())
+                          for B, S, di, N, _, _, ins in scan))
+    require(kinds >= SCAN_KINDS,
+            f"the scan's cases miss plans: {SCAN_KINDS - kinds}")
     qmm = []
     M, K, N = QMM_SHAPE
     for fmt in fxp.PAPER_TRIPLETS:
@@ -2662,13 +2725,14 @@ def standalone_kernel_phase(P, card):
 
     def record(kind, what, err, k_ms, p_ms, lib_ms, nbytes, nops, dtype,
                main, bounds=None):
-        """bounds: qmatmul's fxp_bounds, in place of bytes and ops."""
+        """bounds: qmatmul's fxp_bounds or the scan's scan_bounds, in place
+        of bytes and ops."""
         if bounds is None:
             bnd, by = bound_ms(nbytes, nops, dtype)
             bounds, text = {"bound_ms": bnd, "bound_by": by}, \
                 f"bound_ms={bnd:.5f} ({by})"
         else:
-            text = bounds_text(bounds)
+            text = bounds.get("text") or bounds_text(bounds)
         row = {"case": what, "ms": k_ms, "plain_ms": p_ms,
                "bound_ms": bounds["bound_ms"],
                "bound_by": bounds["bound_by"], "library_ms": lib_ms}
@@ -2746,7 +2810,9 @@ def standalone_kernel_phase(P, card):
     for (B, S, di, N, timed, dtype, ins), (y, h) in zip(scan, scan_out):
         ry, rh = P.ssk.selective_scan_ref(*ins)
         err = max(max_err(y, ry), max_err(h, rh))
-        desc = f"B={B} S={S} di={di} N={N} {str(dtype)[6:]}"
+        nt, _, _, L, chunk = P.ssk.scan_plan(B, S, di, N)
+        desc = (f"B={B} S={S} di={di} N={N} {str(dtype)[6:]} plan: nt={nt} "
+                f"L={L} chunk={chunk}")
         require(y.dtype == dtype and h.dtype == torch.float32
                 and close(y, ry, TOL[dtype])
                 and close(h, rh, TOL[torch.float32]),
@@ -2764,8 +2830,9 @@ def standalone_kernel_phase(P, card):
             require(nbytes == P.ssk.hbm_bytes(B, S, di, N) + 4 * di * N,
                     "the scan's bytes disagree with hbm_bytes")
         record("selective_scan", f"{SCAN_ARCH} {desc}", err, k_ms, p_ms,
-               None, nbytes, 7 * B * S * di * N, torch.float32,
-               B == 1 and dtype == torch.float32)
+               None, nbytes, 0, torch.float32,
+               B == 1 and dtype == torch.float32,
+               bounds=scan_bounds(nbytes, B * S * di * N))
 
     for (what, fmt, timed, a, w), got in zip(qmm, qmm_out):
         ref = P.fxk.qmatmul_ref(a, w, bf=fmt.bf, bn=fmt.bn)

@@ -1,6 +1,7 @@
 """Fused Mamba-1 selective scan: the plain PyTorch version
 ``selective_scan_ref``, the wrapper ``selective_scan`` of the CUDA
-kernel ``csrc/selective_scan.cu``, and its traffic model ``hbm_bytes``.
+kernel ``csrc/selective_scan.cu``, its plan ``scan_plan`` and its
+traffic model ``hbm_bytes``.
 
 dt, x [B, S, di]; bc, cc [B, S, N]; a [di, N]; h0 [B, di, N]:
 
@@ -20,6 +21,60 @@ import torch
 
 MAX_N = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# the kernel's shape (csrc/selective_scan.cu): threads a block, steps a
+# ring stage, ring stages, states a lane at most
+SCAN_THREADS, SCAN_STEPS, SCAN_STAGES, SCAN_MAX_NS = 128, 16, 3, 16
+# the card's SMs, and the blocks of the scan one SM holds at once (its
+# fp32 ring of 59.5 KB fits three times in the 227 KB of shared memory)
+SCAN_SMS, SCAN_BLOCKS_PER_SM = 132, 3
+# the shortest chunk of a split sequence, in steps
+SCAN_MIN_CHUNK = 256
+
+
+def scan_ns(N: int, nt: int) -> int:
+    """States a lane holds when a channel's N states lie on nt lanes: N /
+    nt rounded up to a power of two (lanes past N hold zeros)."""
+    ns = 1
+    while ns * nt < N:
+        ns *= 2
+    return ns
+
+
+def scan_plan(B: int, S: int, di: int, N: int) -> tuple[int, int, int, int,
+                                                        int]:
+    """(nt, ns, ch, L, chunk) of one ``selective_scan`` call: nt lanes a
+    channel holding ns states each (the fewest lanes that keep ns within
+    SCAN_MAX_NS: a lane's states cost no shuffle), ch = SCAN_THREADS / nt
+    channels a block, and the sequence in L chunks of ``chunk`` steps
+    ((L - 1) * chunk < S <= L * chunk).  The sequence is split only where
+    the unsplit grid has fewer blocks than the card has SMs, into as many
+    chunks as one wave of resident blocks holds (SCAN_BLOCKS_PER_SM an
+    SM), each at least SCAN_MIN_CHUNK steps: a split reruns the exps of
+    all but its last chunk."""
+    nt = 1
+    while scan_ns(N, nt) > SCAN_MAX_NS:
+        nt *= 2
+    ch = SCAN_THREADS // nt
+    blocks = B * -(-di // ch)
+    L = 1
+    if blocks < SCAN_SMS:
+        L = min(SCAN_SMS * SCAN_BLOCKS_PER_SM // blocks, S // SCAN_MIN_CHUNK)
+    return nt, scan_ns(N, nt), ch, *scan_chunks(S, L)
+
+
+def scan_chunks(S: int, L: int) -> tuple[int, int]:
+    """(L, chunk): S steps in at most L chunks of a whole number of ring
+    stages, all full but the last ((L - 1) * chunk < S <= L * chunk; one
+    chunk of one stage when S is 0)."""
+    chunk = SCAN_STEPS * max(1, -(-S // (max(1, L) * SCAN_STEPS)))
+    return max(1, -(-S // chunk)), chunk
+
+
+def scratch_floats(B: int, di: int, N: int, L: int) -> int:
+    """fp32 scratch of a split call: the L - 1 chunks' end states, then
+    their exp products, [L - 1, B, di, N] each (none unsplit)."""
+    return 2 * (L - 1) * B * di * N
 
 
 def _check(dt, x, bc, cc, a, h0):
@@ -61,10 +116,20 @@ def selective_scan_ref(dt, x, bc, cc, a, h0):
     return y.to(dt.dtype), h
 
 
+def _route(t) -> bool:
+    """True for a CPU tensor (plain version), False for CUDA (kernel)."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"selective_scan runs on cpu or cuda, not "
+                         f"{t.device}")
+    return False
+
+
 def _kernel():
     from repro_torch.kernels import build
     fn = build.load("selective_scan").selective_scan
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -72,14 +137,13 @@ def _kernel():
 
 def selective_scan(dt, x, bc, cc, a, h0):
     """A CPU tensor runs ``selective_scan_ref``.  A CUDA tensor launches
-    the ``selective_scan`` kernel on the current stream
-    (``selective_scan.launches`` counts those launches) or raises; any
-    other device raises."""
-    if dt.device.type == "cpu":
+    the ``selective_scan`` kernel on the current stream at
+    ``scan_plan``'s plan (three CUDA kernels when it splits the sequence,
+    with their scratch a ``torch.empty`` of the call; one otherwise;
+    ``selective_scan.launches`` counts one a call) or raises; any other
+    device raises."""
+    if _route(dt):
         return selective_scan_ref(dt, x, bc, cc, a, h0)
-    if dt.device.type != "cuda":
-        raise ValueError(f"selective_scan runs on cpu or cuda, not "
-                         f"{dt.device}")
     _check(dt, x, bc, cc, a, h0)
     for name, t in (("x", x), ("bc", bc), ("cc", cc), ("a", a), ("h0", h0)):
         if t.device != dt.device:
@@ -98,11 +162,17 @@ def selective_scan(dt, x, bc, cc, a, h0):
     h_last = torch.empty((B, di, N), dtype=torch.float32, device=dt.device)
     if B * di == 0:
         return y, h_last
+    nt, _, _, L, chunk = scan_plan(B, S, di, N)
+    scratch = None
+    if L > 1:
+        scratch = torch.empty(scratch_floats(B, di, N, L),
+                              dtype=torch.float32, device=dt.device)
     with torch.cuda.device(dt.device):
         err = _kernel()(dt.data_ptr(), x.data_ptr(), bc.data_ptr(),
                         cc.data_ptr(), a.data_ptr(), h0.data_ptr(),
-                        y.data_ptr(), h_last.data_ptr(), B, S, di, N,
-                        _DTYPE_CODE[dt.dtype],
+                        y.data_ptr(), h_last.data_ptr(),
+                        None if scratch is None else scratch.data_ptr(), B,
+                        S, di, N, nt, L, chunk, _DTYPE_CODE[dt.dtype],
                         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"selective_scan launch failed: cudaError {err}")
