@@ -27,7 +27,18 @@ PyTorch built for CUDA.  It
    tensor-core entry points) are exactly what the path implies, and that
    one prefill chunk and one decode tick give
    the same logits through the kernels as through the plain versions;
-5. holds the training kernels (fwd with its saved residual, dx, dw and
+   a flight recorder (``repro_torch.obs.Recorder``, its sink under
+   ``build/obs/``) rides that run under the same exact launch counts, and
+   each request leaves one ``serve.span`` that ``obs_report.check_span``
+   passes;
+5. shows that the recorder adds no sync and no launch on the card: the
+   synchronizing CUDA calls in a ``torch.profiler`` trace (stream and
+   device synchronizations, device-to-host copies) and the launch counts
+   of one prefill chunk and one decode tick on stablelm-3b, and of a
+   3-step ``train_loop.run`` of stablelm-3b at full width and 1 layer
+   (its exit checkpoint included), are equal without and with a
+   recorder, and the train run leaves one ``train.step`` event a step;
+6. holds the training kernels (fwd with its saved residual, dx, dw and
    the fused update_dw) against their plain versions at the training
    path's shapes (M = 2048), times them, and checks every activation,
    bias, E = 2, SGD / momentum / Adam, the health counts of poisoned
@@ -37,24 +48,24 @@ PyTorch built for CUDA.  It
    update_gated_dw (every optimizer, health, freeze) at a ragged M and
    blocks 32, 64 and 128, through both entry points; and the tensor-core
    dw equal bit for bit to the gradient the tensor-core update_dw steps;
-6. trains the same model at full width: 3 two-pass Adam steps, 3 fused
+7. trains the same model at full width: 3 two-pass Adam steps, 3 fused
    Adam steps and 3 fused SGD steps (batch 8 x 256), with finite losses,
    no non-finite update, exact launch counts (no dw launch on the
    unclipped fused path; every fwd, dx, dw and update_dw on the tensor
    cores), and one
    step at 2 layers through the kernels and through the plain versions
    within stated tolerances;
-7. holds the gated kernels (gated_fwd, gated_dx, gated_dw and the fused
+8. holds the gated kernels (gated_fwd, gated_dx, gated_dw and the fused
    update_gated_dw) against their plain versions at qwen3-moe's expert
    gate junction (128 experts, 2048 -> 768) and the plain kernels at its
    down junction, at the decode rows (M = 4) and the training rows
    (M = 160), bf16 and fp32, timed; SGD / momentum / Adam, tiles poisoned
    in one branch or both (each counted once) and the zero-hyp freeze;
-8. serves the same 8 requests on full-size sparse qwen3-moe-30b-a3b (48
+9. serves the same 8 requests on full-size sparse qwen3-moe-30b-a3b (48
    layers, 128 experts, 9.6 B parameters) and trains it at full width
-   and 6 layers as in 4. and 6. (every gated_fwd and update_gated_dw on
+   and 6 layers as in 4. and 7. (every gated_fwd and update_gated_dw on
    the tensor cores);
-9. holds the quantized kernels (fwd_int8, gated_fwd_int8, fwd_fxp)
+10. holds the quantized kernels (fwd_int8, gated_fwd_int8, fwd_fxp)
    against their plain versions (bit for bit where the arithmetic allows)
    at stablelm-3b's FFN junctions, qwen3-moe's expert junctions and the
    PTQ sweep's MLP junctions (every paper triplet, and an int32 sum that
@@ -70,7 +81,7 @@ PyTorch built for CUDA.  It
    launch, logits kernels vs plain versions, greedy agreement with the fp
    run); and runs ``launch.quant_sweep --fxp`` dynamic and calibrated to
    a finite winner with exact launch counts;
-10. drives the four standalone kernels through the reference's own
+11. drives the four standalone kernels through the reference's own
    entry points (``ops.fxp_qmatmul``, ``ops.sigmoid_lut``,
    ``selective_scan``, ``mha``) at full-width shapes: attention at
    stablelm-3b's, qwen3-moe's and llava-next-mistral-7b's heads (causal,
@@ -88,7 +99,14 @@ PyTorch built for CUDA.  It
    tables with out-of-range codes; exact launch counts, each kernel
    against its plain version (bit for bit for the integer two), timed;
    beside the drive, attention at a head_dim that is not a multiple of 8;
-11. prints a ``kernels`` JSON line and, last, a JSON line with
+12. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
+   fixed point, ``core/paper_net.py``) on ``paper_dataset``, sequential and
+   junction-pipelined: over the first 1024 inputs the card and the CPU give
+   the same params, corrects and forward outputs bit for bit; one full
+   12544-input epoch of each on the card is timed and must reach the
+   reference's accuracy contracts (above 0.8 sequential, 0.75 pipelined);
+   the FPGA model's block cycle and arithmetic units are printed;
+13. prints a ``kernels`` JSON line and, last, a JSON line with
    ``"ok": true`` and the device.
 
 Any failed check raises and the exit code is not 0.  Without a card, or
@@ -96,9 +114,11 @@ without the port's sources beside it, it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -692,11 +712,15 @@ SERVE_ARCHS = {"stablelm-3b": {"junction_fwd": 3},
 SERVE_MIN_ROWS = 4
 
 
-def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None):
+def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None,
+                obs_path=None):
     """8 requests through ContinuousEngine on full-size ``arch`` (random
     weights from seed 0, or ``params``), with ``quantize`` as the
     ServeConfig's; returns (params, launch counts, outputs).  Given the
-    fp run's outputs, prints the greedy agreement with them."""
+    fp run's outputs, prints the greedy agreement with them.  Given
+    ``obs_path``, a Recorder with its sink there rides the 8 requests
+    (after the warm-up) under the same exact launch counts, and every
+    request must leave one valid ``serve.span``."""
     M, engine, ops = P.M, P.engine, P.ops
     dev = torch.device("cuda")
     cfg = P.registry.get(arch).with_sparsity(
@@ -735,6 +759,11 @@ def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None):
               f"the caller's fp tree alive [{card}]")
     eng.serve([engine.Request(0, prompts[0][:8], 2)])          # warm-up
     reqs = [engine.Request(i, prompts[i], 16, arrival=i) for i in range(8)]
+    if obs_path is not None:
+        obs_path.parent.mkdir(parents=True, exist_ok=True)
+        eng.rec = P.obs.Recorder(str(obs_path),
+                                 meta={"launcher": "chip_smoke",
+                                       "arch": arch, "card": card})
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -770,6 +799,8 @@ def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None):
     want["flash_decode"] = L * st["decode_ticks"]      # one attention a layer
     require(counts == want, f"{name} launches {counts} != {want}")
     require(st["launches"] == counts, "engine stats disagree with counters")
+    if obs_path is not None:
+        check_serve_spans(P, eng.rec, obs_path, 8, card)
     # every junction call of the path has at least SERVE_MIN_ROWS rows: on
     # the tensor cores when the route takes the compute dtype there
     tc = P.bsm.junction_variant(getattr(torch, cfg.dtype), SERVE_MIN_ROWS,
@@ -930,6 +961,260 @@ def compare_logits(P, cfg, params, prompt, dtype, card, per_layer, tol,
               f"{float(b.abs().max()):.4g} rel={rel:.3g} "
               f"(tol {tol}) same_argmax={same} [{card}]")
         require(rel <= tol, f"{what} {dtype} logits differ")
+
+
+# ------------------------------------------------------------- telemetry
+def check_serve_spans(P, rec, path, n, card):
+    """Close ``rec`` and require one valid ``serve.span`` (launch/
+    obs_report.check_span) for each of the ``n`` requests in its sink."""
+    rec.close()
+    _, events = P.obs.read_events(str(path))
+    spans = [e for e in events if e["kind"] == "serve.span"]
+    bad = [v for v in map(P.obs_report.check_span, spans) if v]
+    h = rec.summary()["histograms"]
+    ttft, itl = h["serve.ttft_s"], h["serve.itl_s"]
+    print(f"[obs] {path.name}: {len(spans)} serve.span events "
+          f"({len(events)} lines), outcomes {rec.counters}, ttft p50 "
+          f"{ttft['p50'] * 1e3:.1f} ms p99 {ttft['p99'] * 1e3:.1f} ms, "
+          f"inter-token p50 {itl['p50'] * 1e3:.2f} ms p99 "
+          f"{itl['p99'] * 1e3:.2f} ms over {itl['count']} tokens [{card}]")
+    require(sorted(e["rid"] for e in spans) == list(range(n)),
+            f"spans for requests {sorted(e['rid'] for e in spans)}")
+    require(not bad, f"span violations: {bad}")
+
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def host_syncs(fn):
+    """fn() under torch.profiler: (its result, the synchronizing CUDA calls
+    it made by name).  Counted: the runtime's ``cudaStreamSynchronize`` and
+    ``cudaDeviceSynchronize`` calls, device-to-host copies (their memcpy
+    activity, one per ``cudaMemcpy*`` call that reads the card) and, for
+    the record, every ``cudaMemcpy*`` runtime call."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+    counts = collections.Counter()
+    for e in prof.events():
+        if e.name in SYNC_CALLS:
+            counts[e.name] += 1
+        elif e.name.startswith("cudaMemcpy"):
+            counts["cudaMemcpy*"] += 1
+        elif "DtoH" in e.name or "Device -> P" in e.name:
+            counts["memcpy DtoH"] += 1
+    return out, dict(counts)
+
+
+def telemetry_phase(P, card, params):
+    """The recorder adds no sync and no launch on the card: the
+    synchronizing CUDA calls (``host_syncs``) and the kernels' launch
+    counts of one serve run of one request (one prefill chunk, one decode
+    tick) on full-size stablelm-3b (``params``), and of a 3-step
+    ``train_loop.run`` (its exit checkpoint included) of stablelm-3b at
+    full width cut to 1 layer (the loop writes a checkpoint on exit; the
+    32-layer model's would be tens of GB), each without and with a
+    Recorder, are equal; the train run with it leaves one ``train.step``
+    a step."""
+    dev = torch.device("cuda")
+    cfg = P.registry.get("stablelm-3b").with_sparsity(
+        P.SparsityConfig(density=0.25, block=128, where="ffn"))
+    scfg = P.engine.ServeConfig(max_new_tokens=2, slots=4, page_size=16,
+                                prefill_chunk=32, max_seq=128)
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab, 24).astype(
+        np.int32)
+    out_dir = ROOT / "build" / "obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    serve, engines = {}, {}
+    for name in ("off", "on"):
+        rec = P.obs.Recorder() if name == "on" else None
+        eng = engines[name] = P.engine.ContinuousEngine(
+            cfg, params, scfg, device=dev, recorder=rec)
+        eng.serve([P.engine.Request(0, prompt, 2)])             # warm-up
+        P.ops.reset_launch_counts()
+        outs, syncs = host_syncs(
+            lambda: eng.serve([P.engine.Request(1, prompt, 2)]))
+        st = eng.stats
+        require(st["decode_ticks"] == 1 and st["prefill_chunks"] == 1,
+                f"serve run of {st['decode_ticks']} ticks, "
+                f"{st['prefill_chunks']} chunks")
+        serve[name] = (syncs, P.ops.launch_counts(), outs[1].tolist())
+    # the same run unprofiled, in turns (off, on, on, off, ...): wall time
+    walls = {"off": [], "on": []}
+    for name in ("off", "on", "on", "off") * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engines[name].serve([P.engine.Request(2, prompt, 2)])
+        torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+    print(f"[obs] serve, one prefill chunk + one decode tick, stablelm-3b: "
+          f"sync calls without recorder {serve['off'][0]}, with "
+          f"{serve['on'][0]}; launches equal "
+          f"{serve['off'][1] == serve['on'][1]}; wall median of 6 in turns "
+          f"{statistics.median(walls['off']):.2f} ms without, "
+          f"{statistics.median(walls['on']):.2f} ms with [{card}]")
+    require(serve["off"][0].get("memcpy DtoH", 0) > 0,
+            "the profiler saw no device-to-host copy in a serve run")
+    require(serve["off"] == serve["on"],
+            f"the recorder changed the serve run: {serve}")
+    require(len(rec.events("serve.span")) == 8, "serve spans missing")
+
+    tcfg = dataclasses.replace(cfg, n_layers=1, fused_update=True,
+                               param_dtype="bfloat16")
+    opt = P.optim.fused_sgd(P.optim.cosine_schedule(3e-4, 20, 100),
+                            momentum=0.9)
+    step_fn = P.steps.make_train_step(tcfg, opt)
+    warm = P.M.init(tcfg, seed=0, device=dev)
+    step_fn(warm, opt.init(warm), next(P.LMTokenPipeline(tcfg, TRAIN_B,
+                                                         TRAIN_S)), 0)
+    del warm
+    train = {}
+    sink = out_dir / "train_stablelm-3b_1layer.jsonl"
+    for name in ("off", "on"):
+        rec = (P.obs.Recorder(str(sink), meta={"launcher": "chip_smoke",
+                                               "card": card})
+               if name == "on" else None)
+        ckpt = out_dir / f"ckpt_{name}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        params_t = P.M.init(tcfg, seed=0, device=dev)
+        loop = P.train_loop.TrainLoopConfig(total_steps=3,
+                                            ckpt_dir=str(ckpt),
+                                            ckpt_every=1000, log_every=1000)
+        P.ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, syncs = host_syncs(lambda: P.train_loop.run(
+            loop, step_fn, params_t, opt.init(params_t),
+            P.LMTokenPipeline(tcfg, TRAIN_B, TRAIN_S), log=lambda s: None,
+            recorder=rec))
+        dt = time.perf_counter() - t0
+        train[name] = (syncs, P.ops.launch_counts(), res["step"])
+        shutil.rmtree(ckpt)
+        del params_t, res
+    rec.close()
+    _, events = P.obs.read_events(str(sink))
+    steps = [e for e in events if e["kind"] == "train.step"]
+    rows = [(e["step"], round(e["loss"], 4), round(e["dt_s"] * 1e3, 1))
+            for e in steps]
+    print(f"[obs] train_loop.run, 3 fused SGD steps of stablelm-3b at 1 "
+          f"layer (batch {TRAIN_B} x {TRAIN_S}) and its exit checkpoint, "
+          f"{dt:.1f} s with the recorder: sync calls without recorder "
+          f"{train['off'][0]}, with {train['on'][0]}; launches equal "
+          f"{train['off'][1] == train['on'][1]}; train.step events "
+          f"{rows} (step, loss, ms) [{card}]")
+    require(train["off"] == train["on"],
+            f"the recorder changed the train run: {train}")
+    require([e["step"] for e in steps] == [0, 1, 2]
+            and all(np.isfinite(e["loss"]) for e in steps),
+            f"train.step events {steps}")
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ the paper's network
+PAPER_N = 12544          # inputs an epoch (Sec. III-B)
+PAPER_PREFIX = 1024      # inputs held card against CPU bit for bit
+PAPER_HELD = 256         # inputs whose forward outputs are compared
+PAPER_ETA = 2.0 ** -3
+# the reference's own accuracy contracts (tests/test_paper_net.py)
+PAPER_MIN_ACC = {"sequential": 0.8, "pipelined": 0.75}
+
+
+def _paper_to(params, device):
+    return {"junctions": [{k: v.to(device) for k, v in jp.items()}
+                          for jp in params["junctions"]]}
+
+
+def _paper_epoch(P, cfg, kind, params, xs, ys):
+    if kind == "sequential":
+        p, _, corr = P.PN.train_epoch(params, xs, ys, PAPER_ETA, cfg)
+    else:
+        p, corr = P.PN.train_epoch_pipelined(params, xs, ys, PAPER_ETA, cfg)
+    return p, corr
+
+
+def _paper_same(a, b) -> bool:
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def paper_phase(P, card):
+    """The paper's Table I network in (12,3,8) fixed point, both schedules:
+    over the first 1024 inputs of the epoch, the card and the CPU (the
+    same port code, from the same weights) give the same params, corrects
+    and forward outputs bit for bit; then one full 12544-input epoch of
+    each on the card, timed, at the reference's accuracy contracts."""
+    PN, JP, cfg = P.PN, P.JP, P.paper_mnist.CONFIG
+    dev = torch.device("cuda")
+    r = JP.resources(cfg)
+    f = cfg.fmt
+    print(f"[paper] Table I: layers {cfg.layers} d_out {cfg.d_out} z {cfg.z} "
+          f"fmt ({f.bw},{f.bn},{f.bf}) {cfg.n_params()} params, density "
+          f"{cfg.overall_density():.5f}; the FPGA model: block cycle "
+          f"{JP.block_cycle_s(cfg) * 1e6:.4f} us at "
+          f"{JP.CLOCK_HZ / 1e6:.0f} MHz = "
+          f"{JP.throughput_inputs_per_s(cfg):.0f} inputs/s, "
+          f"{JP.speedup_vs_sequential(cfg):.0f} ops in flight, {r}, "
+          f"{r.total_multipliers} multipliers")
+    x, y, _ = P.paper_dataset(PAPER_N)
+    params0 = PN.init(cfg, device="cpu")
+    held = torch.from_numpy(x[-PAPER_HELD:])
+    xc, yc = torch.from_numpy(x[:PAPER_PREFIX]), torch.from_numpy(
+        y[:PAPER_PREFIX])
+    xs, ys = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    res = {}
+    for kind in ("sequential", "pipelined"):
+        # the prefix on the CPU (one thread: the tensors are tiny) and on
+        # the card, from the same weights
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        t0 = time.perf_counter()
+        pc, cc = _paper_epoch(P, cfg, kind, params0, xc, yc)
+        cpu_s = time.perf_counter() - t0
+        ac, dc = PN.forward(pc, held, cfg)
+        torch.set_num_threads(threads)
+        pg0 = _paper_to(params0, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pg, cg = _paper_epoch(P, cfg, kind, pg0, xc.to(dev), yc.to(dev))
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        ag, dg = PN.forward(pg, held.to(dev), cfg)
+        same_p = all(_paper_same(a.values(), b.values()) for a, b in
+                     zip(pc["junctions"], pg["junctions"]))
+        same_c = torch.equal(cc, cg.cpu())
+        same_o = _paper_same(ac[1:] + dc[1:], ag[1:] + dg[1:])
+        print(f"[paper] {kind}, first {PAPER_PREFIX} inputs: card vs CPU "
+              f"params equal {same_p}, corrects equal {same_c} "
+              f"(acc {float(cc.mean()):.4f}), outputs on {PAPER_HELD} "
+              f"inputs equal {same_o}; card {gpu_s:.2f} s = "
+              f"{gpu_s / PAPER_PREFIX * 1e6:.0f} us an input (first call "
+              f"included), CPU (1 thread) {cpu_s:.2f} s = "
+              f"{cpu_s / PAPER_PREFIX * 1e6:.0f} us an input [{card}]")
+        require(same_p and same_c and same_o,
+                f"{kind}: the card and the CPU differ on the prefix")
+        # a full epoch on the card
+        pf0 = _paper_to(params0, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pf, cf = _paper_epoch(P, cfg, kind, pf0, xs, ys)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        acc = float(cf[-1000:].mean())
+        on_grid = all(bool(torch.equal(v * f.scale, torch.round(v * f.scale))
+                           and v.abs().max() <= 2 ** f.bn)
+                      for jp in pf["junctions"] for v in (jp["w"], jp["b"]))
+        print(f"[paper] {kind}, one {PAPER_N}-input epoch on the card: "
+              f"{dt:.2f} s = {dt / PAPER_N * 1e6:.1f} us an input, "
+              f"accuracy over the last 1000 inputs {acc:.4f} (contract > "
+              f"{PAPER_MIN_ACC[kind]}), params on the grid {on_grid}; CPU "
+              f"prefix {cpu_s / PAPER_PREFIX * 1e6:.0f} us an input "
+              f"[{card}]")
+        require(acc > PAPER_MIN_ACC[kind] and on_grid,
+                f"{kind}: accuracy {acc} or params off the grid")
+        res[kind] = {"epoch_s": dt, "us_per_input": dt / PAPER_N * 1e6,
+                     "cpu_us_per_input": cpu_s / PAPER_PREFIX * 1e6,
+                     "acc": acc}
+    return res
 
 
 # ------------------------------------------------ backward kernels
@@ -2902,11 +3187,16 @@ def load_port() -> types.SimpleNamespace:
     from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as ssk
     from repro_torch.kernels import sigmoid_lut as slut
-    from repro_torch.launch import quant_sweep
-    from repro_torch.launch.serve import percentile
+    from repro_torch import obs
+    from repro_torch.configs import paper_mnist
+    from repro_torch.core import junction_pipeline as JP
+    from repro_torch.core import paper_net as PN
+    from repro_torch.data.mnist import paper_dataset
+    from repro_torch.launch import obs_report, quant_sweep
     from repro_torch.models import model as M
+    from repro_torch.obs import percentile
     from repro_torch.serve import engine
-    from repro_torch.train import steps
+    from repro_torch.train import steps, train_loop
     from repro_torch.tree import tree_items
     return types.SimpleNamespace(
         registry=registry, SparsityConfig=SparsityConfig,
@@ -2915,7 +3205,8 @@ def load_port() -> types.SimpleNamespace:
         M=M, engine=engine, percentile=percentile, optim=optim, steps=steps,
         LMTokenPipeline=LMTokenPipeline, tree_items=tree_items, build=build,
         qz=qz, fxp=fxp, quant_sweep=quant_sweep, fxk=fxk, ssk=ssk,
-        slut=slut)
+        slut=slut, obs=obs, obs_report=obs_report, train_loop=train_loop,
+        PN=PN, JP=JP, paper_mnist=paper_mnist, paper_dataset=paper_dataset)
 
 
 def build_kernels(P) -> None:
@@ -2953,7 +3244,10 @@ def main() -> int:
     decode = decode_phase(P, timer, card)
     quant = quant_kernel_phase(P, timer, card)
     paths = {}
-    params, paths["serve"], outs = serve_phase(P, card, "stablelm-3b")
+    params, paths["serve"], outs = serve_phase(
+        P, card, "stablelm-3b",
+        obs_path=ROOT / "build" / "obs" / "serve_stablelm-3b.jsonl")
+    telemetry_phase(P, card, params)
     _, paths["serve_int8"], _ = serve_phase(P, card, "stablelm-3b", params,
                                             "int8", outs)
     weight_cast_phase(params, timer, card)
@@ -2973,6 +3267,7 @@ def main() -> int:
                                      MOE_TRAIN_LAYERS)
     paths["sweep"] = sweep_phase(P, card)
     standalone, paths["standalone"] = standalone_kernel_phase(P, card)
+    paper_phase(P, card)
 
     def launches(name):
         by = {p: c[name] for p, c in paths.items() if c.get(name)}

@@ -7,7 +7,9 @@ both compute the same function.  ``from_jax_opt_state(state)`` carries
 the optimizer state the same way: Adam's ``m``/``v`` and SGD's ``mom``
 trees mirror the params (their 0-d placeholders for the integer pattern
 leaves stay unstacked).  A quantized tree (int8 or fxp codes and their
-leaves) carries across the same way.  Only numpy crosses the boundary.
+leaves) carries across the same way.  ``from_jax_paper_params`` carries
+the paper network's params (``{"junctions": [{w, b, idx, rev_j, rev_f},
+...]}``, core/paper_net.py).  Only numpy crosses the boundary.
 """
 from __future__ import annotations
 
@@ -54,3 +56,9 @@ def from_jax_opt_state(state, device="cpu"):
     if isinstance(state, tuple) and not state:
         return ()
     return {k: from_jax_params(v, device) for k, v in state.items()}
+
+
+def from_jax_paper_params(tree: dict, device="cpu") -> dict:
+    """The reference's paper-network params (numpy leaves) -> the port's,
+    on ``device``: ``{"junctions": [{w, b, idx, rev_j, rev_f}, ...]}``."""
+    return {"junctions": [_convert(jp, device) for jp in tree["junctions"]]}

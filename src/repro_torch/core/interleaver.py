@@ -1,10 +1,17 @@
-"""Block-level pre-defined sparsity patterns (numpy only).
+"""Clash-free interleavers and block-level sparsity patterns (numpy only).
 
-The pattern is static: it is built once on the host before any weight
-exists and never changes, so it stays numpy and is handed to the device
-as int32 index tensors.  ``block_circulant_pattern`` gives every output
-block the same fan-in and every input block a fan-out within +-1 of the
-others; ``reverse_block_pattern`` transposes it for the backward pass.
+The patterns are static: built once on the host before any weight
+exists and never changed, so they stay numpy and are handed to the
+device as int32 index tensors.
+
+* ``affine_interleaver``: pi(k) = (a*k + b) mod W with a coprime to W and
+  z, so any z consecutive weights touch z distinct banks (bank = j mod z).
+* ``sv_ss_interleaver``: the SV+SS family, a per-sweep starting vector
+  (a multiple of z) added to the affine sweep, repaired to a permutation
+  with the bank residues kept; ``is_clash_free`` checks the property.
+* ``block_circulant_pattern`` gives every output block the same fan-in
+  and every input block a fan-out within +-1 of the others;
+  ``reverse_block_pattern`` transposes it for the backward pass.
 """
 from __future__ import annotations
 
@@ -12,7 +19,8 @@ import math
 
 import numpy as np
 
-__all__ = ["block_circulant_pattern", "reverse_block_pattern"]
+__all__ = ["affine_interleaver", "sv_ss_interleaver", "is_clash_free",
+           "block_circulant_pattern", "reverse_block_pattern"]
 
 
 def _coprime_step(n: int, preferred: int) -> int:
@@ -21,6 +29,74 @@ def _coprime_step(n: int, preferred: int) -> int:
     while math.gcd(a, n) != 1:
         a += 1
     return a
+
+
+def affine_interleaver(n_weights: int, z: int, seed: int = 0) -> np.ndarray:
+    """pi(k) = (a*k + b) mod W with gcd(a, W) = gcd(a, z) = 1: an int32
+    permutation of [0, W) whose every z consecutive entries lie in z
+    distinct banks mod z."""
+    if n_weights % z != 0:
+        raise ValueError(f"W={n_weights} must be divisible by z={z}")
+    rng = np.random.default_rng(seed)
+    base = int(rng.integers(1, n_weights))
+    a = _coprime_step(n_weights * z // math.gcd(n_weights, z), base)
+    while math.gcd(a, n_weights) != 1 or math.gcd(a, z) != 1:
+        a += 1
+    b = int(rng.integers(0, n_weights))
+    k = np.arange(n_weights, dtype=np.int64)
+    return ((a * k + b) % n_weights).astype(np.int32)
+
+
+def sv_ss_interleaver(n_weights: int, z: int, seed: int = 0) -> np.ndarray:
+    """SV+SS clash-free interleaver: the weights go in sweeps of z, each
+    sweep the affine map plus its own starting vector, a multiple of z, so
+    a sweep's bank residues stay a permutation of Z_z while successive
+    sweeps land on other rows."""
+    if n_weights % z != 0:
+        raise ValueError(f"W={n_weights} must be divisible by z={z}")
+    n_sweeps = n_weights // z
+    rng = np.random.default_rng(seed + 1)
+    base = affine_interleaver(n_weights, z, seed)
+    sv = (rng.integers(0, n_sweeps, size=n_sweeps) * z).astype(np.int64)
+    out = np.empty(n_weights, dtype=np.int32)
+    for s in range(n_sweeps):
+        sl = slice(s * z, (s + 1) * z)
+        out[sl] = (base[sl].astype(np.int64) + sv[s]) % n_weights
+    # starting vectors can collide across sweeps: repair to a permutation,
+    # moving entries by multiples of z only
+    return _repair_permutation(out, z)
+
+
+def _repair_permutation(idx: np.ndarray, z: int) -> np.ndarray:
+    """Make idx a permutation by moving duplicate rows (row = idx // z) of
+    each bank column (idx % z) to that column's free rows, in order."""
+    n = idx.shape[0]
+    out = idx.astype(np.int64).copy()
+    n_rows = n // z
+    for bank in range(z):
+        sel = np.where(out % z == bank)[0]
+        used = np.zeros(n_rows, dtype=bool)
+        dup_positions = []
+        for p in sel[np.argsort(sel)]:
+            r = out[p] // z
+            if used[r]:
+                dup_positions.append(p)
+            else:
+                used[r] = True
+        free_rows = np.where(~used)[0].tolist()
+        for p, r in zip(dup_positions, free_rows):
+            out[p] = r * z + bank
+    assert len(np.unique(out)) == n, "repair failed to produce a permutation"
+    return out.astype(np.int32)
+
+
+def is_clash_free(pi: np.ndarray, z: int) -> bool:
+    """Each cycle's z accesses hit z distinct banks."""
+    n = pi.shape[0]
+    if n % z:
+        return False
+    banks = (pi % z).reshape(n // z, z)
+    return all(len(np.unique(row)) == z for row in banks)
 
 
 def block_circulant_pattern(n_in_blocks: int, n_out_blocks: int,

@@ -1,8 +1,12 @@
-"""Pre-defined structured sparsity at block granularity.
+"""Pre-defined structured sparsity: fixed fan-in and fan-out, chosen
+before training and never changed.
 
-A junction between widths (n_in, n_out) keeps a fixed fan-in of
-``kb`` input blocks per output block, chosen before training and never
-changed.  Each kept edge bundle is a dense (block x block) tile.
+* neuron level (``NeuronPattern``): the paper's own junction, each
+  output neuron reading ``d_in`` input neurons traced through a
+  clash-free interleaver (the bit-faithful network, core/paper_net.py);
+* block level (``BlockPattern``): a junction between widths (n_in,
+  n_out) keeps a fixed fan-in of ``kb`` input blocks per output block,
+  each kept edge bundle a dense (block x block) tile.
 """
 from __future__ import annotations
 
@@ -12,8 +16,8 @@ import numpy as np
 
 from repro_torch.core import interleaver as il
 
-__all__ = ["SparsityConfig", "BlockPattern", "block_fan_in",
-           "make_block_pattern"]
+__all__ = ["SparsityConfig", "NeuronPattern", "BlockPattern", "block_fan_in",
+           "make_block_pattern", "make_neuron_pattern"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +39,65 @@ class SparsityConfig:
         if self.density >= 1.0:
             return False
         return self.where == "all" or family in self.where.split("+")
+
+
+@dataclasses.dataclass(frozen=True)
+class NeuronPattern:
+    """The paper's junction pattern: idx[n_out, d_in], the input neuron of
+    each edge."""
+
+    n_in: int
+    n_out: int
+    d_in: int
+    idx: np.ndarray  # [n_out, d_in] int32
+
+    @property
+    def d_out(self) -> int:
+        return self.n_out * self.d_in // self.n_in
+
+    @property
+    def n_weights(self) -> int:
+        return self.n_out * self.d_in
+
+    @property
+    def density(self) -> float:
+        return self.n_weights / (self.n_in * self.n_out)
+
+
+def make_neuron_pattern(n_in: int, n_out: int, d_in: int, z: int | None = None,
+                        seed: int = 0) -> NeuronPattern:
+    """The paper's junction: weight k = j*d_in + f (right neuron j, edge f)
+    is numbered on the right and traced through a clash-free interleaver
+    pi to left neuron pi(k) mod n_in, so every left neuron has exactly
+    d_out edges; no right neuron reads a left neuron twice."""
+    W = n_out * d_in
+    if W % n_in:
+        raise ValueError("W must be divisible by n_in for integral fan-out")
+    d_out = W // n_in
+    z = z if z is not None else d_in
+    pi = il.sv_ss_interleaver(W, z, seed=seed)
+    left = (pi % n_in).astype(np.int32)
+    counts = np.bincount(left, minlength=n_in)
+    if not np.all(counts == d_out):
+        left = _balance_assignment(left, n_in, d_out)
+    idx = left.reshape(n_out, d_in)
+    idx = il._rebalance_rows(idx.astype(np.int64), n_in).astype(np.int32)
+    return NeuronPattern(n_in=n_in, n_out=n_out, d_in=d_in, idx=idx)
+
+
+def _balance_assignment(left: np.ndarray, n_in: int, d_out: int) -> np.ndarray:
+    """Reassign surplus edges of over-used left neurons to under-used ones,
+    deterministically (the last edges of a neuron move first)."""
+    left = left.astype(np.int64).copy()
+    counts = np.bincount(left, minlength=n_in)
+    surplus = [n for n in range(n_in) for _ in range(max(0, counts[n] - d_out))]
+    deficit = [n for n in range(n_in) for _ in range(max(0, d_out - counts[n]))]
+    s_pos: dict[int, list[int]] = {}
+    for i, v in enumerate(left):
+        s_pos.setdefault(int(v), []).append(i)
+    for di, n in enumerate(surplus):
+        left[s_pos[n].pop()] = deficit[di]
+    return left.astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,24 +7,15 @@
 runs on the card; ``--device cpu --reduce`` runs a tiny config on the
 CPU.  Weights are random, made from ``--seed``.  ``--quantize int8``
 serves the sparse FFN junctions from int8 codes (quantized at load).
-Only the continuous engine is ported; the static engine is not.
+``--obs PATH`` streams the flight recorder's per-request spans, TTFT and
+inter-token histograms and occupancy gauges to a JSONL file that
+``repro_torch.launch.obs_report`` renders; ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of the run into DIR.  Only the
+continuous engine is ported; the static engine is not.
 """
 from __future__ import annotations
 
 import argparse
-import math
-
-
-def percentile(values, q: float) -> float:
-    """Nearest-rank percentile, the ceil(q/100 * n)-th smallest value:
-    the p99 of fewer than 100 samples is the max.  Raises ValueError on
-    an empty sample and on q outside (0, 100]."""
-    s = sorted(float(v) for v in values)
-    if not s:
-        raise ValueError("percentile of an empty sample set")
-    if not 0.0 < q <= 100.0:
-        raise ValueError(f"percentile q must be in (0, 100], got {q}")
-    return s[max(1, math.ceil(q / 100 * len(s))) - 1]
 
 
 def main(argv=None):
@@ -57,6 +48,13 @@ def main(argv=None):
     ap.add_argument("--arrival-every", type=int, default=0,
                     help="synthetic trace: one request every N scheduler "
                          "ticks (0: all arrive at tick 0)")
+    ap.add_argument("--obs", default=None, metavar="PATH",
+                    help="flight-recorder JSONL sink: per-request spans + "
+                         "TTFT/ITL histograms + occupancy gauges; render "
+                         "with repro_torch.launch.obs_report")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the run "
+                         "into DIR")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
@@ -72,6 +70,7 @@ def main(argv=None):
     from repro_torch.core.sparsity import SparsityConfig
     from repro_torch.device import resolve_device
     from repro_torch.models import model as M
+    from repro_torch.obs import Recorder, percentile, profile_ctx
     from repro_torch.serve.engine import ContinuousEngine, Request, ServeConfig
 
     dev = resolve_device(args.device)
@@ -105,11 +104,22 @@ def main(argv=None):
     reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=args.max_new,
                     arrival=i * args.arrival_every)
             for i in range(args.requests)]
-    eng = ContinuousEngine(cfg, params, scfg, device=dev)
+    recorder = (Recorder(args.obs, meta={"launcher": "serve",
+                                         "arch": args.arch,
+                                         "device": str(dev)})
+                if args.obs else None)
+    eng = ContinuousEngine(cfg, params, scfg, device=dev, recorder=recorder)
     t0 = time.perf_counter()
-    outs = eng.serve(reqs)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    try:
+        with profile_ctx(args.profile):
+            outs = eng.serve(reqs)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+    finally:
+        if recorder is not None:
+            recorder.close()
+            print(f"[serve] telemetry -> {args.obs} "
+                  f"({recorder.n_events} events)")
     dt = time.perf_counter() - t0
     st = eng.stats
     n_tok = sum(len(v) for v in outs.values())

@@ -7,8 +7,12 @@ runs on the card; ``--device cpu --reduce`` trains a tiny config on the
 CPU.  Weights are random, made from seed 0; batches come from the
 synthetic ``LMTokenPipeline``.  The run auto-resumes from the newest
 checkpoint under ``--ckpt`` (default: ``build/train_ckpt`` in the
-checkout).  Not ported yet: the mesh flags (``--devices``, ``--data``,
-``--model``), ``--compress-grads``, ``--obs`` and ``--profile``.
+checkout).  ``--obs PATH`` streams the flight recorder's events (a
+record a step, guardian and checkpoint events) to a JSONL file that
+``repro_torch.launch.obs_report`` renders; ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of the run into DIR.  Not ported yet:
+the mesh flags (``--devices``, ``--data``, ``--model``) and
+``--compress-grads``.
 """
 from __future__ import annotations
 
@@ -41,6 +45,13 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject a crash at this step (restart test)")
+    ap.add_argument("--obs", default=None, metavar="PATH",
+                    help="flight-recorder JSONL sink (obs/telemetry.py): "
+                         "per-step records + guardian/checkpoint events; "
+                         "render with repro_torch.launch.obs_report")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the run "
+                         "into DIR")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
@@ -54,6 +65,7 @@ def main(argv=None):
     from repro_torch.data.pipeline import LMTokenPipeline
     from repro_torch.device import resolve_device
     from repro_torch.models import model as M
+    from repro_torch.obs import Recorder, profile_ctx
     from repro_torch.optim import cosine_schedule, fused_adam, fused_sgd
     from repro_torch.train.steps import fused_update_eligible, make_train_step
     from repro_torch.train.train_loop import TrainLoopConfig, run
@@ -89,9 +101,21 @@ def main(argv=None):
     loop_cfg = TrainLoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt,
                                ckpt_every=args.ckpt_every,
                                fail_at_step=args.fail_at)
-    result = run(loop_cfg, train_step, params, opt_state, pipeline)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    recorder = (Recorder(args.obs, meta={"launcher": "train",
+                                         "arch": args.arch,
+                                         "device": str(dev)})
+                if args.obs else None)
+    try:
+        with profile_ctx(args.profile):
+            result = run(loop_cfg, train_step, params, opt_state, pipeline,
+                         recorder=recorder)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+    finally:
+        if recorder is not None:
+            recorder.close()
+            print(f"[train] telemetry -> {args.obs} "
+                  f"({recorder.n_events} events)")
     print(f"[train] finished at step {result['step']} on {dev}; "
           f"stragglers={result['straggler_count']}")
     if result["history"]:

@@ -21,6 +21,14 @@ swaps a page-table row and never copies the cache.  Invariants:
 Sampling is greedy (first maximum) or by temperature from a
 ``torch.Generator`` seeded with ``ServeConfig.seed``; a slot whose logits
 go non-finite is terminated and counted (``nonfinite_terminated``).
+
+With a ``recorder`` (obs.Recorder), every finished request emits one
+``obs.RequestSpan`` (enqueue -> admit -> prefill chunks -> first token
+-> finish, outcome eos | max_new | guard), TTFT and inter-token
+latencies land in histograms, and page-pool and slot gauges refresh
+every tick.  All of it is host bookkeeping on values the scheduler
+already has on the host (the sampled tokens, the guard flags): the
+recorder adds no sync and no launch.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from repro_torch.core import quantize as qz
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
+from repro_torch.obs import telemetry as obs
 from repro_torch.serve.paged import PagePool
 
 
@@ -79,7 +88,8 @@ _FREE, _PREFILL, _DECODE = 0, 1, 2
 
 class _Slot:
     __slots__ = ("state", "req", "pages", "cache_len", "prefill_pos", "out",
-                 "last_tok", "t_admit", "t_wall", "chunks")
+                 "last_tok", "t_admit", "t_wall", "t_first", "t_last",
+                 "first_tick", "chunks")
 
     def __init__(self):
         self.state = _FREE
@@ -91,6 +101,11 @@ class _Slot:
         self.last_tok = 0         # sampled, not yet fed through decode
         self.t_admit = 0
         self.t_wall = 0.0
+        # span bookkeeping (obs.RequestSpan): first-token wall time and
+        # tick, the previous token's wall time (inter-token latency)
+        self.t_first = -1.0
+        self.t_last = -1.0
+        self.first_tick = -1
         self.chunks = 0
 
 
@@ -107,11 +122,14 @@ class ContinuousEngine:
     until every request completes and returns {rid: generated tokens}.
     ``stats`` then holds tick counts, per-request latencies, page
     accounting and the kernels' launch counts over the run.  Runs on the
-    card unless ``device`` names another device."""
+    card unless ``device`` names another device.  ``recorder`` gets the
+    spans, histograms and gauges of the module docstring."""
 
     def __init__(self, cfg: ArchConfig, params,
-                 serve_cfg: ServeConfig | None = None, device=None):
+                 serve_cfg: ServeConfig | None = None, device=None,
+                 recorder: "obs.Recorder | None" = None):
         self.device = resolve_device(device)
+        self.rec = recorder
         self.scfg = serve_cfg or ServeConfig()
         ok, why = M.paged_supported(cfg)
         if not ok:
@@ -186,21 +204,41 @@ class ContinuousEngine:
         pf_cursor = 0               # round-robin over prefilling slots
         launches0 = ops.launch_counts()
         t_serve0 = time.perf_counter()
+        rec = self.rec
 
         def finish(s: _Slot, outcome: str):
             r = s.req
             outputs[r.rid] = np.asarray(s.out, np.int32)
+            ttft = s.t_first - s.t_wall if s.t_first >= 0 else -1.0
             lat[r.rid] = {"arrival": r.arrival, "admitted": s.t_admit,
                           "finished": tick, "outcome": outcome,
+                          "ttft_s": ttft, "first_token_tick": s.first_tick,
                           "prefill_chunks": s.chunks,
                           "n_tokens": len(s.out),
                           "wall_s": time.perf_counter() - s.t_wall}
+            if rec is not None:
+                rec.count(f"serve.finish.{outcome}")
+                if ttft >= 0:
+                    rec.observe("serve.ttft_s", ttft)
+                rec.emit(obs.RequestSpan(
+                    rid=r.rid, outcome=outcome, enqueue_tick=r.arrival,
+                    admit_tick=s.t_admit, first_token_tick=s.first_tick,
+                    finish_tick=tick, prefill_chunks=s.chunks,
+                    n_tokens=len(s.out), ttft_s=ttft,
+                    wall_s=lat[r.rid]["wall_s"]))
             pool_acct.release(s.pages)
             s.__init__()            # back to FREE
 
         def step_done(s: _Slot, tok: int) -> str | None:
             """Record one sampled token; the outcome ("eos" | "max_new")
             when the request completed, else None."""
+            now = time.perf_counter()
+            if not s.out:           # the request's first token
+                s.t_first = now
+                s.first_tick = tick
+            elif rec is not None and s.t_last >= 0:
+                rec.observe("serve.itl_s", now - s.t_last)
+            s.t_last = now
             s.out.append(tok)
             s.last_tok = tok
             if eos >= 0 and tok == eos:
@@ -289,6 +327,15 @@ class ContinuousEngine:
             elif not pf_slots and queue:
                 # idle: jump the clock to the next arrival
                 tick = max(tick, queue[0].arrival - 1)
+            if rec is not None:
+                # occupancy gauges every tick, off the host's accounting
+                rec.gauge("serve.pages_in_use", pool_acct.in_use)
+                rec.gauge("serve.pages_free", pool_acct.free_pages)
+                states = [s.state for s in slots]
+                rec.gauge("serve.slots_decode", states.count(_DECODE))
+                rec.gauge("serve.slots_prefill", states.count(_PREFILL))
+                rec.gauge("serve.slots_free", states.count(_FREE))
+                rec.count("serve.ticks")
             tick += 1
 
         launches = ops.launch_counts()

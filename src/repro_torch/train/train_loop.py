@@ -21,16 +21,25 @@ into its input tensors; they are dropped), shrinks the lr by
 ``lr_backoff`` through the step's ``lr_scale``, skips the offending
 batch, and retries; after ``max_retries`` trips it raises
 ``GuardianTripped``.
+
+Telemetry: with a ``recorder`` (obs.Recorder) the loop emits one
+``TrainStep`` event a step it adopts and the ``Guardian`` (trip,
+rollback, backoff, recovery) and ``Checkpoint`` (save, promote, gc)
+lifecycle events.  It records only values it already read on the host:
+the loss it reads for honest step timing, and ``nonfinite`` on the
+guardian path only (``obs.NOT_SAMPLED`` without a guardian).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from collections import deque
 from typing import Callable, Optional
 
 import numpy as np
 
+from repro_torch.obs import telemetry as obs
 from repro_torch.train import checkpoint as ckpt_mod
 
 
@@ -84,13 +93,25 @@ class StragglerMonitor:
         self.times.append(dt)
 
 
+def _batch_tokens(batch) -> int:
+    """Token count of a batch for tokens/s, from shapes alone (nothing is
+    read): the ``tokens`` field's element count when present (LM
+    pipelines), else the leading dim of the first leaf."""
+    if isinstance(batch, dict) and "tokens" in batch:
+        return math.prod(batch["tokens"].shape)
+    leaves = list(batch.values()) if isinstance(batch, dict) else [batch]
+    return int(leaves[0].shape[0]) if leaves else 0
+
+
 def run(cfg: TrainLoopConfig, train_step, params, opt_state, pipeline,
-        log: Callable[[str], None] = print) -> dict:
+        log: Callable[[str], None] = print,
+        recorder: "obs.Recorder | None" = None) -> dict:
     """Returns {params, opt_state, step, history, straggler_count,
     guardian}.  ``train_step(params, opt_state, batch, step[, lr_scale])``
     is ``train.steps.make_train_step``'s; the 5-argument form is used
     only with a ``GuardianConfig``.  ``pipeline`` is a restartable
-    iterator with ``state()`` and seed/step attributes."""
+    iterator with ``state()`` and seed/step attributes.  ``recorder``
+    gets the events of the module docstring."""
     g = cfg.guardian
     saver = ckpt_mod.AsyncSaver()
     state_like = {"params": params, "opt": opt_state}
@@ -134,6 +155,9 @@ def run(cfg: TrainLoopConfig, train_step, params, opt_state, pipeline,
                                f"[straggler] step {s}: {dt*1e3:.1f}ms vs "
                                f"median {med*1e3:.1f}ms"))
     history = []
+    rec = recorder
+    dt_ema: float | None = None
+    awaiting_recovery = False
     try:
         while step < cfg.total_steps:
             if cfg.fail_at_step is not None and step == cfg.fail_at_step:
@@ -170,6 +194,12 @@ def run(cfg: TrainLoopConfig, train_step, params, opt_state, pipeline,
                 if why is not None:
                     trips.append({"step": step, "data_step": data_step,
                                   "reason": why, "lr_scale": lr_scale})
+                    if rec is not None:
+                        rec.count("train.guardian.trips")
+                        rec.emit(obs.Guardian(
+                            action="trip", step=step,
+                            detail={"reason": why, "data_step": data_step,
+                                    "lr_scale": lr_scale}))
                     if g.skip_offending_batch:
                         bad_data_steps.add(data_step)
                     if len(trips) > g.max_retries:
@@ -183,10 +213,20 @@ def run(cfg: TrainLoopConfig, train_step, params, opt_state, pipeline,
                         raise GuardianTripped(
                             f"guardian tripped at step {step} ({why}) with "
                             "no healthy checkpoint to roll back to", trips)
+                    tripped_at = step
                     params, opt_state, step = _restore(h)
                     lr_scale *= g.lr_backoff
                     loss_win.clear()
                     pending_healthy.clear()
+                    if rec is not None:
+                        rec.emit(obs.Guardian(
+                            action="rollback", step=step,
+                            detail={"from_step": tripped_at}))
+                        rec.emit(obs.Guardian(
+                            action="backoff", step=step,
+                            detail={"lr_scale": lr_scale}))
+                        rec.gauge("train.lr_scale", lr_scale)
+                    awaiting_recovery = True
                     log(f"[guardian] TRIP: {why} — rolled back to healthy "
                         f"step {step}, lr_scale -> {lr_scale:.4g}, retry "
                         f"{len(trips)}/{g.max_retries}")
@@ -195,6 +235,23 @@ def run(cfg: TrainLoopConfig, train_step, params, opt_state, pipeline,
 
             params, opt_state = new_params, new_opt
             mon.observe(step, dt)
+            if rec is not None:
+                if awaiting_recovery:
+                    # the first step adopted after a rollback
+                    rec.emit(obs.Guardian(
+                        action="recovery", step=step,
+                        detail={"trips": len(trips), "lr_scale": lr_scale}))
+                    awaiting_recovery = False
+                dt_ema = dt if dt_ema is None else 0.9 * dt_ema + 0.1 * dt
+                n_tok = _batch_tokens(batch)
+                rec.count("train.steps")
+                rec.observe("train.dt_s", dt)
+                rec.emit(obs.TrainStep(
+                    step=step, loss=loss,
+                    nonfinite=(nonfinite if g is not None
+                               else obs.NOT_SAMPLED),
+                    lr_scale=lr_scale, dt_s=dt, dt_ema_s=dt_ema,
+                    tokens_per_s=(n_tok / dt if dt > 0 else 0.0)))
             step += 1
             if step % cfg.log_every == 0 or step == cfg.total_steps:
                 history.append({"step": step, "loss": loss, "dt_s": dt})
@@ -204,11 +261,19 @@ def run(cfg: TrainLoopConfig, train_step, params, opt_state, pipeline,
                            {"params": params, "opt": opt_state},
                            extra=_save_extra(),
                            full_checksum=cfg.full_checksum)
+                if rec is not None:
+                    rec.count("train.ckpt.saves")
+                    rec.emit(obs.Checkpoint(action="save", step=step,
+                                            detail={"async": True}))
                 if g is not None:
                     pending_healthy.append(step)
                 if cfg.keep_last_k is not None:
-                    ckpt_mod.gc_checkpoints(cfg.ckpt_dir, cfg.keep_last_k,
-                                            log=log)
+                    removed = ckpt_mod.gc_checkpoints(
+                        cfg.ckpt_dir, cfg.keep_last_k, log=log)
+                    if rec is not None and removed:
+                        rec.emit(obs.Checkpoint(
+                            action="gc", step=step,
+                            detail={"removed": list(removed)}))
             if g is not None:
                 while pending_healthy and (
                         pending_healthy[0] + g.health_window <= step):
@@ -217,6 +282,10 @@ def run(cfg: TrainLoopConfig, train_step, params, opt_state, pipeline,
                     if s in comp:
                         ckpt_mod.mark_healthy(cfg.ckpt_dir, s)
                         pending_healthy.pop(0)
+                        if rec is not None:
+                            rec.emit(obs.Checkpoint(
+                                action="promote", step=s,
+                                detail={"survived": g.health_window}))
                     elif comp and s < comp[-1]:
                         pending_healthy.pop(0)   # overwritten or GC'd
                     else:
@@ -225,8 +294,15 @@ def run(cfg: TrainLoopConfig, train_step, params, opt_state, pipeline,
         saver.wait()
         ckpt_mod.save(cfg.ckpt_dir, step, {"params": params, "opt": opt_state},
                       extra=_save_extra(), full_checksum=cfg.full_checksum)
+        if rec is not None:
+            rec.emit(obs.Checkpoint(action="save", step=step,
+                                    detail={"final": True}))
         if cfg.keep_last_k is not None:
-            ckpt_mod.gc_checkpoints(cfg.ckpt_dir, cfg.keep_last_k, log=log)
+            removed = ckpt_mod.gc_checkpoints(cfg.ckpt_dir, cfg.keep_last_k,
+                                              log=log)
+            if rec is not None and removed:
+                rec.emit(obs.Checkpoint(action="gc", step=step,
+                                        detail={"removed": list(removed)}))
     guardian_info = {"trips": trips, "lr_scale": lr_scale,
                      "skipped_data_steps": sorted(bad_data_steps)}
     return {"params": params, "opt_state": opt_state, "step": step,

@@ -37,7 +37,7 @@ from repro.kernels import flash_attention as jfa
 from repro.obs.telemetry import percentile as ref_percentile
 
 from repro_torch.kernels import flash_attention as tfa
-from repro_torch.launch.serve import percentile
+from repro_torch.obs import percentile
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
        torch.bfloat16: dict(atol=1e-5, rtol=2.0 ** -7)}
@@ -329,8 +329,9 @@ def test_decode_splits_fill_the_card_from_shapes_alone():
     ([0.25, 4.0, 1.5, 2.0], 100), ([7.0, 7.0, 1.0], 1),
 ])
 def test_launcher_percentile_matches_reference(values, q):
-    """The launcher's own nearest-rank percentile raises ValueError where
-    repro.obs.telemetry.percentile does and otherwise gives its value."""
+    """The port's nearest-rank percentile (repro_torch.obs, which the
+    launcher uses) raises ValueError where repro.obs.telemetry.percentile
+    does and otherwise gives its value."""
     try:
         want = ref_percentile(values, q)
     except ValueError as e:
