@@ -99,14 +99,33 @@ PyTorch built for CUDA.  It
    tables with out-of-range codes; exact launch counts, each kernel
    against its plain version (bit for bit for the integer two), timed;
    beside the drive, attention at a head_dim that is not a multiple of 8;
-12. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
+12. runs the population sweep (``launch.sweep`` at its defaults: the MLP
+   1024 -> 512 -> 128, two cohorts of three, 3 rounds of 20 fused fp32
+   steps; then an Adam grid): finite winners, ledgers that round-trip,
+   exact launch counts from the ledgers' live cohorts (no dw), one
+   device-to-host copy a cohort step with and without ``--obs``, the
+   time of a cohort step, the update kernels' health flags on a member
+   with a NaN weight, the survivors of a quarantined lr=inf member
+   bitwise equal to a cohort without it, one fused step against its
+   plain version;
+13. serves through the static engine (``launch/serve.py`` without
+   ``--continuous``, 8 prompts of 32 tokens, 16 new) on full-size
+   stablelm-3b and qwen3-moe-30b-a3b, each in bf16 and int8: 16 tokens a
+   sequence, no non-finite row, exact launch counts, the prefill and one
+   decode step against the plain versions, the bf16 tokens' agreement
+   with the continuous engine; at full width and 2 layers in fp32 the
+   static tokens equal the continuous engine's; then ``launch/train.py``
+   writes a checkpoint of one SGD step and ``launch/serve.py --ckpt``
+   (static and continuous) serves it: params equal bit for bit, tokens
+   equal serving the trained params from memory;
+14. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
    fixed point, ``core/paper_net.py``) on ``paper_dataset``, sequential and
    junction-pipelined: over the first 1024 inputs the card and the CPU give
    the same params, corrects and forward outputs bit for bit; one full
    12544-input epoch of each on the card is timed and must reach the
    reference's accuracy contracts (above 0.8 sequential, 0.75 pipelined);
    the FPGA model's block cycle and arithmetic units are printed;
-13. prints a ``kernels`` JSON line and, last, a JSON line with
+15. prints a ``kernels`` JSON line and, last, a JSON line with
    ``"ok": true`` and the device.
 
 Any failed check raises and the exit code is not 0.  Without a card, or
@@ -2794,6 +2813,512 @@ def sweep_phase(P, card):
     return counts
 
 
+# ------------------------------------------------------- population search
+# launch.sweep's defaults: the MLP 1024 -> 512 -> 128 at block 128,
+# densities 0.25 and 0.5 (fan-in 2 and 4: two cohorts) x lrs 0.02, 0.05
+# and 0.1 under SGD, 3 rounds x 20 steps at batch 128, 4096 train and 512
+# eval samples of paper_dataset; then Adam over lr x b1.  fp32, so every
+# junction launch is a SIMT one (bsm.junction_variant).
+SWEEP_ARGS = {"sgd": [], "adam": ["--optim", "adam", "--lrs", "0.001,0.005",
+                                  "--b1s", "0.8,0.9"]}
+SWEEP_LAYERS, SWEEP_BLOCK = (1024, 512, 128), 128
+# one fused population step, kernels vs plain versions (fp32 sums of up to
+# 512 products in another order; tests/test_torch_quant_sweep.py's bound)
+POP_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _sweep_work(ledger) -> tuple[int, int]:
+    """(cohort steps, cohort evals) the sweep ran, from its ledger: a
+    cohort steps while any member is live (a member records a loss each
+    step it is live, from step 0 on) and evaluates each round any member
+    is live at its end (an eval loss each)."""
+    by = collections.defaultdict(list)
+    for m in ledger.members:
+        by[m.cohort].append(m)
+    return (sum(max(len(m.loss_curve) for m in ms) for ms in by.values()),
+            sum(max(len(m.eval_losses) for m in ms) for ms in by.values()))
+
+
+def _sweep_launches(P, ledger) -> dict:
+    """The launches a sweep of the 2-junction MLP implies: a cohort step
+    2 fwd, 2 dx (the first junction's too: the fused step's input takes
+    part in autograd) and 2 update_dw; a cohort eval 2 fwd; no dw (the
+    weight gradient never leaves update_dw)."""
+    steps, evals = _sweep_work(ledger)
+    want = dict.fromkeys(P.ops.launch_counts(), 0)
+    want.update(junction_fwd=2 * (steps + evals), junction_dx=2 * steps,
+                junction_update_dw=2 * steps)
+    return want
+
+
+def _sweep_cli(P, argv):
+    """launch.sweep.main(argv): (result, seconds, launch counts)."""
+    P.ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = P.sweep.main(argv)
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0, P.ops.launch_counts()
+
+
+def _pop_specs(P, lrs, density=0.25):
+    return [P.search.CandidateSpec(lr=lr, density=density,
+                                   layers=SWEEP_LAYERS, block=SWEEP_BLOCK,
+                                   init_seed=i)
+            for i, lr in enumerate(lrs)]
+
+
+def _pop_batch(P, n=128, seed=5):
+    x, t, _ = P.paper_dataset(n=n, seed=seed)
+    tp = np.zeros((n, SWEEP_LAYERS[-1]), np.float32)
+    tp[:, :t.shape[1]] = t
+    dev = torch.device("cuda")
+    return torch.from_numpy(x).to(dev), torch.from_numpy(tp).to(dev)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def search_phase(P, card):
+    """The population sweep on the card: launch.sweep at its defaults and
+    an Adam grid (finite winners, ledgers that round-trip, exact launch
+    counts from the ledgers' live cohorts, no dw), the host reads of a
+    step with and without --obs, the time of a cohort step, the kernels'
+    health flags on a poisoned member, quarantined survivors bitwise equal
+    to a cohort without the bad member, and one fused step against its
+    plain version."""
+    dev = torch.device("cuda")
+    counts = collections.Counter()
+    out_dir = ROOT / "build"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for name, extra in SWEEP_ARGS.items():
+        out = out_dir / ("SWEEP_mnist.json" if name == "sgd"
+                         else f"SWEEP_mnist_{name}.json")
+        res, dt, c = _sweep_cli(P, ["--out", str(out), *extra])
+        led = res.ledger
+        steps, evals = _sweep_work(led)
+        w = led.winner()
+        print(f"[search] sweep {name}: {len(led.members)} candidates, "
+              f"{dt:.3f} s, {steps} cohort steps + {evals} cohort evals = "
+              f"{dt / steps * 1e6:.0f} us a cohort step (evals, set-up and "
+              f"data included), winner member {w and w.member} "
+              f"{w and w.config['density']}/{w and w.config['lr']} eval "
+              f"{w and w.eval_losses[-1]:.5f}, quarantined "
+              f"{led.meta['quarantined']}, launches={with_tc(P, c)} "
+              f"[{card}]")
+        require(w is not None and np.isfinite(w.eval_losses[-1]),
+                f"sweep {name}: no finite winner")
+        again = P.search.Ledger.load(str(out))
+        require(json.dumps(again.to_dict(), sort_keys=True)
+                == json.dumps(led.to_dict(), sort_keys=True),
+                f"sweep {name}: the ledger does not round-trip")
+        want = _sweep_launches(P, led)
+        require(c == want, f"sweep {name}: launches {c} != {want}")
+        require(not any(P.ops.tc_launch_counts().values()),
+                f"sweep {name}: fp32 took a tensor-core entry point")
+        counts.update(with_tc(P, c))
+
+    # host reads: the losses and health of a step in one copy, the eval
+    # losses of a cohort in one copy a round; the recorder adds none
+    short = ["--rounds", "2", "--steps-per-round", "3",
+             "--out", str(out_dir / "SWEEP_syncs.json")]
+    syncs = {}
+    for name, extra in (("off", []),
+                        ("on", ["--obs", str(out_dir / "obs" /
+                                             "sweep.jsonl")])):
+        res, s = host_syncs(lambda: P.sweep.main(short + extra))
+        steps, evals = _sweep_work(res.ledger)
+        syncs[name] = s
+        require(s.get("memcpy DtoH", 0) == steps + evals,
+                f"sweep --obs {name}: {s} for {steps} cohort steps and "
+                f"{evals} cohort evals")
+    require(syncs["off"] == syncs["on"],
+            f"the recorder changed the sweep's syncs: {syncs}")
+    _, events = P.obs.read_events(str(out_dir / "obs" / "sweep.jsonl"))
+    table = P.obs_report.build_report(events).get("sweep", [])
+    print(f"[search] host reads of a {steps}-step, {evals}-eval sweep: "
+          f"{syncs['off']} without --obs, {syncs['on']} with: "
+          f"{(syncs['off']['memcpy DtoH'] - evals) / steps:.0f} "
+          f"device-to-host copy a cohort step; {len(table)} sweep.round "
+          f"rows rendered [{card}]")
+    require(any(r["action"] == "winner" for r in table),
+            "obs_report rendered no winner row")
+
+    # the time of one cohort step as the scheduler runs it (the step and
+    # its one host read), E = 3
+    specs = _pop_specs(P, (0.02, 0.05, 0.1))
+    x, t = _pop_batch(P)
+    step = P.search.make_population_step(with_health=True)
+    params = P.search.init_population(0, specs, device=dev)
+    hyp = P.search.hyp_table(specs, device=dev)
+    mask = torch.ones(3, device=dev)
+
+    def one():
+        _, _, losses, health = step(params, None, hyp, mask, x, t)
+        return torch.stack([losses, health]).cpu()
+
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        one()
+    us = (time.perf_counter() - t0) / 20 * 1e6
+    print(f"[search] fused population step, E=3, batch 128, layers "
+          f"{SWEEP_LAYERS} at density 0.25, with its one host read: "
+          f"{us:.0f} us a cohort step, {us / 3:.0f} us a member step "
+          f"(mean of 20) [{card}]")
+    step_breakdown(one, us / 1e6, "fused population step", card)
+
+    # the kernels' health flags isolate a poisoned member
+    for poison in (False, True):
+        params = P.search.init_population(0, specs, device=dev)
+        if poison:
+            params[0]["w"][1, 0, 0, 0, 0] = float("nan")
+        _, _, _, health = step(params, None, hyp, mask, x, t)
+        h = health.cpu().tolist()
+        require(h == [0.0, 0.0, 0.0] if not poison
+                else h[0] == 0 and h[2] == 0 and h[1] > 0,
+                f"health {h} (poisoned member 1: {poison})")
+        fin = all(bool(torch.isfinite(layer["w"]).all())
+                  for e in (0, 2)
+                  for layer in P.search.member_slice(params, e))
+        require(fin, "a clean member's update went non-finite")
+    print(f"[search] health flags: clean [0, 0, 0], NaN in member 1's "
+          f"weight {h} (non-finite update tiles, summed over the layers) "
+          f"[{card}]")
+
+    # one fused step through the kernels and through the plain versions
+    res = {}
+    for side in ("kernel", "plain"):
+        params = P.search.init_population(0, specs, device=dev)
+        P.ops.reset_launch_counts()
+        with contextlib.ExitStack() as stack:
+            if side == "plain":
+                for name in ("fwd", "dx", "update_dw"):
+                    stack.enter_context(mock.patch.object(
+                        P.bsm, name, getattr(P.bsm, f"{name}_ref")))
+            _, _, losses, health = step(params, None, hyp, mask, x, t)
+            torch.cuda.synchronize()
+        res[side] = (params, losses, P.ops.launch_counts())
+    kc, pc = res["kernel"][2], res["plain"][2]
+    require(kc["junction_fwd"] == kc["junction_dx"]
+            == kc["junction_update_dw"] == 2 and not any(pc.values()),
+            f"the step comparison took other paths: {kc} then {pc}")
+    errs = [max_err(res["kernel"][1], res["plain"][1])]
+    for a, b in zip(res["kernel"][0], res["plain"][0]):
+        for k in ("w", "b"):
+            require(close(a[k], b[k], POP_TOL), f"step {k} differs")
+            errs.append(max_err(a[k], b[k]))
+    require(close(res["kernel"][1], res["plain"][1], POP_TOL),
+            "step losses differ")
+    print(f"[search] one fused step, kernels vs plain versions: max abs "
+          f"err {max(errs):.3g} (losses, w, b; tol {POP_TOL}) [{card}]")
+
+    # quarantine: an lr=inf member against the same cohort without it
+    xq, tq, _ = P.paper_dataset(n=512 + 64, seed=7)
+    cfg = P.SweepConfig(rounds=2, steps_per_round=4, batch_size=128,
+                               eval_samples=64, keep_fraction=1.0)
+    good = _pop_specs(P, (0.05, 0.1), density=0.5)
+    bad = _pop_specs(P, (0.05, 0.1, float("inf")), density=0.5)[2:]
+    args = (xq[:512], tq[:512], xq[512:], tq[512:], cfg)
+    r_with = P.search.run_sweep(good + bad, *args, device=dev)
+    r_without = P.search.run_sweep(good, *args, device=dev)
+    q = r_with.ledger.members[2]
+    require(q.quarantined_at is not None and q.pruned_at == 0
+            and r_with.ledger.meta["quarantined"] == 1,
+            f"the lr=inf member was not quarantined: {q}")
+    for e in range(2):
+        for lw, lo in zip(
+                P.search.member_slice(r_with.states[0].params, e),
+                P.search.member_slice(r_without.states[0].params, e)):
+            for k in ("w", "b"):
+                require(torch.equal(_bits(lw[k]), _bits(lo[k])),
+                        f"survivor {e} {k} not bitwise equal")
+    w1, w2 = r_with.ledger.winner(), r_without.ledger.winner()
+    require(w1 is not None and w1.member == w2.member
+            and np.isfinite(w1.eval_losses[-1]), "quarantine winners")
+    print(f"[search] quarantine at {SWEEP_LAYERS}: lr=inf member "
+          f"quarantined at {q.quarantined_at}, survivors bitwise equal to "
+          f"the cohort without it, winner member {w1.member} both ways "
+          f"[{card}]")
+    torch.cuda.empty_cache()
+    return dict(counts)
+
+
+# ------------------------------------------------------ static serving
+# launch/serve.py without --continuous: 8 prompts of 32 tokens, 16 new
+# tokens, greedy, random weights from seed 0: one prefill and 15 decode
+# steps, each a call of every layer's junctions
+STATIC_ARGS = ["--sparse", "--requests", "8", "--prompt-len", "32",
+               "--max-new", "16"]
+STATIC_STEPS = 16
+
+
+def _launcher_prompts(cfg, n=8, length=32):
+    """The prompts launch/serve.py makes (seed 0)."""
+    rng = np.random.default_rng(0)
+    return rng.integers(0, cfg.raw_vocab or cfg.vocab,
+                        size=(n, length)).astype(np.int32)
+
+
+def _served(P, fn):
+    """fn() with the engines the serve launcher builds recorded: (its
+    result, [(engine class, engine)])."""
+    made = []
+    real = {n: getattr(P.engine, n) for n in ("Engine", "ContinuousEngine")}
+
+    def spy(name):
+        def build(*a, **kw):
+            made.append((name, real[name](*a, **kw)))
+            return made[-1][1]
+        return build
+
+    with contextlib.ExitStack() as stack:
+        for n in real:
+            stack.enter_context(mock.patch.object(P.engine, n, spy(n)))
+        out = fn()
+    return out, made
+
+
+def _static_steps(P, cfg, params, prompts):
+    """The static prefill of ``prompts`` and one decode step after it (the
+    prompts' first tokens as the input token, the same on both paths):
+    their logits, fp32."""
+    dev = torch.device("cuda")
+    B, S = prompts.shape
+    lp, cache = P.steps.make_prefill_step(cfg)(
+        params, {"tokens": torch.as_tensor(prompts, device=dev)})
+    full = P.M.make_cache(cfg, B, S + 1, dev)
+    for k in full:
+        full[k][:, :, :S] = cache[k]
+    tok = torch.as_tensor(prompts[:, :1], device=dev)
+    ld, _ = P.steps.make_decode_step(cfg)(params, full, tok, S)
+    return lp[:, -1].float(), ld[:, -1].float()
+
+
+def static_step_breakdown(P, eng, prompts, name, card):
+    """One static decode step of the 8 rows after their prefill: its wall
+    time (mean of 5, synchronized) and its kernels by name."""
+    B, S = prompts.shape
+    dev = torch.device("cuda")
+    _, cache = eng._prefill(eng.params,
+                            {"tokens": torch.as_tensor(prompts, device=dev)})
+    cache = eng._grow_cache(cache, B, S + 1, S)
+    tok = torch.as_tensor(prompts[:, :1], device=dev)
+
+    def step():
+        return eng._decode(eng.params, cache, tok, S)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+        torch.cuda.synchronize()
+    step_breakdown(step, (time.perf_counter() - t0) / 5,
+                   f"static {name} decode step, 8 rows", card)
+
+
+def compare_static_logits(P, cfg, params, prompts, per_layer, quantized,
+                          card):
+    """The static prefill and one decode step through the kernels and
+    through their plain versions on the card, in bf16 and fp32, within
+    LOGIT_REL_TOL of max |logit| (attention is plain PyTorch on both)."""
+    names = (("fwd_int8", "gated_fwd_int8") if quantized
+             else ("fwd", "gated_fwd"))
+    L = cfg.n_layers
+    for dtype in (torch.bfloat16, torch.float32):
+        c = dataclasses.replace(cfg, dtype=str(dtype)[6:])
+        P.ops.reset_launch_counts()
+        k_pf, k_dec = _static_steps(P, c, params, prompts)
+        kc = P.ops.launch_counts()
+        with contextlib.ExitStack() as stack:
+            for name in names:
+                stack.enter_context(mock.patch.object(
+                    P.bsm, name, getattr(P.bsm, f"{name}_ref")))
+            p_pf, p_dec = _static_steps(P, c, params, prompts)
+        torch.cuda.synchronize()
+        want = dict.fromkeys(kc, 0)
+        want.update({k: 2 * n * L for k, n in per_layer.items()})
+        require(kc == want and P.ops.launch_counts() == kc,
+                f"static logit comparison took other paths: {kc} then "
+                f"{P.ops.launch_counts()}")
+        for what, a, b in (("prefill", k_pf, p_pf), ("decode", k_dec,
+                                                     p_dec)):
+            require(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+                    f"static {what} logits not finite")
+            rel = max_err(a, b) / float(b.abs().max())
+            print(f"[logits] {cfg.name} static {what} "
+                  f"{'int8 ' if quantized else ''}{str(dtype)[6:]} kernels "
+                  f"vs plain versions: max_abs_err={max_err(a, b):.4g} "
+                  f"max|logit|={float(b.abs().max()):.4g} rel={rel:.3g} "
+                  f"(tol {LOGIT_REL_TOL[dtype]}) [{card}]")
+            require(rel <= LOGIT_REL_TOL[dtype],
+                    f"static {what} {dtype} logits differ")
+
+
+def _continuous(P, cfg, params, prompts, new=16):
+    """The same uniform prompts through ContinuousEngine: [B, new]."""
+    B, S = prompts.shape
+    eng = P.engine.ContinuousEngine(cfg, params, P.engine.ServeConfig(
+        max_new_tokens=new, slots=4, page_size=16, prefill_chunk=32,
+        max_seq=S + new), device="cuda")
+    outs = eng.serve([P.engine.Request(i, prompts[i], new)
+                      for i in range(B)])
+    return np.stack([outs[i] for i in range(B)])
+
+
+def static_parity_check(P, card):
+    """The reference's contract (tests/test_serve_continuous.py): at full
+    width, 2 layers, fp32, the static engine's greedy tokens equal the
+    continuous engine's on the same uniform prompts.  Where they differ,
+    the top-2 gap of the static logits there is printed, and it fails."""
+    cfg = dataclasses.replace(
+        P.registry.get("stablelm-3b").with_sparsity(P.SparsityConfig(
+            density=0.25, block=128, where="ffn")),
+        n_layers=2, dtype="float32")
+    params = P.M.init(cfg, seed=0, device="cuda")
+    prompts = _launcher_prompts(cfg)
+    static = P.engine.Engine(cfg, params, P.engine.ServeConfig(
+        max_new_tokens=16), device="cuda").generate(prompts)
+    cont = _continuous(P, cfg, params, prompts)
+    diff = np.argwhere(static != cont)
+    if len(diff):
+        i, j = diff[0]
+        seq = np.concatenate([prompts[i], static[i, :j]])[None]
+        logits, _, _ = P.M.forward(cfg, params, {"tokens": seq})
+        top2 = torch.topk(logits[0, -1].float(), 2).values
+        print(f"[serve] static vs continuous differ first at request {i} "
+              f"token {j}: top-2 logit gap {float(top2[0] - top2[1]):.4g} "
+              f"[{card}]")
+    print(f"[serve] stablelm-3b 2 layers fp32: static = continuous on "
+          f"{float(np.mean(static == cont)):.3f} of tokens [{card}]")
+    require(not len(diff), "static and continuous greedy tokens differ")
+    del params
+    torch.cuda.empty_cache()
+
+
+def static_serve_phase(P, card):
+    """launch/serve.py without --continuous on full-size stablelm-3b and
+    qwen3-moe-30b-a3b (bf16, then --quantize int8): 16 tokens a sequence, no
+    non-finite row, exact launch counts, the prefill and one decode step
+    against the plain versions; the bf16 tokens' agreement with the
+    continuous engine; the 2-layer fp32 parity; then --ckpt."""
+    paths = collections.Counter()
+    for arch, quant in (("stablelm-3b", None), ("stablelm-3b", "int8"),
+                        ("qwen3-moe-30b-a3b", None),
+                        ("qwen3-moe-30b-a3b", "int8")):
+        argv = ["--arch", arch, *STATIC_ARGS] + (
+            ["--quantize", quant] if quant else [])
+        P.ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, made = _served(P, lambda: P.serve.main(argv))
+        dt = time.perf_counter() - t0
+        counts = P.ops.launch_counts()
+        path = with_tc(P, counts)
+        ((_, eng),) = made
+        cfg = eng.cfg
+        name = f"{arch}{' ' + quant if quant else ''}"
+        require(out.shape == (8, STATIC_STEPS),
+                f"{name}: tokens {out.shape}")
+        require(eng.nonfinite_terminated == 0,
+                f"{name}: {eng.nonfinite_terminated} rows non-finite")
+        per_layer = (QUANT_SERVE_ARCHS if quant else SERVE_ARCHS)[arch]
+        want = dict.fromkeys(counts, 0)
+        want.update({k: n * cfg.n_layers * STATIC_STEPS
+                     for k, n in per_layer.items()})
+        require(counts == want, f"{name} static launches {counts} != {want}")
+        # every junction call has at least 8 rows: bf16 on tensor cores
+        tc = {k: counts[k] if not quant else 0
+              for k in P.ops.tc_launch_counts()}
+        require(P.ops.tc_launch_counts() == tc,
+                f"{name} tensor-core launches {P.ops.tc_launch_counts()}")
+        prompts = _launcher_prompts(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = eng.generate(prompts)
+        warm = time.perf_counter() - t0
+        require(np.array_equal(again, out), f"{name}: a second generate "
+                "of the same prompts gave other tokens")
+        print(f"[serve] static {name}: launcher {dt:.2f} s (init, load and "
+              f"generate); generate again {warm:.3f} s = "
+              f"{8 * STATIC_STEPS / warm:.1f} tok/s (8 x {STATIC_STEPS} "
+              f"tokens, {STATIC_STEPS} model calls); launches={path} "
+              f"[{card}]")
+        static_step_breakdown(P, eng, prompts, name, card)
+        if arch == "stablelm-3b" and not quant:
+            cont = _continuous(P, cfg, eng.params, prompts)
+            print(f"[serve] static {name} bf16: greedy agreement with the "
+                  f"continuous engine {float(np.mean(cont == out)):.3f} "
+                  f"(per request "
+                  f"{[round(float(v), 3) for v in (cont == out).mean(1)]}) "
+                  f"[{card}]")
+        compare_static_logits(P, cfg, eng.params, prompts, per_layer,
+                              bool(quant), card)
+        paths.update(path)
+        del eng, made
+        torch.cuda.empty_cache()
+    static_parity_check(P, card)
+    ckpt_check(P, card)
+    return dict(paths)
+
+
+def ckpt_check(P, card):
+    """launch/train.py (one SGD step of full-size sparse stablelm-3b, its
+    exit checkpoint under build/) and launch/serve.py --ckpt, static and
+    --continuous: the params each launcher hands its engine equal the
+    trained ones bit for bit, and the tokens equal serving the trained
+    params held in memory through the same engine."""
+    ck = ROOT / "build" / "ckpt_serve"
+    shutil.rmtree(ck, ignore_errors=True)
+    t0 = time.perf_counter()
+    res = P.train.main(["--arch", "stablelm-3b", "--sparse", "--optim",
+                        "sgd", "--steps", "1", "--ckpt", str(ck)])
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
+    trained = dict(P.tree_items(res["params"]))
+    del res["opt_state"]
+    torch.cuda.empty_cache()
+    for mode in ("static", "continuous"):
+        argv = ["--arch", "stablelm-3b", "--ckpt", str(ck), *STATIC_ARGS] + (
+            ["--continuous"] if mode == "continuous" else [])
+        t0 = time.perf_counter()
+        out, made = _served(P, lambda: P.serve.main(argv))
+        dt = time.perf_counter() - t0
+        ((name, eng),) = made
+        got = dict(P.tree_items(eng.params))
+        require(got.keys() == trained.keys(), f"{mode}: other leaves")
+        for k, v in trained.items():
+            require(got[k].dtype == v.dtype
+                    and torch.equal(_bits(got[k]), _bits(v)),
+                    f"{mode}: restored {k} differs from the trained one")
+        prompts = _launcher_prompts(eng.cfg)
+        if mode == "static":
+            want = P.engine.Engine(eng.cfg, res["params"], eng.scfg,
+                                   device="cuda").generate(prompts)
+            same = np.array_equal(out, want)
+        else:
+            ref = P.engine.ContinuousEngine(
+                eng.cfg, res["params"], eng.scfg, device="cuda").serve(
+                [P.engine.Request(i, prompts[i], 16) for i in range(8)])
+            same = all(np.array_equal(out[i], ref[i]) for i in range(8))
+        print(f"[serve] --ckpt {mode}: train {t_train:.1f} s, checkpoint "
+              f"{size / 2 ** 30:.2f} GiB, serve launcher {dt:.1f} s; "
+              f"restored params equal the trained ones bit for bit, tokens "
+              f"equal serving them from memory: {same} [{card}]")
+        require(same, f"--ckpt {mode}: tokens differ from the in-memory "
+                "params'")
+        del eng, made, got
+        torch.cuda.empty_cache()
+    shutil.rmtree(ck, ignore_errors=True)
+    del res, trained
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------ standalone kernels
 # The four kernels the reference calls only through their own entry
 # points (ops.fxp_qmatmul, ops.sigmoid_lut, selective_scan, mha), driven
@@ -3192,7 +3717,12 @@ def load_port() -> types.SimpleNamespace:
     from repro_torch.core import junction_pipeline as JP
     from repro_torch.core import paper_net as PN
     from repro_torch.data.mnist import paper_dataset
+    from repro_torch import search
+    from repro_torch.configs.base import SweepConfig
     from repro_torch.launch import obs_report, quant_sweep
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import sweep
+    from repro_torch.launch import train as train_launcher
     from repro_torch.models import model as M
     from repro_torch.obs import percentile
     from repro_torch.serve import engine
@@ -3206,7 +3736,9 @@ def load_port() -> types.SimpleNamespace:
         LMTokenPipeline=LMTokenPipeline, tree_items=tree_items, build=build,
         qz=qz, fxp=fxp, quant_sweep=quant_sweep, fxk=fxk, ssk=ssk,
         slut=slut, obs=obs, obs_report=obs_report, train_loop=train_loop,
-        PN=PN, JP=JP, paper_mnist=paper_mnist, paper_dataset=paper_dataset)
+        PN=PN, JP=JP, paper_mnist=paper_mnist, paper_dataset=paper_dataset,
+        search=search, SweepConfig=SweepConfig, sweep=sweep,
+        serve=serve_launcher, train=train_launcher)
 
 
 def build_kernels(P) -> None:
@@ -3266,6 +3798,8 @@ def main() -> int:
     paths["moe_train"] = train_phase(P, card, "qwen3-moe-30b-a3b",
                                      MOE_TRAIN_LAYERS)
     paths["sweep"] = sweep_phase(P, card)
+    paths["search"] = search_phase(P, card)
+    paths["static_serve"] = static_serve_phase(P, card)
     standalone, paths["standalone"] = standalone_kernel_phase(P, card)
     paper_phase(P, card)
 

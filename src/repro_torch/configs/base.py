@@ -136,3 +136,35 @@ class ArchConfig:
         if self.sparsity is not None:
             kw["sparsity"] = dataclasses.replace(self.sparsity, block=32)
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepConfig:
+    """A population sweep (``search/scheduler.run_sweep``): the rounds of
+    successive halving and how each cohort's step runs.  The cohort size
+    E comes from the candidate list.
+
+    rounds: successive-halving rounds; after each, the live members are
+        ranked by eval loss and cut to ``keep_fraction`` (a pruned slot's
+        mask entry and hyp row are zeroed in place: no shape changes).
+    steps_per_round: E-batched train steps between two rankings.
+    batch_size / eval_samples: the shared minibatch and held-out sizes.
+    seed: the cohorts' weight-init seed (``run_sweep`` states the rule).
+    engine: "auto" and "pallas" run the junction kernels (their plain
+        versions on a CPU tensor), where ``fused`` applies the update
+        inside the backward (``update_dw``); "jnp" keeps the two-pass
+        step (gradients through ``dw``, then the update in PyTorch), as
+        ``ArchConfig.engine`` does.
+    quarantine: a member whose loss or update health goes non-finite is
+        masked and hyp-zeroed in the middle of the round (the prune
+        applied at once) and recorded in the ledger.
+    """
+    rounds: int = 3
+    steps_per_round: int = 20
+    batch_size: int = 128
+    eval_samples: int = 512
+    keep_fraction: float = 0.5
+    seed: int = 0
+    engine: str = "auto"
+    fused: bool = True
+    quarantine: bool = True

@@ -7,8 +7,9 @@ both compute the same function.  ``from_jax_opt_state(state)`` carries
 the optimizer state the same way: Adam's ``m``/``v`` and SGD's ``mom``
 trees mirror the params (their 0-d placeholders for the integer pattern
 leaves stay unstacked).  A quantized tree (int8 or fxp codes and their
-leaves) carries across the same way.  ``from_jax_paper_params`` carries
-the paper network's params (``{"junctions": [{w, b, idx, rev_j, rev_f},
+leaves) carries across the same way.  ``from_jax_population`` carries a population's
+params (a list of junction dicts, search/population.py).
+``from_jax_paper_params`` carries the paper network's params (``{"junctions": [{w, b, idx, rev_j, rev_f},
 ...]}``, core/paper_net.py).  Only numpy crosses the boundary.
 """
 from __future__ import annotations
@@ -62,3 +63,10 @@ def from_jax_paper_params(tree: dict, device="cpu") -> dict:
     """The reference's paper-network params (numpy leaves) -> the port's,
     on ``device``: ``{"junctions": [{w, b, idx, rev_j, rev_f}, ...]}``."""
     return {"junctions": [_convert(jp, device) for jp in tree["junctions"]]}
+
+
+def from_jax_population(layers, device="cpu") -> list:
+    """A reference population (a list of junction dicts with numpy
+    leaves: E-leading ``w`` / ``b``, shared pattern leaves) -> the port's
+    on ``device``."""
+    return [_convert(layer, device) for layer in layers]

@@ -1,17 +1,27 @@
-"""Continuous-batching serving launcher of the PyTorch port.
+"""Serving launcher of the PyTorch port.
+
+Static batch (one prefill, lockstep decode):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \
+        --sparse --requests 8 --prompt-len 32 --max-new 16
+
+Continuous batching (paged KV cache, admission loop, chunked prefill):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \
         --sparse --continuous --slots 4 --page-size 16 --prefill-chunk 32 \
         --requests 8 --prompt-len 64 --max-new 16 --arrival-every 1
 
 runs on the card; ``--device cpu --reduce`` runs a tiny config on the
-CPU.  Weights are random, made from ``--seed``.  ``--quantize int8``
-serves the sparse FFN junctions from int8 codes (quantized at load).
-``--obs PATH`` streams the flight recorder's per-request spans, TTFT and
-inter-token histograms and occupancy gauges to a JSONL file that
+CPU.  Weights are random, made from ``--seed``, unless ``--ckpt DIR``
+restores the params of the newest checkpoint that ``launch/train.py``
+wrote there (``train/checkpoint.restore_latest``; the same ``--arch``,
+``--reduce``, ``--sparse`` and ``--density`` as the training run, or the
+restore raises).  ``--quantize int8`` serves the sparse FFN junctions
+from int8 codes (quantized at load).  ``--obs PATH`` streams the
+continuous engine's per-request spans, TTFT and inter-token histograms
+and occupancy gauges to a JSONL file that
 ``repro_torch.launch.obs_report`` renders; ``--profile DIR`` writes a
-``torch.profiler`` Chrome trace of the run into DIR.  Only the
-continuous engine is ported; the static engine is not.
+``torch.profiler`` Chrome trace of the run into DIR.
 """
 from __future__ import annotations
 
@@ -28,6 +38,8 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and of sampling")
+    ap.add_argument("--ckpt", default=None,
+                    help="restore params from a training checkpoint dir")
     ap.add_argument("--sparse", action="store_true",
                     help="apply the paper's pre-defined FFN sparsity")
     ap.add_argument("--density", type=float, default=0.25)
@@ -36,30 +48,29 @@ def main(argv=None):
                          "(int8 codes + per-block scales)")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous-batching engine over the paged KV "
-                         "cache (the only engine ported)")
+                         "cache (admission loop + chunked prefill)")
     ap.add_argument("--slots", type=int, default=4,
-                    help="decode batch width")
+                    help="[continuous] decode batch width")
     ap.add_argument("--page-size", type=int, default=16,
-                    help="tokens per KV page")
+                    help="[continuous] tokens per KV page")
     ap.add_argument("--num-pages", type=int, default=0,
-                    help="KV pool budget (0: full residency)")
+                    help="[continuous] KV pool budget (0: full residency)")
     ap.add_argument("--prefill-chunk", type=int, default=32,
-                    help="prefill chunk width")
+                    help="[continuous] prefill chunk width")
     ap.add_argument("--arrival-every", type=int, default=0,
-                    help="synthetic trace: one request every N scheduler "
-                         "ticks (0: all arrive at tick 0)")
+                    help="[continuous] synthetic trace: one request every "
+                         "N scheduler ticks (0: all arrive at tick 0)")
     ap.add_argument("--obs", default=None, metavar="PATH",
                     help="flight-recorder JSONL sink: per-request spans + "
-                         "TTFT/ITL histograms + occupancy gauges; render "
-                         "with repro_torch.launch.obs_report")
+                         "TTFT/ITL histograms + occupancy gauges "
+                         "(continuous engine); render with "
+                         "repro_torch.launch.obs_report")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler Chrome trace of the run "
                          "into DIR")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if not args.continuous:
-        raise SystemExit("[serve] only --continuous is ported to PyTorch")
 
     import time
 
@@ -71,7 +82,9 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.models import model as M
     from repro_torch.obs import Recorder, percentile, profile_ctx
-    from repro_torch.serve.engine import ContinuousEngine, Request, ServeConfig
+    from repro_torch.serve.engine import (ContinuousEngine, Engine, Request,
+                                          ServeConfig)
+    from repro_torch.train import checkpoint as ckpt_mod
 
     dev = resolve_device(args.device)
     cfg = registry.get(args.arch)
@@ -81,10 +94,17 @@ def main(argv=None):
         block = 32 if args.reduce else 128
         cfg = cfg.with_sparsity(SparsityConfig(
             density=args.density, block=block, where="ffn"))
-    ok, reason = M.paged_supported(cfg)
-    if not ok:
-        raise SystemExit(f"[serve] --continuous unsupported: {reason}")
+    if args.continuous:
+        ok, reason = M.paged_supported(cfg)
+        if not ok:
+            raise SystemExit(f"[serve] --continuous unsupported: {reason}")
     params = M.init(cfg, args.seed, dev)
+    if args.ckpt:
+        step, tree, _ = ckpt_mod.restore_latest(args.ckpt,
+                                                {"params": params})
+        if tree is not None:
+            params = tree["params"]
+            print(f"[serve] restored params from step {step}")
     quant = args.quantize if (args.quantize and cfg.sparsity) else None
     why = ("int8 junction kernels (per-block scales)" if quant
            else "no sparse junctions to quantize" if args.quantize
@@ -95,6 +115,20 @@ def main(argv=None):
     V = cfg.raw_vocab or cfg.vocab
     prompts = rng.integers(0, V, size=(args.requests, args.prompt_len)
                            ).astype(np.int32)
+    if not args.continuous:
+        eng = Engine(cfg, params, ServeConfig(
+            max_new_tokens=args.max_new, temperature=args.temperature,
+            seed=args.seed, quantize=quant), device=dev)
+        t0 = time.perf_counter()
+        with profile_ctx(args.profile):
+            out = eng.generate(prompts)
+        dt = time.perf_counter() - t0
+        tps = args.requests * args.max_new / dt
+        print(f"[serve] generated {out.shape} in {dt:.2f}s "
+              f"({tps:.1f} tok/s)")
+        print("[serve] first sequence:", out[0][:16].tolist())
+        return out
+
     scfg = ServeConfig(
         max_new_tokens=args.max_new, temperature=args.temperature,
         seed=args.seed, slots=args.slots, page_size=args.page_size,

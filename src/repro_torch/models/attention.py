@@ -1,8 +1,11 @@
-"""Grouped-query attention: the full-sequence training path
-(``gqa_forward``) and, over a block-paged KV cache, chunked prefill and
-single-token decode.
+"""Grouped-query attention: the full-sequence training and prefill path
+(``gqa_forward``), single-token decode over a contiguous cache
+(``gqa_decode``, the static engine's) and, over a block-paged KV cache,
+chunked prefill and single-token decode.
 
-The pool of one layer is ``{"k": [P, ps, Hkv, hd], "v": ...}``; token t
+A contiguous cache of one layer is ``{"k": [B, S, Hkv, hd], "v": ...}``;
+decode writes the new token's K / V at slot ``pos`` in place.  The pool
+of one layer is ``{"k": [P, ps, Hkv, hd], "v": ...}``; token t
 of a slot lives in page ``page_table[b, t // ps]`` at offset ``t % ps``.
 Page 0 is the scratch page that free slots point at.  The pool is
 updated in place.
@@ -97,6 +100,25 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     return out.to(q.dtype)
 
 
+def decode_attention(q, k_cache, v_cache, pos):
+    """q [B,1,H,D] against caches [B,S,Hkv,D] whose slots 0..pos hold
+    tokens (scalar ``pos``) -> [B,1,H,D] in q's dtype.  Scores are fp32
+    products of q and k, masked past ``pos`` with NEG_INF; the normalized
+    probabilities are rounded to q's dtype before the fp32 PV product."""
+    B, _, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    q5 = q.reshape(B, 1, Hkv, H // Hkv, D).float()
+    s = torch.einsum("bqgrd,bkgd->bgrqk", q5, k_cache.float()) \
+        * (1.0 / math.sqrt(D))
+    valid = torch.arange(S, device=q.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bgrqk,bkgd->bgrqd", p.to(q.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
 def paged_kv_update(cache: dict, k_new, v_new, positions, page_table):
     """Write new KV rows into the paged pool, in place.
 
@@ -150,6 +172,21 @@ def gqa_forward(p: Params, x, cfg: ArchConfig, *, positions,
                             kv_pos=positions)
     out = sl.apply(p["wo"], out.reshape(B, S, cfg.n_heads * cfg.head_dim))
     return out, (k, v)
+
+
+def gqa_decode(p: Params, x, cfg: ArchConfig, cache: dict, pos: int):
+    """Single-token decode of every row at position ``pos``: x [B,1,d],
+    cache {"k", "v": [B,S,Hkv,hd]} holding positions 0..pos-1.  The new
+    K / V (rope at ``pos``) go into slot ``pos`` in place; returns (out
+    [B,1,d], cache)."""
+    B = x.shape[0]
+    q, k_new, v_new = _qkv(p, x, cfg, torch.full((1,), pos,
+                                                  device=x.device))
+    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    out = decode_attention(q, cache["k"], cache["v"], pos)
+    out = sl.apply(p["wo"], out.reshape(B, 1, cfg.n_heads * cfg.head_dim))
+    return out, cache
 
 
 def gqa_decode_paged(p: Params, x, cfg: ArchConfig, cache: dict, positions,

@@ -4,15 +4,19 @@ layer is attention and ``models/moe.py``'s routed experts, whose
 load-balance losses sum into the forward's aux.
 
 ``init(cfg, seed, device)``       -> params (fp32 masters, a list of layers)
-``forward(cfg, params, batch)``   -> (logits [B,S,V], None, (aux, offset))
+``forward(cfg, params, batch)``   -> (logits [B,S,V], cache, (aux, offset))
 ``loss_fn(cfg, params, batch)``   -> (loss, {"ce", "aux"}) next-token CE
+``make_cache(cfg, B, S, device)`` -> zeroed cache {"k","v": [L, B, S, Hkv, hd]}
+``cache_seq_axes(cfg)``           -> the sequence axis of each cache leaf
+``decode_step(cfg, params, cache, token, pos)`` -> (logits [B,1,V], cache)
 ``make_paged_cache(cfg, P, ps)``  -> zeroed pool {"k","v": [L, P, ps, Hkv, hd]}
 ``paged_decode_step(...)``        -> (logits [B,1,V], pool) one decode tick
 ``paged_prefill_chunk(...)``      -> (last logits [1,1,V], pool) one chunk
 
 The layers run in a Python loop; with ``cfg.remat`` each training layer
 is recomputed in the backward (``torch.utils.checkpoint``).  The serving
-paths update each layer's slice ``pool[.][l]`` of the pool in place.
+paths update each layer's slice ``cache[.][l]`` of the static cache, or
+``pool[.][l]`` of the paged pool, in place.
 """
 from __future__ import annotations
 
@@ -74,13 +78,21 @@ def _ffn(lp, h, cfg: ArchConfig):
     return mlp_apply(lp["mlp"], h, cfg), 0.0
 
 
-def _attn_mlp_block(lp, x, cfg: ArchConfig, positions):
+def _attn_mlp_block(lp, x, cfg: ArchConfig, positions, cache=None,
+                    pos=None, decode: bool = False):
+    """A decoder layer: (x, cache, aux).  The whole sequence at
+    ``positions`` hands back the layer's {"k", "v"}; ``decode`` runs one
+    token at ``pos`` against the layer's ``cache``, updated in place."""
     h = norm_apply(lp["norm1"], x, cfg.norm, cfg.norm_eps)
-    a, _ = attn.gqa_forward(lp["attn"], h, cfg, positions=positions)
+    if decode:
+        a, new_cache = attn.gqa_decode(lp["attn"], h, cfg, cache, pos)
+    else:
+        a, (k, v) = attn.gqa_forward(lp["attn"], h, cfg, positions=positions)
+        new_cache = {"k": k, "v": v}
     x = x + a
     h = norm_apply(lp["norm2"], x, cfg.norm, cfg.norm_eps)
     m, aux = _ffn(lp, h, cfg)
-    return x + m, aux
+    return x + m, new_cache, aux
 
 
 def _tokens(params, batch):
@@ -89,27 +101,76 @@ def _tokens(params, batch):
 
 
 def forward(cfg: ArchConfig, params: Params, batch, *,
+            return_cache: bool = False, last_only: bool = False,
             return_hidden: bool = False):
-    """Training forward: batch {"tokens": [B, S]} (numpy or a tensor).
-    Returns (logits [B,S,V] or the final-norm hidden state, None,
-    (aux, offset)); aux is the layers' summed MoE load-balance loss (0
-    for the dense family) and offset 0."""
+    """Training and prefill forward: batch {"tokens": [B, S]} (numpy or a
+    tensor).  Returns (logits [B,S,V] or the final-norm hidden state,
+    cache, (aux, offset)); aux is the layers' summed MoE load-balance
+    loss (0 for the dense family) and offset 0.  ``return_cache`` stacks
+    the layers' K / V into {"k", "v": [L, B, S, Hkv, hd]} (else None);
+    ``last_only`` keeps the last position."""
     _check_family(cfg, "trains")
     tokens = _tokens(params, batch)
     x = embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = 0.0
+    caches = []
     for lp in params["layers"]:
         if cfg.remat and torch.is_grad_enabled():
-            x, a = checkpoint(_attn_mlp_block, lp, x, cfg, positions,
-                              use_reentrant=False)
+            x, c, a = checkpoint(_attn_mlp_block, lp, x, cfg, positions,
+                                 use_reentrant=False)
         else:
-            x, a = _attn_mlp_block(lp, x, cfg, positions)
+            x, c, a = _attn_mlp_block(lp, x, cfg, positions)
+        if return_cache:
+            caches.append(c)
         aux = aux + a
     x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    if last_only:
+        x = x[:, -1:]
+    cache = ({k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}
+             if return_cache else None)
     if return_hidden:
-        return x, None, (aux, 0)
-    return unembed(params["embed"], x, cfg), None, (aux, 0)
+        return x, cache, (aux, 0)
+    return unembed(params["embed"], x, cfg), cache, (aux, 0)
+
+
+def _check_static(cfg: ArchConfig) -> None:
+    _check_family(cfg, "serves")
+    if cfg.attn_kind != "full":
+        raise ValueError(f"attn_kind {cfg.attn_kind!r}: the port's static "
+                         "cache covers full attention only (no sliding "
+                         "ring buffer)")
+
+
+def make_cache(cfg: ArchConfig, batch: int, seq: int, device="cpu"):
+    """Zeroed static cache {"k", "v": [L, B, S, Hkv, hd]} in the compute
+    dtype, on ``device``."""
+    _check_static(cfg)
+    shape = (cfg.n_layers, batch, seq, cfg.kv_heads, cfg.head_dim)
+    return {k: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+            for k in ("k", "v")}
+
+
+def cache_seq_axes(cfg: ArchConfig):
+    """``make_cache``'s structure with each leaf's sequence axis (2; the
+    reference's -1 marks state leaves of families the port refuses), for
+    the static engine's cache growth."""
+    _check_static(cfg)
+    return {"k": 2, "v": 2}
+
+
+def decode_step(cfg: ArchConfig, params: Params, cache, token, pos: int):
+    """One static decode step: token [B,1] int, ``pos`` the position every
+    row writes (a host int).  Returns (logits [B,1,V], cache) with the
+    cache updated in place."""
+    _check_static(cfg)
+    x = embed_tokens(params["embed"], token, cfg)
+    for l, lp in enumerate(params["layers"]):
+        cache_l = {"k": cache["k"][l], "v": cache["v"][l]}   # views
+        x, _, _ = _attn_mlp_block(lp, x, cfg, None, cache=cache_l, pos=pos,
+                                  decode=True)
+    x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
+    return unembed(params["embed"], x, cfg), cache
 
 
 def softmax_xent(logits, labels):

@@ -189,8 +189,7 @@ class RequestSpan:
 
 @dataclasses.dataclass(frozen=True)
 class SweepRound:
-    """Population-sweep scheduler event (the sweep scheduler's, which
-    is not ported yet: the type is here so one schema serves every run):
+    """Population-sweep scheduler event (``search/scheduler.run_sweep``):
     ``action`` ∈ rank (one per round, scores in ``detail``) | prune |
     quarantine | winner (one per affected member, its cohort/slot
     attached so the sweep ledger and the telemetry share one

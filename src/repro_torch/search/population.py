@@ -166,6 +166,13 @@ def init_slots(params, specs: Sequence[CandidateSpec] | None = None):
     return (_zeros_like_slots(params),)
 
 
+def init_momentum(params, specs: Sequence[CandidateSpec] | None = None):
+    """The slot-0 tree of ``init_slots``, or None where it has none (the
+    reference's form from before Adam; new code uses ``init_slots``)."""
+    slots = init_slots(params, specs)
+    return slots[0] if slots else None
+
+
 # ------------------------------------------------------------------ forward
 def population_forward(params, x, *, act: str):
     """y [E, M, n_out] for a shared input x [M, n_in] (or [E, M, n_in])
@@ -230,8 +237,35 @@ def _two_pass_update(params, slots, hyp):
                 p.grad = None
 
 
-def make_population_step(act: str = "sigmoid", *, fused: bool = True):
-    """step(params, slots, hyp, mask, x, t) -> (params, slots, losses[E]).
+def _member_health_fused(aug) -> torch.Tensor:
+    """[E] non-finite update tile counts of each member, summed over the
+    layers: the health leaves the update kernels wrote in the backward
+    (the reference reads the same counts from their cotangents)."""
+    return sum(layer[sl.UPDATE_HEALTH_LEAF] for layer in aug)
+
+
+def _member_health_grads(params) -> torch.Tensor:
+    """[E] two-pass twin: one count for each ``w`` / ``b`` gradient leaf
+    of a member that holds a non-finite value."""
+    return sum((~torch.isfinite(layer[k].grad.reshape(
+        layer[k].shape[0], -1))).any(dim=1).float()
+        for layer in params for k in TRAINABLE)
+
+
+def _repack_slots(new_slots: tuple, like):
+    """The slots in the caller's form: None in, None out; one tree in,
+    one tree out; a tuple in, a tuple out."""
+    if like is None:
+        return None
+    if isinstance(like, tuple):
+        return new_slots
+    return new_slots[0]
+
+
+def make_population_step(act: str = "sigmoid", *, fused: bool = True,
+                         with_health: bool = False):
+    """step(params, slots, hyp, mask, x, t) -> (params, slots, losses[E]),
+    or (params, slots, losses, health[E]) with ``with_health``.
 
     One call trains every member on the shared batch (x [M, n_in], t
     [M, n_out] one-hot) with the objective sum(mask * member_losses).
@@ -241,7 +275,15 @@ def make_population_step(act: str = "sigmoid", *, fused: bool = True):
     gradients through the dx and dw kernels, then the same formula
     applied here.  ``slots`` follows ``init_slots`` (None or () for plain
     SGD, one tree for momentum, (mom, vel) for Adam) and comes back in
-    the same form; params and slots are updated in place."""
+    the same form.  Params and slots are updated in place (the reference
+    donates them): a caller that steps the same params twice clones them
+    first.
+
+    ``health[e] > 0``: member e's update just went non-finite.  Fused:
+    the update kernels' non-finite tile counts, summed over the layers;
+    two-pass: one count for each gradient leaf of the member holding a
+    non-finite value.  Members are independent, so a bad member flags
+    only its own slot."""
     def step(params, mom, hyp, mask, x, t):
         slots = sl.normalize_slots(mom)
         E = population_size(params)
@@ -259,12 +301,19 @@ def make_population_step(act: str = "sigmoid", *, fused: bool = True):
             y = population_forward(params, x, act=act)
         losses = member_losses(y, t)
         torch.sum(losses * mask).backward()
-        if not fused:
+        health = None
+        if fused:
+            if with_health:
+                health = _member_health_fused(aug)
+        else:
             for layer in params:
                 for k in TRAINABLE:
                     layer[k].requires_grad_(False)
+            if with_health:
+                health = _member_health_grads(params)
             _two_pass_update(params, slots, hyp)
-        return params, mom, losses.detach()
+        out = (params, _repack_slots(slots, mom), losses.detach())
+        return out + (health,) if with_health else out
 
     return step
 

@@ -1,10 +1,23 @@
-"""Continuous-batching serve engine over a block-paged KV cache.
+"""Serving engines: the static step-locked batch and continuous batching
+over a block-paged KV cache.  Both share ``ServeConfig``.
 
-Requests carry their own prompt, max_new and arrival tick.  An admission
-loop refills free slots from the queue mid-flight, prompts prefill in
-fixed-size chunks interleaved with decode ticks, and the KV cache is a
-block-paged pool (models/model.make_paged_cache) where refilling a slot
-swaps a page-table row and never copies the cache.  Invariants:
+``Engine``, the static engine: one prefill of the whole prompt batch
+(models/model.forward with its cache), then every row decodes in
+lockstep against a contiguous cache (``decode_step``) until
+``max_new_tokens``; a finished row keeps decoding into its own slots and
+is masked to eos.  Shapes never change, so it is the simplest pattern,
+but a batch is as slow as its longest request.  Every sparse FFN
+junction runs through kernels/block_sparse_matmul.fwd / gated_fwd (the
+int8 kernels under ``quantize="int8"``); attention is the plain
+``attention.decode_attention``.  Sampling and the guard stay on the
+card: a ``generate`` reads its tokens back once, at its end.
+
+``ContinuousEngine``: requests carry their own prompt, max_new and
+arrival tick.  An admission loop refills free slots from the queue
+mid-flight, prompts prefill in fixed-size chunks interleaved with decode
+ticks, and the KV cache is a block-paged pool
+(models/model.make_paged_cache) where refilling a slot swaps a
+page-table row and never copies the cache.  Invariants:
 
 * the decode tick always has the shapes (token [B,1], positions [B],
   page_table [B,maxp]) and a prefill chunk always [1, C]: admission,
@@ -18,17 +31,20 @@ swaps a page-table row and never copies the cache.  Invariants:
   int8 kernels under ``ServeConfig.quantize="int8"``); the kernels'
   launch counts over a run land in ``stats["launches"]``.
 
-Sampling is greedy (first maximum) or by temperature from a
-``torch.Generator`` seeded with ``ServeConfig.seed``; a slot whose logits
-go non-finite is terminated and counted (``nonfinite_terminated``).
+Sampling is greedy (the first maximum) or by temperature from one
+``torch.Generator`` seeded with ``ServeConfig.seed`` and advanced once a
+sample (the reference's fresh key a sample): deterministic under a seed,
+but not the draws of ``jax.random.categorical``.  A row or slot whose
+logits go non-finite is terminated (filled with eos, or 0 when eos is
+unset) and counted (``nonfinite_terminated``).
 
-With a ``recorder`` (obs.Recorder), every finished request emits one
-``obs.RequestSpan`` (enqueue -> admit -> prefill chunks -> first token
--> finish, outcome eos | max_new | guard), TTFT and inter-token
-latencies land in histograms, and page-pool and slot gauges refresh
-every tick.  All of it is host bookkeeping on values the scheduler
-already has on the host (the sampled tokens, the guard flags): the
-recorder adds no sync and no launch.
+With a ``recorder`` (obs.Recorder), every finished request of the
+continuous engine emits one ``obs.RequestSpan`` (enqueue -> admit ->
+prefill chunks -> first token -> finish, outcome eos | max_new | guard),
+TTFT and inter-token latencies land in histograms, and page-pool and
+slot gauges refresh every tick.  All of it is host bookkeeping on values
+the scheduler already has on the host (the sampled tokens, the guard
+flags): the recorder adds no sync and no launch.
 """
 from __future__ import annotations
 
@@ -46,6 +62,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import model as M
 from repro_torch.obs import telemetry as obs
 from repro_torch.serve.paged import PagePool
+from repro_torch.train.steps import make_decode_step, make_prefill_step
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass
@@ -117,6 +135,119 @@ def _to_device(tree, dev):
     return tree.to(dev)
 
 
+def _check_quantize(scfg: ServeConfig) -> None:
+    if scfg.quantize not in (None, "int8"):
+        raise ValueError(
+            f"ServeConfig.quantize={scfg.quantize!r}: serving supports "
+            "'int8' only (fxp bakes one table activation per junction; use "
+            "launch/quant_sweep.py for it)")
+
+
+def _load_params(params, scfg: ServeConfig, dev):
+    """The params on ``dev``, quantized at load under ``quantize``."""
+    params = _to_device(params, dev)
+    if scfg.quantize:
+        params = qz.quantize_tree(params, qz.QuantConfig(mode="int8"))
+    return params
+
+
+def _sample(logits: torch.Tensor, temperature: float,
+            gen: torch.Generator) -> torch.Tensor:
+    """logits [N, V] fp32 -> tokens [N]: the first maximum, or one draw
+    a row from softmax(logits / temperature) advancing ``gen`` once."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    probs = torch.softmax(logits / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+
+class Engine:
+    """The static engine.  ``generate(prompts)`` serves a batch of equal-
+    length prompts [B, S] (right-aligned, padded with 0) and returns the
+    tokens [B, max_new_tokens].  Runs on the card unless ``device`` names
+    another device.  ``_prefill`` and ``_decode`` are the step functions
+    of train/steps.py."""
+
+    def __init__(self, cfg: ArchConfig, params,
+                 serve_cfg: ServeConfig | None = None, device=None):
+        self.device = resolve_device(device)
+        self.scfg = serve_cfg or ServeConfig()
+        M.cache_seq_axes(cfg)   # raises for a family the cache cannot hold
+        _check_quantize(self.scfg)
+        self.cfg = cfg
+        self.params = _load_params(params, self.scfg, self.device)
+        self._prefill = make_prefill_step(cfg)
+        self._decode = make_decode_step(cfg)
+        # rows terminated by the guard in the last generate()
+        self.nonfinite_terminated = 0
+
+    def _sample(self, logits, gen):
+        return _sample(logits, self.scfg.temperature, gen)
+
+    @staticmethod
+    def _guard(logits2d):
+        """(bad [B] bool, logits with a bad row zeroed): a row with any
+        non-finite logit is flagged and sampling stays defined."""
+        bad = ~torch.isfinite(logits2d).all(dim=-1)
+        return bad, torch.where(bad[:, None], 0.0, logits2d)
+
+    def generate(self, prompts: np.ndarray) -> np.ndarray:
+        """prompts [B, S] int -> tokens [B, max_new_tokens] int32."""
+        self.nonfinite_terminated = 0   # before any branch: never stale
+        scfg, dev = self.scfg, self.device
+        B, S = prompts.shape
+        total = S + scfg.max_new_tokens
+        tokens = torch.from_numpy(np.asarray(prompts, np.int32)).to(dev)
+        logits, cache = self._prefill(self.params, {"tokens": tokens})
+        cache = self._grow_cache(cache, B, total, S)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(scfg.seed)
+        guard, eos = scfg.guard_nonfinite, scfg.eos_token
+        # a terminated row is filled with eos, or 0 when eos is unset
+        fill = eos if eos >= 0 else 0
+        nf = torch.zeros((B,), dtype=torch.bool, device=dev)
+        step_logits = logits[:, -1].float()
+        if guard:
+            bad, step_logits = self._guard(step_logits)
+            nf = nf | bad
+        tok = self._sample(step_logits, gen)[:, None]
+        if guard:
+            tok = torch.where(nf[:, None], fill, tok)
+        out = [tok]
+        done = nf.clone()
+        for i in range(scfg.max_new_tokens - 1):
+            logits, cache = self._decode(self.params, cache, tok, S + i)
+            step_logits = logits[:, -1].float()
+            if guard:
+                bad, step_logits = self._guard(step_logits)
+                nf = nf | bad
+                done = done | bad
+            nxt = self._sample(step_logits, gen)[:, None]
+            if eos >= 0:
+                done = done | (tok[:, 0] == eos)
+            if eos >= 0 or guard:
+                nxt = torch.where(done[:, None], fill, nxt)
+            tok = nxt
+            out.append(tok)
+        res = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+        if guard:
+            self.nonfinite_terminated = int(nf.sum())
+        return res
+
+    def _grow_cache(self, cache, B: int, total: int, S: int):
+        """The prefill cache (sequence S) copied into a cache of ``total``
+        positions, each leaf at position 0 of its sequence axis
+        (``M.cache_seq_axes``), zeros beyond.  (The reference's state
+        leaves, copied whole, belong to families the port refuses.)"""
+        full = M.make_cache(self.cfg, B, total, self.device)
+
+        def place(ax, dst, src):
+            dst.narrow(ax, 0, S).copy_(src)
+            return dst
+
+        return tree_map(place, M.cache_seq_axes(self.cfg), full, cache)
+
+
 class ContinuousEngine:
     """``serve(requests)`` drives admission, chunked prefill and decode
     until every request completes and returns {rid: generated tokens}.
@@ -134,28 +265,16 @@ class ContinuousEngine:
         ok, why = M.paged_supported(cfg)
         if not ok:
             raise ValueError(f"ContinuousEngine: {why}")
-        if self.scfg.quantize not in (None, "int8"):
-            raise ValueError(
-                f"ServeConfig.quantize={self.scfg.quantize!r}: serving "
-                "supports 'int8' only (fxp bakes one table activation per "
-                "junction; use launch/quant_sweep.py for it)")
+        _check_quantize(self.scfg)
         self.cfg = cfg
-        self.params = _to_device(params, self.device)
-        if self.scfg.quantize:
-            self.params = qz.quantize_tree(self.params,
-                                           qz.QuantConfig(mode="int8"))
+        self.params = _load_params(params, self.scfg, self.device)
         self.max_seq = self.scfg.max_seq or cfg.max_seq
         self.pages_per_slot = -(-self.max_seq // self.scfg.page_size)
         self.nonfinite_terminated = 0
         self.stats: dict = {}
 
-    def _sample(self, logits: torch.Tensor, gen: torch.Generator
-                ) -> torch.Tensor:
-        """logits [N, V] fp32 -> tokens [N]; argmax takes the first maximum."""
-        if self.scfg.temperature <= 0.0:
-            return torch.argmax(logits, dim=-1)
-        probs = torch.softmax(logits / self.scfg.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+    def _sample(self, logits, gen):
+        return _sample(logits, self.scfg.temperature, gen)
 
     def _tick(self, pool, tokens, positions, page_table, gen):
         logits, pool = M.paged_decode_step(self.cfg, self.params, pool,

@@ -13,6 +13,15 @@
   tensors in place.
 * Bitwise restart: params, optimizer state and the data iterator's state
   round-trip exactly; bf16 leaves travel as their raw 16-bit patterns.
+* Part of a tree: a ``like`` dict that holds some of the saved tree's
+  top-level keys (``{"params": params}`` of a ``{"params", "opt"}``
+  checkpoint, as the serve launcher's ``--ckpt`` does) restores those
+  subtrees alone, by the leaf paths the manifest lists.
+* Each restored leaf takes the shape and dtype of ``like``'s leaf: a
+  saved shape that differs raises ``CheckpointMismatch`` (never a
+  skipped leaf, never a fall back to an older checkpoint); a saved dtype
+  that differs is cast to ``like``'s (``Tensor.to``: exact where the
+  dtypes are equal, rounded to nearest from fp32 to bf16).
 """
 from __future__ import annotations
 
@@ -28,9 +37,14 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_leaves, tree_structure, tree_unflatten_like
+from repro_torch.tree import (tree_items, tree_leaves, tree_structure,
+                              tree_unflatten_like)
 
 _SENTINEL = "manifest.json"
+
+
+class CheckpointMismatch(ValueError):
+    """The checkpoint's tree or a leaf's shape does not fit ``like``."""
 _HEALTHY = "HEALTHY"
 _RAW16 = {torch.bfloat16: "bfloat16"}
 
@@ -46,12 +60,17 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
     return t.numpy(), str(t.numpy().dtype)
 
 
-def _to_tensor(a: np.ndarray, dtype_name: str, like) -> torch.Tensor:
+def _to_tensor(a: np.ndarray, dtype_name: str, like, path: str
+               ) -> torch.Tensor:
     t = torch.from_numpy(np.array(a))
     if dtype_name == "bfloat16":
         t = t.view(torch.bfloat16)
-    dev = like.device if torch.is_tensor(like) else "cpu"
-    return t.to(dev)
+    if not torch.is_tensor(like):
+        return t
+    if t.shape != like.shape:
+        raise CheckpointMismatch(f"leaf {path}: saved {tuple(t.shape)}, "
+                                 f"expected {tuple(like.shape)}")
+    return t.to(device=like.device, dtype=like.dtype)
 
 
 def _checksum(arrays: list[np.ndarray], full: bool = False) -> str:
@@ -81,10 +100,10 @@ def _fsync_dir(path):
 def _host_tree(tree):
     leaves = [_to_host(leaf) for leaf in tree_leaves(tree)]
     return ([a for a, _ in leaves], [d for _, d in leaves],
-            tree_structure(tree))
+            tree_structure(tree), [p for p, _ in tree_items(tree)])
 
 
-def _write(ckpt_dir: Path, step: int, arrays, dtypes, structure,
+def _write(ckpt_dir: Path, step: int, arrays, dtypes, structure, paths,
            extra: dict | None, full_checksum: bool) -> Path:
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:010d}"
@@ -95,7 +114,7 @@ def _write(ckpt_dir: Path, step: int, arrays, dtypes, structure,
             f.flush()
             os.fsync(f.fileno())
         manifest = {"step": step, "n_leaves": len(arrays), "dtypes": dtypes,
-                    "treedef": structure,
+                    "treedef": structure, "paths": paths,
                     "checksum": _checksum(arrays, full=full_checksum),
                     "checksum_mode": "full" if full_checksum else "head",
                     "extra": extra or {}}
@@ -116,8 +135,7 @@ def _write(ckpt_dir: Path, step: int, arrays, dtypes, structure,
 def save(ckpt_dir, step: int, tree: Any, extra: dict | None = None,
          full_checksum: bool = False) -> Path:
     """Atomic synchronous save of a tree of tensors."""
-    arrays, dtypes, structure = _host_tree(tree)
-    return _write(Path(ckpt_dir), step, arrays, dtypes, structure, extra,
+    return _write(Path(ckpt_dir), step, *_host_tree(tree), extra,
                   full_checksum)
 
 
@@ -214,10 +232,35 @@ def gc_checkpoints(ckpt_dir, keep_last_k: int, log=None) -> list[int]:
     return removed
 
 
+def _select(manifest: dict, like, d: Path) -> list[int]:
+    """The indices of the saved leaves that fill ``like``: all of them
+    when the structures are equal, else those under ``like``'s top-level
+    keys, each subtree complete and in order."""
+    if manifest["treedef"] == tree_structure(like):
+        return list(range(manifest["n_leaves"]))
+    saved = manifest.get("paths")
+    if saved is None or not isinstance(like, dict):
+        raise CheckpointMismatch(f"checkpoint {d} holds another tree "
+                                 "structure")
+    want = [p for p, _ in tree_items(like)]
+    pick = []
+    for key in like:
+        sub = [i for i, p in enumerate(saved)
+               if p == key or p.startswith(key + "/")]
+        if [saved[i] for i in sub] != [p for p in want
+                                       if p == key or
+                                       p.startswith(key + "/")]:
+            raise CheckpointMismatch(f"checkpoint {d}: subtree {key!r} "
+                                     "holds other leaves")
+        pick += sub
+    return pick
+
+
 def restore(ckpt_dir, step: int, like: Any,
             verify: bool = True) -> tuple[Any, dict]:
-    """Restore into the structure of ``like``; each leaf lands on the
-    device of ``like``'s leaf (values ignored)."""
+    """Restore into the structure of ``like`` (the whole saved tree, or
+    some of its top-level keys); each leaf lands on the device, and in the
+    dtype, of ``like``'s leaf, whose values are ignored."""
     d = Path(ckpt_dir) / f"step_{step:010d}"
     manifest = json.loads((d / _SENTINEL).read_text())
     with np.load(d / "arrays.npz") as data:
@@ -225,20 +268,23 @@ def restore(ckpt_dir, step: int, like: Any,
     full = manifest.get("checksum_mode", "head") == "full"
     if verify and _checksum(arrays, full=full) != manifest["checksum"]:
         raise IOError(f"checkpoint {d} failed checksum verification")
-    if manifest["treedef"] != tree_structure(like):
-        raise ValueError(f"checkpoint {d} holds another tree structure")
-    leaves = [_to_tensor(a, dt, lk) for a, dt, lk in
-              zip(arrays, manifest["dtypes"], tree_leaves(like))]
+    pick = _select(manifest, like, d)
+    leaves = [_to_tensor(arrays[i], manifest["dtypes"][i], lk, path)
+              for i, (path, lk) in zip(pick, tree_items(like))]
     return tree_unflatten_like(like, leaves), manifest["extra"]
 
 
 def restore_latest(ckpt_dir, like, log=None):
     """(step, tree, extra) from the newest verifiable checkpoint, falling
-    back past unreadable ones; (None, None, None) when none is left."""
+    back past unreadable ones; (None, None, None) when none is left.  A
+    checkpoint that reads but does not fit ``like`` raises
+    ``CheckpointMismatch``."""
     for s in reversed(complete_steps(ckpt_dir)):
         try:
             tree, extra = restore(ckpt_dir, s, like)
             return s, tree, extra
+        except CheckpointMismatch:
+            raise
         except Exception as e:   # torn npz, bad json, failed checksum, ...
             if log:
                 log(f"[ckpt] step {s} unreadable ({type(e).__name__}: {e}) "

@@ -1,6 +1,9 @@
-"""Train and eval step functions.
+"""Train, eval and static serving step functions.
 
-``make_train_step(cfg, optimizer)`` returns
+``make_prefill_step(cfg)`` and ``make_decode_step(cfg)`` are the static
+engine's (serve/engine.Engine): a prompt batch's last logits and its
+cache, then one step-locked decode step.  ``make_train_step(cfg,
+optimizer)`` returns
 ``train_step(params, opt_state, batch, step[, lr_scale]) ->
 (params, opt_state, metrics)``.  The two-pass step materialises the
 gradients (junctions through the dx and dw kernels) and applies
@@ -225,3 +228,24 @@ def make_eval_step(cfg: ArchConfig):
             loss, metrics = M.loss_fn(cfg, params, batch)
         return dict(metrics, loss=loss)
     return evaluate
+
+
+def make_prefill_step(cfg: ArchConfig):
+    """prefill(params, batch) -> (logits [B,1,V] at the last position,
+    cache {"k", "v": [L, B, S, Hkv, hd]})."""
+    def prefill(params, batch):
+        with torch.no_grad():
+            logits, cache, _ = M.forward(cfg, params, batch,
+                                         return_cache=True, last_only=True)
+        return logits, cache
+    return prefill
+
+
+def make_decode_step(cfg: ArchConfig):
+    """The static decode step: decode(params, cache, token [B,1], pos) ->
+    (logits [B,1,V], cache), every row at the host int ``pos`` and the
+    cache updated in place."""
+    def decode(params, cache, token, pos):
+        with torch.no_grad():
+            return M.decode_step(cfg, params, cache, token, pos)
+    return decode

@@ -170,7 +170,8 @@ def test_page_pool_accounting():
 # ------------------------------------------------------------------ guards
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+        ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "examples").glob("*_torch.py"))
 
 
 @pytest.mark.parametrize("path", _port_files(),
