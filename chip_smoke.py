@@ -117,15 +117,43 @@ PyTorch built for CUDA.  It
    static tokens equal the continuous engine's; then ``launch/train.py``
    writes a checkpoint of one SGD step and ``launch/serve.py --ckpt``
    (static and continuous) serves it: params equal bit for bit, tokens
-   equal serving the trained params from memory;
-14. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
+   equal serving the trained params from memory; qwen3-moe's 8-row bf16
+   prefill is traced block by block through the kernels and the plain
+   versions (``moe_layer_gaps``: each block's output gap, the tokens whose
+   top-k expert set differs, the logits of the plain path routed as the
+   kernels routed, and the gap over rows with and without a flip);
+14. serves full-size sparse falcon-mamba-7b (Mamba-1, 64 layers) on the
+   static engine in bf16 and int8, and trains
+   it at full width and 8 layers on the three update paths, with exact
+   launch counts and one 2-layer step against the plain versions; serves
+   full-size zamba2-2.7b (54 Mamba-2 layers in 9 super-blocks sharing one
+   attention block) and trains it two-pass (one 4-layer step, two
+   super-blocks, against the plain versions); serves qwen2-72b,
+   deepseek-7b and command-r-plus-104b at full width and 2 layers, and
+   holds and times ``fwd`` at every junction shape these configs bring
+   (kb up to 66, zamba2's 41 output blocks), at 8 rows and 256, against
+   the junction in fp64 within the rounding of one bf16 output and the
+   probabilistic bound of an fp32 sum (``fwd_held``), beside a control
+   that carries its sum in bf16 and must fail it; the two deep
+   state-space models hold their bf16 prefill and decode step launch by
+   launch and block by block (``ssm_layer_gaps``: every fwd launch
+   against fp64 on its own operands at the main path's rows, 256 and 8;
+   each block's mixer fed the kernel path's input, its output's gap over
+   the block's own contribution within LOGIT_REL_TOL, a control that
+   leaves a fan-in slot out beyond it; the decode step's logits from one
+   cache within LOGIT_REL_TOL), and print the end-to-end bf16 gap (each
+   path on its own prefill) beside the plain bf16 path's own distance
+   from fp32, where a one-ulp rounding difference in one block reaches
+   every block after it (fp32 and int8 stay held end to end); each
+   phase prints its seconds;
+15. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
    fixed point, ``core/paper_net.py``) on ``paper_dataset``, sequential and
    junction-pipelined: over the first 1024 inputs the card and the CPU give
    the same params, corrects and forward outputs bit for bit; one full
    12544-input epoch of each on the card is timed and must reach the
    reference's accuracy contracts (above 0.8 sequential, 0.75 pipelined);
    the FPGA model's block cycle and arithmetic units are printed;
-15. prints a ``kernels`` JSON line and, last, a JSON line with
+16. prints a ``kernels`` JSON line and, last, a JSON line with
    ``"ok": true`` and the device.
 
 Any failed check raises and the exit code is not 0.  Without a card, or
@@ -136,6 +164,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import shutil
 import statistics
@@ -718,17 +747,27 @@ def decode_phase(P, timer, card):
 
 
 # ------------------------------------------------------------ serve phase
-# the arch each serving phase drives at full width, and the junction
-# launches one layer makes on every tick and every prefill chunk: three
-# plain FFN junctions a dense layer; the gate (one gated junction) and
-# the down junction a MoE layer
-SERVE_ARCHS = {"stablelm-3b": {"junction_fwd": 3},
-               "qwen3-moe-30b-a3b": {"junction_gated_fwd": 1,
-                                     "junction_fwd": 1}}
 # the fewest rows a serving junction call has: the 4 slots of a decode
 # tick (a prefill chunk has 32); an expert's capacity is at least 4
 # (models/moe.moe_dispatch_dims)
 SERVE_MIN_ROWS = 4
+
+
+def junction_calls(cfg, quantized=False) -> dict:
+    """The junction launches of one model call (a prefill, a decode step,
+    a training forward) by kernel: a dense layer's three FFN junctions; a
+    MoE layer's gate (one gated junction) and down junction; a Mamba-1
+    layer's in_proj and out_proj; a Mamba-2 layer's in_z, in_xbc and
+    out_proj, and the hybrid's shared MLP (wg, wi, wo) once a
+    super-block."""
+    L = cfg.n_layers
+    n = {"dense": {"fwd": 3 * L},
+         "moe": {"gated_fwd": L, "fwd": L},
+         "ssm": {"fwd": 2 * L},
+         "hybrid": {"fwd": 3 * L + 3 * (L // max(1, cfg.hybrid_attn_every))}
+         }[cfg.family]
+    tail = "_int8" if quantized else ""
+    return {f"junction_{k}{tail}": v for k, v in n.items()}
 
 
 def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None,
@@ -812,9 +851,9 @@ def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None,
             f"{eng.nonfinite_terminated} slots hit non-finite logits")
     L = cfg.n_layers
     steps = st["decode_ticks"] + st["prefill_chunks"]
-    per_layer = (QUANT_SERVE_ARCHS if quantize else SERVE_ARCHS)[arch]
+    calls = junction_calls(cfg, bool(quantize))
     want = dict.fromkeys(counts, 0)
-    want.update({k: n * L * steps for k, n in per_layer.items()})
+    want.update({k: n * steps for k, n in calls.items()})
     want["flash_decode"] = L * st["decode_ticks"]      # one attention a layer
     require(counts == want, f"{name} launches {counts} != {want}")
     require(st["launches"] == counts, "engine stats disagree with counters")
@@ -837,7 +876,7 @@ def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None,
 
     for dtype in (torch.bfloat16, torch.float32):
         compare_logits(P, cfg, eng.params, prompts[0], dtype, card,
-                       per_layer, LOGIT_REL_TOL[dtype], bool(quantize))
+                       LOGIT_REL_TOL[dtype], bool(quantize))
     tick_breakdown(M, cfg, eng.params, card)
     return params, path, outs
 
@@ -932,12 +971,12 @@ def _chunk_and_tick(M, cfg, params, prompt):
     return lp[0, -1].float(), ld[0, -1].float()
 
 
-def compare_logits(P, cfg, params, prompt, dtype, card, per_layer, tol,
+def compare_logits(P, cfg, params, prompt, dtype, card, tol,
                    quantized=False):
     """The first prefill chunk and one decode tick (slot 0 live, three
     free slots on the scratch page), once through the kernels and once
     through the plain versions, on the card, within ``tol`` of max
-    |logit|; ``per_layer`` the junction launches a layer makes.
+    |logit|.
     ``quantized`` swaps the int8 junctions alone and keeps flash_decode
     on both sides: its summation order would move an fp32 activation by
     an ulp, and at a rounding boundary its int8 code by a step, so the
@@ -961,7 +1000,7 @@ def compare_logits(P, cfg, params, prompt, dtype, card, per_layer, tol,
     torch.cuda.synchronize()
     L = cfg.n_layers
     want = dict.fromkeys(kernel_counts, 0)
-    want.update({k: 2 * n * L for k, n in per_layer.items()})
+    want.update({k: 2 * n for k, n in junction_calls(cfg, quantized).items()})
     want["flash_decode"] = L
     plain_want = dict(kernel_counts)
     if quantized:
@@ -2204,16 +2243,14 @@ def _gated_update_case(P, gen, dtype, opt, case, M=MOE_M["train"], bs=BS):
 
 # ------------------------------------------------------------ train phase
 def _expected_launches(P, cfg, n_steps, kind):
-    """Junction launches a step implies: per layer the family's FFN
-    junctions (three plain ones a dense layer; a gated and a plain one a
-    MoE layer), their forward run again by the per-layer recompute, the
-    norm pre-pass of a clipped fused step a plain forward and backward of
-    its own."""
-    L, r = cfg.n_layers, (2 if cfg.remat else 1)
-    per_layer = {"": 3} if cfg.family == "dense" else {"": 1, "gated_": 1}
+    """Junction launches a step implies: a forward's junctions
+    (``junction_calls``), run again by the per-layer recompute, the norm
+    pre-pass of a clipped fused step a plain forward and backward of its
+    own."""
+    r = 2 if cfg.remat else 1
     want = dict.fromkeys(P.ops.launch_counts(), 0)
-    for g, n in per_layer.items():
-        J = n * L
+    for name, J in junction_calls(cfg).items():
+        g = "gated_" if "gated" in name else ""
         fwd, dx, dw = (f"junction_{g}{k}" for k in ("fwd", "dx", "dw"))
         upd = f"junction_update_{g}dw"
         per = {"two_pass": {fwd: r * J, dx: J, dw: J},
@@ -2228,9 +2265,9 @@ def _expected_tc(P, cfg, want):
     """Of the expected launches, those of the tensor-core entry points:
     every junction launch (plain and gated fwd, dx, dw and update) of the
     path where the route takes its compute dtype at its junctions' rows
-    (M = 2048 a dense junction, the capacity C = 160 an expert) to the
-    tensor cores, else none."""
-    rows = TRAIN_M if cfg.family == "dense" else MOE_M["train"]
+    (M = 2048 a dense, ssm or hybrid junction, the capacity C = 160 an
+    expert) to the tensor cores, else none."""
+    rows = MOE_M["train"] if cfg.family == "moe" else TRAIN_M
     tc = P.bsm.junction_variant(getattr(torch, cfg.dtype), rows, BS) == "tc"
     return {k: want[k] if tc else 0 for k in P.ops.tc_launch_counts()}
 
@@ -2288,13 +2325,14 @@ def train_run(P, cfg, opt, kind, card, n_steps=3):
     return {**counts, **{f"{k}_tc": v for k, v in tc.items()}}
 
 
-def compare_train_step(P, cfg, dtype, fused, card):
-    """One step at full width and 2 layers, once through the kernels and
-    once through their plain versions, from the same weights and batch:
-    losses and, per leaf, the updated params and Adam's m."""
+def compare_train_step(P, cfg, dtype, fused, card, depth=None):
+    """One step at full width and 2 layers (or the ``depth`` fields given),
+    once through the kernels and once through their plain versions, from
+    the same weights and batch: losses and, per leaf, the updated params
+    and Adam's m."""
     bsm = P.bsm
     cfg = dataclasses.replace(
-        cfg, n_layers=2, dtype=dtype, fused_update=fused,
+        cfg, **(depth or {"n_layers": 2}), dtype=dtype, fused_update=fused,
         param_dtype=dtype if fused else "float32")
     lr = 1e-3
     opt = P.optim.fused_adam(P.optim.constant_schedule(lr), grad_clip=1.0)
@@ -2341,7 +2379,8 @@ def compare_train_step(P, cfg, dtype, fused, card):
                          b.float().abs() + (a.float().abs() if moe_bf16
                                             else 0.0))).all())
                for a, b in pairs)
-    print(f"[step] {cfg.name} {kind} 2 layers {dtype} kernels vs plain "
+    print(f"[step] {cfg.name} {kind} {cfg.n_layers} layers {dtype} "
+          f"kernels vs plain "
           f"versions: loss "
           f"{kl:.6f} vs {pl:.6f} (rel {loss_rel:.3g}, tol {tol['loss']}), "
           f"Adam m rel_err {m_err:.3g} (tol {tol['m']}), params max_abs_err "
@@ -2357,17 +2396,19 @@ def compare_train_step(P, cfg, dtype, fused, card):
 # moves each weight by lr * m / sqrt(v) = +-lr, so a gradient near 0
 # whose sign differs moves it by 2 lr at most, and the stored weight may
 # round to the neighbouring value of its type.
+TRAIN_KINDS = ("two_pass", "fused_clip", "fused")
 STEP_TOL = {"float32": {"loss": 1e-5, "m": 1e-3},
             "bfloat16": {"loss": 1e-2, "m": 5e-2}}
 ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7}
 
 
-def train_phase(P, card, arch, n_layers=0):
+def train_phase(P, card, arch, n_layers=0, kinds=TRAIN_KINDS, depth=None):
     """Full-width sparse-FFN training of ``arch`` (depth cut to
-    ``n_layers`` when given): 3 two-pass Adam steps (fp32 masters, bf16
-    compute), 3 fused Adam steps and 3 fused SGD steps (bf16 params, fp32
-    slots), then one step at 2 layers through the kernels and through
-    their plain versions."""
+    ``n_layers`` when given): 3 steps each of ``kinds``, two-pass Adam
+    (fp32 masters, bf16 compute), fused Adam and fused SGD (bf16 params,
+    fp32 slots), then one step at 2 layers (or ``depth``) through the
+    kernels and through their plain versions on each kind's update
+    path."""
     cfg = P.registry.get(arch).with_sparsity(
         P.SparsityConfig(density=0.25, block=BS, where="ffn"))
     if n_layers:
@@ -2377,18 +2418,22 @@ def train_phase(P, card, arch, n_layers=0):
     fused_cfg = dataclasses.replace(cfg, fused_update=True,
                                     param_dtype="bfloat16")
     runs = {
-        "two_pass": train_run(P, cfg, adam, "two_pass", card),
-        "fused_clip": train_run(P, fused_cfg, adam, "fused_clip", card),
-        "fused": train_run(P, fused_cfg,
-                           P.optim.fused_sgd(sched, momentum=0.9), "fused",
-                           card)}
-    require(runs["fused"]["junction_dw"] == 0
-            and runs["fused"]["junction_gated_dw"] == 0,
-            "the unclipped fused path launched a dw kernel")
+        "two_pass": lambda: train_run(P, cfg, adam, "two_pass", card),
+        "fused_clip": lambda: train_run(P, fused_cfg, adam, "fused_clip",
+                                        card),
+        "fused": lambda: train_run(P, fused_cfg,
+                                   P.optim.fused_sgd(sched, momentum=0.9),
+                                   "fused", card)}
+    runs = {k: runs[k]() for k in kinds}
+    if "fused" in runs:
+        require(runs["fused"]["junction_dw"] == 0
+                and runs["fused"]["junction_gated_dw"] == 0,
+                "the unclipped fused path launched a dw kernel")
     for dtype in ("bfloat16", "float32"):
-        for fused in (False, True):
-            compare_train_step(P, cfg, dtype, fused, card)
-    return {k: sum(r[k] for r in runs.values()) for k in runs["two_pass"]}
+        for fused in (False, True)[:1 + ("fused_clip" in kinds)]:
+            compare_train_step(P, cfg, dtype, fused, card, depth)
+    first = next(iter(runs.values()))
+    return {k: sum(r[k] for r in runs.values()) for k in first}
 
 
 # --------------------------------------------------- quantized kernels
@@ -2772,12 +2817,6 @@ def fxp_coverage_checks(P, gen, check):
                   dtype, _fxp_cost(P, xf, wq, lut, fmt), time_it=False)
 
 
-# quantized serving: the int8 launches a layer makes on every tick and
-# every prefill chunk; every floating-point junction launches nothing
-QUANT_SERVE_ARCHS = {"stablelm-3b": {"junction_fwd_int8": 3},
-                     "qwen3-moe-30b-a3b": {"junction_gated_fwd_int8": 1,
-                                           "junction_fwd_int8": 1}}
-
 
 def sweep_phase(P, card):
     """launch.quant_sweep on the card with the paper triplets, once with
@@ -3084,17 +3123,15 @@ def _served(P, fn):
 
 def _static_steps(P, cfg, params, prompts):
     """The static prefill of ``prompts`` and one decode step after it (the
-    prompts' first tokens as the input token, the same on both paths):
-    their logits, fp32."""
-    dev = torch.device("cuda")
+    prompts' first tokens as the input token, the same on both paths),
+    through the static engine's step functions: their logits, fp32."""
+    eng = P.engine.Engine(cfg, params, device="cuda")
     B, S = prompts.shape
-    lp, cache = P.steps.make_prefill_step(cfg)(
-        params, {"tokens": torch.as_tensor(prompts, device=dev)})
-    full = P.M.make_cache(cfg, B, S + 1, dev)
-    for k in full:
-        full[k][:, :, :S] = cache[k]
-    tok = torch.as_tensor(prompts[:, :1], device=dev)
-    ld, _ = P.steps.make_decode_step(cfg)(params, full, tok, S)
+    lp, cache = eng._prefill(
+        eng.params, {"tokens": torch.as_tensor(prompts, device="cuda")})
+    full = eng._grow_cache(cache, B, S + 1, S)
+    tok = torch.as_tensor(prompts[:, :1], device="cuda")
+    ld, _ = eng._decode(eng.params, full, tok, S)
     return lp[:, -1].float(), ld[:, -1].float()
 
 
@@ -3121,14 +3158,19 @@ def static_step_breakdown(P, eng, prompts, name, card):
                    f"static {name} decode step, 8 rows", card)
 
 
-def compare_static_logits(P, cfg, params, prompts, per_layer, quantized,
-                          card):
+def compare_static_logits(P, cfg, params, prompts, quantized, card,
+                          gate_bf16=True):
     """The static prefill and one decode step through the kernels and
     through their plain versions on the card, in bf16 and fp32, within
-    LOGIT_REL_TOL of max |logit| (attention is plain PyTorch on both)."""
+    LOGIT_REL_TOL of max |logit| (attention is plain PyTorch on both).
+    Without ``gate_bf16`` the bf16 gaps are printed and not gated: the
+    caller holds every bf16 kernel launch and every block on the same
+    inputs instead (``ssm_layer_gaps``).  Beside them, how far each bf16
+    path lies from the plain fp32 one: where the plain bf16 path lies as
+    far, the gap is bf16's own rounding grown with depth."""
     names = (("fwd_int8", "gated_fwd_int8") if quantized
              else ("fwd", "gated_fwd"))
-    L = cfg.n_layers
+    got = {}
     for dtype in (torch.bfloat16, torch.float32):
         c = dataclasses.replace(cfg, dtype=str(dtype)[6:])
         P.ops.reset_launch_counts()
@@ -3141,22 +3183,34 @@ def compare_static_logits(P, cfg, params, prompts, per_layer, quantized,
             p_pf, p_dec = _static_steps(P, c, params, prompts)
         torch.cuda.synchronize()
         want = dict.fromkeys(kc, 0)
-        want.update({k: 2 * n * L for k, n in per_layer.items()})
+        want.update({k: 2 * n for k, n in
+                     junction_calls(c, quantized).items()})
         require(kc == want and P.ops.launch_counts() == kc,
                 f"static logit comparison took other paths: {kc} then "
                 f"{P.ops.launch_counts()}")
         for what, a, b in (("prefill", k_pf, p_pf), ("decode", k_dec,
                                                      p_dec)):
+            got[what, dtype] = a, b
             require(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
                     f"static {what} logits not finite")
             rel = max_err(a, b) / float(b.abs().max())
+            gated = gate_bf16 or dtype != torch.bfloat16
             print(f"[logits] {cfg.name} static {what} "
                   f"{'int8 ' if quantized else ''}{str(dtype)[6:]} kernels "
                   f"vs plain versions: max_abs_err={max_err(a, b):.4g} "
                   f"max|logit|={float(b.abs().max()):.4g} rel={rel:.3g} "
-                  f"(tol {LOGIT_REL_TOL[dtype]}) [{card}]")
-            require(rel <= LOGIT_REL_TOL[dtype],
+                  + (f"(tol {LOGIT_REL_TOL[dtype]})" if gated else
+                     "(printed; every launch and block held on the same "
+                     "inputs, [held] and [gap] lines)")
+                  + f" [{card}]")
+            require(not gated or rel <= LOGIT_REL_TOL[dtype],
                     f"static {what} {dtype} logits differ")
+    for what in ("prefill", "decode"):
+        (kb, pb), (_, pf) = got[what, torch.bfloat16], got[what, torch.float32]
+        print(f"[logits] {cfg.name} static {what} "
+              f"{'int8 ' if quantized else ''}bf16 against the plain fp32 "
+              f"path: plain bf16 rel={_rel(pb, pf):.3g}, kernels bf16 "
+              f"rel={_rel(kb, pf):.3g} [{card}]")
 
 
 def _continuous(P, cfg, params, prompts, new=16):
@@ -3200,70 +3254,314 @@ def static_parity_check(P, card):
     torch.cuda.empty_cache()
 
 
+def static_serve_run(P, card, arch, quant=None, layers=0, gaps=False):
+    """The static engine on sparse ``arch``: at full size through
+    launch/serve.py without --continuous, or, ``layers`` deep, built here
+    as the launcher builds it; bf16 or ``quant``: 16 tokens a sequence, no
+    non-finite row, exact launch counts, a second generate, one decode
+    step profiled, the prefill and one decode step against the plain
+    versions (layer by layer: with ``gaps`` on MoE, always on bf16
+    state-space models).  Returns its launch counts."""
+    P.ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if layers:
+        cfg = dataclasses.replace(P.registry.get(arch), n_layers=layers
+                                  ).with_sparsity(P.SparsityConfig(
+                                      density=0.25, block=BS, where="ffn"))
+        scfg = P.engine.ServeConfig(max_new_tokens=STATIC_STEPS,
+                                    quantize=quant)
+        eng = P.engine.Engine(cfg, P.M.init(cfg, 0, "cuda"), scfg,
+                              device="cuda")
+        out = eng.generate(_launcher_prompts(cfg))
+    else:
+        argv = ["--arch", arch, *STATIC_ARGS] + (
+            ["--quantize", quant] if quant else [])
+        out, made = _served(P, lambda: P.serve.main(argv))
+        ((_, eng),) = made
+        del made
+    dt = time.perf_counter() - t0
+    counts = P.ops.launch_counts()
+    path = with_tc(P, counts)
+    cfg = eng.cfg
+    name = f"{arch}{' ' + quant if quant else ''}" + (
+        f" {layers} layers" if layers else "")
+    require(out.shape == (8, STATIC_STEPS), f"{name}: tokens {out.shape}")
+    require(eng.nonfinite_terminated == 0,
+            f"{name}: {eng.nonfinite_terminated} rows non-finite")
+    want = dict.fromkeys(counts, 0)
+    want.update({k: n * STATIC_STEPS
+                 for k, n in junction_calls(cfg, bool(quant)).items()})
+    require(counts == want, f"{name} static launches {counts} != {want}")
+    # every junction call has at least 8 rows: bf16 on tensor cores
+    tc = {k: counts[k] if not quant else 0
+          for k in P.ops.tc_launch_counts()}
+    require(P.ops.tc_launch_counts() == tc,
+            f"{name} tensor-core launches {P.ops.tc_launch_counts()}")
+    n_params = sum(t.numel() for t in _leaves(eng.params)
+                   if t.is_floating_point() or t.dtype == torch.int8)
+    prompts = _launcher_prompts(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = eng.generate(prompts)
+    warm = time.perf_counter() - t0
+    require(np.array_equal(again, out), f"{name}: a second generate "
+            "of the same prompts gave other tokens")
+    print(f"[serve] static {name}: {cfg.family}, {cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B params and codes held (param_count "
+          f"{cfg.param_count() / 1e9:.3f} B dense); "
+          f"{'init' if layers else 'launcher'} {dt:.2f} s "
+          f"(init, load and generate); generate again {warm:.3f} s = "
+          f"{8 * STATIC_STEPS / warm:.1f} tok/s (8 x {STATIC_STEPS} "
+          f"tokens, {STATIC_STEPS} model calls); peak_memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+          f"launches={path} [{card}]")
+    static_step_breakdown(P, eng, prompts, name, card)
+    if arch == "stablelm-3b" and not quant:
+        cont = _continuous(P, cfg, eng.params, prompts)
+        print(f"[serve] static {name} bf16: greedy agreement with the "
+              f"continuous engine {float(np.mean(cont == out)):.3f} "
+              f"(per request "
+              f"{[round(float(v), 3) for v in (cont == out).mean(1)]}) "
+              f"[{card}]")
+    # a deep ssm or hybrid model in bf16: each kernel launch and each
+    # block is held on the same inputs (ssm_layer_gaps), the end-to-end
+    # gap printed beside the plain bf16 path's own distance from fp32
+    by_block = cfg.family in ("ssm", "hybrid") and not quant
+    if by_block:
+        ssm_layer_gaps(P, cfg, eng.params, prompts, card)
+    elif gaps:
+        moe_layer_gaps(P, cfg, eng.params, prompts, card)
+    compare_static_logits(P, cfg, eng.params, prompts, bool(quant), card,
+                          gate_bf16=not by_block)
+    del eng
+    torch.cuda.empty_cache()
+    return path
+
+
 def static_serve_phase(P, card):
     """launch/serve.py without --continuous on full-size stablelm-3b and
-    qwen3-moe-30b-a3b (bf16, then --quantize int8): 16 tokens a sequence, no
-    non-finite row, exact launch counts, the prefill and one decode step
-    against the plain versions; the bf16 tokens' agreement with the
-    continuous engine; the 2-layer fp32 parity; then --ckpt."""
+    qwen3-moe-30b-a3b (bf16, then --quantize int8), ``static_serve_run``;
+    qwen3-moe's bf16 prefill layer by layer (``moe_layer_gaps``); the bf16
+    tokens' agreement with the continuous engine; the 2-layer fp32
+    parity; then --ckpt."""
     paths = collections.Counter()
     for arch, quant in (("stablelm-3b", None), ("stablelm-3b", "int8"),
                         ("qwen3-moe-30b-a3b", None),
                         ("qwen3-moe-30b-a3b", "int8")):
-        argv = ["--arch", arch, *STATIC_ARGS] + (
-            ["--quantize", quant] if quant else [])
-        P.ops.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out, made = _served(P, lambda: P.serve.main(argv))
-        dt = time.perf_counter() - t0
-        counts = P.ops.launch_counts()
-        path = with_tc(P, counts)
-        ((_, eng),) = made
-        cfg = eng.cfg
-        name = f"{arch}{' ' + quant if quant else ''}"
-        require(out.shape == (8, STATIC_STEPS),
-                f"{name}: tokens {out.shape}")
-        require(eng.nonfinite_terminated == 0,
-                f"{name}: {eng.nonfinite_terminated} rows non-finite")
-        per_layer = (QUANT_SERVE_ARCHS if quant else SERVE_ARCHS)[arch]
-        want = dict.fromkeys(counts, 0)
-        want.update({k: n * cfg.n_layers * STATIC_STEPS
-                     for k, n in per_layer.items()})
-        require(counts == want, f"{name} static launches {counts} != {want}")
-        # every junction call has at least 8 rows: bf16 on tensor cores
-        tc = {k: counts[k] if not quant else 0
-              for k in P.ops.tc_launch_counts()}
-        require(P.ops.tc_launch_counts() == tc,
-                f"{name} tensor-core launches {P.ops.tc_launch_counts()}")
-        prompts = _launcher_prompts(cfg)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        again = eng.generate(prompts)
-        warm = time.perf_counter() - t0
-        require(np.array_equal(again, out), f"{name}: a second generate "
-                "of the same prompts gave other tokens")
-        print(f"[serve] static {name}: launcher {dt:.2f} s (init, load and "
-              f"generate); generate again {warm:.3f} s = "
-              f"{8 * STATIC_STEPS / warm:.1f} tok/s (8 x {STATIC_STEPS} "
-              f"tokens, {STATIC_STEPS} model calls); launches={path} "
-              f"[{card}]")
-        static_step_breakdown(P, eng, prompts, name, card)
-        if arch == "stablelm-3b" and not quant:
-            cont = _continuous(P, cfg, eng.params, prompts)
-            print(f"[serve] static {name} bf16: greedy agreement with the "
-                  f"continuous engine {float(np.mean(cont == out)):.3f} "
-                  f"(per request "
-                  f"{[round(float(v), 3) for v in (cont == out).mean(1)]}) "
-                  f"[{card}]")
-        compare_static_logits(P, cfg, eng.params, prompts, per_layer,
-                              bool(quant), card)
-        paths.update(path)
-        del eng, made
-        torch.cuda.empty_cache()
+        paths.update(static_serve_run(
+            P, card, arch, quant,
+            gaps=arch == "qwen3-moe-30b-a3b" and not quant))
     static_parity_check(P, card)
     ckpt_check(P, card)
     return dict(paths)
+
+
+# ------------------------------------------------- bf16 layer by layer
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _drop_last_slot(P, x, w, idx, bias, *a, **kw):
+    """The control of the block-by-block check: fwd's plain version with
+    each output block's last fan-in slot left out (a kernel whose loop
+    over the slots stops one short)."""
+    w = w.clone()
+    w[:, :, -1] = 0
+    return P.bsm.fwd_ref(x, w, idx, bias, *a, **kw)
+
+
+def _trace(P, cfg, params, run, plain, replay=None, feed=None, fault=False,
+           held=None):
+    """``run(cfg)`` -> (logits, cache), a static prefill or decode step in
+    bf16, through the kernels or (``plain``) their plain versions
+    (``fault``: the plain fwd that leaves out a slot).  Returns (its last
+    logits fp32, its cache, each block's output in call order, each MoE
+    layer's expert choices [G, g, K], each block's mixer as (input,
+    output fp32): the Mamba mixer of a state-space block, the FFN of an
+    attention block).  ``replay`` (a list of expert choices) routes each
+    MoE layer as given, with this path's own probabilities; ``feed`` (a
+    list of mixer inputs) gives each mixer that input in place of its
+    own; ``held`` (a list) gets ``fwd_held`` of each fwd launch."""
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    outs, experts, mix = [], [], []
+    real_top_k, real_fwd = P.moe._top_k, P.bsm.fwd
+
+    def block(fn):
+        def call(lp, x, *a, **kw):
+            res = fn(lp, x, *a, **kw)
+            outs.append(res[0].detach().float())
+            return res
+        return call
+
+    def mixer(fn):
+        def call(lp, h, *a, **kw):
+            if feed is not None:
+                h = feed[len(mix)]
+            res = fn(lp, h, *a, **kw)
+            mix.append((h.detach(), res[0].detach().float()))
+            return res
+        return call
+
+    def top_k(probs, k):
+        if replay is None:
+            vals, idx = real_top_k(probs, k)
+        else:
+            idx = replay[len(experts)]
+            vals = torch.gather(probs, -1, idx)
+        experts.append(idx)
+        return vals, idx
+
+    def fwd(x, w, idx, bias, act="none", save_pre=False):
+        out = real_fwd(x, w, idx, bias, act, save_pre)
+        held.append(fwd_held(P, x, w, idx, bias, act,
+                             out[0] if save_pre else out))
+        return out
+
+    # the kernel's wrapper counts its launches on the module's ``fwd``
+    fwd.launches, fwd.tc_launches = real_fwd.launches, real_fwd.tc_launches
+
+    with contextlib.ExitStack() as stack:
+        for n in ("_attn_mlp_block", "_ssm_block"):
+            stack.enter_context(mock.patch.object(P.M, n,
+                                                  block(getattr(P.M, n))))
+        for n in ("_ffn", "mamba1_apply", "mamba2_apply"):
+            stack.enter_context(mock.patch.object(P.M, n,
+                                                  mixer(getattr(P.M, n))))
+        stack.enter_context(mock.patch.object(P.moe, "_top_k", top_k))
+        if plain:
+            stack.enter_context(mock.patch.object(P.bsm, "gated_fwd",
+                                                  P.bsm.gated_fwd_ref))
+            stack.enter_context(mock.patch.object(
+                P.bsm, "fwd", functools.partial(_drop_last_slot, P)
+                if fault else P.bsm.fwd_ref))
+        elif held is not None:
+            stack.enter_context(mock.patch.object(P.bsm, "fwd", fwd))
+        logits, cache = run(cfg)
+    real_fwd.launches, real_fwd.tc_launches = fwd.launches, fwd.tc_launches
+    return logits[:, -1].float(), cache, outs, experts, mix
+
+
+def _rel(a, b) -> float:
+    return max_err(a, b) / float(b.abs().max())
+
+
+def _prefill_run(P, params, prompts):
+    tokens = torch.as_tensor(prompts, device="cuda")
+    return lambda c: P.steps.make_prefill_step(c)(params, {"tokens": tokens})
+
+
+def moe_layer_gaps(P, cfg, params, prompts, card):
+    """The bf16 static prefill of a MoE model through the kernels and
+    through their plain versions, block by block: each block's output gap
+    (max |diff| over max |plain|, as the logits are held), each path
+    running on its own outputs, and the tokens whose top-k expert set
+    differs; then the plain path again routed as the kernels routed: if
+    the gap of its logits falls to the level of the other bf16 cells, the
+    routing flips account for the gap; and the gap over the rows with and
+    without a flipped token in any layer."""
+    B, S = prompts.shape
+    run = _prefill_run(P, params, prompts)
+    kl, _, ko, ke, _ = _trace(P, cfg, params, run, plain=False)
+    pl, _, po, pe, _ = _trace(P, cfg, params, run, plain=True)
+    require(len(ko) == len(po) and len(ke) == len(pe),
+            "the two prefills ran other blocks")
+    flipped = torch.zeros((B, S), dtype=torch.bool, device="cuda")
+    for i, (a, b) in enumerate(zip(ko, po)):
+        diff = (torch.sort(ke[i], -1).values
+                != torch.sort(pe[i], -1).values).any(-1).reshape(B, S)
+        flipped |= diff
+        print(f"[gap] {cfg.name} bf16 prefill block {i}: rel "
+              f"{_rel(a, b):.4g}, tokens whose expert set differs "
+              f"{int(diff.sum())} [{card}]")
+    rl, _, _, _, _ = _trace(P, cfg, params, run, plain=True, replay=ke)
+    rows = flipped.any(-1)
+    line = (f"[gap] {cfg.name} bf16 prefill logits: rel {_rel(kl, pl):.4g}"
+            f" (each path on its own outputs); plain routed as the kernels "
+            f"routed: rel {_rel(kl, rl):.4g}; {int(flipped.sum())} of "
+            f"{B * S} tokens flipped in some layer, {int(rows.sum())} of "
+            f"{B} rows hold one")
+    for what, m in (("rows with a flip", rows), ("rows without", ~rows)):
+        if bool(m.any()):
+            line += f"; {what}: rel {_rel(kl[m], pl[m]):.4g}"
+    print(line + f" [{card}]")
+
+
+def ssm_layer_gaps(P, cfg, params, prompts, card):
+    """A deep state-space model's bf16 static prefill and the decode step
+    after it (from the kernel path's prefill cache), through the kernels
+    and through their plain versions.  Every fwd launch of the kernel path
+    is held against the junction in fp64 on the same operands
+    (``fwd_held``, at the main path's own shapes: 256 rows in the prefill,
+    8 in the decode step).  Every block's mixer is held on the same
+    input: the plain mixer is fed the kernel path's mixer input, and the
+    gap of the mixer's output (max |diff| over max |plain output|, the
+    block's own contribution, not the residual stream it is added to)
+    must stay within LOGIT_REL_TOL, which a control (the plain fwd
+    leaving out each output block's last fan-in slot) must exceed; so
+    must the decode step's logits, both paths starting from one cache.
+    Each block's output gap with each path on its own outputs is printed
+    beside: a one-ulp rounding difference in one block reaches every
+    block after it."""
+    B, S = prompts.shape
+    tol = LOGIT_REL_TOL[torch.bfloat16]
+    eng = P.engine.Engine(cfg, params, device="cuda")
+    tok = torch.as_tensor(prompts[:, :1], device="cuda")
+    pre = _prefill_run(P, params, prompts)
+    for what, run in (("prefill", pre), ("decode", None)):
+        if run is None:      # the decode step from the kernels' prefill
+            full = eng._grow_cache(cache, B, S + 1, S)
+            run = lambda c: P.steps.make_decode_step(c)(   # noqa: E731
+                params, _clone(full), tok, S)
+        held = []
+        kl, kc, ko, _, kmix = _trace(P, cfg, params, run, plain=False,
+                                     held=held)
+        if what == "prefill":
+            cache = kc
+        pl, _, po, _, _ = _trace(P, cfg, params, run, plain=True)
+        feed = [h for h, _ in kmix]
+        _, _, _, _, fmix = _trace(P, cfg, params, run, plain=True,
+                                  feed=feed)
+        _, _, _, _, cmix = _trace(P, cfg, params, run, plain=True,
+                                  feed=feed, fault=True)
+        require(len(ko) == len(po) == len(kmix) == len(fmix) == len(cmix),
+                f"{cfg.name} {what}: the paths ran other blocks")
+        own, ctrl = [], []
+        for i, (a, b) in enumerate(zip(ko, po)):
+            yk, yf, yc = kmix[i][1], fmix[i][1], cmix[i][1]
+            own.append(_rel(yk, yf))
+            ctrl.append(_rel(yc, yf))
+            print(f"[gap] {cfg.name} bf16 {what} block {i}: rel "
+                  f"{_rel(a, b):.4g} (each path on its own outputs); its "
+                  f"mixer on the same input {own[-1]:.4g}, control "
+                  f"{ctrl[-1]:.4g} [{card}]")
+        rows = sorted({(r["M"], r["kb"]) for r in held})
+        worst = max(held, key=lambda r: r["ratio"])
+        print(f"[held] {cfg.name} bf16 {what}: {len(held)} fwd launches "
+              f"at (M, kb) {rows}, each against fp64 on its operands: "
+              f"worst |err| over its bound {worst['ratio']:.4g} (M "
+              f"{worst['M']}, kb {worst['kb']}) [{card}]")
+        # the decode step starts both paths from one cache: its logits
+        # are held end to end too
+        print(f"[gap] {cfg.name} bf16 {what} logits: rel {_rel(kl, pl):.4g}"
+              + (f" (from one cache, tol {tol})" if what == "decode" else
+                 " (each path on its own outputs)")
+              + f"; worst mixer on the same input {max(own):.4g} (tol "
+              f"{tol}), least control {min(ctrl):.4g} [{card}]")
+        require(what == "prefill" or _rel(kl, pl) <= tol,
+                f"{cfg.name}: the decode step's logits differ")
+        require(len(held) == junction_calls(cfg)["junction_fwd"],
+                f"{cfg.name} {what}: {len(held)} fwd launches held")
+        require(worst["ratio"] <= 1.0, f"{cfg.name} {what}: a fwd launch "
+                f"lies beyond its bound: {worst}")
+        require(max(own) <= tol < min(ctrl),
+                f"{cfg.name} {what}: a mixer's kernels differ from its "
+                "plain versions on the same input, or the control passed")
+    del eng, cache, full
+    torch.cuda.empty_cache()
 
 
 def ckpt_check(P, card):
@@ -3317,6 +3615,150 @@ def ckpt_check(P, card):
     shutil.rmtree(ck, ignore_errors=True)
     del res, trained
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------- ssm, hybrid, dense configs
+# falcon-mamba-7b trains at full width and 8 of its 64 layers (qwen3-moe
+# trains 6 of 48): one layer holds 0.03 B junction and 0.05 B dense
+# params, and the embeddings 0.53 B
+SSM_TRAIN_LAYERS = 8
+# the dense configs no other phase drives, at full width and 2 layers:
+# command-r-plus-104b's tied 256000 x 12288 embedding alone is 12.6 GB in
+# fp32
+DENSE_CONFIGS = ("qwen2-72b", "deepseek-7b", "command-r-plus-104b")
+DENSE_CONFIG_LAYERS = 2
+# the junctions these configs bring to the kernels (kb up to 66, zamba2's
+# in_xbc with 41 output blocks), timed at the static prefill's 256 rows
+NEW_SHAPES = [("falcon-mamba-7b in_proj", 4096, 16384),
+              ("falcon-mamba-7b out_proj", 8192, 4096),
+              ("zamba2-2.7b in_z", 2560, 5120),
+              ("zamba2-2.7b in_xbc", 2560, 5248),
+              ("zamba2-2.7b out_proj", 5120, 2560),
+              ("zamba2-2.7b wi", 2560, 10240),
+              ("zamba2-2.7b wo", 10240, 2560),
+              ("qwen2-72b wo", 29568, 8192),
+              ("command-r-plus-104b wo", 33792, 12288)]
+
+
+# fwd's bf16 output held against the junction computed in fp64 on the
+# same operands.  The kernel sums K = kb * bs exact products in fp32, adds
+# the bias, applies the activation (slope at most FWD_SLOPE) and rounds
+# once to bf16, so |got - ref| <= (2^-8 + 2^-20) |ref| + (1 + 2^-8)
+# FWD_SLOPE |v - ref|, v its fp32 sum (2^-20 for the bias add and the
+# activation in fp32).  |v - ref|, the error of a sum of K terms in fp32
+# in the kernel's order, is held to FWD_LAMBDA sqrt(K) 2^-23 S, S the sum
+# of |x w| over the output's K terms: the probabilistic bound of an fp32
+# sum (rounding errors of random sign, one ulp an add for tensor cores
+# that truncate).  FWD_LAMBDA sits between what sound launches read and
+# what the control (``_slotwise_bf16_fwd``) reads: on an H100, sound
+# launches at most 0.025 of the bound at NEW_SHAPES and 0.054 on the
+# state-space models' prefill and decode steps, the control at least 8.9.
+FWD_SLOPE = 1.13
+FWD_LAMBDA = 1.0
+
+
+def fwd_held(P, x, w, idx, bias, act, got) -> dict:
+    """fwd's output ``got`` against the junction in fp64: its rows, kb, the
+    largest |got - ref| (``err``), and ``ratio``, the largest excess over
+    the rounding term (|got - ref| - (2^-8 + 2^-20) |ref|) over its
+    bound (1 + 2^-8) FWD_SLOPE FWD_LAMBDA sqrt(K) 2^-23 S: at most 1."""
+    M = x.shape[1]
+    _, _, kb, bs, _ = w.shape
+    x64, w64 = x.double(), w.double()
+    ref = P.bsm.fwd_ref(x64, w64, idx, bias.double(), act)
+    S = P.bsm.fwd_ref(x64.abs(), w64.abs(), idx,
+                      torch.zeros_like(bias, dtype=torch.float64))
+    err = (got.double() - ref).abs()
+    over = (err - (2.0 ** -8 + 2.0 ** -20) * ref.abs()).clamp_min(0)
+    lim = ((1 + 2.0 ** -8) * FWD_SLOPE * FWD_LAMBDA * (kb * bs) ** 0.5
+           * 2.0 ** -23 * S)
+    return {"M": M, "kb": kb, "err": float(err.max()),
+            "ratio": float((over / lim.clamp_min(1e-300)).max())}
+
+
+def _slotwise_bf16_fwd(P, x, w, idx, bias, act="none"):
+    """The control of ``fwd_held``: the junction with each fan-in slot's
+    partial sum rounded to bf16 before the sum over slots (a kernel that
+    carries its sum over the slots in bf16)."""
+    E, M, n_in = x.shape
+    _, nob, kb, bs, _ = w.shape
+    xb = x.reshape(E, M, n_in // bs, bs)
+    acc = torch.zeros((E, M, nob, bs), dtype=torch.float32, device=x.device)
+    for k in range(kb):
+        acc += torch.einsum("emob,eobc->emoc",
+                            xb[:, :, idx[:, k].long()].float(),
+                            w[:, :, k].float()).to(x.dtype).float()
+    s = acc.reshape(E, M, nob * bs) + bias.float()[:, None, :]
+    return P.bsm.act_fwd(s, act).to(x.dtype)
+
+
+def ssm_phase(P, card):
+    """falcon-mamba-7b (Mamba-1, 64 layers, d_inner 8192, N 16): the static
+    engine at full size in bf16 (held launch by launch and block by block)
+    and int8, then training at full width and SSM_TRAIN_LAYERS layers on
+    the three update paths."""
+    paths = {"ssm_serve": static_serve_run(P, card, "falcon-mamba-7b"),
+             "ssm_serve_int8": static_serve_run(P, card, "falcon-mamba-7b",
+                                                "int8")}
+    paths["ssm_train"] = train_phase(P, card, "falcon-mamba-7b",
+                                     SSM_TRAIN_LAYERS)
+    return paths
+
+
+def hybrid_phase(P, card):
+    """zamba2-2.7b (54 Mamba-2 layers in 9 super-blocks of 6 sharing one
+    attention block) at full size: the static engine in bf16, two-pass
+    Adam training (the fused update refuses the shared block), and one
+    step against the plain versions at 4 layers (super-blocks of 2: the
+    shared block's gradient sums over two uses)."""
+    return {"hybrid_serve": static_serve_run(P, card, "zamba2-2.7b"),
+            "hybrid_train": train_phase(
+                P, card, "zamba2-2.7b", kinds=("two_pass",),
+                depth={"n_layers": 4, "hybrid_attn_every": 2})}
+
+
+def dense_configs_phase(P, timer, card):
+    """qwen2-72b (QKV bias), deepseek-7b and command-r-plus-104b (tied
+    embeddings) on the static engine at full width and 2 layers; then the
+    fwd kernel at every junction shape the new configs bring, at the
+    decode step's 8 rows and the prefill's 256, held against the
+    junction in fp64 (``fwd_held``) beside a control that must fail it,
+    and timed beside its bound."""
+    paths = collections.Counter()
+    for arch in DENSE_CONFIGS:
+        paths.update(static_serve_run(P, card, arch,
+                                      layers=DENSE_CONFIG_LAYERS))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    for name, n_in, n_out in NEW_SHAPES:
+        pat = P.make_block_pattern(n_in, n_out, 0.25, BS, seed=1)
+        nob, kb = pat.n_out_blocks, pat.fan_in_blocks
+        w = (torch.randn((1, nob, kb, BS, BS), generator=gen, device="cuda")
+             / (kb * BS) ** 0.5).to(torch.bfloat16)
+        idx = torch.as_tensor(pat.idx, device="cuda")
+        b = torch.zeros((1, n_out), device="cuda", dtype=torch.bfloat16)
+        for M in (8, 8 * 32):
+            x = torch.randn((1, M, n_in), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            got = P.bsm.fwd(x, w, idx, b)
+            held = fwd_held(P, x, w, idx, b, "none", got)
+            ctrl = fwd_held(P, x, w, idx, b, "none",
+                            _slotwise_bf16_fwd(P, x, w, idx, b))
+            k_ms = timer.ms(lambda: P.bsm.fwd(x, w, idx, b))
+            p_ms = timer.ms(lambda: P.bsm.fwd_ref(x, w, idx, b))
+            nbytes = (x.numel() + w.numel() + b.numel() + M * n_out) * 2 \
+                + idx.numel() * 4
+            bnd, by = bound_ms(nbytes, 2 * M * nob * kb * BS * BS,
+                               torch.bfloat16)
+            print(f"[kernel] junction_fwd_tc {name} {n_in}->{n_out} "
+                  f"nob={nob} kb={kb} M={M} bf16: max_abs_err against fp64 "
+                  f"{held['err']:.3g}, |err| over its bound "
+                  f"{held['ratio']:.4g}; control (slot sums rounded to "
+                  f"bf16) {ctrl['ratio']:.4g} ms={k_ms:.4f} "
+                  f"plain_ms={p_ms:.4f} bound_ms={bnd:.4f} ({by}) [{card}]")
+            require(held["ratio"] <= 1.0 < ctrl["ratio"],
+                    f"junction_fwd at {name}, M {M}: {held}, control {ctrl}")
+    return dict(paths)
 
 
 # ------------------------------------------------------ standalone kernels
@@ -3724,6 +4166,7 @@ def load_port() -> types.SimpleNamespace:
     from repro_torch.launch import sweep
     from repro_torch.launch import train as train_launcher
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch.obs import percentile
     from repro_torch.serve import engine
     from repro_torch.train import steps, train_loop
@@ -3732,7 +4175,8 @@ def load_port() -> types.SimpleNamespace:
         registry=registry, SparsityConfig=SparsityConfig,
         make_block_pattern=make_block_pattern,
         reverse_block_pattern=reverse_block_pattern, bsm=bsm, fa=fa, ops=ops,
-        M=M, engine=engine, percentile=percentile, optim=optim, steps=steps,
+        M=M, moe=moe, engine=engine, percentile=percentile, optim=optim,
+        steps=steps,
         LMTokenPipeline=LMTokenPipeline, tree_items=tree_items, build=build,
         qz=qz, fxp=fxp, quant_sweep=quant_sweep, fxk=fxk, ssk=ssk,
         slut=slut, obs=obs, obs_report=obs_report, train_loop=train_loop,
@@ -3755,6 +4199,15 @@ def build_kernels(P) -> None:
                 print(f"[ptxas] {name}: {line.strip()}")
 
 
+def timed(name, fn, *args, **kw):
+    """fn(*args, **kw), its wall time printed as the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3771,37 +4224,44 @@ def main() -> int:
     build_kernels(P)
 
     timer = Timer()
-    junction = junction_phase(P, timer, card)
-    route_phase(P, timer, card)
-    decode = decode_phase(P, timer, card)
-    quant = quant_kernel_phase(P, timer, card)
+    junction = timed("junction", junction_phase, P, timer, card)
+    timed("route", route_phase, P, timer, card)
+    decode = timed("decode", decode_phase, P, timer, card)
+    quant = timed("quant_kernel", quant_kernel_phase, P, timer, card)
     paths = {}
-    params, paths["serve"], outs = serve_phase(
-        P, card, "stablelm-3b",
+    params, paths["serve"], outs = timed(
+        "serve", serve_phase, P, card, "stablelm-3b",
         obs_path=ROOT / "build" / "obs" / "serve_stablelm-3b.jsonl")
-    telemetry_phase(P, card, params)
-    _, paths["serve_int8"], _ = serve_phase(P, card, "stablelm-3b", params,
-                                            "int8", outs)
+    timed("telemetry", telemetry_phase, P, card, params)
+    _, paths["serve_int8"], _ = timed("serve_int8", serve_phase, P, card,
+                                      "stablelm-3b", params, "int8", outs)
     weight_cast_phase(params, timer, card)
     del params
     torch.cuda.empty_cache()
-    bwd = train_kernel_phase(P, timer, card)
-    paths["train"] = train_phase(P, card, "stablelm-3b")
-    moe, moe_plain = moe_kernel_phase(P, timer, card)
-    params, paths["moe_serve"], outs = serve_phase(P, card,
-                                                   "qwen3-moe-30b-a3b")
-    _, paths["moe_serve_int8"], _ = serve_phase(
-        P, card, "qwen3-moe-30b-a3b", params, "int8", outs)
+    bwd = timed("train_kernel", train_kernel_phase, P, timer, card)
+    paths["train"] = timed("train", train_phase, P, card, "stablelm-3b")
+    moe, moe_plain = timed("moe_kernel", moe_kernel_phase, P, timer, card)
+    params, paths["moe_serve"], outs = timed(
+        "moe_serve", serve_phase, P, card, "qwen3-moe-30b-a3b")
+    _, paths["moe_serve_int8"], _ = timed(
+        "moe_serve_int8", serve_phase, P, card, "qwen3-moe-30b-a3b", params,
+        "int8", outs)
     weight_cast_phase(params, timer, card)
     del params
     torch.cuda.empty_cache()
-    paths["moe_train"] = train_phase(P, card, "qwen3-moe-30b-a3b",
-                                     MOE_TRAIN_LAYERS)
-    paths["sweep"] = sweep_phase(P, card)
-    paths["search"] = search_phase(P, card)
-    paths["static_serve"] = static_serve_phase(P, card)
-    standalone, paths["standalone"] = standalone_kernel_phase(P, card)
-    paper_phase(P, card)
+    paths["moe_train"] = timed("moe_train", train_phase, P, card,
+                               "qwen3-moe-30b-a3b", MOE_TRAIN_LAYERS)
+    paths["sweep"] = timed("sweep", sweep_phase, P, card)
+    paths["search"] = timed("search", search_phase, P, card)
+    paths["static_serve"] = timed("static_serve", static_serve_phase, P,
+                                  card)
+    paths.update(timed("ssm", ssm_phase, P, card))
+    paths.update(timed("hybrid", hybrid_phase, P, card))
+    paths["dense_configs"] = timed("dense_configs", dense_configs_phase, P,
+                                   timer, card)
+    standalone, paths["standalone"] = timed(
+        "standalone", standalone_kernel_phase, P, card)
+    timed("paper", paper_phase, P, card)
 
     def launches(name):
         by = {p: c[name] for p, c in paths.items() if c.get(name)}

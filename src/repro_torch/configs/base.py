@@ -75,6 +75,9 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     max_seq: int = 8192           # per-request sequence bound
+    # dtype of the selective-scan elements ([B, c, d_inner, N] decay and
+    # input tensors of a chunk); the carry between chunks stays fp32
+    ssm_scan_dtype: str = "float32"
     # numerics
     dtype: str = "bfloat16"       # compute dtype
     param_dtype: str = "float32"  # master parameter dtype
@@ -98,6 +101,18 @@ class ArchConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def dt_rank_(self) -> int:
+        return self.dt_rank or -(-self.d_model // 16)
+
+    @property
+    def d_inner_(self) -> int:
+        return self.d_inner or 2 * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner_ // self.ssm_head_dim
 
     def with_sparsity(self, sp: SparsityConfig) -> "ArchConfig":
         return dataclasses.replace(self, sparsity=sp)
@@ -136,6 +151,60 @@ class ArchConfig:
         if self.sparsity is not None:
             kw["sparsity"] = dataclasses.replace(self.sparsity, block=32)
         return dataclasses.replace(self, **kw)
+
+    def param_count(self) -> int:
+        """Analytic parameter count of the dense model (every junction at
+        its full width; the reference's, for MODEL_FLOPS = 6 N D)."""
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family in ("dense", "vlm", "moe") or self.attn_kind != "none":
+            if self.attn_kind == "mla":
+                m = self.mla
+                qd = self.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+                per_attn = (d * qd + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                            + m.kv_lora_rank * self.n_heads
+                            * (m.qk_nope_head_dim + m.v_head_dim)
+                            + self.n_heads * m.v_head_dim * d)
+            else:
+                per_attn = (d * self.n_heads * self.head_dim
+                            + 2 * d * self.kv_heads * self.head_dim
+                            + self.n_heads * self.head_dim * d)
+        else:
+            per_attn = 0
+        gated = 3 if self.act == "silu" else 2
+        if self.family == "moe":
+            mo = self.moe
+            per_layer = per_attn + mo.num_experts * gated * d * mo.d_expert
+            if mo.num_shared:
+                per_layer += gated * d * mo.d_shared
+        elif self.family in ("ssm", "hybrid"):
+            di, N = self.d_inner_, self.ssm_state
+            if self.ssm_kind == "mamba1":
+                R = self.dt_rank_
+                per_layer = (d * 2 * di + self.conv_width * di
+                             + di * (R + 2 * N) + R * di + di * N + di
+                             + di * d)
+            else:  # mamba2
+                H = self.ssm_heads
+                per_layer = (d * (2 * di + 2 * N + H)
+                             + self.conv_width * (di + 2 * N) + H + di
+                             + di * d)
+        else:
+            per_layer = per_attn + gated * d * f
+        total = emb + L * per_layer
+        if self.family == "hybrid" and self.hybrid_attn_every:
+            # the shared attention block, counted once
+            total += (d * self.n_heads * self.head_dim * 2
+                      + 2 * d * self.kv_heads * self.head_dim
+                      + gated * d * self.d_ff)
+        if self.family == "audio":
+            total += self.enc_layers * (4 * d * d + 2 * d * f)
+            total += self.n_layers * 4 * d * d
+        if self.family == "moe" and self.moe.first_dense_layers:
+            total += self.moe.first_dense_layers * (
+                gated * d * f - self.moe.num_experts * gated * d
+                * self.moe.d_expert)
+        return int(total)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,8 +2,10 @@
 
 ``from_jax_params(tree)`` takes the reference's params tree with every
 leaf already a numpy array (layers stacked on axis 0, as its ``init``
-builds them) and returns the port's params (layers as a list), so that
-both compute the same function.  ``from_jax_opt_state(state)`` carries
+builds them; the hybrid's on axes 0 and 1, [n_super, ev, ...]) and
+returns the port's params (layers as a list; the hybrid's a list of
+lists, its ``shared_attn`` block as it is), so that both compute the
+same function.  ``from_jax_opt_state(state)`` carries
 the optimizer state the same way: Adam's ``m``/``v`` and SGD's ``mom``
 trees mirror the params (their 0-d placeholders for the integer pattern
 leaves stay unstacked).  A quantized tree (int8 or fxp codes and their
@@ -41,14 +43,34 @@ def _unstack(tree, i):
     return a if a.ndim == 0 else a[i]
 
 
+def _depth(tree) -> int:
+    """The stacked length of a layer tree: the leading axis of its first
+    leaf that has one (an optimizer state's 0-d placeholders have none)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            n = _depth(v)
+            if n:
+                return n
+        return 0
+    a = np.asarray(tree)
+    return a.shape[0] if a.ndim else 0
+
+
+def _layers(tree, stacked: int, device):
+    """``stacked`` leading axes of layers (1, or 2 for the hybrid's
+    [n_super, ev]) as nested lists of converted layer trees."""
+    if not stacked:
+        return _convert(tree, device)
+    return [_layers(_unstack(tree, i), stacked - 1, device)
+            for i in range(_depth(tree))]
+
+
 def from_jax_params(tree: dict, device="cpu") -> dict:
     """Reference params (numpy leaves, ``tree["layers"]`` stacked on axis
-    0) -> the port's params on ``device``."""
-    out = {k: _convert(v, device) for k, v in tree.items() if k != "layers"}
-    n_layers = len(np.asarray(tree["layers"]["norm1"]["scale"]))
-    out["layers"] = [_convert(_unstack(tree["layers"], i), device)
-                     for i in range(n_layers)]
-    return out
+    0, the hybrid's on axes 0 and 1) -> the port's params on ``device``."""
+    stacked = 2 if "shared_attn" in tree else 1
+    return {k: _layers(v, stacked, device) if k == "layers"
+            else _convert(v, device) for k, v in tree.items()}
 
 
 def from_jax_opt_state(state, device="cpu"):

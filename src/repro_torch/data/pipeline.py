@@ -34,7 +34,7 @@ class LMTokenPipeline:
                    step=state["step"])
 
     def _make(self, step: int) -> dict:
-        if self.cfg.family not in ("dense", "moe"):
+        if self.cfg.family in ("vlm", "audio"):
             raise ValueError(f"family {self.cfg.family!r}: the port's "
                              "pipeline makes token batches only")
         rng = np.random.default_rng((self.seed << 20) ^ step)

@@ -12,14 +12,17 @@ Continuous batching (paged KV cache, admission loop, chunked prefill):
         --requests 8 --prompt-len 64 --max-new 16 --arrival-every 1
 
 runs on the card; ``--device cpu --reduce`` runs a tiny config on the
-CPU.  Weights are random, made from ``--seed``, unless ``--ckpt DIR``
-restores the params of the newest checkpoint that ``launch/train.py``
-wrote there (``train/checkpoint.restore_latest``; the same ``--arch``,
-``--reduce``, ``--sparse`` and ``--density`` as the training run, or the
-restore raises).  ``--quantize int8`` serves the sparse FFN junctions
-from int8 codes (quantized at load).  ``--obs PATH`` streams the
-continuous engine's per-request spans, TTFT and inter-token histograms
-and occupancy gauges to a JSONL file that
+CPU.  The ssm and hybrid families (``--arch falcon-mamba-7b``,
+``--arch zamba2-2.7b``) serve on the static engine only: their caches
+hold per-layer states that a paged pool does not, and ``--continuous``
+refuses them.  Weights are random, made from ``--seed``, unless
+``--ckpt DIR`` restores the params of the newest checkpoint that
+``launch/train.py`` wrote there (``train/checkpoint.restore_latest``;
+the same ``--arch``, ``--reduce``, ``--sparse`` and ``--density`` as the
+training run, or the restore raises).  ``--quantize int8`` serves the
+sparse FFN junctions from int8 codes (quantized at load).  ``--obs
+PATH`` streams the continuous engine's per-request spans, TTFT and
+inter-token histograms and occupancy gauges to a JSONL file that
 ``repro_torch.launch.obs_report`` renders; ``--profile DIR`` writes a
 ``torch.profiler`` Chrome trace of the run into DIR.
 """

@@ -4,7 +4,10 @@
         --sparse --steps 100 --batch 8 --seq 256
 
 runs on the card; ``--device cpu --reduce`` trains a tiny config on the
-CPU.  Weights are random, made from seed 0; batches come from the
+CPU.  ``--arch falcon-mamba-7b`` (ssm) and ``--arch zamba2-2.7b``
+(hybrid) train too, with ``--seq`` a multiple of the scan chunk (128; 16
+under ``--reduce``) or shorter than it; the hybrid's shared attention
+block takes the two-pass update only.  Weights are random, made from seed 0; batches come from the
 synthetic ``LMTokenPipeline``.  The run auto-resumes from the newest
 checkpoint under ``--ckpt`` (default: ``build/train_ckpt`` in the
 checkout).  ``--obs PATH`` streams the flight recorder's events (a

@@ -1,22 +1,30 @@
-"""The dense and MoE families: training forward and loss, and serving over
-a block-paged KV cache.  A dense layer is attention and an MLP; a MoE
-layer is attention and ``models/moe.py``'s routed experts, whose
-load-balance losses sum into the forward's aux.
+"""The model families: training forward and loss, the static serving
+cache and decode step, and serving over a block-paged KV cache.  A dense
+layer is attention and an MLP; a MoE layer is attention and
+``models/moe.py``'s routed experts, whose load-balance losses sum into
+the forward's aux; an ssm layer (falcon-mamba) is a Mamba-1 block; the
+hybrid (zamba2) stacks super-blocks of ``hybrid_attn_every`` Mamba-2
+blocks, each super-block led by one attention-and-MLP block whose
+weights all super-blocks share (``params["shared_attn"]``).
 
-``init(cfg, seed, device)``       -> params (fp32 masters, a list of layers)
+``init(cfg, seed, device)``       -> params (fp32 masters, a list of
+                                     layers; the hybrid's a list of lists)
 ``forward(cfg, params, batch)``   -> (logits [B,S,V], cache, (aux, offset))
 ``loss_fn(cfg, params, batch)``   -> (loss, {"ce", "aux"}) next-token CE
-``make_cache(cfg, B, S, device)`` -> zeroed cache {"k","v": [L, B, S, Hkv, hd]}
+``make_cache(cfg, B, S, device)`` -> the zeroed static cache
 ``cache_seq_axes(cfg)``           -> the sequence axis of each cache leaf
+                                     (-1: a state leaf, copied whole)
 ``decode_step(cfg, params, cache, token, pos)`` -> (logits [B,1,V], cache)
 ``make_paged_cache(cfg, P, ps)``  -> zeroed pool {"k","v": [L, P, ps, Hkv, hd]}
 ``paged_decode_step(...)``        -> (logits [B,1,V], pool) one decode tick
 ``paged_prefill_chunk(...)``      -> (last logits [1,1,V], pool) one chunk
 
 The layers run in a Python loop; with ``cfg.remat`` each training layer
-is recomputed in the backward (``torch.utils.checkpoint``).  The serving
-paths update each layer's slice ``cache[.][l]`` of the static cache, or
-``pool[.][l]`` of the paged pool, in place.
+(and the hybrid's shared block at each use) is recomputed in the
+backward (``torch.utils.checkpoint``).  The serving paths update each
+layer's slice ``cache[.][l]`` of the static cache, or ``pool[.][l]`` of
+the paged pool, in place.  The paged path serves the dense and moe
+families only, as the reference's: a state leaf has no pages.
 """
 from __future__ import annotations
 
@@ -32,14 +40,16 @@ from repro_torch.models.layers import (embed_init, embed_tokens, mlp_apply,
                                        mlp_init, norm_apply, norm_init,
                                        unembed)
 from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.ssm import (mamba1_apply, mamba1_init, mamba2_apply,
+                                    mamba2_init)
 
 Params = dict[str, Any]
 
 
 def _check_family(cfg: ArchConfig, what: str) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"family {cfg.family!r}: the port {what} the dense "
-                         "and moe families only")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise ValueError(f"family {cfg.family!r}: the port {what} the dense, "
+                         "moe, ssm and hybrid families only")
     if cfg.family == "moe" and (cfg.moe.first_dense_layers
                                 or cfg.attn_kind == "mla"):
         raise ValueError(f"{cfg.name}: MLA attention and dense first layers "
@@ -57,17 +67,29 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
                       "final_norm": norm_init(cfg.d_model, cfg.norm, dtype,
                                               dev)}
 
-    def layer():
+    def block(kind):
+        if kind in ("mamba1", "mamba2"):
+            init_ssm = mamba1_init if kind == "mamba1" else mamba2_init
+            return {"norm": norm_init(cfg.d_model, cfg.norm, dtype, dev),
+                    "ssm": init_ssm(gen, cfg, dtype, dev)}
         lp = {"norm1": norm_init(cfg.d_model, cfg.norm, dtype, dev),
               "attn": attn.attn_init(gen, cfg, dtype, dev),
               "norm2": norm_init(cfg.d_model, cfg.norm, dtype, dev)}
-        if cfg.family == "moe":
+        if kind == "attn_moe":
             lp["moe"] = moe_init(gen, cfg, dtype, dev)
         else:
             lp["mlp"] = mlp_init(gen, cfg, dtype, dev)
         return lp
 
-    params["layers"] = [layer() for _ in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        ev = cfg.hybrid_attn_every
+        params["layers"] = [[block("mamba2") for _ in range(ev)]
+                            for _ in range(cfg.n_layers // ev)]
+        params["shared_attn"] = block("attn_mlp")
+    else:
+        kind = {"dense": "attn_mlp", "moe": "attn_moe",
+                "ssm": "mamba1"}[cfg.family]
+        params["layers"] = [block(kind) for _ in range(cfg.n_layers)]
     return params
 
 
@@ -95,6 +117,39 @@ def _attn_mlp_block(lp, x, cfg: ArchConfig, positions, cache=None,
     return x + m, new_cache, aux
 
 
+def _ssm_block(lp, x, cfg: ArchConfig, cache=None, decode: bool = False):
+    """A state-space layer (Mamba-1 in the ssm family, Mamba-2 in the
+    hybrid): (x, cache, aux 0).  Given a ``cache`` (or in decode) it hands
+    back the layer's {"conv", "ssm"} state."""
+    h = norm_apply(lp["norm"], x, cfg.norm, cfg.norm_eps)
+    apply = mamba2_apply if cfg.family == "hybrid" else mamba1_apply
+    y, new_cache = apply(lp["ssm"], h, cfg, cache=cache, decode=decode)
+    return x + y, new_cache, 0.0
+
+
+def _ssm_zero(cfg: ArchConfig, B: int, x):
+    """A layer's zeroed state, for a prefill that hands its state back."""
+    K, di, N = cfg.conv_width, cfg.d_inner_, cfg.ssm_state
+    if cfg.family == "hybrid":
+        conv, ssm = (B, K - 1, di + 2 * N), (B, cfg.ssm_heads,
+                                            cfg.ssm_head_dim, N)
+    else:
+        conv, ssm = (B, K - 1, di), (B, di, N)
+    return {"conv": x.new_zeros(conv),
+            "ssm": x.new_zeros(ssm, dtype=torch.float32)}
+
+
+def _layer(fn, *args, cfg: ArchConfig):
+    """fn(*args), recomputed in the backward under ``cfg.remat``."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _stack(caches):
+    return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+
+
 def _tokens(params, batch):
     return torch.as_tensor(batch["tokens"],
                            device=params["embed"]["tok"].device)
@@ -106,29 +161,53 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
     """Training and prefill forward: batch {"tokens": [B, S]} (numpy or a
     tensor).  Returns (logits [B,S,V] or the final-norm hidden state,
     cache, (aux, offset)); aux is the layers' summed MoE load-balance
-    loss (0 for the dense family) and offset 0.  ``return_cache`` stacks
-    the layers' K / V into {"k", "v": [L, B, S, Hkv, hd]} (else None);
-    ``last_only`` keeps the last position."""
+    loss (0 for the other families) and offset 0.  ``return_cache``
+    stacks the layers' caches in ``make_cache``'s structure with the
+    prompt's S positions (else None); ``last_only`` keeps the last
+    position."""
     _check_family(cfg, "trains")
     tokens = _tokens(params, batch)
     x = embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = 0.0
-    caches = []
-    for lp in params["layers"]:
-        if cfg.remat and torch.is_grad_enabled():
-            x, c, a = checkpoint(_attn_mlp_block, lp, x, cfg, positions,
-                                 use_reentrant=False)
-        else:
-            x, c, a = _attn_mlp_block(lp, x, cfg, positions)
+    cache = None
+    if cfg.family in ("dense", "moe"):
+        caches = []
+        for lp in params["layers"]:
+            x, c, a = _layer(_attn_mlp_block, lp, x, cfg, positions, cfg=cfg)
+            if return_cache:
+                caches.append(c)
+            aux = aux + a
         if return_cache:
-            caches.append(c)
-        aux = aux + a
+            cache = _stack(caches)
+    elif cfg.family == "ssm":
+        zero = _ssm_zero(cfg, x.shape[0], x) if return_cache else None
+        caches = []
+        for lp in params["layers"]:
+            x, c, _ = _layer(_ssm_block, lp, x, cfg, zero, cfg=cfg)
+            if return_cache:
+                caches.append(c)
+        if return_cache:
+            cache = _stack(caches)
+    else:   # hybrid
+        zero = _ssm_zero(cfg, x.shape[0], x) if return_cache else None
+        kv, states = [], []
+        for lps in params["layers"]:
+            x, c, _ = _layer(_attn_mlp_block, params["shared_attn"], x, cfg,
+                             positions, cfg=cfg)
+            inner = []
+            for lp in lps:
+                x, s, _ = _layer(_ssm_block, lp, x, cfg, zero, cfg=cfg)
+                inner.append(s)
+            if return_cache:
+                kv.append(c)
+                states.append(inner)
+        if return_cache:
+            cache = {"attn": _stack(kv),
+                     "ssm": _stack([_stack(inner) for inner in states])}
     x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
-    cache = ({k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}
-             if return_cache else None)
     if return_hidden:
         return x, cache, (aux, 0)
     return unembed(params["embed"], x, cfg), cache, (aux, 0)
@@ -136,27 +215,57 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
 
 def _check_static(cfg: ArchConfig) -> None:
     _check_family(cfg, "serves")
-    if cfg.attn_kind != "full":
+    if cfg.attn_kind not in ("full", "none"):
         raise ValueError(f"attn_kind {cfg.attn_kind!r}: the port's static "
                          "cache covers full attention only (no sliding "
                          "ring buffer)")
 
 
 def make_cache(cfg: ArchConfig, batch: int, seq: int, device="cpu"):
-    """Zeroed static cache {"k", "v": [L, B, S, Hkv, hd]} in the compute
-    dtype, on ``device``."""
+    """Zeroed static cache on ``device``, K / V and conv states in the
+    compute dtype, ssm states in fp32: dense and moe {"k", "v": [L, B, S,
+    Hkv, hd]}; ssm {"conv": [L, B, K-1, di], "ssm": [L, B, di, N]};
+    hybrid {"attn": {"k", "v": [n_super, B, S, Hkv, hd]}, "ssm":
+    {"conv": [n_super, ev, B, K-1, di+2N], "ssm": [n_super, ev, B, H,
+    hd, N]}}."""
     _check_static(cfg)
-    shape = (cfg.n_layers, batch, seq, cfg.kv_heads, cfg.head_dim)
-    return {k: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
-            for k in ("k", "v")}
+    dt = dict(dtype=cfg.compute_dtype, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    kv = (batch, seq, cfg.kv_heads, cfg.head_dim)
+    K, di, N = cfg.conv_width, cfg.d_inner_, cfg.ssm_state
+    if cfg.family == "ssm":
+        L = cfg.n_layers
+        return {"conv": torch.zeros((L, batch, K - 1, di), **dt),
+                "ssm": torch.zeros((L, batch, di, N), **f32)}
+    if cfg.family == "hybrid":
+        ev = cfg.hybrid_attn_every
+        ns = cfg.n_layers // ev
+        return {"attn": {k: torch.zeros((ns, *kv), **dt) for k in ("k", "v")},
+                "ssm": {"conv": torch.zeros((ns, ev, batch, K - 1,
+                                             di + 2 * N), **dt),
+                        "ssm": torch.zeros((ns, ev, batch, cfg.ssm_heads,
+                                            cfg.ssm_head_dim, N), **f32)}}
+    return {k: torch.zeros((cfg.n_layers, *kv), **dt) for k in ("k", "v")}
 
 
 def cache_seq_axes(cfg: ArchConfig):
-    """``make_cache``'s structure with each leaf's sequence axis (2; the
-    reference's -1 marks state leaves of families the port refuses), for
-    the static engine's cache growth."""
+    """``make_cache``'s structure with each leaf's sequence axis, or -1
+    for a state leaf (conv and ssm states) whose shape does not grow with
+    the sequence and is copied whole, for the static engine's cache
+    growth."""
     _check_static(cfg)
-    return {"k": 2, "v": 2}
+    SEQ, STATE = 2, -1
+    if cfg.family == "ssm":
+        return {"conv": STATE, "ssm": STATE}
+    if cfg.family == "hybrid":
+        return {"attn": {"k": SEQ, "v": SEQ},
+                "ssm": {"conv": STATE, "ssm": STATE}}
+    return {"k": SEQ, "v": SEQ}
+
+
+def _put(dst: dict, src: dict) -> None:
+    for k in dst:
+        dst[k].copy_(src[k])
 
 
 def decode_step(cfg: ArchConfig, params: Params, cache, token, pos: int):
@@ -165,10 +274,26 @@ def decode_step(cfg: ArchConfig, params: Params, cache, token, pos: int):
     cache updated in place."""
     _check_static(cfg)
     x = embed_tokens(params["embed"], token, cfg)
-    for l, lp in enumerate(params["layers"]):
-        cache_l = {"k": cache["k"][l], "v": cache["v"][l]}   # views
-        x, _, _ = _attn_mlp_block(lp, x, cfg, None, cache=cache_l, pos=pos,
-                                  decode=True)
+    if cfg.family in ("dense", "moe"):
+        for l, lp in enumerate(params["layers"]):
+            cache_l = {"k": cache["k"][l], "v": cache["v"][l]}   # views
+            x, _, _ = _attn_mlp_block(lp, x, cfg, None, cache=cache_l,
+                                      pos=pos, decode=True)
+    elif cfg.family == "ssm":
+        for l, lp in enumerate(params["layers"]):
+            cache_l = {"conv": cache["conv"][l], "ssm": cache["ssm"][l]}
+            x, new, _ = _ssm_block(lp, x, cfg, cache_l, decode=True)
+            _put(cache_l, new)
+    else:   # hybrid
+        att, st = cache["attn"], cache["ssm"]
+        for i, lps in enumerate(params["layers"]):
+            cache_i = {"k": att["k"][i], "v": att["v"][i]}
+            x, _, _ = _attn_mlp_block(params["shared_attn"], x, cfg, None,
+                                      cache=cache_i, pos=pos, decode=True)
+            for j, lp in enumerate(lps):
+                cache_ij = {"conv": st["conv"][i, j], "ssm": st["ssm"][i, j]}
+                x, new, _ = _ssm_block(lp, x, cfg, cache_ij, decode=True)
+                _put(cache_ij, new)
     x = norm_apply(params["final_norm"], x, cfg.norm, cfg.norm_eps)
     return unembed(params["embed"], x, cfg), cache
 
@@ -218,8 +343,8 @@ def loss_fn(cfg: ArchConfig, params: Params, batch):
 def paged_supported(cfg: ArchConfig) -> tuple[bool, str]:
     """(ok, reason): whether the paged decode path can serve ``cfg``."""
     if cfg.family not in ("dense", "moe"):
-        return False, (f"family {cfg.family!r} — the port's paged path "
-                       "serves the dense and moe families")
+        return False, (f"family {cfg.family!r} carries non-seq cache state "
+                       "(see cache_seq_axes) — static engine only")
     if cfg.attn_kind != "full":
         return False, (f"attn_kind {cfg.attn_kind!r} — paged decode covers "
                        "the full-attention GQA cache layout")

@@ -5,8 +5,10 @@ over a block-paged KV cache.  Both share ``ServeConfig``.
 (models/model.forward with its cache), then every row decodes in
 lockstep against a contiguous cache (``decode_step``) until
 ``max_new_tokens``; a finished row keeps decoding into its own slots and
-is masked to eos.  Shapes never change, so it is the simplest pattern,
-but a batch is as slow as its longest request.  Every sparse FFN
+is masked to eos.  The cache holds K / V by position and, for the ssm
+and hybrid families, each layer's conv and ssm state
+(``Engine._grow_cache``).  Shapes never change, so it is the simplest
+pattern, but a batch is as slow as its longest request.  Every sparse FFN
 junction runs through kernels/block_sparse_matmul.fwd / gated_fwd (the
 int8 kernels under ``quantize="int8"``); attention is the plain
 ``attention.decode_attention``.  Sampling and the guard stay on the
@@ -235,13 +237,18 @@ class Engine:
         return res
 
     def _grow_cache(self, cache, B: int, total: int, S: int):
-        """The prefill cache (sequence S) copied into a cache of ``total``
-        positions, each leaf at position 0 of its sequence axis
-        (``M.cache_seq_axes``), zeros beyond.  (The reference's state
-        leaves, copied whole, belong to families the port refuses.)"""
+        """The prefill cache (sequence S) copied into a static cache of
+        ``total`` positions, by ``M.cache_seq_axes``: a sequence leaf at
+        position 0 of its sequence axis, zeros beyond; a state leaf (axis
+        -1: conv and ssm states) whole."""
         full = M.make_cache(self.cfg, B, total, self.device)
 
         def place(ax, dst, src):
+            if ax < 0:
+                if dst.shape != src.shape:
+                    raise ValueError(f"state leaf {tuple(src.shape)} does "
+                                     f"not fit {tuple(dst.shape)}")
+                return dst.copy_(src)
             dst.narrow(ax, 0, S).copy_(src)
             return dst
 
