@@ -146,14 +146,29 @@ PyTorch built for CUDA.  It
    from fp32, where a one-ulp rounding difference in one block reaches
    every block after it (fp32 and int8 stay held end to end); each
    phase prints its seconds;
-15. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
+15. serves full-size sparse llava-next-mistral-7b (a 4096-token sliding
+   window, 16 stub patches ahead of each 32-token prompt) and
+   deepseek-v2-lite-16b (MLA, a dense first layer, 64 experts top-6 and
+   2 shared) on the static engine in bf16 and int8 with exact launch
+   counts and the prefill and one decode step against the plain versions
+   (deepseek's bf16 prefill also block by block, ``moe_layer_gaps``);
+   drives llava's ring at full width (``ring_check``: 2 layers, 576
+   patches and 4160 tokens into the 4096-slot ring, then decode; fp32
+   logits against the forward recomputed over the whole sequence, bf16
+   kernels against plain versions); trains llava at 8 layers and
+   deepseek at 4 (its dense layer and 3 MoE layers) on the three update
+   paths; and holds fwd and gated_fwd at every junction shape the two
+   bring, 8 and 256 rows a unit (deepseek's experts at E 64), against the
+   junction in fp64 (``fwd_held``, ``gated_held``) beside controls that
+   must fail;
+16. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
    fixed point, ``core/paper_net.py``) on ``paper_dataset``, sequential and
    junction-pipelined: over the first 1024 inputs the card and the CPU give
    the same params, corrects and forward outputs bit for bit; one full
    12544-input epoch of each on the card is timed and must reach the
    reference's accuracy contracts (above 0.8 sequential, 0.75 pipelined);
    the FPGA model's block cycle and arithmetic units are printed;
-16. prints a ``kernels`` JSON line and, last, a JSON line with
+17. prints a ``kernels`` JSON line and, last, a JSON line with
    ``"ok": true`` and the device.
 
 Any failed check raises and the exit code is not 0.  Without a card, or
@@ -753,21 +768,46 @@ def decode_phase(P, timer, card):
 SERVE_MIN_ROWS = 4
 
 
+def _ffn_tiles(cfg, d_ff) -> bool:
+    """Whether an MLP of hidden width ``d_ff`` is sparse: both dims tile
+    at the block (``core/sparse_linear.init_linear``; deepseek-v2's dense
+    layer of 10944 does not at 128 and stays dense)."""
+    bs = cfg.sparsity.block
+    return cfg.d_model % bs == 0 and d_ff % bs == 0 and cfg.d_model >= 2 * bs
+
+
 def junction_calls(cfg, quantized=False) -> dict:
     """The junction launches of one model call (a prefill, a decode step,
-    a training forward) by kernel: a dense layer's three FFN junctions; a
-    MoE layer's gate (one gated junction) and down junction; a Mamba-1
-    layer's in_proj and out_proj; a Mamba-2 layer's in_z, in_xbc and
-    out_proj, and the hybrid's shared MLP (wg, wi, wo) once a
-    super-block."""
+    a training forward) by kernel: a dense or vlm layer's three FFN
+    junctions; a MoE layer's gate (one gated junction) and down junction,
+    its shared experts' three, and a dense first layer's three where its
+    width tiles; a Mamba-1 layer's in_proj and out_proj; a Mamba-2 layer's
+    in_z, in_xbc and out_proj, and the hybrid's shared MLP (wg, wi, wo)
+    once a super-block.  Quantized, each runs its int8 kernel but the
+    shared experts: ``quantize_tree`` quantizes a MoE dict as one
+    junction and leaves its "shared" MLP as it was (as the reference's
+    does), so those stay on ``fwd``."""
     L = cfg.n_layers
-    n = {"dense": {"fwd": 3 * L},
-         "moe": {"gated_fwd": L, "fwd": L},
-         "ssm": {"fwd": 2 * L},
-         "hybrid": {"fwd": 3 * L + 3 * (L // max(1, cfg.hybrid_attn_every))}
-         }[cfg.family]
-    tail = "_int8" if quantized else ""
-    return {f"junction_{k}{tail}": v for k, v in n.items()}
+    shared = 0
+    if cfg.family == "moe":
+        mo = cfg.moe
+        nd = mo.first_dense_layers
+        n = {"gated_fwd": L - nd, "fwd": L - nd}
+        if mo.num_shared and _ffn_tiles(cfg, mo.d_shared):
+            shared = 3 * (L - nd)
+        if nd and _ffn_tiles(cfg, cfg.d_ff):
+            n["fwd"] += 3 * nd
+    else:
+        n = {"dense": {"fwd": 3 * L}, "vlm": {"fwd": 3 * L},
+             "ssm": {"fwd": 2 * L},
+             "hybrid": {"fwd": 3 * L + 3 * (L // max(1,
+                                                     cfg.hybrid_attn_every))}
+             }[cfg.family]
+    if not quantized:
+        n["fwd"] += shared
+        return {f"junction_{k}": v for k, v in n.items()}
+    out = {f"junction_{k}_int8": v for k, v in n.items()}
+    return {**out, "junction_fwd": shared} if shared else out
 
 
 def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None,
@@ -3095,11 +3135,27 @@ STATIC_ARGS = ["--sparse", "--requests", "8", "--prompt-len", "32",
 STATIC_STEPS = 16
 
 
-def _launcher_prompts(cfg, n=8, length=32):
-    """The prompts launch/serve.py makes (seed 0)."""
+def _launcher_inputs(cfg, n=8, length=32):
+    """The prompts launch/serve.py makes (seed 0) and its side inputs: a
+    vlm's patches, min(num_patches, length // 2) a request, from the same
+    rng after the prompts."""
     rng = np.random.default_rng(0)
-    return rng.integers(0, cfg.raw_vocab or cfg.vocab,
-                        size=(n, length)).astype(np.int32)
+    prompts = rng.integers(0, cfg.raw_vocab or cfg.vocab,
+                           size=(n, length)).astype(np.int32)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = rng.standard_normal(
+            (n, min(cfg.num_patches, length // 2), cfg.d_model)
+        ).astype(np.float32)
+    return prompts, extra
+
+
+def _prefill_batch(prompts, extra):
+    """The static prefill's batch on the card (with a vlm's patches)."""
+    batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
+    batch.update({k: torch.as_tensor(v, device="cuda")
+                  for k, v in extra.items()})
+    return batch
 
 
 def _served(P, fn):
@@ -3121,29 +3177,27 @@ def _served(P, fn):
     return out, made
 
 
-def _static_steps(P, cfg, params, prompts):
-    """The static prefill of ``prompts`` and one decode step after it (the
-    prompts' first tokens as the input token, the same on both paths),
-    through the static engine's step functions: their logits, fp32."""
+def _static_steps(P, cfg, params, prompts, extra):
+    """The static prefill of ``prompts`` (and ``extra``) and one decode
+    step after it (the prompts' first tokens as the input token, the same
+    on both paths), through the static engine's step functions: their
+    logits, fp32."""
     eng = P.engine.Engine(cfg, params, device="cuda")
-    B, S = prompts.shape
-    lp, cache = eng._prefill(
-        eng.params, {"tokens": torch.as_tensor(prompts, device="cuda")})
+    B = prompts.shape[0]
+    lp, cache, S = eng._prefill(eng.params, _prefill_batch(prompts, extra))
     full = eng._grow_cache(cache, B, S + 1, S)
     tok = torch.as_tensor(prompts[:, :1], device="cuda")
     ld, _ = eng._decode(eng.params, full, tok, S)
     return lp[:, -1].float(), ld[:, -1].float()
 
 
-def static_step_breakdown(P, eng, prompts, name, card):
+def static_step_breakdown(P, eng, prompts, extra, name, card):
     """One static decode step of the 8 rows after their prefill: its wall
     time (mean of 5, synchronized) and its kernels by name."""
-    B, S = prompts.shape
-    dev = torch.device("cuda")
-    _, cache = eng._prefill(eng.params,
-                            {"tokens": torch.as_tensor(prompts, device=dev)})
+    B = prompts.shape[0]
+    _, cache, S = eng._prefill(eng.params, _prefill_batch(prompts, extra))
     cache = eng._grow_cache(cache, B, S + 1, S)
-    tok = torch.as_tensor(prompts[:, :1], device=dev)
+    tok = torch.as_tensor(prompts[:, :1], device="cuda")
 
     def step():
         return eng._decode(eng.params, cache, tok, S)
@@ -3158,7 +3212,7 @@ def static_step_breakdown(P, eng, prompts, name, card):
                    f"static {name} decode step, 8 rows", card)
 
 
-def compare_static_logits(P, cfg, params, prompts, quantized, card,
+def compare_static_logits(P, cfg, params, prompts, extra, quantized, card,
                           gate_bf16=True):
     """The static prefill and one decode step through the kernels and
     through their plain versions on the card, in bf16 and fp32, within
@@ -3168,24 +3222,29 @@ def compare_static_logits(P, cfg, params, prompts, quantized, card,
     inputs instead (``ssm_layer_gaps``).  Beside them, how far each bf16
     path lies from the plain fp32 one: where the plain bf16 path lies as
     far, the gap is bf16's own rounding grown with depth."""
+    # quantized, the floating-point junctions left (deepseek-v2's shared
+    # experts) run their kernels on both paths, so that the int8 kernels
+    # meet the same inputs as their plain versions
     names = (("fwd_int8", "gated_fwd_int8") if quantized
              else ("fwd", "gated_fwd"))
+    plain = {f"junction_{n}" for n in names}
     got = {}
     for dtype in (torch.bfloat16, torch.float32):
         c = dataclasses.replace(cfg, dtype=str(dtype)[6:])
         P.ops.reset_launch_counts()
-        k_pf, k_dec = _static_steps(P, c, params, prompts)
+        k_pf, k_dec = _static_steps(P, c, params, prompts, extra)
         kc = P.ops.launch_counts()
         with contextlib.ExitStack() as stack:
             for name in names:
                 stack.enter_context(mock.patch.object(
                     P.bsm, name, getattr(P.bsm, f"{name}_ref")))
-            p_pf, p_dec = _static_steps(P, c, params, prompts)
+            p_pf, p_dec = _static_steps(P, c, params, prompts, extra)
         torch.cuda.synchronize()
         want = dict.fromkeys(kc, 0)
         want.update({k: 2 * n for k, n in
                      junction_calls(c, quantized).items()})
-        require(kc == want and P.ops.launch_counts() == kc,
+        again = {k: n if k in plain else 2 * n for k, n in kc.items()}
+        require(kc == want and P.ops.launch_counts() == again,
                 f"static logit comparison took other paths: {kc} then "
                 f"{P.ops.launch_counts()}")
         for what, a, b in (("prefill", k_pf, p_pf), ("decode", k_dec,
@@ -3234,7 +3293,7 @@ def static_parity_check(P, card):
             density=0.25, block=128, where="ffn")),
         n_layers=2, dtype="float32")
     params = P.M.init(cfg, seed=0, device="cuda")
-    prompts = _launcher_prompts(cfg)
+    prompts, _ = _launcher_inputs(cfg)
     static = P.engine.Engine(cfg, params, P.engine.ServeConfig(
         max_new_tokens=16), device="cuda").generate(prompts)
     cont = _continuous(P, cfg, params, prompts)
@@ -3274,7 +3333,7 @@ def static_serve_run(P, card, arch, quant=None, layers=0, gaps=False):
                                     quantize=quant)
         eng = P.engine.Engine(cfg, P.M.init(cfg, 0, "cuda"), scfg,
                               device="cuda")
-        out = eng.generate(_launcher_prompts(cfg))
+        out = eng.generate(*_launcher_inputs(cfg))
     else:
         argv = ["--arch", arch, *STATIC_ARGS] + (
             ["--quantize", quant] if quant else [])
@@ -3294,17 +3353,17 @@ def static_serve_run(P, card, arch, quant=None, layers=0, gaps=False):
     want.update({k: n * STATIC_STEPS
                  for k, n in junction_calls(cfg, bool(quant)).items()})
     require(counts == want, f"{name} static launches {counts} != {want}")
-    # every junction call has at least 8 rows: bf16 on tensor cores
-    tc = {k: counts[k] if not quant else 0
-          for k in P.ops.tc_launch_counts()}
+    # every junction call has at least 8 rows: bf16 on tensor cores (the
+    # int8 kernels have no tensor-core count)
+    tc = {k: counts[k] for k in P.ops.tc_launch_counts()}
     require(P.ops.tc_launch_counts() == tc,
             f"{name} tensor-core launches {P.ops.tc_launch_counts()}")
     n_params = sum(t.numel() for t in _leaves(eng.params)
                    if t.is_floating_point() or t.dtype == torch.int8)
-    prompts = _launcher_prompts(cfg)
+    prompts, extra = _launcher_inputs(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    again = eng.generate(prompts)
+    again = eng.generate(prompts, extra)
     warm = time.perf_counter() - t0
     require(np.array_equal(again, out), f"{name}: a second generate "
             "of the same prompts gave other tokens")
@@ -3317,7 +3376,7 @@ def static_serve_run(P, card, arch, quant=None, layers=0, gaps=False):
           f"tokens, {STATIC_STEPS} model calls); peak_memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
           f"launches={path} [{card}]")
-    static_step_breakdown(P, eng, prompts, name, card)
+    static_step_breakdown(P, eng, prompts, extra, name, card)
     if arch == "stablelm-3b" and not quant:
         cont = _continuous(P, cfg, eng.params, prompts)
         print(f"[serve] static {name} bf16: greedy agreement with the "
@@ -3333,8 +3392,8 @@ def static_serve_run(P, card, arch, quant=None, layers=0, gaps=False):
         ssm_layer_gaps(P, cfg, eng.params, prompts, card)
     elif gaps:
         moe_layer_gaps(P, cfg, eng.params, prompts, card)
-    compare_static_logits(P, cfg, eng.params, prompts, bool(quant), card,
-                          gate_bf16=not by_block)
+    compare_static_logits(P, cfg, eng.params, prompts, extra, bool(quant),
+                          card, gate_bf16=not by_block)
     del eng
     torch.cuda.empty_cache()
     return path
@@ -3451,7 +3510,8 @@ def _rel(a, b) -> float:
 
 def _prefill_run(P, params, prompts):
     tokens = torch.as_tensor(prompts, device="cuda")
-    return lambda c: P.steps.make_prefill_step(c)(params, {"tokens": tokens})
+    return lambda c: P.steps.make_prefill_step(c)(params,
+                                                  {"tokens": tokens})[:2]
 
 
 def moe_layer_gaps(P, cfg, params, prompts, card):
@@ -3464,15 +3524,17 @@ def moe_layer_gaps(P, cfg, params, prompts, card):
     routing flips account for the gap; and the gap over the rows with and
     without a flipped token in any layer."""
     B, S = prompts.shape
+    nd = cfg.moe.first_dense_layers     # blocks with no expert choices
     run = _prefill_run(P, params, prompts)
     kl, _, ko, ke, _ = _trace(P, cfg, params, run, plain=False)
     pl, _, po, pe, _ = _trace(P, cfg, params, run, plain=True)
-    require(len(ko) == len(po) and len(ke) == len(pe),
+    require(len(ko) == len(po) and len(ke) == len(pe) == len(ko) - nd,
             "the two prefills ran other blocks")
     flipped = torch.zeros((B, S), dtype=torch.bool, device="cuda")
     for i, (a, b) in enumerate(zip(ko, po)):
-        diff = (torch.sort(ke[i], -1).values
-                != torch.sort(pe[i], -1).values).any(-1).reshape(B, S)
+        diff = torch.zeros_like(flipped) if i < nd else (
+            torch.sort(ke[i - nd], -1).values
+            != torch.sort(pe[i - nd], -1).values).any(-1).reshape(B, S)
         flipped |= diff
         print(f"[gap] {cfg.name} bf16 prefill block {i}: rel "
               f"{_rel(a, b):.4g}, tokens whose expert set differs "
@@ -3594,7 +3656,7 @@ def ckpt_check(P, card):
             require(got[k].dtype == v.dtype
                     and torch.equal(_bits(got[k]), _bits(v)),
                     f"{mode}: restored {k} differs from the trained one")
-        prompts = _launcher_prompts(eng.cfg)
+        prompts, _ = _launcher_inputs(eng.cfg)
         if mode == "static":
             want = P.engine.Engine(eng.cfg, res["params"], eng.scfg,
                                    device="cuda").generate(prompts)
@@ -3676,6 +3738,32 @@ def fwd_held(P, x, w, idx, bias, act, got) -> dict:
             "ratio": float((over / lim.clamp_min(1e-300)).max())}
 
 
+def gated_held(P, x, wg, wi, idx, got) -> dict:
+    """gated_fwd's output ``got`` (h = silu(g) u from the two fp32 sums,
+    rounded once) against the junction in fp64, as ``fwd_held`` holds fwd:
+    the excess over the rounding term (2^-8 + 2^-20) |h| (the silu and
+    the product in fp32 included) over the sums' bound, where each sum's
+    error e is held to FWD_LAMBDA sqrt(K) 2^-23 S of its own S and carries
+    into h as FWD_SLOPE e_g (|u| + e_u) + |silu(g)| e_u."""
+    M = x.shape[1]
+    _, _, kb, bs, _ = wg.shape
+    x64 = x.double()
+    zero = torch.zeros((x.shape[0], wg.shape[1] * bs), dtype=torch.float64,
+                       device=x.device)
+    g = P.bsm.fwd_ref(x64, wg.double(), idx, zero)
+    u = P.bsm.fwd_ref(x64, wi.double(), idx, zero)
+    ref = P.bsm.act_fwd(g, "silu") * u
+    unit = FWD_LAMBDA * (kb * bs) ** 0.5 * 2.0 ** -23
+    e_g = unit * P.bsm.fwd_ref(x64.abs(), wg.double().abs(), idx, zero)
+    e_u = unit * P.bsm.fwd_ref(x64.abs(), wi.double().abs(), idx, zero)
+    err = (got.double() - ref).abs()
+    over = (err - (2.0 ** -8 + 2.0 ** -20) * ref.abs()).clamp_min(0)
+    lim = (1 + 2.0 ** -8) * (FWD_SLOPE * e_g * (u.abs() + e_u)
+                             + P.bsm.act_fwd(g, "silu").abs() * e_u)
+    return {"M": M, "kb": kb, "err": float(err.max()),
+            "ratio": float((over / lim.clamp_min(1e-300)).max())}
+
+
 def _slotwise_bf16_fwd(P, x, w, idx, bias, act="none"):
     """The control of ``fwd_held``: the junction with each fan-in slot's
     partial sum rounded to bf16 before the sum over slots (a kernel that
@@ -3690,6 +3778,69 @@ def _slotwise_bf16_fwd(P, x, w, idx, bias, act="none"):
                             w[:, :, k].float()).to(x.dtype).float()
     s = acc.reshape(E, M, nob * bs) + bias.float()[:, None, :]
     return P.bsm.act_fwd(s, act).to(x.dtype)
+
+
+def _slotwise_bf16_gated(P, x, wg, wi, idx):
+    """The control of ``gated_held``: both branches' slot sums carried in
+    bf16 (``_slotwise_bf16_fwd``), h = silu(g) u from them."""
+    zero = torch.zeros((x.shape[0], wg.shape[1] * wg.shape[3]),
+                       dtype=x.dtype, device=x.device)
+    g = _slotwise_bf16_fwd(P, x, wg, idx, zero).float()
+    u = _slotwise_bf16_fwd(P, x, wi, idx, zero).float()
+    return (P.bsm.act_fwd(g, "silu") * u).to(x.dtype)
+
+
+def held_shapes(P, timer, card, shapes, seed):
+    """fwd (or, for a shape marked gated, gated_fwd) at each ``(name,
+    n_in, n_out, E, gated)`` of ``shapes``, at the decode step's 8 rows
+    and the prefill's 256 (a unit's rows), in bf16: held against the
+    junction in fp64 (``fwd_held`` / ``gated_held``) beside a control
+    that carries its slot sums in bf16 and must fail it, and timed
+    beside its plain version and its bound.  Returns {(name, M): (ms,
+    plain_ms, bound_ms, ratio, control)}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out = {}
+    for name, n_in, n_out, E, gated in shapes:
+        pat = P.make_block_pattern(n_in, n_out, 0.25, BS, seed=1)
+        nob, kb = pat.n_out_blocks, pat.fan_in_blocks
+        idx = torch.as_tensor(pat.idx, device="cuda")
+        ws = [(torch.randn((E, nob, kb, BS, BS), generator=gen,
+                           device="cuda") / (kb * BS) ** 0.5
+               ).to(torch.bfloat16) for _ in range(1 + gated)]
+        b = torch.zeros((E, n_out), device="cuda", dtype=torch.bfloat16)
+        for M in (8, 8 * 32):
+            x = torch.randn((E, M, n_in), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            if gated:
+                kern = functools.partial(P.bsm.gated_fwd, x, *ws, idx)
+                plain = functools.partial(P.bsm.gated_fwd_ref, x, *ws, idx)
+                held = gated_held(P, x, *ws, idx, kern())
+                ctrl = gated_held(P, x, *ws, idx,
+                                  _slotwise_bf16_gated(P, x, *ws, idx))
+            else:
+                kern = functools.partial(P.bsm.fwd, x, ws[0], idx, b)
+                plain = functools.partial(P.bsm.fwd_ref, x, ws[0], idx, b)
+                held = fwd_held(P, x, ws[0], idx, b, "none", kern())
+                ctrl = fwd_held(P, x, ws[0], idx, b, "none",
+                                _slotwise_bf16_fwd(P, x, ws[0], idx, b))
+            k_ms, p_ms = timer.ms(kern), timer.ms(plain)
+            nbytes = (x.numel() + sum(w.numel() for w in ws)
+                      + (0 if gated else b.numel()) + E * M * n_out) * 2 \
+                + idx.numel() * 4
+            bnd, by = bound_ms(nbytes, 2 * E * M * nob * kb * BS * BS
+                               * len(ws), torch.bfloat16)
+            kname = "junction_gated_fwd_tc" if gated else "junction_fwd_tc"
+            print(f"[kernel] {kname} {name} {n_in}->{n_out} E={E} "
+                  f"nob={nob} kb={kb} M={M} bf16: max_abs_err against fp64 "
+                  f"{held['err']:.3g}, |err| over its bound "
+                  f"{held['ratio']:.4g}; control (slot sums rounded to "
+                  f"bf16) {ctrl['ratio']:.4g} ms={k_ms:.4f} "
+                  f"plain_ms={p_ms:.4f} bound_ms={bnd:.4f} ({by}) [{card}]")
+            require(held["ratio"] <= 1.0 < ctrl["ratio"],
+                    f"{kname} at {name}, M {M}: {held}, control {ctrl}")
+            out[name, M] = (k_ms, p_ms, bnd, held["ratio"], ctrl["ratio"])
+    return out
 
 
 def ssm_phase(P, card):
@@ -3728,37 +3879,163 @@ def dense_configs_phase(P, timer, card):
     for arch in DENSE_CONFIGS:
         paths.update(static_serve_run(P, card, arch,
                                       layers=DENSE_CONFIG_LAYERS))
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(26)
-    for name, n_in, n_out in NEW_SHAPES:
-        pat = P.make_block_pattern(n_in, n_out, 0.25, BS, seed=1)
-        nob, kb = pat.n_out_blocks, pat.fan_in_blocks
-        w = (torch.randn((1, nob, kb, BS, BS), generator=gen, device="cuda")
-             / (kb * BS) ** 0.5).to(torch.bfloat16)
-        idx = torch.as_tensor(pat.idx, device="cuda")
-        b = torch.zeros((1, n_out), device="cuda", dtype=torch.bfloat16)
-        for M in (8, 8 * 32):
-            x = torch.randn((1, M, n_in), generator=gen,
-                            device="cuda").to(torch.bfloat16)
-            got = P.bsm.fwd(x, w, idx, b)
-            held = fwd_held(P, x, w, idx, b, "none", got)
-            ctrl = fwd_held(P, x, w, idx, b, "none",
-                            _slotwise_bf16_fwd(P, x, w, idx, b))
-            k_ms = timer.ms(lambda: P.bsm.fwd(x, w, idx, b))
-            p_ms = timer.ms(lambda: P.bsm.fwd_ref(x, w, idx, b))
-            nbytes = (x.numel() + w.numel() + b.numel() + M * n_out) * 2 \
-                + idx.numel() * 4
-            bnd, by = bound_ms(nbytes, 2 * M * nob * kb * BS * BS,
-                               torch.bfloat16)
-            print(f"[kernel] junction_fwd_tc {name} {n_in}->{n_out} "
-                  f"nob={nob} kb={kb} M={M} bf16: max_abs_err against fp64 "
-                  f"{held['err']:.3g}, |err| over its bound "
-                  f"{held['ratio']:.4g}; control (slot sums rounded to "
-                  f"bf16) {ctrl['ratio']:.4g} ms={k_ms:.4f} "
-                  f"plain_ms={p_ms:.4f} bound_ms={bnd:.4f} ({by}) [{card}]")
-            require(held["ratio"] <= 1.0 < ctrl["ratio"],
-                    f"junction_fwd at {name}, M {M}: {held}, control {ctrl}")
+    held_shapes(P, timer, card, [(n, i, o, 1, False)
+                                 for n, i, o in NEW_SHAPES], seed=26)
     return dict(paths)
+
+
+# ---------------------------------------------- vlm (sliding window), MLA
+# llava-next-mistral-7b trains at full width and 8 of its 32 layers
+# (0.95 B held: a layer holds 0.04 B attention and 0.04 B junction
+# params, the embeddings 0.26 B); deepseek-v2-lite-16b at 4 of 27, the
+# dense first layer and 3 MoE layers (0.98 B: a MoE layer's 64 sparse
+# experts hold 0.14 B, the embeddings 0.42 B)
+VLM, MLA = "llava-next-mistral-7b", "deepseek-v2-lite-16b"
+VLM_TRAIN_LAYERS, MLA_TRAIN_LAYERS = 8, 4
+# the ring at full width: 2 layers, 2 rows, a prompt of 4160 tokens after
+# the 576 patches, L = 4736 positions: past the 4096-slot window and not
+# a multiple of it, so the prefill wraps the ring and decode runs on
+RING_LAYERS, RING_PROMPT, RING_NEW = 2, 4160, 4
+# the junctions the two bring to the kernels: (name, n_in, n_out, E,
+# gated); the experts' gate as one gated junction of 64 units
+VLM_SHAPES = [("llava wi/wg", 4096, 14336, 1, False),
+              ("llava wo", 14336, 4096, 1, False)]
+MLA_SHAPES = [("deepseek experts wg+wi", 2048, 1408, 64, True),
+              ("deepseek experts wo", 1408, 2048, 64, False),
+              ("deepseek shared wi/wg", 2048, 2816, 1, False),
+              ("deepseek shared wo", 2816, 2048, 1, False)]
+
+
+def ring_check(P, card):
+    """llava's sliding window at full width (RING_LAYERS layers, 2 rows):
+    the static engine prefills RING_PROMPT tokens after the 576 patches
+    (more positions than the 4096-slot ring holds, not a multiple of it)
+    and decodes RING_NEW tokens, with exact launch counts.  In fp32 the
+    prefill's last logits and each decode step's, fed the engine's own
+    tokens, are held against the port's forward recomputed over the
+    whole sequence (patches, prompt and the tokens before), within 2e-4
+    of max |logit|; in bf16 the same steps through the kernels against
+    their plain versions, within LOGIT_REL_TOL.  Returns the launch
+    counts of the two generates."""
+    cfg = dataclasses.replace(P.registry.get(VLM), n_layers=RING_LAYERS
+                              ).with_sparsity(P.SparsityConfig(
+                                  density=0.25, block=BS, where="ffn"))
+    rng = np.random.default_rng(27)
+    B = 2
+    prompts = rng.integers(0, cfg.vocab, size=(B, RING_PROMPT)
+                           ).astype(np.int32)
+    extra = {"patches": rng.standard_normal(
+        (B, cfg.num_patches, cfg.d_model)).astype(np.float32)}
+    batch = _prefill_batch(prompts, extra)
+    L = cfg.num_patches + RING_PROMPT
+    require(L > cfg.window and L % cfg.window,
+            f"the ring check's {L} positions do not wrap the ring")
+    paths = collections.Counter()
+
+    def steps(c, params, fed):
+        """The engine's prefill, its cache grown, then a decode step a
+        token of ``fed``: [B, 1 + len(fed), V] fp32 logits."""
+        eng = P.engine.Engine(c, params, device="cuda")
+        lp, cache, n = eng._prefill(eng.params, batch)
+        require(n == L, f"the ring's prefill holds {n} positions, not {L}")
+        cache = eng._grow_cache(cache, B, L + RING_NEW, L)
+        out = [lp[:, -1].float()]
+        for i in range(fed.shape[1]):
+            ld, cache = eng._decode(eng.params, cache,
+                                    torch.as_tensor(fed[:, i:i + 1],
+                                                    device="cuda"), L + i)
+            out.append(ld[:, -1].float())
+        require(cache["k"].shape[2] == cfg.window,
+                f"ring of {cache['k'].shape[2]} slots")
+        return torch.stack(out, 1)
+
+    toks = {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params = P.M.init(c, seed=0, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        P.ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks[dtype] = P.engine.Engine(c, params, P.engine.ServeConfig(
+            max_new_tokens=RING_NEW), device="cuda").generate(prompts, extra)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = P.ops.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update({k: n * RING_NEW for k, n in junction_calls(c).items()})
+        require(counts == want, f"ring {dtype} launches {counts} != {want}")
+        paths.update(with_tc(P, counts))
+        fed = toks[dtype][:, :-1]
+        if dtype == "float32":
+            got = steps(c, params, fed)
+            seq = np.concatenate([prompts, fed], 1)
+            full, _, (_, off) = P.M.forward(c, params, {
+                "tokens": torch.as_tensor(seq, device="cuda"),
+                "patches": batch["patches"]})
+            want_l = full[:, L - 1:].float()
+            del full
+            rel = _rel(got, want_l)
+            same = bool((got.argmax(-1)[:, :RING_NEW]
+                         == torch.as_tensor(toks[dtype], device="cuda")
+                         ).all())
+            print(f"[ring] {VLM} {RING_LAYERS} layers fp32, {L} positions "
+                  f"({cfg.num_patches} patches + {RING_PROMPT} tokens) into "
+                  f"a {cfg.window}-slot ring, {RING_NEW} new: generate "
+                  f"{dt:.2f} s, peak_memory "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+                  f"prefill and decode logits against the forward over the "
+                  f"whole sequence rel {rel:.3g} (tol 2e-4), greedy tokens "
+                  f"equal its argmax: {same}; launches={counts} [{card}]")
+            require(off == cfg.num_patches and rel <= 2e-4 and same,
+                    "the ring's decode differs from the forward")
+        else:
+            k_l = steps(c, params, fed)
+            with contextlib.ExitStack() as stack:
+                for name in ("fwd", "gated_fwd"):
+                    stack.enter_context(mock.patch.object(
+                        P.bsm, name, getattr(P.bsm, f"{name}_ref")))
+                p_l = steps(c, params, fed)
+            rel = _rel(k_l, p_l)
+            print(f"[ring] {VLM} {RING_LAYERS} layers bf16: generate "
+                  f"{dt:.2f} s; prefill and decode logits kernels vs plain "
+                  f"versions rel {rel:.3g} (tol "
+                  f"{LOGIT_REL_TOL[torch.bfloat16]}); greedy agreement with "
+                  f"fp32 {float(np.mean(toks[dtype] == toks['float32'])):.3f}"
+                  f" [{card}]")
+            require(rel <= LOGIT_REL_TOL[torch.bfloat16],
+                    "the ring's bf16 logits differ, kernels vs plain")
+        del params
+        torch.cuda.empty_cache()
+    return dict(paths)
+
+
+def vlm_phase(P, timer, card):
+    """llava-next-mistral-7b (mistral backbone, a 4096-token sliding
+    window, 576 stub patches): the static engine at full size in bf16
+    and int8 (launch/serve.py, 16 patches ahead of each 32-token prompt),
+    the ring at full width (``ring_check``), training at full width and
+    VLM_TRAIN_LAYERS layers on the three update paths (128 patches and
+    128 tokens a row), and fwd at its junctions (``held_shapes``)."""
+    paths = {"vlm_serve": static_serve_run(P, card, VLM),
+             "vlm_serve_int8": static_serve_run(P, card, VLM, "int8"),
+             "vlm_ring": ring_check(P, card)}
+    paths["vlm_train"] = train_phase(P, card, VLM, VLM_TRAIN_LAYERS)
+    held_shapes(P, timer, card, VLM_SHAPES, seed=27)
+    return paths
+
+
+def mla_phase(P, timer, card):
+    """deepseek-v2-lite-16b (MLA, a dense first layer, 64 routed experts
+    top-6 and 2 shared): the static engine at full size in bf16 (its
+    prefill block by block, ``moe_layer_gaps``) and int8, training at
+    full width and MLA_TRAIN_LAYERS layers on the three update paths, and
+    fwd / gated_fwd at its junctions (``held_shapes``)."""
+    paths = {"mla_serve": static_serve_run(P, card, MLA, gaps=True),
+             "mla_serve_int8": static_serve_run(P, card, MLA, "int8")}
+    paths["mla_train"] = train_phase(P, card, MLA, MLA_TRAIN_LAYERS)
+    held_shapes(P, timer, card, MLA_SHAPES, seed=28)
+    return paths
 
 
 # ------------------------------------------------------ standalone kernels
@@ -4259,6 +4536,8 @@ def main() -> int:
     paths.update(timed("hybrid", hybrid_phase, P, card))
     paths["dense_configs"] = timed("dense_configs", dense_configs_phase, P,
                                    timer, card)
+    paths.update(timed("vlm", vlm_phase, P, timer, card))
+    paths.update(timed("mla", mla_phase, P, timer, card))
     standalone, paths["standalone"] = timed(
         "standalone", standalone_kernel_phase, P, card)
     timed("paper", paper_phase, P, card)

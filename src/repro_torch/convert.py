@@ -2,9 +2,10 @@
 
 ``from_jax_params(tree)`` takes the reference's params tree with every
 leaf already a numpy array (layers stacked on axis 0, as its ``init``
-builds them; the hybrid's on axes 0 and 1, [n_super, ev, ...]) and
-returns the port's params (layers as a list; the hybrid's a list of
-lists, its ``shared_attn`` block as it is), so that both compute the
+builds them, a MoE model's ``dense_layers`` too; the hybrid's on axes 0
+and 1, [n_super, ev, ...]) and returns the port's params (layers as a
+list; the hybrid's a list of lists, its ``shared_attn`` block as it
+is), so that both compute the
 same function.  ``from_jax_opt_state(state)`` carries
 the optimizer state the same way: Adam's ``m``/``v`` and SGD's ``mom``
 trees mirror the params (their 0-d placeholders for the integer pattern
@@ -66,10 +67,12 @@ def _layers(tree, stacked: int, device):
 
 
 def from_jax_params(tree: dict, device="cpu") -> dict:
-    """Reference params (numpy leaves, ``tree["layers"]`` stacked on axis
-    0, the hybrid's on axes 0 and 1) -> the port's params on ``device``."""
-    stacked = 2 if "shared_attn" in tree else 1
-    return {k: _layers(v, stacked, device) if k == "layers"
+    """Reference params (numpy leaves, ``tree["layers"]`` and
+    ``tree["dense_layers"]`` stacked on axis 0, the hybrid's layers on
+    axes 0 and 1) -> the port's params on ``device``."""
+    stacked = {"layers": 2 if "shared_attn" in tree else 1,
+               "dense_layers": 1}
+    return {k: _layers(v, stacked[k], device) if k in stacked
             else _convert(v, device) for k, v in tree.items()}
 
 

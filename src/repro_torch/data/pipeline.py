@@ -18,7 +18,10 @@ from repro_torch.configs.base import ArchConfig
 @dataclasses.dataclass
 class LMTokenPipeline:
     """Synthetic language-model token stream (runs of consecutive tokens
-    with 15 % noise, so the loss can fall).  State = (seed, step)."""
+    with 15 % noise, so the loss can fall).  A vlm batch also holds
+    P = min(num_patches, seq_len // 2) fp32 patch embeddings [B, P, d]
+    and keeps the first seq_len - P tokens, so that patches and text
+    fill seq_len positions.  State = (seed, step)."""
     cfg: ArchConfig
     batch_size: int
     seq_len: int
@@ -34,17 +37,24 @@ class LMTokenPipeline:
                    step=state["step"])
 
     def _make(self, step: int) -> dict:
-        if self.cfg.family in ("vlm", "audio"):
-            raise ValueError(f"family {self.cfg.family!r}: the port's "
-                             "pipeline makes token batches only")
+        cfg = self.cfg
+        if cfg.family == "audio":
+            raise ValueError("family 'audio': the port's pipeline makes no "
+                             "audio frames yet")
         rng = np.random.default_rng((self.seed << 20) ^ step)
-        V = self.cfg.raw_vocab or self.cfg.vocab
+        V = cfg.raw_vocab or cfg.vocab
         B, S = self.batch_size, self.seq_len
         base = rng.integers(0, V - S - 2, size=(B, 1))
         runs = base + np.arange(S)[None, :]
         noise = rng.integers(0, V, size=(B, S))
         mask = rng.random((B, S)) < 0.15
-        return {"tokens": np.where(mask, noise, runs % V).astype(np.int32)}
+        batch = {"tokens": np.where(mask, noise, runs % V).astype(np.int32)}
+        if cfg.family == "vlm":
+            P = min(cfg.num_patches, S // 2)
+            batch["patches"] = rng.standard_normal(
+                (B, P, cfg.d_model)).astype(np.float32)
+            batch["tokens"] = batch["tokens"][:, :S - P]
+        return batch
 
     def __iter__(self) -> Iterator[dict]:
         return self

@@ -13,9 +13,12 @@ Continuous batching (paged KV cache, admission loop, chunked prefill):
 
 runs on the card; ``--device cpu --reduce`` runs a tiny config on the
 CPU.  The ssm and hybrid families (``--arch falcon-mamba-7b``,
-``--arch zamba2-2.7b``) serve on the static engine only: their caches
-hold per-layer states that a paged pool does not, and ``--continuous``
-refuses them.  Weights are random, made from ``--seed``, unless
+``--arch zamba2-2.7b``), the vlm with its sliding window (``--arch
+llava-next-mistral-7b``: random patch embeddings, min(num_patches,
+prompt_len // 2) a request, ahead of the prompt) and MLA with a dense
+first layer (``--arch deepseek-v2-lite-16b``) serve on the static engine
+only: their caches hold per-layer states, a ring or a latent that a
+paged pool does not, and ``--continuous`` refuses them.  Weights are random, made from ``--seed``, unless
 ``--ckpt DIR`` restores the params of the newest checkpoint that
 ``launch/train.py`` wrote there (``train/checkpoint.restore_latest``;
 the same ``--arch``, ``--reduce``, ``--sparse`` and ``--density`` as the
@@ -118,13 +121,21 @@ def main(argv=None):
     V = cfg.raw_vocab or cfg.vocab
     prompts = rng.integers(0, V, size=(args.requests, args.prompt_len)
                            ).astype(np.int32)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["patches"] = rng.standard_normal(
+            (args.requests, min(cfg.num_patches, args.prompt_len // 2),
+             cfg.d_model)).astype(np.float32)
+    if args.continuous and extra:
+        raise SystemExit("[serve] --continuous does not take encoder "
+                         "side inputs (vlm/audio)")
     if not args.continuous:
         eng = Engine(cfg, params, ServeConfig(
             max_new_tokens=args.max_new, temperature=args.temperature,
             seed=args.seed, quantize=quant), device=dev)
         t0 = time.perf_counter()
         with profile_ctx(args.profile):
-            out = eng.generate(prompts)
+            out = eng.generate(prompts, extra)
         dt = time.perf_counter() - t0
         tps = args.requests * args.max_new / dt
         print(f"[serve] generated {out.shape} in {dt:.2f}s "

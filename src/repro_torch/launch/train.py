@@ -7,7 +7,11 @@ runs on the card; ``--device cpu --reduce`` trains a tiny config on the
 CPU.  ``--arch falcon-mamba-7b`` (ssm) and ``--arch zamba2-2.7b``
 (hybrid) train too, with ``--seq`` a multiple of the scan chunk (128; 16
 under ``--reduce``) or shorter than it; the hybrid's shared attention
-block takes the two-pass update only.  Weights are random, made from seed 0; batches come from the
+block takes the two-pass update only.  ``--arch llava-next-mistral-7b``
+(vlm) trains on batches of min(num_patches, seq // 2) random patch
+embeddings ahead of the rest of ``--seq`` in tokens, the loss on the
+text; ``--arch deepseek-v2-lite-16b`` runs MLA and its dense first
+layer (``--layers`` counts it).  Weights are random, made from seed 0; batches come from the
 synthetic ``LMTokenPipeline``.  The run auto-resumes from the newest
 checkpoint under ``--ckpt`` (default: ``build/train_ckpt`` in the
 checkout).  ``--obs PATH`` streams the flight recorder's events (a

@@ -1,11 +1,16 @@
-"""Grouped-query attention: the full-sequence training and prefill path
-(``gqa_forward``), single-token decode over a contiguous cache
-(``gqa_decode``, the static engine's) and, over a block-paged KV cache,
-chunked prefill and single-token decode.
+"""Attention: grouped-query attention (full or sliding-window) and
+DeepSeek-V2's multi-head latent attention (MLA).  GQA has the
+full-sequence training and prefill path (``gqa_forward``), single-token
+decode over a contiguous cache (``gqa_decode``, the static engine's) and,
+over a block-paged KV cache, chunked prefill and single-token decode;
+MLA the expanded form for training and prefill (``mla_forward``) and the
+absorbed form for decode (``mla_decode``).
 
 A contiguous cache of one layer is ``{"k": [B, S, Hkv, hd], "v": ...}``;
-decode writes the new token's K / V at slot ``pos`` in place.  The pool
-of one layer is ``{"k": [P, ps, Hkv, hd], "v": ...}``; token t
+decode writes the new token's K / V at slot ``pos`` in place, or, under
+a sliding window, in a ring of S = window slots at ``pos % S``.  MLA's
+is the compressed ``{"latent": [B, S, kv_lora], "k_rope": [B, S, rd]}``.
+The pool of one layer is ``{"k": [P, ps, Hkv, hd], "v": ...}``; token t
 of a slot lives in page ``page_table[b, t // ps]`` at offset ``t % ps``.
 Page 0 is the scratch page that free slots point at.  The pool is
 updated in place.
@@ -20,7 +25,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import sparse_linear as sl
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.models.layers import rope
+from repro_torch.models.layers import norm_apply, norm_init, rope
 
 NEG_INF = -1e30
 Params = dict[str, Any]
@@ -30,6 +35,22 @@ def attn_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
               device="cpu", seed: int = 0) -> Params:
     d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim
     sp = cfg.sparsity
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        qk, lora = m.qk_nope_head_dim + m.qk_rope_head_dim, m.kv_lora_rank
+        return {
+            "wq": sl.init_linear(gen, d, H * qk, family="attn", sp=sp,
+                                 dtype=dtype, device=device, seed=seed),
+            "wkv_a": sl.init_dense(gen, d, lora + m.qk_rope_head_dim,
+                                   dtype=dtype, device=device),
+            "kv_norm": norm_init(lora, "rmsnorm", dtype, device),
+            "wkv_b": sl.init_dense(gen, lora,
+                                   H * (m.qk_nope_head_dim + m.v_head_dim),
+                                   dtype=dtype, device=device),
+            "wo": sl.init_linear(gen, H * m.v_head_dim, d, family="attn",
+                                 sp=sp, dtype=dtype, device=device,
+                                 seed=seed + 1),
+        }
     return {
         "wq": sl.init_linear(gen, d, H * hd, family="attn", sp=sp,
                              bias=cfg.qkv_bias, dtype=dtype, device=device,
@@ -102,8 +123,11 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
 
 def decode_attention(q, k_cache, v_cache, pos):
     """q [B,1,H,D] against caches [B,S,Hkv,D] whose slots 0..pos hold
-    tokens (scalar ``pos``) -> [B,1,H,D] in q's dtype.  Scores are fp32
-    products of q and k, masked past ``pos`` with NEG_INF; the normalized
+    tokens (scalar ``pos``) -> [B,1,H,D] in q's dtype.  A sliding
+    window's ring of S = window slots has every slot valid once ``pos >=
+    S``: the mask of slots past ``pos`` already keeps them all then, so
+    the ring needs no mask of its own.  Scores are fp32 products of q
+    and k, masked past ``pos`` with NEG_INF; the normalized
     probabilities are rounded to q's dtype before the fp32 PV product."""
     B, _, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -176,14 +200,17 @@ def gqa_forward(p: Params, x, cfg: ArchConfig, *, positions,
 
 def gqa_decode(p: Params, x, cfg: ArchConfig, cache: dict, pos: int):
     """Single-token decode of every row at position ``pos``: x [B,1,d],
-    cache {"k", "v": [B,S,Hkv,hd]} holding positions 0..pos-1.  The new
-    K / V (rope at ``pos``) go into slot ``pos`` in place; returns (out
-    [B,1,d], cache)."""
+    cache {"k", "v": [B,S,Hkv,hd]} holding positions 0..pos-1 (under a
+    sliding window the last S of them, position t at slot t % S).  The
+    new K / V (rope at ``pos``) go into slot ``pos`` (``pos % S``) in
+    place; returns (out [B,1,d], cache)."""
     B = x.shape[0]
     q, k_new, v_new = _qkv(p, x, cfg, torch.full((1,), pos,
                                                   device=x.device))
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    S = cache["k"].shape[1]
+    slot = pos % S if cfg.attn_kind == "sliding" else pos
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
     out = decode_attention(q, cache["k"], cache["v"], pos)
     out = sl.apply(p["wo"], out.reshape(B, 1, cfg.n_heads * cfg.head_dim))
     return out, cache
@@ -227,4 +254,91 @@ def gqa_prefill_paged(p: Params, x, cfg: ArchConfig, cache: dict, positions,
                             q_pos=positions,
                             kv_pos=torch.arange(maxp * ps, device=x.device))
     out = sl.apply(p["wo"], out.reshape(B, C, cfg.n_heads * hd))
+    return out, cache
+
+
+def _mla_dims(cfg: ArchConfig):
+    m = cfg.mla
+    return (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+            m.kv_lora_rank)
+
+
+def _mla_q(p: Params, x, cfg: ArchConfig, positions):
+    """(q_nope, q_rope roped at ``positions``), each [B,S,H,.]."""
+    nope, rd, _, _ = _mla_dims(cfg)
+    q = _split_heads(sl.apply(p["wq"], x), cfg.n_heads, nope + rd)
+    return q[..., :nope], rope(q[..., nope:], positions, cfg.rope_theta)
+
+
+def _mla_latent(p: Params, x, cfg: ArchConfig, positions):
+    """(latent [B,S,lora] rms-normed, k_rope [B,S,1,rd] roped)."""
+    lora = cfg.mla.kv_lora_rank
+    a = sl.apply_dense(p["wkv_a"], x)                       # [B,S,lora+rd]
+    latent = norm_apply(p["kv_norm"], a[..., :lora], "rmsnorm", cfg.norm_eps)
+    return latent, rope(a[..., lora:][:, :, None, :], positions,
+                        cfg.rope_theta)
+
+
+def mla_forward(p: Params, x, cfg: ArchConfig, *, positions):
+    """Multi-head latent attention, expanded form (training and prefill):
+    x [B,S,d], positions [S].  K and V come out of the latent through
+    ``wkv_b``; v is zero-padded to the qk width for ``chunked_attention``
+    and sliced after.  Returns (out [B,S,d], (latent [B,S,lora], k_rope
+    [B,S,rd])) for the compressed cache."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rd, vd, _ = _mla_dims(cfg)
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    latent, k_rope = _mla_latent(p, x, cfg, positions)
+    kvb = sl.apply_dense(p["wkv_b"], latent).reshape(B, S, H, nope + vd)
+    k = torch.cat([kvb[..., :nope], k_rope.expand(B, S, H, rd)], -1)
+    v = torch.nn.functional.pad(kvb[..., nope:], (0, nope + rd - vd))
+    out = chunked_attention(torch.cat([q_nope, q_rope], -1), k, v,
+                            causal=True, chunk=cfg.attn_chunk,
+                            q_pos=positions, kv_pos=positions)[..., :vd]
+    out = sl.apply(p["wo"], out.reshape(B, S, H * vd))
+    return out, (latent, k_rope[:, :, 0, :])
+
+
+def _rounded(t, dtype):
+    """t rounded to ``dtype``: one of the absorbed decode's four rounding
+    points, where the reference's einsums round their results."""
+    return t.to(dtype)
+
+
+def _einsum_as(eq, a, b, dtype):
+    """An einsum summed in fp32 and rounded to ``dtype``."""
+    return _rounded(torch.einsum(eq, a.float(), b.float()), dtype)
+
+
+def mla_decode(p: Params, x, cfg: ArchConfig, cache: dict, pos: int):
+    """Absorbed-form MLA decode of every row at position ``pos``: x
+    [B,1,d], cache {"latent": [B,S,lora], "k_rope": [B,S,rd]} holding
+    positions 0..pos-1.  The new latent and k_rope go into slot ``pos``
+    in place; ``wkv_b``'s K half is absorbed into q and its V half
+    applied after the latent-space PV product, so attention is scored
+    against the latent directly.  Scores are fp32; q_abs, the
+    probabilities, o_lat and the output are rounded to x's dtype, as the
+    reference's einsums round them.  Returns (out [B,1,d], cache)."""
+    B = x.shape[0]
+    H = cfg.n_heads
+    nope, rd, vd, lora = _mla_dims(cfg)
+    at = torch.full((1,), pos, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, at)
+    lat_new, kr_new = _mla_latent(p, x, cfg, at)
+    lat, kr = cache["latent"], cache["k_rope"]
+    lat[:, pos] = lat_new[:, 0].to(lat.dtype)
+    kr[:, pos] = kr_new[:, 0, 0].to(kr.dtype)
+    wkv_b = p["wkv_b"]["w"].reshape(lora, H, nope + vd).to(x.dtype)
+    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+    q_abs = _einsum_as("bqhn,lhn->bqhl", q_nope, w_uk, x.dtype)
+    s = (torch.einsum("bqhl,bsl->bhqs", q_abs.float(), lat.float())
+         + torch.einsum("bqhr,bsr->bhqs", q_rope.float(), kr.float()))
+    s = s / math.sqrt(nope + rd)
+    valid = torch.arange(lat.shape[1], device=x.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    pr = _rounded(torch.softmax(s, dim=-1), x.dtype)
+    o_lat = _einsum_as("bhqs,bsl->bqhl", pr, lat, x.dtype)
+    out = _einsum_as("bqhl,lhv->bqhv", o_lat, w_uv, x.dtype)
+    out = sl.apply(p["wo"], out.reshape(B, 1, H * vd))
     return out, cache

@@ -1,15 +1,21 @@
 """The model families: training forward and loss, the static serving
 cache and decode step, and serving over a block-paged KV cache.  A dense
-layer is attention and an MLP; a MoE layer is attention and
+layer is attention and an MLP; the vlm (llava) is a dense stack whose
+input is ``batch["patches"]`` (patch embeddings, the frontend stubbed)
+ahead of the token embeddings; a MoE layer is attention and
 ``models/moe.py``'s routed experts, whose load-balance losses sum into
-the forward's aux; an ssm layer (falcon-mamba) is a Mamba-1 block; the
-hybrid (zamba2) stacks super-blocks of ``hybrid_attn_every`` Mamba-2
-blocks, each super-block led by one attention-and-MLP block whose
-weights all super-blocks share (``params["shared_attn"]``).
+the forward's aux, after ``first_dense_layers`` dense layers
+(``params["dense_layers"]``, deepseek-v2); an ssm layer (falcon-mamba)
+is a Mamba-1 block; the hybrid (zamba2) stacks super-blocks of
+``hybrid_attn_every`` Mamba-2 blocks, each super-block led by one
+attention-and-MLP block whose weights all super-blocks share
+(``params["shared_attn"]``).  Attention is GQA (``attn_kind`` full, or
+sliding with a ring cache of ``window`` slots) or MLA (its cache the
+compressed latent).
 
 ``init(cfg, seed, device)``       -> params (fp32 masters, a list of
                                      layers; the hybrid's a list of lists)
-``forward(cfg, params, batch)``   -> (logits [B,S,V], cache, (aux, offset))
+``forward(cfg, params, batch)``   -> (logits [B,P+S,V], cache, (aux, P))
 ``loss_fn(cfg, params, batch)``   -> (loss, {"ce", "aux"}) next-token CE
 ``make_cache(cfg, B, S, device)`` -> the zeroed static cache
 ``cache_seq_axes(cfg)``           -> the sequence axis of each cache leaf
@@ -47,13 +53,9 @@ Params = dict[str, Any]
 
 
 def _check_family(cfg: ArchConfig, what: str) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise ValueError(f"family {cfg.family!r}: the port {what} the dense, "
-                         "moe, ssm and hybrid families only")
-    if cfg.family == "moe" and (cfg.moe.first_dense_layers
-                                or cfg.attn_kind == "mla"):
-        raise ValueError(f"{cfg.name}: MLA attention and dense first layers "
-                         "of a moe model are not ported")
+                         "vlm, moe, ssm and hybrid families only")
 
 
 def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
@@ -87,10 +89,18 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
                             for _ in range(cfg.n_layers // ev)]
         params["shared_attn"] = block("attn_mlp")
     else:
-        kind = {"dense": "attn_mlp", "moe": "attn_moe",
+        kind = {"dense": "attn_mlp", "vlm": "attn_mlp", "moe": "attn_moe",
                 "ssm": "mamba1"}[cfg.family]
-        params["layers"] = [block(kind) for _ in range(cfg.n_layers)]
+        nd = _n_dense(cfg)
+        if nd:
+            params["dense_layers"] = [block("attn_mlp") for _ in range(nd)]
+        params["layers"] = [block(kind) for _ in range(cfg.n_layers - nd)]
     return params
+
+
+def _n_dense(cfg: ArchConfig) -> int:
+    """The dense layers ahead of a MoE stack (deepseek-v2's first)."""
+    return cfg.moe.first_dense_layers if cfg.family == "moe" else 0
 
 
 def _ffn(lp, h, cfg: ArchConfig):
@@ -103,14 +113,19 @@ def _ffn(lp, h, cfg: ArchConfig):
 def _attn_mlp_block(lp, x, cfg: ArchConfig, positions, cache=None,
                     pos=None, decode: bool = False):
     """A decoder layer: (x, cache, aux).  The whole sequence at
-    ``positions`` hands back the layer's {"k", "v"}; ``decode`` runs one
-    token at ``pos`` against the layer's ``cache``, updated in place."""
+    ``positions`` hands back the layer's {"k", "v"} (MLA: {"latent",
+    "k_rope"}); ``decode`` runs one token at ``pos`` against the layer's
+    ``cache``, updated in place."""
     h = norm_apply(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+    mla = cfg.attn_kind == "mla"
     if decode:
-        a, new_cache = attn.gqa_decode(lp["attn"], h, cfg, cache, pos)
+        step = attn.mla_decode if mla else attn.gqa_decode
+        a, new_cache = step(lp["attn"], h, cfg, cache, pos)
     else:
-        a, (k, v) = attn.gqa_forward(lp["attn"], h, cfg, positions=positions)
-        new_cache = {"k": k, "v": v}
+        fwd = attn.mla_forward if mla else attn.gqa_forward
+        a, kv = fwd(lp["attn"], h, cfg, positions=positions)
+        new_cache = dict(zip(("latent", "k_rope") if mla else ("k", "v"),
+                             kv))
     x = x + a
     h = norm_apply(lp["norm2"], x, cfg.norm, cfg.norm_eps)
     m, aux = _ffn(lp, h, cfg)
@@ -155,31 +170,55 @@ def _tokens(params, batch):
                            device=params["embed"]["tok"].device)
 
 
+def _embed_in(cfg: ArchConfig, params, batch):
+    """The token embeddings, a vlm's ``batch["patches"]`` (cast to the
+    compute dtype) ahead of them: (x [B, P+S, d], P)."""
+    x = embed_tokens(params["embed"], _tokens(params, batch), cfg)
+    if cfg.family != "vlm" or "patches" not in batch:
+        return x, 0
+    patches = torch.as_tensor(batch["patches"], device=x.device)
+    return torch.cat([patches.to(x.dtype), x], dim=1), patches.shape[1]
+
+
+def _attn_stacks(params, cache=None):
+    """The attention-block stacks in order, each with its part of the
+    cache: a MoE model's dense first layers ("dense"), then the rest."""
+    if "dense_layers" not in params:
+        return [(params["layers"], cache)]
+    parts = (None, None) if cache is None else (cache["dense"], cache["moe"])
+    return list(zip((params["dense_layers"], params["layers"]), parts))
+
+
 def forward(cfg: ArchConfig, params: Params, batch, *,
             return_cache: bool = False, last_only: bool = False,
             return_hidden: bool = False):
-    """Training and prefill forward: batch {"tokens": [B, S]} (numpy or a
-    tensor).  Returns (logits [B,S,V] or the final-norm hidden state,
-    cache, (aux, offset)); aux is the layers' summed MoE load-balance
-    loss (0 for the other families) and offset 0.  ``return_cache``
-    stacks the layers' caches in ``make_cache``'s structure with the
-    prompt's S positions (else None); ``last_only`` keeps the last
-    position."""
+    """Training and prefill forward: batch {"tokens": [B, S]} and, for the
+    vlm, {"patches": [B, P, d]} (numpy or tensors).  Returns (logits
+    [B,P+S,V] or the final-norm hidden state, cache, (aux, P)); aux is
+    the layers' summed MoE load-balance loss (0 for the other families)
+    and P the patch count, the text's offset (0 without patches).
+    ``return_cache`` stacks the layers' caches in ``make_cache``'s
+    structure with the prefill's P+S positions (else None); ``last_only``
+    keeps the last position."""
     _check_family(cfg, "trains")
-    tokens = _tokens(params, batch)
-    x = embed_tokens(params["embed"], tokens, cfg)
+    x, off = _embed_in(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = 0.0
     cache = None
-    if cfg.family in ("dense", "moe"):
-        caches = []
-        for lp in params["layers"]:
-            x, c, a = _layer(_attn_mlp_block, lp, x, cfg, positions, cfg=cfg)
-            if return_cache:
-                caches.append(c)
-            aux = aux + a
+    if cfg.family in ("dense", "vlm", "moe"):
+        parts = []
+        for layers, _ in _attn_stacks(params):
+            caches = []
+            for lp in layers:
+                x, c, a = _layer(_attn_mlp_block, lp, x, cfg, positions,
+                                 cfg=cfg)
+                if return_cache:
+                    caches.append(c)
+                aux = aux + a
+            parts.append(caches)
         if return_cache:
-            cache = _stack(caches)
+            cache = (_stack(parts[0]) if len(parts) == 1 else
+                     {"dense": _stack(parts[0]), "moe": _stack(parts[1])})
     elif cfg.family == "ssm":
         zero = _ssm_zero(cfg, x.shape[0], x) if return_cache else None
         caches = []
@@ -209,26 +248,21 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
     if last_only:
         x = x[:, -1:]
     if return_hidden:
-        return x, cache, (aux, 0)
-    return unembed(params["embed"], x, cfg), cache, (aux, 0)
-
-
-def _check_static(cfg: ArchConfig) -> None:
-    _check_family(cfg, "serves")
-    if cfg.attn_kind not in ("full", "none"):
-        raise ValueError(f"attn_kind {cfg.attn_kind!r}: the port's static "
-                         "cache covers full attention only (no sliding "
-                         "ring buffer)")
+        return x, cache, (aux, off)
+    return unembed(params["embed"], x, cfg), cache, (aux, off)
 
 
 def make_cache(cfg: ArchConfig, batch: int, seq: int, device="cpu"):
     """Zeroed static cache on ``device``, K / V and conv states in the
-    compute dtype, ssm states in fp32: dense and moe {"k", "v": [L, B, S,
-    Hkv, hd]}; ssm {"conv": [L, B, K-1, di], "ssm": [L, B, di, N]};
+    compute dtype, ssm states in fp32: dense, vlm and moe {"k", "v": [L,
+    B, S, Hkv, hd]}, S = min(seq, window) under a sliding window (a
+    ring); MLA {"latent": [L, B, S, kv_lora], "k_rope": [L, B, S, rd]}; a
+    MoE model with dense first layers {"dense": <its nd layers>, "moe":
+    <the rest>}; ssm {"conv": [L, B, K-1, di], "ssm": [L, B, di, N]};
     hybrid {"attn": {"k", "v": [n_super, B, S, Hkv, hd]}, "ssm":
     {"conv": [n_super, ev, B, K-1, di+2N], "ssm": [n_super, ev, B, H,
     hd, N]}}."""
-    _check_static(cfg)
+    _check_family(cfg, "serves")
     dt = dict(dtype=cfg.compute_dtype, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     kv = (batch, seq, cfg.kv_heads, cfg.head_dim)
@@ -245,7 +279,24 @@ def make_cache(cfg: ArchConfig, batch: int, seq: int, device="cpu"):
                                              di + 2 * N), **dt),
                         "ssm": torch.zeros((ns, ev, batch, cfg.ssm_heads,
                                             cfg.ssm_head_dim, N), **f32)}}
-    return {k: torch.zeros((cfg.n_layers, *kv), **dt) for k in ("k", "v")}
+    nd = _n_dense(cfg)
+    if nd:
+        return {"dense": _attn_cache(cfg, nd, batch, seq, dt),
+                "moe": _attn_cache(cfg, cfg.n_layers - nd, batch, seq, dt)}
+    return _attn_cache(cfg, cfg.n_layers, batch, seq, dt)
+
+
+def _attn_cache(cfg: ArchConfig, n: int, batch: int, seq: int, dt: dict):
+    """``n`` attention layers' zeroed cache: MLA's latent and k_rope, else
+    K / V (a ring of min(seq, window) slots under a sliding window)."""
+    if cfg.attn_kind == "mla":
+        m = cfg.mla
+        return {"latent": torch.zeros((n, batch, seq, m.kv_lora_rank), **dt),
+                "k_rope": torch.zeros((n, batch, seq, m.qk_rope_head_dim),
+                                      **dt)}
+    S = min(seq, cfg.window) if cfg.attn_kind == "sliding" else seq
+    return {k: torch.zeros((n, batch, S, cfg.kv_heads, cfg.head_dim), **dt)
+            for k in ("k", "v")}
 
 
 def cache_seq_axes(cfg: ArchConfig):
@@ -253,14 +304,18 @@ def cache_seq_axes(cfg: ArchConfig):
     for a state leaf (conv and ssm states) whose shape does not grow with
     the sequence and is copied whole, for the static engine's cache
     growth."""
-    _check_static(cfg)
+    _check_family(cfg, "serves")
     SEQ, STATE = 2, -1
     if cfg.family == "ssm":
         return {"conv": STATE, "ssm": STATE}
     if cfg.family == "hybrid":
         return {"attn": {"k": SEQ, "v": SEQ},
                 "ssm": {"conv": STATE, "ssm": STATE}}
-    return {"k": SEQ, "v": SEQ}
+    keys = ("latent", "k_rope") if cfg.attn_kind == "mla" else ("k", "v")
+    axes = dict.fromkeys(keys, SEQ)
+    if _n_dense(cfg):
+        return {"dense": axes, "moe": dict(axes)}
+    return axes
 
 
 def _put(dst: dict, src: dict) -> None:
@@ -272,13 +327,14 @@ def decode_step(cfg: ArchConfig, params: Params, cache, token, pos: int):
     """One static decode step: token [B,1] int, ``pos`` the position every
     row writes (a host int).  Returns (logits [B,1,V], cache) with the
     cache updated in place."""
-    _check_static(cfg)
+    _check_family(cfg, "serves")
     x = embed_tokens(params["embed"], token, cfg)
-    if cfg.family in ("dense", "moe"):
-        for l, lp in enumerate(params["layers"]):
-            cache_l = {"k": cache["k"][l], "v": cache["v"][l]}   # views
-            x, _, _ = _attn_mlp_block(lp, x, cfg, None, cache=cache_l,
-                                      pos=pos, decode=True)
+    if cfg.family in ("dense", "vlm", "moe"):
+        for layers, part in _attn_stacks(params, cache):
+            for l, lp in enumerate(layers):
+                cache_l = {k: v[l] for k, v in part.items()}    # views
+                x, _, _ = _attn_mlp_block(lp, x, cfg, None, cache=cache_l,
+                                          pos=pos, decode=True)
     elif cfg.family == "ssm":
         for l, lp in enumerate(params["layers"]):
             cache_l = {"conv": cache["conv"][l], "ssm": cache["ssm"][l]}
@@ -311,10 +367,11 @@ def _chunk_ce(embed, h, labels, cfg):
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch):
-    """Mean next-token cross entropy.  With ``cfg.loss_chunk`` the
-    unembedding and CE run per sequence chunk (the largest divisor of the
-    label length not above the chunk), each recomputed in the backward,
-    so the [tokens, vocab] logits never exist at once."""
+    """Mean next-token cross entropy over the text (a vlm's patch
+    positions carry no label).  With ``cfg.loss_chunk`` the unembedding
+    and CE run per sequence chunk (the largest divisor of the label
+    length not above the chunk), each recomputed in the backward, so the
+    [tokens, vocab] logits never exist at once."""
     labels = _tokens(params, batch)[:, 1:]
     T = labels.shape[1]
     chunk = cfg.loss_chunk
@@ -324,11 +381,11 @@ def loss_fn(cfg: ArchConfig, params: Params, batch):
             c -= 1
         chunk = c if c > 1 else 0
     if not chunk:
-        logits, _, (aux, _) = forward(cfg, params, batch)
-        ce = torch.mean(softmax_xent(logits[:, :-1], labels))
+        logits, _, (aux, off) = forward(cfg, params, batch)
+        ce = torch.mean(softmax_xent(logits[:, off:off + T], labels))
         return ce + aux, {"ce": ce, "aux": aux}
-    hidden, _, (aux, _) = forward(cfg, params, batch, return_hidden=True)
-    hs = hidden[:, :-1]
+    hidden, _, (aux, off) = forward(cfg, params, batch, return_hidden=True)
+    hs = hidden[:, off:off + T]
     B = hs.shape[0]
     total = hs.new_zeros((), dtype=torch.float32)
     for c0 in range(0, T, chunk):

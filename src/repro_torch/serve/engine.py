@@ -5,9 +5,12 @@ over a block-paged KV cache.  Both share ``ServeConfig``.
 (models/model.forward with its cache), then every row decodes in
 lockstep against a contiguous cache (``decode_step``) until
 ``max_new_tokens``; a finished row keeps decoding into its own slots and
-is masked to eos.  The cache holds K / V by position and, for the ssm
-and hybrid families, each layer's conv and ssm state
-(``Engine._grow_cache``).  Shapes never change, so it is the simplest
+is masked to eos.  A vlm's patches (``generate``'s ``extra_inputs``)
+prefill ahead of the prompt, so decode positions start at the prefill's
+length, patches included.  The cache holds K / V by position (under a
+sliding window a ring: position p at slot p % window), MLA's latent and
+k_rope, and, for the ssm and hybrid families, each layer's conv and ssm
+state (``Engine._grow_cache``).  Shapes never change, so it is the simplest
 pattern, but a batch is as slow as its longest request.  Every sparse FFN
 junction runs through kernels/block_sparse_matmul.fwd / gated_fwd (the
 int8 kernels under ``quantize="int8"``); attention is the plain
@@ -193,15 +196,20 @@ class Engine:
         bad = ~torch.isfinite(logits2d).all(dim=-1)
         return bad, torch.where(bad[:, None], 0.0, logits2d)
 
-    def generate(self, prompts: np.ndarray) -> np.ndarray:
-        """prompts [B, S] int -> tokens [B, max_new_tokens] int32."""
+    def generate(self, prompts: np.ndarray,
+                 extra_inputs: dict | None = None) -> np.ndarray:
+        """prompts [B, S] int (and, for the vlm, ``extra_inputs``
+        {"patches": [B, P, d]}) -> tokens [B, max_new_tokens] int32."""
         self.nonfinite_terminated = 0   # before any branch: never stale
         scfg, dev = self.scfg, self.device
-        B, S = prompts.shape
-        total = S + scfg.max_new_tokens
-        tokens = torch.from_numpy(np.asarray(prompts, np.int32)).to(dev)
-        logits, cache = self._prefill(self.params, {"tokens": tokens})
-        cache = self._grow_cache(cache, B, total, S)
+        B = prompts.shape[0]
+        batch = {"tokens": torch.from_numpy(
+            np.asarray(prompts, np.int32)).to(dev)}
+        for k, v in (extra_inputs or {}).items():
+            batch[k] = torch.as_tensor(np.asarray(v), device=dev)
+        # S: the prefill's positions, side inputs ahead of the prompt
+        logits, cache, S = self._prefill(self.params, batch)
+        cache = self._grow_cache(cache, B, S + scfg.max_new_tokens, S)
         gen = torch.Generator(device=dev)
         gen.manual_seed(scfg.seed)
         guard, eos = scfg.guard_nonfinite, scfg.eos_token
@@ -239,8 +247,10 @@ class Engine:
     def _grow_cache(self, cache, B: int, total: int, S: int):
         """The prefill cache (sequence S) copied into a static cache of
         ``total`` positions, by ``M.cache_seq_axes``: a sequence leaf at
-        position 0 of its sequence axis, zeros beyond; a state leaf (axis
-        -1: conv and ssm states) whole."""
+        position 0 of its sequence axis, zeros beyond; a sliding window's
+        ring (W < S slots) keeps the last W positions, position p at slot
+        p % W, where decode reads and writes it; a state leaf (axis -1:
+        conv and ssm states) whole."""
         full = M.make_cache(self.cfg, B, total, self.device)
 
         def place(ax, dst, src):
@@ -249,7 +259,12 @@ class Engine:
                     raise ValueError(f"state leaf {tuple(src.shape)} does "
                                      f"not fit {tuple(dst.shape)}")
                 return dst.copy_(src)
-            dst.narrow(ax, 0, S).copy_(src)
+            W = dst.shape[ax]
+            if S <= W:
+                dst.narrow(ax, 0, S).copy_(src)
+            else:
+                dst.copy_(torch.roll(src.narrow(ax, S - W, W), (S - W) % W,
+                                     ax))
             return dst
 
         return tree_map(place, M.cache_seq_axes(self.cfg), full, cache)

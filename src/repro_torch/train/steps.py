@@ -1,11 +1,12 @@
 """Train, eval and static serving step functions.
 
 ``make_prefill_step(cfg)`` and ``make_decode_step(cfg)`` are the static
-engine's (serve/engine.Engine): a prompt batch's last logits and its
-cache, then one step-locked decode step.  ``make_train_step(cfg,
+engine's (serve/engine.Engine): a prompt batch's last logits, its
+cache and its length, then one step-locked decode step.  ``make_train_step(cfg,
 optimizer)`` returns
 ``train_step(params, opt_state, batch, step[, lr_scale]) ->
-(params, opt_state, metrics)``.  The two-pass step materialises the
+(params, opt_state, metrics)``; the batch goes to ``M.loss_fn`` as
+the pipeline made it (a vlm's patches with its tokens).  The two-pass step materialises the
 gradients (junctions through the dx and dw kernels) and applies
 ``optimizer.update``; it leaves its input trees as they were.  The fused
 BP+UP step injects the optimizer's slots and hyp row into the junction
@@ -232,12 +233,16 @@ def make_eval_step(cfg: ArchConfig):
 
 def make_prefill_step(cfg: ArchConfig):
     """prefill(params, batch) -> (logits [B,1,V] at the last position,
-    cache {"k", "v": [L, B, S, Hkv, hd]})."""
+    the cache in ``M.make_cache``'s structure over the prefill's
+    positions, their count P + S).  ``batch`` holds "tokens" [B, S] and,
+    for the vlm, "patches" [B, P, d], prefilled ahead of the tokens: the
+    model alone decides what comes ahead of them."""
     def prefill(params, batch):
         with torch.no_grad():
-            logits, cache, _ = M.forward(cfg, params, batch,
-                                         return_cache=True, last_only=True)
-        return logits, cache
+            logits, cache, (_, off) = M.forward(cfg, params, batch,
+                                                return_cache=True,
+                                                last_only=True)
+        return logits, cache, off + batch["tokens"].shape[1]
     return prefill
 
 

@@ -1,6 +1,6 @@
-"""Every architecture of the port's families (dense, moe, ssm, hybrid) at
-its ``reduced()`` config on the CPU, and the five configs no port test
-named before this file held against the JAX reference.
+"""Every architecture of the port's families (dense, vlm, moe, ssm,
+hybrid) at its ``reduced()`` config on the CPU, and the five configs no
+port test named before this file held against the JAX reference.
 
 * Smoke (the twin of tests/test_archs_smoke.py): forward and loss, one
   Adam step that moves the params, one decode step, and the sparse
@@ -13,7 +13,7 @@ named before this file held against the JAX reference.
   compute; the reference runs engine "jnp".
 * Contracts: the static cache's state leaves (shapes, axes, growth copied
   whole), the paged path's refusals equal to the reference's, the
-  families and attention kinds still refused, a hybrid checkpoint that
+  family still refused (audio), a hybrid checkpoint that
   restores bit for bit, the fused update paths on the ssm tree, and the
   launchers on both new families.
 
@@ -57,20 +57,16 @@ from repro_torch.serve.engine import ContinuousEngine, Engine, ServeConfig
 from repro_torch.train import checkpoint as ckpt_mod
 from repro_torch.train.steps import fused_update_eligible, make_train_step
 from repro_torch.tree import tree_items, tree_map
+from torch_parity_helpers import close_trees, noise_slack
 
 LOGIT_ATOL = 2e-4
 LOSS_RTOL = 1e-5
 TREE_TOL = dict(rtol=5e-4, atol=5e-5)
-PORTED = [a for a, c in treg.ARCHS.items()
-          if c.family in ("dense", "moe", "ssm", "hybrid")
-          and c.attn_kind in ("full", "none")
-          and not (c.moe and c.moe.first_dense_layers)]
+PORTED = [a for a, c in treg.ARCHS.items() if c.family != "audio"]
 PARITY = ("qwen2-72b", "deepseek-7b", "command-r-plus-104b",
           "falcon-mamba-7b", "zamba2-2.7b")
 STATE_ARCHS = ("falcon-mamba-7b", "zamba2-2.7b")
-REFUSED = {"llava-next-mistral-7b": "family 'vlm'",
-           "whisper-base": "family 'audio'",
-           "deepseek-v2-lite-16b": "MLA attention"}
+REFUSED = {"whisper-base": "family 'audio'"}
 B, S = 2, 32
 
 
@@ -95,9 +91,12 @@ def _floats(tree):
 
 # ----------------------------------------------------------------- smoke
 def test_ported_archs_are_the_four_families():
+    """Every family but audio: dense, vlm, moe (with MLA and a dense first
+    layer), ssm and hybrid."""
     assert set(PORTED) == {"stablelm-3b", "qwen2-72b", "deepseek-7b",
                            "command-r-plus-104b", "falcon-mamba-7b",
-                           "zamba2-2.7b", "qwen3-moe-30b-a3b"}
+                           "zamba2-2.7b", "qwen3-moe-30b-a3b",
+                           "llava-next-mistral-7b", "deepseek-v2-lite-16b"}
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -177,46 +176,6 @@ def pair(request):
     return _pair(request.param)
 
 
-def _close(got, want, slack=None, **tol):
-    """A port tree against a reference tree carried into the port's
-    layout: the same leaves, floats within ``tol``, integers equal.
-    ``slack`` ({path: per-element bound}) widens the comparison of the
-    elements it names, for at most one element in 10^4 of a leaf."""
-    g, w = dict(tree_items(got)), dict(tree_items(want))
-    assert g.keys() == w.keys()
-    slack = slack or {}
-    for k, t in g.items():
-        if not torch.is_tensor(t):
-            continue
-        if not t.is_floating_point():
-            assert torch.equal(t, w[k]), k
-            continue
-        a, b = t.float().numpy(), w[k].float().numpy()
-        bound = tol["atol"] + tol["rtol"] * np.abs(b)
-        if k in slack:
-            wide = np.abs(a - b) > bound
-            assert wide.sum() <= max(1, a.size // 10 ** 4), k
-            bound = bound + slack[k]
-        if not (np.abs(a - b) <= bound).all():
-            np.testing.assert_allclose(a, b, err_msg=k, **tol)
-
-
-def _noise_slack(tm, jm, lr, b1=0.9):
-    """Adam's first step moves a weight by lr * g / (|g| + eps): where g
-    sits at the summation-order noise floor (below 1e-5 of its leaf's
-    largest, or of opposite signs on the two sides) that is anything in
-    [-lr, lr] on either side, so such an element may differ by 2 lr
-    (tests/test_torch_moe.py's rule).  g = m / (1 - b1) after one step."""
-    out = {}
-    want = dict(tree_items(jm))
-    for k, t in tree_items(tm):
-        if not (torch.is_tensor(t) and t.is_floating_point() and t.dim()):
-            continue
-        g, gr = t.numpy() / (1 - b1), want[k].numpy() / (1 - b1)
-        floor = ((np.sign(g) != np.sign(gr))
-                 | (np.abs(gr) <= 1e-5 * np.abs(gr).max()))
-        out[k] = 2 * lr * (1 + 1e-5) * floor
-    return out
 
 
 def test_params_carry_in_the_ports_layout(pair):
@@ -260,10 +219,10 @@ def test_two_pass_adam_step_matches_reference(pair):
     assert abs(float(tm["loss"]) - float(jm["loss"])) <= LOSS_RTOL * abs(
         float(jm["loss"]))
     jstate = from_jax_opt_state(jax.tree.map(np.asarray, js))
-    slack = _noise_slack(ts["m"], jstate["m"], 1e-3)
-    _close(tp, from_jax_params(jax.tree.map(np.asarray, jp)), slack,
+    slack = noise_slack(ts["m"], jstate["m"], 1e-3)
+    close_trees(tp, from_jax_params(jax.tree.map(np.asarray, jp)), slack,
            **TREE_TOL)
-    _close(ts, jstate, **TREE_TOL)
+    close_trees(ts, jstate, **TREE_TOL)
 
 
 def test_prefill_and_decode_step_match_reference(pair):
@@ -281,7 +240,7 @@ def test_prefill_and_decode_step_match_reference(pair):
                                rtol=0)
     jc = from_jax_params({"layers": {}, "c": jax.tree.map(np.asarray, jc)}
                          )["c"]
-    _close(tc, jc, atol=LOGIT_ATOL, rtol=0)
+    close_trees(tc, jc, atol=LOGIT_ATOL, rtol=0)
     n = toks.shape[1]
     tok = np.argmax(np.asarray(jl)[:, -1], axis=-1).astype(np.int32)[:, None]
     jfull = JEngine(jcfg, jparams)._grow_cache(
@@ -297,7 +256,7 @@ def test_prefill_and_decode_step_match_reference(pair):
     assert tnew is tfull
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=LOGIT_ATOL,
                                rtol=0)
-    _close(tnew, from_jax_params({"layers": {}, "c": jax.tree.map(
+    close_trees(tnew, from_jax_params({"layers": {}, "c": jax.tree.map(
         np.asarray, jnew)})["c"], atol=LOGIT_ATOL, rtol=0)
 
 
@@ -386,16 +345,8 @@ def test_unported_families_and_attention_still_refused(arch):
         TM.make_cache(cfg, 1, 8)
     with pytest.raises(ValueError):
         Engine(cfg, {}, device="cpu")
-    if cfg.family in ("vlm", "audio"):
-        with pytest.raises(ValueError, match="token batches only"):
-            next(LMTokenPipeline(cfg, 2, 16))
-
-
-def test_sliding_attention_refused_by_the_static_cache():
-    cfg = dataclasses.replace(treg.get("stablelm-3b").reduced(),
-                              attn_kind="sliding", window=16)
-    with pytest.raises(ValueError, match="no sliding"):
-        TM.make_cache(cfg, 1, 8)
+    with pytest.raises(ValueError, match="no audio frames"):
+        next(LMTokenPipeline(cfg, 2, 16))
 
 
 @pytest.mark.parametrize("arch", STATE_ARCHS)
@@ -459,8 +410,8 @@ def test_fused_update_on_the_ssm_tree(kind):
     assert abs(float(m1["loss"]) - float(m0["loss"])) <= LOSS_RTOL * abs(
         float(m0["loss"]))
     assert float(m1["nonfinite"]) == 0
-    _close(p1, p0, **TREE_TOL)
-    _close(s1, s0, **TREE_TOL)
+    close_trees(p1, p0, **TREE_TOL)
+    close_trees(s1, s0, **TREE_TOL)
 
 
 def test_hybrid_refuses_the_fused_update():
@@ -514,7 +465,13 @@ def _cu_int(name, const):
     ("zamba2-2.7b", "wi", 2560, 10240, 5),
     ("zamba2-2.7b", "wo", 10240, 2560, 20),
     ("qwen2-72b", "wo", 29568, 8192, 58),
-    ("command-r-plus-104b", "wo", 33792, 12288, 66)])
+    ("command-r-plus-104b", "wo", 33792, 12288, 66),
+    ("llava-next-mistral-7b", "wi", 4096, 14336, 8),
+    ("llava-next-mistral-7b", "wo", 14336, 4096, 28),
+    ("deepseek-v2-lite-16b", "expert in", 2048, 1408, 4),
+    ("deepseek-v2-lite-16b", "expert out", 1408, 2048, 3),
+    ("deepseek-v2-lite-16b", "shared wi", 2048, 2816, 4),
+    ("deepseek-v2-lite-16b", "shared wo", 2816, 2048, 6)])
 def test_new_junction_shapes_fit_the_kernels(arch, junction, n_in, n_out,
                                              kb):
     """The junctions these configs bring to the kernels (kb up to 66, 41

@@ -231,13 +231,16 @@ def _update_case(dtype, opt, hyp=None, poison=False):
     vg, vi = np.abs(mg) * 0.1, np.abs(mi) * 0.1
     hyp = _hyp(opt, 2) if hyp is None else hyp
     use_m, use_v = opt != "sgd", opt == "adam"
-    jout = jbsm.update_gated_dw(
+    # the port updates its operands in place, and in fp32 they share
+    # their host buffers with the reference's: the reference finishes
+    # reading them before the port starts
+    jout = jax.block_until_ready(jbsm.update_gated_dw(
         *(_j(a[k], dtype) for k in ("x", "dh")), pat.idx,
         *(_j(a[k], dtype) for k in ("g", "u", "wg", "wi")),
         jnp.asarray(mg) if use_m else None, jnp.asarray(mi) if use_m else None,
         jnp.asarray(hyp), vg=jnp.asarray(vg) if use_v else None,
         vi=jnp.asarray(vi) if use_v else None, with_health=True,
-        interpret=True)
+        interpret=True))
     t = dict(wg=_t(a["wg"], dtype), wi=_t(a["wi"], dtype),
              mg=torch.from_numpy(mg) if use_m else None,
              mi=torch.from_numpy(mi) if use_m else None,

@@ -17,6 +17,7 @@ value differs in its last bit between the two activation gradients
 (other tanh / exp) can round to the neighbouring bf16 value, moving dw
 by |x| * ulp(dz): atol 1e-3 for bf16 dw.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,7 +182,10 @@ def _update_case(shape, dtype, E, act, bias, opt, hyp=None, poison=()):
     hyp = _hyp(opt, E) if hyp is None else hyp
     res = a["res"] if act != "none" else None
     use_m, use_v = opt != "sgd", opt == "adam"
-    jout = jbsm.update_dw(
+    # the port updates its operands in place, and in fp32 they share
+    # their host buffers with the reference's: the reference finishes
+    # reading them before the port starts
+    jout = jax.block_until_ready(jbsm.update_dw(
         _j(a["x"], dtype), _j(a["dy"], dtype), pat.idx,
         None if res is None else _j(res, dtype), _j(a["w"], dtype),
         _j(a["b"], dtype) if bias else None,
@@ -189,7 +193,7 @@ def _update_case(shape, dtype, E, act, bias, opt, hyp=None, poison=()):
         jnp.asarray(mom_b) if use_m and bias else None, jnp.asarray(hyp),
         vel=jnp.asarray(vel) if use_v else None,
         vel_b=jnp.asarray(vel_b) if use_v and bias else None, act=act,
-        with_bias=bias, with_health=True, interpret=True)
+        with_bias=bias, with_health=True, interpret=True))
     t = dict(w=_t(a["w"], dtype), b=_t(a["b"], dtype),
              mom=torch.from_numpy(mom) if use_m else None,
              mom_b=torch.from_numpy(mom_b) if use_m and bias else None,

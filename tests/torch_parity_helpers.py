@@ -1,0 +1,50 @@
+"""What the family parity tests share (test_torch_archs.py,
+test_torch_vlm.py, test_torch_mla.py): a port tree held against a
+reference tree carried into the port's layout, and the slack of Adam's
+first step where a gradient sits at the summation-order noise floor."""
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_items
+
+
+def close_trees(got, want, slack=None, **tol):
+    """A port tree against a reference tree carried into the port's
+    layout: the same leaves, floats within ``tol``, integers equal.
+    ``slack`` ({path: per-element bound}) widens the comparison of the
+    elements it names, for at most one element in 10^4 of a leaf."""
+    g, w = dict(tree_items(got)), dict(tree_items(want))
+    assert g.keys() == w.keys()
+    slack = slack or {}
+    for k, t in g.items():
+        if not torch.is_tensor(t):
+            continue
+        if not t.is_floating_point():
+            assert torch.equal(t, w[k]), k
+            continue
+        a, b = t.float().numpy(), w[k].float().numpy()
+        bound = tol["atol"] + tol["rtol"] * np.abs(b)
+        if k in slack:
+            wide = np.abs(a - b) > bound
+            assert wide.sum() <= max(1, a.size // 10 ** 4), k
+            bound = bound + slack[k]
+        if not (np.abs(a - b) <= bound).all():
+            np.testing.assert_allclose(a, b, err_msg=k, **tol)
+
+
+def noise_slack(tm, jm, lr, b1=0.9):
+    """Adam's first step moves a weight by lr * g / (|g| + eps): where g
+    sits at the summation-order noise floor (below 1e-5 of its leaf's
+    largest, or of opposite signs on the two sides) that is anything in
+    [-lr, lr] on either side, so such an element may differ by 2 lr
+    (tests/test_torch_moe.py's rule).  g = m / (1 - b1) after one step."""
+    out = {}
+    want = dict(tree_items(jm))
+    for k, t in tree_items(tm):
+        if not (torch.is_tensor(t) and t.is_floating_point() and t.dim()):
+            continue
+        g, gr = t.numpy() / (1 - b1), want[k].numpy() / (1 - b1)
+        floor = ((np.sign(g) != np.sign(gr))
+                 | (np.abs(gr) <= 1e-5 * np.abs(gr).max()))
+        out[k] = 2 * lr * (1 + 1e-5) * floor
+    return out
