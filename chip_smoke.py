@@ -161,14 +161,29 @@ PyTorch built for CUDA.  It
    bring, 8 and 256 rows a unit (deepseek's experts at E 64), against the
    junction in fp64 (``fwd_held``, ``gated_held``) beside controls that
    must fail;
-16. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
+16. serves full-size sparse whisper-base (6 encoder and 6 decoder
+   layers, 1500 stub frames a request feeding the encoder, learned
+   decoder positions) on the static engine in bf16 and int8, with exact
+   launch counts (the encoder in the prefill alone) and the prefill and
+   one decode step against the plain versions; trains it at full size on
+   the three update paths, one step at 2 + 2 layers against the plain
+   versions; holds fwd at its two junctions (kb 1 with the gelu
+   epilogue, kb 4) at 8, 256 and 8 x 1500 rows against the junction in
+   fp64 beside controls that must fail; then runs ``launch/train.py
+   --compress-grads`` (int8 gradients with error feedback, the two-pass
+   step) for 3 Adam steps on stablelm-3b at full width and 2 layers and
+   on whisper-base: finite losses and residuals, exact launch counts (no
+   update_dw), the compression of one step's gradients on the card equal
+   bit for bit to the CPU's, and the reference's property of compression
+   (a 2 % restore, a residual that does not grow past 1.5 x);
+17. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
    fixed point, ``core/paper_net.py``) on ``paper_dataset``, sequential and
    junction-pipelined: over the first 1024 inputs the card and the CPU give
    the same params, corrects and forward outputs bit for bit; one full
    12544-input epoch of each on the card is timed and must reach the
    reference's accuracy contracts (above 0.8 sequential, 0.75 pipelined);
    the FPGA model's block cycle and arithmetic units are printed;
-17. prints a ``kernels`` JSON line and, last, a JSON line with
+18. prints a ``kernels`` JSON line and, last, a JSON line with
    ``"ok": true`` and the device.
 
 Any failed check raises and the exit code is not 0.  Without a card, or
@@ -180,6 +195,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import shutil
 import statistics
@@ -776,14 +792,17 @@ def _ffn_tiles(cfg, d_ff) -> bool:
     return cfg.d_model % bs == 0 and d_ff % bs == 0 and cfg.d_model >= 2 * bs
 
 
-def junction_calls(cfg, quantized=False) -> dict:
+def junction_calls(cfg, quantized=False, encoder=True) -> dict:
     """The junction launches of one model call (a prefill, a decode step,
     a training forward) by kernel: a dense or vlm layer's three FFN
     junctions; a MoE layer's gate (one gated junction) and down junction,
     its shared experts' three, and a dense first layer's three where its
     width tiles; a Mamba-1 layer's in_proj and out_proj; a Mamba-2 layer's
     in_z, in_xbc and out_proj, and the hybrid's shared MLP (wg, wi, wo)
-    once a super-block.  Quantized, each runs its int8 kernel but the
+    once a super-block; a whisper decoder layer's two (wi with the gelu
+    epilogue, wo) and, where the call runs the encoder (``encoder``: a
+    prefill or a training forward, not a decode step), each encoder
+    layer's two.  Quantized, each runs its int8 kernel but the
     shared experts: ``quantize_tree`` quantizes a MoE dict as one
     junction and leaves its "shared" MLP as it was (as the reference's
     does), so those stay on ``fwd``."""
@@ -801,13 +820,24 @@ def junction_calls(cfg, quantized=False) -> dict:
         n = {"dense": {"fwd": 3 * L}, "vlm": {"fwd": 3 * L},
              "ssm": {"fwd": 2 * L},
              "hybrid": {"fwd": 3 * L + 3 * (L // max(1,
-                                                     cfg.hybrid_attn_every))}
+                                                     cfg.hybrid_attn_every))},
+             "audio": {"fwd": 2 * (L + (cfg.enc_layers if encoder else 0))}
              }[cfg.family]
     if not quantized:
         n["fwd"] += shared
         return {f"junction_{k}": v for k, v in n.items()}
     out = {f"junction_{k}_int8": v for k, v in n.items()}
     return {**out, "junction_fwd": shared} if shared else out
+
+
+def serve_calls(cfg, quantized, n_decode) -> dict:
+    """The junction launches of a static prefill and ``n_decode`` decode
+    steps after it (``junction_calls``: whisper's encoder runs in the
+    prefill only)."""
+    out = collections.Counter(junction_calls(cfg, quantized))
+    for k, n in junction_calls(cfg, quantized, encoder=False).items():
+        out[k] += n_decode * n
+    return dict(out)
 
 
 def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None,
@@ -3136,9 +3166,9 @@ STATIC_STEPS = 16
 
 
 def _launcher_inputs(cfg, n=8, length=32):
-    """The prompts launch/serve.py makes (seed 0) and its side inputs: a
-    vlm's patches, min(num_patches, length // 2) a request, from the same
-    rng after the prompts."""
+    """The prompts launch/serve.py makes (seed 0) and its side inputs from
+    the same rng after the prompts: a vlm's patches, min(num_patches,
+    length // 2) a request; whisper's enc_frames frames a request."""
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.raw_vocab or cfg.vocab,
                            size=(n, length)).astype(np.int32)
@@ -3147,6 +3177,9 @@ def _launcher_inputs(cfg, n=8, length=32):
         extra["patches"] = rng.standard_normal(
             (n, min(cfg.num_patches, length // 2), cfg.d_model)
         ).astype(np.float32)
+    if cfg.family == "audio":
+        extra["frames"] = rng.standard_normal(
+            (n, cfg.enc_frames, cfg.d_model)).astype(np.float32)
     return prompts, extra
 
 
@@ -3213,13 +3246,16 @@ def static_step_breakdown(P, eng, prompts, extra, name, card):
 
 
 def compare_static_logits(P, cfg, params, prompts, extra, quantized, card,
-                          gate_bf16=True):
+                          gate_bf16=True, gate_fp32=True):
     """The static prefill and one decode step through the kernels and
     through their plain versions on the card, in bf16 and fp32, within
     LOGIT_REL_TOL of max |logit| (attention is plain PyTorch on both).
     Without ``gate_bf16`` the bf16 gaps are printed and not gated: the
     caller holds every bf16 kernel launch and every block on the same
-    inputs instead (``ssm_layer_gaps``).  Beside them, how far each bf16
+    inputs instead (``ssm_layer_gaps``); without ``gate_fp32`` the fp32
+    gaps likewise: the caller holds every int8 launch on its own inputs
+    and the logits with the kernels' activation codes fed
+    (``int8_code_gaps``).  Beside them, how far each bf16
     path lies from the plain fp32 one: where the plain bf16 path lies as
     far, the gap is bf16's own rounding grown with depth."""
     # quantized, the floating-point junctions left (deepseek-v2's shared
@@ -3241,8 +3277,7 @@ def compare_static_logits(P, cfg, params, prompts, extra, quantized, card,
             p_pf, p_dec = _static_steps(P, c, params, prompts, extra)
         torch.cuda.synchronize()
         want = dict.fromkeys(kc, 0)
-        want.update({k: 2 * n for k, n in
-                     junction_calls(c, quantized).items()})
+        want.update(serve_calls(c, quantized, 1))
         again = {k: n if k in plain else 2 * n for k, n in kc.items()}
         require(kc == want and P.ops.launch_counts() == again,
                 f"static logit comparison took other paths: {kc} then "
@@ -3253,14 +3288,17 @@ def compare_static_logits(P, cfg, params, prompts, extra, quantized, card,
             require(bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
                     f"static {what} logits not finite")
             rel = max_err(a, b) / float(b.abs().max())
-            gated = gate_bf16 or dtype != torch.bfloat16
+            gated = gate_bf16 if dtype == torch.bfloat16 else gate_fp32
+            held = ("every launch and block held on the same inputs, "
+                    "[held] and [gap] lines" if dtype == torch.bfloat16
+                    else "every int8 launch held on its own inputs, the "
+                    "logits with the kernels' codes fed, [codes] lines")
             print(f"[logits] {cfg.name} static {what} "
                   f"{'int8 ' if quantized else ''}{str(dtype)[6:]} kernels "
                   f"vs plain versions: max_abs_err={max_err(a, b):.4g} "
                   f"max|logit|={float(b.abs().max()):.4g} rel={rel:.3g} "
                   + (f"(tol {LOGIT_REL_TOL[dtype]})" if gated else
-                     "(printed; every launch and block held on the same "
-                     "inputs, [held] and [gap] lines)")
+                     f"(printed; {held})")
                   + f" [{card}]")
             require(not gated or rel <= LOGIT_REL_TOL[dtype],
                     f"static {what} {dtype} logits differ")
@@ -3270,6 +3308,76 @@ def compare_static_logits(P, cfg, params, prompts, extra, quantized, card,
               f"{'int8 ' if quantized else ''}bf16 against the plain fp32 "
               f"path: plain bf16 rel={_rel(pb, pf):.3g}, kernels bf16 "
               f"rel={_rel(kb, pf):.3g} [{card}]")
+
+
+def _int8_codes(P, x):
+    """The activation codes the int8 junction makes of ``x`` [E, M, n_in]
+    (per row and input block, dynamic scale; ``bsm.int8_sums``)."""
+    xb = x.float().reshape(*x.shape[:-1], -1, BS)
+    sx = P.bsm._slot_scale(xb, None)
+    return torch.clamp(torch.round(xb / sx), -127, 127)
+
+
+def int8_code_gaps(P, cfg, params, prompts, extra, card):
+    """The fp32 int8 static prefill and one decode step through the
+    kernels and through their plain versions, launch by launch: every
+    ``fwd_int8`` launch against its plain version on the launch's own
+    inputs within QUANT_TOL; the activation codes of each launch's input
+    on the two paths, counted where they differ (an fp32 ulp of one
+    junction's output moves a later activation across a rounding
+    boundary of its code); then the plain path again with each int8
+    junction fed the kernel path's input: its logits within
+    LOGIT_REL_TOL of the kernels' (the codes fed, only the arithmetic of
+    the launches and the ops between them differs)."""
+    c = dataclasses.replace(cfg, dtype="float32")
+    real, ref = P.bsm.fwd_int8, P.bsm.fwd_int8_ref
+
+    def trace(fn, feed=None):
+        seen = []
+
+        def call(x, *a, **kw):
+            if feed is not None:
+                x = feed[len(seen)]
+            out = fn(x, *a, **kw)
+            seen.append((x.detach().clone(), a, kw, out.detach()))
+            return out
+
+        call.launches = real.launches
+        with mock.patch.object(P.bsm, "fwd_int8", call):
+            logits = _static_steps(P, c, params, prompts, extra)
+        real.launches = call.launches
+        return torch.stack(logits, 1), seen
+
+    kl, ks = trace(real)
+    pl, ps = trace(ref)
+    rl, _ = trace(ref, [x for x, _, _, _ in ks])
+    require(len(ks) == len(ps), "the int8 paths ran other launches")
+    worst, gap, n_exact, n_codes, n_flips, flipped = (-1.0, 0.0, 0, 0, 0,
+                                                      0)
+    tol = QUANT_TOL[torch.float32]
+    for (x, a, kw, out), (px, _, _, _) in zip(ks, ps):
+        want = ref(x, *a, **kw)
+        err = (out - want).abs() - tol["atol"] - tol["rtol"] * want.abs()
+        worst = max(worst, float(err.max()))
+        gap = max(gap, max_err(out, want))
+        n_exact += bits_equal(out, want)
+        flips = int((_int8_codes(P, x) != _int8_codes(P, px)).sum())
+        n_codes += x.numel()
+        n_flips += flips
+        flipped += flips > 0
+    print(f"[codes] {cfg.name} int8 fp32 prefill and decode step: "
+          f"{len(ks)} fwd_int8 launches, each against its plain version on "
+          f"its own inputs: max_abs_err {gap:.3g}, {n_exact} bit for bit, "
+          f"largest excess over QUANT_TOL {worst:.3g} (<= 0); activation "
+          f"codes that differ between the two paths "
+          f"{n_flips} of {n_codes} in {flipped} launches; logits kernels vs "
+          f"plain rel {_rel(kl, pl):.4g}, vs plain fed the kernels' "
+          f"junction inputs rel {_rel(kl, rl):.4g} (tol "
+          f"{LOGIT_REL_TOL[torch.float32]}) [{card}]")
+    require(worst <= 0.0, f"{cfg.name}: an fwd_int8 launch differs from its "
+            "plain version on its own inputs")
+    require(_rel(kl, rl) <= LOGIT_REL_TOL[torch.float32],
+            f"{cfg.name}: int8 fp32 logits differ with the codes fed")
 
 
 def _continuous(P, cfg, params, prompts, new=16):
@@ -3350,8 +3458,7 @@ def static_serve_run(P, card, arch, quant=None, layers=0, gaps=False):
     require(eng.nonfinite_terminated == 0,
             f"{name}: {eng.nonfinite_terminated} rows non-finite")
     want = dict.fromkeys(counts, 0)
-    want.update({k: n * STATIC_STEPS
-                 for k, n in junction_calls(cfg, bool(quant)).items()})
+    want.update(serve_calls(cfg, bool(quant), STATIC_STEPS - 1))
     require(counts == want, f"{name} static launches {counts} != {want}")
     # every junction call has at least 8 rows: bf16 on tensor cores (the
     # int8 kernels have no tensor-core count)
@@ -3388,12 +3495,19 @@ def static_serve_run(P, card, arch, quant=None, layers=0, gaps=False):
     # block is held on the same inputs (ssm_layer_gaps), the end-to-end
     # gap printed beside the plain bf16 path's own distance from fp32
     by_block = cfg.family in ("ssm", "hybrid") and not quant
+    # whisper in int8: its encoder's 8 x 1500 rows put millions of
+    # activations through the dynamic int8 codes, where the two paths'
+    # fp32 ulps move some to the neighbouring code (int8_code_gaps)
+    by_codes = cfg.family == "audio" and bool(quant)
     if by_block:
         ssm_layer_gaps(P, cfg, eng.params, prompts, card)
     elif gaps:
         moe_layer_gaps(P, cfg, eng.params, prompts, card)
+    if by_codes:
+        int8_code_gaps(P, cfg, eng.params, prompts, extra, card)
     compare_static_logits(P, cfg, eng.params, prompts, extra, bool(quant),
-                          card, gate_bf16=not by_block)
+                          card, gate_bf16=not by_block,
+                          gate_fp32=not by_codes)
     del eng
     torch.cuda.empty_cache()
     return path
@@ -3764,18 +3878,22 @@ def gated_held(P, x, wg, wi, idx, got) -> dict:
             "ratio": float((over / lim.clamp_min(1e-300)).max())}
 
 
-def _slotwise_bf16_fwd(P, x, w, idx, bias, act="none"):
+def _slotwise_bf16_fwd(P, x, w, idx, bias, act="none", split=1):
     """The control of ``fwd_held``: the junction with each fan-in slot's
-    partial sum rounded to bf16 before the sum over slots (a kernel that
-    carries its sum over the slots in bf16)."""
+    partial sum (each of its ``split`` parts along K: at a fan-in of one
+    slot the slot's sum is the output and rounds once either way) rounded
+    to bf16 before the sum (a kernel that carries its sum in bf16)."""
     E, M, n_in = x.shape
     _, nob, kb, bs, _ = w.shape
     xb = x.reshape(E, M, n_in // bs, bs)
+    c = bs // split
     acc = torch.zeros((E, M, nob, bs), dtype=torch.float32, device=x.device)
     for k in range(kb):
-        acc += torch.einsum("emob,eobc->emoc",
-                            xb[:, :, idx[:, k].long()].float(),
-                            w[:, :, k].float()).to(x.dtype).float()
+        xk = xb[:, :, idx[:, k].long()].float()
+        for j in range(0, bs, c):
+            acc += torch.einsum("emob,eobc->emoc", xk[..., j:j + c],
+                                w[:, :, k, j:j + c].float()
+                                ).to(x.dtype).float()
     s = acc.reshape(E, M, nob * bs) + bias.float()[:, None, :]
     return P.bsm.act_fwd(s, act).to(x.dtype)
 
@@ -3790,14 +3908,15 @@ def _slotwise_bf16_gated(P, x, wg, wi, idx):
     return (P.bsm.act_fwd(g, "silu") * u).to(x.dtype)
 
 
-def held_shapes(P, timer, card, shapes, seed):
+def held_shapes(P, timer, card, shapes, seed, rows=(8, 8 * 32)):
     """fwd (or, for a shape marked gated, gated_fwd) at each ``(name,
-    n_in, n_out, E, gated)`` of ``shapes``, at the decode step's 8 rows
-    and the prefill's 256 (a unit's rows), in bf16: held against the
-    junction in fp64 (``fwd_held`` / ``gated_held``) beside a control
-    that carries its slot sums in bf16 and must fail it, and timed
-    beside its plain version and its bound.  Returns {(name, M): (ms,
-    plain_ms, bound_ms, ratio, control)}."""
+    n_in, n_out, E, gated)`` of ``shapes``, at each of ``rows`` (a unit's
+    rows; by default the decode step's 8 and the prefill's 256), in bf16:
+    held against the junction in fp64 (``fwd_held`` / ``gated_held``)
+    beside a control that carries its slot sums in bf16 (at a fan-in of
+    one slot, its four 32-term parts) and must fail it, and timed beside
+    its plain version and its bound.  Returns {(name, M): (ms, plain_ms,
+    bound_ms, ratio, control)}."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     out = {}
@@ -3809,7 +3928,8 @@ def held_shapes(P, timer, card, shapes, seed):
                            device="cuda") / (kb * BS) ** 0.5
                ).to(torch.bfloat16) for _ in range(1 + gated)]
         b = torch.zeros((E, n_out), device="cuda", dtype=torch.bfloat16)
-        for M in (8, 8 * 32):
+        split = 4 if kb == 1 else 1
+        for M in rows:
             x = torch.randn((E, M, n_in), generator=gen,
                             device="cuda").to(torch.bfloat16)
             if gated:
@@ -3823,7 +3943,8 @@ def held_shapes(P, timer, card, shapes, seed):
                 plain = functools.partial(P.bsm.fwd_ref, x, ws[0], idx, b)
                 held = fwd_held(P, x, ws[0], idx, b, "none", kern())
                 ctrl = fwd_held(P, x, ws[0], idx, b, "none",
-                                _slotwise_bf16_fwd(P, x, ws[0], idx, b))
+                                _slotwise_bf16_fwd(P, x, ws[0], idx, b,
+                                                   split=split))
             k_ms, p_ms = timer.ms(kern), timer.ms(plain)
             nbytes = (x.numel() + sum(w.numel() for w in ws)
                       + (0 if gated else b.numel()) + E * M * n_out) * 2 \
@@ -3834,8 +3955,10 @@ def held_shapes(P, timer, card, shapes, seed):
             print(f"[kernel] {kname} {name} {n_in}->{n_out} E={E} "
                   f"nob={nob} kb={kb} M={M} bf16: max_abs_err against fp64 "
                   f"{held['err']:.3g}, |err| over its bound "
-                  f"{held['ratio']:.4g}; control (slot sums rounded to "
-                  f"bf16) {ctrl['ratio']:.4g} ms={k_ms:.4f} "
+                  f"{held['ratio']:.4g}; control ("
+                  + ("slot" if split == 1 else f"1/{split}-slot")
+                  + f" sums rounded to bf16) {ctrl['ratio']:.4g} "
+                  f"ms={k_ms:.4f} "
                   f"plain_ms={p_ms:.4f} bound_ms={bnd:.4f} ({by}) [{card}]")
             require(held["ratio"] <= 1.0 < ctrl["ratio"],
                     f"{kname} at {name}, M {M}: {held}, control {ctrl}")
@@ -4036,6 +4159,159 @@ def mla_phase(P, timer, card):
     paths["mla_train"] = train_phase(P, card, MLA, MLA_TRAIN_LAYERS)
     held_shapes(P, timer, card, MLA_SHAPES, seed=28)
     return paths
+
+
+# whisper-base at full size: its FFN junctions (512 -> 2048 at kb 1 with
+# the gelu epilogue, 2048 -> 512 at kb 4) at the decode step's 8 rows, the
+# decoder's prefill of 256 and the encoder's 8 x 1500 frames; one step
+# against the plain versions at 2 encoder and 2 decoder layers
+AUDIO = "whisper-base"
+AUDIO_SHAPES = [("whisper wi", 512, 2048, 1, False),
+                ("whisper wo", 2048, 512, 1, False)]
+AUDIO_DEPTH = {"n_layers": 2, "enc_layers": 2}
+# launch/train.py --compress-grads: 3 Adam steps on these, at full width
+# (stablelm-3b cut to 2 layers, whisper-base whole)
+COMPRESS_RUNS = (("stablelm-3b", 2), (AUDIO, 0))
+COMPRESS_STEPS = 3
+
+
+def audio_phase(P, timer, card):
+    """whisper-base (6 encoder and 6 decoder layers, d_model 512, 1500 stub
+    frames a request) at full size: the static engine in bf16 and int8
+    (launch/serve.py: the encoder runs in the prefill alone, so a prefill
+    makes 2 x (6 + 6) junction launches and a decode step 2 x 6), training
+    on the three update paths (each row of 256 tokens with its 1500
+    frames) with one step against the plain versions at AUDIO_DEPTH, and
+    fwd at its junctions (``held_shapes``) at 8, 256 and the encoder's
+    8 x 1500 rows."""
+    enc_rows = 8 * P.registry.get(AUDIO).enc_frames
+    paths = {"audio_serve": static_serve_run(P, card, AUDIO),
+             "audio_serve_int8": static_serve_run(P, card, AUDIO, "int8")}
+    paths["audio_train"] = train_phase(P, card, AUDIO, depth=AUDIO_DEPTH)
+    held_shapes(P, timer, card, AUDIO_SHAPES, seed=29,
+                rows=(8, 8 * 32, enc_rows))
+    return paths
+
+
+def _compress_property(P, card):
+    """The reference's property of compression (tests/test_distributed.py)
+    on the card: 1000 gradients of scale 0.01 restored within 2 %, and the
+    residual of a second compression from the first's residual no larger
+    than 1.5 x it."""
+    gc = P.grad_compress
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    g = torch.randn(1000, generator=gen, device="cuda") * 0.01
+    restored, err2 = gc.compress_decompress(g, torch.zeros_like(g))
+    rel = float(torch.linalg.norm(restored - g) / torch.linalg.norm(g))
+    _, err3 = gc.compress_decompress(g, err2)
+    n2, n3 = float(torch.linalg.norm(err2)), float(torch.linalg.norm(err3))
+    print(f"[compress] 1000 gradients of scale 0.01: restored rel err "
+          f"{rel:.4g} (tol 0.02); residual {n2:.4g} then {n3:.4g} "
+          f"(tol 1.5 x) [{card}]")
+    require(rel < 0.02 and n3 <= 1.5 * n2 + 1e-6,
+            "compression loses the reference's property")
+
+
+def compress_run(P, card, arch, layers):
+    """launch/train.py --compress-grads on sparse ``arch`` at full width
+    (``layers`` deep, or whole): COMPRESS_STEPS two-pass Adam steps of
+    batch 8 x 256 with finite losses and residuals, exact launch counts
+    (fwd, dx and dw; no update_dw), and the compression of one more
+    step's gradients (``grad_compress.compress_tree``, one scale a stack
+    of layers) on the card bit for bit equal to the same function on the
+    CPU.  Returns its launch counts."""
+    gc = P.grad_compress
+    ckpt = ROOT / "build" / f"compress_{arch}"
+    sink = ckpt.with_suffix(".jsonl")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", arch, "--sparse", "--compress-grads", "--steps",
+            str(COMPRESS_STEPS), "--batch", str(TRAIN_B), "--seq",
+            str(TRAIN_S), "--ckpt", str(ckpt), "--obs", str(sink)] + (
+                ["--layers", str(layers)] if layers else [])
+    P.ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = P.train.main(argv)
+    dt = time.perf_counter() - t0
+    _, events = P.obs.read_events(str(sink))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    sink.unlink()
+    counts = P.ops.launch_counts()
+    path = with_tc(P, counts)
+    text = out.getvalue()
+    print(text, end="")
+    cfg = P.registry.get(arch).with_sparsity(
+        P.SparsityConfig(density=0.25, block=BS, where="ffn"))
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    losses = [e["loss"] for e in events if e["kind"] == "train.step"]
+    err = [e for _, e in P.tree_items(res["opt_state"]["err"])]
+    err_norm = float(torch.sqrt(sum(torch.sum(e.double() ** 2)
+                                    for e in err)))
+    want = _expected_launches(P, cfg, COMPRESS_STEPS, "two_pass")
+    print(f"[compress] {arch} layers={cfg.n_layers}: launcher "
+          f"{dt:.2f} s (init, {COMPRESS_STEPS} steps with --obs, "
+          f"checkpoint); losses from its train.step events "
+          f"{[round(v, 4) for v in losses]}; residual norm {err_norm:.4g}; "
+          f"peak_memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB; launches={path} [{card}]")
+    require("update path: two-pass" in text,
+            f"{arch} --compress-grads did not print the two-pass path")
+    require(len(losses) == COMPRESS_STEPS and all(np.isfinite(losses)),
+            f"{arch} --compress-grads losses {losses}")
+    require(all(bool(torch.isfinite(e).all()) for e in err),
+            f"{arch} --compress-grads residuals not finite")
+    require(counts == want and counts["junction_update_dw"] == 0,
+            f"{arch} --compress-grads launches {counts} != {want}")
+    params, state = res["params"], res["opt_state"]
+    del res
+    batch = next(P.LMTokenPipeline(cfg, TRAIN_B, TRAIN_S))
+    _, _, grads = P.steps._value_and_grad(cfg, params, batch)
+    t0 = time.perf_counter()
+    r_card, e_card = gc.compress_tree(params, grads, state["err"])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+
+    def cpu(tree):
+        return P.tree_map(lambda t: t.cpu() if torch.is_tensor(t) else t,
+                          tree)
+
+    r_cpu, e_cpu = gc.compress_tree(cpu(params), cpu(grads),
+                                    cpu(state["err"]))
+    n, same = 0, True
+    for a, b in ((r_card, r_cpu), (e_card, e_cpu)):
+        for (_, x), (_, y) in zip(P.tree_items(a), P.tree_items(b)):
+            if torch.is_tensor(x) and x.is_floating_point():
+                n += x.numel()
+                same = same and bits_equal(x.cpu(), y)
+    g_all = [g.float() for g in P.tree_leaves(grads) if torch.is_tensor(g)]
+    r_all = [r for r, g in zip(P.tree_leaves(r_card), P.tree_leaves(grads))
+             if torch.is_tensor(g)]
+    rel = float(torch.sqrt(sum(torch.sum((r - g) ** 2)
+                               for r, g in zip(r_all, g_all)))
+                / torch.sqrt(sum(torch.sum(g ** 2) for g in g_all)))
+    print(f"[compress] {arch}: compress_tree of one step's gradients, "
+          f"{n / 2 / 1e6:.1f} M elements, {card_s * 1e3:.1f} ms on the "
+          f"card: restored gradients and residuals equal to the CPU's bit "
+          f"for bit: {same}; restored rel err over the tree {rel:.4g} "
+          f"(printed) [{card}]")
+    require(same, f"{arch}: compression on the card differs from the CPU")
+    del params, state, grads, r_card, e_card
+    torch.cuda.empty_cache()
+    return path
+
+
+def compress_phase(P, card):
+    """launch/train.py --compress-grads (``compress_run``) on each of
+    COMPRESS_RUNS, and the reference's property of compression on the
+    card (``_compress_property``)."""
+    _compress_property(P, card)
+    return {f"compress_{arch}": compress_run(P, card, arch, layers)
+            for arch, layers in COMPRESS_RUNS}
 
 
 # ------------------------------------------------------ standalone kernels
@@ -4446,15 +4722,17 @@ def load_port() -> types.SimpleNamespace:
     from repro_torch.models import moe
     from repro_torch.obs import percentile
     from repro_torch.serve import engine
-    from repro_torch.train import steps, train_loop
-    from repro_torch.tree import tree_items
+    from repro_torch.train import grad_compress, steps, train_loop
+    from repro_torch.tree import tree_items, tree_leaves, tree_map
     return types.SimpleNamespace(
         registry=registry, SparsityConfig=SparsityConfig,
         make_block_pattern=make_block_pattern,
         reverse_block_pattern=reverse_block_pattern, bsm=bsm, fa=fa, ops=ops,
         M=M, moe=moe, engine=engine, percentile=percentile, optim=optim,
         steps=steps,
-        LMTokenPipeline=LMTokenPipeline, tree_items=tree_items, build=build,
+        LMTokenPipeline=LMTokenPipeline, tree_items=tree_items,
+        tree_leaves=tree_leaves, tree_map=tree_map,
+        grad_compress=grad_compress, build=build,
         qz=qz, fxp=fxp, quant_sweep=quant_sweep, fxk=fxk, ssk=ssk,
         slut=slut, obs=obs, obs_report=obs_report, train_loop=train_loop,
         PN=PN, JP=JP, paper_mnist=paper_mnist, paper_dataset=paper_dataset,
@@ -4538,6 +4816,8 @@ def main() -> int:
                                    timer, card)
     paths.update(timed("vlm", vlm_phase, P, timer, card))
     paths.update(timed("mla", mla_phase, P, timer, card))
+    paths.update(timed("audio", audio_phase, P, timer, card))
+    paths.update(timed("compress", compress_phase, P, card))
     standalone, paths["standalone"] = timed(
         "standalone", standalone_kernel_phase, P, card)
     timed("paper", paper_phase, P, card)

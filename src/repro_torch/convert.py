@@ -5,11 +5,12 @@ leaf already a numpy array (layers stacked on axis 0, as its ``init``
 builds them, a MoE model's ``dense_layers`` too; the hybrid's on axes 0
 and 1, [n_super, ev, ...]) and returns the port's params (layers as a
 list; the hybrid's a list of lists, its ``shared_attn`` block as it
-is), so that both compute the
-same function.  ``from_jax_opt_state(state)`` carries
-the optimizer state the same way: Adam's ``m``/``v`` and SGD's ``mom``
-trees mirror the params (their 0-d placeholders for the integer pattern
-leaves stay unstacked).  A quantized tree (int8 or fxp codes and their
+is; whisper's encoder layers a list too), so that both compute the same
+function.  ``from_jax_opt_state(state)`` carries the optimizer state
+the same way: Adam's ``m``/``v`` and SGD's ``mom`` trees mirror the
+params (their 0-d placeholders for the integer pattern leaves stay
+unstacked), and a compressed optimizer's ``{"base", "err"}`` nests the
+wrapped optimizer's state one level deeper.  A quantized tree (int8 or fxp codes and their
 leaves) carries across the same way.  ``from_jax_population`` carries a population's
 params (a list of junction dicts, search/population.py).
 ``from_jax_paper_params`` carries the paper network's params (``{"junctions": [{w, b, idx, rev_j, rev_f},
@@ -69,19 +70,33 @@ def _layers(tree, stacked: int, device):
 def from_jax_params(tree: dict, device="cpu") -> dict:
     """Reference params (numpy leaves, ``tree["layers"]`` and
     ``tree["dense_layers"]`` stacked on axis 0, the hybrid's layers on
-    axes 0 and 1) -> the port's params on ``device``."""
+    axes 0 and 1, whisper's ``tree["encoder"]["layers"]`` on axis 0) ->
+    the port's params on ``device``, in the reference's key order."""
     stacked = {"layers": 2 if "shared_attn" in tree else 1,
                "dense_layers": 1}
-    return {k: _layers(v, stacked[k], device) if k in stacked
-            else _convert(v, device) for k, v in tree.items()}
+    out = {}
+    for k, v in tree.items():
+        if k in stacked:
+            out[k] = _layers(v, stacked[k], device)
+        elif k == "encoder":
+            out[k] = {ek: _layers(ev, 1, device) if ek == "layers"
+                      else _convert(ev, device) for ek, ev in v.items()}
+        else:
+            out[k] = _convert(v, device)
+    return out
 
 
 def from_jax_opt_state(state, device="cpu"):
     """Reference optimizer state (numpy leaves): () for plain SGD, or a
-    dict of params-mirroring trees -> the port's state on ``device``."""
+    dict whose values mirror the params (Adam's ``m`` / ``v``, SGD's
+    ``mom``) or are such states themselves, one level deeper
+    (``train/grad_compress.compressed``'s {"base": <the wrapped
+    optimizer's state>, "err": <params tree>}) -> the port's state on
+    ``device``."""
     if isinstance(state, tuple) and not state:
         return ()
-    return {k: from_jax_params(v, device) for k, v in state.items()}
+    return {k: from_jax_opt_state(v, device) if k == "base"
+            else from_jax_params(v, device) for k, v in state.items()}
 
 
 def from_jax_paper_params(tree: dict, device="cpu") -> dict:

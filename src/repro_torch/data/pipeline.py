@@ -21,7 +21,9 @@ class LMTokenPipeline:
     with 15 % noise, so the loss can fall).  A vlm batch also holds
     P = min(num_patches, seq_len // 2) fp32 patch embeddings [B, P, d]
     and keeps the first seq_len - P tokens, so that patches and text
-    fill seq_len positions.  State = (seed, step)."""
+    fill seq_len positions.  An audio batch also holds enc_frames fp32
+    frame embeddings [B, enc_frames, d] for the encoder, drawn after the
+    tokens from the same generator.  State = (seed, step)."""
     cfg: ArchConfig
     batch_size: int
     seq_len: int
@@ -38,9 +40,6 @@ class LMTokenPipeline:
 
     def _make(self, step: int) -> dict:
         cfg = self.cfg
-        if cfg.family == "audio":
-            raise ValueError("family 'audio': the port's pipeline makes no "
-                             "audio frames yet")
         rng = np.random.default_rng((self.seed << 20) ^ step)
         V = cfg.raw_vocab or cfg.vocab
         B, S = self.batch_size, self.seq_len
@@ -54,6 +53,9 @@ class LMTokenPipeline:
             batch["patches"] = rng.standard_normal(
                 (B, P, cfg.d_model)).astype(np.float32)
             batch["tokens"] = batch["tokens"][:, :S - P]
+        if cfg.family == "audio":
+            batch["frames"] = rng.standard_normal(
+                (B, cfg.enc_frames, cfg.d_model)).astype(np.float32)
         return batch
 
     def __iter__(self) -> Iterator[dict]:

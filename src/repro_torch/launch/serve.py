@@ -15,10 +15,13 @@ runs on the card; ``--device cpu --reduce`` runs a tiny config on the
 CPU.  The ssm and hybrid families (``--arch falcon-mamba-7b``,
 ``--arch zamba2-2.7b``), the vlm with its sliding window (``--arch
 llava-next-mistral-7b``: random patch embeddings, min(num_patches,
-prompt_len // 2) a request, ahead of the prompt) and MLA with a dense
-first layer (``--arch deepseek-v2-lite-16b``) serve on the static engine
-only: their caches hold per-layer states, a ring or a latent that a
-paged pool does not, and ``--continuous`` refuses them.  Weights are random, made from ``--seed``, unless
+prompt_len // 2) a request, ahead of the prompt), MLA with a dense
+first layer (``--arch deepseek-v2-lite-16b``) and the audio family
+(``--arch whisper-base``: random fp32 frame embeddings, enc_frames a
+request, drawn after the prompts; they feed the encoder, and decode
+positions count from the prompt) serve on the static engine only: their
+caches hold per-layer states, a ring, a latent or the encoder's cross
+K / V that a paged pool does not, and ``--continuous`` refuses them.  Weights are random, made from ``--seed``, unless
 ``--ckpt DIR`` restores the params of the newest checkpoint that
 ``launch/train.py`` wrote there (``train/checkpoint.restore_latest``;
 the same ``--arch``, ``--reduce``, ``--sparse`` and ``--density`` as the
@@ -126,6 +129,9 @@ def main(argv=None):
         extra["patches"] = rng.standard_normal(
             (args.requests, min(cfg.num_patches, args.prompt_len // 2),
              cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        extra["frames"] = rng.standard_normal(
+            (args.requests, cfg.enc_frames, cfg.d_model)).astype(np.float32)
     if args.continuous and extra:
         raise SystemExit("[serve] --continuous does not take encoder "
                          "side inputs (vlm/audio)")

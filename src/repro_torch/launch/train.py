@@ -11,15 +11,21 @@ block takes the two-pass update only.  ``--arch llava-next-mistral-7b``
 (vlm) trains on batches of min(num_patches, seq // 2) random patch
 embeddings ahead of the rest of ``--seq`` in tokens, the loss on the
 text; ``--arch deepseek-v2-lite-16b`` runs MLA and its dense first
-layer (``--layers`` counts it).  Weights are random, made from seed 0; batches come from the
-synthetic ``LMTokenPipeline``.  The run auto-resumes from the newest
+layer (``--layers`` counts it); ``--arch whisper-base`` (audio) trains
+its encoder and decoder on batches of ``--seq`` tokens, each row with
+its enc_frames random frame embeddings (``--layers`` sets the decoder's
+depth).  ``--compress-grads`` wraps the optimizer in
+``train/grad_compress.compressed`` (int8 gradients with error
+feedback), which takes the two-pass update path: compression comes
+first, then the optimizer (and its clipping) on the restored gradients.
+Weights are random, made from seed 0; batches come from the synthetic
+``LMTokenPipeline``.  The run auto-resumes from the newest
 checkpoint under ``--ckpt`` (default: ``build/train_ckpt`` in the
 checkout).  ``--obs PATH`` streams the flight recorder's events (a
 record a step, guardian and checkpoint events) to a JSONL file that
 ``repro_torch.launch.obs_report`` renders; ``--profile DIR`` writes a
 ``torch.profiler`` Chrome trace of the run into DIR.  Not ported yet:
-the mesh flags (``--devices``, ``--data``, ``--model``) and
-``--compress-grads``.
+the mesh flags (``--devices``, ``--data``, ``--model``).
 """
 from __future__ import annotations
 
@@ -50,6 +56,9 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=str(DEFAULT_CKPT))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 gradients with error feedback "
+                         "(train/grad_compress.py; two-pass update)")
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject a crash at this step (restart test)")
     ap.add_argument("--obs", default=None, metavar="PATH",
@@ -74,6 +83,7 @@ def main(argv=None):
     from repro_torch.models import model as M
     from repro_torch.obs import Recorder, profile_ctx
     from repro_torch.optim import cosine_schedule, fused_adam, fused_sgd
+    from repro_torch.train import grad_compress
     from repro_torch.train.steps import fused_update_eligible, make_train_step
     from repro_torch.train.train_loop import TrainLoopConfig, run
 
@@ -97,6 +107,8 @@ def main(argv=None):
         opt = fused_sgd(sched, momentum=0.9)
     else:
         opt = fused_adam(sched, grad_clip=1.0)
+    if args.compress_grads:
+        opt = grad_compress.compressed(opt)
     ok, why = fused_update_eligible(cfg, opt, args.microbatches)
     print(f"[train] optim={args.optim} update path: "
           f"{'fused BP+UP' if ok else f'two-pass ({why})'}")

@@ -4,7 +4,10 @@ full-sequence training and prefill path (``gqa_forward``), single-token
 decode over a contiguous cache (``gqa_decode``, the static engine's) and,
 over a block-paged KV cache, chunked prefill and single-token decode;
 MLA the expanded form for training and prefill (``mla_forward``) and the
-absorbed form for decode (``mla_decode``).
+absorbed form for decode (``mla_decode``).  The audio family (whisper)
+ropes nothing: its positions are added to the embeddings; its decoder's
+cross-attention takes the encoder's K / V (``gqa_forward(kv_override=)``,
+``gqa_decode(cross=True)``).
 
 A contiguous cache of one layer is ``{"k": [B, S, Hkv, hd], "v": ...}``;
 decode writes the new token's K / V at slot ``pos`` in place, or, under
@@ -174,37 +177,58 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, seq_lens):
     return out.reshape(B, 1, H, D)
 
 
+def _q(p: Params, x, cfg: ArchConfig):
+    return _split_heads(sl.apply(p["wq"], x), cfg.n_heads, cfg.head_dim)
+
+
 def _qkv(p: Params, x, cfg: ArchConfig, positions):
-    H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    q = _split_heads(sl.apply(p["wq"], x), H, hd)
+    """q, k, v of ``x``, roped at ``positions`` but in the audio family,
+    whose positions are absolute and added to the embeddings."""
+    Hkv, hd = cfg.kv_heads, cfg.head_dim
+    q = _q(p, x, cfg)
     k = _split_heads(sl.apply(p["wk"], x), Hkv, hd)
     v = _split_heads(sl.apply(p["wv"], x), Hkv, hd)
-    q = rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
-    k = rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
+    if cfg.family != "audio":
+        q = rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
+        k = rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
     return q, k, v
 
 
 def gqa_forward(p: Params, x, cfg: ArchConfig, *, positions,
-                causal: bool = True):
-    """Training self-attention over the whole sequence: x [B,S,d],
-    positions [S].  Returns (out [B,S,d], (k, v))."""
+                causal: bool = True, kv_override=None):
+    """Self-attention over the whole sequence: x [B,S,d], positions [S].
+    ``kv_override`` = (k, v) [B,Sk,Hkv,hd] (whisper's encoder K / V) makes
+    it cross-attention: q alone comes from x, every key is visible and
+    ``causal`` is ignored.  Returns (out [B,S,d], (k, v))."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
+    kv_pos = None
+    if kv_override is None:
+        q, k, v = _qkv(p, x, cfg, positions)
+        kv_pos = positions
+    else:
+        q, (k, v), causal = _q(p, x, cfg), kv_override, False
     window = cfg.window if cfg.attn_kind == "sliding" else 0
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             chunk=cfg.attn_chunk, q_pos=positions,
-                            kv_pos=positions)
+                            kv_pos=kv_pos)
     out = sl.apply(p["wo"], out.reshape(B, S, cfg.n_heads * cfg.head_dim))
     return out, (k, v)
 
 
-def gqa_decode(p: Params, x, cfg: ArchConfig, cache: dict, pos: int):
+def gqa_decode(p: Params, x, cfg: ArchConfig, cache: dict, pos: int,
+               cross: bool = False):
     """Single-token decode of every row at position ``pos``: x [B,1,d],
     cache {"k", "v": [B,S,Hkv,hd]} holding positions 0..pos-1 (under a
     sliding window the last S of them, position t at slot t % S).  The
     new K / V (rope at ``pos``) go into slot ``pos`` (``pos % S``) in
-    place; returns (out [B,1,d], cache)."""
+    place; returns (out [B,1,d], cache).  With ``cross`` the cache is
+    the encoder's K / V: read-only, every slot valid."""
     B = x.shape[0]
+    if cross:
+        S = cache["k"].shape[1]
+        out = decode_attention(_q(p, x, cfg), cache["k"], cache["v"], S - 1)
+        out = sl.apply(p["wo"], out.reshape(B, 1, cfg.n_heads * cfg.head_dim))
+        return out, cache
     q, k_new, v_new = _qkv(p, x, cfg, torch.full((1,), pos,
                                                   device=x.device))
     S = cache["k"].shape[1]

@@ -1,4 +1,5 @@
-"""Common model pieces: norms, rotary embeddings, token embedding, MLP.
+"""Common model pieces: norms, rotary and sinusoidal positions, token
+embedding (with whisper's learned decoder positions), MLP.
 
 Parameters are fp32 masters; compute runs in ``cfg.compute_dtype``
 (bf16).  The rounding points follow the reference op for op.
@@ -59,14 +60,32 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([out, xp], dim=-1) if rot < d else out
 
 
+def sinusoidal_pos(seq: int, d: int, dtype, device="cpu") -> torch.Tensor:
+    """[seq, d] fixed positions (whisper's encoder): sin of pos / 10000^(2i
+    / d) in the first half, cos in the second, computed in fp32 (every
+    quotient by a tensor, so that the card divides as the CPU does) and
+    rounded to ``dtype`` last."""
+    f32 = dict(dtype=torch.float32, device=device)
+    pos = torch.arange(seq, **f32)[:, None]
+    dim = torch.arange(d // 2, **f32)[None, :]
+    expo = (2 * dim) / torch.tensor(float(d), **f32)
+    ang = pos / torch.pow(torch.tensor(10000.0, **f32), expo)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 def embed_init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
                device="cpu"):
+    """Token embedding (and the unembedding unless tied); the audio family
+    also learns its decoder positions, ``pos`` [max_seq, d] x 0.02."""
     scale = float(1.0 / math.sqrt(cfg.d_model))
     p = {"tok": torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                             dtype=dtype, device=device) * scale}
     if not cfg.tie_embeddings:
         p["out"] = torch.randn((cfg.d_model, cfg.vocab), generator=gen,
                                dtype=dtype, device=device) * scale
+    if cfg.family == "audio":
+        p["pos"] = torch.randn((cfg.max_seq, cfg.d_model), generator=gen,
+                               dtype=dtype, device=device) * 0.02
     return p
 
 

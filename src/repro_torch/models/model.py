@@ -9,12 +9,22 @@ the forward's aux, after ``first_dense_layers`` dense layers
 is a Mamba-1 block; the hybrid (zamba2) stacks super-blocks of
 ``hybrid_attn_every`` Mamba-2 blocks, each super-block led by one
 attention-and-MLP block whose weights all super-blocks share
-(``params["shared_attn"]``).  Attention is GQA (``attn_kind`` full, or
-sliding with a ring cache of ``window`` slots) or MLA (its cache the
+(``params["shared_attn"]``); the audio family (whisper) is an
+encoder-decoder: ``batch["frames"]`` (frame embeddings, the conv
+frontend stubbed) plus fixed sinusoidal positions feed the encoder
+(``params["encoder"]``: its layers and final norm), and each decoder
+layer (``params["layers"]``) runs causal self-attention, cross-attention
+on the encoder's output (its K / V made at prefill, by a plain matmul
+with ``cross.wk`` / ``cross.wv``) and an MLP; the tokens take learned
+positions (``embed["pos"]``) and no rope.  The frames feed the encoder
+only and never sit ahead of the tokens, so the text's offset is 0 and
+positions count from the text.  Attention is GQA (``attn_kind`` full,
+or sliding with a ring cache of ``window`` slots) or MLA (its cache the
 compressed latent).
 
 ``init(cfg, seed, device)``       -> params (fp32 masters, a list of
-                                     layers; the hybrid's a list of lists)
+                                     layers; the hybrid's a list of lists;
+                                     whisper's encoder layers a list too)
 ``forward(cfg, params, batch)``   -> (logits [B,P+S,V], cache, (aux, P))
 ``loss_fn(cfg, params, batch)``   -> (loss, {"ce", "aux"}) next-token CE
 ``make_cache(cfg, B, S, device)`` -> the zeroed static cache
@@ -27,7 +37,8 @@ compressed latent).
 
 The layers run in a Python loop; with ``cfg.remat`` each training layer
 (and the hybrid's shared block at each use) is recomputed in the
-backward (``torch.utils.checkpoint``).  The serving paths update each
+backward (``torch.utils.checkpoint``), whisper's encoder layers
+included.  The serving paths update each
 layer's slice ``cache[.][l]`` of the static cache, or ``pool[.][l]`` of
 the paged pool, in place.  The paged path serves the dense and moe
 families only, as the reference's: a state leaf has no pages.
@@ -44,7 +55,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (embed_init, embed_tokens, mlp_apply,
                                        mlp_init, norm_apply, norm_init,
-                                       unembed)
+                                       sinusoidal_pos, unembed)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import (mamba1_apply, mamba1_init, mamba2_apply,
                                     mamba2_init)
@@ -52,10 +63,13 @@ from repro_torch.models.ssm import (mamba1_apply, mamba1_init, mamba2_apply,
 Params = dict[str, Any]
 
 
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+
+
 def _check_family(cfg: ArchConfig, what: str) -> None:
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise ValueError(f"family {cfg.family!r}: the port {what} the dense, "
-                         "vlm, moe, ssm and hybrid families only")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"family {cfg.family!r}: the port {what} the "
+                         f"{', '.join(FAMILIES)} families only")
 
 
 def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
@@ -75,8 +89,11 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
             return {"norm": norm_init(cfg.d_model, cfg.norm, dtype, dev),
                     "ssm": init_ssm(gen, cfg, dtype, dev)}
         lp = {"norm1": norm_init(cfg.d_model, cfg.norm, dtype, dev),
-              "attn": attn.attn_init(gen, cfg, dtype, dev),
-              "norm2": norm_init(cfg.d_model, cfg.norm, dtype, dev)}
+              "attn": attn.attn_init(gen, cfg, dtype, dev)}
+        if kind == "dec":
+            lp["norm_x"] = norm_init(cfg.d_model, cfg.norm, dtype, dev)
+            lp["cross"] = attn.attn_init(gen, cfg, dtype, dev)
+        lp["norm2"] = norm_init(cfg.d_model, cfg.norm, dtype, dev)
         if kind == "attn_moe":
             lp["moe"] = moe_init(gen, cfg, dtype, dev)
         else:
@@ -88,6 +105,11 @@ def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
         params["layers"] = [[block("mamba2") for _ in range(ev)]
                             for _ in range(cfg.n_layers // ev)]
         params["shared_attn"] = block("attn_mlp")
+    elif cfg.family == "audio":
+        params["layers"] = [block("dec") for _ in range(cfg.n_layers)]
+        params["encoder"] = {
+            "layers": [block("enc") for _ in range(cfg.enc_layers)],
+            "norm": norm_init(cfg.d_model, cfg.norm, dtype, dev)}
     else:
         kind = {"dense": "attn_mlp", "vlm": "attn_mlp", "moe": "attn_moe",
                 "ssm": "mamba1"}[cfg.family]
@@ -132,6 +154,65 @@ def _attn_mlp_block(lp, x, cfg: ArchConfig, positions, cache=None,
     return x + m, new_cache, aux
 
 
+def _enc_block(lp, x, cfg: ArchConfig):
+    """A whisper encoder layer: bidirectional self-attention and an MLP."""
+    h = norm_apply(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+    a, _ = attn.gqa_forward(lp["attn"], h, cfg, causal=False,
+                            positions=torch.arange(x.shape[1],
+                                                   device=x.device))
+    x = x + a
+    h = norm_apply(lp["norm2"], x, cfg.norm, cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h, cfg)
+
+
+def _cross_kv(lp, enc, cfg: ArchConfig):
+    """The encoder output's K / V for one decoder layer's cross-attention:
+    plain products with ``cross.wk`` / ``cross.wv`` (no bias) in the
+    compute dtype, [B, F, Hkv, hd] each."""
+    return tuple(attn._split_heads(enc @ lp["cross"][k]["w"].to(enc.dtype),
+                                   cfg.kv_heads, cfg.head_dim)
+                 for k in ("wk", "wv"))
+
+
+def _dec_block(lp, x, cfg: ArchConfig, positions, enc=None, cache=None,
+               pos=None, decode: bool = False):
+    """A whisper decoder layer: causal self-attention, cross-attention on
+    the encoder output ``enc`` (or, in decode, on the cache's read-only
+    "ck" / "cv"), an MLP.  Returns (x, {"k", "v", "ck", "cv"}); decode
+    writes the new token's K / V into the cache in place."""
+    h = norm_apply(lp["norm1"], x, cfg.norm, cfg.norm_eps)
+    if decode:
+        a, _ = attn.gqa_decode(lp["attn"], h, cfg,
+                               {"k": cache["k"], "v": cache["v"]}, pos)
+        kv = (cache["k"], cache["v"])
+    else:
+        a, kv = attn.gqa_forward(lp["attn"], h, cfg, positions=positions)
+    x = x + a
+    h = norm_apply(lp["norm_x"], x, cfg.norm, cfg.norm_eps)
+    if decode:
+        ckv = (cache["ck"], cache["cv"])
+        c, _ = attn.gqa_decode(lp["cross"], h, cfg,
+                               dict(zip(("k", "v"), ckv)), pos, cross=True)
+    else:
+        ckv = _cross_kv(lp, enc, cfg)
+        c, _ = attn.gqa_forward(lp["cross"], h, cfg, positions=positions,
+                                kv_override=ckv)
+    x = x + c
+    h = norm_apply(lp["norm2"], x, cfg.norm, cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h, cfg), dict(zip(("k", "v", "ck",
+                                                       "cv"), kv + ckv))
+
+
+def _encode_audio(cfg: ArchConfig, params, frames):
+    """The encoder over ``frames`` [B, F, d] (cast to the compute dtype,
+    sinusoidal positions added): its final-norm output [B, F, d]."""
+    x = frames.to(cfg.compute_dtype)
+    x = x + sinusoidal_pos(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    for lp in params["encoder"]["layers"]:
+        x = _layer(_enc_block, lp, x, cfg, cfg=cfg)
+    return norm_apply(params["encoder"]["norm"], x, cfg.norm, cfg.norm_eps)
+
+
 def _ssm_block(lp, x, cfg: ArchConfig, cache=None, decode: bool = False):
     """A state-space layer (Mamba-1 in the ssm family, Mamba-2 in the
     hybrid): (x, cache, aux 0).  Given a ``cache`` (or in decode) it hands
@@ -172,8 +253,11 @@ def _tokens(params, batch):
 
 def _embed_in(cfg: ArchConfig, params, batch):
     """The token embeddings, a vlm's ``batch["patches"]`` (cast to the
-    compute dtype) ahead of them: (x [B, P+S, d], P)."""
+    compute dtype) ahead of them: (x [B, P+S, d], P).  The audio family
+    adds its learned positions 0..S-1 and has no offset."""
     x = embed_tokens(params["embed"], _tokens(params, batch), cfg)
+    if cfg.family == "audio":
+        return x + params["embed"]["pos"][:x.shape[1]].to(x.dtype)[None], 0
     if cfg.family != "vlm" or "patches" not in batch:
         return x, 0
     patches = torch.as_tensor(batch["patches"], device=x.device)
@@ -193,7 +277,8 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
             return_cache: bool = False, last_only: bool = False,
             return_hidden: bool = False):
     """Training and prefill forward: batch {"tokens": [B, S]} and, for the
-    vlm, {"patches": [B, P, d]} (numpy or tensors).  Returns (logits
+    vlm, {"patches": [B, P, d]}, for the audio family {"frames": [B, F,
+    d]} (numpy or tensors).  Returns (logits
     [B,P+S,V] or the final-norm hidden state, cache, (aux, P)); aux is
     the layers' summed MoE load-balance loss (0 for the other families)
     and P the patch count, the text's offset (0 without patches).
@@ -219,6 +304,16 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
         if return_cache:
             cache = (_stack(parts[0]) if len(parts) == 1 else
                      {"dense": _stack(parts[0]), "moe": _stack(parts[1])})
+    elif cfg.family == "audio":
+        enc = _encode_audio(cfg, params, torch.as_tensor(
+            batch["frames"], device=x.device))
+        caches = []
+        for lp in params["layers"]:
+            x, c = _layer(_dec_block, lp, x, cfg, positions, enc, cfg=cfg)
+            if return_cache:
+                caches.append(c)
+        if return_cache:
+            cache = _stack(caches)
     elif cfg.family == "ssm":
         zero = _ssm_zero(cfg, x.shape[0], x) if return_cache else None
         caches = []
@@ -261,7 +356,8 @@ def make_cache(cfg: ArchConfig, batch: int, seq: int, device="cpu"):
     <the rest>}; ssm {"conv": [L, B, K-1, di], "ssm": [L, B, di, N]};
     hybrid {"attn": {"k", "v": [n_super, B, S, Hkv, hd]}, "ssm":
     {"conv": [n_super, ev, B, K-1, di+2N], "ssm": [n_super, ev, B, H,
-    hd, N]}}."""
+    hd, N]}}; audio {"k", "v": [L, B, S, Hkv, hd], "ck", "cv": [L, B,
+    enc_frames, Hkv, hd]} (the cross-attention's encoder K / V)."""
     _check_family(cfg, "serves")
     dt = dict(dtype=cfg.compute_dtype, device=device)
     f32 = dict(dtype=torch.float32, device=device)
@@ -279,6 +375,11 @@ def make_cache(cfg: ArchConfig, batch: int, seq: int, device="cpu"):
                                              di + 2 * N), **dt),
                         "ssm": torch.zeros((ns, ev, batch, cfg.ssm_heads,
                                             cfg.ssm_head_dim, N), **f32)}}
+    if cfg.family == "audio":
+        cross = (cfg.n_layers, batch, cfg.enc_frames, cfg.kv_heads,
+                 cfg.head_dim)
+        return {**_attn_cache(cfg, cfg.n_layers, batch, seq, dt),
+                **{k: torch.zeros(cross, **dt) for k in ("ck", "cv")}}
     nd = _n_dense(cfg)
     if nd:
         return {"dense": _attn_cache(cfg, nd, batch, seq, dt),
@@ -301,9 +402,9 @@ def _attn_cache(cfg: ArchConfig, n: int, batch: int, seq: int, dt: dict):
 
 def cache_seq_axes(cfg: ArchConfig):
     """``make_cache``'s structure with each leaf's sequence axis, or -1
-    for a state leaf (conv and ssm states) whose shape does not grow with
-    the sequence and is copied whole, for the static engine's cache
-    growth."""
+    for a state leaf (conv and ssm states, the encoder's cross K / V)
+    whose shape does not grow with the sequence and is copied whole, for
+    the static engine's cache growth."""
     _check_family(cfg, "serves")
     SEQ, STATE = 2, -1
     if cfg.family == "ssm":
@@ -311,6 +412,8 @@ def cache_seq_axes(cfg: ArchConfig):
     if cfg.family == "hybrid":
         return {"attn": {"k": SEQ, "v": SEQ},
                 "ssm": {"conv": STATE, "ssm": STATE}}
+    if cfg.family == "audio":
+        return {"k": SEQ, "v": SEQ, "ck": STATE, "cv": STATE}
     keys = ("latent", "k_rope") if cfg.attn_kind == "mla" else ("k", "v")
     axes = dict.fromkeys(keys, SEQ)
     if _n_dense(cfg):
@@ -325,11 +428,18 @@ def _put(dst: dict, src: dict) -> None:
 
 def decode_step(cfg: ArchConfig, params: Params, cache, token, pos: int):
     """One static decode step: token [B,1] int, ``pos`` the position every
-    row writes (a host int).  Returns (logits [B,1,V], cache) with the
+    row writes (a host int; the audio family's learned position ``pos``
+    is added to the token).  Returns (logits [B,1,V], cache) with the
     cache updated in place."""
     _check_family(cfg, "serves")
     x = embed_tokens(params["embed"], token, cfg)
-    if cfg.family in ("dense", "vlm", "moe"):
+    if cfg.family == "audio":
+        x = x + params["embed"]["pos"][pos:pos + 1].to(x.dtype)[None]
+        for l, lp in enumerate(params["layers"]):
+            cache_l = {k: v[l] for k, v in cache.items()}       # views
+            x, _ = _dec_block(lp, x, cfg, None, cache=cache_l, pos=pos,
+                              decode=True)
+    elif cfg.family in ("dense", "vlm", "moe"):
         for layers, part in _attn_stacks(params, cache):
             for l, lp in enumerate(layers):
                 cache_l = {k: v[l] for k, v in part.items()}    # views

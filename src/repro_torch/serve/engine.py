@@ -7,10 +7,13 @@ lockstep against a contiguous cache (``decode_step``) until
 ``max_new_tokens``; a finished row keeps decoding into its own slots and
 is masked to eos.  A vlm's patches (``generate``'s ``extra_inputs``)
 prefill ahead of the prompt, so decode positions start at the prefill's
-length, patches included.  The cache holds K / V by position (under a
+length, patches included; the audio family's frames feed the encoder
+and never sit ahead of the prompt, so its decode positions count from
+the prompt's length.  The cache holds K / V by position (under a
 sliding window a ring: position p at slot p % window), MLA's latent and
-k_rope, and, for the ssm and hybrid families, each layer's conv and ssm
-state (``Engine._grow_cache``).  Shapes never change, so it is the simplest
+k_rope, for the ssm and hybrid families each layer's conv and ssm
+state, and for the audio family each decoder layer's cross K / V of the
+encoder output, made once at prefill (``Engine._grow_cache``).  Shapes never change, so it is the simplest
 pattern, but a batch is as slow as its longest request.  Every sparse FFN
 junction runs through kernels/block_sparse_matmul.fwd / gated_fwd (the
 int8 kernels under ``quantize="int8"``); attention is the plain
@@ -198,8 +201,9 @@ class Engine:
 
     def generate(self, prompts: np.ndarray,
                  extra_inputs: dict | None = None) -> np.ndarray:
-        """prompts [B, S] int (and, for the vlm, ``extra_inputs``
-        {"patches": [B, P, d]}) -> tokens [B, max_new_tokens] int32."""
+        """prompts [B, S] int (and ``extra_inputs``: for the vlm
+        {"patches": [B, P, d]}, for the audio family {"frames": [B, F,
+        d]}) -> tokens [B, max_new_tokens] int32."""
         self.nonfinite_terminated = 0   # before any branch: never stale
         scfg, dev = self.scfg, self.device
         B = prompts.shape[0]
@@ -250,7 +254,7 @@ class Engine:
         position 0 of its sequence axis, zeros beyond; a sliding window's
         ring (W < S slots) keeps the last W positions, position p at slot
         p % W, where decode reads and writes it; a state leaf (axis -1:
-        conv and ssm states) whole."""
+        conv and ssm states, the cross K / V) whole."""
         full = M.make_cache(self.cfg, B, total, self.device)
 
         def place(ax, dst, src):

@@ -236,7 +236,9 @@ def make_prefill_step(cfg: ArchConfig):
     the cache in ``M.make_cache``'s structure over the prefill's
     positions, their count P + S).  ``batch`` holds "tokens" [B, S] and,
     for the vlm, "patches" [B, P, d], prefilled ahead of the tokens: the
-    model alone decides what comes ahead of them."""
+    model alone decides what comes ahead of them.  The audio family's
+    "frames" [B, F, d] feed the encoder and sit ahead of nothing (P = 0):
+    its positions count from the text."""
     def prefill(params, batch):
         with torch.no_grad():
             logits, cache, (_, off) = M.forward(cfg, params, batch,

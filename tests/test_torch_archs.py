@@ -1,10 +1,12 @@
-"""Every architecture of the port's families (dense, vlm, moe, ssm,
-hybrid) at its ``reduced()`` config on the CPU, and the five configs no
-port test named before this file held against the JAX reference.
+"""Every architecture of the registry (the dense, vlm, moe, ssm, hybrid
+and audio families) at its ``reduced()`` config on the CPU, and the five
+configs no port test named before this file held against the JAX
+reference.
 
 * Smoke (the twin of tests/test_archs_smoke.py): forward and loss, one
   Adam step that moves the params, one decode step, and the sparse
-  variant, on every ported arch: shapes and finite values.
+  variant, on every arch (whisper-base on frames and tokens): shapes and
+  finite values.
 * Parity with the reference on weights it made, carried across with
   ``convert``: qwen2-72b (QKV bias), deepseek-7b, command-r-plus-104b
   (tied embeddings), falcon-mamba-7b (ssm) and zamba2-2.7b (hybrid, at
@@ -12,9 +14,8 @@ port test named before this file held against the JAX reference.
   gradient sums over both uses).  FFN density 0.5 at block 32, fp32
   compute; the reference runs engine "jnp".
 * Contracts: the static cache's state leaves (shapes, axes, growth copied
-  whole), the paged path's refusals equal to the reference's, the
-  family still refused (audio), a hybrid checkpoint that
-  restores bit for bit, the fused update paths on the ssm tree, and the
+  whole), the paged path's refusals equal to the reference's, a hybrid
+  checkpoint that restores bit for bit, the fused update paths on the ssm tree, and the
   launchers on both new families.
 
 Tolerances: fp32 logits within 2e-4 absolute (the reference's static
@@ -62,11 +63,10 @@ from torch_parity_helpers import close_trees, noise_slack
 LOGIT_ATOL = 2e-4
 LOSS_RTOL = 1e-5
 TREE_TOL = dict(rtol=5e-4, atol=5e-5)
-PORTED = [a for a, c in treg.ARCHS.items() if c.family != "audio"]
+PORTED = list(treg.ARCHS)
 PARITY = ("qwen2-72b", "deepseek-7b", "command-r-plus-104b",
           "falcon-mamba-7b", "zamba2-2.7b")
 STATE_ARCHS = ("falcon-mamba-7b", "zamba2-2.7b")
-REFUSED = {"whisper-base": "family 'audio'"}
 B, S = 2, 32
 
 
@@ -84,6 +84,15 @@ def _tokens(cfg, b=B, s=S, seed=7):
         0, cfg.vocab, size=(b, s)).astype(np.int32)
 
 
+def _batch(cfg):
+    """Tokens, and for the audio family its encoder's frames."""
+    batch = {"tokens": _tokens(cfg)}
+    if cfg.family == "audio":
+        batch["frames"] = np.random.default_rng(8).standard_normal(
+            (B, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+    return batch
+
+
 def _floats(tree):
     return [t for _, t in tree_items(tree)
             if torch.is_tensor(t) and t.is_floating_point()]
@@ -91,19 +100,21 @@ def _floats(tree):
 
 # ----------------------------------------------------------------- smoke
 def test_ported_archs_are_the_four_families():
-    """Every family but audio: dense, vlm, moe (with MLA and a dense first
-    layer), ssm and hybrid."""
+    """Every arch of the registry: dense, vlm, moe (with MLA and a dense
+    first layer), ssm, hybrid and audio."""
     assert set(PORTED) == {"stablelm-3b", "qwen2-72b", "deepseek-7b",
                            "command-r-plus-104b", "falcon-mamba-7b",
                            "zamba2-2.7b", "qwen3-moe-30b-a3b",
-                           "llava-next-mistral-7b", "deepseek-v2-lite-16b"}
+                           "llava-next-mistral-7b", "deepseek-v2-lite-16b",
+                           "whisper-base"}
+    assert {c.family for c in treg.ARCHS.values()} == set(TM.FAMILIES)
 
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_forward_and_loss(arch):
     cfg = treg.get(arch).reduced()
     params = TM.init(cfg, 0, "cpu")
-    batch = {"tokens": _tokens(cfg)}
+    batch = _batch(cfg)
     with torch.no_grad():
         loss, _ = TM.loss_fn(cfg, params, batch)
         logits, _, _ = TM.forward(cfg, params, batch)
@@ -118,7 +129,7 @@ def test_train_step(arch):
     params = TM.init(cfg, 0, "cpu")
     opt = adam(constant_schedule(1e-3))
     p2, _, metrics = make_train_step(cfg, opt)(
-        params, opt.init(params), {"tokens": _tokens(cfg)}, 0)
+        params, opt.init(params), _batch(cfg), 0)
     assert torch.isfinite(metrics["loss"])
     moved = any(not torch.equal(a, b)
                 for a, b in zip(_floats(params), _floats(p2)))
@@ -152,7 +163,7 @@ def test_sparse_variant_train_step(arch):
                    or p.endswith("/idx_in"))
     assert n_sparse > 0, f"{arch}: technique not applied anywhere"
     with torch.no_grad():
-        loss, _ = TM.loss_fn(cfg, params, {"tokens": _tokens(cfg)})
+        loss, _ = TM.loss_fn(cfg, params, _batch(cfg))
     assert torch.isfinite(loss)
 
 
@@ -334,19 +345,6 @@ def test_continuous_engine_and_launcher_refuse_state_families(arch):
     with pytest.raises(SystemExit, match="--continuous unsupported"):
         tserve.main(["--arch", arch, "--reduce", "--sparse", "--continuous",
                      "--device", "cpu"])
-
-
-@pytest.mark.parametrize("arch", sorted(REFUSED))
-def test_unported_families_and_attention_still_refused(arch):
-    cfg = treg.get(arch).reduced()
-    with pytest.raises(ValueError, match=REFUSED[arch]):
-        TM.init(cfg, 0, "cpu")
-    with pytest.raises(ValueError, match=REFUSED[arch]):
-        TM.make_cache(cfg, 1, 8)
-    with pytest.raises(ValueError):
-        Engine(cfg, {}, device="cpu")
-    with pytest.raises(ValueError, match="no audio frames"):
-        next(LMTokenPipeline(cfg, 2, 16))
 
 
 @pytest.mark.parametrize("arch", STATE_ARCHS)

@@ -149,15 +149,6 @@ def test_make_cache_and_seq_axes_match_reference(setup):
     assert TM.cache_seq_axes(tcfg) == JM.cache_seq_axes(jcfg)
 
 
-@pytest.mark.parametrize("name", ["whisper-base"])
-def test_static_cache_refuses_unported_families(name):
-    cfg = treg.get(name).reduced()
-    with pytest.raises(ValueError):
-        TM.make_cache(cfg, 1, 8)
-    with pytest.raises(ValueError):
-        Engine(cfg, {}, device="cpu")
-
-
 def test_grow_cache_places_by_metadata(setup):
     _, tcfg, _, tparams, _ = setup
     eng = Engine(tcfg, tparams, ServeConfig(max_new_tokens=4), device="cpu")
