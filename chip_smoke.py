@@ -176,14 +176,30 @@ PyTorch built for CUDA.  It
    update_dw), the compression of one step's gradients on the card equal
    bit for bit to the CPU's, and the reference's property of compression
    (a 2 % restore, a residual that does not grow past 1.5 x);
-17. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
+17. trains on a device mesh (``launch/mesh.py``, a one-rank NCCL
+   group): ``launch/train.py --devices 1 --data 1 --model 1`` (params and
+   Adam placed by ``parallel/sharding.param_specs``) for 3 two-pass steps
+   of stablelm-3b at full width and 2 layers, and the fused SGD step
+   under the same mesh (``make_mesh_train_step``), each against the same
+   path without a mesh: losses and params bit for bit, exact launches,
+   the bytes the rank holds at rest, each path's step time;
+18. runs the paper's junction pipeline at mesh scale
+   (``parallel/pipeline.py``) over 4 stages, each a stablelm-3b layer's
+   sparse MLP with its pre-norm and residual (bf16 compute, fp32
+   weights), 8 microbatches of 256 rows: ``gpipe_forward`` equal to the
+   stages in order bit for bit, a ``gpipe_step`` and two asynchronous
+   epochs (FF, BP and UP overlapped) timed a tick with the device-busy
+   share, the epochs against the same schedule on the plain versions,
+   exact fwd / dx / dw launches; and the reference's tanh pipeline
+   converging on the card as on the CPU;
+19. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
    fixed point, ``core/paper_net.py``) on ``paper_dataset``, sequential and
    junction-pipelined: over the first 1024 inputs the card and the CPU give
    the same params, corrects and forward outputs bit for bit; one full
    12544-input epoch of each on the card is timed and must reach the
    reference's accuracy contracts (above 0.8 sequential, 0.75 pipelined);
    the FPGA model's block cycle and arithmetic units are printed;
-18. prints a ``kernels`` JSON line and, last, a JSON line with
+20. prints a ``kernels`` JSON line and, last, a JSON line with
    ``"ok": true`` and the device.
 
 Any failed check raises and the exit code is not 0.  Without a card, or
@@ -4314,6 +4330,348 @@ def compress_phase(P, card):
             for arch, layers in COMPRESS_RUNS}
 
 
+# ------------------------------------------- the mesh and the pipeline
+# launch/train.py --devices 1 --data 1 --model 1 (a one-rank NCCL group,
+# params and Adam placed by their specs) against the same launcher
+# without a mesh, and the fused step under that mesh against the plain
+# step: stablelm-3b at full width and MESH_LAYERS layers
+MESH_ARCH, MESH_LAYERS, MESH_STEPS = "stablelm-3b", 2, 3
+# the pipeline's stages: a stablelm-3b layer's sparse MLP (wg with silu,
+# wi, wo: 2560 <-> 6912 at kb 5 / 14, block 128) with its pre-norm and
+# residual, bf16 compute on fp32 weights (bf16 weights would round
+# most updates, and the two paths' roundings apart); PIPE_M microbatches
+# of PIPE_ROWS rows.  The loss is half the squared error summed over a
+# row, averaged over the rows.
+PIPE_S, PIPE_M, PIPE_ROWS, PIPE_LR, PIPE_EPOCHS = 4, 8, 256, 1e-2, 2
+# the reference's tanh case (tests/test_distributed.py): D 16, 4 stages,
+# 8 microbatches of 4 rows, lr 0.05, 25 epochs, fp32
+TANH = dict(D=16, S=4, M=8, rows=4, lr=0.05, epochs=25)
+
+
+def _tree_bits_equal(P, a, b) -> bool:
+    """Two trees equal bit for bit, leaf for leaf, whatever the dtypes."""
+    return all(x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+        x.flatten().view(torch.uint8), y.flatten().view(torch.uint8))
+        for (_, x), (_, y) in zip(P.tree_items(a), P.tree_items(b)))
+
+
+def _launcher(P, argv, name):
+    """launch/train.py's main on ``argv`` with its stdout printed: (the
+    result, the per-step losses and seconds of its train.step events,
+    the launches)."""
+    ckpt = ROOT / "build" / f"mesh_{name}"
+    sink = ckpt.with_suffix(".jsonl")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    P.ops.reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = P.train.main(argv + ["--ckpt", str(ckpt), "--obs", str(sink)])
+    torch.cuda.synchronize()
+    counts = with_tc(P, P.ops.launch_counts())
+    _, events = P.obs.read_events(str(sink))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    sink.unlink()
+    print(out.getvalue(), end="")
+    steps = [e for e in events if e["kind"] == "train.step"]
+    return (res, [e["loss"] for e in steps], [e["dt_s"] for e in steps],
+            counts, out.getvalue())
+
+
+def mesh_phase(P, card):
+    """The mesh on the card: a one-rank NCCL group, then
+
+    * ``launch/train.py --devices 1 --data 1 --model 1`` (the launcher's
+      two-pass Adam) for MESH_STEPS steps of batch 8 x 256 against the
+      same launcher without a mesh: losses and trained params equal bit
+      for bit (one rank splits and sums nothing), exact launches, the
+      bytes the rank holds at rest (the launcher's line);
+    * the fused step (fused SGD with momentum, bf16 params) under the
+      same mesh (``make_mesh_train_step``) against the plain step, from
+      the same weights and batches: losses and params bit for bit, exact
+      launches (no dw).
+
+    Prints each path's median step time beside the plain path's."""
+    cfg = dataclasses.replace(
+        P.registry.get(MESH_ARCH).with_sparsity(
+            P.SparsityConfig(density=0.25, block=BS, where="ffn")),
+        n_layers=MESH_LAYERS)
+    argv = ["--arch", MESH_ARCH, "--sparse", "--layers", str(MESH_LAYERS),
+            "--steps", str(MESH_STEPS), "--batch", str(TRAIN_B), "--seq",
+            str(TRAIN_S)]
+    P.mesh.start_one_rank_group("cuda")
+    try:
+        mesh = P.mesh.make_local_mesh(1, 1, "cuda")
+        res, losses, dts, counts, text = _launcher(
+            P, argv + ["--devices", "1", "--data", "1", "--model", "1"],
+            "one_rank")
+        got = P.sharding.gather(res["params"])
+        del res
+        want = _expected_launches(P, cfg, MESH_STEPS, "two_pass")
+        plain, p_losses, p_dts, p_counts, _ = _launcher(P, argv, "plain")
+        same = _tree_bits_equal(P, got, plain["params"])
+        del plain, got
+        torch.cuda.empty_cache()
+        print(f"[mesh] launch/train.py --devices 1 {MESH_ARCH} "
+              f"layers={MESH_LAYERS}: losses {losses}, median step "
+              f"{statistics.median(dts) * 1e3:.1f} ms (steps "
+              f"{[round(v * 1e3, 1) for v in dts]}) against the plain "
+              f"launcher's {p_losses}, {statistics.median(p_dts) * 1e3:.1f} "
+              f"ms ({[round(v * 1e3, 1) for v in p_dts]}); params equal "
+              f"bit for bit: {same}; launches={counts} [{card}]")
+        require("update path: two-pass" in text and "[train] mesh data=1"
+                in text, "the mesh launcher did not take its path")
+        require(losses == p_losses and same,
+                "the one-rank mesh launcher differs from the plain one")
+        require({k: counts[k] for k in want} == want and counts == p_counts,
+                f"mesh launcher launches {counts} != {want}")
+        paths = {"mesh_train": counts}
+        paths["mesh_fused"] = _mesh_fused(P, cfg, mesh, card)
+    finally:
+        torch.distributed.destroy_process_group()
+    return paths
+
+
+def _mesh_fused(P, cfg, mesh, card):
+    """The fused step under ``mesh`` against the plain fused step:
+    MESH_STEPS steps each, bit for bit, exact launches."""
+    cfg = dataclasses.replace(cfg, fused_update=True, param_dtype="bfloat16")
+    opt = P.optim.fused_sgd(P.optim.cosine_schedule(3e-4, 20, 100),
+                            momentum=0.9)
+    pipe = P.LMTokenPipeline(cfg, TRAIN_B, TRAIN_S)
+    batches = [next(pipe) for _ in range(MESH_STEPS)]
+
+    def run(on_mesh):
+        params = P.M.init(cfg, seed=0, device="cuda")
+        state = opt.init(params)
+        if on_mesh:
+            specs = P.sharding.param_specs(cfg, params, mesh)
+            params = P.sharding.place(params, specs, mesh)
+            state = P.sharding.place_state(state, specs, mesh)
+            step = P.steps.make_mesh_train_step(cfg, opt, mesh)
+        else:
+            step = P.steps.make_train_step(cfg, opt)
+        torch.cuda.synchronize()
+        P.ops.reset_launch_counts()
+        losses, dts = [], []
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch, i)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+        counts = with_tc(P, P.ops.launch_counts())
+        return P.sharding.gather(params), losses, dts, counts
+
+    got, losses, dts, counts = run(True)
+    want_p, p_losses, p_dts, p_counts = run(False)
+    same = _tree_bits_equal(P, got, want_p)
+    want = _expected_launches(P, cfg, MESH_STEPS, "fused")
+    print(f"[mesh] fused SGD step under the one-rank mesh, {cfg.name} "
+          f"layers={cfg.n_layers}: losses {losses} against the plain "
+          f"step's {p_losses}; median step {statistics.median(dts) * 1e3:.1f}"
+          f" ms against {statistics.median(p_dts) * 1e3:.1f} ms; params "
+          f"equal bit for bit: {same}; launches={counts} [{card}]")
+    require(losses == p_losses and same,
+            "the fused step under the mesh differs from the plain step")
+    require({k: counts[k] for k in want} == want and counts == p_counts
+            and counts["junction_dw"] == 0,
+            f"mesh fused launches {counts} != {want}")
+    del got, want_p
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _pipe_stages(P, seed=0):
+    """PIPE_S stages' params stacked on a leading axis (fp32 masters, as
+    the two-pass train path holds them), and the stage function: x +
+    mlp(layernorm(x)) of a stablelm-3b layer's sparse MLP in bf16 (one
+    pattern for every stage, weights drawn from ``seed``)."""
+    cfg = P.registry.get("stablelm-3b").with_sparsity(
+        P.SparsityConfig(density=0.25, block=BS, where="ffn"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    stages = [{"norm": P.layers.norm_init(cfg.d_model, cfg.norm,
+                                          torch.float32, "cuda"),
+               "mlp": P.layers.mlp_init(gen, cfg, torch.float32, "cuda")}
+              for _ in range(PIPE_S)]
+    stacked = P.tree_map(lambda *ts: torch.stack(ts), stages[0],
+                         *stages[1:])
+
+    def stage_fn(p, x):
+        h = P.layers.norm_apply(p["norm"], x, cfg.norm, cfg.norm_eps)
+        return x + P.layers.mlp_apply(p["mlp"], h, cfg)
+    return cfg, stacked, stage_fn
+
+
+def _row_sq_loss(y, yt):
+    """(dy, loss): half the squared error summed over a row, averaged
+    over the rows; fp32 sums, dy in y's dtype."""
+    d = y.float() - yt.float()
+    rows = y.numel() // y.shape[-1]
+    return (d / rows).to(y.dtype), 0.5 * (d * d).sum() / rows
+
+
+def _pipe_calls(S, M, what):
+    """The junction launches of a schedule over S stages of three
+    junctions and M microbatches: gpipe's forward S*M stage forwards;
+    its step also a backward of each; an async epoch S*M forwards and
+    S*M vjps (each a recomputed forward and a backward)."""
+    n = 3 * S * M
+    return {"gpipe_forward": {"junction_fwd": n},
+            "gpipe_step": {"junction_fwd": n, "junction_dx": n,
+                           "junction_dw": n},
+            "async_epoch": {"junction_fwd": 2 * n, "junction_dx": n,
+                            "junction_dw": n}}[what]
+
+
+def _timed_wall(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def pipeline_phase(P, card):
+    """parallel/pipeline.py on the card, PIPE_S stablelm-3b MLP stages
+    computing in bf16 on fp32 weights (``_pipe_stages``), PIPE_M
+    microbatches of PIPE_ROWS bf16 rows:
+
+    * ``gpipe_forward`` through the kernels equals the stages applied in
+      order to each microbatch, bit for bit (the same kernel calls);
+    * a ``gpipe_step`` and PIPE_EPOCHS ``async_pipeline_epoch`` epochs
+      through the kernels, timed a tick, with the device-busy share of
+      one more epoch (``step_breakdown``), and exact fwd / dx / dw
+      launches (every one on the tensor cores);
+    * the same epochs on the plain versions on the card: losses within
+      STEP_TOL["bfloat16"]["loss"], each stage's weight updates within
+      STEP_TOL["bfloat16"]["m"] (``rel_err``, as Adam's m is held);
+    * the reference's tanh case (TANH) in fp32 on the card and on the
+      CPU: its warm loss falls below 0.7 x the first epoch's on both, as
+      tests/test_distributed.py asks; the gap printed."""
+    PP, bsm = P.pipeline, P.bsm
+    cfg, params, stage_fn = _pipe_stages(P)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    shape = (PIPE_M, PIPE_ROWS, cfg.d_model)
+    xs = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    ys = (0.1 * torch.randn(shape, generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    S, M = PIPE_S, PIPE_M
+    counts = collections.Counter()
+
+    def counted(what, fn, kernels=True):
+        P.ops.reset_launch_counts()
+        out, wall = _timed_wall(fn)
+        if not kernels:
+            return out, wall
+        got = with_tc(P, P.ops.launch_counts())
+        want = _pipe_calls(S, M, what)
+        want = {**want, **{f"{k}_tc": v for k, v in want.items()}}
+        require({k: got[k] for k in got if got[k]} == want,
+                f"pipeline {what}: launches {got} != {want}")
+        counts.update(got)
+        return out, wall
+
+    with torch.no_grad():
+        outs, f_wall = counted("gpipe_forward",
+                               lambda: PP.gpipe_forward(stage_fn, params, xs))
+        seq = []
+        for m in range(M):
+            x = xs[m]
+            for s in range(S):
+                x = stage_fn(P.tree_map(lambda t: t[s], params), x)
+            seq.append(x)
+    fwd_same = bits_equal(outs, torch.stack(seq))
+    (_, g_loss), g_wall = counted("gpipe_step", lambda: PP.gpipe_step(
+        stage_fn, lambda y, yt: _row_sq_loss(y, yt)[1], params, xs, ys,
+        PIPE_LR))
+    torch.cuda.empty_cache()
+
+    def epochs(kernels=True):
+        p, all_losses, walls = params, [], []
+        for _ in range(PIPE_EPOCHS):
+            (p, losses), wall = counted("async_epoch", lambda: PP.
+                                        async_pipeline_epoch(
+                                            stage_fn, _row_sq_loss, p, xs,
+                                            ys, PIPE_LR), kernels)
+            all_losses.append(losses)
+            walls.append(wall)
+        return p, torch.stack(all_losses), walls
+
+    kp, kl, walls = epochs()
+    T = M + 2 * S
+    step_breakdown(lambda: PP.async_pipeline_epoch(
+        stage_fn, _row_sq_loss, kp, xs, ys, PIPE_LR), walls[-1],
+        "async_pipeline_epoch", card)
+    with contextlib.ExitStack() as stack:
+        for name in ("fwd", "dx", "dw"):
+            stack.enter_context(mock.patch.object(
+                bsm, name, getattr(bsm, f"{name}_ref")))
+        pp, pl, _ = epochs(kernels=False)
+    kl, pl = kl[:, (S - 1) * T:], pl[:, (S - 1) * T:]    # the last stage's
+    live = kl != 0
+    loss_rel = float(((kl - pl).abs()[live] / pl.abs()[live]).max())
+    upd_err = max(rel_err(a.float() - b.float(), c.float() - b.float())
+                  for (_, a), (_, b), (_, c) in zip(
+                      P.tree_items(kp), P.tree_items(params),
+                      P.tree_items(pp)) if a.is_floating_point())
+    tol = STEP_TOL["bfloat16"]
+    print(f"[pipeline] {S} stages of a stablelm-3b MLP (bf16 compute, "
+          f"fp32 weights), {M} x "
+          f"{PIPE_ROWS} rows: gpipe_forward {f_wall * 1e3:.1f} ms = "
+          f"{f_wall / (M + S - 1) * 1e3:.2f} ms a tick ({M + S - 1} ticks), "
+          f"equal to the stages in order bit for bit: {fwd_same}; "
+          f"gpipe_step {g_wall * 1e3:.1f} ms (loss {float(g_loss):.4f}) = "
+          f"{g_wall / (2 * (M + S - 1)) * 1e3:.2f} ms a tick of "
+          f"{2 * (M + S - 1)}; async epochs "
+          f"{[round(w * 1e3, 1) for w in walls]} ms = "
+          f"{walls[-1] / T * 1e3:.2f} ms a tick ({T} ticks); bubble "
+          f"gpipe {PP.bubble_fraction(S, M):.3f}, async "
+          f"{PP.bubble_fraction(S, M, 'async'):.1f}; kernels vs plain "
+          f"versions: losses rel {loss_rel:.3g} (tol {tol['loss']}), "
+          f"updates rel_err {upd_err:.3g} (tol {tol['m']}) [{card}]")
+    require(fwd_same, "gpipe_forward differs from the stages in order")
+    require(loss_rel <= tol["loss"] and upd_err <= tol["m"],
+            "the async pipeline through the kernels differs from the plain "
+            "versions")
+    _tanh_converges(P, card)
+    return {"pipeline": dict(counts)}
+
+
+def _tanh_converges(P, card):
+    PP, t = P.pipeline, TANH
+    gen = torch.Generator().manual_seed(0)
+    p0 = {"w": torch.randn((t["S"], t["D"], t["D"]), generator=gen) * 0.5,
+          "b": torch.zeros((t["S"], t["D"]))}
+    xs = torch.randn((t["M"], t["rows"], t["D"]), generator=gen)
+    ys = torch.randn((t["M"], t["rows"], t["D"]), generator=gen) * 0.1
+
+    def stage(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    def lg(y, yt):
+        return 2 * (y - yt) / y.numel(), torch.mean((y - yt) ** 2)
+
+    def warm(device):
+        p = P.tree_map(lambda v: v.to(device), p0)
+        x, y = xs.to(device), ys.to(device)
+        out = []
+        for _ in range(t["epochs"]):
+            p, losses = PP.async_pipeline_epoch(stage, lg, p, x, y, t["lr"])
+            out.append(float(losses[losses > 0].mean()))
+        return out
+
+    on_card, on_cpu = warm("cuda"), warm("cpu")
+    gap = max(abs(a - b) / b for a, b in zip(on_card, on_cpu))
+    print(f"[pipeline] the reference's tanh case ({t['epochs']} async "
+          f"epochs, fp32): warm loss {on_card[0]:.5f} -> {on_card[-1]:.5f} "
+          f"on the card, {on_cpu[0]:.5f} -> {on_cpu[-1]:.5f} on the CPU; "
+          f"largest relative gap a epoch {gap:.3g} (printed) [{card}]")
+    require(on_card[-1] < 0.7 * on_card[0] and on_cpu[-1] < 0.7 * on_cpu[0],
+            "the async pipeline does not converge")
+
+
 # ------------------------------------------------------ standalone kernels
 # The four kernels the reference calls only through their own entry
 # points (ops.fxp_qmatmul, ops.sigmoid_lut, selective_scan, mha), driven
@@ -4717,9 +5075,12 @@ def load_port() -> types.SimpleNamespace:
     from repro_torch.launch import obs_report, quant_sweep
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import sweep
+    from repro_torch.launch import mesh
     from repro_torch.launch import train as train_launcher
+    from repro_torch.models import layers
     from repro_torch.models import model as M
     from repro_torch.models import moe
+    from repro_torch.parallel import pipeline, sharding
     from repro_torch.obs import percentile
     from repro_torch.serve import engine
     from repro_torch.train import grad_compress, steps, train_loop
@@ -4737,7 +5098,8 @@ def load_port() -> types.SimpleNamespace:
         slut=slut, obs=obs, obs_report=obs_report, train_loop=train_loop,
         PN=PN, JP=JP, paper_mnist=paper_mnist, paper_dataset=paper_dataset,
         search=search, SweepConfig=SweepConfig, sweep=sweep,
-        serve=serve_launcher, train=train_launcher)
+        serve=serve_launcher, train=train_launcher, mesh=mesh,
+        sharding=sharding, pipeline=pipeline, layers=layers)
 
 
 def build_kernels(P) -> None:
@@ -4818,6 +5180,8 @@ def main() -> int:
     paths.update(timed("mla", mla_phase, P, timer, card))
     paths.update(timed("audio", audio_phase, P, timer, card))
     paths.update(timed("compress", compress_phase, P, card))
+    paths.update(timed("mesh", mesh_phase, P, card))
+    paths.update(timed("pipeline", pipeline_phase, P, card))
     standalone, paths["standalone"] = timed(
         "standalone", standalone_kernel_phase, P, card)
     timed("paper", paper_phase, P, card)

@@ -75,6 +75,10 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     max_seq: int = 8192           # per-request sequence bound
+    # distribution: "tp" (tensor parallel) or "sp" (sequence parallel:
+    # small models whose head counts do not divide the model axis);
+    # parallel/sharding.py and parallel/hints.py read it
+    strategy: str = "tp"
     # dtype of the selective-scan elements ([B, c, d_inner, N] decay and
     # input tensors of a chunk); the carry between chunks stays fp32
     ssm_scan_dtype: str = "float32"
@@ -237,3 +241,40 @@ class SweepConfig:
     engine: str = "auto"
     fused: bool = True
     quarantine: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """A cell's input shape: ``global_batch`` sequences of ``seq_len``
+    tokens, for a train step, a prefill or a decode step."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def long_context_ok(cfg: ArchConfig) -> bool:
+    """long_500k runs only for sub-quadratic attention: the state-space
+    families and sliding windows."""
+    return (cfg.family in ("ssm", "hybrid")
+            or cfg.attn_kind == "sliding")
+
+
+def valid_cells(cfg: ArchConfig):
+    """The shapes of SHAPES that ``cfg`` runs, in SHAPES' order."""
+    for s in SHAPES.values():
+        if s.name == "long_500k" and not long_context_ok(cfg):
+            continue
+        yield s

@@ -86,7 +86,7 @@ WHISPER_BASE = ArchConfig(
     name="whisper-base", family="audio", n_layers=6, d_model=512,
     n_heads=8, kv_heads=8, head_dim=64, d_ff=2048, vocab=51968,
     raw_vocab=51865, enc_layers=6, enc_frames=1500, act="gelu",
-    norm="layernorm", max_seq=32768 + 8,
+    norm="layernorm", max_seq=32768 + 8, strategy="sp",
 )
 
 ARCHS: dict[str, ArchConfig] = {

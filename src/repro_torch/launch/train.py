@@ -24,12 +24,27 @@ checkpoint under ``--ckpt`` (default: ``build/train_ckpt`` in the
 checkout).  ``--obs PATH`` streams the flight recorder's events (a
 record a step, guardian and checkpoint events) to a JSONL file that
 ``repro_torch.launch.obs_report`` renders; ``--profile DIR`` writes a
-``torch.profiler`` Chrome trace of the run into DIR.  Not ported yet:
-the mesh flags (``--devices``, ``--data``, ``--model``).
+``torch.profiler`` Chrome trace of the run into DIR.
+
+``--devices N`` trains on a (``--data``, ``--model``) device mesh of N
+ranks, N = data x model (launch/mesh.py): params and optimizer state
+are placed by ``parallel/sharding.param_specs``, each rank holding only
+its shard at rest, and ``train/steps.make_mesh_train_step`` gathers
+them each step; the two-pass step gives each data-parallel rank its
+rows of the batch and averages the gradients over the data axis.  On
+the card N is 1 (a one-rank NCCL group; one card, one rank); with
+``--device cpu`` N gloo ranks run as N processes on this host.  Rank 0
+alone prints, records ``--obs`` / ``--profile`` and writes
+checkpoints; a spawned run returns None.  ``--data`` / ``--model``
+without ``--devices`` need a process group of that world size already
+(else they raise); at data x model 1 without ``--devices`` the step runs
+on plain tensors, as before.
 """
 from __future__ import annotations
 
 import argparse
+import sys
+from datetime import timedelta
 from pathlib import Path
 
 DEFAULT_CKPT = Path(__file__).resolve().parents[3] / "build" / "train_ckpt"
@@ -55,6 +70,12 @@ def main(argv=None):
     ap.add_argument("--density", type=float, default=0.25)
     ap.add_argument("--ckpt", default=str(DEFAULT_CKPT))
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks of the device mesh (data x model): 1 on "
+                         "the card, N gloo processes with --device cpu")
+    ap.add_argument("--data", type=int, default=1, help="data-parallel size")
+    ap.add_argument("--model", type=int, default=1,
+                    help="model-parallel size")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--compress-grads", action="store_true",
                     help="int8 gradients with error feedback "
@@ -70,24 +91,86 @@ def main(argv=None):
                          "into DIR")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
 
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    world = args.data * args.model
+    on_mesh = bool(args.devices) or world > 1
+    if args.devices and args.devices != world:
+        raise ValueError(f"--devices {args.devices} needs --data x --model "
+                         f"= {args.devices}, have {args.data} x "
+                         f"{args.model} = {world}")
+    if on_mesh and dev.type == "cuda" and world > 1:
+        raise RuntimeError(
+            f"a mesh of {world} ranks on the card: this launcher drives one "
+            f"card ({torch.cuda.get_device_name(dev)}) as one rank; use "
+            "--devices 1, or --device cpu for gloo ranks")
+    if args.devices > 1 and not dist.is_initialized():
+        return _spawn(argv, world)
+    return _train(args, dev, on_mesh)
+
+
+def _spawn(argv, world: int) -> None:
+    """``world`` gloo ranks, one process each, over a file store."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as d:
+        mp.start_processes(_rank_main, args=(argv, world, f"{d}/store"),
+                           nprocs=world, start_method="spawn")
+
+
+def _rank_main(rank: int, argv, world: int, store: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)     # the ranks share this host's cores
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(minutes=10))
+    try:
+        main(argv)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, dev, on_mesh: bool):
+    import contextlib
     import dataclasses
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch.configs import registry
     from repro_torch.core.sparsity import SparsityConfig
     from repro_torch.data.pipeline import LMTokenPipeline
-    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import model as M
     from repro_torch.obs import Recorder, profile_ctx
     from repro_torch.optim import cosine_schedule, fused_adam, fused_sgd
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as sh
     from repro_torch.train import grad_compress
-    from repro_torch.train.steps import fused_update_eligible, make_train_step
+    from repro_torch.train.steps import (fused_update_eligible,
+                                         make_mesh_train_step,
+                                         make_train_step)
     from repro_torch.train.train_loop import TrainLoopConfig, run
 
-    dev = resolve_device(args.device)
+    own_group = on_mesh and not dist.is_initialized()
+    mesh = make_local_mesh(args.data, args.model, dev) if on_mesh else None
+    rank = dist.get_rank() if on_mesh else 0
+
+    def say(*a, **k):
+        if rank == 0:
+            print(*a, **k)
+
     cfg = registry.get(args.arch)
     if args.reduce:
         cfg = cfg.reduced()
@@ -110,12 +193,24 @@ def main(argv=None):
     if args.compress_grads:
         opt = grad_compress.compressed(opt)
     ok, why = fused_update_eligible(cfg, opt, args.microbatches)
-    print(f"[train] optim={args.optim} update path: "
-          f"{'fused BP+UP' if ok else f'two-pass ({why})'}")
+    say(f"[train] optim={args.optim} update path: "
+        f"{'fused BP+UP' if ok else f'two-pass ({why})'}")
 
     params = M.init(cfg, 0, dev)
     opt_state = opt.init(params)
-    train_step = make_train_step(cfg, opt, microbatches=args.microbatches)
+    if on_mesh:
+        specs = sh.param_specs(cfg, params, mesh)
+        params = sh.place(params, specs, mesh)
+        opt_state = sh.place_state(opt_state, specs, mesh)
+        train_step = make_mesh_train_step(cfg, opt, mesh, args.microbatches)
+        held = {"params": sh.held_bytes(params),
+                "optimizer state": sh.held_bytes(opt_state)}
+        say(f"[train] mesh data={args.data} model={args.model} "
+            f"({dist.get_backend()}, {dist.get_world_size()} ranks): bytes "
+            "a rank holds at rest " + ", ".join(
+                f"{k} {loc} of {full}" for k, (loc, full) in held.items()))
+    else:
+        train_step = make_train_step(cfg, opt, microbatches=args.microbatches)
     pipeline = LMTokenPipeline(cfg, args.batch, args.seq)
     loop_cfg = TrainLoopConfig(total_steps=args.steps, ckpt_dir=args.ckpt,
                                ckpt_every=args.ckpt_every,
@@ -123,23 +218,29 @@ def main(argv=None):
     recorder = (Recorder(args.obs, meta={"launcher": "train",
                                          "arch": args.arch,
                                          "device": str(dev)})
-                if args.obs else None)
+                if args.obs and rank == 0 else None)
     try:
-        with profile_ctx(args.profile):
+        with contextlib.ExitStack() as stack:
+            if rank == 0:
+                stack.enter_context(profile_ctx(args.profile))
+            if on_mesh:
+                stack.enter_context(hints.use_mesh_hints(mesh))
             result = run(loop_cfg, train_step, params, opt_state, pipeline,
-                         recorder=recorder)
+                         log=say, recorder=recorder)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
     finally:
         if recorder is not None:
             recorder.close()
-            print(f"[train] telemetry -> {args.obs} "
-                  f"({recorder.n_events} events)")
-    print(f"[train] finished at step {result['step']} on {dev}; "
-          f"stragglers={result['straggler_count']}")
+            say(f"[train] telemetry -> {args.obs} "
+                f"({recorder.n_events} events)")
+        if own_group:
+            dist.destroy_process_group()
+    say(f"[train] finished at step {result['step']} on {dev}; "
+        f"stragglers={result['straggler_count']}")
     if result["history"]:
-        print(f"[train] first loss {result['history'][0]['loss']:.4f} "
-              f"-> last {result['history'][-1]['loss']:.4f}")
+        say(f"[train] first loss {result['history'][0]['loss']:.4f} "
+            f"-> last {result['history'][-1]['loss']:.4f}")
     return result
 
 

@@ -35,6 +35,12 @@ compressed latent).
 ``paged_decode_step(...)``        -> (logits [B,1,V], pool) one decode tick
 ``paged_prefill_chunk(...)``      -> (last logits [1,1,V], pool) one chunk
 
+``forward`` calls ``parallel/hints.constrain_tokens3d`` where the
+reference anchors its residual stream: after the embedding, after each
+layer of ``params["layers"]`` (the ssm, the hybrid's Mamba layers and
+the decoder's too, not the dense first layers or the encoder's) and
+after each hybrid super-block.
+
 The layers run in a Python loop; with ``cfg.remat`` each training layer
 (and the hybrid's shared block at each use) is recomputed in the
 backward (``torch.utils.checkpoint``), whisper's encoder layers
@@ -59,6 +65,7 @@ from repro_torch.models.layers import (embed_init, embed_tokens, mlp_apply,
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import (mamba1_apply, mamba1_init, mamba2_apply,
                                     mamba2_init)
+from repro_torch.parallel import hints
 
 Params = dict[str, Any]
 
@@ -73,11 +80,13 @@ def _check_family(cfg: ArchConfig, what: str) -> None:
 
 
 def init(cfg: ArchConfig, seed: int = 0, device=None) -> Params:
-    """Random params from ``seed`` on ``device`` (the card by default)."""
+    """Random params from ``seed`` on ``device`` (the card by default).
+    On the ``meta`` device it allocates nothing: the leaves carry their
+    shapes and dtypes only (the sharding rules read them at full size)."""
     _check_family(cfg, "builds")
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     params: Params = {"embed": embed_init(gen, cfg, dtype, dev),
                       "final_norm": norm_init(cfg.d_model, cfg.norm, dtype,
@@ -287,6 +296,7 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
     keeps the last position."""
     _check_family(cfg, "trains")
     x, off = _embed_in(cfg, params, batch)
+    x = hints.constrain_tokens3d(x, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = 0.0
     cache = None
@@ -297,6 +307,8 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
             for lp in layers:
                 x, c, a = _layer(_attn_mlp_block, lp, x, cfg, positions,
                                  cfg=cfg)
+                if layers is params["layers"]:
+                    x = hints.constrain_tokens3d(x, cfg)
                 if return_cache:
                     caches.append(c)
                 aux = aux + a
@@ -310,6 +322,7 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
         caches = []
         for lp in params["layers"]:
             x, c = _layer(_dec_block, lp, x, cfg, positions, enc, cfg=cfg)
+            x = hints.constrain_tokens3d(x, cfg)
             if return_cache:
                 caches.append(c)
         if return_cache:
@@ -319,6 +332,7 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
         caches = []
         for lp in params["layers"]:
             x, c, _ = _layer(_ssm_block, lp, x, cfg, zero, cfg=cfg)
+            x = hints.constrain_tokens3d(x, cfg)
             if return_cache:
                 caches.append(c)
         if return_cache:
@@ -332,7 +346,9 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
             inner = []
             for lp in lps:
                 x, s, _ = _layer(_ssm_block, lp, x, cfg, zero, cfg=cfg)
+                x = hints.constrain_tokens3d(x, cfg)
                 inner.append(s)
+            x = hints.constrain_tokens3d(x, cfg)
             if return_cache:
                 kv.append(c)
                 states.append(inner)

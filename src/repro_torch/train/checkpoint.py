@@ -22,6 +22,10 @@
   skipped leaf, never a fall back to an older checkpoint); a saved dtype
   that differs is cast to ``like``'s (``Tensor.to``: exact where the
   dtypes are equal, rounded to nearest from fp32 to bf16).
+* Trees placed on a device mesh (``parallel/sharding.place``): every
+  rank gathers each DTensor leaf in the same order (a collective, in the
+  caller's thread), rank 0 alone writes, and a restore places each full
+  leaf as ``like``'s leaf is placed.
 """
 from __future__ import annotations
 
@@ -36,7 +40,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.parallel.sharding import place_as
 from repro_torch.tree import (tree_items, tree_leaves, tree_structure,
                               tree_unflatten_like)
 
@@ -54,6 +61,8 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
     if not torch.is_tensor(leaf):
         a = np.array(leaf)
         return a, str(a.dtype)
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype in _RAW16:
         return t.view(torch.int16).numpy(), _RAW16[t.dtype]
@@ -70,7 +79,7 @@ def _to_tensor(a: np.ndarray, dtype_name: str, like, path: str
     if t.shape != like.shape:
         raise CheckpointMismatch(f"leaf {path}: saved {tuple(t.shape)}, "
                                  f"expected {tuple(like.shape)}")
-    return t.to(device=like.device, dtype=like.dtype)
+    return place_as(t.to(device=like.device, dtype=like.dtype), like)
 
 
 def _checksum(arrays: list[np.ndarray], full: bool = False) -> str:
@@ -104,7 +113,11 @@ def _host_tree(tree):
 
 
 def _write(ckpt_dir: Path, step: int, arrays, dtypes, structure, paths,
-           extra: dict | None, full_checksum: bool) -> Path:
+           extra: dict | None, full_checksum: bool) -> Path | None:
+    """The checkpoint's directory, or None on a rank other than 0 of a
+    process group (rank 0 writes for all)."""
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:010d}"
     tmp = Path(tempfile.mkdtemp(dir=ckpt_dir, prefix=f".tmp_{step}_"))
@@ -133,8 +146,9 @@ def _write(ckpt_dir: Path, step: int, arrays, dtypes, structure, paths,
 
 
 def save(ckpt_dir, step: int, tree: Any, extra: dict | None = None,
-         full_checksum: bool = False) -> Path:
-    """Atomic synchronous save of a tree of tensors."""
+         full_checksum: bool = False) -> Path | None:
+    """Atomic synchronous save of a tree of tensors (None on a rank that
+    does not write)."""
     return _write(Path(ckpt_dir), step, *_host_tree(tree), extra,
                   full_checksum)
 

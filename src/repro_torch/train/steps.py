@@ -5,8 +5,10 @@ engine's (serve/engine.Engine): a prompt batch's last logits, its
 cache and its length, then one step-locked decode step.  ``make_train_step(cfg,
 optimizer)`` returns
 ``train_step(params, opt_state, batch, step[, lr_scale]) ->
-(params, opt_state, metrics)``; the batch goes to ``M.loss_fn`` as
-the pipeline made it (a vlm's patches with its tokens).  The two-pass step materialises the
+(params, opt_state, metrics)``, and ``make_mesh_train_step(cfg,
+optimizer, mesh)`` that step on params and state placed on a device
+mesh; the batch goes to ``M.loss_fn`` as the pipeline made it (a vlm's
+patches with its tokens).  The two-pass step materialises the
 gradients (junctions through the dx and dw kernels) and applies
 ``optimizer.update``; it leaves its input trees as they were.  The fused
 BP+UP step injects the optimizer's slots and hyp row into the junction
@@ -17,7 +19,10 @@ tensors now hold the updated values).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import sparse_linear as sl
@@ -25,6 +30,7 @@ from repro_torch.kernels import block_sparse_matmul as bsm
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
 from repro_torch.optim import FusedOptimizer, Optimizer, global_norm_scale
+from repro_torch.parallel import sharding as sh
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -197,28 +203,106 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
     fused, _ = fused_update_eligible(cfg, optimizer, microbatches)
     if fused:
         return _make_fused_train_step(cfg, optimizer)
+    return _make_two_pass_step(cfg, optimizer, microbatches)
 
+
+def _batch_grads(cfg: ArchConfig, params, batch, microbatches: int):
+    """(loss, metrics, grads) of the batch: one backward, or the fp32 mean
+    of ``microbatches`` equal splits."""
+    if microbatches == 1:
+        return _value_and_grad(cfg, params, batch)
+    loss, grads = 0.0, None
+    for mb in _split(batch, microbatches):
+        l, metrics, g = _value_and_grad(cfg, params, mb)
+        g = tree_map(lambda t: t.float() if t is not None else None, g)
+        grads = g if grads is None else tree_map(
+            lambda a, b: a + b if a is not None else None, grads, g)
+        loss = loss + l
+    grads = tree_map(lambda t: t / microbatches if t is not None else None,
+                     grads)
+    return loss / microbatches, metrics, grads
+
+
+def _make_two_pass_step(cfg: ArchConfig, optimizer: Optimizer,
+                        microbatches: int, reduce=None):
+    """The two-pass step; ``reduce(loss, metrics, grads)``, when given,
+    combines the gradients of several ranks' rows before the update."""
     def train_step(params, opt_state, batch, step, lr_scale=None):
-        if microbatches == 1:
-            loss, metrics, grads = _value_and_grad(cfg, params, batch)
-        else:
-            loss, grads = 0.0, None
-            for mb in _split(batch, microbatches):
-                l, metrics, g = _value_and_grad(cfg, params, mb)
-                g = tree_map(lambda t: t.float() if t is not None else None,
-                             g)
-                grads = g if grads is None else tree_map(
-                    lambda a, b: a + b if a is not None else None, grads, g)
-                loss = loss + l
-            loss = loss / microbatches
-            grads = tree_map(lambda t: t / microbatches
-                             if t is not None else None, grads)
+        loss, metrics, grads = _batch_grads(cfg, params, batch, microbatches)
+        if reduce is not None:
+            loss, metrics, grads = reduce(loss, metrics, grads)
         new_params, new_opt = optimizer.update(grads, opt_state, params, step)
         if lr_scale is not None:
             new_params = scale_params_delta(params, new_params, lr_scale)
         metrics = dict(metrics, loss=loss,
                        nonfinite=count_nonfinite_grads(grads))
         return new_params, new_opt, metrics
+
+    return train_step
+
+
+def _dp_rows(cfg: ArchConfig, batch, mesh):
+    """(this rank's rows of ``batch``, the dp process groups that share
+    the batch): the rows ``sharding.batch_specs`` gives this rank along
+    the dp axes, or the whole batch and no group where its rows do not
+    divide them or one rank holds the dp axes."""
+    axes = sh.batch_specs(cfg, batch, mesh)["tokens"][0]
+    axes = () if axes is None else axes if isinstance(axes, tuple) else (
+        axes,)
+    n, at = 1, 0
+    for a in axes:
+        size = mesh.size(mesh.mesh_dim_names.index(a))
+        n, at = n * size, at * size + mesh.get_local_rank(a)
+    if n == 1:
+        return batch, []
+    rows = {k: v[at * (len(v) // n):(at + 1) * (len(v) // n)]
+            for k, v in batch.items()}
+    return rows, [mesh.get_group(a) for a in axes]
+
+
+def _dp_mean(groups, t):
+    """The fp32 mean of ``t`` over the ranks of ``groups``."""
+    t, n = t.float(), 1
+    for g in groups:
+        dist.all_reduce(t, group=g)
+        n *= dist.get_world_size(g)
+    return t / n
+
+
+def _dp_reduce(groups, loss, metrics, grads):
+    mean = functools.partial(_dp_mean, groups)
+    return (mean(loss),
+            {k: mean(v) if torch.is_tensor(v) else v
+             for k, v in metrics.items()},
+            tree_map(lambda t: mean(t) if t is not None else None, grads))
+
+
+def make_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer, mesh,
+                         microbatches: int = 1):
+    """``make_train_step``'s step on params and optimizer state placed on
+    ``mesh`` (DTensor trees, ``sharding.place``): each rank holds only its
+    shard of every leaf at rest.  A step gathers the full tensors, runs
+    the update and keeps this rank's shard of the new params and state
+    (placed as the inputs were).  The two-pass path gives each
+    data-parallel rank its rows of the batch (``sharding.batch_specs``)
+    and averages the fp32 gradients (and the loss) over the dp axes
+    before the update, as microbatches are averaged; a MoE aux loss is
+    then the mean of the ranks' own, as it is of microbatches'.  The
+    fused path updates inside the backward kernels, where no all-reduce
+    can come between gradient and update, so every rank runs the whole
+    batch.  With one rank on the dp axes nothing is split or summed."""
+    fused, _ = fused_update_eligible(cfg, optimizer, microbatches)
+    whole = make_train_step(cfg, optimizer, microbatches)
+
+    def train_step(params, opt_state, batch, step, lr_scale=None):
+        full_p, full_s = sh.gather(params), sh.gather(opt_state)
+        rows, groups = (batch, []) if fused else _dp_rows(cfg, batch, mesh)
+        run = whole if not groups else _make_two_pass_step(
+            cfg, optimizer, microbatches,
+            functools.partial(_dp_reduce, groups))
+        new_p, new_s, metrics = run(full_p, full_s, rows, step, lr_scale)
+        return (sh.place_like(new_p, params), sh.place_like(new_s, opt_state),
+                metrics)
 
     return train_step
 

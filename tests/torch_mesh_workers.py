@@ -1,0 +1,161 @@
+"""Rank bodies for tests/test_torch_mesh.py, run as spawned gloo processes
+(one a rank, one torch thread each).  Plain module, no JAX: each rank
+imports torch and the port only.  Inputs and results cross through .npz
+files in the test's directory."""
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def run_ranks(fn, world: int, *args) -> None:
+    """fn(rank, *args) on ``world`` gloo ranks; raises if a rank raises
+    (the others are stopped)."""
+    store = f"{args[0]}/store_{fn.__name__}"
+    mp.start_processes(_enter, args=(fn, world, store, args), nprocs=world,
+                       start_method="spawn")
+
+
+def _enter(rank, fn, world, store, args):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(minutes=5))
+    try:
+        fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _save_tree(path, tree, **extra):
+    from repro_torch.tree import tree_items
+    np.savez(path, **{f"leaf:{k}": v.float().numpy()
+                      if v.is_floating_point() else v.numpy()
+                      for k, v in tree_items(tree)},
+             **{k: np.asarray(v) for k, v in extra.items()})
+
+
+def shard_counts(tree, spec_tree, mesh) -> bool:
+    """Whether each DTensor leaf holds its full numel over the product of
+    the mesh axes its spec shards (0-d placeholders: replicated)."""
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.tree import tree_items
+    sizes = sh.axis_sizes(mesh)
+    specs = dict(sh.spec_items(spec_tree))
+    for key, t in tree_items(tree):
+        spec = specs[key]
+        n = 1
+        if len(spec) <= t.dim():
+            for ax in spec:
+                for a in (ax if isinstance(ax, tuple) else
+                          () if ax is None else (ax,)):
+                    n *= sizes[a]
+        if t.to_local().numel() * n != t.numel():
+            return False
+    return True
+
+
+def sharded_step(rank, d, dtypes, data, model):
+    """One Adam step of reduced deepseek-7b (the reference's carried
+    weights, ``in.npz``) on a (data, model) mesh in each of ``dtypes``;
+    rank 0 writes the gathered params, Adam's m and the loss to
+    ``out_<dtype>.npz`` and the at-rest check to ``ok``.  Also a hinted
+    DTensor anchor."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adam, constant_schedule
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.steps import make_mesh_train_step
+    from repro_torch.tree import tree_leaves
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    raw = dict(np.load(f"{d}/in.npz"))
+    batch = {"tokens": raw.pop("batch_tokens")}
+    tree = {}
+    for k, v in raw.items():              # "embed.tok" -> nested dicts
+        node = tree
+        *head, last = k.split(".")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    full = from_jax_params(tree)
+    mesh = make_local_mesh(data, model, "cpu")
+    ok = True
+    for dtype in dtypes:
+        cfg = dataclasses.replace(registry.get("deepseek-7b").reduced(),
+                                  dtype=dtype)
+        opt = adam(constant_schedule(1e-3), grad_clip=None)
+        specs = sh.param_specs(cfg, full, mesh)
+        params = sh.place(full, specs, mesh)
+        state = sh.place_state(opt.init(full), specs, mesh)
+        ok = ok and shard_counts(params, specs, mesh) and all(
+            shard_counts(state[k], specs, mesh) for k in ("m", "v"))
+        ok = ok and all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(sh.gather(params)), tree_leaves(full)))
+        step = make_mesh_train_step(cfg, opt, mesh)
+        p, s, m = step(params, state, batch, 0)
+        ok = ok and shard_counts(p, specs, mesh)
+        p, mom = sh.gather(p), sh.gather(s["m"])
+        if rank == 0:
+            _save_tree(f"{d}/out_{dtype}.npz", {"params": p, "m": mom},
+                       loss=float(m["loss"]))
+    x = distribute_tensor(torch.arange(4 * 8 * 16.0).reshape(4, 8, 16), mesh,
+                          [Replicate(), Replicate()])
+    with hints.use_mesh_hints(mesh):
+        y = hints.constrain_tokens3d(x, None)
+    ok = ok and tuple(y.to_local().shape) == (4 // data, 8 // model, 16)
+    ok = ok and torch.equal(y.full_tensor(), x.full_tensor())
+    oks = [None] * dist.get_world_size()
+    dist.all_gather_object(oks, ok)
+    if rank == 0:
+        np.save(f"{d}/ok.npy", np.asarray(oks))
+
+
+def fused_steps(rank, d, data, model, n_steps):
+    """``n_steps`` fused Adam (clipped) steps of reduced sparse stablelm-3b
+    in fp32 on a (data, model) mesh; rank 0 writes the gathered params
+    and the losses to ``fused.npz``."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.steps import make_mesh_train_step
+
+    cfg, opt, params, batches = fused_case(n_steps)
+    mesh = make_local_mesh(data, model, "cpu")
+    specs = sh.param_specs(cfg, params, mesh)
+    placed = sh.place(params, specs, mesh)
+    state = sh.place_state(opt.init(params), specs, mesh)
+    del params
+    step = make_mesh_train_step(cfg, opt, mesh)
+    losses = []
+    for i, batch in enumerate(batches):
+        placed, state, m = step(placed, state, batch, i)
+        losses.append(float(m["loss"]))
+    full = sh.gather(placed)
+    if rank == 0:
+        _save_tree(f"{d}/fused.npz", full, losses=np.asarray(losses))
+
+
+def fused_case(n_steps):
+    """(cfg, optimizer, params, batches) of the fused comparison."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.core.sparsity import SparsityConfig
+    from repro_torch.data.pipeline import LMTokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim import constant_schedule, fused_adam
+
+    cfg = dataclasses.replace(
+        registry.get("stablelm-3b").reduced().with_sparsity(
+            SparsityConfig(density=0.5, block=32, where="ffn")),
+        dtype="float32", param_dtype="float32", fused_update=True)
+    opt = fused_adam(constant_schedule(1e-3), grad_clip=1.0)
+    pipe = LMTokenPipeline(cfg, 4, 32)
+    return (cfg, opt, M.init(cfg, 0, "cpu"),
+            [next(pipe) for _ in range(n_steps)])
