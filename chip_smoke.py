@@ -176,14 +176,25 @@ PyTorch built for CUDA.  It
    update_dw), the compression of one step's gradients on the card equal
    bit for bit to the CPU's, and the reference's property of compression
    (a 2 % restore, a residual that does not grow past 1.5 x);
-17. trains on a device mesh (``launch/mesh.py``, a one-rank NCCL
+17. trains the reference dry run's perf-sparse variant of stablelm-3b
+   (FFN density 0.125 at block 128, bf16-resident params, the
+   cross-entropy in chunks of 2048) at full width and 2 layers: 3
+   two-pass steps of ``adam(master_copy=True)`` through the kernels
+   (exact fwd / dx / dw launches, no update_dw) and through the plain
+   versions (loss, fp32 masters and m within the bf16 step tolerance,
+   params their masters rounded bit for bit), with the roofline of the
+   same step counted on ``meta`` tensors (``roofline/analysis.py``:
+   dot FLOPs, eager bytes, compute and memory terms) beside its
+   measured wall and device time, and its peak memory beside fp32
+   params with Adam alone;
+18. trains on a device mesh (``launch/mesh.py``, a one-rank NCCL
    group): ``launch/train.py --devices 1 --data 1 --model 1`` (params and
    Adam placed by ``parallel/sharding.param_specs``) for 3 two-pass steps
    of stablelm-3b at full width and 2 layers, and the fused SGD step
    under the same mesh (``make_mesh_train_step``), each against the same
    path without a mesh: losses and params bit for bit, exact launches,
    the bytes the rank holds at rest, each path's step time;
-18. runs the paper's junction pipeline at mesh scale
+19. runs the paper's junction pipeline at mesh scale
    (``parallel/pipeline.py``) over 4 stages, each a stablelm-3b layer's
    sparse MLP with its pre-norm and residual (bf16 compute, fp32
    weights), 8 microbatches of 256 rows: ``gpipe_forward`` equal to the
@@ -192,14 +203,14 @@ PyTorch built for CUDA.  It
    share, the epochs against the same schedule on the plain versions,
    exact fwd / dx / dw launches; and the reference's tanh pipeline
    converging on the card as on the CPU;
-19. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
+20. trains the paper's own network (Table I, 1024 -> 64 -> 32 in (12,3,8)
    fixed point, ``core/paper_net.py``) on ``paper_dataset``, sequential and
    junction-pipelined: over the first 1024 inputs the card and the CPU give
    the same params, corrects and forward outputs bit for bit; one full
    12544-input epoch of each on the card is timed and must reach the
    reference's accuracy contracts (above 0.8 sequential, 0.75 pipelined);
    the FPGA model's block cycle and arithmetic units are printed;
-20. prints a ``kernels`` JSON line and, last, a JSON line with
+21. prints a ``kernels`` JSON line and, last, a JSON line with
    ``"ok": true`` and the device.
 
 Any failed check raises and the exit code is not 0.  Without a card, or
@@ -213,6 +224,7 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import shutil
 import statistics
 import subprocess
@@ -969,7 +981,8 @@ def serve_phase(P, card, arch, params=None, quantize=None, fp_outs=None,
 
 def step_breakdown(step, wall_s, what, card, top=8):
     """The device time of one more call of ``step`` by kernel name, from
-    the profiler, and its share of ``wall_s`` (the unprofiled time)."""
+    the profiler, and its share of ``wall_s`` (the unprofiled time).
+    Returns the device time in ms."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -987,6 +1000,7 @@ def step_breakdown(step, wall_s, what, card, top=8):
     for e in kernels[:top]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
               f"{e.count:5d}x  {e.key[:90]}")
+    return dev_ms
 
 
 def tick_breakdown(M, cfg, params, card):
@@ -2359,9 +2373,12 @@ def _expected_tc(P, cfg, want):
 
 
 def train_run(P, cfg, opt, kind, card, n_steps=3):
-    """n_steps of make_train_step on ``cfg`` (random weights from seed 0,
-    LMTokenPipeline batch 8 x 256): finite losses, no non-finite update,
-    memory held flat, exact launch counts."""
+    """n_steps (2 or more) of make_train_step on ``cfg`` (random weights
+    from seed 0, LMTokenPipeline batch 8 x 256): finite losses, no
+    non-finite update, memory held flat, exact launch counts.  Returns
+    (the path's launch counts, {"step_s": the median of the steps after
+    the first, which warms up; "device_ms": the kernels' time of one
+    more step; "peak_gib": the peak allocated over the steps})."""
     ok, why = P.steps.fused_update_eligible(cfg, opt)
     require(ok == (kind != "two_pass"), f"{kind}: eligibility {ok} ({why})")
     params = P.M.init(cfg, seed=0, device="cuda")
@@ -2385,12 +2402,12 @@ def train_run(P, cfg, opt, kind, card, n_steps=3):
     counts, tc = P.ops.launch_counts(), P.ops.tc_launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     tok = TRAIN_M
-    med = statistics.median(times)
+    med = statistics.median(times[1:])
     print(f"[train] {kind} ({why}) {cfg.name} layers={cfg.n_layers} "
           f"param_dtype={cfg.param_dtype}: "
           f"losses {[round(v, 4) for v in losses]} nonfinite {nonfinite} "
-          f"step_ms {[round(v * 1e3, 1) for v in times]} median "
-          f"{med * 1e3:.1f} ms = {tok / med:.0f} tokens/s, peak_memory "
+          f"step_ms {[round(v * 1e3, 1) for v in times]} median after the "
+          f"first {med * 1e3:.1f} ms = {tok / med:.0f} tokens/s, peak_memory "
           f"{peak:.2f} GiB, held after each step "
           f"{[round(v, 2) for v in held]} GiB, launches={counts}, of them "
           f"on tensor cores {tc} [{card}]")
@@ -2404,44 +2421,71 @@ def train_run(P, cfg, opt, kind, card, n_steps=3):
     require(tc == want_tc,
             f"{kind}: tensor-core launches {tc} != {want_tc}")
     batch = next(pipe)
-    step_breakdown(lambda: step_fn(params, opt_state, batch, n_steps), med,
-                   f"{kind} step", card)
+    dev_ms = step_breakdown(lambda: step_fn(params, opt_state, batch,
+                                            n_steps), med, f"{kind} step",
+                            card)
     del params, opt_state
     torch.cuda.empty_cache()
-    return {**counts, **{f"{k}_tc": v for k, v in tc.items()}}
+    return ({**counts, **{f"{k}_tc": v for k, v in tc.items()}},
+            {"step_s": med, "device_ms": dev_ms, "peak_gib": peak})
 
 
-def compare_train_step(P, cfg, dtype, fused, card, depth=None):
-    """One step at full width and 2 layers (or the ``depth`` fields given),
+def adam_reach(n_steps, b1=0.9, b2=0.95) -> float:
+    """The farthest n_steps of Adam can move a weight, in units of lr:
+    the sum over steps t of the largest |m_t / sqrt(v_t)| after bias
+    correction, which by Cauchy-Schwarz is sqrt(sum a_i^2 / c_i) with
+    a_i, c_i the weights of gradient i in m_t and v_t (1 at t = 1,
+    1.00037 at t = 2, 1.00098 at t = 3)."""
+    reach = 0.0
+    for t in range(1, n_steps + 1):
+        r = sum(((1 - b1) * b1 ** (t - i)) ** 2 / ((1 - b2) * b2 ** (t - i))
+                for i in range(1, t + 1))
+        reach += math.sqrt(r * (1 - b2 ** t)) / (1 - b1 ** t)
+    return reach
+
+
+def compare_train_step(P, cfg, dtype, fused, card, depth=None, opt=None,
+                       lr=1e-3, n_steps=1):
+    """n_steps at full width and 2 layers (or the ``depth`` fields given),
     once through the kernels and once through their plain versions, from
-    the same weights and batch: losses and, per leaf, the updated params
-    and Adam's m."""
+    the same weights and batches: losses and, per leaf, the updated
+    params and Adam's m.  ``opt`` (whose rate is ``lr``) runs on the
+    config's own param dtype; by default a clipped fused Adam runs, on
+    fp32 params for the two-pass path.  Where the state holds fp32
+    masters, each side's params are its masters rounded, bit for bit,
+    and the masters' displacements agree per leaf by norm."""
     bsm = P.bsm
     cfg = dataclasses.replace(
-        cfg, **(depth or {"n_layers": 2}), dtype=dtype, fused_update=fused,
-        param_dtype=dtype if fused else "float32")
-    lr = 1e-3
-    opt = P.optim.fused_adam(P.optim.constant_schedule(lr), grad_clip=1.0)
-    batch = next(P.LMTokenPipeline(cfg, TRAIN_B, TRAIN_S))
+        cfg, **(depth or {"n_layers": 2}), dtype=dtype, fused_update=fused)
+    if opt is None:
+        cfg = dataclasses.replace(
+            cfg, param_dtype=dtype if fused else "float32")
+        opt = P.optim.fused_adam(P.optim.constant_schedule(lr),
+                                 grad_clip=1.0)
+    pipe = P.LMTokenPipeline(cfg, TRAIN_B, TRAIN_S)
+    batches = [next(pipe) for _ in range(n_steps)]
     step_fn = P.steps.make_train_step(cfg, opt)
 
-    def one():
+    def run():
         params = P.M.init(cfg, seed=0, device="cuda")
-        p, s, m = step_fn(params, opt.init(params), batch, 0)
-        return p, s, float(m["loss"])
+        state, losses = opt.init(params), []
+        for i, batch in enumerate(batches):
+            params, state, m = step_fn(params, state, batch, i)
+            losses.append(float(m["loss"]))
+        return params, state, losses
 
     P.ops.reset_launch_counts()
-    kp, ks, kl = one()
+    kp, ks, kl = run()
     kc = P.ops.launch_counts()
     with contextlib.ExitStack() as stack:
         for name in ("fwd", "dx", "dw", "update_dw", "gated_fwd", "gated_dx",
                      "gated_dw", "update_gated_dw"):
             stack.enter_context(mock.patch.object(
                 bsm, name, getattr(bsm, f"{name}_ref")))
-        pp, ps, pl = one()
+        pp, ps, pl = run()
     torch.cuda.synchronize()
     kind = "fused_clip" if fused else "two_pass"
-    require(kc == _expected_launches(P, cfg, 1, kind)
+    require(kc == _expected_launches(P, cfg, n_steps, kind)
             and P.ops.launch_counts() == kc,
             f"comparison did not take the intended paths: {kc}")
     # MoE in bf16: a router score that ties another to within a bf16
@@ -2451,29 +2495,58 @@ def compare_train_step(P, cfg, dtype, fused, card, depth=None):
     # rounded on both sides
     moe_bf16 = cfg.family == "moe" and dtype == "bfloat16"
     tol = dict(STEP_TOL[dtype], **({"m": None} if moe_bf16 else {}))
-    loss_rel = abs(kl - pl) / abs(pl)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
     m_err = max(rel_err(a, b) for (_, a), (_, b) in
                 zip(P.tree_items(ks["m"]), P.tree_items(ps["m"]))
                 if a.is_floating_point() and a.dim())
     pairs = [(a, b) for (_, a), (_, b) in
              zip(P.tree_items(kp), P.tree_items(pp)) if a.is_floating_point()]
     p_err = max(max_err(a, b) for a, b in pairs)
-    # +-lr each way (2 lr, with room for lr's own fp32 rounding), plus
-    # one ulp of the stored weight (of both, for MoE in bf16)
+    # +-lr a step each way (2 lr, with room for lr's own fp32 rounding),
+    # plus one ulp of the stored weight (of both, for MoE in bf16)
+    reach = 2 * lr * adam_reach(n_steps) * (1 + 1e-5)
     p_ok = all(bool(((a.float() - b.float()).abs()
-                     <= 2 * lr * (1 + 1e-5) + ULP[a.dtype] * (
+                     <= reach + ULP[a.dtype] * (
                          b.float().abs() + (a.float().abs() if moe_bf16
                                             else 0.0))).all())
                for a, b in pairs)
+    masters = ""
+    moved_ok = True
+    if "master" in ks:
+        for p, s in ((kp, ks), (pp, ps)):
+            for (k, t), (_, w) in zip(P.tree_items(p),
+                                      P.tree_items(s["master"])):
+                require(not t.is_floating_point() or (
+                    t.dtype == getattr(torch, cfg.param_dtype)
+                    and w.dtype == torch.float32
+                    and bits_equal(t, w.to(t.dtype))),
+                    f"{kind}: {k} is not its fp32 master rounded")
+        start = P.M.init(cfg, seed=0, device="cuda")
+        moved = max(moved_rel(a, b, w0) for (_, a), (_, b), (_, w0) in zip(
+            P.tree_items(ks["master"]), P.tree_items(ps["master"]),
+            P.tree_items(start)) if a.dim())
+        moved_ok = moved <= tol["moved"]
+        masters = (f", masters' displacement rel {moved:.3g} (tol "
+                   f"{tol['moved']}); params = masters rounded")
     print(f"[step] {cfg.name} {kind} {cfg.n_layers} layers {dtype} "
-          f"kernels vs plain "
-          f"versions: loss "
-          f"{kl:.6f} vs {pl:.6f} (rel {loss_rel:.3g}, tol {tol['loss']}), "
-          f"Adam m rel_err {m_err:.3g} (tol {tol['m']}), params max_abs_err "
-          f"{p_err:.3g} (tol 2 lr = {2 * lr} plus one ulp: {p_ok}) [{card}]")
-    require(loss_rel <= tol["loss"] and p_ok
+          f"param_dtype={cfg.param_dtype} {n_steps} step(s) kernels vs "
+          f"plain versions: losses {[round(v, 6) for v in kl]} vs "
+          f"{[round(v, 6) for v in pl]} (rel {loss_rel:.3g}, tol "
+          f"{tol['loss']}), Adam m rel_err {m_err:.3g} (tol {tol['m']}), "
+          f"params max_abs_err {p_err:.3g} (tol 2 lr a step = {reach:.3g} "
+          f"plus one ulp: {p_ok}){masters} [{card}]")
+    require(loss_rel <= tol["loss"] and p_ok and moved_ok
             and (tol["m"] is None or m_err <= tol["m"]),
             f"{kind} {dtype} step differs")
+
+
+def moved_rel(got, want, start) -> float:
+    """||(got - start) - (want - start)|| / ||want - start||: how far two
+    runs' displacements of one leaf from its common start part, by
+    norm."""
+    d = want.float() - start.float()
+    num = torch.linalg.vector_norm(got.float() - want.float())
+    return float(num / torch.linalg.vector_norm(d).clamp_min(1e-30))
 
 
 # one train step, kernels vs plain versions: fp32 differs in summation
@@ -2482,9 +2555,17 @@ def compare_train_step(P, cfg, dtype, fused, card, depth=None):
 # moves each weight by lr * m / sqrt(v) = +-lr, so a gradient near 0
 # whose sign differs moves it by 2 lr at most, and the stored weight may
 # round to the neighbouring value of its type.
+# With fp32 masters (the perf variant) each master's displacement from
+# its start is held per leaf by norm, kernels against plain versions:
+# Adam's early steps move a weight by about lr times its gradient's sign,
+# so weights whose gradients sit at the bf16 noise floor part.  The perf
+# step read 0.108 (3 steps, H100 80GB HBM3, 700 W); with the plain dx
+# halved 0.97, with the plain dw halved m's rel_err 0.975 (Adam's step
+# does not see a gradient's scale, m does).
 TRAIN_KINDS = ("two_pass", "fused_clip", "fused")
+MOVED_TOL = 0.3
 STEP_TOL = {"float32": {"loss": 1e-5, "m": 1e-3},
-            "bfloat16": {"loss": 1e-2, "m": 5e-2}}
+            "bfloat16": {"loss": 1e-2, "m": 5e-2, "moved": MOVED_TOL}}
 ULP = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7}
 
 
@@ -2510,7 +2591,7 @@ def train_phase(P, card, arch, n_layers=0, kinds=TRAIN_KINDS, depth=None):
         "fused": lambda: train_run(P, fused_cfg,
                                    P.optim.fused_sgd(sched, momentum=0.9),
                                    "fused", card)}
-    runs = {k: runs[k]() for k in kinds}
+    runs = {k: runs[k]()[0] for k in kinds}
     if "fused" in runs:
         require(runs["fused"]["junction_dw"] == 0
                 and runs["fused"]["junction_gated_dw"] == 0,
@@ -4330,6 +4411,71 @@ def compress_phase(P, card):
             for arch, layers in COMPRESS_RUNS}
 
 
+# ------------------------------------------------ the perf variant
+# the reference dry run's perf-sparse variant (its _apply_variant): FFN
+# density 0.125 at block 128, bf16-resident params with fp32 masters in
+# Adam, the cross-entropy in chunks of 2048; stablelm-3b at full width
+# and PERF_LAYERS layers, PERF_STEPS two-pass steps of TRAIN_B x TRAIN_S
+PERF_LAYERS, PERF_STEPS, PERF_LR = 2, 3, 1e-4
+
+
+def perf_phase(P, card):
+    """The perf-sparse variant's train step with
+    ``adam(constant_schedule(PERF_LR), master_copy=True)``: ``train_run``'s
+    PERF_STEPS two-pass steps (exact fwd / dx / dw launches, none of
+    update_dw: a master-copy Adam never fuses) and ``compare_train_step``
+    over the same number of steps against the plain versions; the
+    roofline of the same step counted on ``meta`` tensors
+    (``roofline.analysis.analyze``) beside the measured step and its
+    device time; the peak memory beside the same config with fp32 params
+    and Adam without masters."""
+    R = P.roofline
+    require(R.PEAK_FLOPS == PEAK_OPS_PER_S[torch.bfloat16]
+            and R.HBM_BW == HBM_BYTES_PER_S,
+            "the roofline's H100 constants differ from this script's")
+    cfg = dataclasses.replace(
+        P.registry.get("stablelm-3b").with_sparsity(
+            P.SparsityConfig(density=0.125, block=BS, where="ffn")),
+        n_layers=PERF_LAYERS, param_dtype="bfloat16", loss_chunk=2048,
+        ssm_scan_dtype="bfloat16")
+    opt = P.optim.adam(P.optim.constant_schedule(PERF_LR), master_copy=True)
+    path, run = train_run(P, cfg, opt, "two_pass", card, PERF_STEPS)
+    require(path["junction_update_dw"] == 0,
+            "perf: a master-copy Adam launched update_dw")
+    compare_train_step(P, cfg, cfg.dtype, False, card,
+                       {"n_layers": PERF_LAYERS}, opt, PERF_LR, PERF_STEPS)
+    meta = P.M.init(cfg, seed=0, device="meta")
+    batch = next(P.LMTokenPipeline(cfg, TRAIN_B, TRAIN_S))
+    roof = R.analyze(P.steps.make_train_step(cfg, opt), meta,
+                     opt.init(meta), {k: torch.as_tensor(v).to("meta")
+                                      for k, v in batch.items()}, 0)
+    shape = P.ShapeSpec("perf", TRAIN_S, TRAIN_B, "train")
+    mf = R.model_flops(cfg, shape)
+    med, dev_ms = run["step_s"], run["device_ms"]
+    share = roof.dot_flops / med / R.PEAK_FLOPS
+    print(f"[perf] roofline of the step (counted on meta): dot_flops "
+          f"{roof.dot_flops:.4g}, mem_bytes {roof.mem_bytes:.4g} (eager, "
+          f"every op's inputs and outputs), t_compute "
+          f"{roof.t_compute * 1e3:.3f} ms, t_memory "
+          f"{roof.t_memory * 1e3:.3f} ms, dominant {roof.dominant}; "
+          f"measured: median step after the first {med * 1e3:.1f} ms, "
+          f"kernels {dev_ms:.1f} ms ({dev_ms / (med * 1e3):.1%} busy); "
+          f"achieved {roof.dot_flops / med:.4g} FLOP/s = {share:.2%} of "
+          f"{R.PEAK_FLOPS:.4g}; model_flops {mf:.4g} (useful fraction "
+          f"{R.useful_fraction(cfg, shape, roof.dot_flops, 1):.3f}), MFU "
+          f"{mf / med / R.PEAK_FLOPS:.2%} [{card}]")
+    require(roof.dot_flops > 0 and share <= 1.05,
+            f"perf: dot_flops {roof.dot_flops}, share {share:.3f}")
+    base = dataclasses.replace(cfg, param_dtype="float32")
+    _, run32 = train_run(P, base,
+                         P.optim.adam(P.optim.constant_schedule(PERF_LR)),
+                         "two_pass", card, 2)
+    print(f"[perf] peak memory of the steps: {run['peak_gib']:.2f} GiB (bf16 "
+          f"params, fp32 masters) against {run32['peak_gib']:.2f} GiB (the "
+          f"same config with fp32 params, Adam without masters) [{card}]")
+    return {"perf": path}
+
+
 # ------------------------------------------- the mesh and the pipeline
 # launch/train.py --devices 1 --data 1 --model 1 (a one-rank NCCL group,
 # params and Adam placed by their specs) against the same launcher
@@ -5071,7 +5217,7 @@ def load_port() -> types.SimpleNamespace:
     from repro_torch.core import paper_net as PN
     from repro_torch.data.mnist import paper_dataset
     from repro_torch import search
-    from repro_torch.configs.base import SweepConfig
+    from repro_torch.configs.base import ShapeSpec, SweepConfig
     from repro_torch.launch import obs_report, quant_sweep
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import sweep
@@ -5081,6 +5227,7 @@ def load_port() -> types.SimpleNamespace:
     from repro_torch.models import model as M
     from repro_torch.models import moe
     from repro_torch.parallel import pipeline, sharding
+    from repro_torch.roofline import analysis as roofline
     from repro_torch.obs import percentile
     from repro_torch.serve import engine
     from repro_torch.train import grad_compress, steps, train_loop
@@ -5097,9 +5244,11 @@ def load_port() -> types.SimpleNamespace:
         qz=qz, fxp=fxp, quant_sweep=quant_sweep, fxk=fxk, ssk=ssk,
         slut=slut, obs=obs, obs_report=obs_report, train_loop=train_loop,
         PN=PN, JP=JP, paper_mnist=paper_mnist, paper_dataset=paper_dataset,
-        search=search, SweepConfig=SweepConfig, sweep=sweep,
+        search=search, SweepConfig=SweepConfig, ShapeSpec=ShapeSpec,
+        sweep=sweep,
         serve=serve_launcher, train=train_launcher, mesh=mesh,
-        sharding=sharding, pipeline=pipeline, layers=layers)
+        sharding=sharding, pipeline=pipeline, layers=layers,
+        roofline=roofline)
 
 
 def build_kernels(P) -> None:
@@ -5180,6 +5329,7 @@ def main() -> int:
     paths.update(timed("mla", mla_phase, P, timer, card))
     paths.update(timed("audio", audio_phase, P, timer, card))
     paths.update(timed("compress", compress_phase, P, card))
+    paths.update(timed("perf", perf_phase, P, card))
     paths.update(timed("mesh", mesh_phase, P, card))
     paths.update(timed("pipeline", pipeline_phase, P, card))
     standalone, paths["standalone"] = timed(

@@ -210,6 +210,18 @@ class ArchConfig:
                 * self.moe.d_expert)
         return int(total)
 
+    def active_param_count(self) -> int:
+        """N_active for MoE MODEL_FLOPS: every expert's weights swapped for
+        the top_k a token runs through."""
+        if self.family != "moe":
+            return self.param_count()
+        mo = self.moe
+        gated = 3
+        all_experts = self.n_layers * mo.num_experts * gated * self.d_model \
+            * mo.d_expert
+        active = self.n_layers * mo.top_k * gated * self.d_model * mo.d_expert
+        return int(self.param_count() - all_experts + active)
+
 
 @dataclasses.dataclass(frozen=True)
 class SweepConfig:

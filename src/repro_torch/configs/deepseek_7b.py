@@ -1,0 +1,4 @@
+"""Assigned architecture config — see registry.py for source notes."""
+from repro_torch.configs.registry import DEEPSEEK_7B as CONFIG
+
+__all__ = ["CONFIG"]

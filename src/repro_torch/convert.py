@@ -88,8 +88,9 @@ def from_jax_params(tree: dict, device="cpu") -> dict:
 
 def from_jax_opt_state(state, device="cpu"):
     """Reference optimizer state (numpy leaves): () for plain SGD, or a
-    dict whose values mirror the params (Adam's ``m`` / ``v``, SGD's
-    ``mom``) or are such states themselves, one level deeper
+    dict whose values mirror the params (Adam's ``m`` / ``v`` and, with
+    ``master_copy``, its fp32 ``master``; SGD's ``mom``) or are such
+    states themselves, one level deeper
     (``train/grad_compress.compressed``'s {"base": <the wrapped
     optimizer's state>, "err": <params tree>}) -> the port's state on
     ``device``."""

@@ -52,8 +52,8 @@ dz = (dy * act'(res)).astype(dy.dtype) is recomputed from the saved
 residual (y for relu/sigmoid, the pre-activation for silu/gelu): it is
 rounded to dy's dtype before the products, while db sums the fp32 value.
 A padded reverse slot (f >= rev_cnt[i]) adds exactly nothing, whatever dy
-holds.  On a CPU tensor each wrapper runs its plain version; on a CUDA
-tensor it launches its kernel (counting the launch) or raises.
+holds.  On a CPU or meta tensor each wrapper runs its plain version; on a
+CUDA tensor it launches its kernel (counting the launch) or raises.
 
 Hyp columns: the per-unit ``[E, HYP_K]`` fp32 table the update reads row
 e of — ``lr, b1, b2, eps, wd, t, gs``: learning rate; momentum (SGD) or
@@ -69,6 +69,7 @@ import ctypes
 
 import torch
 
+from repro_torch.device import plain_route as _route
 from repro_torch.kernels import fxp_qmatmul as fxk
 
 ACTIVATIONS = ("none", "relu", "sigmoid", "silu", "gelu")
@@ -245,15 +246,6 @@ def _check_cuda(lead, bs, blocks, name, **tensors):
             raise ValueError(f"{tname} must be contiguous")
 
 
-def _route(t: torch.Tensor, name: str) -> bool:
-    """True for a CPU tensor (plain version), False for CUDA (kernel)."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {t.device}")
-    return False
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -325,7 +317,7 @@ def fwd(x, w, idx, bias, act: str = "none", save_pre: bool = False):
     bias [E, nob*bs] -> y [E, M, nob*bs] in x's dtype, or (y, pre) with
     ``save_pre`` (pre = the pre-activation, in x's dtype).
 
-    A CPU tensor runs ``fwd_ref``.  A CUDA tensor launches, on the
+    A CPU or meta tensor runs ``fwd_ref``.  A CUDA tensor launches, on the
     current stream, ``junction_fwd_tc`` or ``junction_fwd`` as
     ``junction_variant`` says, or raises; ``fwd.launches`` counts both,
     ``fwd.tc_launches`` the first.  Any other device raises."""

@@ -26,6 +26,7 @@ import functools
 
 import torch
 
+from repro_torch.device import plain_route as _route
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
@@ -114,7 +115,7 @@ def _n_sms(index: int) -> int:
 
 
 def flash_decode(q, k_pool, v_pool, page_table, seq_lens):
-    """A CPU tensor runs ``paged_decode_ref``.  A CUDA tensor launches
+    """A CPU or meta tensor runs ``paged_decode_ref``.  A CUDA tensor launches
     the ``flash_decode`` kernel on the current stream
     (``flash_decode.launches`` counts those launches) or raises; any
     other device raises.  Page ids must lie in [0, P): the kernel reads
@@ -122,10 +123,8 @@ def flash_decode(q, k_pool, v_pool, page_table, seq_lens):
     shapes (``decode_splits``); the partials' scratch is a
     ``torch.empty`` of the call, the combine's tickets are the device's
     own (one stream at a time)."""
-    if q.device.type == "cpu":
+    if _route(q, "flash_decode"):
         return paged_decode_ref(q, k_pool, v_pool, page_table, seq_lens)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode runs on cpu or cuda, not {q.device}")
     _check(q, k_pool, v_pool, page_table, seq_lens)
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash_decode takes float32 or bfloat16, not {q.dtype}")
@@ -223,15 +222,12 @@ def _attn_kernel():
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """A CPU tensor runs ``attention_ref``.  A CUDA tensor launches the
+    """A CPU or meta tensor runs ``attention_ref``.  A CUDA tensor launches the
     ``flash_attention`` kernel on the current stream
     (``flash_attention.launches`` counts those launches) or raises; any
     other device raises.  The kernel takes head_dim up to 128."""
-    if q.device.type == "cpu":
+    if _route(q, "flash_attention"):
         return attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not "
-                         f"{q.device}")
     _check_attn(q, k, v, window)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:

@@ -26,6 +26,8 @@ import ctypes
 
 import torch
 
+from repro_torch.device import plain_route as _route
+
 # the plain version's float64 sums are exact while K * 2^32 < 2^53
 MAX_K = 1 << 20
 
@@ -116,15 +118,6 @@ def qmatmul_ref(a_code, w_code, *, bf: int, bn: int):
     return torch.clamp(rounded, -lim, lim - 1).to(torch.int32)
 
 
-def _route(t) -> bool:
-    """True for a CPU tensor (plain version), False for CUDA (kernel)."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"qmatmul runs on cpu or cuda, not {t.device}")
-    return False
-
-
 def _kernel():
     from repro_torch.kernels import build
     fn = build.load("fxp_qmatmul").fxp_qmatmul
@@ -135,11 +128,11 @@ def _kernel():
 
 
 def qmatmul(a_code, w_code, *, bf: int, bn: int):
-    """A CPU tensor runs ``qmatmul_ref``.  A CUDA tensor launches the
+    """A CPU or meta tensor runs ``qmatmul_ref``.  A CUDA tensor launches the
     ``fxp_qmatmul`` kernel on the current stream at ``qmatmul_plan``
     (``qmatmul.launches`` counts those launches) or raises; any other
     device raises.  Reads no tensor on the host."""
-    if _route(a_code):
+    if _route(a_code, "qmatmul"):
         return qmatmul_ref(a_code, w_code, bf=bf, bn=bn)
     _check(a_code, w_code, bf, bn)
     if w_code.device != a_code.device:

@@ -24,7 +24,7 @@ on both weight streams.
 It returns no gradient for those tensors; with a ``health`` tensor it
 writes the per-unit count of non-finite (e, o) update tiles into it.
 The wrappers pick the CUDA kernel for a CUDA tensor and the plain
-version for a CPU tensor.
+version for a CPU or meta tensor.
 
 ``fxp_qmatmul`` and ``sigmoid_lut`` are the reference's entry points of
 the fixed-point matmul and the table lookup; ``selective_scan`` and

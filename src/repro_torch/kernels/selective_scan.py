@@ -19,6 +19,8 @@ import ctypes
 
 import torch
 
+from repro_torch.device import plain_route as _route
+
 MAX_N = 32
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -116,16 +118,6 @@ def selective_scan_ref(dt, x, bc, cc, a, h0):
     return y.to(dt.dtype), h
 
 
-def _route(t) -> bool:
-    """True for a CPU tensor (plain version), False for CUDA (kernel)."""
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"selective_scan runs on cpu or cuda, not "
-                         f"{t.device}")
-    return False
-
-
 def _kernel():
     from repro_torch.kernels import build
     fn = build.load("selective_scan").selective_scan
@@ -136,13 +128,13 @@ def _kernel():
 
 
 def selective_scan(dt, x, bc, cc, a, h0):
-    """A CPU tensor runs ``selective_scan_ref``.  A CUDA tensor launches
+    """A CPU or meta tensor runs ``selective_scan_ref``.  A CUDA tensor launches
     the ``selective_scan`` kernel on the current stream at
     ``scan_plan``'s plan (three CUDA kernels when it splits the sequence,
     with their scratch a ``torch.empty`` of the call; one otherwise;
     ``selective_scan.launches`` counts one a call) or raises; any other
     device raises."""
-    if _route(dt):
+    if _route(dt, "selective_scan"):
         return selective_scan_ref(dt, x, bc, cc, a, h0)
     _check(dt, x, bc, cc, a, h0)
     for name, t in (("x", x), ("bc", bc), ("cc", cc), ("a", a), ("h0", h0)):

@@ -13,6 +13,8 @@ import ctypes
 
 import torch
 
+from repro_torch.device import plain_route as _route
+
 
 def _check(codes, table):
     if codes.dim() != 2 or table.dim() != 1:
@@ -48,13 +50,11 @@ def _kernel():
 
 
 def lut_lookup(codes, table):
-    """A CPU tensor runs ``lut_lookup_ref``.  A CUDA tensor launches the
+    """A CPU or meta tensor runs ``lut_lookup_ref``.  A CUDA tensor launches the
     ``lut_lookup`` kernel on the current stream (``lut_lookup.launches``
     counts those launches) or raises; any other device raises."""
-    if codes.device.type == "cpu":
+    if _route(codes, "lut_lookup"):
         return lut_lookup_ref(codes, table)
-    if codes.device.type != "cuda":
-        raise ValueError(f"lut_lookup runs on cpu or cuda, not {codes.device}")
     _check(codes, table)
     if table.device != codes.device:
         raise ValueError(f"table is on {table.device}, codes on "

@@ -259,19 +259,29 @@ def fused_adam(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
     """Adam, fusable into the backward kernels; ``update`` is the two-pass
     :func:`adam` (note ``grad_clip`` defaults to None here, 1.0 there)."""
     ref = adam(lr_fn, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
-               grad_clip=grad_clip)
+               grad_clip=grad_clip, master_copy=False)
     return FusedAdam(init=ref.init, update=ref.update, lr_fn=lr_fn,
                      grad_clip=grad_clip, b1=b1, b2=b2, eps=eps,
                      weight_decay=weight_decay)
 
 
 def adam(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
-         grad_clip: float | None = 1.0) -> Optimizer:
+         grad_clip: float | None = 1.0,
+         master_copy: bool = False) -> Optimizer:
     """Adam with fp32 moments, the update computed in fp32 and stored in
-    each parameter's dtype."""
+    each parameter's dtype.  With ``master_copy`` the state also holds
+    ``master``, an fp32 copy of each trainable leaf: the step (weight decay
+    included) starts from the master, writes the new master back into the
+    state and returns it rounded to the param's dtype, so bf16-resident
+    params keep fp32 accuracy across steps."""
     def init(params):
-        return {"m": tree_map(_zeros_like_state, params),
-                "v": tree_map(_zeros_like_state, params)}
+        st = {"m": tree_map(_zeros_like_state, params),
+              "v": tree_map(_zeros_like_state, params)}
+        if master_copy:
+            st["master"] = tree_map(
+                lambda p: p.detach().to(torch.float32, copy=True)
+                if _is_trainable(p) else _zeros_like_state(p), params)
+        return st
 
     def update(grads, state, params, step):
         if grad_clip is not None:
@@ -281,22 +291,30 @@ def adam(lr_fn, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.0,
         c1 = 1.0 - torch.pow(_f32(b1), t)
         c2 = 1.0 - torch.pow(_f32(b2), t)
 
-        def upd(p, g, m, v):
+        def upd(p, g, m, v, master):
             if not _is_trainable(p):
-                return p, m, v
+                return p, m, v, master
             gf = g.float()
             m = b1 * m + (1 - b1) * gf
             v = b2 * v + (1 - b2) * torch.square(gf)
-            ref = p.float()
+            ref = master if master_copy else p.float()
             step_ = (m / c1) / (torch.sqrt(v / c2) + eps)
             if weight_decay:
                 step_ = step_ + weight_decay * ref
-            return (ref - lr * step_).to(p.dtype), m, v
+            new_master = ref - lr * step_
+            return (new_master.to(p.dtype), m, v,
+                    new_master if master_copy else master)
 
+        flat_p = tree_leaves(params)
+        flat_ma = (tree_leaves(state["master"]) if master_copy
+                   else [None] * len(flat_p))
         out = [upd(*leaves) for leaves in zip(
-            tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
-            tree_leaves(state["v"]))]
+            flat_p, tree_leaves(grads), tree_leaves(state["m"]),
+            tree_leaves(state["v"]), flat_ma)]
         new = [tree_unflatten_like(params, [o[i] for o in out])
-               for i in range(3)]
-        return new[0], {"m": new[1], "v": new[2]}
+               for i in range(3 + master_copy)]
+        new_st = {"m": new[1], "v": new[2]}
+        if master_copy:
+            new_st["master"] = new[3]
+        return new[0], new_st
     return Optimizer(init, update)

@@ -335,8 +335,8 @@ def place_like(tree, like_tree):
 
 def place_state(state, spec_tree, mesh):
     """An optimizer state placed as its params: () (plain SGD), or a dict
-    whose values mirror the params (Adam's m / v, SGD's mom, a compressed
-    optimizer's err) or nest such a state one level deeper ("base")."""
+    whose values mirror the params (Adam's m / v and fp32 master, SGD's
+    mom, a compressed optimizer's err) or nest such a state one level deeper ("base")."""
     if isinstance(state, tuple) and not state:
         return state
     return {k: place_state(v, spec_tree, mesh) if k == "base"

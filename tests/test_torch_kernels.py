@@ -8,6 +8,8 @@ junctions: 640->1728 and 1728->640 give the same idx ([54, 5] and
 [20, 14]) as 2560->6912 and 6912->2560 at block 128.  The reference runs
 ``ops.junction_matmul(..., interpret=True)``, which pads the rows that
 ``bsm.fwd`` alone would refuse (M = 33)."""
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,15 +131,19 @@ def test_wrappers_use_plain_versions_only_on_cpu():
     tops.reset_launch_counts()
     assert torch.equal(tbsm.fwd(x, w, idx, b, "silu"),
                        tbsm.fwd_ref(x, w, idx, b, "silu"))
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        tbsm.fwd(x.to("meta"), w.to("meta"), idx.to("meta"), b.to("meta"))
+    # a meta tensor carries shapes only: it takes the plain version too
+    got = tbsm.fwd(x.to("meta"), w.to("meta"), idx.to("meta"), b.to("meta"))
+    assert got.device.type == "meta" and got.shape == (1, 4, 256)
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        tbsm.fwd(types.SimpleNamespace(device=torch.device("xpu")), w, idx,
+                 b)
     q = torch.randn(2, 2, 1, 16)
     pool = torch.randn(3, 4, 2, 16)
     pt = torch.tensor([[1], [2]], dtype=torch.int32)
     lens = torch.tensor([3, 0], dtype=torch.int32)
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        tfa.flash_decode(q.to("meta"), pool.to("meta"), pool.to("meta"),
-                         pt.to("meta"), lens.to("meta"))
+    got = tfa.flash_decode(q.to("meta"), pool.to("meta"), pool.to("meta"),
+                           pt.to("meta"), lens.to("meta"))
+    assert got.device.type == "meta" and got.shape == q.shape
     assert torch.equal(tfa.flash_decode(q, pool, pool, pt, lens),
                        tfa.paged_decode_ref(q, pool, pool, pt, lens))
     assert set(tops.launch_counts().values()) == {0}

@@ -422,8 +422,9 @@ _GATED = ("gated_fwd", "gated_dx", "gated_dw", "update_gated_dw")
 
 @pytest.mark.parametrize("name", _GATED)
 def test_gated_wrapper_on_a_card_tensor_launches_or_raises(name, monkeypatch):
-    """A tensor that is not on the CPU never reaches the plain version: the
-    wrapper goes to its kernel, which here (no card, no nvcc) raises."""
+    """A card tensor never reaches the plain version: the wrapper goes to
+    its kernel, which here (no card, no nvcc) raises.  A meta tensor, which
+    carries shapes only, takes the plain version and launches nothing."""
     pat, a = _inputs(GATE, 1)
     t = {k: torch.from_numpy(v) for k, v in a.items()}
     idx, rev = torch.from_numpy(pat.idx), _rev(pat)
@@ -444,9 +445,12 @@ def test_gated_wrapper_on_a_card_tensor_launches_or_raises(name, monkeypatch):
         getattr(tbsm, name)(*args)
     assert getattr(tbsm, name).launches == before
     monkeypatch.undo()
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        getattr(tbsm, name)(*(x.to("meta") if torch.is_tensor(x) else x
-                              for x in args))
+    seen = []
+    monkeypatch.setattr(tbsm, f"{name}_ref",
+                        lambda *a, **k: seen.append(a[0].device.type))
+    getattr(tbsm, name)(*(x.to("meta") if torch.is_tensor(x) else x
+                          for x in args))
+    assert seen == ["meta"] and getattr(tbsm, name).launches == before
 
 
 def test_gated_kernels_are_counted():

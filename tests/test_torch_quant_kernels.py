@@ -17,6 +17,8 @@ Tolerances:
   its jnp sim.  Both sides form the same integer dots and the same fp32
   dequant products; the activations may differ in their last bits.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -453,7 +455,8 @@ _QUANT = ("fwd_int8", "gated_fwd_int8", "fwd_fxp")
 @pytest.mark.parametrize("name", _QUANT)
 def test_cuda_route_never_takes_the_plain_version(name, monkeypatch):
     """A tensor taken for a card tensor launches the kernel or raises,
-    and is not counted when it raises; any other device raises."""
+    and is not counted when it raises; a meta tensor (shapes only) takes
+    the plain version; any other device raises."""
     rng = np.random.default_rng(0)
     pat, idx = _pattern()
     (q, s), (q2, s2) = [(torch.from_numpy(a), torch.from_numpy(b))
@@ -476,9 +479,15 @@ def test_cuda_route_never_takes_the_plain_version(name, monkeypatch):
         getattr(tbsm, name)(*args)
     assert getattr(tbsm, name).launches == before
     monkeypatch.undo()
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        getattr(tbsm, name)(*(a.to("meta") if torch.is_tensor(a) else a
-                              for a in args))
+    seen = []
+    monkeypatch.setattr(tbsm, f"{name}_ref",
+                        lambda *a, **k: seen.append(a[0].device.type))
+    getattr(tbsm, name)(*(a.to("meta") if torch.is_tensor(a) else a
+                          for a in args))
+    assert seen == ["meta"] and getattr(tbsm, name).launches == before
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        getattr(tbsm, name)(types.SimpleNamespace(
+            device=torch.device("xpu")), *args[1:])
 
 
 def test_quantized_kernels_are_counted():

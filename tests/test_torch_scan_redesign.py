@@ -23,6 +23,7 @@ reference's kernel (interpret mode).
 """
 import contextlib
 import re
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -397,8 +398,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
     B, S, di, N = 1, 8, 32, 4
     ins = [torch.zeros(s) for s in ((B, S, di), (B, S, di), (B, S, N),
                                     (B, S, N), (di, N), (B, di, N))]
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        tss.selective_scan(*[t.to("meta") for t in ins])
+    y, h = tss.selective_scan(*[t.to("meta") for t in ins])  # plain
+    assert y.device.type == h.device.type == "meta"
+    assert y.shape == (B, S, di) and h.shape == (B, di, N)
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        tss.selective_scan(types.SimpleNamespace(
+            device=torch.device("xpu")), *ins[1:])
     with _recorder(monkeypatch) as calls:
         mixed = list(ins)
         mixed[1] = mixed[1].to(torch.bfloat16)

@@ -19,6 +19,7 @@ Tolerances:
   most 256 terms in another order); bf16: one bf16 ulp.
 """
 import ast
+import types
 from pathlib import Path
 
 import jax
@@ -370,10 +371,14 @@ def _cases():
 def test_wrappers_plain_on_cpu_refuse_other_devices(name):
     fn, args = _cases()[name]
     tops.reset_launch_counts()
-    fn(*args)                                   # CPU: the plain version
+    want = fn(*args)                            # CPU: the plain version
+    got = fn(*(a.to("meta") for a in args))     # meta: the plain version
+    for g, w in zip(*(t if isinstance(t, tuple) else (t,)
+                      for t in (got, want))):
+        assert g.device.type == "meta" and g.shape == w.shape
     assert set(tops.launch_counts().values()) == {0}
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        fn(*(a.to("meta") for a in args))
+    with pytest.raises(ValueError, match="cpu, meta or cuda"):
+        fn(types.SimpleNamespace(device=torch.device("xpu")), *args[1:])
 
 
 def test_wrappers_refuse_bad_operands():

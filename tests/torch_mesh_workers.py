@@ -1,4 +1,5 @@
-"""Rank bodies for tests/test_torch_mesh.py, run as spawned gloo processes
+"""Rank bodies for tests/test_torch_mesh.py and tests/test_torch_roofline.py,
+run as spawned gloo processes
 (one a rank, one torch thread each).  Plain module, no JAX: each rank
 imports torch and the port only.  Inputs and results cross through .npz
 files in the test's directory."""
@@ -159,3 +160,27 @@ def fused_case(n_steps):
     pipe = LMTokenPipeline(cfg, 4, 32)
     return (cfg, opt, M.init(cfg, 0, "cpu"),
             [next(pipe) for _ in range(n_steps)])
+
+
+def collective_counts(rank, d):
+    """tests/test_torch_roofline.py: an all-reduce of 1024 fp32 and an
+    all-gather of 256 bf16 a rank under ``DispatchCounter``, once through
+    c10d and once through the functional collectives."""
+    import torch.distributed._functional_collectives as funcol
+    from repro_torch.roofline import dispatch
+    x = torch.arange(1024, dtype=torch.float32) + rank
+    y = torch.full((256,), rank, dtype=torch.bfloat16)
+    got = {}
+    with dispatch.DispatchCounter() as c:
+        dist.all_reduce(x)
+        dist.all_gather([torch.empty_like(y) for _ in range(2)], y)
+    got["reduced"] = x.numpy()
+    with dispatch.DispatchCounter() as f:
+        group = dist.group.WORLD
+        funcol.all_reduce(x, "sum", group).wait()
+        funcol.all_gather_tensor(y, 0, group).wait()
+    for api, counter in (("c10d", c), ("functional", f)):
+        for kind, (nbytes, n) in counter.coll_detail.items():
+            got[f"{api}_{kind}"] = np.array([nbytes, n])
+        got[f"{api}_total"] = counter.coll_bytes
+    np.savez(f"{d}/coll_{rank}.npz", **got)
