@@ -176,7 +176,7 @@ PyTorch built for CUDA.  It
    update_dw), the compression of one step's gradients on the card equal
    bit for bit to the CPU's, and the reference's property of compression
    (a 2 % restore, a residual that does not grow past 1.5 x);
-17. trains the reference dry run's perf-sparse variant of stablelm-3b
+17. trains the dry run's perf-sparse variant of stablelm-3b
    (FFN density 0.125 at block 128, bf16-resident params, the
    cross-entropy in chunks of 2048) at full width and 2 layers: 3
    two-pass steps of ``adam(master_copy=True)`` through the kernels
@@ -186,7 +186,11 @@ PyTorch built for CUDA.  It
    same step counted on ``meta`` tensors (``roofline/analysis.py``:
    dot FLOPs, eager bytes, compute and memory terms) beside its
    measured wall and device time, and its peak memory beside fp32
-   params with Adam alone;
+   params with Adam alone; then runs three full-size cells of the dry
+   run (``launch/dryrun.py``: counted on ``meta``, no card memory, no
+   launch) and counts that perf step on a 1 x 1 abstract mesh: its
+   predicted per-device memory and compute term beside the measured
+   peak and step;
 18. trains on a device mesh (``launch/mesh.py``, a one-rank NCCL
    group): ``launch/train.py --devices 1 --data 1 --model 1`` (params and
    Adam placed by ``parallel/sharding.param_specs``) for 3 two-pass steps
@@ -4412,11 +4416,16 @@ def compress_phase(P, card):
 
 
 # ------------------------------------------------ the perf variant
-# the reference dry run's perf-sparse variant (its _apply_variant): FFN
+# the dry run's perf-sparse variant (launch/dryrun._apply_variant): FFN
 # density 0.125 at block 128, bf16-resident params with fp32 masters in
 # Adam, the cross-entropy in chunks of 2048; stablelm-3b at full width
 # and PERF_LAYERS layers, PERF_STEPS two-pass steps of TRAIN_B x TRAIN_S
 PERF_LAYERS, PERF_STEPS, PERF_LR = 2, 3, 1e-4
+
+
+def perf_cfg(P):
+    return dataclasses.replace(P.dryrun._apply_variant(
+        P.registry.get("stablelm-3b"), "perf-sparse"), n_layers=PERF_LAYERS)
 
 
 def perf_phase(P, card):
@@ -4433,11 +4442,8 @@ def perf_phase(P, card):
     require(R.PEAK_FLOPS == PEAK_OPS_PER_S[torch.bfloat16]
             and R.HBM_BW == HBM_BYTES_PER_S,
             "the roofline's H100 constants differ from this script's")
-    cfg = dataclasses.replace(
-        P.registry.get("stablelm-3b").with_sparsity(
-            P.SparsityConfig(density=0.125, block=BS, where="ffn")),
-        n_layers=PERF_LAYERS, param_dtype="bfloat16", loss_chunk=2048,
-        ssm_scan_dtype="bfloat16")
+    cfg = perf_cfg(P)
+    require(cfg.sparsity.block == BS, "perf: the variant's block moved")
     opt = P.optim.adam(P.optim.constant_schedule(PERF_LR), master_copy=True)
     path, run = train_run(P, cfg, opt, "two_pass", card, PERF_STEPS)
     require(path["junction_update_dw"] == 0,
@@ -4473,7 +4479,64 @@ def perf_phase(P, card):
     print(f"[perf] peak memory of the steps: {run['peak_gib']:.2f} GiB (bf16 "
           f"params, fp32 masters) against {run32['peak_gib']:.2f} GiB (the "
           f"same config with fp32 params, Adam without masters) [{card}]")
-    return {"perf": path}
+    return {"perf": path}, run
+
+
+# ------------------------------------------------------ the dry run
+# launch/dryrun.py's cells run here at full size, one of each serving
+# kind and the decode cell of the largest mesh: each counts on meta
+DRYRUN_CELLS = [("stablelm-3b", "prefill_32k", "single", "perf-sparse"),
+                ("whisper-base", "decode_32k", "single", "dense"),
+                ("qwen3-moe-30b-a3b", "decode_32k", "multi", "dense")]
+
+
+def dryrun_phase(P, card, run):
+    """``launch/dryrun.run_cell`` on DRYRUN_CELLS into the git-ignored
+    ``build/dryrun/`` (their ``[dryrun]`` lines): the dry run touches no
+    card memory and launches no kernel.  Then the perf phase's own step
+    (``perf_cfg``, batch TRAIN_B x TRAIN_S) counted on
+    ``AbstractMesh((1, 1))`` (``dryrun.count_cell``): its predicted
+    per-device bytes (at-rest shards + the eager peak on ``meta``)
+    beside ``train_run``'s measured peak, its t_compute beside the
+    measured step.  The at-rest bytes must not exceed the measured peak,
+    and the roofline's HBM_CAPACITY must be the card's memory within 1 %;
+    the ratios are printed, not held."""
+    D, R = P.dryrun, P.roofline
+    out = ROOT / "build" / "dryrun"
+    mem0, launches0 = torch.cuda.memory_allocated(), P.ops.launch_counts()
+    for arch, shape, mesh, variant in DRYRUN_CELLS:
+        rec = D.run_cell(arch, shape, mesh, variant, out, force=True)
+        require(rec["ok"], f"dryrun {rec['cell']}: {rec.get('error')}")
+    cfg = perf_cfg(P)
+    mesh = P.mesh.AbstractMesh((1, 1), ("data", "model"))
+    t0 = time.perf_counter()
+    rl, held = D.count_cell(cfg, P.ShapeSpec("perf", TRAIN_S, TRAIN_B,
+                                             "train"), mesh)
+    count_s = time.perf_counter() - t0
+    require(torch.cuda.memory_allocated() == mem0
+            and P.ops.launch_counts() == launches0,
+            "the dry run touched the card")
+    total = torch.cuda.get_device_properties(0).total_memory
+    require(abs(R.HBM_CAPACITY / total - 1) <= 0.01,
+            f"HBM_CAPACITY {R.HBM_CAPACITY} is not the card's {total}")
+    at_rest = sum(held.values()) / 2**30
+    peak = rl.memory_stats["peak_bytes"] / 2**30
+    pred = at_rest + peak
+    meas, step = run["peak_gib"], run["step_s"]
+    require(at_rest <= meas, f"dryrun: at rest {at_rest:.3f} GiB above the "
+            f"measured peak {meas:.3f}")
+    print(f"[dryrun] the perf step ({cfg.name} perf-sparse, "
+          f"{PERF_LAYERS} layers, {TRAIN_B} x {TRAIN_S}) on "
+          f"AbstractMesh((1, 1)), counted on meta in {count_s:.1f} s: "
+          f"predicted per_device {pred:.3f} GiB (at rest {at_rest:.3f} + "
+          f"eager peak {peak:.3f}) against the measured peak "
+          f"{meas:.3f} GiB: ratio {pred / meas:.3f} (eager peak alone "
+          f"{peak / meas:.3f}); t_compute {rl.t_compute * 1e3:.3f} ms, "
+          f"t_memory {rl.t_memory * 1e3:.3f} ms against the measured step "
+          f"{step * 1e3:.1f} ms: ratios {rl.t_compute / step:.4f}, "
+          f"{rl.t_memory / step:.4f}; HBM_CAPACITY {R.HBM_CAPACITY} B, "
+          f"the card's total_memory {total} B ({R.HBM_CAPACITY / total:.4f})"
+          f" [{card}]")
 
 
 # ------------------------------------------- the mesh and the pipeline
@@ -5218,7 +5281,7 @@ def load_port() -> types.SimpleNamespace:
     from repro_torch.data.mnist import paper_dataset
     from repro_torch import search
     from repro_torch.configs.base import ShapeSpec, SweepConfig
-    from repro_torch.launch import obs_report, quant_sweep
+    from repro_torch.launch import dryrun, obs_report, quant_sweep
     from repro_torch.launch import serve as serve_launcher
     from repro_torch.launch import sweep
     from repro_torch.launch import mesh
@@ -5248,7 +5311,7 @@ def load_port() -> types.SimpleNamespace:
         sweep=sweep,
         serve=serve_launcher, train=train_launcher, mesh=mesh,
         sharding=sharding, pipeline=pipeline, layers=layers,
-        roofline=roofline)
+        roofline=roofline, dryrun=dryrun)
 
 
 def build_kernels(P) -> None:
@@ -5329,7 +5392,9 @@ def main() -> int:
     paths.update(timed("mla", mla_phase, P, timer, card))
     paths.update(timed("audio", audio_phase, P, timer, card))
     paths.update(timed("compress", compress_phase, P, card))
-    paths.update(timed("perf", perf_phase, P, card))
+    perf_paths, perf_run = timed("perf", perf_phase, P, card)
+    paths.update(perf_paths)
+    timed("dryrun", dryrun_phase, P, card, perf_run)
     paths.update(timed("mesh", mesh_phase, P, card))
     paths.update(timed("pipeline", pipeline_phase, P, card))
     standalone, paths["standalone"] = timed(

@@ -1,0 +1,348 @@
+"""Dry run: one rank of every (arch x shape x mesh x variant) cell,
+counted on the ``meta`` device.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch stablelm-3b \
+        --variant perf-sparse --mesh both
+
+The port's counterpart of ``src/repro/launch/dryrun.py``.  The reference
+lowers and compiles each cell for 256 or 512 forced host devices; the
+port has no abstract sharded program, so it counts the ops one rank of
+the production mesh would run.  It is the one entry point that runs on
+``meta`` whatever the machine: no tensor is allocated, no kernel is
+launched (every wrapper takes its plain version on ``meta``,
+``device.plain_route``, so the bytes and the peak at a junction are the
+plain version's, not the ``sm_90a`` kernel's), and there is no
+``--device`` and no card or CPU path.  Importing this module sets no
+environment variable, starts no process group and makes no CUDA call.
+
+Per cell:
+  * ``cfg`` from ``_apply_variant`` (the reference's five variants),
+  * ``M.init(cfg, device="meta")``,
+  * ``param_specs`` / ``batch_specs`` / ``cache_specs`` on
+    ``AbstractMesh((16, 16), ("data", "model"))`` or ``((2, 16, 16),
+    ("pod", "data", "model"))``, and ``sharding.attach`` for the shards
+    each rank holds at rest,
+  * the rank's step, counted by ``roofline.analysis.analyze``: train,
+    ``adam(constant_schedule(1e-4), master_copy=(param_dtype !=
+    "float32"))`` two-pass on the rank's rows; prefill,
+    ``make_prefill_step`` on the rank's rows; decode,
+    ``make_decode_step`` on the rank's rows of the cache, ``pos =
+    seq_len - 1``.
+
+Counted per rank as the port's mesh steps (``train/steps.make_mesh_*``)
+do the work: they gather every leaf and run the rank's dp rows whole, so
+the model axis divides no compute and ``useful_fraction`` is about 1/16
+of what the reference's SPMD module gives.  ``dot_flops`` and the eager
+``mem_bytes`` are counted on the full gathered shapes and the rank's
+rows.  The collectives come from the specs, under
+``roofline/dispatch.py``'s conventions (an all-gather counts its output
+bytes, an all-reduce twice its bytes): the all-gathers ``full_tensor()``
+issues for every sharded param, optimizer-state and cache leaf (one a
+sharded mesh dim, the last mesh dim first, as DTensor gathers), and the
+train step's all-reduce of the loss, the metrics and each fp32 gradient
+over each dp group (``steps.make_dp_train_step``, its ``mean`` reckoned
+here instead of run).  ``per_device_gb`` is the bytes the rank holds at
+rest (``at_rest_bytes``: the shards of params, optimizer state, cache and
+logits, from ``attach``) plus the step's eager peak
+(``memory_stats["peak_bytes"]``: gathered leaves, activations,
+gradients, the new state), in GiB.  Train cells try 1, 2, 4, 8
+microbatches and keep the first whose ``per_device_gb`` is below the
+card's memory (``analysis.HBM_CAPACITY``).
+
+Records land in ``results/dryrun_torch/<cell>.json`` and are skipped
+when present unless ``--force``; a cell that raises is recorded with
+``ok: false`` and the sweep goes on (exit status 1).  The keys are the
+reference's where the port has the quantity, with ``count_s`` for its
+``lower_s`` / ``compile_s``, ``fits_80gb`` for ``fits_16gb``, and
+``at_rest_bytes`` added.  Left out: ``per_device_gb_corrected`` and
+``fit_attempts[].corrected_gb`` (XLA-CPU's widening of bf16 loop state
+has no counterpart) and ``roofline.raw_cost`` (no ``cost_analysis``).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeSpec, \
+    valid_cells
+from repro_torch.core.sparsity import SparsityConfig
+from repro_torch.launch import specs as specs_mod
+from repro_torch.launch.mesh import AbstractMesh
+from repro_torch.models import model as M
+from repro_torch.optim import adam, constant_schedule
+from repro_torch.parallel import sharding as sh
+from repro_torch.roofline import analysis as roofline
+from repro_torch.train import steps
+from repro_torch.tree import tree_leaves, tree_map
+
+RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
+
+# sweep order: small archs first so results accumulate fast
+SWEEP_ORDER = [
+    "whisper-base", "stablelm-3b", "zamba2-2.7b", "deepseek-7b",
+    "llava-next-mistral-7b", "falcon-mamba-7b", "deepseek-v2-lite-16b",
+    "qwen3-moe-30b-a3b", "qwen2-72b", "command-r-plus-104b",
+]
+VARIANTS = ("dense", "sparse", "sparse-all", "perf", "perf-sparse")
+
+
+def cell_id(arch: str, shape: str, mesh_kind: str, variant: str) -> str:
+    v = "" if variant == "dense" else f"+{variant}"
+    return f"{arch}{v}__{shape}__{mesh_kind}"
+
+
+def _apply_variant(cfg: ArchConfig, variant: str) -> ArchConfig:
+    if variant == "dense":
+        return cfg
+    if variant == "sparse":   # the paper's technique on FFN projections
+        return cfg.with_sparsity(SparsityConfig(density=0.125, block=128,
+                                                where="ffn"))
+    if variant == "sparse-all":
+        return cfg.with_sparsity(SparsityConfig(density=0.125, block=128,
+                                                where="ffn+attn"))
+    if variant == "perf":     # bf16-resident params (fp32 masters in adam),
+        # chunked CE, bf16 selective-scan elements
+        return dataclasses.replace(cfg, param_dtype="bfloat16",
+                                   loss_chunk=2048,
+                                   ssm_scan_dtype="bfloat16")
+    if variant == "perf-sparse":
+        return dataclasses.replace(
+            cfg.with_sparsity(SparsityConfig(density=0.125, block=128,
+                                             where="ffn")),
+            param_dtype="bfloat16", loss_chunk=2048,
+            ssm_scan_dtype="bfloat16")
+    raise ValueError(variant)
+
+
+def production_mesh(mesh_kind: str) -> AbstractMesh:
+    if mesh_kind == "multi":
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if torch.is_tensor(t))
+
+
+class Collectives:
+    """The collectives one rank of the mesh steps issues, reckoned from
+    the specs: {kind: (bytes, count)} as ``DispatchCounter.coll_detail``
+    holds them."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.sizes = sh.axis_sizes(mesh)
+        self.detail: dict[str, tuple[int, int]] = {}
+
+    def _add(self, kind: str, nbytes: int) -> None:
+        b, n = self.detail.get(kind, (0, 0))
+        self.detail[kind] = (b + nbytes, n + 1)
+
+    def gather(self, tree, spec_tree) -> None:
+        """``sharding.gather``: per leaf, one all-gather a mesh dim of
+        more than one rank that its spec shards, the last mesh dim first;
+        each yields the shard grown by that dim's size."""
+        def one(t, spec):
+            if not torch.is_tensor(t) or len(spec) > t.dim():
+                return
+            named = {a for e in spec for a in sh.spec_axes(e)}
+            nbytes = math.prod(sh.shard_shape(t.shape, spec, self.mesh)) \
+                * t.element_size()
+            for name in reversed(self.mesh.mesh_dim_names):
+                if name in named and self.sizes[name] > 1:
+                    nbytes *= self.sizes[name]
+                    self._add("all-gather", nbytes)
+        tree_map(one, tree, spec_tree)
+
+    def mean_over(self, axes: tuple):
+        """``steps._dp_mean`` over the groups of ``axes`` with the
+        all-reduce reckoned, not run: the same fp32 tensor ops, one
+        all-reduce (twice its fp32 bytes) a group."""
+        n = math.prod(self.sizes[a] for a in axes)
+
+        def mean(t):
+            t = t.float()
+            for _ in axes:
+                self._add("all-reduce", 2 * t.numel() * 4)
+            return t / n
+        return mean
+
+
+def _meta_rows(tree, n: int):
+    """Row group 0 of ``n`` of each leaf, along dim 0, on ``meta``."""
+    return tree_map(lambda t: torch.empty(
+        (t.shape[0] // n, *t.shape[1:]), dtype=t.dtype, device="meta"), tree)
+
+
+def _placed_rows(tree, spec_tree, mesh, axes: tuple, n: int):
+    """``attach`` of tensors that hold one rank's rows, as
+    ``sharding.place_rows`` places them: the global shape is the rows'
+    times ``n`` along the dim each spec cuts over ``axes``."""
+    def whole(t, spec):
+        shape = list(t.shape)
+        for d, e in enumerate(spec):
+            if axes and sh.spec_axes(e) == axes:
+                shape[d] *= n
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+    return sh.attach(tree_map(whole, tree, spec_tree), spec_tree, mesh)
+
+
+def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
+               microbatches: int = 1):
+    """One rank's count of a cell: (its roofline, {tree: bytes the rank
+    holds at rest}).  ``mesh``: an ``AbstractMesh`` (or a
+    ``DeviceMesh``, read for its axes only)."""
+    params = M.init(cfg, 0, "meta")
+    pspecs = sh.param_specs(cfg, params, mesh)
+    coll = Collectives(mesh)
+    coll.gather(params, pspecs)
+    held = {"params": _nbytes(sh.attach(params, pspecs, mesh))}
+    B = shape.global_batch
+    if shape.kind == "decode":
+        token, _ = specs_mod.decode_inputs_struct(cfg, shape)
+        batch = {"tokens": token}
+    else:
+        batch = specs_mod.batch_struct(cfg, shape)
+    axes, n = steps.dp_split(cfg, batch, mesh)
+    rows = _meta_rows(batch, n)
+    out = []                 # a serving step's outputs, for their shards
+    if shape.kind == "train":
+        opt = adam(constant_schedule(1e-4),
+                   master_copy=(cfg.param_dtype != "float32"))
+        state = opt.init(params)
+        ospecs = sh.state_specs(state, pspecs)
+        coll.gather(state, ospecs)
+        held["opt_state"] = _nbytes(sh.attach(state, ospecs, mesh))
+        fn = (steps.make_dp_train_step(cfg, opt, coll.mean_over(axes),
+                                       microbatches) if n > 1
+              else steps.make_train_step(cfg, opt, microbatches))
+        rl = roofline.analyze(fn, params, state, rows, 0)
+    elif shape.kind == "prefill":
+        prefill = steps.make_prefill_step(cfg)
+
+        def fn(p, b):
+            out.extend(prefill(p, b))
+            return out
+        rl = roofline.analyze(fn, params, rows)
+        logits, cache, _ = out
+        cspecs = sh.cache_specs(cfg, cache, mesh, rows=n)
+        held["cache"] = _nbytes(_placed_rows(cache, cspecs, mesh, axes, n))
+    else:
+        cache = M.make_cache(cfg, B, shape.seq_len, "meta")
+        cspecs = sh.cache_specs(cfg, cache, mesh)
+        coll.gather(cache, cspecs)
+        held["cache"] = _nbytes(sh.attach(cache, cspecs, mesh))
+        decode = steps.make_decode_step(cfg)
+
+        def fn(p, c, tok):       # the rank's rows of the gathered cache
+            out.extend(decode(p, steps.rows_of(c, cspecs, axes, 0, n), tok,
+                              shape.seq_len - 1))
+            return out
+        rl = roofline.analyze(fn, params, cache, rows["tokens"])
+        logits, _ = out
+    if shape.kind != "train":
+        lspec = sh.logits_spec(cfg, B, mesh)
+        held["logits"] = _nbytes(_placed_rows(logits, lspec, mesh, axes, n))
+    rl = roofline.make_roofline(rl.dot_flops, rl.mem_bytes, coll.detail,
+                                rl.memory_stats)
+    return rl, held
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str,
+             out_dir: Path, force: bool = False) -> dict:
+    cid = cell_id(arch, shape_name, mesh_kind, variant)
+    out_path = Path(out_dir) / f"{cid}.json"
+    if out_path.exists() and not force:
+        return json.loads(out_path.read_text())
+    cfg = _apply_variant(registry.get(arch), variant)
+    shape = SHAPES[shape_name]
+    mesh = production_mesh(mesh_kind)
+    n_chips = math.prod(mesh.shape)
+    rec: dict = {"cell": cid, "arch": arch, "shape": shape_name,
+                 "mesh": mesh_kind, "variant": variant, "n_chips": n_chips,
+                 "params": cfg.param_count(),
+                 "active_params": cfg.active_param_count()}
+    cap_gb = roofline.HBM_CAPACITY / 2**30
+    try:
+        # training cells auto-scale microbatches (gradient accumulation
+        # over the rank's rows) until the per-device footprint fits
+        mb_plan = [1, 2, 4, 8] if shape.kind == "train" else [1]
+        rows = shape.global_batch // steps.dp_split(
+            cfg, specs_mod.batch_struct(cfg, shape), mesh)[1]
+        attempts = []
+        for mb in mb_plan:
+            if mb > 1 and rows % mb:
+                continue
+            t0 = time.time()
+            rl, held = count_cell(cfg, shape, mesh, microbatches=mb)
+            rec["count_s"] = round(time.time() - t0, 1)
+            per_dev_gb = (sum(held.values())
+                          + rl.memory_stats["peak_bytes"]) / 2**30
+            attempts.append({"microbatches": mb,
+                             "per_device_gb": round(per_dev_gb, 3)})
+            rec["microbatches"] = mb
+            if per_dev_gb < cap_gb or mb == mb_plan[-1]:
+                break
+        rec["fit_attempts"] = attempts
+        rec["roofline"] = rl.to_json()
+        rec["at_rest_bytes"] = held
+        rec["model_flops"] = roofline.model_flops(cfg, shape)
+        rec["useful_fraction"] = roofline.useful_fraction(
+            cfg, shape, rl.dot_flops, n_chips)
+        rec["per_device_gb"] = round(per_dev_gb, 3)
+        rec["fits_80gb"] = per_dev_gb < cap_gb
+        rec["ok"] = True
+        print(f"[dryrun] {cid}: ok count={rec['count_s']}s "
+              f"perdev={per_dev_gb:.2f}GiB mb={rec['microbatches']} "
+              f"dom={rl.dominant}", flush=True)
+    except Exception as e:  # record failure: these are faults to fix
+        rec["ok"] = False
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-4000:]
+        print(f"[dryrun] {cid}: FAIL {rec['error'][:200]}", flush=True)
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(rec, indent=1, default=float))
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None, choices=list(SHAPES) + [None])
+    ap.add_argument("--mesh", default="both",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--variant", default="dense", choices=list(VARIANTS))
+    ap.add_argument("--out", default=str(RESULTS))
+    ap.add_argument("--force", action="store_true")
+    args = ap.parse_args(argv)
+    out_dir = Path(args.out)
+
+    archs = [args.arch] if args.arch else SWEEP_ORDER
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    n_ok = n_fail = 0
+    for arch in archs:
+        cfg = registry.get(arch)
+        cells = ([SHAPES[args.shape]] if args.shape
+                 else list(valid_cells(cfg)))
+        for shape in cells:
+            for mk in meshes:
+                rec = run_cell(arch, shape.name, mk, args.variant, out_dir,
+                               force=args.force)
+                n_ok += rec.get("ok", False)
+                n_fail += not rec.get("ok", False)
+    print(f"[dryrun] done: {n_ok} ok, {n_fail} failed", flush=True)
+    raise SystemExit(1 if n_fail else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -20,8 +20,10 @@ layers, so ``cache_specs`` keeps them.  The rules read a mesh's
 
 ``to_shardings`` turns specs into DTensor placements; ``place`` puts a
 tree of full tensors on a mesh (each rank keeps only its shard),
-``gather`` makes full tensors again and ``place_like`` places new full
-tensors as the leaves of an earlier placed tree were.
+``gather`` makes full tensors again, ``place_like`` places new full
+tensors as the leaves of an earlier placed tree were and ``place_rows``
+places tensors that hold only this rank's rows.  ``attach`` gives each
+leaf's per-rank shard as a ``meta`` tensor, on either kind of mesh.
 """
 from __future__ import annotations
 
@@ -208,12 +210,17 @@ def batch_specs(cfg: ArchConfig, batch_tree: Any, mesh):
     return tree_map(leaf, batch_tree)
 
 
-def cache_specs(cfg: ArchConfig, cache_tree: Any, mesh):
+def cache_specs(cfg: ArchConfig, cache_tree: Any, mesh, rows: int = 1):
     """Cache leaves all carry >= 1 stack dims then [B, S|state...].
 
     Rule: first dim(s) = layer stacks -> None; batch -> dp; the sequence /
     d_inner dim -> "model" (seq-sharded KV cache / channel-sharded SSM
-    state)."""
+    state).  ``rows`` > 1: the tree holds one of ``rows`` row groups of
+    the batch (a rank's rows), and the batch dims are placed as the whole
+    batch's would be."""
+    def dp(b):
+        return _dp_fit(b * rows, mesh)
+
     def rec(tree, path):
         if isinstance(tree, dict):
             return {k: rec(v, path + [k]) for k, v in tree.items()}
@@ -221,22 +228,21 @@ def cache_specs(cfg: ArchConfig, cache_tree: Any, mesh):
         leaf = path[-1]
         if leaf in ("k", "v", "ck", "cv"):          # [L,B,S,H,hd]
             b, s = shape[1], shape[2]
-            return P(None, _dp_fit(b, mesh), _fit(s, "model", mesh), None,
-                     None)
+            return P(None, dp(b), _fit(s, "model", mesh), None, None)
         if leaf in ("latent", "k_rope"):            # [L,B,S,r]
             b, s = shape[1], shape[2]
-            return P(None, _dp_fit(b, mesh), _fit(s, "model", mesh), None)
+            return P(None, dp(b), _fit(s, "model", mesh), None)
         if leaf == "conv":                          # [...,B,K-1,C]
             ns = len(shape) - 3
-            return P(*([None] * ns), _dp_fit(shape[-3], mesh), None,
+            return P(*([None] * ns), dp(shape[-3]), None,
                      _fit(shape[-1], "model", mesh))
         if leaf == "ssm":
             if len(shape) >= 4 and cfg.ssm_kind == "mamba1":  # [L,B,di,N]
-                return P(None, _dp_fit(shape[1], mesh),
-                         _fit(shape[2], "model", mesh), None)
+                return P(None, dp(shape[1]), _fit(shape[2], "model", mesh),
+                         None)
             # mamba2 [ns(,ev),B,H,hd,N]
             ns = len(shape) - 4
-            return P(*([None] * ns), _dp_fit(shape[-4], mesh),
+            return P(*([None] * ns), dp(shape[-4]),
                      _fit(shape[-3], "model", mesh), None, None)
         return P(*([None] * len(shape)))
 
@@ -333,14 +339,89 @@ def place_like(tree, like_tree):
                     if torch.is_tensor(t) else t, tree, like_tree)
 
 
-def place_state(state, spec_tree, mesh):
-    """An optimizer state placed as its params: () (plain SGD), or a dict
-    whose values mirror the params (Adam's m / v and fp32 master, SGD's
-    mom, a compressed optimizer's err) or nest such a state one level deeper ("base")."""
+def state_specs(state, spec_tree):
+    """The specs of an optimizer state whose leaves mirror the params: ()
+    (plain SGD), or a dict whose values mirror the params (Adam's m / v
+    and fp32 master, SGD's mom, a compressed optimizer's err) or nest such
+    a state one level deeper ("base").  A leaf takes its param's spec, a
+    0-d placeholder (the state of an integer pattern leaf) ``P()``."""
     if isinstance(state, tuple) and not state:
         return state
-    return {k: place_state(v, spec_tree, mesh) if k == "base"
-            else place(v, spec_tree, mesh) for k, v in state.items()}
+    return {k: state_specs(v, spec_tree) if k == "base"
+            else tree_map(lambda t, s: P() if torch.is_tensor(t)
+                          and t.dim() == 0 else s, v, spec_tree)
+            for k, v in state.items()}
+
+
+def place_state(state, spec_tree, mesh):
+    """An optimizer state placed as its params (``state_specs``)."""
+    return place(state, state_specs(state, spec_tree), mesh)
+
+
+def spec_axes(entry) -> tuple:
+    """The mesh axes one spec entry names, outer first."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def shard_shape(shape, spec, mesh) -> tuple:
+    """The per-rank shape of a ``shape`` placed by ``spec``: each dim over
+    the product of the mesh axes its entry names (a spec shorter than the
+    shape leaves the trailing dims whole).  A dim that does not divide, or
+    a spec longer than the shape, raises."""
+    shape, sizes = tuple(shape), axis_sizes(mesh)
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than shape {shape}")
+    out = []
+    for d, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        n = 1
+        for a in spec_axes(entry):
+            n *= sizes[a]
+        if d % n:
+            raise ValueError(f"dim {d} of {shape} does not divide over "
+                             f"{entry} ({n} ranks): spec {spec}")
+        out.append(d // n)
+    return tuple(out)
+
+
+def attach(shape_tree, spec_tree, mesh):
+    """Tensor tree + spec tree -> ``meta`` tensors of each leaf's per-rank
+    shard shape (``shard_shape``), dtype kept; a non-tensor leaf passes
+    through.  ``mesh`` is a ``DeviceMesh`` or a ``launch/mesh.AbstractMesh``.
+
+    The reference attaches a ``NamedSharding`` to a global
+    ``ShapeDtypeStruct`` and lets XLA partition the program.  PyTorch has
+    no abstract sharded tensor (a ``DTensor`` needs a process group of the
+    mesh's size), and the dry run counts one rank's ops, so this returns
+    the shard itself: what one rank holds of each leaf at rest."""
+    return tree_map(lambda t, s: torch.empty(
+        shard_shape(t.shape, s, mesh), dtype=t.dtype, device="meta")
+        if torch.is_tensor(t) else t, shape_tree, spec_tree)
+
+
+def place_rows(tree, spec_tree, mesh, rows_axes: tuple):
+    """Tensors that hold only this rank's rows (its share along the mesh
+    axes ``rows_axes``, as ``train/steps.dp_split`` cuts a batch) ->
+    DTensors placed by ``spec_tree``: each leaf is cut along the other
+    mesh dims its spec shards, as ``place`` cuts a full tensor, and its
+    global shape is its rows' times the ranks along ``rows_axes``."""
+    def one(t, spec):
+        pls = _placements(spec, t.dim(), mesh)
+        shape, local = list(t.shape), t.detach().contiguous()
+        for i, (name, pl) in enumerate(zip(mesh.mesh_dim_names, pls)):
+            if not isinstance(pl, Shard):
+                continue
+            n = mesh.size(i)
+            if name in rows_axes:
+                shape[pl.dim] *= n
+            else:
+                local = local.chunk(n, dim=pl.dim)[mesh.get_local_rank(i)]
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(local.clone(), mesh, pls, run_check=False,
+                                  shape=torch.Size(shape), stride=stride)
+    return tree_map(lambda t, s: one(t, s) if torch.is_tensor(t) else t,
+                    tree, spec_tree)
 
 
 def held_bytes(tree) -> tuple[int, int]:

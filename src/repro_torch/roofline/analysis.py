@@ -12,7 +12,9 @@ fields that describe only XLA's compiled module: ``n_while`` and
 ``trip_counts`` (eager PyTorch runs no loops of its own: each op is
 counted each time it runs), ``spurious_f32_bytes`` (XLA-CPU's widening of
 bf16 loop state) and ``raw_cost`` (XLA's ``cost_analysis``).
-``memory_stats`` holds the bytes of the call's arguments and outputs.
+``memory_stats`` holds the bytes of the call's arguments and outputs and
+its eager peak of live bytes (``DispatchCounter.peak_bytes``, the
+arguments included).
 """
 from __future__ import annotations
 
@@ -27,6 +29,10 @@ from repro_torch.roofline import dispatch
 PEAK_FLOPS = 989e12        # dense bf16 on the tensor cores
 HBM_BW = 3.35e12           # bytes/s
 LINK_BW = 450e9            # NVLink 4, bytes/s each way (900 GB/s both ways)
+# bytes a process can hold on an H100 80GB HBM3: CUDA's totalGlobalMem
+# (torch.cuda.get_device_properties(0).total_memory) as read on the card,
+# 81079 MiB (80 GiB of HBM3 less what the card keeps back)
+HBM_CAPACITY = 85_017_493_504
 
 
 @dataclasses.dataclass
@@ -52,24 +58,33 @@ def _bytes_once(tree) -> int:
     return sum(seen.values())
 
 
-def analyze(fn, *args, **kwargs) -> Roofline:
-    """``fn(*args, **kwargs)`` run once under ``DispatchCounter``: its
-    roofline.  On ``meta`` tensors nothing is allocated."""
-    with dispatch.DispatchCounter() as c:
-        out = fn(*args, **kwargs)
-    t_c = c.dot_flops / PEAK_FLOPS
-    t_m = c.mem_bytes / HBM_BW
-    t_l = c.coll_bytes / LINK_BW
+def make_roofline(dot_flops: float, mem_bytes: float, coll_detail: dict,
+                  memory_stats: dict) -> Roofline:
+    """The three terms of the counts; ``coll_detail`` maps a collective
+    kind to its (bytes, count)."""
+    coll = sum(b for b, _ in coll_detail.values())
+    t_c = dot_flops / PEAK_FLOPS
+    t_m = mem_bytes / HBM_BW
+    t_l = coll / LINK_BW
     dominant = max(("compute", t_c), ("memory", t_m), ("collective", t_l),
                    key=lambda kv: kv[1])[0]
     return Roofline(
-        dot_flops=c.dot_flops, mem_bytes=c.mem_bytes,
-        coll_bytes=c.coll_bytes, t_compute=t_c, t_memory=t_m,
-        t_collective=t_l, dominant=dominant,
+        dot_flops=dot_flops, mem_bytes=mem_bytes, coll_bytes=coll,
+        t_compute=t_c, t_memory=t_m, t_collective=t_l, dominant=dominant,
         coll_detail={k: {"bytes": b, "count": n}
-                     for k, (b, n) in c.coll_detail.items()},
-        memory_stats={"argument_bytes": _bytes_once((args, kwargs)),
-                      "output_bytes": _bytes_once(out)})
+                     for k, (b, n) in coll_detail.items()},
+        memory_stats=memory_stats)
+
+
+def analyze(fn, *args, **kwargs) -> Roofline:
+    """``fn(*args, **kwargs)`` run once under ``DispatchCounter``: its
+    roofline.  On ``meta`` tensors nothing is allocated."""
+    with dispatch.DispatchCounter((args, kwargs)) as c:
+        out = fn(*args, **kwargs)
+    return make_roofline(
+        c.dot_flops, c.mem_bytes, c.coll_detail,
+        {"argument_bytes": _bytes_once((args, kwargs)),
+         "output_bytes": _bytes_once(out), "peak_bytes": c.peak_bytes})
 
 
 def model_flops(cfg, shape) -> float:

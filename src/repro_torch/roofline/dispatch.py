@@ -25,13 +25,24 @@ Counted over the call, per rank (each process counts its own ops):
                  costs 2x (reduce-scatter + all-gather on a ring), as in
                  the reference.  ``coll_detail`` holds (bytes, count) per
                  kind.
+  * peak_bytes — the largest sum of live storage bytes during the call:
+                 each storage an op returns counts once, from that op
+                 until it dies (a ``weakref.finalize`` on its
+                 ``untyped_storage()``); the tensors ``held`` at entry (the
+                 call's arguments) count from the start.  On ``meta``
+                 tensors this is the eager program's peak without
+                 allocating; the caching allocator's rounding and the
+                 kernels' workspaces are not in it.
 There are no loops to multiply out: every dispatched op is counted once
 for each time it runs.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (
+    TorchDispatchMode, is_traceable_wrapper_subclass)
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
@@ -86,19 +97,45 @@ def _is_view(func, ins, outs) -> bool:
 
 
 class DispatchCounter(TorchDispatchMode):
-    """``with DispatchCounter() as c: fn(...)`` leaves the counts of the
-    ops ``fn`` dispatched in ``c``."""
+    """``with DispatchCounter(held) as c: fn(...)`` leaves the counts of
+    the ops ``fn`` dispatched in ``c``; ``held`` (a tree of tensors, the
+    call's arguments) is live from entry for ``peak_bytes``."""
 
-    def __init__(self):
+    def __init__(self, held=()):
         super().__init__()
         self.dot_flops = 0
         self.mem_bytes = 0
         self.coll_bytes = 0
         self.coll_detail: dict[str, tuple[int, int]] = {}
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._live: dict[int, int] = {}
+        for t in _tensors(held):
+            self._track(t)
+
+    def _track(self, t: torch.Tensor) -> None:
+        if is_traceable_wrapper_subclass(t):   # a DTensor: its local shard
+            for inner in _tensors([getattr(t, name) for name in
+                                   t.__tensor_flatten__()[0]]):
+                self._track(inner)
+            return
+        st = t.untyped_storage()
+        if st._cdata in self._live:
+            return
+        key, nbytes = st._cdata, st.nbytes()
+        self._live[key] = nbytes
+        self.live_bytes += nbytes
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(st, self._release, key).atexit = False
+
+    def _release(self, key: int) -> None:
+        self.live_bytes -= self._live.pop(key, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        for t in _tensors(out):
+            self._track(t)
         packet = func.overloadpacket
         if packet in flop_registry:
             self.dot_flops += flop_registry[packet](*args, **kwargs,

@@ -20,6 +20,7 @@ tensors now hold the updated values).
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.distributed as dist
@@ -241,23 +242,52 @@ def _make_two_pass_step(cfg: ArchConfig, optimizer: Optimizer,
     return train_step
 
 
+def dp_split(cfg: ArchConfig, batch, mesh) -> tuple[tuple, int]:
+    """(the dp axes ``sharding.batch_specs`` cuts ``batch``'s rows over,
+    the number of row groups they make): ((), 1) where the rows do not
+    divide them.  Reads axis sizes only: an ``AbstractMesh`` will do."""
+    axes = sh.spec_axes(sh.batch_specs(cfg, batch, mesh)["tokens"][0])
+    sizes = sh.axis_sizes(mesh)
+    return axes, math.prod(sizes[a] for a in axes)
+
+
+def _row_block(cfg: ArchConfig, batch, mesh) -> tuple[tuple, int, int]:
+    """(dp axes, this rank's row group, the number of groups)."""
+    axes, n = dp_split(cfg, batch, mesh)
+    at = 0
+    for a in axes:
+        at = at * mesh.size(mesh.mesh_dim_names.index(a)) + \
+            mesh.get_local_rank(a)
+    return axes, at, n
+
+
+def _rows(t, dim: int, at: int, n: int):
+    """Row group ``at`` of ``n`` along ``dim`` of a tensor or an array (a
+    view)."""
+    b = t.shape[dim] // n
+    return t[(slice(None),) * dim + (slice(at * b, (at + 1) * b),)]
+
+
+def rows_of(tree, spec_tree, axes: tuple, at: int, n: int):
+    """Row group ``at`` of ``n`` of each leaf (views): along the dim whose
+    spec entry is ``axes``; a leaf that no dim of its spec cuts over them
+    is kept whole."""
+    def one(t, spec):
+        dims = [d for d, e in enumerate(spec) if sh.spec_axes(e) == axes]
+        return _rows(t, dims[0], at, n) if axes and dims else t
+    return tree_map(one, tree, spec_tree)
+
+
 def _dp_rows(cfg: ArchConfig, batch, mesh):
     """(this rank's rows of ``batch``, the dp process groups that share
     the batch): the rows ``sharding.batch_specs`` gives this rank along
     the dp axes, or the whole batch and no group where its rows do not
     divide them or one rank holds the dp axes."""
-    axes = sh.batch_specs(cfg, batch, mesh)["tokens"][0]
-    axes = () if axes is None else axes if isinstance(axes, tuple) else (
-        axes,)
-    n, at = 1, 0
-    for a in axes:
-        size = mesh.size(mesh.mesh_dim_names.index(a))
-        n, at = n * size, at * size + mesh.get_local_rank(a)
+    axes, at, n = _row_block(cfg, batch, mesh)
     if n == 1:
         return batch, []
-    rows = {k: v[at * (len(v) // n):(at + 1) * (len(v) // n)]
-            for k, v in batch.items()}
-    return rows, [mesh.get_group(a) for a in axes]
+    return ({k: _rows(v, 0, at, n) for k, v in batch.items()},
+            [mesh.get_group(a) for a in axes])
 
 
 def _dp_mean(groups, t):
@@ -269,12 +299,22 @@ def _dp_mean(groups, t):
     return t / n
 
 
-def _dp_reduce(groups, loss, metrics, grads):
-    mean = functools.partial(_dp_mean, groups)
+def _dp_reduce(mean, loss, metrics, grads):
     return (mean(loss),
             {k: mean(v) if torch.is_tensor(v) else v
              for k, v in metrics.items()},
             tree_map(lambda t: mean(t) if t is not None else None, grads))
+
+
+def make_dp_train_step(cfg: ArchConfig, optimizer: Optimizer, mean,
+                       microbatches: int = 1):
+    """The two-pass step of one data-parallel rank: ``mean(t)`` averages
+    the fp32 loss, each tensor metric and each gradient over the ranks
+    that share the batch before the update (on a mesh an all-reduce a dp
+    group, ``_dp_mean``; ``launch/dryrun.py`` reckons the same calls
+    without a process group)."""
+    return _make_two_pass_step(cfg, optimizer, microbatches,
+                               functools.partial(_dp_reduce, mean))
 
 
 def make_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer, mesh,
@@ -297,14 +337,61 @@ def make_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer, mesh,
     def train_step(params, opt_state, batch, step, lr_scale=None):
         full_p, full_s = sh.gather(params), sh.gather(opt_state)
         rows, groups = (batch, []) if fused else _dp_rows(cfg, batch, mesh)
-        run = whole if not groups else _make_two_pass_step(
-            cfg, optimizer, microbatches,
-            functools.partial(_dp_reduce, groups))
+        run = whole if not groups else make_dp_train_step(
+            cfg, optimizer, functools.partial(_dp_mean, groups),
+            microbatches)
         new_p, new_s, metrics = run(full_p, full_s, rows, step, lr_scale)
         return (sh.place_like(new_p, params), sh.place_like(new_s, opt_state),
                 metrics)
 
     return train_step
+
+
+def make_mesh_prefill_step(cfg: ArchConfig, mesh):
+    """``make_prefill_step``'s step on params placed on ``mesh``:
+    prefill(params, batch) -> (logits placed by ``sharding.logits_spec``,
+    the cache placed by ``sharding.cache_specs``, P + S).  A step gathers
+    the params, prefills this rank's rows of the batch (those
+    ``batch_specs`` gives it along the dp axes, or the whole batch where
+    they do not divide) and places the rows' logits and cache
+    (``sharding.place_rows``): each rank keeps its share along the other
+    axes too."""
+    prefill = make_prefill_step(cfg)
+
+    def step(params, batch):
+        axes, at, n = _row_block(cfg, batch, mesh)
+        rows = {k: _rows(v, 0, at, n) for k, v in batch.items()}
+        logits, cache, npos = prefill(sh.gather(params), rows)
+        B = batch["tokens"].shape[0]
+        cspecs = sh.cache_specs(cfg, cache, mesh, rows=n)
+        return (sh.place_rows(logits, sh.logits_spec(cfg, B, mesh), mesh,
+                              axes),
+                sh.place_rows(cache, cspecs, mesh, axes), npos)
+
+    return step
+
+
+def make_mesh_decode_step(cfg: ArchConfig, mesh):
+    """``make_decode_step``'s step on params and a cache placed on
+    ``mesh`` (the cache by ``sharding.cache_specs``): decode(params,
+    cache, token [B,1], pos) -> (logits placed by ``logits_spec``, the
+    new cache placed as the old).  A step gathers the params and the
+    cache, decodes this rank's rows (its row group of the token and of
+    each cache leaf along the dim its spec cuts over the dp axes) and
+    places the rows' results (``sharding.place_rows``)."""
+    decode = make_decode_step(cfg)
+
+    def step(params, cache, token, pos):
+        axes, at, n = _row_block(cfg, {"tokens": token}, mesh)
+        cspecs = sh.cache_specs(cfg, cache, mesh)
+        rows_c = rows_of(sh.gather(cache), cspecs, axes, at, n)
+        logits, new = decode(sh.gather(params), rows_c,
+                             _rows(token, 0, at, n), pos)
+        return (sh.place_rows(logits, sh.logits_spec(cfg, token.shape[0],
+                                                     mesh), mesh, axes),
+                sh.place_rows(new, cspecs, mesh, axes))
+
+    return step
 
 
 def make_eval_step(cfg: ArchConfig):

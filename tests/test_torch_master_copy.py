@@ -36,7 +36,6 @@ import torch
 import torch.distributed as dist
 
 from repro.configs import registry as jreg
-from repro.core.sparsity import SparsityConfig as JSparsity
 from repro.data.pipeline import LMTokenPipeline as JPipeline
 from repro.models import model as JM
 from repro.optim import adam as jadam
@@ -45,10 +44,10 @@ from repro.train.steps import make_train_step as jmake_train_step
 
 from repro_torch.configs import registry as treg
 from repro_torch.convert import from_jax_opt_state, from_jax_params
-from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.data.pipeline import LMTokenPipeline
 from repro_torch.kernels import block_sparse_matmul as bsm
 from repro_torch.launch import mesh as tmesh
+from repro_torch.launch.dryrun import _apply_variant
 from repro_torch.models import model as TM
 from repro_torch.optim import adam, constant_schedule, fused_adam
 from repro_torch.optim.optimizers import clip_by_global_norm
@@ -56,6 +55,7 @@ from repro_torch.parallel import sharding as sh
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.steps import fused_update_eligible, make_train_step
 from repro_torch.tree import tree_items, tree_map
+from torch_parity_helpers import reference_variant
 
 TREE_TOL = dict(rtol=5e-4, atol=5e-5)
 LOSS_ATOL, MASTER_ATOL = 2e-3, 5e-3       # the reference's bf16 bounds
@@ -235,19 +235,12 @@ STATE_REL = {"bfloat16": {"m": 5e-2, "v": 5e-2, "moved": 0.3},
              "float32": {"m": 5e-3, "v": 1e-2, "moved": 2e-3}}
 
 
-def _perf_sparse(cfg, sparsity):
-    """The reference's ``perf-sparse`` variant on ``cfg``."""
-    return dataclasses.replace(cfg.with_sparsity(sparsity),
-                               param_dtype="bfloat16", loss_chunk=2048,
-                               ssm_scan_dtype="bfloat16")
-
-
 @pytest.fixture(scope="module")
 def perf_cfgs():
-    jcfg = _perf_sparse(jreg.get("stablelm-3b").reduced(),
-                        JSparsity(density=0.125, block=128, where="ffn"))
-    tcfg = _perf_sparse(treg.get("stablelm-3b").reduced(),
-                        SparsityConfig(density=0.125, block=128, where="ffn"))
+    """The dry run's ``perf-sparse`` variant of reduced stablelm-3b, on
+    both sides."""
+    tcfg = _apply_variant(treg.get("stablelm-3b").reduced(), "perf-sparse")
+    jcfg = reference_variant(jreg.get("stablelm-3b").reduced(), tcfg)
     assert tcfg.d_model % 128 == 0 and tcfg.d_ff % 128 == 0
     return jcfg, tcfg
 

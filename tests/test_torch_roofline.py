@@ -58,13 +58,14 @@ from repro_torch.configs.base import SHAPES, ShapeSpec, valid_cells
 from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import specs as tspecs
+from repro_torch.launch.dryrun import VARIANTS, _apply_variant
 from repro_torch.models import model as TM
 from repro_torch.optim import adam, constant_schedule
 from repro_torch.roofline import analysis, dispatch
 from repro_torch.train import steps as tsteps
 from torch_mesh_workers import collective_counts, run_ranks
+from torch_parity_helpers import reference_variant
 
-VARIANTS = ("dense", "sparse", "sparse-all", "perf", "perf-sparse")
 WALKER_REL = 0.02
 ATTN_RECOMPUTE = 4_194_304       # the reference's backward score products
 
@@ -78,26 +79,11 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _variant(cfg, variant, sparsity):
-    """The reference dry run's ``_apply_variant``
-    (``src/repro/launch/dryrun.py:57-83``) on either package's config."""
-    if variant == "dense":
-        return cfg
-    where = "ffn+attn" if variant == "sparse-all" else "ffn"
-    sp = sparsity(density=0.125, block=128, where=where)
-    if variant in ("sparse", "sparse-all"):
-        return cfg.with_sparsity(sp)
-    if variant == "perf-sparse":
-        cfg = cfg.with_sparsity(sp)
-    return dataclasses.replace(cfg, param_dtype="bfloat16", loss_chunk=2048,
-                               ssm_scan_dtype="bfloat16")
-
-
 @pytest.mark.parametrize("arch", sorted(jreg.ARCHS))
 def test_model_flops_and_useful_fraction_equal_reference(arch):
     for variant in VARIANTS:
-        jcfg = _variant(jreg.get(arch), variant, JSparsity)
-        tcfg = _variant(treg.get(arch), variant, SparsityConfig)
+        tcfg = _apply_variant(treg.get(arch), variant)
+        jcfg = reference_variant(jreg.get(arch), tcfg)
         assert tcfg.active_param_count() == jcfg.active_param_count()
         jcells, tcells = list(jvalid_cells(jcfg)), list(valid_cells(tcfg))
         assert [s.name for s in tcells] == [s.name for s in jcells]
@@ -297,7 +283,7 @@ def _dense_train_flops(cfg, shape):
 
 @pytest.mark.parametrize("variant", ["dense", "perf"])
 def test_full_size_dense_train_counts_on_meta(variant):
-    cfg = _variant(treg.get("stablelm-3b"), variant, SparsityConfig)
+    cfg = _apply_variant(treg.get("stablelm-3b"), variant)
     assert cfg.remat and cfg.act == "silu" and cfg.sparsity is None
     c = _full_train(cfg)
     assert c.dot_flops == _dense_train_flops(cfg, SHAPES["train_4k"])
@@ -305,7 +291,7 @@ def test_full_size_dense_train_counts_on_meta(variant):
 
 
 def test_full_size_sparse_train_runs_through_the_meta_route():
-    cfg = _variant(treg.get("stablelm-3b"), "perf-sparse", SparsityConfig)
+    cfg = _apply_variant(treg.get("stablelm-3b"), "perf-sparse")
     ops.reset_launch_counts()
     c = _full_train(cfg)
     assert set(ops.launch_counts().values()) == {0}

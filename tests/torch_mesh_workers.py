@@ -1,5 +1,5 @@
-"""Rank bodies for tests/test_torch_mesh.py and tests/test_torch_roofline.py,
-run as spawned gloo processes
+"""Rank bodies for tests/test_torch_mesh.py, tests/test_torch_roofline.py
+and tests/test_torch_dryrun.py, run as spawned gloo processes
 (one a rank, one torch thread each).  Plain module, no JAX: each rank
 imports torch and the port only.  Inputs and results cross through .npz
 files in the test's directory."""
@@ -184,3 +184,112 @@ def collective_counts(rank, d):
             got[f"{api}_{kind}"] = np.array([nbytes, n])
         got[f"{api}_total"] = counter.coll_bytes
     np.savez(f"{d}/coll_{rank}.npz", **got)
+
+
+# the accounting cases of tests/test_torch_dryrun.py: (arch, sparse, compute
+# dtype), each at a train batch, a prefill / decode batch that the data
+# axis splits and one it does not
+DRYRUN_CASES = [("deepseek-7b", False, "float32"),
+                ("deepseek-7b", False, "bfloat16"),
+                ("stablelm-3b", True, "float32"),
+                ("stablelm-3b", True, "bfloat16")]
+DRYRUN_SEQ, DRYRUN_ROWS = 32, (4, 3)
+
+
+def dryrun_case(arch, sparse, dtype):
+    """The reduced config of one accounting case (fp32 params; sparse:
+    FFN junctions at density 0.5, block 32)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.core.sparsity import SparsityConfig
+    cfg = registry.get(arch).reduced()
+    if sparse:
+        cfg = cfg.with_sparsity(SparsityConfig(density=0.5, block=32,
+                                               where="ffn"))
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def dryrun_inputs(cfg, B):
+    """(params, batch of B x DRYRUN_SEQ, a random cache of that size, the
+    decode token), the same on every rank: params from seed 0, the rest
+    from a seeded CPU generator."""
+    from repro_torch.launch.specs import concrete_batch
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_map
+    gen = torch.Generator().manual_seed(B)
+    batch = concrete_batch(cfg, B, DRYRUN_SEQ, gen)
+    cache = tree_map(lambda t: torch.randn(t.shape, generator=gen).to(
+        t.dtype), M.make_cache(cfg, B, DRYRUN_SEQ, "cpu"))
+    token = torch.randint(0, cfg.vocab, (B, 1), dtype=torch.int32,
+                          generator=gen)
+    return M.init(cfg, 0, "cpu"), batch, cache, token
+
+
+def dryrun_counts(rank, d):
+    """Each accounting case on a 2 x 4 mesh: the mesh train step (B 4),
+    and the mesh prefill and decode steps (B 4 and 3), each under
+    ``DispatchCounter``; every rank writes its dot FLOPs, collectives and
+    the bytes it holds of each placed tree to ``counts_<rank>.json``;
+    rank 0 writes the gathered logits and caches to ``out_<case>.npz``."""
+    import json
+
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adam, constant_schedule
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.roofline import dispatch
+    from repro_torch.train import steps
+
+    mesh = make_local_mesh(2, 4, "cpu")
+    got = []
+
+    def counted(fn, *args):
+        with dispatch.DispatchCounter() as c:
+            out = fn(*args)
+        return out, {"dot_flops": c.dot_flops,
+                     "coll": {k: list(v) for k, v in c.coll_detail.items()}}
+
+    for i, case in enumerate(DRYRUN_CASES):
+        cfg = dryrun_case(*case)
+        saved = {}
+        for B in DRYRUN_ROWS:
+            params, batch, cache, token = dryrun_inputs(cfg, B)
+            specs = sh.param_specs(cfg, params, mesh)
+            placed = sh.place(params, specs, mesh)
+            if B == DRYRUN_ROWS[0]:
+                opt = adam(constant_schedule(1e-4), master_copy=False)
+                state = sh.place_state(opt.init(params), specs, mesh)
+                held = {"params": sh.held_bytes(placed)[0],
+                        "opt_state": sh.held_bytes(state)[0]}
+                step = steps.make_mesh_train_step(cfg, opt, mesh)
+                (p, s, _), n = counted(step, placed, state, batch, 0)
+                got.append(dict(n, case=i, kind="train", B=B, held=held,
+                                after={"params": sh.held_bytes(p)[0],
+                                       "opt_state": sh.held_bytes(s)[0]}))
+            prefill = steps.make_mesh_prefill_step(cfg, mesh)
+            (lg, c, npos), n = counted(prefill, placed, batch)
+            got.append(dict(n, case=i, kind="prefill", B=B, npos=npos,
+                            held={"params": sh.held_bytes(placed)[0],
+                                  "cache": sh.held_bytes(c)[0],
+                                  "logits": sh.held_bytes(lg)[0]}))
+            saved[f"prefill_logits_{B}"] = lg.full_tensor()
+            for k, v in sh.gather(c).items():
+                saved[f"prefill_cache_{B}_{k}"] = v
+            ccache = sh.place(cache, sh.cache_specs(cfg, cache, mesh), mesh)
+            decode = steps.make_mesh_decode_step(cfg, mesh)
+            held_c = sh.held_bytes(ccache)[0]
+            (lg, c), n = counted(decode, placed, ccache, token,
+                                 DRYRUN_SEQ - 1)
+            got.append(dict(n, case=i, kind="decode", B=B,
+                            held={"params": sh.held_bytes(placed)[0],
+                                  "cache": held_c,
+                                  "logits": sh.held_bytes(lg)[0]},
+                            after={"cache": sh.held_bytes(c)[0]}))
+            saved[f"decode_logits_{B}"] = lg.full_tensor()
+            for k, v in sh.gather(c).items():
+                saved[f"decode_cache_{B}_{k}"] = v
+        if rank == 0:
+            np.savez(f"{d}/out_{i}.npz", **{k: v.float().numpy()
+                                            for k, v in saved.items()})
+    with open(f"{d}/counts_{rank}.json", "w") as f:
+        json.dump(got, f)

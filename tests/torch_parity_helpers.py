@@ -1,7 +1,10 @@
 """What the family parity tests share (test_torch_archs.py,
 test_torch_vlm.py, test_torch_mla.py): a port tree held against a
 reference tree carried into the port's layout, and the slack of Adam's
-first step where a gradient sits at the summation-order noise floor."""
+first step where a gradient sits at the summation-order noise floor, and
+the dry run's variants on a reference config."""
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -48,3 +51,17 @@ def noise_slack(tm, jm, lr, b1=0.9):
                  | (np.abs(gr) <= 1e-5 * np.abs(gr).max()))
         out[k] = 2 * lr * (1 + 1e-5) * floor
     return out
+
+
+def reference_variant(jcfg, tcfg):
+    """The reference config ``jcfg`` under the variant that the port's
+    ``launch/dryrun._apply_variant`` gave ``tcfg``: its sparsity and its
+    perf fields carried over (tests/test_torch_dryrun.py holds the port's
+    variants equal to the reference's own ``_apply_variant``)."""
+    from repro.core.sparsity import SparsityConfig as JSparsity
+    sp = tcfg.sparsity
+    return dataclasses.replace(
+        jcfg, sparsity=None if sp is None else JSparsity(
+            density=sp.density, block=sp.block, where=sp.where),
+        param_dtype=tcfg.param_dtype, loss_chunk=tcfg.loss_chunk,
+        ssm_scan_dtype=tcfg.ssm_scan_dtype)
