@@ -4526,7 +4526,8 @@ def dryrun_phase(P, card, run):
     require(at_rest <= meas, f"dryrun: at rest {at_rest:.3f} GiB above the "
             f"measured peak {meas:.3f}")
     print(f"[dryrun] the perf step ({cfg.name} perf-sparse, "
-          f"{PERF_LAYERS} layers, {TRAIN_B} x {TRAIN_S}) on "
+          f"{PERF_LAYERS} layers, {TRAIN_B} x {TRAIN_S}, "
+          f"{D.execution(cfg)}) on "
           f"AbstractMesh((1, 1)), counted on meta in {count_s:.1f} s: "
           f"predicted per_device {pred:.3f} GiB (at rest {at_rest:.3f} + "
           f"eager peak {peak:.3f}) against the measured peak "
@@ -4599,6 +4600,12 @@ def mesh_phase(P, card):
       the same weights and batches: losses and params bit for bit, exact
       launches (no dw).
 
+    * the partitioned route (``steps.partitioned``: the dense family,
+      two-pass) under the same mesh, ``_mesh_partitioned``: train,
+      prefill and decode steps against the plain steps, its step time
+      beside today's gathered mesh step, its predicted peak beside the
+      measured one.
+
     Prints each path's median step time beside the plain path's."""
     cfg = dataclasses.replace(
         P.registry.get(MESH_ARCH).with_sparsity(
@@ -4635,6 +4642,7 @@ def mesh_phase(P, card):
                 f"mesh launcher launches {counts} != {want}")
         paths = {"mesh_train": counts}
         paths["mesh_fused"] = _mesh_fused(P, cfg, mesh, card)
+        paths.update(_mesh_partitioned(P, cfg, mesh, card))
     finally:
         torch.distributed.destroy_process_group()
     return paths
@@ -4688,6 +4696,181 @@ def _mesh_fused(P, cfg, mesh, card):
     del got, want_p
     torch.cuda.empty_cache()
     return counts
+
+
+# the partitioned route's decode: the prompt's last MESH_DECODE positions
+# are padding (the cache's size is the prompt's), decoded over greedily;
+# its train step, today's gathered mesh step and the plain step run
+# MESH_TIMED steps each, in that order after the plain one
+MESH_DECODE, MESH_LR, MESH_TIMED = 4, 1e-3, 5
+
+
+def _mesh_partitioned(P, cfg, mesh, card):
+    """The partitioned route on the one-rank mesh (``cfg``: stablelm-3b
+    sparse at MESH_LAYERS layers, fp32 params, bf16 compute):
+
+    * MESH_TIMED two-pass Adam steps (clip 1.0) of batch TRAIN_B x
+      TRAIN_S through ``make_mesh_train_step`` (partitioned), through
+      today's gathered mesh step (``make_gathered_mesh_train_step``) and
+      through the plain step, from the same weights and batches: losses,
+      Adam's m and params within the train parity tolerance of the plain
+      step (``STEP_TOL``, 2 lr a step plus an ulp), fwd / dx / dw
+      launches equal the plain step's, on tensor cores; the three median
+      step times printed side by side;
+    * its count on ``AbstractMesh((1, 1))`` (``dryrun.count_cell``): the
+      predicted per-device bytes beside the measured peak;
+    * the mesh prefill of TRAIN_B prompts of TRAIN_S - MESH_DECODE
+      tokens (padded to TRAIN_S) and MESH_DECODE greedy decode steps
+      against the plain steps fed the same tokens: logits within
+      ``LOGIT_REL_TOL``, greedy tokens equal, fwd launches equal."""
+    bf16 = torch.bfloat16
+    opt = P.optim.adam(P.optim.constant_schedule(MESH_LR))
+    require(P.steps.partitioned(cfg, opt)
+            and P.dryrun.execution(cfg) == "partitioned",
+            f"{cfg.name} is not on the partitioned route")
+    pipe = P.LMTokenPipeline(cfg, TRAIN_B, TRAIN_S)
+    batches = [next(pipe) for _ in range(MESH_TIMED)]
+
+    def run(kind):
+        params = P.M.init(cfg, seed=0, device="cuda")
+        state = opt.init(params)
+        if kind == "plain":
+            step = P.steps.make_train_step(cfg, opt)
+        else:
+            specs = P.sharding.param_specs(cfg, params, mesh)
+            params = P.sharding.place(params, specs, mesh)
+            state = P.sharding.place_state(state, specs, mesh)
+            make = (P.steps.make_mesh_train_step if kind == "partitioned"
+                    else P.steps.make_gathered_mesh_train_step)
+            step = make(cfg, opt, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() - sum(
+            P.sharding.held_bytes(t)[0] for t in (params, state))
+        P.ops.reset_launch_counts()
+        losses, dts = [], []
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch, i)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+        counts = with_tc(P, P.ops.launch_counts())
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        if kind != "plain":
+            params, state = P.sharding.gather(params), P.sharding.gather(
+                state)
+        return params, state["m"], losses, dts, counts, peak
+
+    plain = run("plain")
+    part = run("partitioned")
+    gath = run("gathered")
+    tol = STEP_TOL["bfloat16"]
+    reach = 2 * MESH_LR * adam_reach(MESH_TIMED) * (1 + 1e-5)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(part[2], plain[2]))
+    m_err = max(rel_err(a, b) for (_, a), (_, b) in zip(
+        P.tree_items(part[1]), P.tree_items(plain[1]))
+        if a.is_floating_point() and a.dim())
+    pairs = [(a, b) for (_, a), (_, b) in zip(P.tree_items(part[0]),
+                                              P.tree_items(plain[0]))
+             if a.is_floating_point()]
+    p_ok = all(bool(((a.float() - b.float()).abs() <= reach + ULP[a.dtype]
+                     * b.float().abs()).all()) for a, b in pairs)
+    same = _tree_bits_equal(P, part[0], plain[0])
+    keys = ("junction_fwd", "junction_dx", "junction_dw")
+    # peaks: over the steps, above what was allocated before them other
+    # than the step's own params and state (the earlier runs' results)
+    sub = {k: part[4][k] for k in keys} | {
+        f"{k}_tc": part[4][f"{k}_tc"] for k in keys}
+    med = [statistics.median(r[3][1:]) * 1e3 for r in (part, gath, plain)]
+    print(f"[mesh] partitioned two-pass Adam under the one-rank mesh, "
+          f"{cfg.name} layers={cfg.n_layers} {cfg.dtype}: losses "
+          f"{part[2]} against the plain step's {plain[2]} (rel "
+          f"{loss_rel:.3g}, tol {tol['loss']}), Adam m rel_err "
+          f"{m_err:.3g} (tol {tol['m']}), params within 2 lr a step plus "
+          f"an ulp: {p_ok}, bit for bit: {same}; median step after the "
+          f"first: partitioned {med[0]:.1f} ms, today's gathered mesh step "
+          f"{med[1]:.1f} ms, plain {med[2]:.1f} ms; peak "
+          f"{part[5]:.3f} / {gath[5]:.3f} / {plain[5]:.3f} GiB; launches "
+          f"{sub} [{card}]")
+    require(loss_rel <= tol["loss"] and m_err <= tol["m"] and p_ok,
+            "the partitioned mesh step differs from the plain step")
+    require(all(part[4][k] == plain[4][k] and part[4][f"{k}_tc"]
+                == plain[4][f"{k}_tc"] > 0 for k in keys),
+            f"partitioned launches {part[4]} != plain {plain[4]}")
+    require(gath[2] == plain[2], "the gathered mesh step moved")
+    rl, held = P.dryrun.count_cell(cfg, P.ShapeSpec(
+        "mesh", TRAIN_S, TRAIN_B, "train"), P.mesh.AbstractMesh(
+            (1, 1), ("data", "model")))
+    at_rest, peak = sum(held.values()) / 2**30, rl.memory_stats[
+        "peak_bytes"] / 2**30
+    print(f"[mesh] the partitioned step counted on AbstractMesh((1, 1)) "
+          f"(dryrun.count_cell): predicted per_device {at_rest + peak:.3f} "
+          f"GiB (at rest {at_rest:.3f} + eager peak {peak:.3f}) against the "
+          f"measured peak {part[5]:.3f} GiB: ratio "
+          f"{(at_rest + peak) / part[5]:.3f}; dot_flops {rl.dot_flops:.4g}, "
+          f"t_compute {rl.t_compute * 1e3:.3f} ms against the measured "
+          f"{med[0]:.1f} ms [{card}]")
+    del part, gath, plain
+    torch.cuda.empty_cache()
+    return {"mesh_partitioned": sub,
+            "mesh_partitioned_serve": _mesh_partitioned_serve(P, cfg, mesh,
+                                                              card)}
+
+
+def _mesh_partitioned_serve(P, cfg, mesh, card):
+    """The partitioned prefill and decode steps against the plain ones
+    (``_mesh_partitioned``'s last part): their fwd launches."""
+    params = P.M.init(cfg, seed=0, device="cuda")
+    placed = P.sharding.place(params, P.sharding.param_specs(
+        cfg, params, mesh), mesh)
+    tokens = torch.as_tensor(next(P.LMTokenPipeline(
+        cfg, TRAIN_B, TRAIN_S))["tokens"]).to("cuda")
+    start = TRAIN_S - MESH_DECODE
+    prompt = tokens.clone()
+    prompt[:, start:] = 0
+
+    def serve(on_mesh):
+        P.ops.reset_launch_counts()
+        if on_mesh:
+            prefill = P.steps.make_mesh_prefill_step(cfg, mesh)
+            decode = P.steps.make_mesh_decode_step(cfg, mesh)
+            p, full = placed, lambda t: t.full_tensor()
+        else:
+            prefill = P.steps.make_prefill_step(cfg)
+            decode = P.steps.make_decode_step(cfg)
+            p, full = params, lambda t: t
+        lg, cache, _ = prefill(p, {"tokens": prompt})
+        logits, tok, picks = [full(lg)], tokens[:, start:start + 1], []
+        for t in range(MESH_DECODE):
+            lg, cache = decode(p, cache, tok, start + t)
+            logits.append(full(lg))
+            tok = logits[-1].argmax(-1).to(torch.int32)
+            picks.append(tok)
+        torch.cuda.synchronize()
+        return (torch.stack(logits), torch.cat(picks, 1),
+                with_tc(P, P.ops.launch_counts()))
+
+    got, got_picks, counts = serve(True)
+    want, want_picks, p_counts = serve(False)
+    err = rel_err(got, want)
+    print(f"[mesh] partitioned prefill of {TRAIN_B} x {start} tokens (padded "
+          f"to {TRAIN_S}) and {MESH_DECODE} greedy decode steps against the "
+          f"plain steps: logits rel_err {err:.3g} (tol "
+          f"{LOGIT_REL_TOL[torch.bfloat16]}), bit for bit "
+          f"{bits_equal(got, want)}, greedy tokens equal "
+          f"{torch.equal(got_picks, want_picks)}; fwd launches "
+          f"{counts['junction_fwd']} (on tensor cores "
+          f"{counts['junction_fwd_tc']}) against {p_counts['junction_fwd']} "
+          f"[{card}]")
+    require(err <= LOGIT_REL_TOL[torch.bfloat16]
+            and torch.equal(got_picks, want_picks),
+            "the partitioned prefill / decode differs from the plain steps")
+    require(counts["junction_fwd"] == p_counts["junction_fwd"] > 0,
+            f"partitioned serving launches {counts} != {p_counts}")
+    del params, placed
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in ("junction_fwd", "junction_fwd_tc")}
 
 
 def _pipe_stages(P, seed=0):

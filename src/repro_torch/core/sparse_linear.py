@@ -25,6 +25,13 @@ MoE dict ``wgq`` / ``wiq`` / ``woq``) with their scales in place of the
 fp weights; ``apply`` runs it through the quantized kernels, and both
 ``apply`` and ``inject_update_ctx`` refuse it inside a fused train step:
 the quantized datapath is inference only.
+
+``apply_tp`` runs a linear on a rank's slice in the partitioned mesh
+steps (parallel/partition.py): column-parallel (a dense weight's out
+dim, or a junction's output blocks, split over "model": the kernels run
+unchanged on the rank's blocks, through its own pattern rows and reverse
+tables), row-parallel (a dense weight's in dim split: partial sums), or
+replicated.
 """
 from __future__ import annotations
 
@@ -212,3 +219,46 @@ def apply(params: Params, x: torch.Tensor, *, act: str = "none"
                                    bias=params.get("b"), act=act)
     y = apply_dense(params, x)
     return y if act == "none" else bsm.act_fwd(y, act).to(y.dtype)
+
+
+def apply_tp(params: Params, x: torch.Tensor, layout: str, part, *,
+             act: str = "none") -> tuple[torch.Tensor, str]:
+    """``apply`` on a rank's slice, for a linear container that
+    ``Partition.gather`` tagged with its kind ``"_tp"``: x in ``layout``
+    ("full" or "split" features) -> (y, its layout).
+    "col" and "rep" take every input feature (a split x is gathered) and
+    give the rank's output features ("split") or all of them ("full"),
+    the activation applied; "row" takes the rank's input features (a
+    full x is cut) and gives partial sums ("partial", no bias: the caller
+    adds it after the sum, ``add_row_bias``; no activation), in fp32 over
+    more than one model rank (the weight rounded to x's dtype first, so
+    the products are the one-rank product's; the sum rounds once
+    summed)."""
+    kind = params["_tp"]
+    if kind == "row":
+        if act != "none":
+            raise ValueError("a row-parallel product's activation comes "
+                             "after its sum")
+        x = part.split(x, layout)
+        w = params["w"].to(x.dtype)
+        if part.m > 1:
+            return x.float() @ w.float(), "partial"
+        return x @ w, "partial"
+    x = part.full(x, layout)
+    q = {k: v for k, v in params.items() if k != "b"}
+    if "b" in params:
+        b = params["b"]
+        if kind == "col" and not params["_b_split"]:
+            b = part.split(b, "full")
+        elif kind == "rep" and params["_b_split"]:
+            b = part.full(b, "split")
+        q["b"] = b
+    return apply(q, x, act=act), ("split" if kind == "col" else "full")
+
+
+def add_row_bias(params: Params, y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's bias, added once its partial sums are
+    summed (a full bias; no-op without one)."""
+    if params["_tp"] != "row" or "b" not in params:
+        return y
+    return y + params["b"].to(y.dtype)

@@ -30,18 +30,36 @@ Per cell:
     seq_len - 1``.
 
 Counted per rank as the port's mesh steps (``train/steps.make_mesh_*``)
-do the work: they gather every leaf and run the rank's dp rows whole, so
-the model axis divides no compute and ``useful_fraction`` is about 1/16
-of what the reference's SPMD module gives.  ``dot_flops`` and the eager
-``mem_bytes`` are counted on the full gathered shapes and the rank's
-rows.  The collectives come from the specs, under
-``roofline/dispatch.py``'s conventions (an all-gather counts its output
-bytes, an all-reduce twice its bytes): the all-gathers ``full_tensor()``
-issues for every sharded param, optimizer-state and cache leaf (one a
-sharded mesh dim, the last mesh dim first, as DTensor gathers), and the
-train step's all-reduce of the loss, the metrics and each fp32 gradient
-over each dp group (``steps.make_dp_train_step``, its ``mean`` reckoned
-here instead of run).  ``per_device_gb`` is the bytes the rank holds at
+do the work, on the route ``steps.partitioned`` gives the cell (the
+record's ``"execution"``):
+
+* ``"partitioned"`` (the dense family): the rank's step on its shards
+  (``attach``, its junction views from ``sharding.with_junction_views``)
+  and rows, through the same code the mesh runs
+  (``steps.make_partitioned_train_step``, ``steps.partitioned_prefill``
+  / ``partitioned_decode``) under a ``partition.ReckonedComm``, which
+  reckons each collective the real step issues in the order and size it
+  issues them: the per-layer all-gathers over the dp axes, forward and
+  backward (each layer recomputed), the gradients' reduce-scatters and
+  all-reduces, tensor parallelism's all-gathers, reduce-scatters and
+  all-reduces of activations, the vocab-parallel cross entropy's and
+  decode's log-sum-exp all-reduces, the clip norm's and the metrics'.
+  The model axis divides the compute as the specs say, and so does the
+  memory: no leaf is gathered whole and the cache stays sharded.
+* ``"gathered"`` (every other family): the mesh steps gather every leaf
+  and run the rank's dp rows whole, so the model axis divides no
+  compute.  ``dot_flops`` and the eager ``mem_bytes`` are counted on the
+  full gathered shapes and the rank's rows.  The collectives come from
+  the specs: the all-gathers ``full_tensor()`` issues for every sharded
+  param, optimizer-state and cache leaf (one a sharded mesh dim, the
+  last mesh dim first, as DTensor gathers), and the train step's
+  all-reduce of the loss, the metrics and each fp32 gradient over each
+  dp group (``steps.make_dp_train_step``, its ``mean`` reckoned here
+  instead of run).
+
+Collectives follow ``roofline/dispatch.py``'s conventions (an all-gather
+and a reduce-scatter count their output bytes, an all-reduce twice its
+bytes).  ``per_device_gb`` is the bytes the rank holds at
 rest (``at_rest_bytes``: the shards of params, optimizer state, cache and
 logits, from ``attach``) plus the step's eager peak
 (``memory_stats["peak_bytes"]``: gathered leaves, activations,
@@ -54,8 +72,9 @@ when present unless ``--force``; a cell that raises is recorded with
 ``ok: false`` and the sweep goes on (exit status 1).  The keys are the
 reference's where the port has the quantity, with ``count_s`` for its
 ``lower_s`` / ``compile_s``, ``fits_80gb`` for ``fits_16gb``, and
-``at_rest_bytes`` added.  Left out: ``per_device_gb_corrected`` and
-``fit_attempts[].corrected_gb`` (XLA-CPU's widening of bf16 loop state
+``at_rest_bytes`` and ``execution`` added.  Left out:
+``per_device_gb_corrected`` and ``fit_attempts[].corrected_gb``
+(XLA-CPU's widening of bf16 loop state
 has no counterpart) and ``roofline.raw_cost`` (no ``cost_analysis``).
 """
 from __future__ import annotations
@@ -78,6 +97,7 @@ from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import model as M
 from repro_torch.optim import adam, constant_schedule
+from repro_torch.parallel import partition
 from repro_torch.parallel import sharding as sh
 from repro_torch.roofline import analysis as roofline
 from repro_torch.train import steps
@@ -196,6 +216,65 @@ def _placed_rows(tree, spec_tree, mesh, axes: tuple, n: int):
     return sh.attach(tree_map(whole, tree, spec_tree), spec_tree, mesh)
 
 
+def _train_opt(cfg: ArchConfig):
+    return adam(constant_schedule(1e-4),
+                master_copy=(cfg.param_dtype != "float32"))
+
+
+def execution(cfg: ArchConfig) -> str:
+    """The route the mesh steps run ``cfg`` on."""
+    return ("partitioned" if steps.partitioned(cfg, _train_opt(cfg))
+            else "gathered")
+
+
+def _count_partitioned(cfg, shape, mesh, microbatches, params, pspecs,
+                       held):
+    """``count_cell`` on the partitioned route (rank 0's shards)."""
+    comm = partition.ReckonedComm(mesh)
+    B = shape.global_batch
+    if shape.kind == "decode":
+        token, _ = specs_mod.decode_inputs_struct(cfg, shape)
+        batch = {"tokens": token}
+    else:
+        batch = specs_mod.batch_struct(cfg, shape)
+    axes, n = steps.dp_split(cfg, batch, mesh)
+    rows = _meta_rows(batch, n)
+    part = partition.Partition(cfg, comm, pspecs, axes if n > 1 else ())
+    local = sh.with_junction_views(sh.attach(params, pspecs, mesh), pspecs,
+                                   mesh, 0)
+    out = []
+    if shape.kind == "train":
+        opt = _train_opt(cfg)
+        state = opt.init(params)
+        lstate = sh.attach(state, sh.state_specs(state, pspecs), mesh)
+        held["opt_state"] = _nbytes(lstate)
+        fn = steps.make_partitioned_train_step(cfg, opt, part, microbatches)
+        rl = roofline.analyze(fn, local, lstate, rows, 0)
+    elif shape.kind == "prefill":
+        def fn(p, b):
+            out.extend(steps.partitioned_prefill(cfg, part, p, b))
+            return out
+        rl = roofline.analyze(fn, local, rows)
+        held["cache"] = _nbytes(out[1])
+    else:
+        cache = M.make_cache(cfg, B, shape.seq_len, "meta")
+        cspecs = sh.cache_specs(cfg, cache, mesh)
+        lcache = sh.attach(cache, cspecs, mesh)
+        held["cache"] = _nbytes(lcache)
+        part.cache_seq_split = "model" in sh.spec_axes(cspecs["k"][2])
+
+        def fn(p, c, tok):
+            out.extend(steps.partitioned_decode(cfg, part, p, c, tok,
+                                                shape.seq_len - 1))
+            return out
+        rl = roofline.analyze(fn, local, lcache, rows["tokens"])
+    if shape.kind != "train":
+        held["logits"] = _nbytes(out[0])
+    rl = roofline.make_roofline(rl.dot_flops, rl.mem_bytes, comm.detail,
+                                rl.memory_stats)
+    return rl, held
+
+
 def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
                microbatches: int = 1):
     """One rank's count of a cell: (its roofline, {tree: bytes the rank
@@ -203,9 +282,12 @@ def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
     ``DeviceMesh``, read for its axes only)."""
     params = M.init(cfg, 0, "meta")
     pspecs = sh.param_specs(cfg, params, mesh)
+    held = {"params": _nbytes(sh.attach(params, pspecs, mesh))}
+    if execution(cfg) == "partitioned":
+        return _count_partitioned(cfg, shape, mesh, microbatches, params,
+                                  pspecs, held)
     coll = Collectives(mesh)
     coll.gather(params, pspecs)
-    held = {"params": _nbytes(sh.attach(params, pspecs, mesh))}
     B = shape.global_batch
     if shape.kind == "decode":
         token, _ = specs_mod.decode_inputs_struct(cfg, shape)
@@ -216,8 +298,7 @@ def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
     rows = _meta_rows(batch, n)
     out = []                 # a serving step's outputs, for their shards
     if shape.kind == "train":
-        opt = adam(constant_schedule(1e-4),
-                   master_copy=(cfg.param_dtype != "float32"))
+        opt = _train_opt(cfg)
         state = opt.init(params)
         ospecs = sh.state_specs(state, pspecs)
         coll.gather(state, ospecs)
@@ -270,7 +351,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str,
     rec: dict = {"cell": cid, "arch": arch, "shape": shape_name,
                  "mesh": mesh_kind, "variant": variant, "n_chips": n_chips,
                  "params": cfg.param_count(),
-                 "active_params": cfg.active_param_count()}
+                 "active_params": cfg.active_param_count(),
+                 "execution": execution(cfg)}
     cap_gb = roofline.HBM_CAPACITY / 2**30
     try:
         # training cells auto-scale microbatches (gradient accumulation

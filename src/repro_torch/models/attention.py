@@ -17,6 +17,15 @@ The pool of one layer is ``{"k": [P, ps, Hkv, hd], "v": ...}``; token t
 of a slot lives in page ``page_table[b, t // ps]`` at offset ``t % ps``.
 Page 0 is the scratch page that free slots point at.  The pool is
 updated in place.
+
+The partitioned mesh steps (parallel/partition.py) run ``gqa_forward_tp``
+on the rank's heads (the q / k / v products column-parallel where their
+specs split them; a replicated k / v, as where the kv heads do not
+divide the model axis, is computed whole and the rank takes the kv heads
+its q heads read) and ``gqa_decode_tp`` on the rank's sequence shard of
+the cache: q gathered over "model", every head attended on the local
+slots, the shards merged by a log-sum-exp combine over "model", and the
+rank's heads kept for ``wo``.
 """
 from __future__ import annotations
 
@@ -366,3 +375,109 @@ def mla_decode(p: Params, x, cfg: ArchConfig, cache: dict, pos: int):
     out = _einsum_as("bqhl,lhv->bqhv", o_lat, w_uv, x.dtype)
     out = sl.apply(p["wo"], out.reshape(B, 1, H * vd))
     return out, cache
+
+
+def _local_heads(part, t, layout: str, n_heads: int, hd: int):
+    """(t as [..., heads, hd], the first head, the head count) for a q /
+    k / v product in ``layout``: the rank's heads where the product is
+    split on head boundaries, else every head (gathered if split)."""
+    if layout == "split" and n_heads % part.m == 0:
+        hl = n_heads // part.m
+        return _split_heads(t, hl, hd), part.r * hl, hl
+    t = part.full(t, layout)
+    return _split_heads(t, n_heads, hd), 0, n_heads
+
+
+def _kv_for(k, k0: int, hk: int, q0: int, hq: int, rep: int):
+    """The kv heads that q heads [q0, q0 + hq) read (head h reads kv head
+    h // rep), from k holding kv heads [k0, k0 + hk): a contiguous run
+    where the q heads group evenly, else one kv head a q head."""
+    if hq % rep == 0 or rep % hq == 0:
+        a, b = q0 // rep, (q0 + hq - 1) // rep + 1
+        return k[..., a - k0:b - k0, :]
+    pick = torch.arange(q0, q0 + hq, device=k.device) // rep - k0
+    return k[..., pick, :]
+
+
+def gqa_forward_tp(part, p: Params, x, cfg: ArchConfig, *, positions):
+    """``gqa_forward`` on the rank's heads: x [B,S,d] with every position
+    (``Partition.tokens``).  Returns (out, its layout, (k, v)): out is
+    ``wo``'s product (partial sums where ``wo`` is row-parallel), k / v
+    [B,S,hk,hd] roped, with the kv heads the rank computed and the first
+    one's index (for the prefill's cache)."""
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q, lq = sl.apply_tp(p["wq"], x, "full", part)
+    k, lk = sl.apply_tp(p["wk"], x, "full", part)
+    v, lv = sl.apply_tp(p["wv"], x, "full", part)
+    q, q0, hq = _local_heads(part, q, lq, H, hd)
+    if hq < H:            # the rank's q heads; its kv heads, or every one
+        k, k0, hk = _local_heads(part, k, lk, Hkv, hd)
+        v, _, _ = _local_heads(part, v, lv, Hkv, hd)
+    else:                 # every q head here: every kv head too
+        k, k0, hk = _split_heads(part.full(k, lk), Hkv, hd), 0, Hkv
+        v = _split_heads(part.full(v, lv), Hkv, hd)
+    q = rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
+    k = rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
+    rep = H // Hkv
+    out = chunked_attention(q, _kv_for(k, k0, hk, q0, hq, rep),
+                            _kv_for(v, k0, hk, q0, hq, rep), causal=True,
+                            chunk=cfg.attn_chunk, q_pos=positions,
+                            kv_pos=positions)
+    lo = "split" if hq < H else "full"
+    y, ly = sl.apply_tp(p["wo"], out.reshape(B, S, hq * hd), lo, part)
+    return y, ly, (k, v, k0)
+
+
+def decode_attention_tp(part, q, k_cache, v_cache, pos, base: int):
+    """``decode_attention`` over the rank's slots [base, base + S) of the
+    cache, merged over "model": the global max (all-reduced), the local
+    exp sums all-reduced, the probabilities normalized by the global sum
+    and rounded to q's dtype before the fp32 PV product, whose partial
+    sums are all-reduced.  q [B,1,H,D] holds every head."""
+    B, _, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    q5 = q.reshape(B, 1, Hkv, H // Hkv, D).float()
+    s = torch.einsum("bqgrd,bkgd->bgrqk", q5, k_cache.float()) \
+        * (1.0 / math.sqrt(D))
+    valid = base + torch.arange(S, device=q.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    mx = part.max_over_model(s.amax(dim=-1, keepdim=True))
+    p = torch.where(valid, torch.exp(s - mx), 0.0)
+    p = p / part.sum_over_model(p.sum(dim=-1, keepdim=True))
+    out = torch.einsum("bgrqk,bkgd->bgrqd", p.to(q.dtype).float(),
+                       v_cache.float())
+    out = part.sum_over_model(out)
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def gqa_decode_tp(part, p: Params, x, cfg: ArchConfig, cache: dict,
+                  pos: int):
+    """``gqa_decode`` of every row at ``pos`` on the rank's cache: x
+    [B,1,d] (replicated), cache {"k", "v": [B,S,Hkv,hd]}, the rank's
+    sequence shard where ``part.cache_seq_split`` (slots [r S, (r+1) S))
+    else every slot.  q, k, v are gathered over "model" (every head);
+    only the rank that holds slot ``pos`` writes the new K / V.  Returns
+    (out, its layout): ``wo``'s product on the rank's heads."""
+    B = x.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    at = torch.full((1,), pos, device=x.device)
+    q, lq = sl.apply_tp(p["wq"], x, "full", part)
+    k, lk = sl.apply_tp(p["wk"], x, "full", part)
+    v, lv = sl.apply_tp(p["wv"], x, "full", part)
+    q = rope(_split_heads(part.full(q, lq), H, hd), at, cfg.rope_theta,
+             cfg.partial_rotary)
+    k = rope(_split_heads(part.full(k, lk), Hkv, hd), at, cfg.rope_theta,
+             cfg.partial_rotary)
+    v = _split_heads(part.full(v, lv), Hkv, hd)
+    S = cache["k"].shape[1]
+    split = part.cache_seq_split and part.m > 1
+    base = part.r * S if split else 0
+    if base <= pos < base + S:
+        cache["k"][:, pos - base] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, pos - base] = v[:, 0].to(cache["v"].dtype)
+    if split:
+        out = decode_attention_tp(part, q, cache["k"], cache["v"], pos, base)
+    else:
+        out = decode_attention(q, cache["k"], cache["v"], pos)
+    return sl.apply_tp(p["wo"], out.reshape(B, 1, H * hd), "full", part)

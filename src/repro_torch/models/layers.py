@@ -120,3 +120,18 @@ def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     else:
         h = sl.apply(p["wi"], x, act="gelu")
     return sl.apply(p["wo"], h)
+
+
+def mlp_apply_tp(part, p, x: torch.Tensor):
+    """``mlp_apply`` on the rank's slice (parallel/partition.py): x with
+    every feature -> (``wo``'s product, its layout).  The gate's two
+    products share a layout (both gathered if they differ)."""
+    if "wg" in p:
+        g, lg = sl.apply_tp(p["wg"], x, "full", part, act="silu")
+        u, lu = sl.apply_tp(p["wi"], x, "full", part)
+        if lg != lu:
+            g, u, lg = part.full(g, lg), part.full(u, lu), "full"
+        h = g * u
+    else:
+        h, lg = sl.apply_tp(p["wi"], x, "full", part, act="gelu")
+    return sl.apply_tp(p["wo"], h, lg, part)

@@ -41,6 +41,19 @@ layer of ``params["layers"]`` (the ssm, the hybrid's Mamba layers and
 the decoder's too, not the dense first layers or the encoder's) and
 after each hybrid super-block.
 
+Under a ``parallel/partition.Partition`` (the partitioned mesh steps,
+``train/steps.py``) the dense family's ``forward``, ``decode_step`` and
+``loss_fn`` run on the rank's shards: each layer gathers its leaves over
+the dp axes just before it runs (``Partition.gather``) and, under grad,
+is recomputed in the backward (gathering again) whatever ``cfg.remat``
+says; the products run on the rank's heads, output blocks and features;
+the residual is stored sequence-sharded over "model"; the embedding and
+unembedding are vocab-parallel, their logits the rank's vocab columns
+(placed by ``sharding.logits_spec``), and the cross entropy takes its
+log-sum-exp over "model".  Decoding runs on the rank's sequence shard of
+the cache.  Without a partition they do what the rest of this module
+says.
+
 The layers run in a Python loop; with ``cfg.remat`` each training layer
 (and the hybrid's shared block at each use) is recomputed in the
 backward (``torch.utils.checkpoint``), whisper's encoder layers
@@ -59,13 +72,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.core import sparse_linear as sl
 from repro_torch.models.layers import (embed_init, embed_tokens, mlp_apply,
-                                       mlp_init, norm_apply, norm_init,
-                                       sinusoidal_pos, unembed)
+                                       mlp_apply_tp, mlp_init, norm_apply,
+                                       norm_init, sinusoidal_pos, unembed)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.ssm import (mamba1_apply, mamba1_init, mamba2_apply,
                                     mamba2_init)
-from repro_torch.parallel import hints
+from repro_torch.parallel import hints, partition
 
 Params = dict[str, Any]
 
@@ -295,6 +309,10 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
     structure with the prefill's P+S positions (else None); ``last_only``
     keeps the last position."""
     _check_family(cfg, "trains")
+    part = _partition(cfg)
+    if part is not None:
+        return _forward_tp(cfg, params, batch, part, return_cache,
+                           last_only, return_hidden)
     x, off = _embed_in(cfg, params, batch)
     x = hints.constrain_tokens3d(x, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -448,6 +466,9 @@ def decode_step(cfg: ArchConfig, params: Params, cache, token, pos: int):
     is added to the token).  Returns (logits [B,1,V], cache) with the
     cache updated in place."""
     _check_family(cfg, "serves")
+    part = _partition(cfg)
+    if part is not None:
+        return _decode_tp(cfg, params, cache, token, pos, part)
     x = embed_tokens(params["embed"], token, cfg)
     if cfg.family == "audio":
         x = x + params["embed"]["pos"][pos:pos + 1].to(x.dtype)[None]
@@ -506,21 +527,181 @@ def loss_fn(cfg: ArchConfig, params: Params, batch):
         while T % c:
             c -= 1
         chunk = c if c > 1 else 0
+    part = _partition(cfg)
+    xent = softmax_xent if part is None else \
+        (lambda lg, lb: _xent_tp(part, lg, lb, cfg))
     if not chunk:
         logits, _, (aux, off) = forward(cfg, params, batch)
-        ce = torch.mean(softmax_xent(logits[:, off:off + T], labels))
+        ce = torch.mean(xent(logits[:, off:off + T], labels))
         return ce + aux, {"ce": ce, "aux": aux}
     hidden, _, (aux, off) = forward(cfg, params, batch, return_hidden=True)
+    if part is None:
+        embed, ce_fn, args = params["embed"], _chunk_ce, (cfg,)
+    else:   # every position on every rank; the unembedding gathered once
+        hidden = part.tokens(hidden, T + 1)
+        embed, ce_fn, args = _unembed_unit(part, params, cfg), \
+            _chunk_ce_tp, (cfg, part)
     hs = hidden[:, off:off + T]
     B = hs.shape[0]
     total = hs.new_zeros((), dtype=torch.float32)
     for c0 in range(0, T, chunk):
-        total = total + checkpoint(_chunk_ce, params["embed"],
-                                   hs[:, c0:c0 + chunk],
-                                   labels[:, c0:c0 + chunk], cfg,
+        total = total + checkpoint(ce_fn, embed, hs[:, c0:c0 + chunk],
+                                   labels[:, c0:c0 + chunk], *args,
                                    use_reentrant=False)
     ce = total / (B * T)
     return ce + aux, {"ce": ce, "aux": aux}
+
+
+# ------------------------------------------- the partitioned route
+def _partition(cfg: ArchConfig):
+    """The current ``Partition``, for the dense family (the partitioned
+    steps run no other)."""
+    part = partition.current()
+    if part is not None and cfg.family != "dense":
+        raise ValueError(f"family {cfg.family!r} has no partitioned route")
+    return part
+
+
+def _embed_tp(part, params, tokens, cfg: ArchConfig):
+    """The token embeddings in the residual layout, vocab-parallel: each
+    rank looks up the tokens of its vocab rows (zeros for the others)
+    and the partial sums meet in the residual (exact: one rank holds
+    each token's row); cast to the compute dtype after the sum."""
+    S = tokens.shape[1]
+    tok = part.gather({"tok": params["embed"]["tok"]},
+                      {"tok": part.specs["embed"]["tok"]})["tok"]
+    nv = tok.shape[0]
+    tokens = tokens.long()
+    if nv == cfg.vocab:
+        return part.residual(tok[tokens], "full", S).to(cfg.compute_dtype)
+    t = tokens - part.r * nv
+    mine = (t >= 0) & (t < nv)
+    e = torch.where(mine[..., None], tok[t.clamp(0, nv - 1)], 0.0)
+    return part.residual(e, "partial", S).to(cfg.compute_dtype)
+
+
+def _unembed_unit(part, params, cfg: ArchConfig):
+    """The unembedding's leaf gathered: a unit of its own."""
+    key = "tok" if cfg.tie_embeddings else "out"
+    return part.gather({key: params["embed"][key]},
+                       {key: part.specs["embed"][key]})
+
+
+def _xent_tp(part, logits, labels, cfg: ArchConfig):
+    """``softmax_xent`` of the rank's vocab columns: the max and the
+    exp sum all-reduced over "model" (the max carries no gradient), the
+    label's logit from the rank that holds it.  Whole logits take
+    ``softmax_xent`` itself."""
+    nv = logits.shape[-1]
+    if nv == cfg.vocab:
+        return softmax_xent(logits, labels)
+    lf = logits.float()
+    mx = part.max_over_model(lf.amax(dim=-1, keepdim=True))
+    t = labels.long() - part.r * nv
+    mine = (t >= 0) & (t < nv)
+    ll = torch.gather(lf, -1, t.clamp(0, nv - 1)[..., None])[..., 0]
+    both = part.sum_over_model(torch.stack(
+        [torch.exp(lf - mx).sum(dim=-1), torch.where(mine, ll, 0.0)]))
+    return torch.log(both[0]) + mx[..., 0] - both[1]
+
+
+def _chunk_ce_tp(ev, h, labels, cfg, part):
+    return torch.sum(_xent_tp(part, unembed(ev, h, cfg), labels, cfg))
+
+
+def _cache_shard(part, k, v, S: int, cfg: ArchConfig):
+    """A layer's prefill K / V as the rank keeps them: every kv head
+    (gathered over "model" where the rank computed its own), its
+    sequence shard where the positions divide the axis."""
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        if t.shape[2] < cfg.kv_heads:
+            t = part.comm.all_gather(t, ("model",), 2)
+        if part.seq_split(S):       # a copy: the whole sequence is freed
+            n = S // part.m
+            t = t.narrow(1, part.r * n, n).contiguous()
+        out[name] = t
+    return out
+
+
+def _block_tp(part, lp, ls, x, positions, want_cache: bool):
+    """A dense layer on the rank's shards: its leaves gathered over the
+    dp axes, attention on the rank's heads and the MLP on its features,
+    each product's result placed back in the residual layout.  Returns
+    (x, the rank's cache of the layer or None)."""
+    cfg = part.cfg
+    S = positions.shape[0]
+    v = part.gather(lp, ls)
+    h = part.tokens(norm_apply(v["norm1"], x, cfg.norm, cfg.norm_eps), S)
+    a, la, (k, vv, _) = attn.gqa_forward_tp(part, v["attn"], h, cfg,
+                                             positions=positions)
+    x = x + sl.add_row_bias(v["attn"]["wo"], part.residual(a, la, S))
+    h = part.tokens(norm_apply(v["norm2"], x, cfg.norm, cfg.norm_eps), S)
+    m, lm = mlp_apply_tp(part, v["mlp"], h)
+    x = x + sl.add_row_bias(v["mlp"]["wo"], part.residual(m, lm, S))
+    return x, (_cache_shard(part, k, vv, S, cfg) if want_cache else None)
+
+
+def _forward_tp(cfg: ArchConfig, params, batch, part, return_cache: bool,
+                last_only: bool, return_hidden: bool):
+    """``forward`` on the rank's shards (see the module docstring): the
+    hidden state comes back in the residual layout (the rank's
+    positions), logits as the rank's vocab columns of every position
+    (the last one with ``last_only``)."""
+    tokens = _tokens(params, batch)
+    S = tokens.shape[1]
+    x = hints.constrain_tokens3d(_embed_tp(part, params, tokens, cfg), cfg)
+    positions = torch.arange(S, device=x.device)
+    grad = torch.is_grad_enabled()
+    caches = []
+    for lp, ls in zip(params["layers"], part.specs["layers"]):
+        if grad:
+            x, c = checkpoint(_block_tp, part, lp, ls, x, positions, False,
+                              use_reentrant=False)
+        else:
+            x, c = _block_tp(part, lp, ls, x, positions, return_cache)
+        x = hints.constrain_tokens3d(x, cfg)
+        caches.append(c)
+    fn = part.gather(params["final_norm"], part.specs["final_norm"])
+    x = norm_apply(fn, x, cfg.norm, cfg.norm_eps)
+    cache = _stack(caches) if return_cache else None
+    if last_only:
+        x = part.last_position(x, S)
+    if return_hidden:
+        return x, cache, (0.0, 0)
+    if not last_only:
+        x = part.tokens(x, S)
+    return (unembed(_unembed_unit(part, params, cfg), x, cfg), cache,
+            (0.0, 0))
+
+
+def _decode_block_tp(part, lp, ls, x, cache_l, pos: int):
+    """A dense layer's decode step on the rank's shards and its views of
+    the layer's cache (updated in place); the gathered leaves die with
+    the call."""
+    cfg = part.cfg
+    v = part.gather(lp, ls)
+    h = norm_apply(v["norm1"], x, cfg.norm, cfg.norm_eps)
+    a, la = attn.gqa_decode_tp(part, v["attn"], h, cfg, cache_l, pos)
+    x = x + sl.add_row_bias(v["attn"]["wo"], part.residual(a, la, 1))
+    h = norm_apply(v["norm2"], x, cfg.norm, cfg.norm_eps)
+    m, lm = mlp_apply_tp(part, v["mlp"], h)
+    return x + sl.add_row_bias(v["mlp"]["wo"], part.residual(m, lm, 1))
+
+
+def _decode_tp(cfg: ArchConfig, params, cache, token, pos: int, part):
+    """``decode_step`` on the rank's shards and its shard of the cache
+    (updated in place): each layer gathered over the dp axes, the one
+    token's residual replicated.  Returns (the rank's vocab columns of
+    the logits, cache)."""
+    x = _embed_tp(part, params, token, cfg)
+    for l, (lp, ls) in enumerate(zip(params["layers"],
+                                     part.specs["layers"])):
+        x = _decode_block_tp(part, lp, ls, x,
+                             {k: t[l] for k, t in cache.items()}, pos)
+    fn = part.gather(params["final_norm"], part.specs["final_norm"])
+    x = norm_apply(fn, x, cfg.norm, cfg.norm_eps)
+    return unembed(_unembed_unit(part, params, cfg), x, cfg), cache
 
 
 def paged_supported(cfg: ArchConfig) -> tuple[bool, str]:

@@ -6,10 +6,16 @@ trees and leaves its inputs as they were; the fused path
 (``FusedOptimizer``) instead finds the junction weights and their slots
 already updated in place by the backward kernels and applies the same
 formula to every other leaf in ``merge``.
+
+The updates are element-wise, so on the partitioned mesh steps they run
+on a rank's local shards as they are; only the clip's global norm needs
+every rank, and ``sharded_norm`` supplies it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Any, Callable
 
 import torch
@@ -43,10 +49,30 @@ class Optimizer:
     # update(grads, state, params, step) -> (new_params, new_state)
 
 
+_norm = threading.local()
+
+
+@contextlib.contextmanager
+def sharded_norm(sq_sum: Callable):
+    """Within it, the clip's squared global norm is ``sq_sum(grads)``
+    (a gradient tree of a rank's local shards -> the squared norm of the
+    whole tree, ``parallel/partition.Partition.sq_sum``)."""
+    prev = getattr(_norm, "sq_sum", None)
+    _norm.sq_sum = sq_sum
+    try:
+        yield
+    finally:
+        _norm.sq_sum = prev
+
+
 def global_norm_scale(grads, max_norm: float):
     """(scale, global_norm) of the trainable leaves: the clip formula
     shared by ``clip_by_global_norm`` and the fused path's norm pre-pass,
     so the two paths cannot drift."""
+    sq_sum = getattr(_norm, "sq_sum", None)
+    if sq_sum is not None:
+        gn = torch.sqrt(sq_sum(grads))
+        return torch.clamp(max_norm / (gn + 1e-9), max=1.0), gn
     leaves = [g for g in tree_leaves(grads) if _is_trainable(g)]
     gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
     return torch.clamp(max_norm / (gn + 1e-9), max=1.0), gn

@@ -4,9 +4,12 @@ Model code is mesh-agnostic; a launcher installs a mesh here and the
 model calls ``constrain_tokens3d`` at the reference's anchor points (the
 embedding output, each stacked layer's output, the hybrid's super-block
 output).  Outside a hints context every call returns its input, and so
-does a call on a plain tensor inside one: the port's mesh step computes
-on gathered tensors (train/steps.make_mesh_train_step).  A DTensor is
-redistributed to the hinted placements.  Every axis is
+does a call on a plain tensor inside one: the mesh steps compute on
+local tensors, gathered (every family but the dense one) or each rank's
+shards (the dense family's partitioned route, parallel/partition.py,
+whose residual reaches each anchor already sequence-sharded over
+"model": the row-parallel products reduce-scatter into it).  A DTensor
+is redistributed to the hinted placements.  Every axis is
 divisibility-guarded.
 
 Strategies (ArchConfig.strategy):

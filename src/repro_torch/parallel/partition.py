@@ -1,0 +1,439 @@
+"""The partitioned mesh steps: compute follows the specs.
+
+``sharding.param_specs`` places each leaf; a rank computes what its
+shards allow, as the reference's partitioned program does.  For each dim
+of a leaf:
+
+* split over "model": the work along that dim is divided over the model
+  ranks (tensor parallelism: column-parallel products where the out dim
+  is split, row-parallel ones where the in dim is, a block-sparse
+  junction over the rank's output blocks, attention over the rank's
+  heads, the embedding and unembedding over the rank's vocab rows);
+* split over the dp axes ("pod", "data"): FSDP.  ``Partition.gather``
+  all-gathers a layer's leaves over those axes only, just before the
+  layer runs (the model shard stays local); the layer is recomputed in
+  the backward, gathering again, and each gradient is reduce-scattered
+  back to the shard;
+* replicated: the work is replicated.
+
+Activations: the residual stream is stored sequence-sharded over "model"
+(``Partition.residual``: a row-parallel product's partial sums are
+reduce-scattered into it) and all-gathered over "model" before the
+products that need every position (``Partition.tokens``).  A sequence
+that does not divide the axis (a decode step's one token) keeps the
+residual replicated, and partial sums are all-reduced instead.
+
+Gradients follow one convention: a tensor that every model rank holds
+alike (a replicated activation or leaf) carries on each rank a partial
+gradient, the sum of which over the ranks is the true one; a tensor one
+rank holds alone carries its true gradient.  So an all-gather's adjoint
+is a reduce-scatter, a reduce-scatter's an all-gather, an all-reduce's
+an all-reduce, the replicated loss is seeded with 1 / model, and a leaf
+that "model" does not split has its gradient all-reduced over "model".
+Every leaf's gradient is summed over the dp axes (reduce-scattered over
+those its spec splits, all-reduced over the others) and divided by
+their ranks: the mean over the batch rows, as ``steps.make_dp_train_step``
+takes it.  Every sum over ranks is fp32: a row-parallel product's
+partial sums are fp32 (``sparse_linear.apply_tp``) and round to the
+compute dtype once summed, as one rank's product rounds once; gradients
+are summed in fp32 and rounded back.
+
+``MeshComm`` issues the collectives on a ``DeviceMesh`` (the functional
+collectives, one axis at a time, the last mesh axis first when
+gathering, as DTensor does); ``ReckonedComm`` reckons the same calls on
+an ``AbstractMesh`` as rank 0 would issue them and returns ``meta``
+tensors of their shapes, for ``launch/dryrun.py``.  With one rank on an
+axis nothing is issued along it, so on a 1 x 1 mesh the partitioned step
+runs the same ops as the plain step.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+
+import torch
+
+from repro_torch.parallel import sharding as sh
+from repro_torch.tree import tree_items, tree_map
+
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def use(part):
+    """Run the model's partitioned route under ``part``."""
+    prev = getattr(_state, "part", None)
+    _state.part = part
+    try:
+        yield part
+    finally:
+        _state.part = prev
+
+
+def current():
+    return getattr(_state, "part", None)
+
+
+# ------------------------------------------------------------ collectives
+class MeshComm:
+    """One rank's collectives over the named axes of a ``DeviceMesh``.
+    ``axes`` is a tuple of axis names, outer first; an axis of one rank
+    is skipped."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.sizes = sh.axis_sizes(mesh)
+
+    def local_rank(self, axis: str) -> int:
+        return self.mesh.get_local_rank(axis)
+
+    def index(self, axes: tuple) -> int:
+        """This rank's position along ``axes`` (outer first)."""
+        at = 0
+        for a in axes:
+            at = at * self.sizes[a] + self.local_rank(a)
+        return at
+
+    def size(self, axes: tuple) -> int:
+        return math.prod(self.sizes[a] for a in axes)
+
+    def all_gather(self, t, axes: tuple, dim: int):
+        for a in reversed(axes):
+            if self.sizes[a] > 1:
+                t = self._gather(t, a, dim)
+        return t
+
+    def reduce_scatter(self, t, axes: tuple, dim: int):
+        for a in axes:
+            if self.sizes[a] > 1:
+                t = self._scatter(t, a, dim)
+        return t
+
+    def all_reduce(self, t, axes: tuple, op: str = "sum"):
+        for a in axes:
+            if self.sizes[a] > 1:
+                t = self._reduce(t, a, op)
+        return t
+
+    # one axis, through the functional collectives (the names PyTorch
+    # 2.13 gives them, or the older ones)
+    def _gather(self, t, axis, dim):
+        fn = _funcol("all_gather_single", "all_gather_tensor")
+        return _waited(fn(t.contiguous(), dim % t.dim(),
+                          self.mesh.get_group(axis)))
+
+    def _scatter(self, t, axis, dim):
+        fn = _funcol("reduce_scatter_single", "reduce_scatter_tensor")
+        return _waited(fn(t.contiguous(), "sum", dim % t.dim(),
+                          self.mesh.get_group(axis)))
+
+    def _reduce(self, t, axis, op):
+        fn = _funcol("all_reduce", "all_reduce")
+        return _waited(fn(t.contiguous(), op, self.mesh.get_group(axis)))
+
+
+def _funcol(name: str, old: str):
+    from torch.distributed import _functional_collectives as funcol
+    return getattr(funcol, name, None) or getattr(funcol, old)
+
+
+def _waited(t):
+    return t.wait() if hasattr(t, "wait") else t
+
+
+class ReckonedComm(MeshComm):
+    """``MeshComm``'s calls reckoned, not issued, as rank 0 of ``mesh``
+    (an ``AbstractMesh``) issues them: ``detail`` holds {kind: (bytes,
+    count)} under ``roofline/dispatch.py``'s conventions (an all-gather
+    counts its output bytes, a reduce-scatter its output bytes, an
+    all-reduce twice its bytes), and each call returns an empty tensor
+    of the collective's output shape."""
+
+    def __init__(self, mesh):
+        super().__init__(mesh)
+        self.detail: dict[str, tuple[int, int]] = {}
+
+    def local_rank(self, axis: str) -> int:
+        return 0
+
+    def _add(self, kind: str, t, factor: int = 1) -> None:
+        b, n = self.detail.get(kind, (0, 0))
+        self.detail[kind] = (b + factor * t.numel() * t.element_size(),
+                             n + 1)
+
+    def _resized(self, t, dim, scale):
+        shape = list(t.shape)
+        shape[dim] = int(shape[dim] * scale)
+        return t.new_empty(shape)
+
+    def _gather(self, t, axis, dim):
+        out = self._resized(t, dim, self.sizes[axis])
+        self._add("all-gather", out)
+        return out
+
+    def _scatter(self, t, axis, dim):
+        out = self._resized(t, dim, 1 / self.sizes[axis])
+        self._add("reduce-scatter", out)
+        return out
+
+    def _reduce(self, t, axis, op):
+        out = torch.empty_like(t)
+        self._add("all-reduce", out, 2)
+        return out
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather over ``axes`` along ``dim``; the adjoint reduce-scatters."""
+
+    @staticmethod
+    def forward(ctx, t, comm, axes, dim):
+        ctx.comm, ctx.axes, ctx.dim = comm, axes, dim
+        return comm.all_gather(t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        got = ctx.comm.reduce_scatter(g.float(), ctx.axes, ctx.dim)
+        return got.to(g.dtype), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter (sum) over ``axes`` along ``dim``; the adjoint
+    all-gathers."""
+
+    @staticmethod
+    def forward(ctx, t, comm, axes, dim):
+        ctx.comm, ctx.axes, ctx.dim = comm, axes, dim
+        return comm.reduce_scatter(t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, ctx.axes, ctx.dim), None, None, None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce (sum) over ``axes``; the adjoint all-reduces."""
+
+    @staticmethod
+    def forward(ctx, t, comm, axes):
+        ctx.comm, ctx.axes = comm, axes
+        return comm.all_reduce(t, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        got = ctx.comm.all_reduce(g.float(), ctx.axes)
+        return got.to(g.dtype), None, None
+
+
+class _LeafGather(torch.autograd.Function):
+    """A leaf's FSDP gather: an all-gather over the dp axes its spec
+    splits (the model shard stays local).  The adjoint sums the gradient
+    in fp32 over every dp axis (a reduce-scatter over the split ones, an
+    all-reduce over the others), over "model" where the spec does not
+    split the leaf, and divides by the dp ranks."""
+
+    @staticmethod
+    def forward(ctx, t, part, plan):
+        ctx.part, ctx.plan = part, plan
+        if plan.dp:
+            out = part.comm.all_gather(t, plan.dp, plan.dp_dim)
+            part.note_gather(out)
+            return out
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        part, plan = ctx.part, ctx.plan
+        dtype, comm = g.dtype, part.comm
+        g = g.float()
+        if plan.dp:
+            g = comm.reduce_scatter(g, plan.dp, plan.dp_dim)
+        g = comm.all_reduce(g, plan.dp_rest)
+        if plan.model_rep:
+            g = comm.all_reduce(g, ("model",))
+        if part.n_dp > 1:
+            g = g / part.n_dp
+        return g.to(dtype), None, None
+
+
+class _Plan:
+    """How one leaf is gathered and its gradient reduced."""
+    __slots__ = ("dp", "dp_dim", "dp_rest", "model_rep")
+
+    def __init__(self, spec, part):
+        self.dp, self.dp_dim = (), None
+        named = set()
+        for d, e in enumerate(spec):
+            axes = sh.spec_axes(e)
+            named.update(axes)
+            if axes and "model" not in axes:
+                self.dp, self.dp_dim = axes, d
+        self.dp_rest = tuple(a for a in part.dp_axes if a not in named)
+        self.model_rep = "model" not in named and part.m > 1
+
+    def idle(self, part) -> bool:
+        return not (self.dp or self.model_rep or part.n_dp > 1)
+
+
+# ------------------------------------------------------------ the context
+class Partition:
+    """One rank's view of a partitioned step: the model config, the
+    collectives (``MeshComm`` or ``ReckonedComm``), the param specs
+    (mirroring the params as ``sharding.param_specs`` gives them), the
+    dp axes the batch rows split over (``row_axes``), and whether the
+    KV cache's sequence is split over "model" (``cache_seq_split``, set
+    by the decode step)."""
+
+    def __init__(self, cfg, comm, specs, row_axes: tuple = ()):
+        self.cfg, self.comm, self.specs = cfg, comm, specs
+        sizes = comm.sizes
+        self.m = sizes["model"]
+        self.r = comm.index(("model",))
+        self.dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
+        self.n_dp = comm.size(self.dp_axes)
+        self.row_axes = tuple(row_axes)
+        self.cache_seq_split = False
+
+    # ---- the gathers of a unit's leaves
+    def note_gather(self, t) -> None:
+        """Called with each leaf gather's output: a hook for tests that
+        record what a rank holds gathered."""
+
+    def gather(self, tree, spec_tree):
+        """A unit (a layer, the embedding, a norm) ready to run: each
+        float leaf through its FSDP gather, each linear container tagged
+        with its tensor-parallel kind ``"_tp"`` ("col", "row", "rep") and
+        whether its bias is split over "model" (``"_b_split"``).  The
+        pattern leaves pass through (the step placed the rank's junction
+        views in them, ``sharding.with_junction_views``)."""
+        if isinstance(tree, dict):
+            out = {k: self.gather(v, spec_tree[k]) for k, v in tree.items()}
+            if "w" in tree and torch.is_tensor(tree["w"]):
+                out["_tp"] = tp_kind(spec_tree["w"])
+                out["_b_split"] = ("b" in tree and "model" in
+                                   sh.spec_axes(spec_tree["b"][0]))
+            return out
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.gather(v, s)
+                              for v, s in zip(tree, spec_tree))
+        if not (torch.is_tensor(tree) and tree.is_floating_point()):
+            return tree
+        plan = _Plan(spec_tree, self)
+        if plan.idle(self):
+            return tree
+        return _LeafGather.apply(tree, self, plan)
+
+    # ---- feature layouts ("full": every feature on every rank, "split":
+    # the rank's contiguous share of the last dim, "partial": partial sums)
+    def full(self, x, layout: str):
+        if layout == "full" or self.m == 1:
+            return x
+        if layout == "split":
+            return _Gather.apply(x, self.comm, ("model",), -1)
+        return _Reduce.apply(x, self.comm, ("model",)).to(
+            self.cfg.compute_dtype)
+
+    def split(self, x, layout: str):
+        """The rank's share of the last dim of a full ``x``."""
+        if layout == "split" or self.m == 1:
+            return x
+        if layout != "full":
+            raise ValueError(f"cannot split a {layout} tensor")
+        n = x.shape[-1] // self.m
+        return x.narrow(-1, self.r * n, n)
+
+    # ---- the residual stream [B, S, D]
+    def seq_split(self, S: int) -> bool:
+        return self.m > 1 and S % self.m == 0
+
+    def tokens(self, h, S: int):
+        """The residual layout -> every position on every rank."""
+        if not self.seq_split(S):
+            return h
+        return _Gather.apply(h, self.comm, ("model",), 1)
+
+    def residual(self, y, layout: str, S: int):
+        """A [B, S, D] product in ``layout`` -> the residual layout:
+        partial sums reduce-scattered over the sequence (all-reduced
+        where it does not divide), a full tensor cut to the rank's
+        positions, a feature-split one gathered first."""
+        if self.m == 1:
+            return y
+        if layout == "partial":     # fp32 sums, rounded once summed
+            if self.seq_split(S):
+                y = _Scatter.apply(y, self.comm, ("model",), 1)
+            else:
+                y = _Reduce.apply(y, self.comm, ("model",))
+            return y.to(self.cfg.compute_dtype)
+        y = self.full(y, layout)
+        if not self.seq_split(S):
+            return y
+        n = S // self.m
+        return y.narrow(1, self.r * n, n)
+
+    def last_position(self, x, S: int):
+        """x[:, -1:] of the residual: the last rank's last position,
+        gathered (each rank sends its own last)."""
+        if not self.seq_split(S):
+            return x[:, -1:]
+        got = self.comm.all_gather(x[:, -1:].contiguous(), ("model",), 1)
+        return got[:, -1:]
+
+    # ---- reductions over "model" that carry no gradient
+    def max_over_model(self, t):
+        with torch.no_grad():
+            return self.comm.all_reduce(t, ("model",), "max")
+
+    def sum_over_model(self, t):
+        return _Reduce.apply(t, self.comm, ("model",)) if self.m > 1 else t
+
+    # ---- the train step's reductions
+    def dp_mean(self, t):
+        """The fp32 mean of ``t`` over the row axes (no-op without)."""
+        t = t.float()
+        if not self.row_axes:
+            return t
+        return self.comm.all_reduce(t, self.row_axes) / self.comm.size(
+            self.row_axes)
+
+    def sq_sum(self, grads):
+        """The squared global norm of a gradient tree of local shards:
+        each shard's squares divided by its copies (the ranks of the mesh
+        axes its spec does not name), summed over every rank."""
+        specs = dict(sh.spec_items(self.specs))
+        total = None
+        for path, g in tree_items(grads):
+            if not (torch.is_tensor(g) and g.is_floating_point()):
+                continue
+            named = {a for e in specs[path] for a in sh.spec_axes(e)}
+            copies = math.prod(n for a, n in self.comm.sizes.items()
+                               if a not in named)
+            s = torch.sum(torch.square(g.float()))
+            if copies > 1:
+                s = s / copies
+            total = s if total is None else total + s
+        return self.comm.all_reduce(total, tuple(self.comm.sizes))
+
+    def any_over_ranks(self, flags):
+        """Element-wise max of a float flag vector over every rank."""
+        return self.comm.all_reduce(flags, tuple(self.comm.sizes), "max")
+
+
+def tp_kind(spec) -> str:
+    """A linear weight's tensor-parallel kind from its spec: "col" (the
+    out dim, or a junction's output blocks, split over "model"), "row"
+    (a dense weight's in dim split), "rep" (neither)."""
+    axes = [sh.spec_axes(e) for e in spec]
+    if len(spec) == 4:
+        return "col" if "model" in axes[0] else "rep"
+    if "model" in axes[-1]:
+        return "col"
+    return "row" if "model" in axes[0] else "rep"
+
+
+def local_tree(tree):
+    """Each DTensor leaf's local shard (a view), other leaves as they
+    are."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t,
+                    tree)

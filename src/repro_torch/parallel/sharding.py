@@ -24,6 +24,12 @@ tree of full tensors on a mesh (each rank keeps only its shard),
 tensors as the leaves of an earlier placed tree were and ``place_rows``
 places tensors that hold only this rank's rows.  ``attach`` gives each
 leaf's per-rank shard as a ``meta`` tensor, on either kind of mesh.
+
+For the partitioned mesh steps (parallel/partition.py): ``junction_view``
+gives a rank the rows of a junction's pattern for its output blocks and
+reverse tables of its own, ``with_junction_views`` puts them in a tree
+of local shards, and ``wrap_local`` / ``wrap_like`` make DTensors of
+tensors that already hold a rank's shard.
 """
 from __future__ import annotations
 
@@ -433,3 +439,95 @@ def held_bytes(tree) -> tuple[int, int]:
             local += loc.numel() * loc.element_size()
             full += t.numel() * t.element_size()
     return local, full
+
+
+def junction_view(idx, rev_ob, rev_t, rev_cnt, n: int, at: int):
+    """A block-sparse junction's pattern as rank ``at`` of ``n`` sees it
+    when its output blocks are split over ``n`` ranks: (its rows of
+    ``idx``, and reverse tables of its output blocks only: for each input
+    block the (local output block, slot) pairs that read it, in the full
+    tables' order, padded as the full ones are, with (0, 0) to their
+    width, and their count; an input block no local output block reads
+    has a count of 0).  On ``meta`` the shapes alone."""
+    nob, kb = idx.shape
+    nl = nob // n
+    if idx.device.type == "meta":
+        return (idx.new_empty((nl, kb)), rev_ob.new_empty(rev_ob.shape),
+                rev_t.new_empty(rev_t.shape), rev_cnt.new_empty(
+                    rev_cnt.shape))
+    o0 = at * nl
+    fb = rev_ob.shape[1]
+    f = torch.arange(fb, device=idx.device)
+    ob = rev_ob.long()
+    keep = ((f[None, :] < rev_cnt[:, None].long()) & (ob >= o0)
+            & (ob < o0 + nl))
+    order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
+    cnt = keep.sum(dim=1)
+    valid = f[None, :] < cnt[:, None]
+    new_ob = torch.where(valid, torch.gather(ob - o0, 1, order), 0)
+    new_t = torch.where(valid, torch.gather(rev_t.long(), 1, order), 0)
+    return (idx[o0:o0 + nl].contiguous(), new_ob.to(rev_ob.dtype),
+            new_t.to(rev_t.dtype), cnt.to(rev_cnt.dtype))
+
+
+def with_junction_views(tree, spec_tree, mesh, at: int, cache=None):
+    """A tree of local shards with the pattern leaves of each junction
+    whose output blocks are split over "model" replaced by rank ``at``'s
+    ``junction_view``.  ``cache`` (a dict) keeps the views across calls,
+    keyed by where the pattern's storage lies (it holds the pattern, so
+    the key stays the pattern's)."""
+    n = axis_sizes(mesh)["model"]
+
+    def rec(t, s):
+        if isinstance(t, dict):
+            out = {k: rec(v, s[k]) for k, v in t.items()}
+            if "idx" in t and "model" in spec_axes(s["w"][0]) and n > 1:
+                key = (t["idx"].device, t["idx"].data_ptr())
+                hit = cache.get(key) if cache is not None else None
+                if hit is None:
+                    hit = (t["idx"], junction_view(
+                        *(t[k] for k in PATTERN_LEAVES), n, at))
+                    if cache is not None:
+                        cache[key] = hit
+                out.update(zip(PATTERN_LEAVES, hit[1]))
+            return out
+        if isinstance(t, (list, tuple)):
+            return type(t)(rec(v, x) for v, x in zip(t, s))
+        return t
+    return rec(tree, spec_tree)
+
+
+def wrap_local(tree, spec_tree, mesh):
+    """Tensors that hold this rank's shard of each leaf -> DTensors
+    placed by ``spec_tree`` (each dim's global size is the shard's times
+    the ranks of the axes its entry names)."""
+    sizes = axis_sizes(mesh)
+
+    def one(t, spec):
+        shape = list(t.shape)
+        if len(spec) <= t.dim():
+            for d, e in enumerate(spec):
+                for a in spec_axes(e):
+                    shape[d] *= sizes[a]
+        stride = torch.empty(shape, device="meta").stride()
+        return DTensor.from_local(t, mesh, _placements(spec, t.dim(), mesh),
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=stride)
+    return tree_map(lambda t, s: one(t, s) if torch.is_tensor(t) else t,
+                    tree, spec_tree)
+
+
+def wrap_like(tree, like_tree):
+    """New local shards placed as the matching DTensor leaves of
+    ``like_tree``; a leaf that is not floating point (a pattern leaf,
+    never updated) is ``like``'s own."""
+    def one(t, like):
+        if not isinstance(like, DTensor):
+            return t
+        if not t.is_floating_point():
+            return like
+        return DTensor.from_local(t, like.device_mesh, like.placements,
+                                  run_check=False, shape=like.shape,
+                                  stride=like.stride())
+    return tree_map(lambda t, like: one(t, like) if torch.is_tensor(t)
+                    else t, tree, like_tree)

@@ -16,6 +16,17 @@ dicts, so the junctions' backward updates their weights and slots in
 place through the update_dw kernel, and ``optimizer.merge`` steps the
 other leaves: the input params and opt_state are consumed (their junction
 tensors now hold the updated values).
+
+The mesh steps (``make_mesh_train_step``, ``make_mesh_prefill_step``,
+``make_mesh_decode_step``) run one of two routes, chosen by the config
+(``partitioned``), never by a flag.  The dense family on the "tp"
+strategy takes the partitioned route (parallel/partition.py): each rank
+computes on its local shards as the specs divide the work, gathers a
+layer's leaves over the dp axes only while the layer runs, reduce-
+scatters the gradients back to its shards, updates its shards alone, and
+decodes on its sequence shard of the cache.  Every other family, and the
+fused BP+UP path, takes the gathered route: every leaf gathered whole,
+the rank's dp rows run whole, the result placed again.
 """
 from __future__ import annotations
 
@@ -31,6 +42,8 @@ from repro_torch.kernels import block_sparse_matmul as bsm
 from repro_torch.kernels import ops
 from repro_torch.models import model as M
 from repro_torch.optim import FusedOptimizer, Optimizer, global_norm_scale
+from repro_torch.optim.optimizers import sharded_norm
+from repro_torch.parallel import partition
 from repro_torch.parallel import sharding as sh
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -97,11 +110,13 @@ def _regrad(p, fused: bool, got):
     return next(got) if _is_trainable(p) else None
 
 
-def _value_and_grad(cfg: ArchConfig, tree, batch, *, fused: bool = False):
+def _value_and_grad(cfg: ArchConfig, tree, batch, *, fused: bool = False,
+                    seed=None):
     """(loss, metrics, grads) of ``M.loss_fn`` at ``tree``.  grads mirrors
     ``tree`` with None at non-trainable leaves; with ``fused`` the
     junction dicts are left out of the differentiation (their backward
-    updates them in place instead)."""
+    updates them in place instead).  ``seed``: the loss's gradient, a
+    float (1 by default)."""
     live: list = []
     params = _alias(tree, fused, live)
     if cfg.cast_params_once:
@@ -110,7 +125,9 @@ def _value_and_grad(cfg: ArchConfig, tree, batch, *, fused: bool = False):
                           else p, params)
     with torch.enable_grad():
         loss, metrics = M.loss_fn(cfg, params, batch)
-        got = torch.autograd.grad(loss, live, allow_unused=True)
+        got = torch.autograd.grad(
+            loss, live, allow_unused=True, grad_outputs=None if seed is None
+            else torch.full_like(loss, seed))
     grads = _regrad(tree, fused, iter([torch.zeros_like(a) if g is None else g
                                        for a, g in zip(live, got)]))
     metrics = {k: (v.detach() if torch.is_tensor(v) else v)
@@ -207,14 +224,15 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
     return _make_two_pass_step(cfg, optimizer, microbatches)
 
 
-def _batch_grads(cfg: ArchConfig, params, batch, microbatches: int):
+def _batch_grads(cfg: ArchConfig, params, batch, microbatches: int,
+                 seed=None):
     """(loss, metrics, grads) of the batch: one backward, or the fp32 mean
     of ``microbatches`` equal splits."""
     if microbatches == 1:
-        return _value_and_grad(cfg, params, batch)
+        return _value_and_grad(cfg, params, batch, seed=seed)
     loss, grads = 0.0, None
     for mb in _split(batch, microbatches):
-        l, metrics, g = _value_and_grad(cfg, params, mb)
+        l, metrics, g = _value_and_grad(cfg, params, mb, seed=seed)
         g = tree_map(lambda t: t.float() if t is not None else None, g)
         grads = g if grads is None else tree_map(
             lambda a, b: a + b if a is not None else None, grads, g)
@@ -317,20 +335,111 @@ def make_dp_train_step(cfg: ArchConfig, optimizer: Optimizer, mean,
                                functools.partial(_dp_reduce, mean))
 
 
+def partitioned(cfg: ArchConfig, optimizer: Optimizer | None = None,
+                microbatches: int = 1) -> bool:
+    """Whether the mesh steps run ``cfg`` on the partitioned route: the
+    dense family on the "tp" strategy with full attention, off the fused
+    path.  Everything else is gathered."""
+    if (cfg.family, cfg.strategy, cfg.attn_kind) != ("dense", "tp", "full"):
+        return False
+    return optimizer is None or not fused_update_eligible(
+        cfg, optimizer, microbatches)[0]
+
+
+def make_partitioned_train_step(cfg: ArchConfig, optimizer: Optimizer,
+                                part: partition.Partition,
+                                microbatches: int = 1):
+    """The two-pass step of one rank of a partitioned mesh, on local
+    trees: train_step(params, opt_state, rows, step[, lr_scale]) with the
+    rank's shards of the params (its junction views in place,
+    ``sharding.with_junction_views``) and of the optimizer state, and its
+    rows of the batch -> (new shards, new state shards, metrics).  The
+    loss runs under ``part`` (the model's partitioned route), its
+    gradient seeded with 1 / model (partition.py's convention); each
+    leaf's gradient arrives summed and averaged over the dp axes; the
+    loss and metrics are averaged over the row axes; the optimizer
+    updates the shards, its clip norm taken over every rank
+    (``Partition.sq_sum``), and ``nonfinite`` counts the leaves whose
+    gradient is not finite on some rank.  ``launch/dryrun.py`` runs it on
+    ``meta`` shards with a ``ReckonedComm``."""
+    seed = None if part.m == 1 else 1.0 / part.m
+
+    def train_step(params, opt_state, rows, step, lr_scale=None):
+        with partition.use(part):
+            loss, metrics, grads = _batch_grads(cfg, params, rows,
+                                                microbatches, seed)
+        loss = part.dp_mean(loss)
+        metrics = {k: part.dp_mean(v) if torch.is_tensor(v) else v
+                   for k, v in metrics.items()}
+        with sharded_norm(part.sq_sum):
+            new_params, new_opt = optimizer.update(grads, opt_state, params,
+                                                   step)
+        if lr_scale is not None:
+            new_params = scale_params_delta(params, new_params, lr_scale)
+        flags = [(~torch.isfinite(g)).any() for g in tree_leaves(grads)
+                 if _is_trainable(g)]
+        nonfinite = part.any_over_ranks(torch.stack(flags).float()).sum()
+        metrics = dict(metrics, loss=loss, nonfinite=nonfinite)
+        return new_params, new_opt, metrics
+
+    return train_step
+
+
+def mesh_partition(cfg: ArchConfig, mesh, params,
+                   batch=None) -> partition.Partition:
+    """The ``Partition`` of this rank of ``mesh`` for ``params`` (placed
+    DTensors): the specs, ``MeshComm`` on the mesh, and the axes the
+    rows of ``batch`` split over."""
+    row_axes = ()
+    if batch is not None:
+        axes, n = dp_split(cfg, batch, mesh)
+        row_axes = axes if n > 1 else ()
+    return partition.Partition(cfg, partition.MeshComm(mesh),
+                               sh.param_specs(cfg, params, mesh), row_axes)
+
+
 def make_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer, mesh,
                          microbatches: int = 1):
     """``make_train_step``'s step on params and optimizer state placed on
     ``mesh`` (DTensor trees, ``sharding.place``): each rank holds only its
-    shard of every leaf at rest.  A step gathers the full tensors, runs
-    the update and keeps this rank's shard of the new params and state
-    (placed as the inputs were).  The two-pass path gives each
-    data-parallel rank its rows of the batch (``sharding.batch_specs``)
-    and averages the fp32 gradients (and the loss) over the dp axes
-    before the update, as microbatches are averaged; a MoE aux loss is
-    then the mean of the ranks' own, as it is of microbatches'.  The
-    fused path updates inside the backward kernels, where no all-reduce
-    can come between gradient and update, so every rank runs the whole
-    batch.  With one rank on the dp axes nothing is split or summed."""
+    shard of every leaf at rest, and the step returns them placed as
+    they came.  Where ``partitioned`` says so the step runs
+    ``make_partitioned_train_step`` on the rank's shards (its junction
+    views built on the first call and kept) and its rows of the batch;
+    else ``make_gathered_mesh_train_step``."""
+    if not partitioned(cfg, optimizer, microbatches):
+        return make_gathered_mesh_train_step(cfg, optimizer, mesh,
+                                             microbatches)
+    views: dict = {}
+
+    def train_step(params, opt_state, batch, step, lr_scale=None):
+        part = mesh_partition(cfg, mesh, params, batch)
+        local = sh.with_junction_views(partition.local_tree(params),
+                                       part.specs, mesh, part.r, views)
+        rows, _ = _dp_rows(cfg, batch, mesh)
+        run = make_partitioned_train_step(cfg, optimizer, part, microbatches)
+        new_p, new_s, metrics = run(local, partition.local_tree(opt_state),
+                                    rows, step, lr_scale)
+        return (sh.wrap_like(new_p, params), sh.wrap_like(new_s, opt_state),
+                metrics)
+
+    return train_step
+
+
+def make_gathered_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer,
+                                  mesh, microbatches: int = 1):
+    """The gathered route of ``make_mesh_train_step`` (every family but
+    the partitioned one, and the fused path): a step gathers the full
+    tensors, runs the update and keeps this rank's shard of the new
+    params and state (placed as the inputs were).  The two-pass path
+    gives each data-parallel rank its rows of the batch
+    (``sharding.batch_specs``) and averages the fp32 gradients (and the
+    loss) over the dp axes before the update, as microbatches are
+    averaged; a MoE aux loss is then the mean of the ranks' own, as it is
+    of microbatches'.  The fused path updates inside the backward
+    kernels, where no all-reduce can come between gradient and update,
+    so every rank runs the whole batch.  With one rank on the dp axes
+    nothing is split or summed."""
     fused, _ = fused_update_eligible(cfg, optimizer, microbatches)
     whole = make_train_step(cfg, optimizer, microbatches)
 
@@ -347,25 +456,50 @@ def make_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer, mesh,
     return train_step
 
 
+def partitioned_prefill(cfg: ArchConfig, part, params, rows):
+    """``make_prefill_step`` on a rank's local shards under ``part``:
+    (the rank's logits [B, 1, V / model], its cache shard, P + S)."""
+    with partition.use(part):
+        return make_prefill_step(cfg)(params, rows)
+
+
+def partitioned_decode(cfg: ArchConfig, part, params, cache, token,
+                       pos: int):
+    """``make_decode_step`` on a rank's local shards and its shard of the
+    cache (updated in place) under ``part``."""
+    with partition.use(part):
+        return make_decode_step(cfg)(params, cache, token, pos)
+
+
 def make_mesh_prefill_step(cfg: ArchConfig, mesh):
     """``make_prefill_step``'s step on params placed on ``mesh``:
     prefill(params, batch) -> (logits placed by ``sharding.logits_spec``,
-    the cache placed by ``sharding.cache_specs``, P + S).  A step gathers
-    the params, prefills this rank's rows of the batch (those
-    ``batch_specs`` gives it along the dp axes, or the whole batch where
-    they do not divide) and places the rows' logits and cache
-    (``sharding.place_rows``): each rank keeps its share along the other
-    axes too."""
+    the cache placed by ``sharding.cache_specs``, P + S), on this rank's
+    rows of the batch (those ``batch_specs`` gives it along the dp axes,
+    or the whole batch where they do not divide).  Partitioned
+    (``partitioned``): the rank prefills on its shards and keeps its
+    shard of the logits and cache; gathered: the params are gathered and
+    the rows' logits and cache placed (``sharding.place_rows``)."""
     prefill = make_prefill_step(cfg)
+    views: dict = {}
 
     def step(params, batch):
         axes, at, n = _row_block(cfg, batch, mesh)
         rows = {k: _rows(v, 0, at, n) for k, v in batch.items()}
-        logits, cache, npos = prefill(sh.gather(params), rows)
         B = batch["tokens"].shape[0]
+        lspec = sh.logits_spec(cfg, B, mesh)
+        if partitioned(cfg):
+            part = mesh_partition(cfg, mesh, params)
+            local = sh.with_junction_views(partition.local_tree(params),
+                                           part.specs, mesh, part.r, views)
+            logits, cache, npos = partitioned_prefill(cfg, part, local, rows)
+            like = M.make_cache(cfg, rows["tokens"].shape[0], npos, "meta")
+            return (sh.wrap_local(logits, lspec, mesh),
+                    sh.wrap_local(cache, sh.cache_specs(cfg, like, mesh,
+                                                        rows=n), mesh), npos)
+        logits, cache, npos = prefill(sh.gather(params), rows)
         cspecs = sh.cache_specs(cfg, cache, mesh, rows=n)
-        return (sh.place_rows(logits, sh.logits_spec(cfg, B, mesh), mesh,
-                              axes),
+        return (sh.place_rows(logits, lspec, mesh, axes),
                 sh.place_rows(cache, cspecs, mesh, axes), npos)
 
     return step
@@ -375,20 +509,32 @@ def make_mesh_decode_step(cfg: ArchConfig, mesh):
     """``make_decode_step``'s step on params and a cache placed on
     ``mesh`` (the cache by ``sharding.cache_specs``): decode(params,
     cache, token [B,1], pos) -> (logits placed by ``logits_spec``, the
-    new cache placed as the old).  A step gathers the params and the
-    cache, decodes this rank's rows (its row group of the token and of
-    each cache leaf along the dim its spec cuts over the dp axes) and
-    places the rows' results (``sharding.place_rows``)."""
+    new cache placed as the old), on this rank's rows (its row group of
+    the token and of each cache leaf along the dim its spec cuts over
+    the dp axes).  Partitioned (``partitioned``): the rank decodes on its
+    shards and its shard of the cache, updated in place and never
+    gathered; gathered: the params and the cache are gathered, and the
+    rows' results placed (``sharding.place_rows``)."""
     decode = make_decode_step(cfg)
+    views: dict = {}
 
     def step(params, cache, token, pos):
         axes, at, n = _row_block(cfg, {"tokens": token}, mesh)
         cspecs = sh.cache_specs(cfg, cache, mesh)
+        lspec = sh.logits_spec(cfg, token.shape[0], mesh)
+        if partitioned(cfg):
+            part = mesh_partition(cfg, mesh, params)
+            part.cache_seq_split = "model" in sh.spec_axes(cspecs["k"][2])
+            local = sh.with_junction_views(partition.local_tree(params),
+                                           part.specs, mesh, part.r, views)
+            logits, _ = partitioned_decode(cfg, part, local,
+                                           partition.local_tree(cache),
+                                           _rows(token, 0, at, n), pos)
+            return sh.wrap_local(logits, lspec, mesh), cache
         rows_c = rows_of(sh.gather(cache), cspecs, axes, at, n)
         logits, new = decode(sh.gather(params), rows_c,
                              _rows(token, 0, at, n), pos)
-        return (sh.place_rows(logits, sh.logits_spec(cfg, token.shape[0],
-                                                     mesh), mesh, axes),
+        return (sh.place_rows(logits, lspec, mesh, axes),
                 sh.place_rows(new, cspecs, mesh, axes))
 
     return step

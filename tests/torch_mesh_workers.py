@@ -293,3 +293,230 @@ def dryrun_counts(rank, d):
                                             for k, v in saved.items()})
     with open(f"{d}/counts_{rank}.json", "w") as f:
         json.dump(got, f)
+
+
+# tests/test_torch_partitioned.py: (arch, compute dtype, config changes)
+# on a 2 x 4 mesh; sparse stablelm-3b at density 0.5, block 32 (FFN
+# junctions of 4 and 8 output blocks, both split over "model"); the last
+# case's 2 kv heads and 6-block FFN junctions do not divide the model
+# axis, so wk / wv and wi / wg are replicated and computed whole; the
+# chunked cross entropy's case runs PART_S + 1 positions (``part_seq``),
+# which the model axis does not divide: the residual stays replicated
+# (partial sums all-reduced), the cache whole, and its PART_S labels go
+# through the vocab-parallel loss in chunks of 8
+PART_CASES = [("deepseek-7b", "float32", {}),
+              ("deepseek-7b", "bfloat16", {"loss_chunk": 8}),
+              ("stablelm-3b", "float32", {}),
+              ("stablelm-3b", "bfloat16", {}),
+              ("stablelm-3b", "float32", {"kv_heads": 2, "d_ff": 192})]
+PART_B, PART_S, PART_PROMPT, PART_DECODE = 4, 32, 27, 4
+
+
+def part_seq(case) -> int:
+    """The positions of a case's batch."""
+    return PART_S + 1 if case[2].get("loss_chunk") else PART_S
+
+
+def part_case(arch, dtype, changes):
+    """The reduced config of one partitioned case (fp32 params)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.core.sparsity import SparsityConfig
+    cfg = registry.get(arch).reduced()
+    if arch == "stablelm-3b":
+        cfg = cfg.with_sparsity(SparsityConfig(density=0.5, block=32,
+                                               where="ffn"))
+    return dataclasses.replace(cfg, dtype=dtype, **changes)
+
+
+def _tree_from_flat(raw):
+    tree = {}
+    for k, v in raw.items():              # "embed.tok" -> nested dicts
+        node = tree
+        *head, last = k.split(".")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return tree
+
+
+class GatherLog:
+    """What a rank holds gathered: each leaf gather's output bytes, and
+    the most bytes of gathered leaves alive at once (a finalizer on each
+    output's storage); and every ``DTensor.full_tensor`` /
+    ``redistribute`` call while ``armed``."""
+
+    def __init__(self):
+        import weakref
+
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.parallel import partition
+        self.sizes, self.live, self.peak, self.dtensor = [], 0, 0, []
+        self.armed = False
+        log = self
+
+        def note(part, t):
+            n = t.untyped_storage().nbytes()
+            log.sizes.append(n)
+            log.live += n
+            log.peak = max(log.peak, log.live)
+            weakref.finalize(t.untyped_storage(), log._free, n)
+
+        partition.Partition.note_gather = note
+        for name in ("full_tensor", "redistribute"):
+            orig = getattr(DTensor, name)
+
+            def spy(self, *a, _orig=orig, _name=name, **k):
+                if log.armed:
+                    log.dtensor.append((_name, tuple(self.shape)))
+                return _orig(self, *a, **k)
+            setattr(DTensor, name, spy)
+
+    def _free(self, n):
+        self.live -= n
+
+
+def unit_budget(local, specs, mesh) -> int:
+    """The largest unit's leaves gathered over the dp axes (a layer, the
+    embedding's tok, its out, the final norm): bytes."""
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.tree import tree_items
+    sizes = sh.axis_sizes(mesh)
+    spec = dict(sh.spec_items(specs))
+
+    def size(tree, prefix):
+        total = 0
+        for k, t in tree_items(tree, prefix):
+            if torch.is_tensor(t) and t.is_floating_point():
+                n = 1
+                for e in spec[k]:
+                    for a in sh.spec_axes(e):
+                        n *= sizes[a] if a != "model" else 1
+                total += t.numel() * t.element_size() * n
+        return total
+    units = [size(lp, f"layers/{i}/") for i, lp in enumerate(local["layers"])]
+    units += [size(local["embed"]["tok"], "embed/tok")]
+    if "out" in local["embed"]:
+        units.append(size(local["embed"]["out"], "embed/out"))
+    units.append(size(local["final_norm"], "final_norm/"))
+    return max(units)
+
+
+def partitioned_run(rank, d):
+    """Each PART_CASES case on a 2 x 4 mesh from the reference's carried
+    weights (``in_<case>.npz``): one two-pass Adam step (clip 1.0) of
+    PART_B x ``part_seq``, counted under ``DispatchCounter``; a prefill of
+    the first PART_PROMPT tokens of each row, padded to ``part_seq``
+    (the cache's size), and PART_DECODE
+    greedy decode steps from position PART_PROMPT.  Rank 0 writes the
+    gathered params, the loss, the logits and the tokens to
+    ``out_<case>.npz``; every rank writes its gather log, its counts and
+    the bytes it holds to ``log_<case>_<rank>.json``."""
+    import json
+
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adam, constant_schedule
+    from repro_torch.parallel import partition
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.roofline import dispatch
+    from repro_torch.train import steps
+
+    mesh = make_local_mesh(2, 4, "cpu")
+    log = GatherLog()
+    for i, case in enumerate(PART_CASES):
+        cfg = part_case(*case)
+        raw = dict(np.load(f"{d}/in_{i}.npz"))
+        tokens = raw.pop("batch_tokens")
+        full = from_jax_params(_tree_from_flat(raw))
+        specs = sh.param_specs(cfg, full, mesh)
+        placed = sh.place(full, specs, mesh)
+        opt = adam(constant_schedule(1e-3), grad_clip=1.0)
+        state = sh.place_state(opt.init(full), specs, mesh)
+        budget = unit_budget(partition.local_tree(placed), specs, mesh)
+        step = steps.make_mesh_train_step(cfg, opt, mesh)
+        log.sizes, log.peak, log.dtensor = [], log.live, []
+        start = log.live
+        log.armed = True
+        with dispatch.DispatchCounter() as c:
+            p, s, m = step(placed, state, {"tokens": tokens}, 0)
+        log.armed = False
+        train = {"dot_flops": c.dot_flops, "gathers": len(log.sizes),
+                 "largest": max(log.sizes), "peak": log.peak - start,
+                 "budget": budget, "dtensor": log.dtensor,
+                 "coll": {k: list(v) for k, v in c.coll_detail.items()},
+                 "held": {"params": sh.held_bytes(placed)[0],
+                          "opt_state": sh.held_bytes(state)[0]},
+                 "after": {"params": sh.held_bytes(p)[0],
+                           "opt_state": sh.held_bytes(s)[0]}}
+        gp, gm = sh.gather(p), sh.gather(s["m"])
+        # serving: the padded prompt, then greedy decode
+        prompt = tokens.copy()
+        prompt[:, PART_PROMPT:] = 0
+        log.sizes, log.peak, log.dtensor = [], log.live, []
+        start = log.live
+        log.armed = True
+        lg, cache, npos = steps.make_mesh_prefill_step(cfg, mesh)(
+            placed, {"tokens": prompt})
+        log.armed = False
+        logits = [lg.full_tensor()]
+        decode = steps.make_mesh_decode_step(cfg, mesh)
+        tok = torch.as_tensor(tokens[:, PART_PROMPT:PART_PROMPT + 1])
+        out_tok = []
+        for t in range(PART_DECODE):
+            log.armed = True
+            lg, cache = decode(placed, cache, tok, PART_PROMPT + t)
+            log.armed = False
+            logits.append(lg.full_tensor())
+            tok = logits[-1].argmax(-1).to(torch.int32)
+            out_tok.append(tok)
+        serve = {"budget": budget, "gathers": len(log.sizes),
+                 "peak": log.peak - start,
+                 "largest": max(log.sizes, default=0), "dtensor": log.dtensor,
+                 "cache_local": [list(t.to_local().shape)
+                                 for t in cache.values()]}
+        with open(f"{d}/log_{i}_{rank}.json", "w") as f:
+            json.dump({"train": train, "serve": serve}, f)
+        if rank == 0:
+            _save_tree(f"{d}/out_{i}.npz", {"params": gp, "m": gm},
+                       loss=float(m["loss"]),
+                       logits=torch.stack(logits).float().numpy(),
+                       tokens=torch.cat(out_tok, 1).numpy())
+    pod_step(rank, d)
+
+
+def pod_step(rank, d):
+    """PART_CASES[0]'s train step on a 2 x 2 x 2 (pod, data, model) mesh,
+    the dp axes two deep as on the multi-pod mesh: rank 0 writes the
+    gathered params and the loss to ``pod.npz``; every rank its counts
+    to ``pod_<rank>.json``."""
+    import json
+
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch.mesh import compat_mesh
+    from repro_torch.optim import adam, constant_schedule
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.roofline import dispatch
+    from repro_torch.train import steps
+
+    cfg = part_case(*PART_CASES[0])
+    raw = dict(np.load(f"{d}/in_0.npz"))
+    tokens = raw.pop("batch_tokens")
+    full = from_jax_params(_tree_from_flat(raw))
+    mesh = compat_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    specs = sh.param_specs(cfg, full, mesh)
+    placed = sh.place(full, specs, mesh)
+    opt = adam(constant_schedule(1e-3), grad_clip=1.0)
+    state = sh.place_state(opt.init(full), specs, mesh)
+    with dispatch.DispatchCounter() as c:
+        p, _, m = steps.make_mesh_train_step(cfg, opt, mesh)(
+            placed, state, {"tokens": tokens}, 0)
+    with open(f"{d}/pod_{rank}.json", "w") as f:
+        json.dump({"dot_flops": c.dot_flops,
+                   "coll": {k: list(v) for k, v in c.coll_detail.items()}},
+                  f)
+    gp = sh.gather(p)
+    if rank == 0:
+        _save_tree(f"{d}/pod.npz", gp, loss=float(m["loss"]))
