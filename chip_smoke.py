@@ -4604,7 +4604,11 @@ def mesh_phase(P, card):
       two-pass) under the same mesh, ``_mesh_partitioned``: train,
       prefill and decode steps against the plain steps, its step time
       beside today's gathered mesh step, its predicted peak beside the
-      measured one.
+      measured one;
+    * the MoE family's partitioned route the same way (``MESH_MOE``:
+      qwen3-moe-30b-a3b and deepseek-v2-lite-16b sparse at full width
+      and MESH_LAYERS layers, deepseek's first dense), bit for bit
+      against the plain steps, through the gated kernels.
 
     Prints each path's median step time beside the plain path's."""
     cfg = dataclasses.replace(
@@ -4643,6 +4647,13 @@ def mesh_phase(P, card):
         paths = {"mesh_train": counts}
         paths["mesh_fused"] = _mesh_fused(P, cfg, mesh, card)
         paths.update(_mesh_partitioned(P, cfg, mesh, card))
+        for arch in MESH_MOE:
+            moe_cfg = dataclasses.replace(
+                P.registry.get(arch).with_sparsity(P.SparsityConfig(
+                    density=0.25, block=BS, where="ffn")),
+                n_layers=MESH_LAYERS)
+            paths.update(_mesh_partitioned(P, moe_cfg, mesh, card,
+                                           MOE_KEYS, MESH_MOE_TIMED, True))
     finally:
         torch.distributed.destroy_process_group()
     return paths
@@ -4701,35 +4712,42 @@ def _mesh_fused(P, cfg, mesh, card):
 # the partitioned route's decode: the prompt's last MESH_DECODE positions
 # are padding (the cache's size is the prompt's), decoded over greedily;
 # its train step, today's gathered mesh step and the plain step run
-# MESH_TIMED steps each, in that order after the plain one
-MESH_DECODE, MESH_LR, MESH_TIMED = 4, 1e-3, 5
+# MESH_TIMED steps each (MESH_MOE_TIMED for the MoE family), in that
+# order after the plain one
+MESH_DECODE, MESH_LR, MESH_TIMED, MESH_MOE_TIMED = 4, 1e-3, 5, 3
+MESH_MOE = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b")
+DENSE_KEYS = ("junction_fwd", "junction_dx", "junction_dw")
+MOE_KEYS = DENSE_KEYS + ("junction_gated_fwd", "junction_gated_dx",
+                         "junction_gated_dw")
 
 
-def _mesh_partitioned(P, cfg, mesh, card):
-    """The partitioned route on the one-rank mesh (``cfg``: stablelm-3b
-    sparse at MESH_LAYERS layers, fp32 params, bf16 compute):
+def _mesh_partitioned(P, cfg, mesh, card, keys=DENSE_KEYS,
+                      n_steps=MESH_TIMED, exact=False):
+    """The partitioned route on the one-rank mesh (``cfg``: stablelm-3b,
+    or a MESH_MOE arch, sparse at MESH_LAYERS layers, fp32 params, bf16
+    compute):
 
-    * MESH_TIMED two-pass Adam steps (clip 1.0) of batch TRAIN_B x
+    * ``n_steps`` two-pass Adam steps (clip 1.0) of batch TRAIN_B x
       TRAIN_S through ``make_mesh_train_step`` (partitioned), through
       today's gathered mesh step (``make_gathered_mesh_train_step``) and
       through the plain step, from the same weights and batches: losses,
       Adam's m and params within the train parity tolerance of the plain
-      step (``STEP_TOL``, 2 lr a step plus an ulp), fwd / dx / dw
-      launches equal the plain step's, on tensor cores; the three median
-      step times printed side by side;
+      step (``STEP_TOL``, 2 lr a step plus an ulp), bit for bit where
+      ``exact``; the launches of ``keys`` equal the plain step's, on
+      tensor cores; the three median step times printed side by side;
     * its count on ``AbstractMesh((1, 1))`` (``dryrun.count_cell``): the
       predicted per-device bytes beside the measured peak;
     * the mesh prefill of TRAIN_B prompts of TRAIN_S - MESH_DECODE
       tokens (padded to TRAIN_S) and MESH_DECODE greedy decode steps
       against the plain steps fed the same tokens: logits within
-      ``LOGIT_REL_TOL``, greedy tokens equal, fwd launches equal."""
-    bf16 = torch.bfloat16
+      ``LOGIT_REL_TOL`` (bit for bit where ``exact``), greedy tokens
+      equal, the forward launches of ``keys`` equal."""
     opt = P.optim.adam(P.optim.constant_schedule(MESH_LR))
     require(P.steps.partitioned(cfg, opt)
             and P.dryrun.execution(cfg) == "partitioned",
             f"{cfg.name} is not on the partitioned route")
     pipe = P.LMTokenPipeline(cfg, TRAIN_B, TRAIN_S)
-    batches = [next(pipe) for _ in range(MESH_TIMED)]
+    batches = [next(pipe) for _ in range(n_steps)]
 
     def run(kind):
         params = P.M.init(cfg, seed=0, device="cuda")
@@ -4766,7 +4784,7 @@ def _mesh_partitioned(P, cfg, mesh, card):
     part = run("partitioned")
     gath = run("gathered")
     tol = STEP_TOL["bfloat16"]
-    reach = 2 * MESH_LR * adam_reach(MESH_TIMED) * (1 + 1e-5)
+    reach = 2 * MESH_LR * adam_reach(n_steps) * (1 + 1e-5)
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(part[2], plain[2]))
     m_err = max(rel_err(a, b) for (_, a), (_, b) in zip(
         P.tree_items(part[1]), P.tree_items(plain[1]))
@@ -4776,8 +4794,7 @@ def _mesh_partitioned(P, cfg, mesh, card):
              if a.is_floating_point()]
     p_ok = all(bool(((a.float() - b.float()).abs() <= reach + ULP[a.dtype]
                      * b.float().abs()).all()) for a, b in pairs)
-    same = _tree_bits_equal(P, part[0], plain[0])
-    keys = ("junction_fwd", "junction_dx", "junction_dw")
+    same = _tree_bits_equal(P, part[0], plain[0]) and part[2] == plain[2]
     # peaks: over the steps, above what was allocated before them other
     # than the step's own params and state (the earlier runs' results)
     sub = {k: part[4][k] for k in keys} | {
@@ -4793,7 +4810,8 @@ def _mesh_partitioned(P, cfg, mesh, card):
           f"{med[1]:.1f} ms, plain {med[2]:.1f} ms; peak "
           f"{part[5]:.3f} / {gath[5]:.3f} / {plain[5]:.3f} GiB; launches "
           f"{sub} [{card}]")
-    require(loss_rel <= tol["loss"] and m_err <= tol["m"] and p_ok,
+    require(loss_rel <= tol["loss"] and m_err <= tol["m"] and p_ok
+            and (same or not exact),
             "the partitioned mesh step differs from the plain step")
     require(all(part[4][k] == plain[4][k] and part[4][f"{k}_tc"]
                 == plain[4][f"{k}_tc"] > 0 for k in keys),
@@ -4813,14 +4831,18 @@ def _mesh_partitioned(P, cfg, mesh, card):
           f"{med[0]:.1f} ms [{card}]")
     del part, gath, plain
     torch.cuda.empty_cache()
-    return {"mesh_partitioned": sub,
-            "mesh_partitioned_serve": _mesh_partitioned_serve(P, cfg, mesh,
-                                                              card)}
+    name = "mesh_partitioned" + ("" if cfg.family == "dense"
+                                 else f"_{cfg.name}")
+    return {name: sub,
+            f"{name}_serve": _mesh_partitioned_serve(P, cfg, mesh, card,
+                                                     keys, exact)}
 
 
-def _mesh_partitioned_serve(P, cfg, mesh, card):
+def _mesh_partitioned_serve(P, cfg, mesh, card, keys=DENSE_KEYS,
+                            exact=False):
     """The partitioned prefill and decode steps against the plain ones
-    (``_mesh_partitioned``'s last part): their fwd launches."""
+    (``_mesh_partitioned``'s last part): the launches of the forward
+    kernels among ``keys``."""
     params = P.M.init(cfg, seed=0, device="cuda")
     placed = P.sharding.place(params, P.sharding.param_specs(
         cfg, params, mesh), mesh)
@@ -4853,24 +4875,25 @@ def _mesh_partitioned_serve(P, cfg, mesh, card):
 
     got, got_picks, counts = serve(True)
     want, want_picks, p_counts = serve(False)
-    err = rel_err(got, want)
-    print(f"[mesh] partitioned prefill of {TRAIN_B} x {start} tokens (padded "
-          f"to {TRAIN_S}) and {MESH_DECODE} greedy decode steps against the "
-          f"plain steps: logits rel_err {err:.3g} (tol "
-          f"{LOGIT_REL_TOL[torch.bfloat16]}), bit for bit "
-          f"{bits_equal(got, want)}, greedy tokens equal "
-          f"{torch.equal(got_picks, want_picks)}; fwd launches "
-          f"{counts['junction_fwd']} (on tensor cores "
-          f"{counts['junction_fwd_tc']}) against {p_counts['junction_fwd']} "
-          f"[{card}]")
+    err, same = rel_err(got, want), bits_equal(got, want)
+    fwd = [k for k in keys if k.endswith("fwd")]
+    sub = {k: counts[k] for k in fwd} | {f"{k}_tc": counts[f"{k}_tc"]
+                                         for k in fwd}
+    print(f"[mesh] partitioned prefill of {cfg.name} {TRAIN_B} x {start} "
+          f"tokens (padded to {TRAIN_S}) and {MESH_DECODE} greedy decode "
+          f"steps against the plain steps: logits rel_err {err:.3g} (tol "
+          f"{LOGIT_REL_TOL[torch.bfloat16]}), bit for bit {same}, greedy "
+          f"tokens equal {torch.equal(got_picks, want_picks)}; launches "
+          f"{sub} against {({k: p_counts[k] for k in sub})} [{card}]")
     require(err <= LOGIT_REL_TOL[torch.bfloat16]
-            and torch.equal(got_picks, want_picks),
+            and torch.equal(got_picks, want_picks) and (same or not exact),
             "the partitioned prefill / decode differs from the plain steps")
-    require(counts["junction_fwd"] == p_counts["junction_fwd"] > 0,
+    require(all(counts[k] == p_counts[k] > 0 and counts[f"{k}_tc"]
+                == p_counts[f"{k}_tc"] for k in fwd),
             f"partitioned serving launches {counts} != {p_counts}")
     del params, placed
     torch.cuda.empty_cache()
-    return {k: counts[k] for k in ("junction_fwd", "junction_fwd_tc")}
+    return sub
 
 
 def _pipe_stages(P, seed=0):

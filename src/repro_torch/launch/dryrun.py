@@ -33,7 +33,8 @@ Counted per rank as the port's mesh steps (``train/steps.make_mesh_*``)
 do the work, on the route ``steps.partitioned`` gives the cell (the
 record's ``"execution"``):
 
-* ``"partitioned"`` (the dense family): the rank's step on its shards
+* ``"partitioned"`` (the dense family, and the moe family with full
+  attention or MLA): the rank's step on its shards
   (``attach``, its junction views from ``sharding.with_junction_views``)
   and rows, through the same code the mesh runs
   (``steps.make_partitioned_train_step``, ``steps.partitioned_prefill``
@@ -43,10 +44,13 @@ record's ``"execution"``):
   backward (each layer recomputed), the gradients' reduce-scatters and
   all-reduces, tensor parallelism's all-gathers, reduce-scatters and
   all-reduces of activations, the vocab-parallel cross entropy's and
-  decode's log-sum-exp all-reduces, the clip norm's and the metrics'.
+  decode's log-sum-exp all-reduces, a MoE's routing (its logits'
+  all-gather over "model", the all-gather of the top-k indices over the
+  row axes where a dispatch group crosses them, the all-reduces of the
+  load-balance means), the clip norm's and the metrics'.
   The model axis divides the compute as the specs say, and so does the
   memory: no leaf is gathered whole and the cache stays sharded.
-* ``"gathered"`` (every other family): the mesh steps gather every leaf
+* ``"gathered"`` (ssm, hybrid, vlm, audio): the mesh steps gather every leaf
   and run the rank's dp rows whole, so the model axis divides no
   compute.  ``dot_flops`` and the eager ``mem_bytes`` are counted on the
   full gathered shapes and the rank's rows.  The collectives come from
@@ -261,7 +265,7 @@ def _count_partitioned(cfg, shape, mesh, microbatches, params, pspecs,
         cspecs = sh.cache_specs(cfg, cache, mesh)
         lcache = sh.attach(cache, cspecs, mesh)
         held["cache"] = _nbytes(lcache)
-        part.cache_seq_split = "model" in sh.spec_axes(cspecs["k"][2])
+        part.cache_seq_split = steps.cache_seq_split(cspecs)
 
         def fn(p, c, tok):
             out.extend(steps.partitioned_decode(cfg, part, p, c, tok,

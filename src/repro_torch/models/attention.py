@@ -25,7 +25,9 @@ divide the model axis, is computed whole and the rank takes the kv heads
 its q heads read) and ``gqa_decode_tp`` on the rank's sequence shard of
 the cache: q gathered over "model", every head attended on the local
 slots, the shards merged by a log-sum-exp combine over "model", and the
-rank's heads kept for ``wo``.
+rank's heads kept for ``wo``.  MLA likewise: ``mla_forward_tp`` on the
+rank's heads (the latent computed whole on every rank), ``mla_decode_tp``
+on the rank's sequence shard of the latent cache.
 """
 from __future__ import annotations
 
@@ -481,3 +483,104 @@ def gqa_decode_tp(part, p: Params, x, cfg: ArchConfig, cache: dict,
     else:
         out = decode_attention(q, cache["k"], cache["v"], pos)
     return sl.apply_tp(p["wo"], out.reshape(B, 1, H * hd), "full", part)
+
+
+def _mla_heads(part, q, lq, kv, lkv, H: int, qd: int, kd: int):
+    """q ([..., H * qd] products) and kv ([..., H * kd]) as [..., h, .]
+    over the same heads [h0, h0 + h): the rank's where either product
+    is split on head boundaries (the other, whole, cut to them), else
+    every head.  Returns (q, kv, h0, h)."""
+    q, q0, hq = _local_heads(part, q, lq, H, qd)
+    kv, k0, hk = _local_heads(part, kv, lkv, H, kd)
+    if hq == hk:
+        return q, kv, q0, hq
+    if hq < hk:
+        return q, kv[..., q0:q0 + hq, :], q0, hq
+    return q[..., k0:k0 + hk, :], kv, k0, hk
+
+
+def mla_forward_tp(part, p: Params, x, cfg: ArchConfig, *, positions):
+    """``mla_forward`` on the rank's heads: x [B,S,d] with every position
+    (``Partition.tokens``).  ``wq`` and ``wkv_b`` are column-parallel on
+    the rank's heads where the heads divide "model"; ``wkv_a`` and
+    ``kv_norm`` are replicated, so every rank computes the whole latent.
+    Returns (out, its layout, (latent [B,S,lora], k_rope [B,S,rd])): out
+    is ``wo``'s product (partial sums where ``wo`` is row-parallel)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rd, vd, lora = _mla_dims(cfg)
+    q, lq = sl.apply_tp(p["wq"], x, "full", part)
+    a, _ = sl.apply_tp(p["wkv_a"], x, "full", part)
+    latent = norm_apply(p["kv_norm"], a[..., :lora], "rmsnorm", cfg.norm_eps)
+    k_rope = rope(a[..., lora:][:, :, None, :], positions, cfg.rope_theta)
+    kvb, lkv = sl.apply_tp(p["wkv_b"], latent, "full", part)
+    q, kvb, _, hl = _mla_heads(part, q, lq, kvb, lkv, H, nope + rd,
+                               nope + vd)
+    q = torch.cat([q[..., :nope], rope(q[..., nope:], positions,
+                                       cfg.rope_theta)], -1)
+    k = torch.cat([kvb[..., :nope], k_rope.expand(B, S, hl, rd)], -1)
+    v = torch.nn.functional.pad(kvb[..., nope:], (0, nope + rd - vd))
+    out = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                            q_pos=positions, kv_pos=positions)[..., :vd]
+    y, ly = sl.apply_tp(p["wo"], out.reshape(B, S, hl * vd),
+                        "split" if hl < H else "full", part)
+    return y, ly, (latent, k_rope[:, :, 0, :])
+
+
+def mla_decode_tp(part, p: Params, x, cfg: ArchConfig, cache: dict,
+                  pos: int):
+    """``mla_decode`` of every row at ``pos`` on the rank's cache: x
+    [B,1,d] (replicated), cache {"latent": [B,S,lora], "k_rope": [B,S,
+    rd]}, the rank's sequence shard where ``part.cache_seq_split`` (slots
+    [r S, (r+1) S)) else every slot; only the rank that holds slot
+    ``pos`` writes the new latent.  q_abs and q_rope of the rank's heads
+    are all-gathered over "model" ([B,1,H,lora+rd]), every head is
+    scored on the rank's slots, and the shards merge by a log-sum-exp
+    combine over "model" (the max all-reduced, the exp sums and the
+    fp32 o_lat partial sums all-reduced; the probabilities and o_lat
+    rounded where ``mla_decode`` rounds them); the rank's heads are kept
+    for ``w_uv`` and ``wo``.  Returns (out, its layout)."""
+    B = x.shape[0]
+    H = cfg.n_heads
+    nope, rd, vd, lora = _mla_dims(cfg)
+    at = torch.full((1,), pos, device=x.device)
+    q, lq = sl.apply_tp(p["wq"], x, "full", part)
+    a, _ = sl.apply_tp(p["wkv_a"], x, "full", part)
+    w = p["wkv_b"]["w"].to(x.dtype)             # [lora, the rank's heads]
+    lw = "split" if w.shape[1] < H * (nope + vd) else "full"
+    q, wkv, h0, hl = _mla_heads(part, q, lq, w, lw, H, nope + rd, nope + vd)
+    lat, kr = cache["latent"], cache["k_rope"]
+    S = lat.shape[1]
+    split = part.cache_seq_split and part.m > 1
+    base = part.r * S if split else 0
+    if base <= pos < base + S:
+        lat[:, pos - base] = norm_apply(p["kv_norm"], a[..., :lora],
+                                        "rmsnorm", cfg.norm_eps)[:, 0].to(
+                                            lat.dtype)
+        kr[:, pos - base] = rope(a[..., lora:][:, :, None, :], at,
+                                 cfg.rope_theta)[:, 0, 0].to(kr.dtype)
+    w_uk, w_uv = wkv[..., :nope], wkv[..., nope:]
+    q_abs = _einsum_as("bqhn,lhn->bqhl", q[..., :nope], w_uk, x.dtype)
+    qa = torch.cat([q_abs, rope(q[..., nope:], at, cfg.rope_theta)], -1)
+    if hl < H:                  # every head's [B,1,H,lora+rd]
+        qa = part.comm.all_gather(qa, ("model",), 2)
+    s = (torch.einsum("bqhl,bsl->bhqs", qa[..., :lora].float(), lat.float())
+         + torch.einsum("bqhr,bsr->bhqs", qa[..., lora:].float(),
+                        kr.float()))
+    s = s / math.sqrt(nope + rd)
+    valid = base + torch.arange(S, device=x.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    if split:
+        mx = part.max_over_model(s.amax(dim=-1, keepdim=True))
+        e = torch.where(valid, torch.exp(s - mx), 0.0)
+        pr = _rounded(e / part.sum_over_model(e.sum(dim=-1, keepdim=True)),
+                      x.dtype)
+        o_lat = _rounded(part.sum_over_model(torch.einsum(
+            "bhqs,bsl->bqhl", pr.float(), lat.float())), x.dtype)
+    else:
+        pr = _rounded(torch.softmax(s, dim=-1), x.dtype)
+        o_lat = _einsum_as("bhqs,bsl->bqhl", pr, lat, x.dtype)
+    out = _einsum_as("bqhl,lhv->bqhv", o_lat[:, :, h0:h0 + hl], w_uv,
+                     x.dtype)
+    return sl.apply_tp(p["wo"], out.reshape(B, 1, hl * vd),
+                       "split" if hl < H else "full", part)

@@ -42,11 +42,14 @@ the decoder's too, not the dense first layers or the encoder's) and
 after each hybrid super-block.
 
 Under a ``parallel/partition.Partition`` (the partitioned mesh steps,
-``train/steps.py``) the dense family's ``forward``, ``decode_step`` and
-``loss_fn`` run on the rank's shards: each layer gathers its leaves over
-the dp axes just before it runs (``Partition.gather``) and, under grad,
-is recomputed in the backward (gathering again) whatever ``cfg.remat``
-says; the products run on the rank's heads, output blocks and features;
+``train/steps.py``) the dense and moe families' ``forward``,
+``decode_step`` and ``loss_fn`` run on the rank's shards: each layer
+(a MoE model's dense first layers first) gathers its leaves over the dp
+axes just before it runs (``Partition.gather``) and, under grad, is
+recomputed in the backward (gathering again) whatever ``cfg.remat``
+says; the products run on the rank's heads, output blocks, features and
+experts (``moe.moe_apply_tp``: routing global over the batch rows), MLA
+on the rank's heads and its shard of the latent cache;
 the residual is stored sequence-sharded over "model"; the embedding and
 unembedding are vocab-parallel, their logits the rank's vocab columns
 (placed by ``sharding.logits_spec``), and the cross entropy takes its
@@ -76,7 +79,7 @@ from repro_torch.core import sparse_linear as sl
 from repro_torch.models.layers import (embed_init, embed_tokens, mlp_apply,
                                        mlp_apply_tp, mlp_init, norm_apply,
                                        norm_init, sinusoidal_pos, unembed)
-from repro_torch.models.moe import moe_apply, moe_init
+from repro_torch.models.moe import moe_apply, moe_apply_tp, moe_init
 from repro_torch.models.ssm import (mamba1_apply, mamba1_init, mamba2_apply,
                                     mamba2_init)
 from repro_torch.parallel import hints, partition
@@ -554,10 +557,10 @@ def loss_fn(cfg: ArchConfig, params: Params, batch):
 
 # ------------------------------------------- the partitioned route
 def _partition(cfg: ArchConfig):
-    """The current ``Partition``, for the dense family (the partitioned
-    steps run no other)."""
+    """The current ``Partition``, for the dense and moe families (the
+    partitioned steps run no other)."""
     part = partition.current()
-    if part is not None and cfg.family != "dense":
+    if part is not None and cfg.family not in ("dense", "moe"):
         raise ValueError(f"family {cfg.family!r} has no partitioned route")
     return part
 
@@ -609,13 +612,14 @@ def _chunk_ce_tp(ev, h, labels, cfg, part):
     return torch.sum(_xent_tp(part, unembed(ev, h, cfg), labels, cfg))
 
 
-def _cache_shard(part, k, v, S: int, cfg: ArchConfig):
-    """A layer's prefill K / V as the rank keeps them: every kv head
-    (gathered over "model" where the rank computed its own), its
-    sequence shard where the positions divide the axis."""
+def _cache_shard(part, kv: dict, S: int, cfg: ArchConfig):
+    """A layer's prefill cache (K / V, or MLA's latent / k_rope) as the
+    rank keeps it: every kv head (gathered over "model" where the rank
+    computed its own), its sequence shard where the positions divide the
+    axis."""
     out = {}
-    for name, t in (("k", k), ("v", v)):
-        if t.shape[2] < cfg.kv_heads:
+    for name, t in kv.items():
+        if name in ("k", "v") and t.shape[2] < cfg.kv_heads:
             t = part.comm.all_gather(t, ("model",), 2)
         if part.seq_split(S):       # a copy: the whole sequence is freed
             n = S // part.m
@@ -624,22 +628,55 @@ def _cache_shard(part, k, v, S: int, cfg: ArchConfig):
     return out
 
 
+def _tp_stacks(part, params, cache=None):
+    """``_attn_stacks`` with each stack's specs: (layers, specs, cache)."""
+    keys = (("dense_layers", "layers") if "dense_layers" in params
+            else ("layers",))
+    return [(layers, part.specs[k], c) for k, (layers, c) in
+            zip(keys, _attn_stacks(params, cache))]
+
+
+def _ffn_tp(part, v, h, S: int):
+    """A gathered layer's FFN on the rank's slice of ``h`` (every
+    position): (its output in the residual layout, the aux loss).  The
+    MLP on the rank's features; a MoE's routed experts on the rank's
+    experts (``moe_apply_tp``), its shared experts an MLP, each sum
+    rounded where ``moe_apply`` rounds it."""
+    if "moe" not in v:
+        m, lm = mlp_apply_tp(part, v["mlp"], h)
+        return sl.add_row_bias(v["mlp"]["wo"], part.residual(m, lm, S)), 0.0
+    y, ly, aux = moe_apply_tp(part, v["moe"], h, part.cfg)
+    y = part.residual(y, ly, S)
+    if "shared" in v["moe"]:
+        shared = v["moe"]["shared"]
+        m, lm = mlp_apply_tp(part, shared, h)
+        y = y + sl.add_row_bias(shared["wo"], part.residual(m, lm, S))
+    return y, aux
+
+
 def _block_tp(part, lp, ls, x, positions, want_cache: bool):
-    """A dense layer on the rank's shards: its leaves gathered over the
-    dp axes, attention on the rank's heads and the MLP on its features,
-    each product's result placed back in the residual layout.  Returns
-    (x, the rank's cache of the layer or None)."""
+    """A dense or MoE layer on the rank's shards: its leaves gathered over
+    the dp axes, attention (GQA or MLA) on the rank's heads and the FFN on
+    its features or experts, each product's result placed back in the
+    residual layout.  Returns (x, the rank's cache of the layer or None,
+    the aux loss)."""
     cfg = part.cfg
     S = positions.shape[0]
     v = part.gather(lp, ls)
     h = part.tokens(norm_apply(v["norm1"], x, cfg.norm, cfg.norm_eps), S)
-    a, la, (k, vv, _) = attn.gqa_forward_tp(part, v["attn"], h, cfg,
-                                             positions=positions)
+    if cfg.attn_kind == "mla":
+        a, la, (lat, kr) = attn.mla_forward_tp(part, v["attn"], h, cfg,
+                                               positions=positions)
+        kv = {"latent": lat, "k_rope": kr}
+    else:
+        a, la, (k, vv, _) = attn.gqa_forward_tp(part, v["attn"], h, cfg,
+                                                 positions=positions)
+        kv = {"k": k, "v": vv}
     x = x + sl.add_row_bias(v["attn"]["wo"], part.residual(a, la, S))
     h = part.tokens(norm_apply(v["norm2"], x, cfg.norm, cfg.norm_eps), S)
-    m, lm = mlp_apply_tp(part, v["mlp"], h)
-    x = x + sl.add_row_bias(v["mlp"]["wo"], part.residual(m, lm, S))
-    return x, (_cache_shard(part, k, vv, S, cfg) if want_cache else None)
+    m, aux = _ffn_tp(part, v, h, S)
+    return (x + m, _cache_shard(part, kv, S, cfg) if want_cache else None,
+            aux)
 
 
 def _forward_tp(cfg: ArchConfig, params, batch, part, return_cache: bool,
@@ -653,40 +690,49 @@ def _forward_tp(cfg: ArchConfig, params, batch, part, return_cache: bool,
     x = hints.constrain_tokens3d(_embed_tp(part, params, tokens, cfg), cfg)
     positions = torch.arange(S, device=x.device)
     grad = torch.is_grad_enabled()
-    caches = []
-    for lp, ls in zip(params["layers"], part.specs["layers"]):
-        if grad:
-            x, c = checkpoint(_block_tp, part, lp, ls, x, positions, False,
-                              use_reentrant=False)
-        else:
-            x, c = _block_tp(part, lp, ls, x, positions, return_cache)
-        x = hints.constrain_tokens3d(x, cfg)
-        caches.append(c)
+    aux, parts = 0.0, []
+    for layers, specs, _ in _tp_stacks(part, params):
+        caches = []
+        for lp, ls in zip(layers, specs):
+            if grad:
+                x, c, a = checkpoint(_block_tp, part, lp, ls, x, positions,
+                                     False, use_reentrant=False)
+            else:
+                x, c, a = _block_tp(part, lp, ls, x, positions, return_cache)
+            if layers is params["layers"]:
+                x = hints.constrain_tokens3d(x, cfg)
+            caches.append(c)
+            aux = aux + a
+        parts.append(caches)
     fn = part.gather(params["final_norm"], part.specs["final_norm"])
     x = norm_apply(fn, x, cfg.norm, cfg.norm_eps)
-    cache = _stack(caches) if return_cache else None
+    cache = None
+    if return_cache:
+        cache = (_stack(parts[0]) if len(parts) == 1 else
+                 {"dense": _stack(parts[0]), "moe": _stack(parts[1])})
     if last_only:
         x = part.last_position(x, S)
     if return_hidden:
-        return x, cache, (0.0, 0)
+        return x, cache, (aux, 0)
     if not last_only:
         x = part.tokens(x, S)
     return (unembed(_unembed_unit(part, params, cfg), x, cfg), cache,
-            (0.0, 0))
+            (aux, 0))
 
 
 def _decode_block_tp(part, lp, ls, x, cache_l, pos: int):
-    """A dense layer's decode step on the rank's shards and its views of
-    the layer's cache (updated in place); the gathered leaves die with
-    the call."""
+    """A dense or MoE layer's decode step on the rank's shards and its
+    views of the layer's cache (updated in place); the gathered leaves
+    die with the call."""
     cfg = part.cfg
     v = part.gather(lp, ls)
     h = norm_apply(v["norm1"], x, cfg.norm, cfg.norm_eps)
-    a, la = attn.gqa_decode_tp(part, v["attn"], h, cfg, cache_l, pos)
+    step = attn.mla_decode_tp if cfg.attn_kind == "mla" else \
+        attn.gqa_decode_tp
+    a, la = step(part, v["attn"], h, cfg, cache_l, pos)
     x = x + sl.add_row_bias(v["attn"]["wo"], part.residual(a, la, 1))
     h = norm_apply(v["norm2"], x, cfg.norm, cfg.norm_eps)
-    m, lm = mlp_apply_tp(part, v["mlp"], h)
-    return x + sl.add_row_bias(v["mlp"]["wo"], part.residual(m, lm, 1))
+    return x + _ffn_tp(part, v, h, 1)[0]
 
 
 def _decode_tp(cfg: ArchConfig, params, cache, token, pos: int, part):
@@ -695,10 +741,10 @@ def _decode_tp(cfg: ArchConfig, params, cache, token, pos: int, part):
     token's residual replicated.  Returns (the rank's vocab columns of
     the logits, cache)."""
     x = _embed_tp(part, params, token, cfg)
-    for l, (lp, ls) in enumerate(zip(params["layers"],
-                                     part.specs["layers"])):
-        x = _decode_block_tp(part, lp, ls, x,
-                             {k: t[l] for k, t in cache.items()}, pos)
+    for layers, specs, c in _tp_stacks(part, params, cache):
+        for l, (lp, ls) in enumerate(zip(layers, specs)):
+            x = _decode_block_tp(part, lp, ls, x,
+                                 {k: t[l] for k, t in c.items()}, pos)
     fn = part.gather(params["final_norm"], part.specs["final_norm"])
     x = norm_apply(fn, x, cfg.norm, cfg.norm_eps)
     return unembed(_unembed_unit(part, params, cfg), x, cfg), cache

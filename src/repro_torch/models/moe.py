@@ -20,6 +20,10 @@ inference only.
 
 Aux load-balance loss, Switch / GShard style: E * sum_e f_e * p_e times
 ``aux_loss_weight``.
+
+``moe_apply_tp`` is the routed experts on a rank of the partitioned mesh
+steps (parallel/partition.py): the rank's experts, routing global over
+the batch rows of every rank (see its docstring).
 """
 from __future__ import annotations
 
@@ -165,6 +169,74 @@ def _one_hot(i, n: int):
     return (i[..., None] == torch.arange(n, device=i.device)).float()
 
 
+def _route(logits, K: int):
+    """(probs fp32 [..., E], the renormalized top-k: top_p, top_e)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    top_p, top_e = _top_k(probs, K)
+    return probs, top_p / torch.sum(top_p, dim=-1, keepdim=True), top_e
+
+
+def _slots(mask, C: int):
+    """(pos, keep) [G, g, K, E] of the one-hot choices ``mask`` [G, g, K,
+    E]: each choice's position in its expert, counted over the group
+    k-major (every token's first choice before any second choice), and
+    whether it lies within the capacity C.  An expert's column depends on
+    its own column of the mask alone."""
+    G, g, K, E = mask.shape
+    mask_flat = mask.transpose(1, 2).reshape(G, K * g, E)
+    pos = torch.cumsum(mask_flat, dim=1) - 1.0                    # [G,Kg,E]
+    keep = (pos < C) * mask_flat
+    pos = pos.reshape(G, K, g, E).transpose(1, 2)                 # [G,g,K,E]
+    keep = keep.reshape(G, K, g, E).transpose(1, 2)
+    return pos, keep
+
+
+def _load(top_e, probs, E: int, K: int):
+    """The aux loss's (f_e, p_e) over these tokens (the two leading dims):
+    the fraction of choices routed to each expert, and its mean
+    probability.  The routed counts are integers, exact in fp32, so a
+    scatter gives the one-hot sum's values."""
+    routed = torch.zeros((*top_e.shape[:-1], E), dtype=torch.float32,
+                         device=top_e.device)
+    routed.scatter_add_(-1, top_e, torch.ones(
+        top_e.shape, dtype=torch.float32, device=top_e.device))
+    return torch.mean(routed, dim=(0, 1)) / K, torch.mean(probs, dim=(0, 1))
+
+
+def _dispatch_combine(top_p, pos, keep, C: int):
+    """The dispatch and combine tensors [G, g, E, C] of the kept choices."""
+    kept = keep[..., None] * _one_hot(pos.long(), C)              # [G,g,K,E,C]
+    return (torch.sum(kept, dim=2),
+            torch.einsum("GgK,GgKEC->GgEC", top_p, kept))
+
+
+def _experts(p: Params, xd, cfg: ArchConfig):
+    """The expert FFNs on xd [G, E, C, D], E the experts ``p`` holds ->
+    [G, E, C, D] in xd's dtype.  Sparse experts run through the junction
+    kernels unless ``cfg.engine`` is "jnp"."""
+    E, dtype = xd.shape[1], xd.dtype
+    if "idx_in" not in p:
+        h = (act_fwd(torch.einsum("GECd,Edf->GECf", xd, p["wg"].to(dtype)),
+                     "silu")
+             * torch.einsum("GECd,Edf->GECf", xd, p["wi"].to(dtype)))
+        return torch.einsum("GECf,Efd->GECd", h, p["wo"].to(dtype))
+    # pre-defined-sparse experts (the paper's technique)
+    if ops.resolve_engine(cfg.engine) == "pallas":
+        return _expert_ffn(p, xd, E)
+    if "wgq" in p:      # quantized experts, the plain int8 forms
+        xs_in, xs_out = p.get("x_scale_in"), p.get("x_scale_out")
+        gq = qz.expert_apply_int8(p["wgq"], p["wg_scale"], p["idx_in"], xd,
+                                  xs_in)
+        uq = qz.expert_apply_int8(p["wiq"], p["wi_scale"], p["idx_in"], xd,
+                                  xs_in)
+        h = (act_fwd(gq, "silu") * uq).to(dtype)
+        return qz.expert_apply_int8(p["woq"], p["wo_scale"], p["idx_out"],
+                                    h, xs_out).to(dtype)
+    h = (act_fwd(_expert_apply(p["wg"], p["idx_in"], xd), "silu")
+         * _expert_apply(p["wi"], p["idx_in"], xd))
+    return _expert_apply(p["wo"], p["idx_out"], h)
+
+
 def moe_apply(p: Params, x, cfg: ArchConfig):
     """x [B, S, D] -> (y [B, S, D], aux loss).  The sparse experts run
     through the junction kernels unless ``cfg.engine`` is "jnp"."""
@@ -178,53 +250,105 @@ def moe_apply(p: Params, x, cfg: ArchConfig):
 
     xt = x.reshape(G, g, D)
     logits = torch.einsum("Ggd,de->Gge", xt, p["router"].to(x.dtype))
-    probs = torch.softmax(logits.float(), dim=-1)                 # [G,g,E]
-    top_p, top_e = _top_k(probs, K)                               # [G,g,K]
-    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)        # renorm
-
-    # position in expert: cumsum over tokens, k-major (slot, then token)
-    mask = _one_hot(top_e, E)                                     # [G,g,K,E]
-    mask_flat = mask.transpose(1, 2).reshape(G, K * g, E)
-    pos = torch.cumsum(mask_flat, dim=1) - 1.0                    # [G,Kg,E]
-    keep = (pos < C) * mask_flat
-    pos = pos.reshape(G, K, g, E).transpose(1, 2)                 # [G,g,K,E]
-    keep = keep.reshape(G, K, g, E).transpose(1, 2)
+    probs, top_p, top_e = _route(logits, K)                       # [G,g,K]
+    pos, keep = _slots(_one_hot(top_e, E), C)                     # [G,g,K,E]
 
     # aux load-balance loss (fraction routed vs mean probability)
-    routed = mask[..., 0, :] if K == 1 else torch.sum(mask, dim=2)
-    f_e = torch.mean(routed, dim=(0, 1)) / K
-    p_e = torch.mean(probs, dim=(0, 1))
+    f_e, p_e = _load(top_e, probs, E, K)
     aux = E * torch.sum(f_e * p_e) * mo.aux_loss_weight
 
-    kept = keep[..., None] * _one_hot(pos.long(), C)              # [G,g,K,E,C]
-    dispatch = torch.sum(kept, dim=2)                             # [G,g,E,C]
-    combine = torch.einsum("GgK,GgKEC->GgEC", top_p, kept)
-
+    dispatch, combine = _dispatch_combine(top_p, pos, keep, C)
     xd = torch.einsum("GgEC,Ggd->GECd", dispatch.to(x.dtype), xt)
-    if "idx_in" in p:   # pre-defined-sparse experts (the paper's technique)
-        if ops.resolve_engine(cfg.engine) == "pallas":
-            ye = _expert_ffn(p, xd, E)
-        elif "wgq" in p:    # quantized experts, the plain int8 forms
-            xs_in, xs_out = p.get("x_scale_in"), p.get("x_scale_out")
-            gq = qz.expert_apply_int8(p["wgq"], p["wg_scale"], p["idx_in"],
-                                      xd, xs_in)
-            uq = qz.expert_apply_int8(p["wiq"], p["wi_scale"], p["idx_in"],
-                                      xd, xs_in)
-            h = (act_fwd(gq, "silu") * uq).to(x.dtype)
-            ye = qz.expert_apply_int8(p["woq"], p["wo_scale"], p["idx_out"],
-                                      h, xs_out).to(x.dtype)
-        else:
-            h = (act_fwd(_expert_apply(p["wg"], p["idx_in"], xd), "silu")
-                 * _expert_apply(p["wi"], p["idx_in"], xd))
-            ye = _expert_apply(p["wo"], p["idx_out"], h)
-    else:
-        h = (act_fwd(torch.einsum("GECd,Edf->GECf", xd,
-                                  p["wg"].to(x.dtype)), "silu")
-             * torch.einsum("GECd,Edf->GECf", xd, p["wi"].to(x.dtype)))
-        ye = torch.einsum("GECf,Efd->GECd", h, p["wo"].to(x.dtype))
+    ye = _experts(p, xd, cfg)
     y = torch.einsum("GgEC,GECd->Ggd", combine.to(x.dtype), ye)
     y = y.reshape(B, S, D)
 
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, cfg)
     return y, aux
+
+
+def moe_apply_tp(part, p: Params, x, cfg: ArchConfig):
+    """``moe_apply``'s routed experts on a rank of a partitioned mesh
+    (parallel/partition.py): x [B, S, D], the rank's rows with every
+    position, alike on every model rank.  Returns (y [B, S, D], its
+    layout, aux); the shared experts are the caller's (an MLP).
+
+    Routing is global over the batch rows, as the reference's single
+    program routes: the router is column-parallel (the rank's logits for
+    its experts, all-gathered over "model"), so softmax and top-k see
+    every expert and decide alike on every model rank; the dispatch
+    groups and the capacity come from the token count of every row group
+    (``Partition.n_rows``); f_e and p_e are means over every row group.
+    Where a group does not cross the rank's tokens (g divides them) the
+    rank routes its own groups; else it all-gathers the top-k indices
+    over the row axes and takes its tokens' positions from the k-major
+    count of the groups they lie in.
+
+    The experts are the rank's (``router`` and the expert weights hold
+    E / model of them where "model" divides E): ``pos``, ``keep``, the
+    dispatch, the expert FFN and the combine cover them alone (a
+    position depends on its expert's column of the mask only), so the
+    combine is a partial sum over experts, fp32, summed over "model" in
+    the residual.  Where the experts are replicated every rank computes
+    them all and the combine is whole ("full")."""
+    mo = cfg.moe
+    B, S, D = x.shape
+    E, K = mo.num_experts, mo.top_k
+    T = B * S
+    g, _, C = moe_dispatch_dims(mo, T * part.n_rows)
+    if (T * part.n_rows) % g:
+        raise ValueError(f"tokens {T * part.n_rows} not divisible by moe "
+                         f"group {g}")
+    own = T % g == 0            # the rank's tokens make whole groups
+    xt = x.reshape(T // g, g, D) if own else x.reshape(1, T, D)
+    router = p["router"]
+    El = router.shape[1]
+    e0 = part.r * El if El < E else 0
+    logits = torch.einsum("Ggd,de->Gge", xt, router.to(x.dtype))
+    if El < E:
+        logits = part.full(logits, "split")
+    probs, top_p, top_e = _route(logits, K)
+    if own:
+        pos, keep = _slots(_one_hot(top_e - e0, El), C)
+    else:   # the groups [a, a + n) of the global tokens hold the rank's
+        o = part.row_at * T
+        a = o // g * g
+        n = -(-(o + T) // g) * g - a
+        every = part.rows_gather(top_e.reshape(T, K))    # global order
+        pos, keep = _slots(_one_hot(every[a:a + n].reshape(n // g, g, K)
+                                    - e0, El), C)
+        pos, keep = (t.reshape(n, K, El)[o - a:o - a + T][None]
+                     for t in (pos, keep))
+
+    f_e, p_e = _load(top_e, probs, E, K)
+    f_e, p_e = part.row_mean(f_e), part.row_mean(p_e)
+    aux = E * torch.sum(f_e * p_e) * mo.aux_loss_weight
+
+    dispatch, combine = _dispatch_combine(top_p, pos, keep, C)
+    if not own:
+        dispatch, combine, xt = (_windowed(t[0], o - a, n, g)
+                                 for t in (dispatch, combine, xt))
+    xd = torch.einsum("GgEC,Ggd->GECd", dispatch.to(x.dtype), xt)
+    ye = _experts(p, xd, cfg)
+    if El < E:                  # partial over the experts: fp32 sums
+        y, layout = torch.einsum("GgEC,GECd->Ggd", combine.to(
+            x.dtype).float(), ye.float()), "partial"
+    else:
+        y, layout = torch.einsum("GgEC,GECd->Ggd", combine.to(x.dtype),
+                                 ye), "full"
+    if not own:
+        y = y.reshape(n, D)[o - a:o - a + T]
+    return y.reshape(B, S, D), layout, aux
+
+
+def _windowed(t, o0: int, n: int, g: int):
+    """t [T, ...] (the rank's tokens) placed at [o0, o0 + T) of n zeroed
+    token slots, as [n / g, g, ...]: the groups they lie in, other row
+    groups' tokens zero.  The rank runs the experts on the whole [E, n /
+    g * C, D] block of those groups with the other row groups' capacity
+    slots zeroed (a slot's output depends on its own row alone), and
+    combines its own tokens' slots only."""
+    out = t.new_zeros((n, *t.shape[1:]))
+    out[o0:o0 + t.shape[0]] = t
+    return out.reshape(n // g, g, *t.shape[1:])

@@ -8,7 +8,9 @@ of a leaf:
   ranks (tensor parallelism: column-parallel products where the out dim
   is split, row-parallel ones where the in dim is, a block-sparse
   junction over the rank's output blocks, attention over the rank's
-  heads, the embedding and unembedding over the rank's vocab rows);
+  heads, the embedding and unembedding over the rank's vocab rows, a
+  MoE's experts over the rank's experts, routed over every row group:
+  ``rows_gather``, ``row_mean``);
 * split over the dp axes ("pod", "data"): FSDP.  ``Partition.gather``
   all-gathers a layer's leaves over those axes only, just before the
   layer runs (the model shard stays local); the layer is recomputed in
@@ -282,7 +284,8 @@ class Partition:
     (mirroring the params as ``sharding.param_specs`` gives them), the
     dp axes the batch rows split over (``row_axes``), and whether the
     KV cache's sequence is split over "model" (``cache_seq_split``, set
-    by the decode step)."""
+    by the decode step).  ``n_rows`` is the number of row groups and
+    ``row_at`` this rank's (outer first)."""
 
     def __init__(self, cfg, comm, specs, row_axes: tuple = ()):
         self.cfg, self.comm, self.specs = cfg, comm, specs
@@ -292,6 +295,8 @@ class Partition:
         self.dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
         self.n_dp = comm.size(self.dp_axes)
         self.row_axes = tuple(row_axes)
+        self.n_rows = comm.size(self.row_axes)
+        self.row_at = comm.index(self.row_axes)
         self.cache_seq_split = False
 
     # ---- the gathers of a unit's leaves
@@ -386,6 +391,23 @@ class Partition:
 
     def sum_over_model(self, t):
         return _Reduce.apply(t, self.comm, ("model",)) if self.m > 1 else t
+
+    # ---- MoE routing over the batch rows of every row group
+    def rows_gather(self, t):
+        """``t`` [T, ...] of every row group, in rank order along dim 0
+        (the global token order): no gradient (top-k indices)."""
+        with torch.no_grad():
+            return self.comm.all_gather(t, self.row_axes, 0)
+
+    def row_mean(self, t):
+        """The fp32 mean of ``t`` over the row groups (each rank's ``t`` a
+        mean over as many tokens), all-reduced; the adjoint all-reduces,
+        so each rank's loss, which holds the mean alike, carries the
+        gradient of every rank's share to it."""
+        if not self.row_axes:
+            return t
+        return _Reduce.apply(t.float(), self.comm, self.row_axes) / \
+            self.n_rows
 
     # ---- the train step's reductions
     def dp_mean(self, t):

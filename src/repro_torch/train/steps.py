@@ -19,14 +19,16 @@ tensors now hold the updated values).
 
 The mesh steps (``make_mesh_train_step``, ``make_mesh_prefill_step``,
 ``make_mesh_decode_step``) run one of two routes, chosen by the config
-(``partitioned``), never by a flag.  The dense family on the "tp"
-strategy takes the partitioned route (parallel/partition.py): each rank
-computes on its local shards as the specs divide the work, gathers a
-layer's leaves over the dp axes only while the layer runs, reduce-
-scatters the gradients back to its shards, updates its shards alone, and
-decodes on its sequence shard of the cache.  Every other family, and the
-fused BP+UP path, takes the gathered route: every leaf gathered whole,
-the rank's dp rows run whole, the result placed again.
+(``partitioned``), never by a flag.  The dense family (full attention)
+and the moe family (full attention or MLA) on the "tp" strategy take the
+partitioned route (parallel/partition.py): each rank computes on its
+local shards as the specs divide the work (a MoE's experts over
+"model", its routing global over the batch rows), gathers a layer's
+leaves over the dp axes only while the layer runs, reduce-scatters the
+gradients back to its shards, updates its shards alone, and decodes on
+its sequence shard of the cache.  Every other family (ssm, hybrid, vlm,
+audio), and the fused BP+UP path, takes the gathered route: every leaf
+gathered whole, the rank's dp rows run whole, the result placed again.
 """
 from __future__ import annotations
 
@@ -296,16 +298,23 @@ def rows_of(tree, spec_tree, axes: tuple, at: int, n: int):
     return tree_map(one, tree, spec_tree)
 
 
-def _dp_rows(cfg: ArchConfig, batch, mesh):
+def _dp_rows(cfg: ArchConfig, batch, mesh, microbatches: int = 1):
     """(this rank's rows of ``batch``, the dp process groups that share
     the batch): the rows ``sharding.batch_specs`` gives this rank along
     the dp axes, or the whole batch and no group where its rows do not
-    divide them or one rank holds the dp axes."""
+    divide them or one rank holds the dp axes.  With ``microbatches`` >
+    1 the rank's rows of each microbatch (the batch's equal splits), in
+    order: split again, they are its share of each microbatch, as a MoE
+    routes over the microbatch's rows."""
     axes, at, n = _row_block(cfg, batch, mesh)
     if n == 1:
         return batch, []
-    return ({k: _rows(v, 0, at, n) for k, v in batch.items()},
-            [mesh.get_group(a) for a in axes])
+    groups = [mesh.get_group(a) for a in axes]
+    if microbatches == 1:
+        return {k: _rows(v, 0, at, n) for k, v in batch.items()}, groups
+    return ({k: torch.cat([_rows(c, 0, at, n) for c in
+                           torch.as_tensor(v).chunk(microbatches)])
+             for k, v in batch.items()}, groups)
 
 
 def _dp_mean(groups, t):
@@ -338,9 +347,11 @@ def make_dp_train_step(cfg: ArchConfig, optimizer: Optimizer, mean,
 def partitioned(cfg: ArchConfig, optimizer: Optimizer | None = None,
                 microbatches: int = 1) -> bool:
     """Whether the mesh steps run ``cfg`` on the partitioned route: the
-    dense family on the "tp" strategy with full attention, off the fused
-    path.  Everything else is gathered."""
-    if (cfg.family, cfg.strategy, cfg.attn_kind) != ("dense", "tp", "full"):
+    dense family with full attention and the moe family with full
+    attention or MLA, on the "tp" strategy, off the fused path.
+    Everything else is gathered."""
+    if cfg.strategy != "tp" or (cfg.family, cfg.attn_kind) not in (
+            ("dense", "full"), ("moe", "full"), ("moe", "mla")):
         return False
     return optimizer is None or not fused_update_eligible(
         cfg, optimizer, microbatches)[0]
@@ -416,7 +427,7 @@ def make_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer, mesh,
         part = mesh_partition(cfg, mesh, params, batch)
         local = sh.with_junction_views(partition.local_tree(params),
                                        part.specs, mesh, part.r, views)
-        rows, _ = _dp_rows(cfg, batch, mesh)
+        rows, _ = _dp_rows(cfg, batch, mesh, microbatches)
         run = make_partitioned_train_step(cfg, optimizer, part, microbatches)
         new_p, new_s, metrics = run(local, partition.local_tree(opt_state),
                                     rows, step, lr_scale)
@@ -435,8 +446,7 @@ def make_gathered_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer,
     gives each data-parallel rank its rows of the batch
     (``sharding.batch_specs``) and averages the fp32 gradients (and the
     loss) over the dp axes before the update, as microbatches are
-    averaged; a MoE aux loss is then the mean of the ranks' own, as it is
-    of microbatches'.  The fused path updates inside the backward
+    averaged.  The fused path updates inside the backward
     kernels, where no all-reduce can come between gradient and update,
     so every rank runs the whole batch.  With one rank on the dp axes
     nothing is split or summed."""
@@ -489,7 +499,7 @@ def make_mesh_prefill_step(cfg: ArchConfig, mesh):
         B = batch["tokens"].shape[0]
         lspec = sh.logits_spec(cfg, B, mesh)
         if partitioned(cfg):
-            part = mesh_partition(cfg, mesh, params)
+            part = mesh_partition(cfg, mesh, params, batch)
             local = sh.with_junction_views(partition.local_tree(params),
                                            part.specs, mesh, part.r, views)
             logits, cache, npos = partitioned_prefill(cfg, part, local, rows)
@@ -503,6 +513,16 @@ def make_mesh_prefill_step(cfg: ArchConfig, mesh):
                 sh.place_rows(cache, cspecs, mesh, axes), npos)
 
     return step
+
+
+def cache_seq_split(cspecs) -> bool:
+    """Whether ``sharding.cache_specs`` split the cache's sequence over
+    "model" (read at its first K or MLA latent leaf: every attention
+    layer's cache has the same length)."""
+    for path, spec in sh.spec_items(cspecs):
+        if path.rsplit("/", 1)[-1] in ("k", "latent"):
+            return "model" in sh.spec_axes(spec[2])
+    return False
 
 
 def make_mesh_decode_step(cfg: ArchConfig, mesh):
@@ -523,8 +543,8 @@ def make_mesh_decode_step(cfg: ArchConfig, mesh):
         cspecs = sh.cache_specs(cfg, cache, mesh)
         lspec = sh.logits_spec(cfg, token.shape[0], mesh)
         if partitioned(cfg):
-            part = mesh_partition(cfg, mesh, params)
-            part.cache_seq_split = "model" in sh.spec_axes(cspecs["k"][2])
+            part = mesh_partition(cfg, mesh, params, {"tokens": token})
+            part.cache_seq_split = cache_seq_split(cspecs)
             local = sh.with_junction_views(partition.local_tree(params),
                                            part.specs, mesh, part.r, views)
             logits, _ = partitioned_decode(cfg, part, local,

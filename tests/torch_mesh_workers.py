@@ -396,7 +396,8 @@ def unit_budget(local, specs, mesh) -> int:
                         n *= sizes[a] if a != "model" else 1
                 total += t.numel() * t.element_size() * n
         return total
-    units = [size(lp, f"layers/{i}/") for i, lp in enumerate(local["layers"])]
+    units = [size(lp, f"{k}/{i}/") for k in ("dense_layers", "layers")
+             for i, lp in enumerate(local.get(k, ()))]
     units += [size(local["embed"]["tok"], "embed/tok")]
     if "out" in local["embed"]:
         units.append(size(local["embed"]["out"], "embed/out"))
@@ -520,3 +521,189 @@ def pod_step(rank, d):
     gp = sh.gather(p)
     if rank == 0:
         _save_tree(f"{d}/pod.npz", gp, loss=float(m["loss"]))
+
+
+# tests/test_torch_partitioned_moe.py: (arch, compute dtype, MoE config
+# changes) on a 2 x 4 mesh, FFN density 0.5 at block 32 (the experts,
+# the shared experts and the dense first layer's MLP sparse): reduced
+# qwen3-moe (8 experts, 2 a model rank; its 2 kv heads replicated), with
+# 6 experts (replicated: the axis does not divide them), reduced
+# deepseek-v2-lite (MLA's 4 heads split, its dense first layer, shared
+# experts), and qwen3-moe with a dispatch group of 128 tokens, which
+# spans both data ranks' rows, at a capacity factor of 0.5 (choices
+# dropped)
+MOE_CASES = [("qwen3-moe-30b-a3b", "float32", {}),
+             ("qwen3-moe-30b-a3b", "bfloat16", {}),
+             ("qwen3-moe-30b-a3b", "float32", {"num_experts": 6}),
+             ("qwen3-moe-30b-a3b", "bfloat16", {"num_experts": 6}),
+             ("deepseek-v2-lite-16b", "float32", {}),
+             ("deepseek-v2-lite-16b", "bfloat16", {}),
+             ("qwen3-moe-30b-a3b", "float32",
+              {"group_size": 128, "capacity_factor": 0.5})]
+SPANNING = len(MOE_CASES) - 1
+
+
+def moe_case(arch, dtype, changes):
+    """The reduced config of one MoE case (fp32 params)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.core.sparsity import SparsityConfig
+    cfg = registry.get(arch).reduced().with_sparsity(
+        SparsityConfig(density=0.5, block=32, where="ffn"))
+    return dataclasses.replace(cfg, dtype=dtype, moe=dataclasses.replace(
+        cfg.moe, **changes))
+
+
+class RouteLog:
+    """Inside ``with``: each MoE layer call's (pos, keep) while
+    ``armed``, stacked and flattened to [2, tokens, K, experts]
+    (``models/moe._dispatch_combine``'s arguments)."""
+
+    def __init__(self):
+        self.calls, self.armed = [], True
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        orig, log = moe._dispatch_combine, self
+
+        def spy(top_p, pos, keep, C):
+            if log.armed:
+                K, E = pos.shape[-2:]
+                log.calls.append(
+                    np.stack([pos.detach().reshape(-1, K, E).numpy(),
+                              keep.detach().reshape(-1, K, E).numpy()]))
+            return orig(top_p, pos, keep, C)
+        self._orig, moe._dispatch_combine = orig, spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._dispatch_combine = self._orig
+
+
+def _counts(c):
+    return {"dot_flops": c.dot_flops,
+            "coll": {k: list(v) for k, v in c.coll_detail.items()}}
+
+
+def moe_partitioned_run(rank, d):
+    """Each MOE_CASES case on a 2 x 4 mesh from the reference's carried
+    weights (``in_<case>.npz``), as ``partitioned_run`` runs PART_CASES:
+    one two-pass Adam step (clip 1.0) counted under ``DispatchCounter``,
+    a prefill of the first PART_PROMPT tokens padded to PART_S and
+    PART_DECODE greedy decode steps, the first counted.  Each rank writes
+    its routing (``RouteLog``: the train step's forward, the prefill,
+    the decode steps) to ``route_<case>_<rank>.npz`` and its gather log,
+    counts and held bytes to ``log_<case>_<rank>.json``; rank 0 writes
+    the gathered params, Adam's m, the loss and aux, the logits and the
+    tokens to ``out_<case>.npz``.  The spanning case also runs today's
+    gathered mesh step (``make_gathered_mesh_train_step``) and the
+    partitioned step at 2 microbatches (its params to ``mb2.npz``)."""
+    import json
+
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adam, constant_schedule
+    from repro_torch.parallel import partition
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.roofline import dispatch
+    from repro_torch.train import steps
+
+    mesh = make_local_mesh(2, 4, "cpu")
+    log = GatherLog()
+    with RouteLog() as route:
+        route.armed = False
+        for i, case in enumerate(MOE_CASES):
+            cfg = moe_case(*case)
+            raw = dict(np.load(f"{d}/in_{i}.npz"))
+            tokens = raw.pop("batch_tokens")
+            full = from_jax_params(_tree_from_flat(raw))
+            specs = sh.param_specs(cfg, full, mesh)
+            placed = sh.place(full, specs, mesh)
+            opt = adam(constant_schedule(1e-3), grad_clip=1.0)
+            state = sh.place_state(opt.init(full), specs, mesh)
+            budget = unit_budget(partition.local_tree(placed), specs, mesh)
+            step = steps.make_mesh_train_step(cfg, opt, mesh)
+            log.sizes, log.peak, log.dtensor = [], log.live, []
+            start = log.live
+            route.calls = []
+            log.armed = route.armed = True
+            with dispatch.DispatchCounter() as c:
+                p, s, m = step(placed, state, {"tokens": tokens}, 0)
+            log.armed = route.armed = False
+            train = dict(_counts(c), gathers=len(log.sizes),
+                         largest=max(log.sizes), peak=log.peak - start,
+                         budget=budget, dtensor=log.dtensor,
+                         held={"params": sh.held_bytes(placed)[0],
+                               "opt_state": sh.held_bytes(state)[0]},
+                         after={"params": sh.held_bytes(p)[0],
+                                "opt_state": sh.held_bytes(s)[0]})
+            n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+            routes = {"train": route.calls[:n_moe]}
+            gp, gm = sh.gather(p), sh.gather(s["m"])
+            extra = {}
+            if i == SPANNING:
+                gathered = steps.make_gathered_mesh_train_step(cfg, opt,
+                                                               mesh)
+                _, _, got = gathered(placed, state, {"tokens": tokens}, 0)
+                extra = {"gathered_loss": float(got["loss"]),
+                         "gathered_aux": float(got["aux"])}
+                p2, _, got = steps.make_mesh_train_step(cfg, opt, mesh, 2)(
+                    placed, state, {"tokens": tokens}, 0)
+                gp2 = sh.gather(p2)
+                extra.update(mb2_loss=float(got["loss"]),
+                             mb2_aux=float(got["aux"]))
+            prompt = tokens.copy()
+            prompt[:, PART_PROMPT:] = 0
+            log.sizes, log.peak, log.dtensor = [], log.live, []
+            start = log.live
+            route.calls = []
+            log.armed = route.armed = True
+            lg, cache, _ = steps.make_mesh_prefill_step(cfg, mesh)(
+                placed, {"tokens": prompt})
+            log.armed = False
+            logits = [lg.full_tensor()]
+            decode = steps.make_mesh_decode_step(cfg, mesh)
+            tok = torch.as_tensor(tokens[:, PART_PROMPT:PART_PROMPT + 1])
+            out_tok, held_c = [], sh.held_bytes(cache)[0]
+            for t in range(PART_DECODE):
+                log.armed = True
+                with dispatch.DispatchCounter() as c:
+                    lg, cache = decode(placed, cache, tok, PART_PROMPT + t)
+                log.armed = False
+                if t == 0:
+                    dec = dict(_counts(c), held={
+                        "params": sh.held_bytes(placed)[0], "cache": held_c,
+                        "logits": sh.held_bytes(lg)[0]})
+                logits.append(lg.full_tensor())
+                tok = logits[-1].argmax(-1).to(torch.int32)
+                out_tok.append(tok)
+            route.armed = False
+            routes["serve"] = route.calls
+            serve = {"budget": budget, "gathers": len(log.sizes),
+                     "peak": log.peak - start,
+                     "largest": max(log.sizes, default=0),
+                     "dtensor": log.dtensor,
+                     "cache_local": {k: list(t.to_local().shape)
+                                     for k, t in _cache_items(cache)}}
+            np.savez(f"{d}/route_{i}_{rank}.npz",
+                     **{f"{k}_{j}": a for k, v in routes.items()
+                        for j, a in enumerate(v)})
+            with open(f"{d}/log_{i}_{rank}.json", "w") as f:
+                json.dump({"train": train, "serve": serve, "decode": dec}, f)
+            if rank == 0:
+                if i == SPANNING:
+                    _save_tree(f"{d}/mb2.npz", gp2)
+                _save_tree(f"{d}/out_{i}.npz", {"params": gp, "m": gm},
+                           loss=float(m["loss"]), aux=float(m["aux"]),
+                           logits=torch.stack(logits).float().numpy(),
+                           tokens=torch.cat(out_tok, 1).numpy(), **extra)
+
+
+def _cache_items(cache, prefix=""):
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            yield from _cache_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
