@@ -115,7 +115,8 @@ PyTorch built for CUDA.  It
    decode step against the plain versions, the bf16 tokens' agreement
    with the continuous engine; at full width and 2 layers in fp32 the
    static tokens equal the continuous engine's; then ``launch/train.py``
-   writes a checkpoint of one SGD step and ``launch/serve.py --ckpt``
+   writes a checkpoint of one SGD step of stablelm-3b at full width and
+   CKPT_LAYERS layers and ``launch/serve.py --ckpt``
    (static and continuous) serves it: params equal bit for bit, tokens
    equal serving the trained params from memory; qwen3-moe's 8-row bf16
    prefill is traced block by block through the kernels and the plain
@@ -124,7 +125,7 @@ PyTorch built for CUDA.  It
    kernels routed, and the gap over rows with and without a flip);
 14. serves full-size sparse falcon-mamba-7b (Mamba-1, 64 layers) on the
    static engine in bf16 and int8, and trains
-   it at full width and 8 layers on the three update paths, with exact
+   it at full width and 2 layers on the three update paths, with exact
    launch counts and one 2-layer step against the plain versions; serves
    full-size zamba2-2.7b (54 Mamba-2 layers in 9 super-blocks sharing one
    attention block) and trains it two-pass (one 4-layer step, two
@@ -197,7 +198,14 @@ PyTorch built for CUDA.  It
    of stablelm-3b at full width and 2 layers, and the fused SGD step
    under the same mesh (``make_mesh_train_step``), each against the same
    path without a mesh: losses and params bit for bit, exact launches,
-   the bytes the rank holds at rest, each path's step time;
+   the bytes the rank holds at rest, each path's step time; then the
+   partitioned route (``steps.partitioned``) under the same mesh for
+   stablelm-3b, qwen3-moe-30b-a3b, deepseek-v2-lite-16b, falcon-mamba-7b
+   (2 of its 64 layers) and zamba2-2.7b (one super-block: 6 Mamba-2
+   layers and the shared block), sparse, bf16: train, prefill and greedy
+   decode steps bit for bit against the plain steps, exact fwd / dx / dw
+   launches on tensor cores, the step time partitioned / gathered /
+   plain, the dry run's predicted peak beside the measured one;
 19. runs the paper's junction pipeline at mesh scale
    (``parallel/pipeline.py``) over 4 stages, each a stablelm-3b layer's
    sparse MLP with its pre-norm and residual (bf16 compute, fp32
@@ -3841,17 +3849,24 @@ def ssm_layer_gaps(P, cfg, params, prompts, card):
     torch.cuda.empty_cache()
 
 
+# the checkpoint check's depth: full width, CKPT_LAYERS of stablelm-3b's
+# 32 layers (at 32 its checkpoint was 11 GiB and the check 40-60 s)
+CKPT_LAYERS = 2
+
+
 def ckpt_check(P, card):
-    """launch/train.py (one SGD step of full-size sparse stablelm-3b, its
-    exit checkpoint under build/) and launch/serve.py --ckpt, static and
-    --continuous: the params each launcher hands its engine equal the
-    trained ones bit for bit, and the tokens equal serving the trained
-    params held in memory through the same engine."""
+    """launch/train.py (one SGD step of sparse stablelm-3b at full width
+    and CKPT_LAYERS layers, its exit checkpoint under build/) and
+    launch/serve.py --ckpt at the same depth, static and --continuous:
+    the params each launcher hands its engine equal the trained ones bit
+    for bit, and the tokens equal serving the trained params held in
+    memory through the same engine."""
     ck = ROOT / "build" / "ckpt_serve"
     shutil.rmtree(ck, ignore_errors=True)
+    depth = ["--layers", str(CKPT_LAYERS)]
     t0 = time.perf_counter()
     res = P.train.main(["--arch", "stablelm-3b", "--sparse", "--optim",
-                        "sgd", "--steps", "1", "--ckpt", str(ck)])
+                        "sgd", "--steps", "1", "--ckpt", str(ck), *depth])
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     size = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file())
@@ -3859,8 +3874,9 @@ def ckpt_check(P, card):
     del res["opt_state"]
     torch.cuda.empty_cache()
     for mode in ("static", "continuous"):
-        argv = ["--arch", "stablelm-3b", "--ckpt", str(ck), *STATIC_ARGS] + (
-            ["--continuous"] if mode == "continuous" else [])
+        argv = ["--arch", "stablelm-3b", "--ckpt", str(ck), *depth,
+                *STATIC_ARGS] + (["--continuous"] if mode == "continuous"
+                                 else [])
         t0 = time.perf_counter()
         out, made = _served(P, lambda: P.serve.main(argv))
         dt = time.perf_counter() - t0
@@ -3895,10 +3911,11 @@ def ckpt_check(P, card):
 
 
 # ------------------------------------------- ssm, hybrid, dense configs
-# falcon-mamba-7b trains at full width and 8 of its 64 layers (qwen3-moe
-# trains 6 of 48): one layer holds 0.03 B junction and 0.05 B dense
-# params, and the embeddings 0.53 B
-SSM_TRAIN_LAYERS = 8
+# falcon-mamba-7b trains at full width and 2 of its 64 layers (8 before
+# the mesh phase's state-space paths came; qwen3-moe trains 6 of 48): one
+# layer holds 0.03 B junction and 0.05 B dense params, and the
+# embeddings 0.53 B
+SSM_TRAIN_LAYERS = 2
 # the dense configs no other phase drives, at full width and 2 layers:
 # command-r-plus-104b's tied 256000 x 12288 embedding alone is 12.6 GB in
 # fp32
@@ -4608,7 +4625,11 @@ def mesh_phase(P, card):
     * the MoE family's partitioned route the same way (``MESH_MOE``:
       qwen3-moe-30b-a3b and deepseek-v2-lite-16b sparse at full width
       and MESH_LAYERS layers, deepseek's first dense), bit for bit
-      against the plain steps, through the gated kernels.
+      against the plain steps, through the gated kernels;
+    * the ssm and hybrid families' partitioned route the same way
+      (``MESH_SSM``: falcon-mamba-7b at 2 of its 64 layers, zamba2-2.7b at
+      one super-block, its 6 Mamba-2 layers and the shared block), bit
+      for bit against the plain steps, through fwd / dx / dw.
 
     Prints each path's median step time beside the plain path's."""
     cfg = dataclasses.replace(
@@ -4654,6 +4675,12 @@ def mesh_phase(P, card):
                 n_layers=MESH_LAYERS)
             paths.update(_mesh_partitioned(P, moe_cfg, mesh, card,
                                            MOE_KEYS, MESH_MOE_TIMED, True))
+        for arch, depth in MESH_SSM:
+            ssm_cfg = dataclasses.replace(
+                P.registry.get(arch).with_sparsity(P.SparsityConfig(
+                    density=0.25, block=BS, where="ffn")), **depth)
+            paths.update(_mesh_partitioned(P, ssm_cfg, mesh, card,
+                                           DENSE_KEYS, MESH_MOE_TIMED, True))
     finally:
         torch.distributed.destroy_process_group()
     return paths
@@ -4716,6 +4743,11 @@ def _mesh_fused(P, cfg, mesh, card):
 # order after the plain one
 MESH_DECODE, MESH_LR, MESH_TIMED, MESH_MOE_TIMED = 4, 1e-3, 5, 3
 MESH_MOE = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b")
+# the state-space families at full width: falcon-mamba-7b at 2 of its 64
+# layers, zamba2-2.7b at one super-block (6 Mamba-2 layers, the shared
+# block once)
+MESH_SSM = (("falcon-mamba-7b", {"n_layers": 2}),
+            ("zamba2-2.7b", {"n_layers": 6, "hybrid_attn_every": 6}))
 DENSE_KEYS = ("junction_fwd", "junction_dx", "junction_dw")
 MOE_KEYS = DENSE_KEYS + ("junction_gated_fwd", "junction_gated_dx",
                          "junction_gated_dw")
@@ -4724,8 +4756,8 @@ MOE_KEYS = DENSE_KEYS + ("junction_gated_fwd", "junction_gated_dx",
 def _mesh_partitioned(P, cfg, mesh, card, keys=DENSE_KEYS,
                       n_steps=MESH_TIMED, exact=False):
     """The partitioned route on the one-rank mesh (``cfg``: stablelm-3b,
-    or a MESH_MOE arch, sparse at MESH_LAYERS layers, fp32 params, bf16
-    compute):
+    or a MESH_MOE arch, sparse at MESH_LAYERS layers, or a MESH_SSM arch
+    at its depth, fp32 params, bf16 compute):
 
     * ``n_steps`` two-pass Adam steps (clip 1.0) of batch TRAIN_B x
       TRAIN_S through ``make_mesh_train_step`` (partitioned), through
@@ -4741,7 +4773,9 @@ def _mesh_partitioned(P, cfg, mesh, card, keys=DENSE_KEYS,
       tokens (padded to TRAIN_S) and MESH_DECODE greedy decode steps
       against the plain steps fed the same tokens: logits within
       ``LOGIT_REL_TOL`` (bit for bit where ``exact``), greedy tokens
-      equal, the forward launches of ``keys`` equal."""
+      equal, the forward launches of ``keys`` equal;
+    * one more partitioned and plain step each under the profiler
+      (``step_breakdown``): the device time beside the wall time."""
     opt = P.optim.adam(P.optim.constant_schedule(MESH_LR))
     require(P.steps.partitioned(cfg, opt)
             and P.dryrun.execution(cfg) == "partitioned",
@@ -4775,6 +4809,10 @@ def _mesh_partitioned(P, cfg, mesh, card, keys=DENSE_KEYS,
             dts.append(time.perf_counter() - t0)
         counts = with_tc(P, P.ops.launch_counts())
         peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        if kind != "gathered":
+            step_breakdown(lambda: step(params, state, batches[-1], n_steps),
+                           statistics.median(dts[1:]),
+                           f"{cfg.name} {kind} mesh step", card, top=3)
         if kind != "plain":
             params, state = P.sharding.gather(params), P.sharding.gather(
                 state)

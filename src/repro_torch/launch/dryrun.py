@@ -33,8 +33,9 @@ Counted per rank as the port's mesh steps (``train/steps.make_mesh_*``)
 do the work, on the route ``steps.partitioned`` gives the cell (the
 record's ``"execution"``):
 
-* ``"partitioned"`` (the dense family, and the moe family with full
-  attention or MLA): the rank's step on its shards
+* ``"partitioned"`` (the dense family, the moe family with full
+  attention or MLA, the ssm family and the hybrid): the rank's step on
+  its shards
   (``attach``, its junction views from ``sharding.with_junction_views``)
   and rows, through the same code the mesh runs
   (``steps.make_partitioned_train_step``, ``steps.partitioned_prefill``
@@ -47,10 +48,13 @@ record's ``"execution"``):
   decode's log-sum-exp all-reduces, a MoE's routing (its logits'
   all-gather over "model", the all-gather of the top-k indices over the
   row axes where a dispatch group crosses them, the all-reduces of the
-  load-balance means), the clip norm's and the metrics'.
+  load-balance means), a Mamba mixer's all-to-all that regroups the
+  columns its channels or heads read (``Partition.regroup``, forward
+  and backward) and Mamba-1's all-reduce of ``x_proj``'s partial
+  products, the clip norm's and the metrics'.
   The model axis divides the compute as the specs say, and so does the
   memory: no leaf is gathered whole and the cache stays sharded.
-* ``"gathered"`` (ssm, hybrid, vlm, audio): the mesh steps gather every leaf
+* ``"gathered"`` (vlm, audio): the mesh steps gather every leaf
   and run the rank's dp rows whole, so the model axis divides no
   compute.  ``dot_flops`` and the eager ``mem_bytes`` are counted on the
   full gathered shapes and the rank's rows.  The collectives come from
@@ -61,11 +65,11 @@ record's ``"execution"``):
   dp group (``steps.make_dp_train_step``, its ``mean`` reckoned here
   instead of run).
 
-Collectives follow ``roofline/dispatch.py``'s conventions (an all-gather
-and a reduce-scatter count their output bytes, an all-reduce twice its
-bytes).  ``per_device_gb`` is the bytes the rank holds at
-rest (``at_rest_bytes``: the shards of params, optimizer state, cache and
-logits, from ``attach``) plus the step's eager peak
+Collectives follow ``roofline/dispatch.py``'s conventions (an
+all-gather, a reduce-scatter and an all-to-all count their output bytes,
+an all-reduce twice its bytes).  ``per_device_gb`` is the bytes the rank
+holds at rest (``at_rest_bytes``: the shards of params, optimizer state,
+cache and logits, from ``attach``) plus the step's eager peak
 (``memory_stats["peak_bytes"]``: gathered leaves, activations,
 gradients, the new state), in GiB.  Train cells try 1, 2, 4, 8
 microbatches and keep the first whose ``per_device_gb`` is below the

@@ -24,9 +24,10 @@ caches hold per-layer states, a ring, a latent or the encoder's cross
 K / V that a paged pool does not, and ``--continuous`` refuses them.  Weights are random, made from ``--seed``, unless
 ``--ckpt DIR`` restores the params of the newest checkpoint that
 ``launch/train.py`` wrote there (``train/checkpoint.restore_latest``;
-the same ``--arch``, ``--reduce``, ``--sparse`` and ``--density`` as the
-training run, or the restore raises).  ``--quantize int8`` serves the
-sparse FFN junctions from int8 codes (quantized at load).  ``--obs
+the same ``--arch``, ``--reduce``, ``--layers``, ``--sparse`` and
+``--density`` as the training run, or the restore raises).
+``--quantize int8`` serves the sparse FFN junctions from int8 codes
+(quantized at load).  ``--obs
 PATH`` streams the continuous engine's per-request spans, TTFT and
 inter-token histograms and occupancy gauges to a JSONL file that
 ``repro_torch.launch.obs_report`` renders; ``--profile DIR`` writes a
@@ -41,6 +42,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-3b")
     ap.add_argument("--reduce", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "config's), as launch/train.py --layers")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
@@ -81,6 +85,7 @@ def main(argv=None):
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
 
+    import dataclasses
     import time
 
     import numpy as np
@@ -99,6 +104,8 @@ def main(argv=None):
     cfg = registry.get(args.arch)
     if args.reduce:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.sparse:
         block = 32 if args.reduce else 128
         cfg = cfg.with_sparsity(SparsityConfig(

@@ -42,20 +42,25 @@ the decoder's too, not the dense first layers or the encoder's) and
 after each hybrid super-block.
 
 Under a ``parallel/partition.Partition`` (the partitioned mesh steps,
-``train/steps.py``) the dense and moe families' ``forward``,
+``train/steps.py``) the dense, moe, ssm and hybrid families' ``forward``,
 ``decode_step`` and ``loss_fn`` run on the rank's shards: each layer
-(a MoE model's dense first layers first) gathers its leaves over the dp
+(a MoE model's dense first layers first; each of the hybrid's Mamba
+layers, and its shared block at each use) gathers its leaves over the dp
 axes just before it runs (``Partition.gather``) and, under grad, is
 recomputed in the backward (gathering again) whatever ``cfg.remat``
 says; the products run on the rank's heads, output blocks, features and
 experts (``moe.moe_apply_tp``: routing global over the batch rows), MLA
-on the rank's heads and its shard of the latent cache;
-the residual is stored sequence-sharded over "model"; the embedding and
-unembedding are vocab-parallel, their logits the rank's vocab columns
-(placed by ``sharding.logits_spec``), and the cross entropy takes its
-log-sum-exp over "model".  Decoding runs on the rank's sequence shard of
-the cache.  Without a partition they do what the rest of this module
-says.
+on the rank's heads and its shard of the latent cache, a Mamba mixer on
+the rank's channels (Mamba-1) or heads (Mamba-2) and its shard of the
+state (``ssm.mamba1_apply_tp`` / ``mamba2_apply_tp``); the shared
+block's gradient is summed over its uses before it is reduced
+(``partition.SharedUses``); the residual is stored sequence-sharded over
+"model"; the embedding and unembedding are vocab-parallel, their logits
+the rank's vocab columns (placed by ``sharding.logits_spec``), and the
+cross entropy takes its log-sum-exp over "model".  Decoding runs on the
+rank's sequence shard of the attention cache and its channels' or
+heads' shard of the state.  Without a partition they do what the rest
+of this module says.
 
 The layers run in a Python loop; with ``cfg.remat`` each training layer
 (and the hybrid's shared block at each use) is recomputed in the
@@ -80,8 +85,9 @@ from repro_torch.models.layers import (embed_init, embed_tokens, mlp_apply,
                                        mlp_apply_tp, mlp_init, norm_apply,
                                        norm_init, sinusoidal_pos, unembed)
 from repro_torch.models.moe import moe_apply, moe_apply_tp, moe_init
-from repro_torch.models.ssm import (mamba1_apply, mamba1_init, mamba2_apply,
-                                    mamba2_init)
+from repro_torch.models.ssm import (mamba1_apply, mamba1_apply_tp,
+                                    mamba1_init, mamba2_apply,
+                                    mamba2_apply_tp, mamba2_init)
 from repro_torch.parallel import hints, partition
 
 Params = dict[str, Any]
@@ -249,15 +255,17 @@ def _ssm_block(lp, x, cfg: ArchConfig, cache=None, decode: bool = False):
     return x + y, new_cache, 0.0
 
 
-def _ssm_zero(cfg: ArchConfig, B: int, x):
-    """A layer's zeroed state, for a prefill that hands its state back."""
-    K, di, N = cfg.conv_width, cfg.d_inner_, cfg.ssm_state
-    if cfg.family == "hybrid":
-        conv, ssm = (B, K - 1, di + 2 * N), (B, cfg.ssm_heads,
-                                            cfg.ssm_head_dim, N)
-    else:
-        conv, ssm = (B, K - 1, di), (B, di, N)
-    return {"conv": x.new_zeros(conv),
+def _ssm_zero(cfg: ArchConfig, lp, B: int, x):
+    """A layer's zeroed state, for a prefill that hands its state back:
+    its conv columns and its channels' (Mamba-1) or heads' (Mamba-2)
+    state, read off the layer's conv_w and A_log (a rank's shard of them
+    on the partitioned route)."""
+    q = lp["ssm"]
+    n, N = q["A_log"].shape[0], cfg.ssm_state
+    ssm = (B, n, cfg.ssm_head_dim, N) if cfg.family == "hybrid" else (B, n,
+                                                                       N)
+    return {"conv": x.new_zeros((B, cfg.conv_width - 1,
+                                 q["conv_w"].shape[1])),
             "ssm": x.new_zeros(ssm, dtype=torch.float32)}
 
 
@@ -349,9 +357,9 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
         if return_cache:
             cache = _stack(caches)
     elif cfg.family == "ssm":
-        zero = _ssm_zero(cfg, x.shape[0], x) if return_cache else None
         caches = []
         for lp in params["layers"]:
+            zero = _ssm_zero(cfg, lp, x.shape[0], x) if return_cache else None
             x, c, _ = _layer(_ssm_block, lp, x, cfg, zero, cfg=cfg)
             x = hints.constrain_tokens3d(x, cfg)
             if return_cache:
@@ -359,13 +367,14 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
         if return_cache:
             cache = _stack(caches)
     else:   # hybrid
-        zero = _ssm_zero(cfg, x.shape[0], x) if return_cache else None
         kv, states = [], []
         for lps in params["layers"]:
             x, c, _ = _layer(_attn_mlp_block, params["shared_attn"], x, cfg,
                              positions, cfg=cfg)
             inner = []
             for lp in lps:
+                zero = (_ssm_zero(cfg, lp, x.shape[0], x) if return_cache
+                        else None)
                 x, s, _ = _layer(_ssm_block, lp, x, cfg, zero, cfg=cfg)
                 x = hints.constrain_tokens3d(x, cfg)
                 inner.append(s)
@@ -557,10 +566,11 @@ def loss_fn(cfg: ArchConfig, params: Params, batch):
 
 # ------------------------------------------- the partitioned route
 def _partition(cfg: ArchConfig):
-    """The current ``Partition``, for the dense and moe families (the
-    partitioned steps run no other)."""
+    """The current ``Partition``, for the dense, moe, ssm and hybrid
+    families (the partitioned steps run no other)."""
     part = partition.current()
-    if part is not None and cfg.family not in ("dense", "moe"):
+    if part is not None and cfg.family not in ("dense", "moe", "ssm",
+                                               "hybrid"):
         raise ValueError(f"family {cfg.family!r} has no partitioned route")
     return part
 
@@ -654,15 +664,16 @@ def _ffn_tp(part, v, h, S: int):
     return y, aux
 
 
-def _block_tp(part, lp, ls, x, positions, want_cache: bool):
-    """A dense or MoE layer on the rank's shards: its leaves gathered over
-    the dp axes, attention (GQA or MLA) on the rank's heads and the FFN on
-    its features or experts, each product's result placed back in the
-    residual layout.  Returns (x, the rank's cache of the layer or None,
-    the aux loss)."""
+def _block_tp(part, lp, ls, x, positions, want_cache: bool, shared=None):
+    """A dense or MoE layer (or the hybrid's shared block, ``shared`` its
+    ``partition.SharedUses``) on the rank's shards: its leaves gathered
+    over the dp axes, attention (GQA or MLA) on the rank's heads and the
+    FFN on its features or experts, each product's result placed back in
+    the residual layout.  Returns (x, the rank's cache of the layer or
+    None, the aux loss)."""
     cfg = part.cfg
     S = positions.shape[0]
-    v = part.gather(lp, ls)
+    v = part.gather(lp, ls, shared)
     h = part.tokens(norm_apply(v["norm1"], x, cfg.norm, cfg.norm_eps), S)
     if cfg.attn_kind == "mla":
         a, la, (lat, kr) = attn.mla_forward_tp(part, v["attn"], h, cfg,
@@ -689,6 +700,29 @@ def _forward_tp(cfg: ArchConfig, params, batch, part, return_cache: bool,
     S = tokens.shape[1]
     x = hints.constrain_tokens3d(_embed_tp(part, params, tokens, cfg), cfg)
     positions = torch.arange(S, device=x.device)
+    want = return_cache and not torch.is_grad_enabled()
+    if cfg.family in ("ssm", "hybrid"):
+        (x, cache), aux = _ssm_stack_tp(part, params, x, positions, want), 0.0
+    else:
+        x, cache, aux = _attn_stacks_tp(part, params, x, positions, want)
+    fn = part.gather(params["final_norm"], part.specs["final_norm"])
+    x = norm_apply(fn, x, cfg.norm, cfg.norm_eps)
+    if last_only:
+        x = part.last_position(x, S)
+    if return_hidden:
+        return x, cache, (aux, 0)
+    if not last_only:
+        x = part.tokens(x, S)
+    return (unembed(_unembed_unit(part, params, cfg), x, cfg), cache,
+            (aux, 0))
+
+
+def _attn_stacks_tp(part, params, x, positions, want_cache: bool):
+    """The dense and moe families' layers (a MoE model's dense first
+    layers first) on the rank's shards, each recomputed in the backward
+    under grad.  Returns (x, the rank's cache in ``make_cache``'s
+    structure or None, the summed aux loss)."""
+    cfg = part.cfg
     grad = torch.is_grad_enabled()
     aux, parts = 0.0, []
     for layers, specs, _ in _tp_stacks(part, params):
@@ -698,26 +732,85 @@ def _forward_tp(cfg: ArchConfig, params, batch, part, return_cache: bool,
                 x, c, a = checkpoint(_block_tp, part, lp, ls, x, positions,
                                      False, use_reentrant=False)
             else:
-                x, c, a = _block_tp(part, lp, ls, x, positions, return_cache)
+                x, c, a = _block_tp(part, lp, ls, x, positions, want_cache)
             if layers is params["layers"]:
                 x = hints.constrain_tokens3d(x, cfg)
             caches.append(c)
             aux = aux + a
         parts.append(caches)
-    fn = part.gather(params["final_norm"], part.specs["final_norm"])
-    x = norm_apply(fn, x, cfg.norm, cfg.norm_eps)
     cache = None
-    if return_cache:
+    if want_cache:
         cache = (_stack(parts[0]) if len(parts) == 1 else
                  {"dense": _stack(parts[0]), "moe": _stack(parts[1])})
-    if last_only:
-        x = part.last_position(x, S)
-    if return_hidden:
-        return x, cache, (aux, 0)
-    if not last_only:
-        x = part.tokens(x, S)
-    return (unembed(_unembed_unit(part, params, cfg), x, cfg), cache,
-            (aux, 0))
+    return x, cache, aux
+
+
+def _ssm_block_tp(part, lp, ls, x, S: int, cache=None, decode=False):
+    """A state-space layer on the rank's shards: its leaves gathered over
+    the dp axes, every position gathered over "model" for the mixer
+    (``mamba1_apply_tp`` / ``mamba2_apply_tp``: the rank's channels or
+    heads), its output placed back in the residual layout.  Returns (x,
+    the rank's shard of the layer's state: given a ``cache`` or in
+    decode)."""
+    cfg = part.cfg
+    v = part.gather(lp, ls)
+    h = part.tokens(norm_apply(v["norm"], x, cfg.norm, cfg.norm_eps), S)
+    mix = mamba2_apply_tp if cfg.family == "hybrid" else mamba1_apply_tp
+    y, ly, new = mix(part, v["ssm"], h, cfg, cache=cache, decode=decode)
+    out = sl.add_row_bias(v["ssm"]["out_proj"], part.residual(y, ly, S))
+    return x + out, new
+
+
+def _ssm_stack_tp(part, params, x, positions, want_cache: bool):
+    """The ssm family's layers, or the hybrid's super-blocks (the shared
+    block through ``_block_tp`` at each use, its gradient summed over the
+    uses before it is reduced: ``partition.SharedUses``), on the rank's
+    shards, each recomputed in the backward under grad.  Returns (x, the
+    rank's cache in ``make_cache``'s structure, or None)."""
+    cfg, specs = part.cfg, part.specs
+    S, B = positions.shape[0], x.shape[0]
+    grad = torch.is_grad_enabled()
+
+    def run(fn, *args):
+        if grad:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def mamba(lp, ls, x):
+        zero = _ssm_zero(cfg, lp, B, x) if want_cache else None
+        x, c = run(_ssm_block_tp, part, lp, ls, x, S, zero)
+        return hints.constrain_tokens3d(x, cfg), c
+
+    if cfg.family == "ssm":
+        caches = []
+        for lp, ls in zip(params["layers"], specs["layers"]):
+            x, c = mamba(lp, ls, x)
+            caches.append(c)
+        return x, _stack(caches) if want_cache else None
+    shared = partition.SharedUses(len(params["layers"])) if grad else None
+    kv, states = [], []
+    for lps, lss in zip(params["layers"], specs["layers"]):
+        x, c, _ = run(_block_tp, part, params["shared_attn"],
+                      specs["shared_attn"], x, positions, want_cache, shared)
+        inner = []
+        for lp, ls in zip(lps, lss):
+            x, st = mamba(lp, ls, x)
+            inner.append(st)
+        x = hints.constrain_tokens3d(x, cfg)
+        kv.append(c)
+        states.append(inner)
+    if not want_cache:
+        return x, None
+    return x, {"attn": _stack(kv),
+               "ssm": _stack([_stack(inner) for inner in states])}
+
+
+def _decode_ssm_tp(part, lp, ls, x, cache_l):
+    """A state-space layer's decode step on the rank's shards and its
+    views of the layer's state (updated in place)."""
+    x, new = _ssm_block_tp(part, lp, ls, x, 1, cache_l, decode=True)
+    _put(cache_l, new)
+    return x
 
 
 def _decode_block_tp(part, lp, ls, x, cache_l, pos: int):
@@ -741,10 +834,26 @@ def _decode_tp(cfg: ArchConfig, params, cache, token, pos: int, part):
     token's residual replicated.  Returns (the rank's vocab columns of
     the logits, cache)."""
     x = _embed_tp(part, params, token, cfg)
-    for layers, specs, c in _tp_stacks(part, params, cache):
-        for l, (lp, ls) in enumerate(zip(layers, specs)):
-            x = _decode_block_tp(part, lp, ls, x,
-                                 {k: t[l] for k, t in c.items()}, pos)
+    specs = part.specs
+    if cfg.family == "ssm":
+        for l, (lp, ls) in enumerate(zip(params["layers"], specs["layers"])):
+            x = _decode_ssm_tp(part, lp, ls, x,
+                               {k: t[l] for k, t in cache.items()})
+    elif cfg.family == "hybrid":
+        att, st = cache["attn"], cache["ssm"]
+        for i, (lps, lss) in enumerate(zip(params["layers"],
+                                           specs["layers"])):
+            x = _decode_block_tp(part, params["shared_attn"],
+                                 specs["shared_attn"], x,
+                                 {k: t[i] for k, t in att.items()}, pos)
+            for j, (lp, ls) in enumerate(zip(lps, lss)):
+                x = _decode_ssm_tp(part, lp, ls, x,
+                                   {k: t[i, j] for k, t in st.items()})
+    else:
+        for layers, lspecs, c in _tp_stacks(part, params, cache):
+            for l, (lp, ls) in enumerate(zip(layers, lspecs)):
+                x = _decode_block_tp(part, lp, ls, x,
+                                     {k: t[l] for k, t in c.items()}, pos)
     fn = part.gather(params["final_norm"], part.specs["final_norm"])
     x = norm_apply(fn, x, cfg.norm, cfg.norm_eps)
     return unembed(_unembed_unit(part, params, cfg), x, cfg), cache

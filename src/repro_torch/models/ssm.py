@@ -13,6 +13,12 @@ models never call the ``selective_scan`` kernel.  The projections
 ``in_proj`` / ``out_proj`` (Mamba-1) and ``in_z`` / ``in_xbc`` /
 ``out_proj`` (Mamba-2) are the paper's sparse junctions when the
 technique applies to the 'ffn' family.
+
+``mamba1_apply_tp`` / ``mamba2_apply_tp`` run a block on one rank of a
+partitioned mesh (parallel/partition.py): the mixer, its state and its
+cache on the rank's channels (Mamba-1) or heads (Mamba-2), the columns
+they need moved to it over "model" (``Partition.regroup``), the
+projections on the rank's slices as the specs split them.
 """
 from __future__ import annotations
 
@@ -137,46 +143,109 @@ def mamba1_apply(p: Params, x, cfg: ArchConfig, cache: dict | None = None,
                  decode: bool = False):
     """x [B,S,d_model] -> (y, new_cache).  Cache: conv [B,K-1,di], ssm
     [B,di,N] fp32; new_cache is None without a cache outside decode."""
-    B, S, _ = x.shape
-    di, N, R = cfg.d_inner_, cfg.ssm_state, cfg.dt_rank_
+    di = cfg.d_inner_
     xz = sl.apply(p["in_proj"], x)
-    xs, z = xz[..., :di], xz[..., di:]
+    y, new_cache = _mamba1_mix(
+        p, xz[..., :di], xz[..., di:], cfg, cache, decode,
+        lambda xs: sl.apply_dense(p["x_proj"], xs),
+        lambda dt: sl.apply_dense(p["dt_proj"], dt))
+    return sl.apply(p["out_proj"], y), new_cache
 
+
+def _mamba1_mix(p: Params, xs, z, cfg: ArchConfig, cache, decode: bool,
+                x_proj, dt_proj):
+    """The Mamba-1 mixer on the channels ``xs`` / ``z`` [B,S,c] hold
+    (``p``'s conv, A_log and D are theirs): (y [B,S,c] in xs's dtype, the
+    new cache).  ``x_proj`` maps xs to [B,S,R+2N] over every channel,
+    ``dt_proj`` the low-rank dt to the channels'."""
+    B, S, c = xs.shape
+    N, R = cfg.ssm_state, cfg.dt_rank_
     conv_state = cache["conv"] if cache is not None else None
-    xs, new_conv = _causal_conv(xs, p["conv_w"].to(x.dtype),
-                                p["conv_b"].to(x.dtype), conv_state)
+    xs, new_conv = _causal_conv(xs, p["conv_w"].to(xs.dtype),
+                                p["conv_b"].to(xs.dtype), conv_state)
     xs = act_fwd(xs, "silu")
 
-    dbc = sl.apply_dense(p["x_proj"], xs)
+    dbc = x_proj(xs)
     dt, Bc, Cc = dbc[..., :R], dbc[..., R:R + N], dbc[..., R + N:]
-    dt = _softplus(sl.apply_dense(p["dt_proj"], dt).float())   # [B,S,di]
-    A = -torch.exp(p["A_log"].float())                          # [di,N]
+    dt = _softplus(dt_proj(dt).float())                          # [B,S,c]
+    A = -torch.exp(p["A_log"].float())                           # [c,N]
     Bc, Cc, xf = Bc.float(), Cc.float(), xs.float()
 
     if decode:  # S == 1 recurrent step
-        h_prev = cache["ssm"]                                   # [B,di,N]
+        h_prev = cache["ssm"]                                    # [B,c,N]
         decay = torch.exp(dt[:, 0, :, None] * A)
         inp = (dt[:, 0, :, None] * Bc[:, 0, None, :]) * xf[:, 0, :, None]
         h = decay * h_prev + inp
         y = torch.matmul(h, Cc[:, 0, :, None])[..., 0][:, None, :]
         new_ssm = h
     else:
-        c = _chunk_len(cfg, S)
+        chunk = _chunk_len(cfg, S)
         scan_dt = getattr(torch, cfg.ssm_scan_dtype)
         h0 = (cache["ssm"].float() if cache is not None
-              else x.new_zeros((B, di, N), dtype=torch.float32))
+              else xs.new_zeros((B, c, N), dtype=torch.float32))
 
         def step(h, dt_c, B_c, C_c, x_c):
             return _mamba1_chunk(h, dt_c, B_c, C_c, x_c, A, scan_dt)
 
-        new_ssm, y = _chunked(step, h0, [t.split(c, dim=1)
+        new_ssm, y = _chunked(step, h0, [t.split(chunk, dim=1)
                                          for t in (dt, Bc, Cc, xf)],
                               cfg.remat)
 
     y = y + p["D"].float() * xf
-    y = y.to(x.dtype) * act_fwd(z, "silu")
-    out = sl.apply(p["out_proj"], y)
-    return out, _new_cache(cache, decode, new_conv, new_ssm)
+    y = y.to(xs.dtype) * act_fwd(z, "silu")
+    return y, _new_cache(cache, decode, new_conv, new_ssm)
+
+
+def mamba1_apply_tp(part, p: Params, x, cfg: ArchConfig,
+                    cache: dict | None = None, decode: bool = False):
+    """``mamba1_apply`` on a rank of a partitioned mesh (parallel/
+    partition.py): x [B,S,d_model] every position, alike on every model
+    rank; ``p`` the layer's leaves gathered over the dp axes, its conv,
+    A_log, D and dt_proj the rank's channels where "model" splits d_inner
+    (c = di / model of them), and the cache its [B,K-1,c] / [B,c,N]
+    shard.  Returns (y, its layout, the new cache).
+
+    ``in_proj``'s output columns are split over "model" as its spec
+    splits them (ranks 0 .. m/2-1 hold xs, the others z), so the rank's
+    columns are regrouped into its channels of xs and of z (one
+    all-to-all of B*S*2c elements; a replicated in_proj is cut).
+    ``x_proj`` (replicated) reads every channel: the rank's channels'
+    partial products are all-reduced in fp32 over "model".  ``dt_proj``
+    is column-parallel, the scan runs on the rank's channels, and
+    ``out_proj`` takes them: row-parallel (dense, partial sums) or its
+    output blocks (a sparse junction's split: y gathered first)."""
+    di = cfg.d_inner_
+    c = p["A_log"].shape[0]
+    c0 = part.r * c if c < di else 0
+    xz, lx = sl.apply_tp(p["in_proj"], x, "full", part)
+    if c == di:
+        xz = part.full(xz, lx)
+        xs, z = xz[..., :di], xz[..., di:]
+    elif lx == "full":
+        xs, z = xz[..., c0:c0 + c], xz[..., di + c0:di + c0 + c]
+    else:
+        m = part.m
+        xz = part.regroup(
+            xz, [(q * 2 * c, (q + 1) * 2 * c) for q in range(m)],
+            [[(q * c, (q + 1) * c), (di + q * c, di + (q + 1) * c)]
+             for q in range(m)])
+        xs, z = xz[..., :c], xz[..., c:]
+
+    def x_proj(xs):
+        if c == di:
+            return sl.apply_dense(p["x_proj"], xs)
+        w = p["x_proj"]["w"].to(xs.dtype)[c0:c0 + c]
+        return part.full(xs.float() @ w.float(), "partial")
+
+    def dt_proj(dt):
+        y, ly = sl.apply_tp(p["dt_proj"], dt, "full", part)
+        return y if ly == "split" or c == di else y[..., c0:c0 + c]
+
+    y, new_cache = _mamba1_mix(p, xs, z, cfg, cache, decode, x_proj,
+                               dt_proj)
+    out, lo = sl.apply_tp(p["out_proj"], y, "split" if c < di else "full",
+                          part)
+    return out, lo, new_cache
 
 
 # ====================================================================
@@ -238,9 +307,7 @@ def mamba2_apply(p: Params, x, cfg: ArchConfig, cache: dict | None = None,
                  decode: bool = False):
     """SSD.  x [B,S,d_model] -> (y, new_cache).  Cache: conv [B,K-1,
     di+2N], ssm [B,H,hd,N] fp32."""
-    B, S, _ = x.shape
     di, N = cfg.d_inner_, cfg.ssm_state
-    H, hd = cfg.ssm_heads, cfg.ssm_head_dim
     z = sl.apply(p["in_z"], x)
     xbc = sl.apply(p["in_xbc"], x)
     dt = sl.apply_dense(p["in_dt"], x)
@@ -248,8 +315,20 @@ def mamba2_apply(p: Params, x, cfg: ArchConfig, cache: dict | None = None,
     xbc, new_conv = _causal_conv(xbc, p["conv_w"].to(x.dtype),
                                  p["conv_b"].to(x.dtype), conv_state)
     xbc = act_fwd(xbc, "silu")
-    xs, Bc, Cc = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
+    y, new_ssm = _mamba2_mix(p, xbc[..., :di], xbc[..., di:di + N],
+                             xbc[..., di + N:], dt, z, cfg, cache, decode)
+    out = sl.apply(p["out_proj"], y)
+    return out, _new_cache(cache, decode, new_conv, new_ssm)
 
+
+def _mamba2_mix(p: Params, xs, Bc, Cc, dt, z, cfg: ArchConfig, cache,
+                decode: bool):
+    """SSD on the heads ``xs`` [B,S,h*hd] / ``dt`` [B,S,h] / ``z`` hold
+    (``p``'s A_log, dt_bias and D are theirs), B and C [B,S,N] read by
+    every head: (y [B,S,h*hd] in z's dtype, the new ssm state)."""
+    B, S, _ = xs.shape
+    hd = cfg.ssm_head_dim
+    H = dt.shape[-1]
     dt = _softplus(dt.float() + p["dt_bias"].float())            # [B,S,H]
     A = -torch.exp(p["A_log"].float())                           # [H]
     xh = xs.reshape(B, S, H, hd).float()
@@ -263,12 +342,13 @@ def mamba2_apply(p: Params, x, cfg: ArchConfig, cache: dict | None = None,
         h = decay[..., None, None] * h_prev + inp
         y = torch.matmul(h, Cf[:, 0, None, :, None])[..., 0]     # [B,H,hd]
         y = y + p["D"].float()[None, :, None] * xh[:, 0]
-        y = y.reshape(B, 1, di)
+        y = y.reshape(B, 1, H * hd)
         new_ssm = h
     else:
         c = _chunk_len(cfg, S)
         h0 = (cache["ssm"].float() if cache is not None
-              else x.new_zeros((B, H, hd, N), dtype=torch.float32))
+              else xs.new_zeros((B, H, hd, cfg.ssm_state),
+                                dtype=torch.float32))
 
         def step(h, dt_c, B_c, C_c, x_c):
             return _mamba2_chunk(h, dt_c, B_c, C_c, x_c, A)
@@ -276,7 +356,59 @@ def mamba2_apply(p: Params, x, cfg: ArchConfig, cache: dict | None = None,
         new_ssm, y = _chunked(step, h0, [t.split(c, dim=1)
                                          for t in (dt, Bf, Cf, xh)],
                               cfg.remat)
-        y = (y + p["D"].float()[None, None, :, None] * xh).reshape(B, S, di)
-    y = y.to(x.dtype) * act_fwd(z, "silu")
-    out = sl.apply(p["out_proj"], y)
-    return out, _new_cache(cache, decode, new_conv, new_ssm)
+        y = (y + p["D"].float()[None, None, :, None] * xh).reshape(
+            B, S, H * hd)
+    return y.to(z.dtype) * act_fwd(z, "silu"), new_ssm
+
+
+def mamba2_apply_tp(part, p: Params, x, cfg: ArchConfig,
+                    cache: dict | None = None, decode: bool = False):
+    """``mamba2_apply`` on a rank of a partitioned mesh: x [B,S,d_model]
+    every position, alike on every model rank; ``p`` the layer's leaves
+    gathered over the dp axes, A_log, dt_bias, D and in_dt the rank's
+    heads where "model" splits them (h = H / model), conv_w / conv_b its
+    share of the di+2N columns where "model" divides them, the cache its
+    [B,K-1,(di+2N)/model] conv and [B,h,hd,N] ssm shard.  Returns (y,
+    its layout, the new cache).
+
+    ``in_z`` is column-parallel (its split is the heads'), or replicated
+    and cut.  The conv is depthwise, so it runs on the rank's share of
+    ``in_xbc``'s columns as the specs split conv_w and the conv cache (a
+    replicated in_xbc cut to them); the columns the rank's heads read,
+    their xs and all of B and C, are then regrouped to it (one
+    all-to-all of B*S*(h*hd+2N) elements received).  SSD runs on the
+    rank's heads; ``out_proj`` takes them as ``mamba1_apply_tp``'s
+    does."""
+    di, N = cfg.d_inner_, cfg.ssm_state
+    H, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    h = p["A_log"].shape[0]
+    c, c0 = h * hd, (part.r * h * hd if h < H else 0)
+
+    def mine(t, layout, n, at):     # the rank's n columns from at
+        if layout == "split" and t.shape[-1] == n:
+            return t
+        t = part.full(t, layout)
+        return t if t.shape[-1] == n else t[..., at:at + n]
+
+    z = mine(*sl.apply_tp(p["in_z"], x, "full", part), c, c0)
+    dt = mine(*sl.apply_tp(p["in_dt"], x, "full", part), h, c0 // hd)
+    C = di + 2 * N
+    cc = p["conv_w"].shape[1]
+    xbc = mine(*sl.apply_tp(p["in_xbc"], x, "full", part), cc,
+               part.r * cc if cc < C else 0)
+    conv_state = cache["conv"] if cache is not None else None
+    xbc, new_conv = _causal_conv(xbc, p["conv_w"].to(x.dtype),
+                                 p["conv_b"].to(x.dtype), conv_state)
+    xbc = act_fwd(xbc, "silu")
+    if cc < C:
+        xbc = part.regroup(
+            xbc, [(q * cc, (q + 1) * cc) for q in range(part.m)],
+            [[(q * c, (q + 1) * c) if h < H else (0, di), (di, C)]
+             for q in range(part.m)])
+    elif h < H:
+        xbc = torch.cat([xbc[..., c0:c0 + c], xbc[..., di:]], dim=-1)
+    y, new_ssm = _mamba2_mix(p, xbc[..., :c], xbc[..., c:c + N],
+                             xbc[..., c + N:], dt, z, cfg, cache, decode)
+    out, lo = sl.apply_tp(p["out_proj"], y, "split" if h < H else "full",
+                          part)
+    return out, lo, _new_cache(cache, decode, new_conv, new_ssm)

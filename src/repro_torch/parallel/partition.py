@@ -10,12 +10,15 @@ of a leaf:
   junction over the rank's output blocks, attention over the rank's
   heads, the embedding and unembedding over the rank's vocab rows, a
   MoE's experts over the rank's experts, routed over every row group:
-  ``rows_gather``, ``row_mean``);
+  ``rows_gather``, ``row_mean``; a state-space mixer over the rank's
+  channels or heads, the columns it needs moved to it by ``regroup``);
 * split over the dp axes ("pod", "data"): FSDP.  ``Partition.gather``
   all-gathers a layer's leaves over those axes only, just before the
   layer runs (the model shard stays local); the layer is recomputed in
   the backward, gathering again, and each gradient is reduce-scattered
-  back to the shard;
+  back to the shard.  A unit that runs more than once in a step (the
+  hybrid's shared block) sums its uses' gradients before that
+  (``SharedUses``);
 * replicated: the work is replicated.
 
 Activations: the residual stream is stored sequence-sharded over "model"
@@ -118,6 +121,13 @@ class MeshComm:
                 t = self._reduce(t, a, op)
         return t
 
+    def all_to_all(self, t, axis: str, out_splits: list, in_splits: list):
+        """Along dim 0 of ``t`` over ``axis``: ``in_splits[q]`` rows to
+        rank q, ``out_splits[q]`` rows from rank q, in rank order."""
+        if self.sizes[axis] == 1:
+            return t
+        return self._all_to_all(t, axis, out_splits, in_splits)
+
     # one axis, through the functional collectives (the names PyTorch
     # 2.13 gives them, or the older ones)
     def _gather(self, t, axis, dim):
@@ -134,6 +144,11 @@ class MeshComm:
         fn = _funcol("all_reduce", "all_reduce")
         return _waited(fn(t.contiguous(), op, self.mesh.get_group(axis)))
 
+    def _all_to_all(self, t, axis, out_splits, in_splits):
+        fn = _funcol("all_to_all_single", "all_to_all_single")
+        return _waited(fn(t.contiguous(), list(out_splits), list(in_splits),
+                          self.mesh.get_group(axis)))
+
 
 def _funcol(name: str, old: str):
     from torch.distributed import _functional_collectives as funcol
@@ -147,8 +162,8 @@ def _waited(t):
 class ReckonedComm(MeshComm):
     """``MeshComm``'s calls reckoned, not issued, as rank 0 of ``mesh``
     (an ``AbstractMesh``) issues them: ``detail`` holds {kind: (bytes,
-    count)} under ``roofline/dispatch.py``'s conventions (an all-gather
-    counts its output bytes, a reduce-scatter its output bytes, an
+    count)} under ``roofline/dispatch.py``'s conventions (an all-gather,
+    a reduce-scatter and an all-to-all count their output bytes, an
     all-reduce twice its bytes), and each call returns an empty tensor
     of the collective's output shape."""
 
@@ -182,6 +197,11 @@ class ReckonedComm(MeshComm):
     def _reduce(self, t, axis, op):
         out = torch.empty_like(t)
         self._add("all-reduce", out, 2)
+        return out
+
+    def _all_to_all(self, t, axis, out_splits, in_splits):
+        out = t.new_empty((sum(out_splits), *t.shape[1:]))
+        self._add("all-to-all", out)
         return out
 
 
@@ -227,16 +247,62 @@ class _Reduce(torch.autograd.Function):
         return got.to(g.dtype), None, None
 
 
+class _Regroup(torch.autograd.Function):
+    """Columns of the last dim moved over "model" (``Partition.regroup``):
+    ``send`` the rank's local columns for each rank in turn, ``in_splits``
+    / ``out_splits`` the counts to and from each rank.  The adjoint sends
+    each received column's gradient back and sums, in fp32, the gradients
+    of a column that several ranks received."""
+
+    @staticmethod
+    def forward(ctx, t, comm, send, in_splits, out_splits):
+        ctx.comm, ctx.send, ctx.splits = comm, send, (in_splits, out_splits)
+        ctx.n = t.shape[-1]
+        rows = t.movedim(-1, 0).index_select(0, send)
+        got = comm.all_to_all(rows, "model", out_splits, in_splits)
+        return got.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        in_splits, out_splits = ctx.splits
+        back = ctx.comm.all_to_all(g.float().movedim(-1, 0), "model",
+                                   in_splits, out_splits)
+        out = back.new_zeros((ctx.n, *back.shape[1:]))
+        out.index_add_(0, ctx.send, back)
+        return out.movedim(0, -1).to(g.dtype), None, None, None, None
+
+
+class SharedUses:
+    """The gradients of a unit that a step runs ``uses`` times (the
+    hybrid's shared block), summed in fp32 over its uses: each leaf's
+    FSDP adjoint reduces the sum once, at the last use's backward; the
+    earlier uses pass no gradient on."""
+
+    def __init__(self, uses: int):
+        self.uses, self.acc = uses, {}
+
+    def add(self, key, g):
+        n, total = self.acc.get(key, (0, None))
+        total = g if total is None else total + g
+        if n + 1 < self.uses:
+            self.acc[key] = (n + 1, total)
+            return None
+        self.acc.pop(key, None)
+        return total
+
+
 class _LeafGather(torch.autograd.Function):
     """A leaf's FSDP gather: an all-gather over the dp axes its spec
     splits (the model shard stays local).  The adjoint sums the gradient
     in fp32 over every dp axis (a reduce-scatter over the split ones, an
     all-reduce over the others), over "model" where the spec does not
-    split the leaf, and divides by the dp ranks."""
+    split the leaf, and divides by the dp ranks.  A leaf of a unit that
+    runs more than once (``shared``, a ``SharedUses``; ``key`` the leaf's)
+    reduces the sum of its uses' gradients once."""
 
     @staticmethod
-    def forward(ctx, t, part, plan):
-        ctx.part, ctx.plan = part, plan
+    def forward(ctx, t, part, plan, shared=None, key=None):
+        ctx.part, ctx.plan, ctx.shared, ctx.key = part, plan, shared, key
         if plan.dp:
             out = part.comm.all_gather(t, plan.dp, plan.dp_dim)
             part.note_gather(out)
@@ -248,6 +314,10 @@ class _LeafGather(torch.autograd.Function):
         part, plan = ctx.part, ctx.plan
         dtype, comm = g.dtype, part.comm
         g = g.float()
+        if ctx.shared is not None:
+            g = ctx.shared.add(ctx.key, g)
+            if g is None:       # an earlier use: the last one reduces
+                return None, None, None, None, None
         if plan.dp:
             g = comm.reduce_scatter(g, plan.dp, plan.dp_dim)
         g = comm.all_reduce(g, plan.dp_rest)
@@ -255,7 +325,7 @@ class _LeafGather(torch.autograd.Function):
             g = comm.all_reduce(g, ("model",))
         if part.n_dp > 1:
             g = g / part.n_dp
-        return g.to(dtype), None, None
+        return g.to(dtype), None, None, None, None
 
 
 class _Plan:
@@ -304,29 +374,32 @@ class Partition:
         """Called with each leaf gather's output: a hook for tests that
         record what a rank holds gathered."""
 
-    def gather(self, tree, spec_tree):
+    def gather(self, tree, spec_tree, shared: SharedUses | None = None):
         """A unit (a layer, the embedding, a norm) ready to run: each
         float leaf through its FSDP gather, each linear container tagged
         with its tensor-parallel kind ``"_tp"`` ("col", "row", "rep") and
         whether its bias is split over "model" (``"_b_split"``).  The
         pattern leaves pass through (the step placed the rank's junction
-        views in them, ``sharding.with_junction_views``)."""
+        views in them, ``sharding.with_junction_views``).  ``shared``:
+        the unit runs that many times a step and its leaves' gradients
+        are summed over the uses before they are reduced."""
         if isinstance(tree, dict):
-            out = {k: self.gather(v, spec_tree[k]) for k, v in tree.items()}
+            out = {k: self.gather(v, spec_tree[k], shared)
+                   for k, v in tree.items()}
             if "w" in tree and torch.is_tensor(tree["w"]):
                 out["_tp"] = tp_kind(spec_tree["w"])
                 out["_b_split"] = ("b" in tree and "model" in
                                    sh.spec_axes(spec_tree["b"][0]))
             return out
         if isinstance(tree, (list, tuple)):
-            return type(tree)(self.gather(v, s)
+            return type(tree)(self.gather(v, s, shared)
                               for v, s in zip(tree, spec_tree))
         if not (torch.is_tensor(tree) and tree.is_floating_point()):
             return tree
         plan = _Plan(spec_tree, self)
         if plan.idle(self):
             return tree
-        return _LeafGather.apply(tree, self, plan)
+        return _LeafGather.apply(tree, self, plan, shared, id(tree))
 
     # ---- feature layouts ("full": every feature on every rank, "split":
     # the rank's contiguous share of the last dim, "partial": partial sums)
@@ -337,6 +410,27 @@ class Partition:
             return _Gather.apply(x, self.comm, ("model",), -1)
         return _Reduce.apply(x, self.comm, ("model",)).to(
             self.cfg.compute_dtype)
+
+    def regroup(self, x, held: list, want: list):
+        """Columns of ``x``'s last dim moved between the model ranks: rank
+        q holds the global columns [held[q][0], held[q][1]) (``x`` is this
+        rank's) and receives the columns of the sorted, disjoint ranges
+        ``want[q]``, in global order (a column may go to several ranks).
+        One all-to-all over "model"; its adjoint sends the gradients
+        back and sums each column's (``_Regroup``).  With one model rank
+        ``want[0]`` must be everything ``held[0]`` holds."""
+        if self.m == 1:
+            return x
+        lo, hi = held[self.r]
+        send, in_splits, out_splits = [], [], []
+        for q in range(self.m):
+            got = _overlaps(lo, hi, want[q])
+            send += [c - lo for a, b in got for c in range(a, b)]
+            in_splits.append(sum(b - a for a, b in got))
+            out_splits.append(sum(b - a for a, b in _overlaps(
+                *held[q], want[self.r])))
+        send = torch.tensor(send, dtype=torch.long, device=x.device)
+        return _Regroup.apply(x, self.comm, send, in_splits, out_splits)
 
     def split(self, x, layout: str):
         """The rank's share of the last dim of a full ``x``."""
@@ -439,6 +533,12 @@ class Partition:
     def any_over_ranks(self, flags):
         """Element-wise max of a float flag vector over every rank."""
         return self.comm.all_reduce(flags, tuple(self.comm.sizes), "max")
+
+
+def _overlaps(lo: int, hi: int, ranges: list) -> list:
+    """The parts of the sorted ``ranges`` that lie in [lo, hi)."""
+    got = [(max(a, lo), min(b, hi)) for a, b in ranges]
+    return [(a, b) for a, b in got if a < b]
 
 
 def tp_kind(spec) -> str:

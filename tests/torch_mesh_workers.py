@@ -379,8 +379,9 @@ class GatherLog:
 
 
 def unit_budget(local, specs, mesh) -> int:
-    """The largest unit's leaves gathered over the dp axes (a layer, the
-    embedding's tok, its out, the final norm): bytes."""
+    """The largest unit's leaves gathered over the dp axes (a layer, a
+    hybrid's Mamba layer or its shared block, the embedding's tok, its
+    out, the final norm): bytes."""
     from repro_torch.parallel import sharding as sh
     from repro_torch.tree import tree_items
     sizes = sh.axis_sizes(mesh)
@@ -396,8 +397,15 @@ def unit_budget(local, specs, mesh) -> int:
                         n *= sizes[a] if a != "model" else 1
                 total += t.numel() * t.element_size() * n
         return total
-    units = [size(lp, f"{k}/{i}/") for k in ("dense_layers", "layers")
-             for i, lp in enumerate(local.get(k, ()))]
+    units = []
+    for k in ("dense_layers", "layers"):
+        for i, lp in enumerate(local.get(k, ())):
+            if isinstance(lp, list):        # the hybrid's super-block
+                units += [size(v, f"{k}/{i}/{j}/") for j, v in enumerate(lp)]
+            else:
+                units.append(size(lp, f"{k}/{i}/"))
+    if "shared_attn" in local:
+        units.append(size(local["shared_attn"], "shared_attn/"))
     units += [size(local["embed"]["tok"], "embed/tok")]
     if "out" in local["embed"]:
         units.append(size(local["embed"]["out"], "embed/out"))
@@ -707,3 +715,116 @@ def _cache_items(cache, prefix=""):
             yield from _cache_items(v, f"{prefix}{k}/")
         else:
             yield f"{prefix}{k}", v
+
+
+# tests/test_torch_partitioned_ssm.py: (arch, compute dtype, config
+# changes) on a 2 x 4 mesh, FFN density 0.5 at block 32: reduced
+# falcon-mamba (d_inner 256: in_proj's 16 output blocks 4 a model rank,
+# xs on ranks 0-1 and z on ranks 2-3), reduced zamba2 at two super-blocks
+# (the shared block run twice; 8 heads, 2 a rank, 64 channels, and
+# in_xbc's 384 columns 96 a rank, across the head boundary) and at one
+# super-block with d_state 48 (in_xbc's 11 output blocks do not divide
+# the axis: replicated, computed whole on every rank and cut to the
+# conv's 88 columns)
+SSM_CASES = [("falcon-mamba-7b", "float32", {}),
+             ("falcon-mamba-7b", "bfloat16", {}),
+             ("zamba2-2.7b", "float32", {"n_layers": 4}),
+             ("zamba2-2.7b", "bfloat16", {"n_layers": 4}),
+             ("zamba2-2.7b", "float32", {"ssm_state": 48}),
+             ("zamba2-2.7b", "bfloat16", {"ssm_state": 48})]
+
+
+def ssm_case(arch, dtype, changes):
+    """The reduced config of one ssm / hybrid case (fp32 params)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.core.sparsity import SparsityConfig
+    cfg = registry.get(arch).reduced().with_sparsity(
+        SparsityConfig(density=0.5, block=32, where="ffn"))
+    return dataclasses.replace(cfg, dtype=dtype, **changes)
+
+
+def ssm_partitioned_run(rank, d):
+    """Each SSM_CASES case on a 2 x 4 mesh from the reference's carried
+    weights (``in_<case>.npz``), as ``moe_partitioned_run`` runs its
+    cases: one two-pass Adam step (clip 1.0) and the first decode step
+    counted under ``DispatchCounter``, a prefill of the first PART_PROMPT
+    tokens padded to PART_S and PART_DECODE greedy decode steps.  Every
+    rank writes its gather log, counts, held bytes and cache shard shapes
+    to ``log_<case>_<rank>.json``; rank 0 writes the gathered params,
+    Adam's m, the loss, the logits and the tokens to ``out_<case>.npz``."""
+    import json
+
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adam, constant_schedule
+    from repro_torch.parallel import partition
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.roofline import dispatch
+    from repro_torch.train import steps
+
+    mesh = make_local_mesh(2, 4, "cpu")
+    log = GatherLog()
+    for i, case in enumerate(SSM_CASES):
+        cfg = ssm_case(*case)
+        raw = dict(np.load(f"{d}/in_{i}.npz"))
+        tokens = raw.pop("batch_tokens")
+        full = from_jax_params(_tree_from_flat(raw))
+        specs = sh.param_specs(cfg, full, mesh)
+        placed = sh.place(full, specs, mesh)
+        opt = adam(constant_schedule(1e-3), grad_clip=1.0)
+        state = sh.place_state(opt.init(full), specs, mesh)
+        budget = unit_budget(partition.local_tree(placed), specs, mesh)
+        step = steps.make_mesh_train_step(cfg, opt, mesh)
+        log.sizes, log.peak, log.dtensor = [], log.live, []
+        start = log.live
+        log.armed = True
+        with dispatch.DispatchCounter() as c:
+            p, s, m = step(placed, state, {"tokens": tokens}, 0)
+        log.armed = False
+        train = dict(_counts(c), gathers=len(log.sizes),
+                     largest=max(log.sizes), peak=log.peak - start,
+                     budget=budget, dtensor=log.dtensor,
+                     held={"params": sh.held_bytes(placed)[0],
+                           "opt_state": sh.held_bytes(state)[0]},
+                     after={"params": sh.held_bytes(p)[0],
+                            "opt_state": sh.held_bytes(s)[0]})
+        gp, gm = sh.gather(p), sh.gather(s["m"])
+        prompt = tokens.copy()
+        prompt[:, PART_PROMPT:] = 0
+        log.sizes, log.peak, log.dtensor = [], log.live, []
+        start = log.live
+        log.armed = True
+        lg, cache, _ = steps.make_mesh_prefill_step(cfg, mesh)(
+            placed, {"tokens": prompt})
+        log.armed = False
+        logits = [lg.full_tensor()]
+        decode = steps.make_mesh_decode_step(cfg, mesh)
+        tok = torch.as_tensor(tokens[:, PART_PROMPT:PART_PROMPT + 1])
+        out_tok, held_c = [], sh.held_bytes(cache)[0]
+        for t in range(PART_DECODE):
+            log.armed = True
+            with dispatch.DispatchCounter() as c:
+                lg, cache = decode(placed, cache, tok, PART_PROMPT + t)
+            log.armed = False
+            if t == 0:
+                dec = dict(_counts(c), held={
+                    "params": sh.held_bytes(placed)[0], "cache": held_c,
+                    "logits": sh.held_bytes(lg)[0]})
+            logits.append(lg.full_tensor())
+            tok = logits[-1].argmax(-1).to(torch.int32)
+            out_tok.append(tok)
+        serve = {"budget": budget, "gathers": len(log.sizes),
+                 "peak": log.peak - start,
+                 "largest": max(log.sizes, default=0),
+                 "dtensor": log.dtensor,
+                 "cache_local": {k: list(t.to_local().shape)
+                                 for k, t in _cache_items(cache)}}
+        with open(f"{d}/log_{i}_{rank}.json", "w") as f:
+            json.dump({"train": train, "serve": serve, "decode": dec}, f)
+        if rank == 0:
+            _save_tree(f"{d}/out_{i}.npz", {"params": gp, "m": gm},
+                       loss=float(m["loss"]),
+                       logits=torch.stack(logits).float().numpy(),
+                       tokens=torch.cat(out_tok, 1).numpy())
