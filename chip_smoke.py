@@ -4629,7 +4629,12 @@ def mesh_phase(P, card):
     * the ssm and hybrid families' partitioned route the same way
       (``MESH_SSM``: falcon-mamba-7b at 2 of its 64 layers, zamba2-2.7b at
       one super-block, its 6 Mamba-2 layers and the shared block), bit
-      for bit against the plain steps, through fwd / dx / dw.
+      for bit against the plain steps, through fwd / dx / dw;
+    * the vlm family's partitioned route the same way (``MESH_VLM``:
+      llava-next-mistral-7b sparse at full width and MESH_LAYERS of its
+      32 layers, 16 patches ahead of each row's text, attention under its
+      4096-token window, the prefill's cache its ring), bit for bit
+      against the plain steps, through fwd / dx / dw.
 
     Prints each path's median step time beside the plain path's."""
     cfg = dataclasses.replace(
@@ -4681,6 +4686,12 @@ def mesh_phase(P, card):
                     density=0.25, block=BS, where="ffn")), **depth)
             paths.update(_mesh_partitioned(P, ssm_cfg, mesh, card,
                                            DENSE_KEYS, MESH_MOE_TIMED, True))
+        arch, depth = MESH_VLM
+        vlm_cfg = dataclasses.replace(
+            P.registry.get(arch).with_sparsity(P.SparsityConfig(
+                density=0.25, block=BS, where="ffn")), **depth)
+        paths.update(_mesh_partitioned(P, vlm_cfg, mesh, card, DENSE_KEYS,
+                                       MESH_MOE_TIMED, True))
     finally:
         torch.distributed.destroy_process_group()
     return paths
@@ -4748,6 +4759,10 @@ MESH_MOE = ("qwen3-moe-30b-a3b", "deepseek-v2-lite-16b")
 # block once)
 MESH_SSM = (("falcon-mamba-7b", {"n_layers": 2}),
             ("zamba2-2.7b", {"n_layers": 6, "hybrid_attn_every": 6}))
+# the vlm at full width: llava-next-mistral-7b at MESH_LAYERS of its 32
+# layers, 16 patches a row (the vlm phase's) ahead of its text
+MESH_VLM = ("llava-next-mistral-7b", {"n_layers": MESH_LAYERS,
+                                      "num_patches": 16})
 DENSE_KEYS = ("junction_fwd", "junction_dx", "junction_dw")
 MOE_KEYS = DENSE_KEYS + ("junction_gated_fwd", "junction_gated_dx",
                          "junction_gated_dw")
@@ -4756,8 +4771,8 @@ MOE_KEYS = DENSE_KEYS + ("junction_gated_fwd", "junction_gated_dx",
 def _mesh_partitioned(P, cfg, mesh, card, keys=DENSE_KEYS,
                       n_steps=MESH_TIMED, exact=False):
     """The partitioned route on the one-rank mesh (``cfg``: stablelm-3b,
-    or a MESH_MOE arch, sparse at MESH_LAYERS layers, or a MESH_SSM arch
-    at its depth, fp32 params, bf16 compute):
+    or a MESH_MOE arch, sparse at MESH_LAYERS layers, or a MESH_SSM or
+    the MESH_VLM arch at its depth, fp32 params, bf16 compute):
 
     * ``n_steps`` two-pass Adam steps (clip 1.0) of batch TRAIN_B x
       TRAIN_S through ``make_mesh_train_step`` (partitioned), through
@@ -4770,7 +4785,9 @@ def _mesh_partitioned(P, cfg, mesh, card, keys=DENSE_KEYS,
     * its count on ``AbstractMesh((1, 1))`` (``dryrun.count_cell``): the
       predicted per-device bytes beside the measured peak;
     * the mesh prefill of TRAIN_B prompts of TRAIN_S - MESH_DECODE
-      tokens (padded to TRAIN_S) and MESH_DECODE greedy decode steps
+      tokens (padded to TRAIN_S; a vlm's prompts are its pipeline's
+      rows, their patches ahead of the text, and its decode positions
+      count from the patches) and MESH_DECODE greedy decode steps
       against the plain steps fed the same tokens: logits within
       ``LOGIT_REL_TOL`` (bit for bit where ``exact``), greedy tokens
       equal, the forward launches of ``keys`` equal;
@@ -4884,9 +4901,11 @@ def _mesh_partitioned_serve(P, cfg, mesh, card, keys=DENSE_KEYS,
     params = P.M.init(cfg, seed=0, device="cuda")
     placed = P.sharding.place(params, P.sharding.param_specs(
         cfg, params, mesh), mesh)
-    tokens = torch.as_tensor(next(P.LMTokenPipeline(
-        cfg, TRAIN_B, TRAIN_S))["tokens"]).to("cuda")
-    start = TRAIN_S - MESH_DECODE
+    batch = {k: torch.as_tensor(v).to("cuda") for k, v in next(
+        P.LMTokenPipeline(cfg, TRAIN_B, TRAIN_S)).items()}
+    tokens = batch.pop("tokens")
+    off = batch["patches"].shape[1] if "patches" in batch else 0
+    start = tokens.shape[1] - MESH_DECODE
     prompt = tokens.clone()
     prompt[:, start:] = 0
 
@@ -4900,10 +4919,10 @@ def _mesh_partitioned_serve(P, cfg, mesh, card, keys=DENSE_KEYS,
             prefill = P.steps.make_prefill_step(cfg)
             decode = P.steps.make_decode_step(cfg)
             p, full = params, lambda t: t
-        lg, cache, _ = prefill(p, {"tokens": prompt})
+        lg, cache, _ = prefill(p, {"tokens": prompt, **batch})
         logits, tok, picks = [full(lg)], tokens[:, start:start + 1], []
         for t in range(MESH_DECODE):
-            lg, cache = decode(p, cache, tok, start + t)
+            lg, cache = decode(p, cache, tok, off + start + t)
             logits.append(full(lg))
             tok = logits[-1].argmax(-1).to(torch.int32)
             picks.append(tok)
@@ -4918,7 +4937,8 @@ def _mesh_partitioned_serve(P, cfg, mesh, card, keys=DENSE_KEYS,
     sub = {k: counts[k] for k in fwd} | {f"{k}_tc": counts[f"{k}_tc"]
                                          for k in fwd}
     print(f"[mesh] partitioned prefill of {cfg.name} {TRAIN_B} x {start} "
-          f"tokens (padded to {TRAIN_S}) and {MESH_DECODE} greedy decode "
+          f"tokens (padded to {tokens.shape[1]}; {off} patches ahead) and "
+          f"{MESH_DECODE} greedy decode "
           f"steps against the plain steps: logits rel_err {err:.3g} (tol "
           f"{LOGIT_REL_TOL[torch.bfloat16]}), bit for bit {same}, greedy "
           f"tokens equal {torch.equal(got_picks, want_picks)}; launches "

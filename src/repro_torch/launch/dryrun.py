@@ -33,9 +33,9 @@ Counted per rank as the port's mesh steps (``train/steps.make_mesh_*``)
 do the work, on the route ``steps.partitioned`` gives the cell (the
 record's ``"execution"``):
 
-* ``"partitioned"`` (the dense family, the moe family with full
-  attention or MLA, the ssm family and the hybrid): the rank's step on
-  its shards
+* ``"partitioned"`` (the dense family, the vlm with its sliding window,
+  the moe family with full attention or MLA, the ssm family and the
+  hybrid): the rank's step on its shards
   (``attach``, its junction views from ``sharding.with_junction_views``)
   and rows, through the same code the mesh runs
   (``steps.make_partitioned_train_step``, ``steps.partitioned_prefill``
@@ -44,7 +44,9 @@ record's ``"execution"``):
   issues them: the per-layer all-gathers over the dp axes, forward and
   backward (each layer recomputed), the gradients' reduce-scatters and
   all-reduces, tensor parallelism's all-gathers, reduce-scatters and
-  all-reduces of activations, the vocab-parallel cross entropy's and
+  all-reduces of activations (a replicated k / v, or MLA's latent,
+  projected on the rank's positions and all-gathered over "model"),
+  the vocab-parallel cross entropy's and
   decode's log-sum-exp all-reduces, a MoE's routing (its logits'
   all-gather over "model", the all-gather of the top-k indices over the
   row axes where a dispatch group crosses them, the all-reduces of the
@@ -54,7 +56,7 @@ record's ``"execution"``):
   products, the clip norm's and the metrics'.
   The model axis divides the compute as the specs say, and so does the
   memory: no leaf is gathered whole and the cache stays sharded.
-* ``"gathered"`` (vlm, audio): the mesh steps gather every leaf
+* ``"gathered"`` (audio): the mesh steps gather every leaf
   and run the rank's dp rows whole, so the model axis divides no
   compute.  ``dot_flops`` and the eager ``mem_bytes`` are counted on the
   full gathered shapes and the rank's rows.  The collectives come from

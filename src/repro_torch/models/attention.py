@@ -21,13 +21,15 @@ updated in place.
 The partitioned mesh steps (parallel/partition.py) run ``gqa_forward_tp``
 on the rank's heads (the q / k / v products column-parallel where their
 specs split them; a replicated k / v, as where the kv heads do not
-divide the model axis, is computed whole and the rank takes the kv heads
-its q heads read) and ``gqa_decode_tp`` on the rank's sequence shard of
-the cache: q gathered over "model", every head attended on the local
-slots, the shards merged by a log-sum-exp combine over "model", and the
-rank's heads kept for ``wo``.  MLA likewise: ``mla_forward_tp`` on the
-rank's heads (the latent computed whole on every rank), ``mla_decode_tp``
-on the rank's sequence shard of the latent cache.
+divide the model axis, is projected on the rank's positions and gathered
+over "model", and the rank takes the kv heads its q heads read) and
+``gqa_decode_tp`` on the rank's sequence shard of the cache (a sliding
+window's ring: its slots): q gathered over "model", every head attended
+on the local slots, the shards merged by a log-sum-exp combine over
+"model", and the rank's heads kept for ``wo``.  MLA likewise:
+``mla_forward_tp`` on the rank's heads (the latent projected on the
+rank's positions and gathered), ``mla_decode_tp`` on the rank's sequence
+shard of the latent cache.
 """
 from __future__ import annotations
 
@@ -401,31 +403,56 @@ def _kv_for(k, k0: int, hk: int, q0: int, hq: int, rep: int):
     return k[..., pick, :]
 
 
-def gqa_forward_tp(part, p: Params, x, cfg: ArchConfig, *, positions):
+def _rep_seq(part, p: Params, local, positions, n_heads: int, hd: int,
+             theta=None, partial: float = 1.0):
+    """A replicated projection's product on the rank's positions
+    (``local``, the residual layout), split into ``n_heads`` heads and
+    roped at its positions where ``theta`` is given, then gathered over
+    "model" (``Partition.tokens``): [B, S, n_heads, hd] on every rank."""
+    S = positions.shape[0]
+    t = _split_heads(sl.apply_tp(p, local, "full", part)[0], n_heads, hd)
+    if theta is not None:
+        t = rope(t, part.seq_shard(positions, S, 0), theta, partial)
+    return part.tokens(t, S)
+
+
+def gqa_forward_tp(part, p: Params, x, cfg: ArchConfig, *, positions,
+                   local):
     """``gqa_forward`` on the rank's heads: x [B,S,d] with every position
-    (``Partition.tokens``).  Returns (out, its layout, (k, v)): out is
-    ``wo``'s product (partial sums where ``wo`` is row-parallel), k / v
-    [B,S,hk,hd] roped, with the kv heads the rank computed and the first
-    one's index (for the prefill's cache)."""
+    (``Partition.tokens`` of ``local``, the rank's positions in the
+    residual layout), under the sliding window where ``cfg`` has one.  A
+    replicated ``wk`` / ``wv`` (the kv heads do not divide "model")
+    projects ``local``, and its products are gathered over "model", k
+    roped at its positions first.  Returns (out, its layout, (k, v, k0)):
+    out is ``wo``'s product (partial sums where ``wo`` is row-parallel),
+    k / v [B,S,hk,hd] roped, with the kv heads the rank computed and the
+    first one's index (for the prefill's cache)."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     q, lq = sl.apply_tp(p["wq"], x, "full", part)
-    k, lk = sl.apply_tp(p["wk"], x, "full", part)
-    v, lv = sl.apply_tp(p["wv"], x, "full", part)
     q, q0, hq = _local_heads(part, q, lq, H, hd)
-    if hq < H:            # the rank's q heads; its kv heads, or every one
-        k, k0, hk = _local_heads(part, k, lk, Hkv, hd)
-        v, _, _ = _local_heads(part, v, lv, Hkv, hd)
-    else:                 # every q head here: every kv head too
-        k, k0, hk = _split_heads(part.full(k, lk), Hkv, hd), 0, Hkv
-        v = _split_heads(part.full(v, lv), Hkv, hd)
     q = rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
-    k = rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
+    if p["wk"]["_tp"] == "rep":   # every kv head, from the rank's positions
+        k = _rep_seq(part, p["wk"], local, positions, Hkv, hd,
+                     cfg.rope_theta, cfg.partial_rotary)
+        v = _rep_seq(part, p["wv"], local, positions, Hkv, hd)
+        k0, hk = 0, Hkv
+    else:
+        k, lk = sl.apply_tp(p["wk"], x, "full", part)
+        v, lv = sl.apply_tp(p["wv"], x, "full", part)
+        if hq < H:        # the rank's q heads; its kv heads, or every one
+            k, k0, hk = _local_heads(part, k, lk, Hkv, hd)
+            v, _, _ = _local_heads(part, v, lv, Hkv, hd)
+        else:             # every q head here: every kv head too
+            k, k0, hk = _split_heads(part.full(k, lk), Hkv, hd), 0, Hkv
+            v = _split_heads(part.full(v, lv), Hkv, hd)
+        k = rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
     rep = H // Hkv
+    window = cfg.window if cfg.attn_kind == "sliding" else 0
     out = chunked_attention(q, _kv_for(k, k0, hk, q0, hq, rep),
                             _kv_for(v, k0, hk, q0, hq, rep), causal=True,
-                            chunk=cfg.attn_chunk, q_pos=positions,
-                            kv_pos=positions)
+                            window=window, chunk=cfg.attn_chunk,
+                            q_pos=positions, kv_pos=positions)
     lo = "split" if hq < H else "full"
     y, ly = sl.apply_tp(p["wo"], out.reshape(B, S, hq * hd), lo, part)
     return y, ly, (k, v, k0)
@@ -459,8 +486,10 @@ def gqa_decode_tp(part, p: Params, x, cfg: ArchConfig, cache: dict,
     [B,1,d] (replicated), cache {"k", "v": [B,S,Hkv,hd]}, the rank's
     sequence shard where ``part.cache_seq_split`` (slots [r S, (r+1) S))
     else every slot.  q, k, v are gathered over "model" (every head);
-    only the rank that holds slot ``pos`` writes the new K / V.  Returns
-    (out, its layout): ``wo``'s product on the rank's heads."""
+    only the rank that holds slot ``pos`` (under a sliding window ``pos
+    % W`` of the ring's W slots, as ``gqa_decode`` writes it) writes the
+    new K / V.  Returns (out, its layout): ``wo``'s product on the
+    rank's heads."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     at = torch.full((1,), pos, device=x.device)
@@ -475,9 +504,11 @@ def gqa_decode_tp(part, p: Params, x, cfg: ArchConfig, cache: dict,
     S = cache["k"].shape[1]
     split = part.cache_seq_split and part.m > 1
     base = part.r * S if split else 0
-    if base <= pos < base + S:
-        cache["k"][:, pos - base] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, pos - base] = v[:, 0].to(cache["v"].dtype)
+    slot = pos % (S * part.m if split else S) \
+        if cfg.attn_kind == "sliding" else pos
+    if base <= slot < base + S:
+        cache["k"][:, slot - base] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot - base] = v[:, 0].to(cache["v"].dtype)
     if split:
         out = decode_attention_tp(part, q, cache["k"], cache["v"], pos, base)
     else:
@@ -499,20 +530,26 @@ def _mla_heads(part, q, lq, kv, lkv, H: int, qd: int, kd: int):
     return q[..., k0:k0 + hk, :], kv, k0, hk
 
 
-def mla_forward_tp(part, p: Params, x, cfg: ArchConfig, *, positions):
+def mla_forward_tp(part, p: Params, x, cfg: ArchConfig, *, positions,
+                   local):
     """``mla_forward`` on the rank's heads: x [B,S,d] with every position
-    (``Partition.tokens``).  ``wq`` and ``wkv_b`` are column-parallel on
-    the rank's heads where the heads divide "model"; ``wkv_a`` and
-    ``kv_norm`` are replicated, so every rank computes the whole latent.
-    Returns (out, its layout, (latent [B,S,lora], k_rope [B,S,rd])): out
-    is ``wo``'s product (partial sums where ``wo`` is row-parallel)."""
+    (``Partition.tokens`` of ``local``, the rank's positions in the
+    residual layout).  ``wq`` and ``wkv_b`` are column-parallel on the
+    rank's heads where the heads divide "model"; ``wkv_a`` and
+    ``kv_norm`` are replicated, so each rank runs them on its positions
+    and gathers the latent and the roped k_rope over "model".  Returns
+    (out, its layout, (latent [B,S,lora], k_rope [B,S,rd])): out is
+    ``wo``'s product (partial sums where ``wo`` is row-parallel)."""
     B, S, _ = x.shape
     H = cfg.n_heads
     nope, rd, vd, lora = _mla_dims(cfg)
     q, lq = sl.apply_tp(p["wq"], x, "full", part)
-    a, _ = sl.apply_tp(p["wkv_a"], x, "full", part)
-    latent = norm_apply(p["kv_norm"], a[..., :lora], "rmsnorm", cfg.norm_eps)
-    k_rope = rope(a[..., lora:][:, :, None, :], positions, cfg.rope_theta)
+    a, _ = sl.apply_tp(p["wkv_a"], local, "full", part)
+    latent = part.tokens(norm_apply(p["kv_norm"], a[..., :lora], "rmsnorm",
+                                    cfg.norm_eps), S)
+    k_rope = part.tokens(rope(a[..., lora:][:, :, None, :],
+                              part.seq_shard(positions, S, 0),
+                              cfg.rope_theta), S)
     kvb, lkv = sl.apply_tp(p["wkv_b"], latent, "full", part)
     q, kvb, _, hl = _mla_heads(part, q, lq, kvb, lkv, H, nope + rd,
                                nope + vd)

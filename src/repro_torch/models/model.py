@@ -42,13 +42,15 @@ the decoder's too, not the dense first layers or the encoder's) and
 after each hybrid super-block.
 
 Under a ``parallel/partition.Partition`` (the partitioned mesh steps,
-``train/steps.py``) the dense, moe, ssm and hybrid families' ``forward``,
-``decode_step`` and ``loss_fn`` run on the rank's shards: each layer
-(a MoE model's dense first layers first; each of the hybrid's Mamba
-layers, and its shared block at each use) gathers its leaves over the dp
-axes just before it runs (``Partition.gather``) and, under grad, is
-recomputed in the backward (gathering again) whatever ``cfg.remat``
-says; the products run on the rank's heads, output blocks, features and
+``train/steps.py``) the dense, vlm, moe, ssm and hybrid families'
+``forward``, ``decode_step`` and ``loss_fn`` run on the rank's shards:
+each layer (a MoE model's dense first layers first; each of the
+hybrid's Mamba layers, and its shared block at each use) gathers its
+leaves over the dp axes just before it runs (``Partition.gather``) and,
+under grad, is recomputed in the backward (gathering again) whatever
+``cfg.remat`` says, but the dense first layers, whose activations are
+kept and whose leaves are gathered again (``Partition.kept``); the
+products run on the rank's heads, output blocks, features and
 experts (``moe.moe_apply_tp``: routing global over the batch rows), MLA
 on the rank's heads and its shard of the latent cache, a Mamba mixer on
 the rank's channels (Mamba-1) or heads (Mamba-2) and its shard of the
@@ -57,15 +59,18 @@ block's gradient is summed over its uses before it is reduced
 (``partition.SharedUses``); the residual is stored sequence-sharded over
 "model"; the embedding and unembedding are vocab-parallel, their logits
 the rank's vocab columns (placed by ``sharding.logits_spec``), and the
-cross entropy takes its log-sum-exp over "model".  Decoding runs on the
-rank's sequence shard of the attention cache and its channels' or
-heads' shard of the state.  Without a partition they do what the rest
+cross entropy takes its log-sum-exp over "model"; a vlm's patches join
+the embedding's partial sums ahead of the text.  Decoding runs on the
+rank's sequence shard of the attention cache (a sliding window's ring:
+its share of the slots) and its channels' or heads' shard of the
+state.  Without a partition they do what the rest
 of this module says.
 
 The layers run in a Python loop; with ``cfg.remat`` each training layer
 (and the hybrid's shared block at each use) is recomputed in the
 backward (``torch.utils.checkpoint``), whisper's encoder layers
-included.  The serving paths update each
+included, but a MoE model's dense first layers, which the reference
+runs outside its checkpoint too.  The serving paths update each
 layer's slice ``cache[.][l]`` of the static cache, or ``pool[.][l]`` of
 the paged pool, in place.  The paged path serves the dense and moe
 families only, as the reference's: a state leaf has no pages.
@@ -333,10 +338,13 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
         parts = []
         for layers, _ in _attn_stacks(params):
             caches = []
+            first = layers is not params["layers"]
             for lp in layers:
-                x, c, a = _layer(_attn_mlp_block, lp, x, cfg, positions,
-                                 cfg=cfg)
-                if layers is params["layers"]:
+                if first:       # dense first layers: never recomputed
+                    x, c, a = _attn_mlp_block(lp, x, cfg, positions)
+                else:
+                    x, c, a = _layer(_attn_mlp_block, lp, x, cfg,
+                                     positions, cfg=cfg)
                     x = hints.constrain_tokens3d(x, cfg)
                 if return_cache:
                     caches.append(c)
@@ -550,7 +558,7 @@ def loss_fn(cfg: ArchConfig, params: Params, batch):
     if part is None:
         embed, ce_fn, args = params["embed"], _chunk_ce, (cfg,)
     else:   # every position on every rank; the unembedding gathered once
-        hidden = part.tokens(hidden, T + 1)
+        hidden = part.tokens(hidden, off + T + 1)
         embed, ce_fn, args = _unembed_unit(part, params, cfg), \
             _chunk_ce_tp, (cfg, part)
     hs = hidden[:, off:off + T]
@@ -566,31 +574,42 @@ def loss_fn(cfg: ArchConfig, params: Params, batch):
 
 # ------------------------------------------- the partitioned route
 def _partition(cfg: ArchConfig):
-    """The current ``Partition``, for the dense, moe, ssm and hybrid
+    """The current ``Partition``, for the dense, vlm, moe, ssm and hybrid
     families (the partitioned steps run no other)."""
     part = partition.current()
-    if part is not None and cfg.family not in ("dense", "moe", "ssm",
+    if part is not None and cfg.family not in ("dense", "vlm", "moe", "ssm",
                                                "hybrid"):
         raise ValueError(f"family {cfg.family!r} has no partitioned route")
     return part
 
 
-def _embed_tp(part, params, tokens, cfg: ArchConfig):
+def _embed_tp(part, params, tokens, cfg: ArchConfig, patches=None):
     """The token embeddings in the residual layout, vocab-parallel: each
     rank looks up the tokens of its vocab rows (zeros for the others)
     and the partial sums meet in the residual (exact: one rank holds
-    each token's row); cast to the compute dtype after the sum."""
-    S = tokens.shape[1]
+    each token's row); cast to the compute dtype after the sum.  A vlm's
+    ``patches`` [B, P, d] (cast to the compute dtype; every model rank
+    holds them) go ahead of the tokens in the same sum: rank 0 of
+    "model" adds them and the others zeros, so one term a position is
+    not zero and the residual holds P + S positions."""
     tok = part.gather({"tok": params["embed"]["tok"]},
                       {"tok": part.specs["embed"]["tok"]})["tok"]
     nv = tok.shape[0]
     tokens = tokens.long()
     if nv == cfg.vocab:
-        return part.residual(tok[tokens], "full", S).to(cfg.compute_dtype)
-    t = tokens - part.r * nv
-    mine = (t >= 0) & (t < nv)
-    e = torch.where(mine[..., None], tok[t.clamp(0, nv - 1)], 0.0)
-    return part.residual(e, "partial", S).to(cfg.compute_dtype)
+        e, layout = tok[tokens], "full"
+    else:
+        t = tokens - part.r * nv
+        mine = (t >= 0) & (t < nv)
+        e = torch.where(mine[..., None], tok[t.clamp(0, nv - 1)], 0.0)
+        layout = "partial"
+    if patches is not None:
+        dt = torch.promote_types(e.dtype, cfg.compute_dtype)
+        pe = patches.to(cfg.compute_dtype).to(dt)
+        if layout == "partial" and part.r:
+            pe = torch.zeros_like(pe)
+        e = torch.cat([pe, e.to(dt)], dim=1)
+    return part.residual(e, layout, e.shape[1]).to(cfg.compute_dtype)
 
 
 def _unembed_unit(part, params, cfg: ArchConfig):
@@ -623,17 +642,24 @@ def _chunk_ce_tp(ev, h, labels, cfg, part):
 
 
 def _cache_shard(part, kv: dict, S: int, cfg: ArchConfig):
-    """A layer's prefill cache (K / V, or MLA's latent / k_rope) as the
-    rank keeps it: every kv head (gathered over "model" where the rank
-    computed its own), its sequence shard where the positions divide the
-    axis."""
+    """A layer's prefill cache (K / V, or MLA's latent / k_rope) of ``S``
+    positions as the rank keeps it in ``make_cache``'s layout: every kv
+    head (gathered over "model" where the rank computed its own), and its
+    slots where their count divides the axis, as ``sharding.cache_specs``
+    splits them.  Under a sliding window the cache is a ring of W =
+    min(S, window) slots holding the last W positions, position p at
+    slot p % W: where W < S each of the rank's slots takes the position
+    that lands in it."""
+    W = min(S, cfg.window) if cfg.attn_kind == "sliding" else S
     out = {}
     for name, t in kv.items():
         if name in ("k", "v") and t.shape[2] < cfg.kv_heads:
             t = part.comm.all_gather(t, ("model",), 2)
-        if part.seq_split(S):       # a copy: the whole sequence is freed
-            n = S // part.m
-            t = t.narrow(1, part.r * n, n).contiguous()
+        if W < S:                   # the ring's slots: a copy
+            slots = part.seq_shard(torch.arange(W, device=t.device), W, 0)
+            t = t.index_select(1, S - W + (slots - (S - W)) % W)
+        elif part.seq_split(S):     # a copy: the whole sequence is freed
+            t = part.seq_shard(t, S).contiguous()
         out[name] = t
     return out
 
@@ -674,15 +700,13 @@ def _block_tp(part, lp, ls, x, positions, want_cache: bool, shared=None):
     cfg = part.cfg
     S = positions.shape[0]
     v = part.gather(lp, ls, shared)
-    h = part.tokens(norm_apply(v["norm1"], x, cfg.norm, cfg.norm_eps), S)
-    if cfg.attn_kind == "mla":
-        a, la, (lat, kr) = attn.mla_forward_tp(part, v["attn"], h, cfg,
-                                               positions=positions)
-        kv = {"latent": lat, "k_rope": kr}
-    else:
-        a, la, (k, vv, _) = attn.gqa_forward_tp(part, v["attn"], h, cfg,
-                                                 positions=positions)
-        kv = {"k": k, "v": vv}
+    hl = norm_apply(v["norm1"], x, cfg.norm, cfg.norm_eps)
+    fwd = attn.mla_forward_tp if cfg.attn_kind == "mla" else \
+        attn.gqa_forward_tp
+    a, la, kv = fwd(part, v["attn"], part.tokens(hl, S), cfg,
+                    positions=positions, local=hl)
+    kv = dict(zip(("latent", "k_rope") if cfg.attn_kind == "mla"
+                  else ("k", "v"), kv))
     x = x + sl.add_row_bias(v["attn"]["wo"], part.residual(a, la, S))
     h = part.tokens(norm_apply(v["norm2"], x, cfg.norm, cfg.norm_eps), S)
     m, aux = _ffn_tp(part, v, h, S)
@@ -695,10 +719,16 @@ def _forward_tp(cfg: ArchConfig, params, batch, part, return_cache: bool,
     """``forward`` on the rank's shards (see the module docstring): the
     hidden state comes back in the residual layout (the rank's
     positions), logits as the rank's vocab columns of every position
-    (the last one with ``last_only``)."""
+    (the last one with ``last_only``).  A vlm's patches sit ahead of the
+    text, which starts at position P (the returned offset)."""
     tokens = _tokens(params, batch)
-    S = tokens.shape[1]
-    x = hints.constrain_tokens3d(_embed_tp(part, params, tokens, cfg), cfg)
+    patches = None
+    if cfg.family == "vlm" and "patches" in batch:
+        patches = torch.as_tensor(batch["patches"], device=tokens.device)
+    off = 0 if patches is None else patches.shape[1]
+    S = off + tokens.shape[1]
+    x = hints.constrain_tokens3d(_embed_tp(part, params, tokens, cfg,
+                                           patches), cfg)
     positions = torch.arange(S, device=x.device)
     want = return_cache and not torch.is_grad_enabled()
     if cfg.family in ("ssm", "hybrid"):
@@ -710,30 +740,37 @@ def _forward_tp(cfg: ArchConfig, params, batch, part, return_cache: bool,
     if last_only:
         x = part.last_position(x, S)
     if return_hidden:
-        return x, cache, (aux, 0)
+        return x, cache, (aux, off)
     if not last_only:
         x = part.tokens(x, S)
     return (unembed(_unembed_unit(part, params, cfg), x, cfg), cache,
-            (aux, 0))
+            (aux, off))
 
 
 def _attn_stacks_tp(part, params, x, positions, want_cache: bool):
-    """The dense and moe families' layers (a MoE model's dense first
-    layers first) on the rank's shards, each recomputed in the backward
-    under grad.  Returns (x, the rank's cache in ``make_cache``'s
-    structure or None, the summed aux loss)."""
+    """The dense, vlm and moe families' layers (a MoE model's dense
+    first layers first) on the rank's shards, each recomputed in the
+    backward under grad but the dense first layers, which the reference
+    never recomputes: their activations are kept, their gathered leaves
+    gathered again in the backward (``Partition.kept``).  Returns (x, the
+    rank's cache in ``make_cache``'s structure or None, the summed aux
+    loss)."""
     cfg = part.cfg
     grad = torch.is_grad_enabled()
     aux, parts = 0.0, []
     for layers, specs, _ in _tp_stacks(part, params):
         caches = []
+        first = layers is not params["layers"]
         for lp, ls in zip(layers, specs):
-            if grad:
+            if grad and first:      # kept, its gathered leaves regathered
+                with part.kept():
+                    x, c, a = _block_tp(part, lp, ls, x, positions, False)
+            elif grad:
                 x, c, a = checkpoint(_block_tp, part, lp, ls, x, positions,
                                      False, use_reentrant=False)
             else:
                 x, c, a = _block_tp(part, lp, ls, x, positions, want_cache)
-            if layers is params["layers"]:
+            if not first:
                 x = hints.constrain_tokens3d(x, cfg)
             caches.append(c)
             aux = aux + a

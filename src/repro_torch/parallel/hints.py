@@ -5,7 +5,7 @@ model calls ``constrain_tokens3d`` at the reference's anchor points (the
 embedding output, each stacked layer's output, the hybrid's super-block
 output).  Outside a hints context every call returns its input, and so
 does a call on a plain tensor inside one: the mesh steps compute on
-local tensors, gathered (the vlm and audio families) or each rank's
+local tensors, gathered (the audio family) or each rank's
 shards (the partitioned route of the others, parallel/partition.py,
 whose residual reaches each anchor already sequence-sharded over
 "model": the row-parallel products reduce-scatter into it).  A DTensor

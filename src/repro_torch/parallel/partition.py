@@ -15,8 +15,9 @@ of a leaf:
 * split over the dp axes ("pod", "data"): FSDP.  ``Partition.gather``
   all-gathers a layer's leaves over those axes only, just before the
   layer runs (the model shard stays local); the layer is recomputed in
-  the backward, gathering again, and each gradient is reduce-scattered
-  back to the shard.  A unit that runs more than once in a step (the
+  the backward, gathering again (a unit run once and kept, ``kept``,
+  gathers only the leaves its backward reads), and each gradient is
+  reduce-scattered back to the shard.  A unit that runs more than once in a step (the
   hybrid's shared block) sums its uses' gradients before that
   (``SharedUses``);
 * replicated: the work is replicated.
@@ -306,6 +307,9 @@ class _LeafGather(torch.autograd.Function):
         if plan.dp:
             out = part.comm.all_gather(t, plan.dp, plan.dp_dim)
             part.note_gather(out)
+            if part.regather is not None:
+                part.regather.held[out.untyped_storage()._cdata] = (
+                    t.detach(), plan)
             return out
         return t.view_as(t)
 
@@ -326,6 +330,32 @@ class _LeafGather(torch.autograd.Function):
         if part.n_dp > 1:
             g = g / part.n_dp
         return g.to(dtype), None, None, None, None
+
+
+class _Regather:
+    """``saved_tensors_hooks`` of a unit run without recomputation
+    (``Partition.kept``): a tensor that autograd saves whose storage is
+    one of the unit's gathered leaves (``held``: its shard and plan, by
+    storage) is packed as the recipe to gather it again, so the gathered
+    leaf dies with the forward; unpacking gathers it once more over the
+    dp axes and takes the saved view of it."""
+
+    def __init__(self, part):
+        self.part, self.held = part, {}
+
+    def pack(self, t):
+        got = self.held.get(t.untyped_storage()._cdata)
+        if got is None:
+            return t
+        return got, tuple(t.shape), t.stride(), t.storage_offset()
+
+    def unpack(self, saved):
+        if torch.is_tensor(saved):
+            return saved
+        (shard, plan), shape, stride, offset = saved
+        full = self.part.comm.all_gather(shard, plan.dp, plan.dp_dim)
+        self.part.note_gather(full)
+        return full.as_strided(shape, stride, offset)
 
 
 class _Plan:
@@ -368,6 +398,7 @@ class Partition:
         self.n_rows = comm.size(self.row_axes)
         self.row_at = comm.index(self.row_axes)
         self.cache_seq_split = False
+        self.regather = None
 
     # ---- the gathers of a unit's leaves
     def note_gather(self, t) -> None:
@@ -400,6 +431,21 @@ class Partition:
         if plan.idle(self):
             return tree
         return _LeafGather.apply(tree, self, plan, shared, id(tree))
+
+    @contextlib.contextmanager
+    def kept(self):
+        """Run a unit once under grad, not recomputed (a MoE model's dense
+        first layers, as the reference runs them): its activations are
+        kept for the backward, its gathered leaves are not, the backward
+        gathering each again where it needs it (``_Regather``)."""
+        self.regather = hooks = _Regather(self)
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(hooks.pack,
+                                                          hooks.unpack):
+                yield
+        finally:
+            self.regather = None
+            hooks.held = {}
 
     # ---- feature layouts ("full": every feature on every rank, "split":
     # the rank's contiguous share of the last dim, "partial": partial sums)
@@ -445,6 +491,14 @@ class Partition:
     def seq_split(self, S: int) -> bool:
         return self.m > 1 and S % self.m == 0
 
+    def seq_shard(self, t, S: int, dim: int = 1):
+        """The rank's positions of ``t`` (all ``S`` along ``dim``): a
+        view of its share where the sequence splits, else ``t``."""
+        if not self.seq_split(S):
+            return t
+        n = S // self.m
+        return t.narrow(dim, self.r * n, n)
+
     def tokens(self, h, S: int):
         """The residual layout -> every position on every rank."""
         if not self.seq_split(S):
@@ -464,11 +518,7 @@ class Partition:
             else:
                 y = _Reduce.apply(y, self.comm, ("model",))
             return y.to(self.cfg.compute_dtype)
-        y = self.full(y, layout)
-        if not self.seq_split(S):
-            return y
-        n = S // self.m
-        return y.narrow(1, self.r * n, n)
+        return self.seq_shard(self.full(y, layout), S)
 
     def last_position(self, x, S: int):
         """x[:, -1:] of the residual: the last rank's last position,

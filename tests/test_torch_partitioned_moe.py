@@ -47,15 +47,16 @@ module, on the CPU.
 * A MoE dict's pattern leaves stay whole under
   ``sharding.with_junction_views`` (experts split on E, not on output
   blocks); the shared experts' junctions take the rank's views.
-* The reference's ``launch/dryrun.lower_cell`` for reduced qwen3-moe's
-  train step (8 x 64) on a 2 x 4 mesh of forced host devices: its
+* The reference's ``launch/dryrun.lower_cell`` for the train step (8 x
+  64) on a 2 x 4 mesh of forced host devices of reduced qwen3-moe at 2
+  kv heads (``wk`` / ``wv`` replicated: the reference's partitioner
+  projects k and v on each rank's sequence shard and gathers them, as
+  the port's route does) and at 4 (split over "model"), and of reduced
+  deepseek-v2-lite (its replicated ``wkv_a`` and ``kv_norm`` run on the
+  rank's positions and the latent is gathered; its dense first layer
+  is not recomputed in the backward, as the reference's is not): its
   per-device dot FLOPs agree with the port's count within 2 %, and the
-  gathered route's count lies outside it.  The comparison sets 4 kv
-  heads: where the kv heads do not divide the model axis (the reduced
-  config's 2), the reference's partitioner projects k and v on each
-  rank's sequence shard and gathers them, while the port computes the
-  replicated ``wk`` / ``wv`` on every gathered position, as the specs
-  replicate them (27 % more dot FLOPs at 2 kv heads).
+  gathered route's count lies outside it.
 """
 import dataclasses
 import json
@@ -429,29 +430,32 @@ from repro.launch import dryrun as D
 from repro.launch.mesh import compat_mesh
 from repro.parallel import hints
 from repro.roofline import hlo as H
-cfg = dataclasses.replace(registry.get("qwen3-moe-30b-a3b").reduced(),
-                          kv_heads={kv})
+cfg = dataclasses.replace(registry.get({arch!r}).reduced(), **{changes!r})
 mesh = compat_mesh((2, 4), ("data", "model"), devices=jax.devices()[:8])
 with mesh, hints.use_mesh_hints(mesh):
     c = D.lower_cell(cfg, ShapeSpec("mesh", {seq}, {batch}, "train"),
                      mesh).compile()
 print(json.dumps({{"dot_flops": H.analyze(c.as_text()).dot_flops}}))
 """
-XLA_SEQ, XLA_BATCH, XLA_TOL, XLA_KV = 64, 8, 0.02, 4
+XLA_SEQ, XLA_BATCH, XLA_TOL = 64, 8, 0.02
+XLA_CASES = [("qwen3-moe-30b-a3b", {"kv_heads": 2}),
+             ("qwen3-moe-30b-a3b", {"kv_heads": 4}),
+             ("deepseek-v2-lite-16b", {})]
 
 
-def test_dot_flops_agree_with_reference_partitioned_module():
+@pytest.mark.parametrize("arch,changes", XLA_CASES, ids=[
+    "-".join([a] + [f"{k}{v}" for k, v in c.items()]) for a, c in XLA_CASES])
+def test_dot_flops_agree_with_reference_partitioned_module(arch, changes):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     run = subprocess.run(
         [sys.executable, "-c", _REFERENCE_COUNT.format(
-            src=str(ROOT / "src"), seq=XLA_SEQ, batch=XLA_BATCH,
-            kv=XLA_KV)],
+            src=str(ROOT / "src"), arch=arch, changes=changes, seq=XLA_SEQ,
+            batch=XLA_BATCH)],
         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
     assert run.returncode == 0, run.stderr[-3000:]
     ref = json.loads(run.stdout.strip().splitlines()[-1])["dot_flops"]
-    cfg = dataclasses.replace(treg.get("qwen3-moe-30b-a3b").reduced(),
-                              kv_heads=XLA_KV)
+    cfg = dataclasses.replace(treg.get(arch).reduced(), **changes)
     shape = ShapeSpec("mesh", XLA_SEQ, XLA_BATCH, "train")
     rl, _ = dryrun.count_cell(cfg, shape, AbstractMesh(MESH,
                                                        ("data", "model")))

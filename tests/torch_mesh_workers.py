@@ -735,7 +735,7 @@ SSM_CASES = [("falcon-mamba-7b", "float32", {}),
 
 
 def ssm_case(arch, dtype, changes):
-    """The reduced config of one ssm / hybrid case (fp32 params)."""
+    """The reduced config of one ssm, hybrid or vlm case (fp32 params)."""
     import dataclasses
 
     from repro_torch.configs import registry
@@ -828,3 +828,110 @@ def ssm_partitioned_run(rank, d):
                        loss=float(m["loss"]),
                        logits=torch.stack(logits).float().numpy(),
                        tokens=torch.cat(out_tok, 1).numpy())
+
+
+# tests/test_torch_partitioned_vlm.py: (arch, compute dtype, config
+# changes) on a 2 x 4 mesh, FFN density 0.5 at block 32: reduced llava
+# (4 heads) at a window of VLM_WINDOW, its 8 patches ahead of VLM_S - 8
+# tokens, so that the prefill's ring of 12 slots (3 a model rank) holds
+# only the last 12 of its 36 positions and the first decode step wraps
+# it again (position 36 at slot 0); its 2 kv heads replicated over
+# "model" (k / v projected on the rank's positions and gathered), and 4
+# kv heads, one a model rank
+VLM_S, VLM_WINDOW = 36, 12
+VLM_CASES = [("llava-next-mistral-7b", "float32", {"window": VLM_WINDOW}),
+             ("llava-next-mistral-7b", "bfloat16", {"window": VLM_WINDOW}),
+             ("llava-next-mistral-7b", "float32",
+              {"window": VLM_WINDOW, "kv_heads": 4}),
+             ("llava-next-mistral-7b", "bfloat16",
+              {"window": VLM_WINDOW, "kv_heads": 4})]
+
+
+def vlm_partitioned_run(rank, d):
+    """Each VLM_CASES case on a 2 x 4 mesh from the reference's carried
+    weights and batch (``in_<case>.npz``: patches and tokens), as
+    ``ssm_partitioned_run`` runs its cases: one two-pass Adam step (clip
+    1.0) and the first decode step counted under ``DispatchCounter``, a
+    prefill of the whole batch (P + S = VLM_S positions) and PART_DECODE
+    greedy decode steps from position VLM_S, the first fed the prefill's
+    pick.  Every rank writes its gather log, counts, held bytes and
+    cache shard shapes to ``log_<case>_<rank>.json`` and its ring after
+    the prefill to ``ring_<case>_<rank>.npz``; rank 0 writes the
+    gathered params, Adam's m, the loss, the logits and the fed tokens
+    to ``out_<case>.npz``."""
+    import json
+
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adam, constant_schedule
+    from repro_torch.parallel import partition
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.roofline import dispatch
+    from repro_torch.train import steps
+
+    mesh = make_local_mesh(2, 4, "cpu")
+    log = GatherLog()
+    for i, case in enumerate(VLM_CASES):
+        cfg = ssm_case(*case)
+        raw = dict(np.load(f"{d}/in_{i}.npz"))
+        batch = {"tokens": raw.pop("batch_tokens"),
+                 "patches": raw.pop("batch_patches")}
+        full = from_jax_params(_tree_from_flat(raw))
+        specs = sh.param_specs(cfg, full, mesh)
+        placed = sh.place(full, specs, mesh)
+        opt = adam(constant_schedule(1e-3), grad_clip=1.0)
+        state = sh.place_state(opt.init(full), specs, mesh)
+        budget = unit_budget(partition.local_tree(placed), specs, mesh)
+        step = steps.make_mesh_train_step(cfg, opt, mesh)
+        log.sizes, log.peak, log.dtensor = [], log.live, []
+        start = log.live
+        log.armed = True
+        with dispatch.DispatchCounter() as c:
+            p, s, m = step(placed, state, batch, 0)
+        log.armed = False
+        train = dict(_counts(c), gathers=len(log.sizes),
+                     largest=max(log.sizes), peak=log.peak - start,
+                     budget=budget, dtensor=log.dtensor,
+                     held={"params": sh.held_bytes(placed)[0],
+                           "opt_state": sh.held_bytes(state)[0]},
+                     after={"params": sh.held_bytes(p)[0],
+                            "opt_state": sh.held_bytes(s)[0]})
+        gp, gm = sh.gather(p), sh.gather(s["m"])
+        log.sizes, log.peak, log.dtensor = [], log.live, []
+        start = log.live
+        log.armed = True
+        lg, cache, npos = steps.make_mesh_prefill_step(cfg, mesh)(
+            placed, batch)
+        log.armed = False
+        ring = {k: t.to_local().clone() for k, t in _cache_items(cache)}
+        logits = [lg.full_tensor()]
+        decode = steps.make_mesh_decode_step(cfg, mesh)
+        held_c = sh.held_bytes(cache)[0]
+        fed = []
+        for t in range(PART_DECODE):
+            tok = logits[-1].argmax(-1).to(torch.int32)
+            fed.append(tok)
+            log.armed = True
+            with dispatch.DispatchCounter() as c:
+                lg, cache = decode(placed, cache, tok, npos + t)
+            log.armed = False
+            if t == 0:
+                dec = dict(_counts(c), held={
+                    "params": sh.held_bytes(placed)[0], "cache": held_c,
+                    "logits": sh.held_bytes(lg)[0]})
+            logits.append(lg.full_tensor())
+        serve = {"budget": budget, "gathers": len(log.sizes),
+                 "peak": log.peak - start, "npos": npos,
+                 "largest": max(log.sizes, default=0),
+                 "dtensor": log.dtensor,
+                 "cache_local": {k: list(t.to_local().shape)
+                                 for k, t in _cache_items(cache)}}
+        np.savez(f"{d}/ring_{i}_{rank}.npz",
+                 **{k: v.float().numpy() for k, v in ring.items()})
+        with open(f"{d}/log_{i}_{rank}.json", "w") as f:
+            json.dump({"train": train, "serve": serve, "decode": dec}, f)
+        if rank == 0:
+            _save_tree(f"{d}/out_{i}.npz", {"params": gp, "m": gm},
+                       loss=float(m["loss"]),
+                       logits=torch.stack(logits).float().numpy(),
+                       tokens=torch.cat(fed, 1).numpy())
