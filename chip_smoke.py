@@ -201,9 +201,11 @@ PyTorch built for CUDA.  It
    the bytes the rank holds at rest, each path's step time; then the
    partitioned route (``steps.partitioned``) under the same mesh for
    stablelm-3b, qwen3-moe-30b-a3b, deepseek-v2-lite-16b, falcon-mamba-7b
-   (2 of its 64 layers) and zamba2-2.7b (one super-block: 6 Mamba-2
-   layers and the shared block), sparse, bf16: train, prefill and greedy
-   decode steps bit for bit against the plain steps, exact fwd / dx / dw
+   (2 of its 64 layers), zamba2-2.7b (one super-block: 6 Mamba-2
+   layers and the shared block), llava-next-mistral-7b (2 of its 32
+   layers) and whisper-base (whole, on the "sp" strategy), sparse, bf16:
+   train, prefill and greedy decode steps bit for bit against the plain
+   steps, exact fwd / dx / dw
    launches on tensor cores, the step time partitioned / gathered /
    plain, the dry run's predicted peak beside the measured one;
 19. runs the paper's junction pipeline at mesh scale
@@ -845,7 +847,11 @@ def junction_calls(cfg, quantized=False, encoder=True) -> dict:
     layer's two.  Quantized, each runs its int8 kernel but the
     shared experts: ``quantize_tree`` quantizes a MoE dict as one
     junction and leaves its "shared" MLP as it was (as the reference's
-    does), so those stay on ``fwd``."""
+    does), so those stay on ``fwd``.  Attention's projections are dense
+    under every phase's ``where="ffn"``; another ``where`` raises."""
+    where = cfg.sparsity.where if cfg.sparsity else "ffn"
+    require(where == "ffn", f"junction_calls counts FFN junctions only, "
+            f"not where={where!r}")
     L = cfg.n_layers
     shared = 0
     if cfg.family == "moe":
@@ -859,8 +865,7 @@ def junction_calls(cfg, quantized=False, encoder=True) -> dict:
     else:
         n = {"dense": {"fwd": 3 * L}, "vlm": {"fwd": 3 * L},
              "ssm": {"fwd": 2 * L},
-             "hybrid": {"fwd": 3 * L + 3 * (L // max(1,
-                                                     cfg.hybrid_attn_every))},
+             "hybrid": {"fwd": 3 * L + shared_block_calls(cfg)},
              "audio": {"fwd": 2 * (L + (cfg.enc_layers if encoder else 0))}
              }[cfg.family]
     if not quantized:
@@ -868,6 +873,17 @@ def junction_calls(cfg, quantized=False, encoder=True) -> dict:
         return {f"junction_{k}": v for k, v in n.items()}
     out = {f"junction_{k}_int8": v for k, v in n.items()}
     return {**out, "junction_fwd": shared} if shared else out
+
+
+def shared_block_calls(cfg) -> int:
+    """The junction launches of the hybrid's shared block in one model
+    call: its MLP's (wi and wo, wg too where the activation gates) at
+    each of its ``n_layers // hybrid_attn_every`` uses; 0 in another
+    family."""
+    if cfg.family != "hybrid":
+        return 0
+    return (3 if cfg.act == "silu" else 2) * (cfg.n_layers
+                                              // cfg.hybrid_attn_every)
 
 
 def serve_calls(cfg, quantized, n_decode) -> dict:
@@ -2356,18 +2372,21 @@ def _gated_update_case(P, gen, dtype, opt, case, M=MOE_M["train"], bs=BS):
 # ------------------------------------------------------------ train phase
 def _expected_launches(P, cfg, n_steps, kind):
     """Junction launches a step implies: a forward's junctions
-    (``junction_calls``), run again by the per-layer recompute, the norm
-    pre-pass of a clipped fused step a plain forward and backward of its
-    own."""
+    (``junction_calls``), run again by the per-layer recompute but the
+    hybrid's shared block's (``shared_block_calls``), which the reference
+    and the port never recompute; the norm pre-pass of a clipped fused
+    step a plain forward and backward of its own."""
     r = 2 if cfg.remat else 1
+    kept = shared_block_calls(cfg)
     want = dict.fromkeys(P.ops.launch_counts(), 0)
     for name, J in junction_calls(cfg).items():
         g = "gated_" if "gated" in name else ""
         fwd, dx, dw = (f"junction_{g}{k}" for k in ("fwd", "dx", "dw"))
         upd = f"junction_update_{g}dw"
-        per = {"two_pass": {fwd: r * J, dx: J, dw: J},
-               "fused_clip": {fwd: 2 * r * J, dx: 2 * J, dw: J, upd: J},
-               "fused": {fwd: r * J, dx: J, upd: J}}[kind]
+        F = r * J - (r - 1) * (kept if name == "junction_fwd" else 0)
+        per = {"two_pass": {fwd: F, dx: J, dw: J},
+               "fused_clip": {fwd: 2 * F, dx: 2 * J, dw: J, upd: J},
+               "fused": {fwd: F, dx: J, upd: J}}[kind]
         for k, v in per.items():
             want[k] += v * n_steps
     return want
@@ -4634,9 +4653,16 @@ def mesh_phase(P, card):
       llava-next-mistral-7b sparse at full width and MESH_LAYERS of its
       32 layers, 16 patches ahead of each row's text, attention under its
       4096-token window, the prefill's cache its ring), bit for bit
-      against the plain steps, through fwd / dx / dw.
+      against the plain steps, through fwd / dx / dw;
+    * the audio family's partitioned route on the "sp" strategy the same
+      way (``MESH_AUDIO``: whisper-base whole and sparse, its frames
+      through the encoder), bit for bit against the plain steps, through
+      fwd / dx / dw.
 
-    Prints each path's median step time beside the plain path's."""
+    Prints each path's median step time beside the plain path's, and for
+    the two cells whose step waits on the host (zamba2-2.7b's and
+    whisper-base's) the partitioned and plain steps in turns
+    (``_host_split``)."""
     cfg = dataclasses.replace(
         P.registry.get(MESH_ARCH).with_sparsity(
             P.SparsityConfig(density=0.25, block=BS, where="ffn")),
@@ -4686,15 +4712,165 @@ def mesh_phase(P, card):
                     density=0.25, block=BS, where="ffn")), **depth)
             paths.update(_mesh_partitioned(P, ssm_cfg, mesh, card,
                                            DENSE_KEYS, MESH_MOE_TIMED, True))
-        arch, depth = MESH_VLM
-        vlm_cfg = dataclasses.replace(
-            P.registry.get(arch).with_sparsity(P.SparsityConfig(
-                density=0.25, block=BS, where="ffn")), **depth)
-        paths.update(_mesh_partitioned(P, vlm_cfg, mesh, card, DENSE_KEYS,
-                                       MESH_MOE_TIMED, True))
+            if ssm_cfg.family == "hybrid":
+                _host_split(P, ssm_cfg, mesh, card)
+        for arch, depth in (MESH_VLM, MESH_AUDIO):
+            one_cfg = dataclasses.replace(
+                P.registry.get(arch).with_sparsity(P.SparsityConfig(
+                    density=0.25, block=BS, where="ffn")), **depth)
+            paths.update(_mesh_partitioned(P, one_cfg, mesh, card,
+                                           DENSE_KEYS, MESH_MOE_TIMED, True))
+        _host_split(P, one_cfg, mesh, card)
     finally:
         torch.distributed.destroy_process_group()
     return paths
+
+
+# the partitioned and plain steps in turns, MESH_PAIRS of each
+# (``_host_split``), and the route's own host functions timed under
+# cProfile there, by file and name
+MESH_PAIRS = 8
+HOST_FUNCS = (("sharding.py", "wrap_like"), ("partition.py", "local_tree"),
+              ("sharding.py", "with_junction_views"),
+              ("steps.py", "mesh_partition"), ("partition.py", "gather"),
+              ("partition.py", "seq_shard"), ("partition.py", "tokens"),
+              ("checkpoint.py", "checkpoint"))
+
+
+def _host_split(P, cfg, mesh, card, pairs=MESH_PAIRS):
+    """The partitioned and the plain two-pass Adam step of ``cfg`` in
+    turns on the one-rank mesh from the same weights and batches,
+    ``pairs`` steps each after a warm-up step each, the order swapped
+    every pair: each step's wall time, the time the garbage collector
+    paused it and the blocks it took from the card
+    (``segment.all.allocated``: a cudaMalloc each); then one more step of
+    each under cProfile: the Python calls, their own time and the
+    cumulative time of the route's functions (HOST_FUNCS).  Prints every
+    step's time with the median, least and most of each."""
+    import cProfile
+    import gc
+    import pstats
+    opt = P.optim.adam(P.optim.constant_schedule(MESH_LR))
+    pipe = P.LMTokenPipeline(cfg, TRAIN_B, TRAIN_S)
+    batches = [next(pipe) for _ in range(pairs + 2)]
+    runs = {}
+    for kind in ("plain", "partitioned"):
+        params = P.M.init(cfg, seed=0, device="cuda")
+        state = opt.init(params)
+        if kind == "plain":
+            step = P.steps.make_train_step(cfg, opt)
+        else:
+            specs = P.sharding.param_specs(cfg, params, mesh)
+            params = P.sharding.place(params, specs, mesh)
+            state = P.sharding.place_state(state, specs, mesh)
+            step = P.steps.make_mesh_train_step(cfg, opt, mesh)
+        runs[kind] = [step, params, state]
+    paused = [0.0, 0.0]        # seconds paused in this step, the start
+
+    def on_gc(phase, info):
+        if phase == "start":
+            paused[1] = time.perf_counter()
+        else:
+            paused[0] += time.perf_counter() - paused[1]
+
+    def one(kind, i):
+        step, params, state = runs[kind]
+        torch.cuda.synchronize()
+        seg = torch.cuda.memory_stats()["segment.all.allocated"]
+        paused[0] = 0.0
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batches[i], i)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        runs[kind][1:] = [params, state]
+        return (dt * 1e3, paused[0] * 1e3,
+                torch.cuda.memory_stats()["segment.all.allocated"] - seg)
+
+    got = {k: [] for k in runs}
+    gc.callbacks.append(on_gc)
+    try:
+        for kind in runs:
+            one(kind, 0)
+        for i in range(pairs):
+            for kind in (("plain", "partitioned") if i % 2 == 0
+                         else ("partitioned", "plain")):
+                got[kind].append(one(kind, 1 + i))
+    finally:
+        gc.callbacks.remove(on_gc)
+    prof = {}
+    for kind in runs:
+        pr = cProfile.Profile()
+        pr.enable()
+        one(kind, pairs + 1)
+        pr.disable()
+        st = pstats.Stats(pr)
+        funcs = collections.Counter()
+        for (path, _, name), (_, _, _, ct, _) in st.stats.items():
+            key = (Path(path).name, name)
+            if key in HOST_FUNCS:
+                funcs[f"{key[0]}:{name}"] += round(ct * 1e3, 2)
+        prof[kind] = (st.total_calls, st.total_tt * 1e3, dict(funcs))
+    wraps = _wrap_times(P, runs["partitioned"][1:])
+    del runs
+    torch.cuda.empty_cache()
+
+    def spread(vals):
+        return (f"{[round(v, 1) for v in vals]} median "
+                f"{statistics.median(vals):.1f} (least {min(vals):.1f}, "
+                f"most {max(vals):.1f})")
+    for kind in got:
+        dts, gcs, segs = zip(*got[kind])
+        print(f"[host] {cfg.name} {kind} step in turns ({pairs} after a "
+              f"warm-up, one-rank mesh): ms {spread(dts)}; garbage "
+              f"collector paused it ms {[round(v, 1) for v in gcs]}; "
+              f"cudaMalloc {list(segs)} [{card}]")
+    for kind, (calls, tt, funcs) in prof.items():
+        print(f"[host] {cfg.name} {kind} step under cProfile: {calls} "
+              f"Python calls, {tt:.1f} ms of their own time; route "
+              f"functions cumulative ms {funcs} [{card}]")
+    med = [statistics.median(v[0] for v in got[k]) for k in got]
+    print(f"[host] {cfg.name}: partitioned / plain median "
+          f"{med[1] / med[0]:.4f}; unwrapping and wrapping the "
+          f"{wraps[0]} leaves of params and state, as a step does: "
+          f"DTensor.to_local / from_local each {wraps[1]:.2f} ms, "
+          f"partition.local_tree / sharding.wrap_like {wraps[2]:.2f} ms "
+          f"[{card}]")
+
+
+def _wrap_times(P, trees, reps=5):
+    """(the DTensor leaves of ``trees``, the median ms of unwrapping and
+    wrapping them all through ``to_local`` / ``from_local`` each, as the
+    partitioned step did before, and through ``partition.local_tree`` /
+    ``sharding.wrap_like``, as it does now)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.parallel import partition
+
+    def wrap(t, like):
+        if not isinstance(like, DTensor) or not t.is_floating_point():
+            return like
+        return DTensor.from_local(t, like.device_mesh, like.placements,
+                                  run_check=False, shape=like.shape,
+                                  stride=like.stride())
+
+    def each():
+        for tree in trees:
+            local = P.tree_map(lambda t: t.to_local()
+                               if isinstance(t, DTensor) else t, tree)
+            P.tree_map(wrap, local, tree)
+
+    def now():
+        for tree in trees:
+            P.sharding.wrap_like(partition.local_tree(tree), tree)
+    times = {each: [], now: []}
+    for _ in range(reps):
+        for fn in times:
+            t0 = time.perf_counter()
+            fn()
+            times[fn].append((time.perf_counter() - t0) * 1e3)
+    n = sum(isinstance(t, DTensor) for tree in trees
+            for t in P.tree_leaves(tree))
+    return n, statistics.median(times[each]), statistics.median(times[now])
 
 
 def _mesh_fused(P, cfg, mesh, card):
@@ -4763,6 +4939,8 @@ MESH_SSM = (("falcon-mamba-7b", {"n_layers": 2}),
 # layers, 16 patches a row (the vlm phase's) ahead of its text
 MESH_VLM = ("llava-next-mistral-7b", {"n_layers": MESH_LAYERS,
                                       "num_patches": 16})
+# the audio family on the "sp" strategy: whisper-base whole
+MESH_AUDIO = ("whisper-base", {})
 DENSE_KEYS = ("junction_fwd", "junction_dx", "junction_dw")
 MOE_KEYS = DENSE_KEYS + ("junction_gated_fwd", "junction_gated_dx",
                          "junction_gated_dw")
@@ -4771,8 +4949,9 @@ MOE_KEYS = DENSE_KEYS + ("junction_gated_fwd", "junction_gated_dx",
 def _mesh_partitioned(P, cfg, mesh, card, keys=DENSE_KEYS,
                       n_steps=MESH_TIMED, exact=False):
     """The partitioned route on the one-rank mesh (``cfg``: stablelm-3b,
-    or a MESH_MOE arch, sparse at MESH_LAYERS layers, or a MESH_SSM or
-    the MESH_VLM arch at its depth, fp32 params, bf16 compute):
+    or a MESH_MOE arch, sparse at MESH_LAYERS layers, or a MESH_SSM, the
+    MESH_VLM or the MESH_AUDIO arch at its depth, fp32 params, bf16
+    compute):
 
     * ``n_steps`` two-pass Adam steps (clip 1.0) of batch TRAIN_B x
       TRAIN_S through ``make_mesh_train_step`` (partitioned), through
@@ -4787,7 +4966,8 @@ def _mesh_partitioned(P, cfg, mesh, card, keys=DENSE_KEYS,
     * the mesh prefill of TRAIN_B prompts of TRAIN_S - MESH_DECODE
       tokens (padded to TRAIN_S; a vlm's prompts are its pipeline's
       rows, their patches ahead of the text, and its decode positions
-      count from the patches) and MESH_DECODE greedy decode steps
+      count from the patches; whisper's carry their pipeline's frames)
+      and MESH_DECODE greedy decode steps
       against the plain steps fed the same tokens: logits within
       ``LOGIT_REL_TOL`` (bit for bit where ``exact``), greedy tokens
       equal, the forward launches of ``keys`` equal;

@@ -24,48 +24,40 @@ Per cell:
     each rank holds at rest,
   * the rank's step, counted by ``roofline.analysis.analyze``: train,
     ``adam(constant_schedule(1e-4), master_copy=(param_dtype !=
-    "float32"))`` two-pass on the rank's rows; prefill,
-    ``make_prefill_step`` on the rank's rows; decode,
-    ``make_decode_step`` on the rank's rows of the cache, ``pos =
-    seq_len - 1``.
+    "float32"))`` two-pass on the rank's rows; prefill on the rank's
+    rows; decode on the rank's shard of the cache, ``pos = seq_len -
+    1``.
 
 Counted per rank as the port's mesh steps (``train/steps.make_mesh_*``)
-do the work, on the route ``steps.partitioned`` gives the cell (the
-record's ``"execution"``):
-
-* ``"partitioned"`` (the dense family, the vlm with its sliding window,
-  the moe family with full attention or MLA, the ssm family and the
-  hybrid): the rank's step on its shards
-  (``attach``, its junction views from ``sharding.with_junction_views``)
-  and rows, through the same code the mesh runs
-  (``steps.make_partitioned_train_step``, ``steps.partitioned_prefill``
-  / ``partitioned_decode``) under a ``partition.ReckonedComm``, which
-  reckons each collective the real step issues in the order and size it
-  issues them: the per-layer all-gathers over the dp axes, forward and
-  backward (each layer recomputed), the gradients' reduce-scatters and
-  all-reduces, tensor parallelism's all-gathers, reduce-scatters and
-  all-reduces of activations (a replicated k / v, or MLA's latent,
-  projected on the rank's positions and all-gathered over "model"),
-  the vocab-parallel cross entropy's and
-  decode's log-sum-exp all-reduces, a MoE's routing (its logits'
-  all-gather over "model", the all-gather of the top-k indices over the
-  row axes where a dispatch group crosses them, the all-reduces of the
-  load-balance means), a Mamba mixer's all-to-all that regroups the
-  columns its channels or heads read (``Partition.regroup``, forward
-  and backward) and Mamba-1's all-reduce of ``x_proj``'s partial
-  products, the clip norm's and the metrics'.
-  The model axis divides the compute as the specs say, and so does the
-  memory: no leaf is gathered whole and the cache stays sharded.
-* ``"gathered"`` (audio): the mesh steps gather every leaf
-  and run the rank's dp rows whole, so the model axis divides no
-  compute.  ``dot_flops`` and the eager ``mem_bytes`` are counted on the
-  full gathered shapes and the rank's rows.  The collectives come from
-  the specs: the all-gathers ``full_tensor()`` issues for every sharded
-  param, optimizer-state and cache leaf (one a sharded mesh dim, the
-  last mesh dim first, as DTensor gathers), and the train step's
-  all-reduce of the loss, the metrics and each fp32 gradient over each
-  dp group (``steps.make_dp_train_step``, its ``mean`` reckoned here
-  instead of run).
+do the work, on the partitioned route ``steps.partitioned`` gives every
+architecture of the registry (the record's ``"execution"``: the dense
+family, the vlm with its sliding window, the moe family with full
+attention or MLA, the ssm family and the hybrid; the audio family on the
+"sp" strategy, its sequence and frames over "model" and every weight
+whole over it): the rank's step on its shards (``attach``, its junction
+views from ``sharding.with_junction_views``) and rows, through the same
+code the mesh runs (``steps.make_partitioned_train_step``,
+``steps.partitioned_prefill`` / ``partitioned_decode``) under a
+``partition.ReckonedComm``, which reckons each collective the real step
+issues in the order and size it issues them: the per-layer all-gathers
+over the dp axes, forward and backward (each layer recomputed), the
+gradients' reduce-scatters and all-reduces (under "sp" each all-reduced
+over "model" too), the sequence-parallel attention's k / v all-gathers
+over "model" and its loss's all-reduce, tensor parallelism's
+all-gathers, reduce-scatters and all-reduces of activations (a
+replicated k / v, or MLA's latent, projected on the rank's positions and
+all-gathered over "model"), the vocab-parallel cross entropy's and
+decode's log-sum-exp all-reduces, a MoE's routing (its logits'
+all-gather over "model", the all-gather of the top-k indices over the
+row axes where a dispatch group crosses them, the all-reduces of the
+load-balance means), a Mamba mixer's all-to-all that regroups the
+columns its channels or heads read (``Partition.regroup``, forward and
+backward) and Mamba-1's all-reduce of ``x_proj``'s partial products, the
+clip norm's and the metrics'. The model axis divides the compute as the
+specs say, and so does the memory: no leaf is gathered whole and the
+cache stays sharded.  A config ``steps.partitioned`` refuses (none of
+the registry's; the fused path, which the dry run never builds) raises:
+it has no count.
 
 Collectives follow ``roofline/dispatch.py``'s conventions (an
 all-gather, a reduce-scatter and an all-to-all count their output bytes,
@@ -163,67 +155,10 @@ def _nbytes(tree) -> int:
                if torch.is_tensor(t))
 
 
-class Collectives:
-    """The collectives one rank of the mesh steps issues, reckoned from
-    the specs: {kind: (bytes, count)} as ``DispatchCounter.coll_detail``
-    holds them."""
-
-    def __init__(self, mesh):
-        self.mesh = mesh
-        self.sizes = sh.axis_sizes(mesh)
-        self.detail: dict[str, tuple[int, int]] = {}
-
-    def _add(self, kind: str, nbytes: int) -> None:
-        b, n = self.detail.get(kind, (0, 0))
-        self.detail[kind] = (b + nbytes, n + 1)
-
-    def gather(self, tree, spec_tree) -> None:
-        """``sharding.gather``: per leaf, one all-gather a mesh dim of
-        more than one rank that its spec shards, the last mesh dim first;
-        each yields the shard grown by that dim's size."""
-        def one(t, spec):
-            if not torch.is_tensor(t) or len(spec) > t.dim():
-                return
-            named = {a for e in spec for a in sh.spec_axes(e)}
-            nbytes = math.prod(sh.shard_shape(t.shape, spec, self.mesh)) \
-                * t.element_size()
-            for name in reversed(self.mesh.mesh_dim_names):
-                if name in named and self.sizes[name] > 1:
-                    nbytes *= self.sizes[name]
-                    self._add("all-gather", nbytes)
-        tree_map(one, tree, spec_tree)
-
-    def mean_over(self, axes: tuple):
-        """``steps._dp_mean`` over the groups of ``axes`` with the
-        all-reduce reckoned, not run: the same fp32 tensor ops, one
-        all-reduce (twice its fp32 bytes) a group."""
-        n = math.prod(self.sizes[a] for a in axes)
-
-        def mean(t):
-            t = t.float()
-            for _ in axes:
-                self._add("all-reduce", 2 * t.numel() * 4)
-            return t / n
-        return mean
-
-
 def _meta_rows(tree, n: int):
     """Row group 0 of ``n`` of each leaf, along dim 0, on ``meta``."""
     return tree_map(lambda t: torch.empty(
         (t.shape[0] // n, *t.shape[1:]), dtype=t.dtype, device="meta"), tree)
-
-
-def _placed_rows(tree, spec_tree, mesh, axes: tuple, n: int):
-    """``attach`` of tensors that hold one rank's rows, as
-    ``sharding.place_rows`` places them: the global shape is the rows'
-    times ``n`` along the dim each spec cuts over ``axes``."""
-    def whole(t, spec):
-        shape = list(t.shape)
-        for d, e in enumerate(spec):
-            if axes and sh.spec_axes(e) == axes:
-                shape[d] *= n
-        return torch.empty(shape, dtype=t.dtype, device="meta")
-    return sh.attach(tree_map(whole, tree, spec_tree), spec_tree, mesh)
 
 
 def _train_opt(cfg: ArchConfig):
@@ -232,14 +167,24 @@ def _train_opt(cfg: ArchConfig):
 
 
 def execution(cfg: ArchConfig) -> str:
-    """The route the mesh steps run ``cfg`` on."""
-    return ("partitioned" if steps.partitioned(cfg, _train_opt(cfg))
-            else "gathered")
+    """The route the mesh steps run ``cfg`` on: ``"partitioned"``, the
+    only one the dry run counts (a config the route refuses raises)."""
+    if not steps.partitioned(cfg, _train_opt(cfg)):
+        raise ValueError(f"{cfg.name}: the mesh steps run it gathered, "
+                         "which the dry run does not count")
+    return "partitioned"
 
 
-def _count_partitioned(cfg, shape, mesh, microbatches, params, pspecs,
-                       held):
-    """``count_cell`` on the partitioned route (rank 0's shards)."""
+def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
+               microbatches: int = 1):
+    """One rank's count of a cell on the partitioned route (rank 0's
+    shards): (its roofline, {tree: bytes the rank holds at rest}).
+    ``mesh``: an ``AbstractMesh`` (or a ``DeviceMesh``, read for its axes
+    only)."""
+    execution(cfg)
+    params = M.init(cfg, 0, "meta")
+    pspecs = sh.param_specs(cfg, params, mesh)
+    held = {"params": _nbytes(sh.attach(params, pspecs, mesh))}
     comm = partition.ReckonedComm(mesh)
     B = shape.global_batch
     if shape.kind == "decode":
@@ -285,69 +230,6 @@ def _count_partitioned(cfg, shape, mesh, microbatches, params, pspecs,
     return rl, held
 
 
-def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
-               microbatches: int = 1):
-    """One rank's count of a cell: (its roofline, {tree: bytes the rank
-    holds at rest}).  ``mesh``: an ``AbstractMesh`` (or a
-    ``DeviceMesh``, read for its axes only)."""
-    params = M.init(cfg, 0, "meta")
-    pspecs = sh.param_specs(cfg, params, mesh)
-    held = {"params": _nbytes(sh.attach(params, pspecs, mesh))}
-    if execution(cfg) == "partitioned":
-        return _count_partitioned(cfg, shape, mesh, microbatches, params,
-                                  pspecs, held)
-    coll = Collectives(mesh)
-    coll.gather(params, pspecs)
-    B = shape.global_batch
-    if shape.kind == "decode":
-        token, _ = specs_mod.decode_inputs_struct(cfg, shape)
-        batch = {"tokens": token}
-    else:
-        batch = specs_mod.batch_struct(cfg, shape)
-    axes, n = steps.dp_split(cfg, batch, mesh)
-    rows = _meta_rows(batch, n)
-    out = []                 # a serving step's outputs, for their shards
-    if shape.kind == "train":
-        opt = _train_opt(cfg)
-        state = opt.init(params)
-        ospecs = sh.state_specs(state, pspecs)
-        coll.gather(state, ospecs)
-        held["opt_state"] = _nbytes(sh.attach(state, ospecs, mesh))
-        fn = (steps.make_dp_train_step(cfg, opt, coll.mean_over(axes),
-                                       microbatches) if n > 1
-              else steps.make_train_step(cfg, opt, microbatches))
-        rl = roofline.analyze(fn, params, state, rows, 0)
-    elif shape.kind == "prefill":
-        prefill = steps.make_prefill_step(cfg)
-
-        def fn(p, b):
-            out.extend(prefill(p, b))
-            return out
-        rl = roofline.analyze(fn, params, rows)
-        logits, cache, _ = out
-        cspecs = sh.cache_specs(cfg, cache, mesh, rows=n)
-        held["cache"] = _nbytes(_placed_rows(cache, cspecs, mesh, axes, n))
-    else:
-        cache = M.make_cache(cfg, B, shape.seq_len, "meta")
-        cspecs = sh.cache_specs(cfg, cache, mesh)
-        coll.gather(cache, cspecs)
-        held["cache"] = _nbytes(sh.attach(cache, cspecs, mesh))
-        decode = steps.make_decode_step(cfg)
-
-        def fn(p, c, tok):       # the rank's rows of the gathered cache
-            out.extend(decode(p, steps.rows_of(c, cspecs, axes, 0, n), tok,
-                              shape.seq_len - 1))
-            return out
-        rl = roofline.analyze(fn, params, cache, rows["tokens"])
-        logits, _ = out
-    if shape.kind != "train":
-        lspec = sh.logits_spec(cfg, B, mesh)
-        held["logits"] = _nbytes(_placed_rows(logits, lspec, mesh, axes, n))
-    rl = roofline.make_roofline(rl.dot_flops, rl.mem_bytes, coll.detail,
-                                rl.memory_stats)
-    return rl, held
-
-
 def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str,
              out_dir: Path, force: bool = False) -> dict:
     cid = cell_id(arch, shape_name, mesh_kind, variant)
@@ -361,10 +243,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str,
     rec: dict = {"cell": cid, "arch": arch, "shape": shape_name,
                  "mesh": mesh_kind, "variant": variant, "n_chips": n_chips,
                  "params": cfg.param_count(),
-                 "active_params": cfg.active_param_count(),
-                 "execution": execution(cfg)}
+                 "active_params": cfg.active_param_count()}
     cap_gb = roofline.HBM_CAPACITY / 2**30
     try:
+        rec["execution"] = execution(cfg)
         # training cells auto-scale microbatches (gradient accumulation
         # over the rank's rows) until the per-device footprint fits
         mb_plan = [1, 2, 4, 8] if shape.kind == "train" else [1]

@@ -30,11 +30,12 @@ record a step, guardian and checkpoint events) to a JSONL file that
 ranks, N = data x model (launch/mesh.py): params and optimizer state
 are placed by ``parallel/sharding.param_specs``, each rank holding only
 its shard at rest, and ``train/steps.make_mesh_train_step`` runs the
-step: for the dense family the ranks divide the work as the specs
-divide the leaves (tensor parallelism over "model", each layer
-gathered over "data" only while it runs, the gradients reduce-scattered
-back to the shards; ``steps.partitioned``), for the other families
-every leaf is gathered each step; the two-pass step gives each
+step: on the two-pass path the ranks divide the work as the specs
+divide the leaves (tensor parallelism over "model", or whisper's
+sequence over "model", each layer gathered over "data" only while it
+runs, the gradients reduce-scattered back to the shards;
+``steps.partitioned``), on the fused path every leaf is gathered each
+step; the two-pass step gives each
 data-parallel rank its rows of the batch and averages the gradients
 over the data axis.  On
 the card N is 1 (a one-rank NCCL group; one card, one rank); with

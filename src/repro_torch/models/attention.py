@@ -194,14 +194,19 @@ def _q(p: Params, x, cfg: ArchConfig):
     return _split_heads(sl.apply(p["wq"], x), cfg.n_heads, cfg.head_dim)
 
 
-def _qkv(p: Params, x, cfg: ArchConfig, positions):
-    """q, k, v of ``x``, roped at ``positions`` but in the audio family,
+def _roped(cfg: ArchConfig) -> bool:
+    """Whether q and k are roped: in every family but the audio one,
     whose positions are absolute and added to the embeddings."""
+    return cfg.family != "audio"
+
+
+def _qkv(p: Params, x, cfg: ArchConfig, positions):
+    """q, k, v of ``x``, roped at ``positions`` where ``_roped``."""
     Hkv, hd = cfg.kv_heads, cfg.head_dim
     q = _q(p, x, cfg)
     k = _split_heads(sl.apply(p["wk"], x), Hkv, hd)
     v = _split_heads(sl.apply(p["wv"], x), Hkv, hd)
-    if cfg.family != "audio":
+    if _roped(cfg):
         q = rope(q, positions, cfg.rope_theta, cfg.partial_rotary)
         k = rope(k, positions, cfg.rope_theta, cfg.partial_rotary)
     return q, k, v
@@ -458,6 +463,35 @@ def gqa_forward_tp(part, p: Params, x, cfg: ArchConfig, *, positions,
     return y, ly, (k, v, k0)
 
 
+def gqa_forward_sp(part, p: Params, x, cfg: ArchConfig, *, positions,
+                   causal: bool = True, kv=None):
+    """``gqa_forward`` on the "sp" strategy (every weight whole on every
+    rank; whisper, which ropes nothing): x [B,n,d] the rank's share of
+    the S = len(positions) positions (every one where S does not divide
+    "model").  q on them; k / v projected on them and gathered over
+    "model" (``Partition.tokens``), masked at their global positions;
+    or ``kv`` = (k, v) of every key (cross-attention: ``causal``
+    ignored).  Returns (out [B,n,d], (k, v) of the rank's positions, or
+    ``kv``)."""
+    B, n, _ = x.shape
+    S = positions.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    q = _split_heads(sl.apply_tp(p["wq"], x, "full", part)[0], H, hd)
+    kv_pos = None
+    if kv is None:
+        kv = tuple(_split_heads(sl.apply_tp(p[w], x, "full", part)[0], Hkv,
+                                hd) for w in ("wk", "wv"))
+        k, v = (part.tokens(t, S) for t in kv)
+        kv_pos = positions
+    else:
+        (k, v), causal = kv, False
+    out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk,
+                            q_pos=part.seq_shard(positions, S, 0),
+                            kv_pos=kv_pos)
+    y, _ = sl.apply_tp(p["wo"], out.reshape(B, n, H * hd), "full", part)
+    return y, kv
+
+
 def decode_attention_tp(part, q, k_cache, v_cache, pos, base: int):
     """``decode_attention`` over the rank's slots [base, base + S) of the
     cache, merged over "model": the global max (all-reduced), the local
@@ -481,27 +515,37 @@ def decode_attention_tp(part, q, k_cache, v_cache, pos, base: int):
 
 
 def gqa_decode_tp(part, p: Params, x, cfg: ArchConfig, cache: dict,
-                  pos: int):
+                  pos: int, cross: bool = False):
     """``gqa_decode`` of every row at ``pos`` on the rank's cache: x
     [B,1,d] (replicated), cache {"k", "v": [B,S,Hkv,hd]}, the rank's
     sequence shard where ``part.cache_seq_split`` (slots [r S, (r+1) S))
     else every slot.  q, k, v are gathered over "model" (every head);
     only the rank that holds slot ``pos`` (under a sliding window ``pos
     % W`` of the ring's W slots, as ``gqa_decode`` writes it) writes the
-    new K / V.  Returns (out, its layout): ``wo``'s product on the
-    rank's heads."""
+    new K / V.  With ``cross`` the cache is whisper's encoder K / V,
+    read-only and every slot valid: the rank's frames where it holds
+    fewer than ``enc_frames`` (``sharding.cache_specs`` split them).
+    Returns (out, its layout): ``wo``'s product on the rank's heads."""
     B = x.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     at = torch.full((1,), pos, device=x.device)
     q, lq = sl.apply_tp(p["wq"], x, "full", part)
+    q = _split_heads(part.full(q, lq), H, hd)
+    S = cache["k"].shape[1]
+    if cross:
+        if S < cfg.enc_frames:
+            out = decode_attention_tp(part, q, cache["k"], cache["v"],
+                                      S * part.m - 1, part.r * S)
+        else:
+            out = decode_attention(q, cache["k"], cache["v"], S - 1)
+        return sl.apply_tp(p["wo"], out.reshape(B, 1, H * hd), "full", part)
     k, lk = sl.apply_tp(p["wk"], x, "full", part)
     v, lv = sl.apply_tp(p["wv"], x, "full", part)
-    q = rope(_split_heads(part.full(q, lq), H, hd), at, cfg.rope_theta,
-             cfg.partial_rotary)
-    k = rope(_split_heads(part.full(k, lk), Hkv, hd), at, cfg.rope_theta,
-             cfg.partial_rotary)
+    k = _split_heads(part.full(k, lk), Hkv, hd)
     v = _split_heads(part.full(v, lv), Hkv, hd)
-    S = cache["k"].shape[1]
+    if _roped(cfg):
+        q = rope(q, at, cfg.rope_theta, cfg.partial_rotary)
+        k = rope(k, at, cfg.rope_theta, cfg.partial_rotary)
     split = part.cache_seq_split and part.m > 1
     base = part.r * S if split else 0
     slot = pos % (S * part.m if split else S) \

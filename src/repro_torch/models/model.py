@@ -42,14 +42,16 @@ the decoder's too, not the dense first layers or the encoder's) and
 after each hybrid super-block.
 
 Under a ``parallel/partition.Partition`` (the partitioned mesh steps,
-``train/steps.py``) the dense, vlm, moe, ssm and hybrid families'
-``forward``, ``decode_step`` and ``loss_fn`` run on the rank's shards:
-each layer (a MoE model's dense first layers first; each of the
-hybrid's Mamba layers, and its shared block at each use) gathers its
-leaves over the dp axes just before it runs (``Partition.gather``) and,
-under grad, is recomputed in the backward (gathering again) whatever
-``cfg.remat`` says, but the dense first layers, whose activations are
-kept and whose leaves are gathered again (``Partition.kept``); the
+``train/steps.py``) every family's ``forward``, ``decode_step`` and
+``loss_fn`` run on the rank's shards: each layer (a MoE model's dense
+first layers first; each of the hybrid's Mamba layers, and its shared
+block at each use; whisper's encoder layers, then its decoder's) gathers
+its leaves over the dp axes just before it runs (``Partition.gather``)
+and, under grad, is recomputed in the backward (gathering again)
+whatever ``cfg.remat`` says, but the dense first layers and the shared
+block, whose activations are kept and whose leaves are gathered again
+(``Partition.kept``), as the reference runs them outside its
+checkpoint.  On the "tp" strategy the
 products run on the rank's heads, output blocks, features and
 experts (``moe.moe_apply_tp``: routing global over the batch rows), MLA
 on the rank's heads and its shard of the latent cache, a Mamba mixer on
@@ -63,20 +65,27 @@ cross entropy takes its log-sum-exp over "model"; a vlm's patches join
 the embedding's partial sums ahead of the text.  Decoding runs on the
 rank's sequence shard of the attention cache (a sliding window's ring:
 its share of the slots) and its channels' or heads' shard of the
-state.  Without a partition they do what the rest
-of this module says.
+state.  On the "sp" strategy (whisper) every weight is whole over
+"model": the decoder's residual holds the rank's positions and the
+encoder's its frames (each all of them where their count does not
+divide "model"), attention reads k / v of every position gathered over
+"model", the loss sums the rank's positions and all-reduces the sum,
+and decoding runs on the rank's sequence shard of the self-attention
+cache and its frames of the cross K / V.  Without a partition they do
+what the rest of this module says.
 
 The layers run in a Python loop; with ``cfg.remat`` each training layer
-(and the hybrid's shared block at each use) is recomputed in the
-backward (``torch.utils.checkpoint``), whisper's encoder layers
-included, but a MoE model's dense first layers, which the reference
-runs outside its checkpoint too.  The serving paths update each
+is recomputed in the backward (``torch.utils.checkpoint``), whisper's
+encoder layers included, but a MoE model's dense first layers and the
+hybrid's shared block, which the reference runs outside its checkpoint
+too.  The serving paths update each
 layer's slice ``cache[.][l]`` of the static cache, or ``pool[.][l]`` of
 the paged pool, in place.  The paged path serves the dense and moe
 families only, as the reference's: a state leaf has no pages.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
@@ -281,6 +290,14 @@ def _layer(fn, *args, cfg: ArchConfig):
     return fn(*args)
 
 
+def _recomputed(fn, *args):
+    """fn(*args), recomputed in the backward under grad (a layer of the
+    partitioned route, whatever ``cfg.remat`` says)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _stack(caches):
     return {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
 
@@ -377,8 +394,10 @@ def forward(cfg: ArchConfig, params: Params, batch, *,
     else:   # hybrid
         kv, states = [], []
         for lps in params["layers"]:
-            x, c, _ = _layer(_attn_mlp_block, params["shared_attn"], x, cfg,
-                             positions, cfg=cfg)
+            # the shared block is never recomputed, as the reference's
+            # super-block scan keeps it outside its checkpoint
+            x, c, _ = _attn_mlp_block(params["shared_attn"], x, cfg,
+                                      positions)
             inner = []
             for lp in lps:
                 zero = (_ssm_zero(cfg, lp, x.shape[0], x) if return_cache
@@ -529,8 +548,9 @@ def softmax_xent(logits, labels):
     return lse - ll
 
 
-def _chunk_ce(embed, h, labels, cfg):
-    return torch.sum(softmax_xent(unembed(embed, h, cfg), labels))
+def _chunk_ce(embed, h, labels, cfg, mask=None):
+    xe = softmax_xent(unembed(embed, h, cfg), labels)
+    return torch.sum(xe if mask is None else torch.where(mask, xe, 0.0))
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch):
@@ -538,49 +558,68 @@ def loss_fn(cfg: ArchConfig, params: Params, batch):
     positions carry no label).  With ``cfg.loss_chunk`` the unembedding
     and CE run per sequence chunk (the largest divisor of the label
     length not above the chunk), each recomputed in the backward, so the
-    [tokens, vocab] logits never exist at once."""
-    labels = _tokens(params, batch)[:, 1:]
-    T = labels.shape[1]
+    [tokens, vocab] logits never exist at once.  On the "sp" strategy,
+    where the sequence splits over "model", each rank scores its own
+    positions (the last position, which has no next token, masked), in
+    chunks of its own count, and the sum is all-reduced over "model"."""
+    tokens = _tokens(params, batch)
+    labels = tokens[:, 1:]
+    B, T = labels.shape
+    part = _partition(cfg)
+    mask = None
+    if part is not None and _sp_route(cfg) and part.seq_split(T + 1):
+        labels = part.seq_shard(torch.cat([labels, tokens[:, :1]], 1), T + 1)
+        mask = part.seq_shard(torch.arange(T + 1, device=tokens.device) < T,
+                              T + 1, 0)
+    n = labels.shape[1]
     chunk = cfg.loss_chunk
     if chunk:
-        c = min(chunk, T)
-        while T % c:
+        c = min(chunk, n)
+        while n % c:
             c -= 1
         chunk = c if c > 1 else 0
-    part = _partition(cfg)
-    xent = softmax_xent if part is None else \
-        (lambda lg, lb: _xent_tp(part, lg, lb, cfg))
-    if not chunk:
+    if not chunk and mask is None:
         logits, _, (aux, off) = forward(cfg, params, batch)
-        ce = torch.mean(xent(logits[:, off:off + T], labels))
+        lg = logits[:, off:off + T]
+        ce = torch.mean(softmax_xent(lg, labels) if part is None
+                        else _xent_tp(part, lg, labels, cfg))
         return ce + aux, {"ce": ce, "aux": aux}
     hidden, _, (aux, off) = forward(cfg, params, batch, return_hidden=True)
     if part is None:
         embed, ce_fn, args = params["embed"], _chunk_ce, (cfg,)
+    elif mask is not None:   # the rank's positions, every vocab column
+        embed, ce_fn, args = _unembed_unit(part, params, cfg), _chunk_ce, \
+            (cfg,)
     else:   # every position on every rank; the unembedding gathered once
         hidden = part.tokens(hidden, off + T + 1)
         embed, ce_fn, args = _unembed_unit(part, params, cfg), \
             _chunk_ce_tp, (cfg, part)
-    hs = hidden[:, off:off + T]
-    B = hs.shape[0]
+    hs = hidden[:, off:off + n]
     total = hs.new_zeros((), dtype=torch.float32)
-    for c0 in range(0, T, chunk):
-        total = total + checkpoint(ce_fn, embed, hs[:, c0:c0 + chunk],
-                                   labels[:, c0:c0 + chunk], *args,
-                                   use_reentrant=False)
+    step = chunk or n
+    for c0 in range(0, n, step):
+        a = (embed, hs[:, c0:c0 + step], labels[:, c0:c0 + step], *args,
+             *(() if mask is None else (mask[c0:c0 + step],)))
+        total = total + (checkpoint(ce_fn, *a, use_reentrant=False)
+                         if chunk else ce_fn(*a))
+    if mask is not None:
+        total = part.sum_over_model(total)
     ce = total / (B * T)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ------------------------------------------- the partitioned route
 def _partition(cfg: ArchConfig):
-    """The current ``Partition``, for the dense, vlm, moe, ssm and hybrid
-    families (the partitioned steps run no other)."""
-    part = partition.current()
-    if part is not None and cfg.family not in ("dense", "vlm", "moe", "ssm",
-                                               "hybrid"):
-        raise ValueError(f"family {cfg.family!r} has no partitioned route")
-    return part
+    """The current ``Partition`` (the partitioned steps run every
+    family)."""
+    return partition.current()
+
+
+def _sp_route(cfg: ArchConfig) -> bool:
+    """Whether the partitioned route runs ``cfg``'s forward, decode and
+    loss on the "sp" strategy (``_forward_sp``, ``_decode_sp``, the
+    rank's positions in ``loss_fn``)."""
+    return cfg.strategy == "sp"
 
 
 def _embed_tp(part, params, tokens, cfg: ArchConfig, patches=None):
@@ -721,6 +760,9 @@ def _forward_tp(cfg: ArchConfig, params, batch, part, return_cache: bool,
     positions), logits as the rank's vocab columns of every position
     (the last one with ``last_only``).  A vlm's patches sit ahead of the
     text, which starts at position P (the returned offset)."""
+    if _sp_route(cfg):
+        return _forward_sp(cfg, params, batch, part, return_cache,
+                           last_only, return_hidden)
     tokens = _tokens(params, batch)
     patches = None
     if cfg.family == "vlm" and "patches" in batch:
@@ -802,20 +844,17 @@ def _ssm_stack_tp(part, params, x, positions, want_cache: bool):
     """The ssm family's layers, or the hybrid's super-blocks (the shared
     block through ``_block_tp`` at each use, its gradient summed over the
     uses before it is reduced: ``partition.SharedUses``), on the rank's
-    shards, each recomputed in the backward under grad.  Returns (x, the
-    rank's cache in ``make_cache``'s structure, or None)."""
+    shards, each Mamba layer recomputed in the backward under grad; the
+    shared block is not, its activations kept and its gathered leaves
+    gathered again (``Partition.kept``).  Returns (x, the rank's cache in
+    ``make_cache``'s structure, or None)."""
     cfg, specs = part.cfg, part.specs
     S, B = positions.shape[0], x.shape[0]
     grad = torch.is_grad_enabled()
 
-    def run(fn, *args):
-        if grad:
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
-
     def mamba(lp, ls, x):
         zero = _ssm_zero(cfg, lp, B, x) if want_cache else None
-        x, c = run(_ssm_block_tp, part, lp, ls, x, S, zero)
+        x, c = _recomputed(_ssm_block_tp, part, lp, ls, x, S, zero)
         return hints.constrain_tokens3d(x, cfg), c
 
     if cfg.family == "ssm":
@@ -827,8 +866,10 @@ def _ssm_stack_tp(part, params, x, positions, want_cache: bool):
     shared = partition.SharedUses(len(params["layers"])) if grad else None
     kv, states = [], []
     for lps, lss in zip(params["layers"], specs["layers"]):
-        x, c, _ = run(_block_tp, part, params["shared_attn"],
-                      specs["shared_attn"], x, positions, want_cache, shared)
+        with part.kept() if grad else contextlib.nullcontext():
+            x, c, _ = _block_tp(part, params["shared_attn"],
+                                specs["shared_attn"], x, positions,
+                                want_cache, shared)
         inner = []
         for lp, ls in zip(lps, lss):
             x, st = mamba(lp, ls, x)
@@ -870,6 +911,8 @@ def _decode_tp(cfg: ArchConfig, params, cache, token, pos: int, part):
     (updated in place): each layer gathered over the dp axes, the one
     token's residual replicated.  Returns (the rank's vocab columns of
     the logits, cache)."""
+    if _sp_route(cfg):
+        return _decode_sp(cfg, params, cache, token, pos, part)
     x = _embed_tp(part, params, token, cfg)
     specs = part.specs
     if cfg.family == "ssm":
@@ -891,6 +934,138 @@ def _decode_tp(cfg: ArchConfig, params, cache, token, pos: int, part):
             for l, (lp, ls) in enumerate(zip(layers, lspecs)):
                 x = _decode_block_tp(part, lp, ls, x,
                                      {k: t[l] for k, t in c.items()}, pos)
+    fn = part.gather(params["final_norm"], part.specs["final_norm"])
+    x = norm_apply(fn, x, cfg.norm, cfg.norm_eps)
+    return unembed(_unembed_unit(part, params, cfg), x, cfg), cache
+
+
+# ------------------------------ the audio family on the "sp" strategy
+def _embed_sp(part, params, tokens, pos: int = 0):
+    """The rank's positions of the token embeddings with the learned
+    positions from ``pos`` on added ("sp": the embedding whole on every
+    rank, gathered over the dp axes as one unit)."""
+    cfg = part.cfg
+    e = part.gather({k: params["embed"][k] for k in ("tok", "pos")},
+                    {k: part.specs["embed"][k] for k in ("tok", "pos")})
+    S = tokens.shape[1]
+    x = embed_tokens(e, part.seq_shard(tokens, S), cfg)
+    at = part.seq_shard(e["pos"][pos:pos + S], S, 0)
+    return x + at.to(x.dtype)[None]
+
+
+def _enc_block_sp(part, lp, ls, x, F: int):
+    """``_enc_block`` on the rank's frames of the ``F``: its leaves
+    gathered over the dp axes, q on the rank's frames, k / v of every
+    frame (``attention.gqa_forward_sp``), the MLP on the rank's frames."""
+    cfg = part.cfg
+    v = part.gather(lp, ls)
+    h = norm_apply(v["norm1"], x, cfg.norm, cfg.norm_eps)
+    a, _ = attn.gqa_forward_sp(part, v["attn"], h, cfg, causal=False,
+                               positions=torch.arange(F, device=x.device))
+    x = x + a
+    h = norm_apply(v["norm2"], x, cfg.norm, cfg.norm_eps)
+    return x + mlp_apply_tp(part, v["mlp"], h)[0]
+
+
+def _encode_sp(part, params, frames):
+    """``_encode_audio`` on the rank's frames (every frame where their
+    count does not divide "model"): [B, F / model, d]."""
+    cfg = part.cfg
+    F = frames.shape[1]
+    x = part.seq_shard(frames.to(cfg.compute_dtype), F)
+    x = x + part.seq_shard(sinusoidal_pos(F, cfg.d_model, x.dtype,
+                                          x.device), F, 0)[None]
+    enc = params["encoder"]
+    for lp, ls in zip(enc["layers"], part.specs["encoder"]["layers"]):
+        x = _recomputed(_enc_block_sp, part, lp, ls, x, F)
+    n = part.gather(enc["norm"], part.specs["encoder"]["norm"])
+    return norm_apply(n, x, cfg.norm, cfg.norm_eps)
+
+
+def _dec_block_sp(part, lp, ls, x, positions, enc, F: int, want: bool):
+    """``_dec_block`` on the rank's positions: its leaves gathered over
+    the dp axes; self-attention's q on the rank's positions against k / v
+    of every position; cross-attention's K / V projected on the rank's
+    frames of the encoder output ``enc`` and gathered over "model"; the
+    MLP on the rank's positions.  Returns (x, the rank's {"k", "v", "ck",
+    "cv"} or None)."""
+    cfg = part.cfg
+    v = part.gather(lp, ls)
+    h = norm_apply(v["norm1"], x, cfg.norm, cfg.norm_eps)
+    a, kv = attn.gqa_forward_sp(part, v["attn"], h, cfg, positions=positions)
+    x = x + a
+    h = norm_apply(v["norm_x"], x, cfg.norm, cfg.norm_eps)
+    ckv = _cross_kv(v, enc, cfg)
+    c, _ = attn.gqa_forward_sp(part, v["cross"], h, cfg, positions=positions,
+                               kv=tuple(part.tokens(t, F) for t in ckv))
+    x = x + c
+    h = norm_apply(v["norm2"], x, cfg.norm, cfg.norm_eps)
+    x = x + mlp_apply_tp(part, v["mlp"], h)[0]
+    return x, (dict(zip(("k", "v", "ck", "cv"), kv + ckv)) if want
+               else None)
+
+
+def _forward_sp(cfg: ArchConfig, params, batch, part, return_cache: bool,
+                last_only: bool, return_hidden: bool):
+    """``forward`` of the audio family on the "sp" strategy: the decoder's
+    residual on the rank's positions, the encoder's on its frames (each
+    all of them where their count does not divide "model"), every layer
+    recomputed in the backward under grad.  The logits are the rank's
+    positions' (the last position's on every rank with ``last_only``),
+    every vocab column; the cache is the rank's positions' K / V and its
+    frames' cross K / V, as ``sharding.cache_specs`` splits them."""
+    tokens = _tokens(params, batch)
+    S = tokens.shape[1]
+    positions = torch.arange(S, device=tokens.device)
+    want = return_cache and not torch.is_grad_enabled()
+    x = hints.constrain_tokens3d(_embed_sp(part, params, tokens), cfg)
+    frames = torch.as_tensor(batch["frames"], device=x.device)
+    enc = _encode_sp(part, params, frames)
+    caches = []
+    for lp, ls in zip(params["layers"], part.specs["layers"]):
+        x, c = _recomputed(_dec_block_sp, part, lp, ls, x, positions, enc,
+                           frames.shape[1], want)
+        x = hints.constrain_tokens3d(x, cfg)
+        caches.append(c)
+    fn = part.gather(params["final_norm"], part.specs["final_norm"])
+    x = norm_apply(fn, x, cfg.norm, cfg.norm_eps)
+    if last_only:
+        x = part.last_position(x, S)
+    cache = _stack(caches) if want else None
+    if return_hidden:
+        return x, cache, (0.0, 0)
+    return (unembed(_unembed_unit(part, params, cfg), x, cfg), cache,
+            (0.0, 0))
+
+
+def _dec_decode_sp(part, lp, ls, x, c, pos: int):
+    """A decoder layer's decode step on the "sp" strategy and its views
+    of the layer's cache ``c`` (updated in place); the gathered leaves
+    die with the call."""
+    cfg = part.cfg
+    v = part.gather(lp, ls)
+    h = norm_apply(v["norm1"], x, cfg.norm, cfg.norm_eps)
+    x = x + attn.gqa_decode_tp(part, v["attn"], h, cfg,
+                               {"k": c["k"], "v": c["v"]}, pos)[0]
+    h = norm_apply(v["norm_x"], x, cfg.norm, cfg.norm_eps)
+    x = x + attn.gqa_decode_tp(part, v["cross"], h, cfg,
+                               {"k": c["ck"], "v": c["cv"]}, pos,
+                               cross=True)[0]
+    h = norm_apply(v["norm2"], x, cfg.norm, cfg.norm_eps)
+    return x + mlp_apply_tp(part, v["mlp"], h)[0]
+
+
+def _decode_sp(cfg: ArchConfig, params, cache, token, pos: int, part):
+    """``decode_step`` of the audio family on the "sp" strategy: the token
+    replicated over "model", so every product runs alike on each model
+    rank; self-attention on the rank's sequence shard of the cache and
+    cross-attention on its frames (``attention.gqa_decode_tp``).
+    Returns (the logits, every vocab column, cache)."""
+    x = _embed_sp(part, params, token, pos)
+    for l, (lp, ls) in enumerate(zip(params["layers"],
+                                     part.specs["layers"])):
+        x = _dec_decode_sp(part, lp, ls, x,
+                           {k: t[l] for k, t in cache.items()}, pos)
     fn = part.gather(params["final_norm"], part.specs["final_norm"])
     x = norm_apply(fn, x, cfg.norm, cfg.norm_eps)
     return unembed(_unembed_unit(part, params, cfg), x, cfg), cache

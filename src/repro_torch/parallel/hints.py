@@ -5,10 +5,11 @@ model calls ``constrain_tokens3d`` at the reference's anchor points (the
 embedding output, each stacked layer's output, the hybrid's super-block
 output).  Outside a hints context every call returns its input, and so
 does a call on a plain tensor inside one: the mesh steps compute on
-local tensors, gathered (the audio family) or each rank's
-shards (the partitioned route of the others, parallel/partition.py,
-whose residual reaches each anchor already sequence-sharded over
-"model": the row-parallel products reduce-scatter into it).  A DTensor
+local tensors, gathered (the fused path) or each rank's shards (the
+partitioned route, parallel/partition.py, whose residual reaches each
+anchor already sequence-sharded over "model": under "tp" the
+row-parallel products reduce-scatter into it, under "sp" each rank
+computes on its own positions).  A DTensor
 is redistributed to the hinted placements.  Every axis is
 divisibility-guarded.
 

@@ -27,7 +27,13 @@ Activations: the residual stream is stored sequence-sharded over "model"
 reduce-scattered into it) and all-gathered over "model" before the
 products that need every position (``Partition.tokens``).  A sequence
 that does not divide the axis (a decode step's one token) keeps the
-residual replicated, and partial sums are all-reduced instead.
+residual replicated, and partial sums are all-reduced instead.  Under
+the "sp" strategy (whisper) no spec splits a leaf over "model": each
+rank runs every product on its own positions of the residual
+(``seq_shard``), attention gathers k / v of every position over "model"
+(``tokens``), and the loss, a sum over the rank's positions, is
+all-reduced over "model" (``sum_over_model``), so that every model rank
+holds it as the convention below has a replicated loss.
 
 Gradients follow one convention: a tensor that every model rank holds
 alike (a replicated activation or leaf) carries on each rank a partial
@@ -604,8 +610,14 @@ def tp_kind(spec) -> str:
 
 
 def local_tree(tree):
-    """Each DTensor leaf's local shard (a view), other leaves as they
-    are."""
+    """Each DTensor leaf's local shard, other leaves as they are.  A leaf
+    that needs no gradient gives its shard itself, without
+    ``to_local``'s autograd node (a step unwraps every leaf of its params
+    and optimizer state)."""
     from torch.distributed.tensor import DTensor
-    return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t,
-                    tree)
+
+    def one(t):
+        if not isinstance(t, DTensor):
+            return t
+        return t.to_local() if t.requires_grad else t._local_tensor
+    return tree_map(one, tree)

@@ -520,12 +520,18 @@ def wrap_local(tree, spec_tree, mesh):
 def wrap_like(tree, like_tree):
     """New local shards placed as the matching DTensor leaves of
     ``like_tree``; a leaf that is not floating point (a pattern leaf,
-    never updated) is ``like``'s own."""
+    never updated) is ``like``'s own.  A shard of ``like``'s dtype that
+    needs no gradient takes ``like``'s placement record as it is: a step
+    wraps every leaf of its params and optimizer state (777 of them for
+    whisper-base), and ``DTensor.from_local`` builds a record and an
+    autograd node for each."""
     def one(t, like):
         if not isinstance(like, DTensor):
             return t
         if not t.is_floating_point():
             return like
+        if t.dtype == like.dtype and not t.requires_grad:
+            return DTensor(t, like._spec, requires_grad=False)
         return DTensor.from_local(t, like.device_mesh, like.placements,
                                   run_check=False, shape=like.shape,
                                   stride=like.stride())

@@ -21,16 +21,17 @@ The mesh steps (``make_mesh_train_step``, ``make_mesh_prefill_step``,
 ``make_mesh_decode_step``) run one of two routes, chosen by the config
 (``partitioned``), never by a flag.  The dense family (full attention),
 the vlm (its sliding window), the moe family (full attention or MLA),
-the ssm family and the hybrid on the "tp" strategy take the partitioned
-route (parallel/partition.py): each rank computes on its local shards as
-the specs divide the work (a
+the ssm family and the hybrid on the "tp" strategy, and the audio family
+on the "sp" strategy, take the partitioned route (parallel/partition.py):
+each rank computes on its local shards as the specs divide the work (a
 MoE's experts over "model", its routing global over the batch rows; a
-Mamba mixer over the rank's channels or heads), gathers a layer's
+Mamba mixer over the rank's channels or heads; under "sp" the sequence
+over "model"), gathers a layer's
 leaves over the dp axes only while the layer runs, reduce-scatters the
 gradients back to its shards, updates its shards alone, and decodes on
 its shard of the cache (the attention cache's sequence shard, a ring's
-slots, the state's channels or heads).  The audio family, and the fused
-BP+UP path, take the gathered route: every leaf gathered whole, the
+slots, the state's channels or heads, whisper's frames).  The fused
+BP+UP path takes the gathered route: every leaf gathered whole, the
 rank's dp rows run whole, the result placed again.
 """
 from __future__ import annotations
@@ -352,11 +353,14 @@ def partitioned(cfg: ArchConfig, optimizer: Optimizer | None = None,
     """Whether the mesh steps run ``cfg`` on the partitioned route: the
     dense family with full attention, the vlm with its sliding window,
     the moe family with full attention or MLA, the ssm family and the
-    hybrid (its shared block full attention), on the "tp" strategy, off
-    the fused path.  Everything else is gathered."""
-    if cfg.strategy != "tp" or (cfg.family, cfg.attn_kind) not in (
-            ("dense", "full"), ("vlm", "sliding"), ("moe", "full"),
-            ("moe", "mla"), ("ssm", "none"), ("hybrid", "full")):
+    hybrid (its shared block full attention) on the "tp" strategy, the
+    audio family on the "sp" strategy; off the fused path.  Everything
+    else is gathered."""
+    if (cfg.strategy, cfg.family, cfg.attn_kind) not in (
+            ("tp", "dense", "full"), ("tp", "vlm", "sliding"),
+            ("tp", "moe", "full"), ("tp", "moe", "mla"),
+            ("tp", "ssm", "none"), ("tp", "hybrid", "full"),
+            ("sp", "audio", "full")):
         return False
     return optimizer is None or not fused_update_eligible(
         cfg, optimizer, microbatches)[0]
@@ -444,8 +448,8 @@ def make_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer, mesh,
 
 def make_gathered_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer,
                                   mesh, microbatches: int = 1):
-    """The gathered route of ``make_mesh_train_step`` (the audio family,
-    and the fused path): a step gathers the full
+    """The gathered route of ``make_mesh_train_step`` (the fused path,
+    and any config ``partitioned`` refuses): a step gathers the full
     tensors, runs the update and keeps this rank's shard of the new
     params and state (placed as the inputs were).  The two-pass path
     gives each data-parallel rank its rows of the batch

@@ -87,7 +87,6 @@ ARCHS = list(treg.ARCHS)
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model"))}
 TREE_TOL = dict(rtol=5e-4, atol=5e-5)
-SPLIT_TOL = {"float32": TREE_TOL, "bfloat16": dict(rtol=0.0, atol=5e-3)}
 # the partitioned route sums partial products over "model" in another
 # order than one rank does, so in bf16 a layer's outputs round to the
 # neighbouring bf16 value here and there and the logits move by a few
@@ -271,15 +270,11 @@ def test_mesh_counts_equal_dryrun_reckoning(case, mesh_counts):
                                  for k, v in rl.coll_detail.items()}, g
             assert g["held"] == held, g
             assert all(held[k] == v for k, v in g.get("after", {}).items())
-            assert "all-gather" in g["coll"]
-            if dryrun.execution(cfg) == "gathered":
-                assert ("all-reduce" in g["coll"]) == (g["kind"] == "train")
-            else:   # partitioned: decode's one token is never seq-sharded
-                kinds = {"train": {"all-gather", "reduce-scatter",
-                                   "all-reduce"},
-                         "prefill": {"all-gather", "reduce-scatter"},
-                         "decode": {"all-gather", "all-reduce"}}
-                assert set(g["coll"]) == kinds[g["kind"]], g
+            # decode's one token is never sequence-sharded
+            kinds = {"train": {"all-gather", "reduce-scatter", "all-reduce"},
+                     "prefill": {"all-gather", "reduce-scatter"},
+                     "decode": {"all-gather", "all-reduce"}}
+            assert set(g["coll"]) == kinds[g["kind"]], g
             seen += 1
     assert seen == 8 * (1 + 2 * len(DRYRUN_ROWS))
 
@@ -292,8 +287,7 @@ def test_mesh_prefill_and_decode_equal_one_rank(case, mesh_counts):
     out = np.load(d / f"out_{case}.npz")
     for B in DRYRUN_ROWS:
         params, batch, cache, token = dryrun_inputs(cfg, B)
-        split = B % 2 == 0           # the data axis (2) splits the rows
-        tp = dryrun.execution(cfg) == "partitioned"
+        assert dryrun.execution(cfg) == "partitioned"
         lg, pc, npos = steps.make_prefill_step(cfg)(params, batch)
         assert npos == DRYRUN_SEQ
         dl, dc = steps.make_decode_step(cfg)(params, cache, token,
@@ -306,14 +300,8 @@ def test_mesh_prefill_and_decode_equal_one_rank(case, mesh_counts):
             key = (f"{'_'.join(head)}_{B}_{last}" if "cache" in name
                    else f"{name}_{B}")
             got, t = out[key], t.float().numpy()
-            if tp:
-                np.testing.assert_allclose(got, t, err_msg=key,
-                                           **TP_TOL[cfg.dtype])
-            elif split:
-                np.testing.assert_allclose(got, t, err_msg=key,
-                                           **SPLIT_TOL[cfg.dtype])
-            else:
-                assert np.array_equal(got, t), key
+            np.testing.assert_allclose(got, t, err_msg=key,
+                                       **TP_TOL[cfg.dtype])
 
 
 _IMPORT_ONLY = """
@@ -518,3 +506,16 @@ def test_every_arch_decode_counts_at_a_cut_depth(arch):
         assert rl.dot_flops > 0 and rl.memory_stats["peak_bytes"] > 0
         assert set(held) == {"params", "cache", "logits"}
         assert rl.coll_detail["all-gather"]["count"] > 0
+
+
+def test_a_config_the_route_refuses_has_no_count():
+    """The dry run counts the partitioned route alone: a config that
+    ``steps.partitioned`` refuses (a dense model on the "sp" strategy)
+    raises in ``execution`` and ``count_cell`` alike."""
+    cfg = dataclasses.replace(_cut(treg.get("stablelm-3b")), strategy="sp")
+    assert not steps.partitioned(cfg, dryrun._train_opt(cfg))
+    with pytest.raises(ValueError, match="gathered"):
+        dryrun.execution(cfg)
+    with pytest.raises(ValueError, match="gathered"):
+        dryrun.count_cell(cfg, SHAPES["decode_32k"],
+                          dryrun.production_mesh("single"))

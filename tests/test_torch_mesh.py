@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro.configs import registry as jreg
 from repro.launch.specs import concrete_batch as jconcrete_batch
@@ -52,9 +53,10 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import train as ttrain
 from repro_torch.models import model as TM
 from repro_torch.optim import adam, constant_schedule, fused_adam
+from repro_torch.parallel import partition
 from repro_torch.parallel import sharding as sh
 from repro_torch.train.steps import make_mesh_train_step, make_train_step
-from repro_torch.tree import tree_items
+from repro_torch.tree import tree_items, tree_map
 from torch_mesh_workers import fused_case, fused_steps, run_ranks, \
     sharded_step
 from torch_parity_helpers import close_trees, noise_slack
@@ -190,6 +192,53 @@ def test_mesh_step_on_one_rank_equals_plain_step(fused, one_rank_group):
     for got, want in ((sh.gather(p), q), (sh.gather(s), r)):
         for (k, a), (_, b) in zip(tree_items(got), tree_items(want)):
             assert torch.equal(a, b), k
+
+
+def test_wrap_like_and_local_tree_equal_from_local_and_to_local(
+        one_rank_group):
+    """``sharding.wrap_like`` places each new shard as
+    ``DTensor.from_local`` would (a shard of its leaf's dtype that needs
+    no gradient reuses the leaf's placement record; another dtype, or a
+    shard that needs one, goes through ``from_local``), and
+    ``partition.local_tree`` gives each shard itself (``to_local`` where
+    the leaf needs a gradient, which then flows back to it)."""
+    cfg = treg.get("whisper-base").reduced().with_sparsity(
+        SparsityConfig(density=0.5, block=32, where="ffn"))
+    mesh = tmesh.make_local_mesh(1, 1, "cpu")
+    params = TM.init(cfg, 0, "cpu")
+    placed = sh.place(params, sh.param_specs(cfg, params, mesh), mesh)
+    local = partition.local_tree(placed)
+    new = {k: v for k, v in tree_items(local)}
+    for (k, d), (_, t) in zip(tree_items(placed), tree_items(local)):
+        assert t is d._local_tensor, k
+        new[k] = t + 1 if t.is_floating_point() else t
+    casts = {"embed/tok": torch.bfloat16}
+    grads = {"final_norm/scale"}
+    assert casts.keys() | grads <= new.keys()
+    it = iter(tree_items(local))
+
+    def fresh(t):
+        k, _ = next(it)
+        v = new[k].to(casts.get(k, new[k].dtype))
+        return v.requires_grad_() if k in grads else v
+    wrapped = sh.wrap_like(tree_map(fresh, local), placed)
+    for (k, w), (_, d) in zip(tree_items(wrapped), tree_items(placed)):
+        if not d.is_floating_point():
+            assert w is d, k
+            continue
+        want = DTensor.from_local(new[k].to(casts.get(k, d.dtype)),
+                                  d.device_mesh, d.placements,
+                                  run_check=False, shape=d.shape,
+                                  stride=d.stride())
+        assert isinstance(w, DTensor), k
+        assert (w.placements, w.shape, w.stride(), w.dtype) == (
+            want.placements, want.shape, want.stride(), want.dtype), k
+        assert w.requires_grad == (k in grads), k
+        assert torch.equal(w.full_tensor().detach(), want.full_tensor()), k
+    leaf = DTensor.from_local(torch.zeros(3), mesh, [Replicate()] * 2,
+                              run_check=False).requires_grad_()
+    partition.local_tree({"x": leaf})["x"].sum().backward()
+    assert torch.equal(leaf.grad.full_tensor(), torch.ones(3))
 
 
 def _losses(path):

@@ -380,8 +380,9 @@ class GatherLog:
 
 def unit_budget(local, specs, mesh) -> int:
     """The largest unit's leaves gathered over the dp axes (a layer, a
-    hybrid's Mamba layer or its shared block, the embedding's tok, its
-    out, the final norm): bytes."""
+    hybrid's Mamba layer or its shared block, an encoder layer, the
+    encoder's norm, the embedding's tok, its out, the final norm):
+    bytes."""
     from repro_torch.parallel import sharding as sh
     from repro_torch.tree import tree_items
     sizes = sh.axis_sizes(mesh)
@@ -406,6 +407,10 @@ def unit_budget(local, specs, mesh) -> int:
                 units.append(size(lp, f"{k}/{i}/"))
     if "shared_attn" in local:
         units.append(size(local["shared_attn"], "shared_attn/"))
+    if "encoder" in local:                  # whisper's encoder
+        units += [size(lp, f"encoder/layers/{i}/")
+                  for i, lp in enumerate(local["encoder"]["layers"])]
+        units.append(size(local["encoder"]["norm"], "encoder/norm/"))
     units += [size(local["embed"]["tok"], "embed/tok")]
     if "out" in local["embed"]:
         units.append(size(local["embed"]["out"], "embed/out"))
@@ -935,3 +940,115 @@ def vlm_partitioned_run(rank, d):
                        loss=float(m["loss"]),
                        logits=torch.stack(logits).float().numpy(),
                        tokens=torch.cat(fed, 1).numpy())
+
+
+# tests/test_torch_partitioned_audio.py: (compute dtype, config changes,
+# positions) on a 2 x 4 mesh on the "sp" strategy, FFN density 0.5 at
+# block 32: reduced whisper-base (16 frames, 4 a model rank) on AUDIO_B
+# rows of 64 positions (16 a model rank), in fp32 and bf16, and with the
+# loss in chunks of 8 positions (two a rank); and on 66 positions, which
+# the model axis does not divide (every position on every rank, the
+# frames still split).  The prefill of AUDIO_PROMPT prompt tokens is
+# padded to the positions, so the decode steps write positions 46-49,
+# across model ranks 2 and 3 where the sequence splits
+AUDIO_B, AUDIO_PROMPT = 8, 46
+AUDIO_CASES = [("float32", {}, 64), ("bfloat16", {}, 64),
+               ("float32", {"loss_chunk": 8}, 64), ("float32", {}, 66)]
+
+
+def audio_case(dtype, changes):
+    """The reduced whisper-base config of an audio case."""
+    return ssm_case("whisper-base", dtype, changes)
+
+
+def audio_partitioned_run(rank, d):
+    """Each AUDIO_CASES case on a 2 x 4 mesh from the reference's carried
+    weights and batch (``in_<case>.npz``: tokens and frames), as
+    ``vlm_partitioned_run`` runs its cases: one two-pass Adam step (clip
+    1.0) and the first decode step counted under ``DispatchCounter``, a
+    prefill of the first AUDIO_PROMPT tokens padded to the case's
+    positions and PART_DECODE greedy decode steps from position
+    AUDIO_PROMPT.  Every
+    rank writes its gather log, counts, held bytes and cache shard
+    shapes to ``log_<case>_<rank>.json`` and its cache after the prefill
+    to ``cache_<case>_<rank>.npz``; rank 0 writes the gathered params,
+    Adam's m, the loss, the logits and the tokens to ``out_<case>.npz``."""
+    import json
+
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import adam, constant_schedule
+    from repro_torch.parallel import partition
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.roofline import dispatch
+    from repro_torch.train import steps
+
+    mesh = make_local_mesh(2, 4, "cpu")
+    log = GatherLog()
+    for i, case in enumerate(AUDIO_CASES):
+        cfg = audio_case(*case[:2])
+        raw = dict(np.load(f"{d}/in_{i}.npz"))
+        batch = {"tokens": raw.pop("batch_tokens"),
+                 "frames": raw.pop("batch_frames")}
+        full = from_jax_params(_tree_from_flat(raw))
+        specs = sh.param_specs(cfg, full, mesh)
+        placed = sh.place(full, specs, mesh)
+        opt = adam(constant_schedule(1e-3), grad_clip=1.0)
+        state = sh.place_state(opt.init(full), specs, mesh)
+        budget = unit_budget(partition.local_tree(placed), specs, mesh)
+        step = steps.make_mesh_train_step(cfg, opt, mesh)
+        log.sizes, log.peak, log.dtensor = [], log.live, []
+        start = log.live
+        log.armed = True
+        with dispatch.DispatchCounter() as c:
+            p, s, m = step(placed, state, batch, 0)
+        log.armed = False
+        train = dict(_counts(c), gathers=len(log.sizes),
+                     largest=max(log.sizes), peak=log.peak - start,
+                     budget=budget, dtensor=log.dtensor,
+                     held={"params": sh.held_bytes(placed)[0],
+                           "opt_state": sh.held_bytes(state)[0]},
+                     after={"params": sh.held_bytes(p)[0],
+                            "opt_state": sh.held_bytes(s)[0]})
+        gp, gm = sh.gather(p), sh.gather(s["m"])
+        prompt = dict(batch, tokens=batch["tokens"].copy())
+        prompt["tokens"][:, AUDIO_PROMPT:] = 0
+        log.sizes, log.peak, log.dtensor = [], log.live, []
+        start = log.live
+        log.armed = True
+        lg, cache, npos = steps.make_mesh_prefill_step(cfg, mesh)(
+            placed, prompt)
+        log.armed = False
+        kept = {k: t.to_local().clone() for k, t in _cache_items(cache)}
+        logits = [lg.full_tensor()]
+        decode = steps.make_mesh_decode_step(cfg, mesh)
+        tok = torch.as_tensor(batch["tokens"][:, AUDIO_PROMPT:
+                                              AUDIO_PROMPT + 1])
+        out_tok, held_c = [], sh.held_bytes(cache)[0]
+        for t in range(PART_DECODE):
+            log.armed = True
+            with dispatch.DispatchCounter() as c:
+                lg, cache = decode(placed, cache, tok, AUDIO_PROMPT + t)
+            log.armed = False
+            if t == 0:
+                dec = dict(_counts(c), held={
+                    "params": sh.held_bytes(placed)[0], "cache": held_c,
+                    "logits": sh.held_bytes(lg)[0]})
+            logits.append(lg.full_tensor())
+            tok = logits[-1].argmax(-1).to(torch.int32)
+            out_tok.append(tok)
+        serve = {"budget": budget, "gathers": len(log.sizes),
+                 "peak": log.peak - start, "npos": npos,
+                 "largest": max(log.sizes, default=0),
+                 "dtensor": log.dtensor,
+                 "cache_local": {k: list(t.to_local().shape)
+                                 for k, t in _cache_items(cache)}}
+        np.savez(f"{d}/cache_{i}_{rank}.npz",
+                 **{k: v.float().numpy() for k, v in kept.items()})
+        with open(f"{d}/log_{i}_{rank}.json", "w") as f:
+            json.dump({"train": train, "serve": serve, "decode": dec}, f)
+        if rank == 0:
+            _save_tree(f"{d}/out_{i}.npz", {"params": gp, "m": gm},
+                       loss=float(m["loss"]),
+                       logits=torch.stack(logits).float().numpy(),
+                       tokens=torch.cat(out_tok, 1).numpy())
