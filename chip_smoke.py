@@ -4632,9 +4632,12 @@ def mesh_phase(P, card):
       for bit (one rank splits and sums nothing), exact launches, the
       bytes the rank holds at rest (the launcher's line);
     * the fused step (fused SGD with momentum, bf16 params) under the
-      same mesh (``make_mesh_train_step``) against the plain step, from
-      the same weights and batches: losses and params bit for bit, exact
-      launches (no dw).
+      same mesh for MESH_FUSED (stablelm-3b, llava-next-mistral-7b and
+      falcon-mamba-7b at full width, cut in depth), ``_mesh_fused``:
+      the partitioned route (``make_mesh_train_step``) and the gathered
+      one against the plain step, from the same weights and batches:
+      losses and params bit for bit, exact launches on the tensor cores
+      (no dw), the three step times.
 
     * the partitioned route (``steps.partitioned``: the dense family,
       two-pass) under the same mesh, ``_mesh_partitioned``: train,
@@ -4697,7 +4700,12 @@ def mesh_phase(P, card):
         require({k: counts[k] for k in want} == want and counts == p_counts,
                 f"mesh launcher launches {counts} != {want}")
         paths = {"mesh_train": counts}
-        paths["mesh_fused"] = _mesh_fused(P, cfg, mesh, card)
+        for arch, depth in MESH_FUSED:
+            fused_cfg = dataclasses.replace(
+                P.registry.get(arch).with_sparsity(P.SparsityConfig(
+                    density=0.25, block=BS, where="ffn")), **depth)
+            paths["mesh_fused" + ("" if arch == MESH_ARCH else f"_{arch}")] \
+                = _mesh_fused(P, fused_cfg, mesh, card)
         paths.update(_mesh_partitioned(P, cfg, mesh, card))
         for arch in MESH_MOE:
             moe_cfg = dataclasses.replace(
@@ -4874,24 +4882,37 @@ def _wrap_times(P, trees, reps=5):
 
 
 def _mesh_fused(P, cfg, mesh, card):
-    """The fused step under ``mesh`` against the plain fused step:
-    MESH_STEPS steps each, bit for bit, exact launches."""
+    """The fused step (fused SGD with momentum, bf16 params) under the
+    one-rank ``mesh`` for ``cfg`` (a MESH_FUSED arch, sparse at full
+    width, cut in depth): MESH_STEPS steps each through the partitioned
+    route (``make_mesh_train_step``: ``steps.partitioned`` gives it the
+    dense, vlm and ssm families' fused step), the gathered route
+    (``make_gathered_mesh_train_step``, which the moe and audio families'
+    fused steps take) and the plain fused step, from the same weights
+    and batches: losses and params bit for bit against the plain step on
+    both routes, exact launches of fwd, dx and update_dw on the tensor
+    cores and none of dw, the three median step times after the
+    first."""
     cfg = dataclasses.replace(cfg, fused_update=True, param_dtype="bfloat16")
     opt = P.optim.fused_sgd(P.optim.cosine_schedule(3e-4, 20, 100),
                             momentum=0.9)
+    require(P.steps.partitioned(cfg, opt),
+            f"{cfg.name}'s fused step is not on the partitioned route")
     pipe = P.LMTokenPipeline(cfg, TRAIN_B, TRAIN_S)
     batches = [next(pipe) for _ in range(MESH_STEPS)]
 
-    def run(on_mesh):
+    def run(kind):
         params = P.M.init(cfg, seed=0, device="cuda")
         state = opt.init(params)
-        if on_mesh:
+        if kind == "plain":
+            step = P.steps.make_train_step(cfg, opt)
+        else:
             specs = P.sharding.param_specs(cfg, params, mesh)
             params = P.sharding.place(params, specs, mesh)
             state = P.sharding.place_state(state, specs, mesh)
-            step = P.steps.make_mesh_train_step(cfg, opt, mesh)
-        else:
-            step = P.steps.make_train_step(cfg, opt)
+            make = (P.steps.make_mesh_train_step if kind == "partitioned"
+                    else P.steps.make_gathered_mesh_train_step)
+            step = make(cfg, opt, mesh)
         torch.cuda.synchronize()
         P.ops.reset_launch_counts()
         losses, dts = [], []
@@ -4902,25 +4923,41 @@ def _mesh_fused(P, cfg, mesh, card):
             torch.cuda.synchronize()
             dts.append(time.perf_counter() - t0)
         counts = with_tc(P, P.ops.launch_counts())
-        return P.sharding.gather(params), losses, dts, counts
+        if kind != "plain":
+            params = P.sharding.gather(params)
+        return params, losses, dts, counts
 
-    got, losses, dts, counts = run(True)
-    want_p, p_losses, p_dts, p_counts = run(False)
-    same = _tree_bits_equal(P, got, want_p)
+    plain = run("plain")
+    part = run("partitioned")
+    gath = run("gathered")
+    same = [_tree_bits_equal(P, r[0], plain[0]) and r[1] == plain[1]
+            for r in (part, gath)]
     want = _expected_launches(P, cfg, MESH_STEPS, "fused")
+    want_tc = _expected_tc(P, cfg, want)
+    counts = part[3]
+    sub = {k: counts[k] for k in FUSED_KEYS} | {
+        f"{k}_tc": counts[f"{k}_tc"] for k in FUSED_KEYS}
+    med = [statistics.median(r[2][1:]) * 1e3 for r in (part, gath, plain)]
     print(f"[mesh] fused SGD step under the one-rank mesh, {cfg.name} "
-          f"layers={cfg.n_layers}: losses {losses} against the plain "
-          f"step's {p_losses}; median step {statistics.median(dts) * 1e3:.1f}"
-          f" ms against {statistics.median(p_dts) * 1e3:.1f} ms; params "
-          f"equal bit for bit: {same}; launches={counts} [{card}]")
-    require(losses == p_losses and same,
-            "the fused step under the mesh differs from the plain step")
-    require({k: counts[k] for k in want} == want and counts == p_counts
-            and counts["junction_dw"] == 0,
-            f"mesh fused launches {counts} != {want}")
-    del got, want_p
+          f"layers={cfg.n_layers} {cfg.dtype}: losses {part[1]} against "
+          f"the plain step's {plain[1]}; params and losses bit for bit: "
+          f"partitioned {same[0]}, gathered {same[1]}; median step after "
+          f"the first: partitioned {med[0]:.1f} ms, gathered {med[1]:.1f} "
+          f"ms, plain {med[2]:.1f} ms (steps "
+          f"{[[round(v * 1e3, 1) for v in r[2]] for r in (part, gath, plain)]}"
+          f"); launches {sub} [{card}]")
+    require(all(same),
+            f"{cfg.name}: the fused step under the mesh differs from the "
+            "plain step")
+    require({k: counts[k] for k in want} == want
+            and all(counts[k] == plain[3][k] == gath[3][k] for k in sub)
+            and counts["junction_dw"] == 0
+            and all(counts[f"{k}_tc"] == want_tc[k] == want[k] > 0
+                    for k in FUSED_KEYS),
+            f"{cfg.name}: mesh fused launches {counts} != {want}")
+    del part, gath, plain
     torch.cuda.empty_cache()
-    return counts
+    return sub
 
 
 # the partitioned route's decode: the prompt's last MESH_DECODE positions
@@ -4941,6 +4978,12 @@ MESH_VLM = ("llava-next-mistral-7b", {"n_layers": MESH_LAYERS,
                                       "num_patches": 16})
 # the audio family on the "sp" strategy: whisper-base whole
 MESH_AUDIO = ("whisper-base", {})
+# the fused step's partitioned route: stablelm-3b and llava-next-mistral-
+# 7b at MESH_LAYERS layers (llava with MESH_VLM's patches),
+# falcon-mamba-7b at 2 of its 64
+MESH_FUSED = ((MESH_ARCH, {"n_layers": MESH_LAYERS}), MESH_VLM,
+              ("falcon-mamba-7b", {"n_layers": MESH_LAYERS}))
+FUSED_KEYS = ("junction_fwd", "junction_dx", "junction_update_dw")
 DENSE_KEYS = ("junction_fwd", "junction_dx", "junction_dw")
 MOE_KEYS = DENSE_KEYS + ("junction_gated_fwd", "junction_gated_dx",
                          "junction_gated_dw")

@@ -31,7 +31,9 @@ steps (parallel/partition.py): column-parallel (a dense weight's out
 dim, or a junction's output blocks, split over "model": the kernels run
 unchanged on the rank's blocks, through its own pattern rows and reverse
 tables), row-parallel (a dense weight's in dim split: partial sums), or
-replicated.
+replicated.  A fused junction there carries its holder under ``"_held"``
+(``partition.HeldJunction``: the rank's shards, gathered where the
+kernels read them), which ``apply`` hands to the fused update.
 """
 from __future__ import annotations
 
@@ -214,7 +216,8 @@ def apply(params: Params, x: torch.Tensor, *, act: str = "none"
                 bias=params.get("b"), act=act, mom=params.get("mom_w"),
                 mom_b=params.get("mom_b"), vel=params.get("vel_w"),
                 vel_b=params.get("vel_b"),
-                health=params.get(UPDATE_HEALTH_LEAF))
+                health=params.get(UPDATE_HEALTH_LEAF),
+                held=params.get("_held"))
         return ops.junction_matmul(x, params["w"], *pattern,
                                    bias=params.get("b"), act=act)
     y = apply_dense(params, x)

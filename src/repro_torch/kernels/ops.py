@@ -133,34 +133,78 @@ class _Junction(torch.autograd.Function):
         return dxv, dwv, dbv, None, None, None, None, None, None
 
 
+class WholeJunction:
+    """The weight, bias and fp32 slots (mom, mom_b, vel, vel_b; None where
+    absent) of a fused junction as one rank holds them whole: the kernels
+    read them and update them in place.  The partitioned mesh steps hand
+    ``junction_train_update`` a holder of the same interface instead
+    (``parallel/partition.HeldJunction``), which gathers the rank's
+    shards where the kernels read them and places the update back."""
+
+    def __init__(self, w, bias, slots):
+        self.w, self.bias, self.slot_vals = w, bias, slots
+
+    def weights(self):
+        return self.w, self.bias
+
+    def slots(self):
+        return self.slot_vals
+
+    def update_operands(self, x3, dy, res):
+        """(x, dy, the residual) over the rows the update sums over."""
+        return x3, dy, res
+
+    def commit(self, w, bias, slots):
+        """Keep the updated tensors (here they are the held ones)."""
+
+
 class _JunctionUpdate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x3, w5, b2, idx, rev_ob, rev_t, rev_cnt, act,
-                has_bias, slots, hyp, health):
+    def forward(ctx, x3, held, idx, rev_ob, rev_t, rev_cnt, act, has_bias,
+                single, hyp, health):
+        lift = _lifter(single)
+        w, b = held.weights()
+        w5 = lift(w)
+        b2 = (torch.zeros((x3.shape[0], w5.shape[1] * w5.shape[4]),
+                          dtype=x3.dtype, device=x3.device) if b is None
+              else lift(b))
         y, res = _forward(x3, w5, b2, idx, act)
-        ctx.act, ctx.has_bias = act, has_bias
+        ctx.act, ctx.has_bias, ctx.lift = act, has_bias, lift
         # the parameters and slots are updated in place by the backward:
-        # they ride as attributes, not as saved tensors
-        ctx.w5, ctx.b2, ctx.slots, ctx.hyp, ctx.health = (w5, b2, slots,
-                                                          hyp, health)
+        # their holder rides as an attribute, not as saved tensors
+        ctx.held, ctx.hyp, ctx.health = held, hyp, health
         ctx.save_for_backward(x3, res, idx, rev_ob, rev_t, rev_cnt)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x3, res, idx, rev_ob, rev_t, rev_cnt = ctx.saved_tensors
+        held, lift = ctx.held, ctx.lift
         dy = dy.contiguous()
+        w, b = held.weights()
+        w5 = lift(w)
         # BP reads the old weights: dx is queued before the update
-        dxv = bsm.dx(dy, ctx.w5, rev_ob, rev_t, rev_cnt, res, ctx.act)
-        mom, mom_b, vel, vel_b = ctx.slots
+        dxv = bsm.dx(dy, w5, rev_ob, rev_t, rev_cnt, res, ctx.act)
+        slots = held.slots()
+        mom, mom_b, vel, vel_b = (lift(s) for s in slots)
+        x3, dy, res = held.update_operands(x3, dy, res)
         with torch.no_grad():
             flags = bsm.update_dw(
-                x3, dy, idx, res, ctx.w5, ctx.b2 if ctx.has_bias else None,
-                mom, mom_b, ctx.hyp, vel=vel, vel_b=vel_b, act=ctx.act,
+                x3, dy, idx, res, w5, lift(b) if ctx.has_bias else None, mom,
+                mom_b, ctx.hyp, vel=vel, vel_b=vel_b, act=ctx.act,
                 with_bias=ctx.has_bias, with_health=ctx.health is not None)
+            held.commit(w, b, slots)
             if ctx.health is not None:
                 ctx.health.copy_(flags.to(ctx.health.dtype))
-        return (dxv,) + (None,) * 11
+        return (dxv,) + (None,) * 10
+
+
+def _lifter(single: bool):
+    """t -> t[None] for a 4-D weight's tensors (the E=1 squeeze), else
+    the identity; None stays None."""
+    if not single:
+        return lambda t: t
+    return lambda t: None if t is None else t[None]
 
 
 class _GatedJunction(torch.autograd.Function):
@@ -309,7 +353,7 @@ def _junction_quant(x, w, idx, *, wi, bias, act, w_scale, wi_scale, x_scale,
 def junction_train_update(x, w, idx, rev_ob, rev_t, rev_cnt, *, hyp,
                           wi=None, bias=None, act: str = "none", mom=None,
                           mom_wi=None, mom_b=None, vel=None, vel_wi=None,
-                          vel_b=None, health=None):
+                          vel_b=None, health=None, held=None):
     """The fused BP+UP junction: forward as ``junction_matmul``; its
     backward updates w (and wi, for the gate), bias and the fp32 slots in
     place (mom alone: SGD+momentum, mom and vel: Adam, none: SGD; the
@@ -320,7 +364,12 @@ def junction_train_update(x, w, idx, rev_ob, rev_t, rev_cnt, *, hyp,
 
     w must already be in x's dtype (a cast would update a copy), so must
     wi and the bias; the slots are fp32.  x must take part in autograd, or
-    the backward, and with it the update, would never run."""
+    the backward, and with it the update, would never run.
+
+    ``held`` (a plain junction only): the holder of w, the bias and the
+    slots when they are a rank's shards on the partitioned mesh route
+    (``parallel/partition.HeldJunction``; w and the rest are then those
+    shards); by default a ``WholeJunction`` of the tensors given."""
     gated = wi is not None
     if gated and (bias is not None or act != "none"):
         raise ValueError("gated junction fixes act=silu-gate and takes no "
@@ -355,11 +404,8 @@ def junction_train_update(x, w, idx, rev_ob, rev_t, rev_cnt, *, hyp,
                          "autograd: the update runs in the backward")
     single, lead, x3, w5, b2 = _lift(x, w, bias)
     E = x3.shape[0]
-    _, nob, _, bs, _ = w5.shape
-
-    def lift(s):
-        return None if s is None else (s[None] if single else s)
-
+    _, nob, _, _, bs = w5.shape     # a shard may cut the in rows
+    lift = _lifter(single)
     wi5 = lift(wi)
     if not w5.is_contiguous() or (gated and not wi5.is_contiguous()):
         raise ValueError("w must be contiguous: it is updated in place")
@@ -367,17 +413,20 @@ def junction_train_update(x, w, idx, rev_ob, rev_t, rev_cnt, *, hyp,
         raise ValueError(f"health must be ({E},) f32 zeros (one slot per "
                          f"junction unit), got shape {tuple(health.shape)}")
     hyp = bsm.normalize_hyp(hyp, E).to(x.device)
+    if gated and held is not None:
+        raise ValueError("a gated junction's fused update takes its tensors "
+                         "whole: no holder")
     if gated:
         y = _GatedJunctionUpdate.apply(
             x3.contiguous(), w5, wi5, idx, rev_ob, rev_t, rev_cnt,
             (lift(mom), lift(mom_wi), lift(vel), lift(vel_wi)), hyp, health)
         return y.reshape(*lead, nob * bs) if single else y
-    slots = (lift(mom), lift(mom_b) if bias is not None else None,
-             lift(vel), lift(vel_b) if bias is not None else None)
-    b = (torch.zeros((E, nob * bs), dtype=x.dtype, device=x.device)
-         if b2 is None else b2)
-    y = _JunctionUpdate.apply(x3.contiguous(), w5, b, idx, rev_ob, rev_t,
-                              rev_cnt, act, bias is not None, slots, hyp,
+    if held is None:
+        held = WholeJunction(w, bias, (
+            mom, mom_b if bias is not None else None, vel,
+            vel_b if bias is not None else None))
+    y = _JunctionUpdate.apply(x3.contiguous(), held, idx, rev_ob, rev_t,
+                              rev_cnt, act, bias is not None, single, hyp,
                               health)
     return y.reshape(*lead, nob * bs) if single else y
 

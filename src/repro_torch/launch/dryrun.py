@@ -56,8 +56,13 @@ backward) and Mamba-1's all-reduce of ``x_proj``'s partial products, the
 clip norm's and the metrics'. The model axis divides the compute as the
 specs say, and so does the memory: no leaf is gathered whole and the
 cache stays sharded.  A config ``steps.partitioned`` refuses (none of
-the registry's; the fused path, which the dry run never builds) raises:
-it has no count.
+the registry's two-pass steps; the moe and audio families' fused steps)
+raises: it has no count.  ``--fused`` counts the train cells' fused
+BP+UP step instead (``fused_adam``, clip 1.0; records ``<cell>+fused``),
+for a variant whose params are in the compute dtype (``perf-sparse``):
+its norm pre-pass, then each fused junction's update over every row of
+the batch, x, the residual and dy all-gathered over the row axes
+(``partition.HeldJunction``), so its eager peak holds them.
 
 Collectives follow ``roofline/dispatch.py``'s conventions (an
 all-gather, a reduce-scatter and an all-to-all count their output bytes,
@@ -98,7 +103,7 @@ from repro_torch.core.sparsity import SparsityConfig
 from repro_torch.launch import specs as specs_mod
 from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import model as M
-from repro_torch.optim import adam, constant_schedule
+from repro_torch.optim import adam, constant_schedule, fused_adam
 from repro_torch.parallel import partition
 from repro_torch.parallel import sharding as sh
 from repro_torch.roofline import analysis as roofline
@@ -116,8 +121,10 @@ SWEEP_ORDER = [
 VARIANTS = ("dense", "sparse", "sparse-all", "perf", "perf-sparse")
 
 
-def cell_id(arch: str, shape: str, mesh_kind: str, variant: str) -> str:
-    v = "" if variant == "dense" else f"+{variant}"
+def cell_id(arch: str, shape: str, mesh_kind: str, variant: str,
+            fused: bool = False) -> str:
+    v = ("" if variant == "dense" else f"+{variant}") + (
+        "+fused" if fused else "")
     return f"{arch}{v}__{shape}__{mesh_kind}"
 
 
@@ -166,22 +173,34 @@ def _train_opt(cfg: ArchConfig):
                 master_copy=(cfg.param_dtype != "float32"))
 
 
-def execution(cfg: ArchConfig) -> str:
-    """The route the mesh steps run ``cfg`` on: ``"partitioned"``, the
-    only one the dry run counts (a config the route refuses raises)."""
-    if not steps.partitioned(cfg, _train_opt(cfg)):
+def _fused_opt():
+    """``--fused``'s optimizer: the dry run's Adam (clip 1.0) on the fused
+    contract."""
+    return fused_adam(constant_schedule(1e-4), grad_clip=1.0)
+
+
+def execution(cfg: ArchConfig, optimizer=None) -> str:
+    """The route the mesh steps run ``cfg`` on (its train step with
+    ``optimizer``, by default the dry run's two-pass Adam):
+    ``"partitioned"``, the only one the dry run counts (a config the
+    route refuses raises)."""
+    if not steps.partitioned(cfg, optimizer or _train_opt(cfg)):
         raise ValueError(f"{cfg.name}: the mesh steps run it gathered, "
                          "which the dry run does not count")
     return "partitioned"
 
 
 def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
-               microbatches: int = 1):
+               microbatches: int = 1, optimizer=None, row_log=None):
     """One rank's count of a cell on the partitioned route (rank 0's
     shards): (its roofline, {tree: bytes the rank holds at rest}).
     ``mesh``: an ``AbstractMesh`` (or a ``DeviceMesh``, read for its axes
-    only)."""
-    execution(cfg)
+    only); ``optimizer``: the train step's, by default the dry run's
+    two-pass Adam (a fused one counts the fused step); ``row_log``: a list
+    that takes the bytes of each fused junction's update operands
+    gathered over the row axes (``Partition.note_rows``)."""
+    opt = optimizer or _train_opt(cfg)
+    execution(cfg, opt)
     params = M.init(cfg, 0, "meta")
     pspecs = sh.param_specs(cfg, params, mesh)
     held = {"params": _nbytes(sh.attach(params, pspecs, mesh))}
@@ -195,11 +214,13 @@ def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
     axes, n = steps.dp_split(cfg, batch, mesh)
     rows = _meta_rows(batch, n)
     part = partition.Partition(cfg, comm, pspecs, axes if n > 1 else ())
+    if row_log is not None:
+        part.note_rows = lambda got: row_log.append(sum(
+            t.numel() * t.element_size() for t in got if t is not None))
     local = sh.with_junction_views(sh.attach(params, pspecs, mesh), pspecs,
                                    mesh, 0)
     out = []
     if shape.kind == "train":
-        opt = _train_opt(cfg)
         state = opt.init(params)
         lstate = sh.attach(state, sh.state_specs(state, pspecs), mesh)
         held["opt_state"] = _nbytes(lstate)
@@ -231,12 +252,18 @@ def count_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str,
-             out_dir: Path, force: bool = False) -> dict:
-    cid = cell_id(arch, shape_name, mesh_kind, variant)
+             out_dir: Path, force: bool = False, fused: bool = False) -> dict:
+    """Count one cell and record it; ``fused``: a train cell's fused BP+UP
+    step (``ArchConfig.fused_update``, ``_fused_opt``), whose whole
+    batch runs at once (no microbatches)."""
+    cid = cell_id(arch, shape_name, mesh_kind, variant, fused)
     out_path = Path(out_dir) / f"{cid}.json"
     if out_path.exists() and not force:
         return json.loads(out_path.read_text())
     cfg = _apply_variant(registry.get(arch), variant)
+    opt = None
+    if fused:
+        cfg, opt = dataclasses.replace(cfg, fused_update=True), _fused_opt()
     shape = SHAPES[shape_name]
     mesh = production_mesh(mesh_kind)
     n_chips = math.prod(mesh.shape)
@@ -246,10 +273,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str,
                  "active_params": cfg.active_param_count()}
     cap_gb = roofline.HBM_CAPACITY / 2**30
     try:
-        rec["execution"] = execution(cfg)
+        rec["execution"] = execution(cfg, opt)
+        if fused:
+            ok, why = steps.fused_update_eligible(cfg, opt)
+            if not ok:
+                raise ValueError(f"not fused: {why}")
+            rec["update_path"] = "fused"
         # training cells auto-scale microbatches (gradient accumulation
         # over the rank's rows) until the per-device footprint fits
-        mb_plan = [1, 2, 4, 8] if shape.kind == "train" else [1]
+        mb_plan = [1, 2, 4, 8] if shape.kind == "train" and not fused \
+            else [1]
         rows = shape.global_batch // steps.dp_split(
             cfg, specs_mod.batch_struct(cfg, shape), mesh)[1]
         attempts = []
@@ -257,7 +290,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str,
             if mb > 1 and rows % mb:
                 continue
             t0 = time.time()
-            rl, held = count_cell(cfg, shape, mesh, microbatches=mb)
+            row_bytes: list = []
+            rl, held = count_cell(cfg, shape, mesh, microbatches=mb,
+                                  optimizer=opt, row_log=row_bytes)
             rec["count_s"] = round(time.time() - t0, 1)
             per_dev_gb = (sum(held.values())
                           + rl.memory_stats["peak_bytes"]) / 2**30
@@ -273,11 +308,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str,
         rec["useful_fraction"] = roofline.useful_fraction(
             cfg, shape, rl.dot_flops, n_chips)
         rec["per_device_gb"] = round(per_dev_gb, 3)
+        if fused:   # one junction's x, dy and residual over every row
+            rec["fused_rows_gb"] = round(max(row_bytes, default=0) / 2**30,
+                                         3)
         rec["fits_80gb"] = per_dev_gb < cap_gb
         rec["ok"] = True
+        rows_gb = (f" rows={rec['fused_rows_gb']}GiB at_rest="
+                   f"{sum(held.values()) / 2**30:.2f}GiB" if fused else "")
         print(f"[dryrun] {cid}: ok count={rec['count_s']}s "
               f"perdev={per_dev_gb:.2f}GiB mb={rec['microbatches']} "
-              f"dom={rl.dominant}", flush=True)
+              f"dom={rl.dominant}{rows_gb}", flush=True)
     except Exception as e:  # record failure: these are faults to fix
         rec["ok"] = False
         rec["error"] = f"{type(e).__name__}: {e}"
@@ -298,6 +338,10 @@ def main(argv=None):
     ap.add_argument("--variant", default="dense", choices=list(VARIANTS))
     ap.add_argument("--out", default=str(RESULTS))
     ap.add_argument("--force", action="store_true")
+    ap.add_argument("--fused", action="store_true",
+                    help="count the train cells' fused BP+UP step (fused "
+                    "Adam, clip 1.0; a variant with param_dtype == dtype, "
+                    "e.g. perf-sparse)")
     args = ap.parse_args(argv)
     out_dir = Path(args.out)
 
@@ -308,10 +352,12 @@ def main(argv=None):
         cfg = registry.get(arch)
         cells = ([SHAPES[args.shape]] if args.shape
                  else list(valid_cells(cfg)))
+        if args.fused:
+            cells = [c for c in cells if c.kind == "train"]
         for shape in cells:
             for mk in meshes:
                 rec = run_cell(arch, shape.name, mk, args.variant, out_dir,
-                               force=args.force)
+                               force=args.force, fused=args.fused)
                 n_ok += rec.get("ok", False)
                 n_fail += not rec.get("ok", False)
     print(f"[dryrun] done: {n_ok} ok, {n_fail} failed", flush=True)

@@ -50,6 +50,14 @@ partial sums are fp32 (``sparse_linear.apply_tp``) and round to the
 compute dtype once summed, as one rank's product rounds once; gradients
 are summed in fp32 and rounded back.
 
+A fused BP+UP step (its junction dicts carrying the update context) has
+no weight gradient to reduce: each fused junction reads the rank's model
+shard of its weight, bias and slots through a ``HeldJunction``, which
+gathers them over the dp axes only inside the junction's forward and
+backward, and its update sums over every row of the batch, as the
+reference's partitioner runs ``update_dw`` on operands gathered over the
+batch; every dp rank of a model column makes the same update.
+
 ``MeshComm`` issues the collectives on a ``DeviceMesh`` (the functional
 collectives, one axis at a time, the last mesh axis first when
 gathering, as DTensor does); ``ReckonedComm`` reckons the same calls on
@@ -66,6 +74,7 @@ import threading
 
 import torch
 
+from repro_torch.core import sparse_linear as sl
 from repro_torch.parallel import sharding as sh
 from repro_torch.tree import tree_items, tree_map
 
@@ -364,6 +373,69 @@ class _Regather:
         return full.as_strided(shape, stride, offset)
 
 
+class HeldJunction:
+    """A fused junction's weight, bias and optimizer slots as a rank of
+    the partitioned route holds them: its shards (``leaves``, each with
+    its ``_Plan``; a slot takes its weight's or bias's), which
+    ``ops.junction_train_update`` reads through this holder.  Each read
+    gathers them over the dp axes anew (the forward, then the backward's
+    dx and update), so no gathered copy outlives its use, however long
+    the autograd graph keeps the holder.  The update runs over every row
+    of the batch, as the reference's partitioner runs the kernel on
+    operands gathered over the batch: x, the saved residual and dy are
+    all-gathered over the row axes in rank order, the global row order
+    (a "rep" junction's dy, partial on each model rank, all-reduced over
+    "model" in fp32 first), so every dp rank of a model column makes the
+    same update; the rank's piece of each updated tensor is then copied
+    back into its shard.  With one rank on the axes nothing is issued
+    and the kernels update the shards themselves."""
+
+    SLOT_OF = {"w": "w", "b": "b", "mom_w": "w", "mom_b": "b",
+               "vel_w": "w", "vel_b": "b"}
+
+    def __init__(self, part, leaves: dict, plans: dict, rep: bool):
+        self.part, self.leaves, self.plans = part, leaves, plans
+        self.rep = rep
+
+    def _gathered(self, name):
+        t = self.leaves.get(name)
+        plan = self.plans.get(name)
+        if t is None or not plan.dp:
+            return t
+        out = self.part.comm.all_gather(t, plan.dp, plan.dp_dim)
+        self.part.note_gather(out)
+        return out
+
+    def weights(self):
+        return self._gathered("w"), self._gathered("b")
+
+    def slots(self):
+        return tuple(self._gathered(k)
+                     for k in ("mom_w", "mom_b", "vel_w", "vel_b"))
+
+    def update_operands(self, x3, dy, res):
+        part = self.part
+        if self.rep and part.m > 1:
+            dy = part.comm.all_reduce(dy.float(), ("model",)).to(dy.dtype)
+        if not part.row_axes:
+            return x3, dy, res
+        got = tuple(None if t is None else
+                    part.comm.all_gather(t, part.row_axes, 1)
+                    for t in (x3, dy, res))
+        part.note_rows(got)
+        return got
+
+    def commit(self, w, bias, slots):
+        got = dict(zip(("w", "b", "mom_w", "mom_b", "vel_w", "vel_b"),
+                       (w, bias) + tuple(slots)))
+        for name, shard in self.leaves.items():
+            plan = self.plans[name]
+            if plan.dp and got[name] is not shard:
+                n = shard.shape[plan.dp_dim]
+                at = self.part.comm.index(plan.dp)
+                shard.copy_(got[name].narrow(plan.dp_dim, at * n, n))
+
+
 class _Plan:
     """How one leaf is gathered and its gradient reduced."""
     __slots__ = ("dp", "dp_dim", "dp_rest", "model_rep")
@@ -411,6 +483,11 @@ class Partition:
         """Called with each leaf gather's output: a hook for tests that
         record what a rank holds gathered."""
 
+    def note_rows(self, got) -> None:
+        """Called with a fused junction's update operands gathered over
+        the row axes (x, dy, the residual or None): a hook for the dry
+        run, which records the largest."""
+
     def gather(self, tree, spec_tree, shared: SharedUses | None = None):
         """A unit (a layer, the embedding, a norm) ready to run: each
         float leaf through its FSDP gather, each linear container tagged
@@ -419,8 +496,12 @@ class Partition:
         pattern leaves pass through (the step placed the rank's junction
         views in them, ``sharding.with_junction_views``).  ``shared``:
         the unit runs that many times a step and its leaves' gradients
-        are summed over the uses before they are reduced."""
+        are summed over the uses before they are reduced.  A junction
+        dict that carries the fused update's context is not gathered
+        here: ``_fused_junction``."""
         if isinstance(tree, dict):
+            if sl.UPDATE_HYP_LEAF in tree:
+                return self._fused_junction(tree, spec_tree)
             out = {k: self.gather(v, spec_tree[k], shared)
                    for k, v in tree.items()}
             if "w" in tree and torch.is_tensor(tree["w"]):
@@ -437,6 +518,28 @@ class Partition:
         if plan.idle(self):
             return tree
         return _LeafGather.apply(tree, self, plan, shared, id(tree))
+
+    def _fused_junction(self, tree, spec_tree):
+        """A junction dict that carries the fused update's context
+        (``sparse_linear.inject_update_ctx``), ready to run: its shards,
+        pattern views, hyp row and health leaf as they are, tagged as
+        ``gather`` tags a linear container, and its holder under
+        ``"_held"`` (``HeldJunction``), through which the kernels gather
+        and update it."""
+        if not sl.is_sparse(tree):
+            raise ValueError("the partitioned route's fused update takes "
+                             "single junctions: a MoE expert pair's runs "
+                             "on the gathered route")
+        kind = tp_kind(spec_tree["w"])
+        b_split = "b" in tree and "model" in sh.spec_axes(spec_tree["b"][0])
+        if "b" in tree and b_split != (kind == "col"):
+            raise ValueError("a fused junction's bias must split over "
+                             "\"model\" as its output blocks do")
+        leaves = {k: tree[k] for k in HeldJunction.SLOT_OF if k in tree}
+        plans = {k: _Plan(spec_tree[HeldJunction.SLOT_OF[k]], self)
+                 for k in leaves}
+        return dict(tree, _tp=kind, _b_split=b_split,
+                    _held=HeldJunction(self, leaves, plans, kind == "rep"))
 
     @contextlib.contextmanager
     def kept(self):

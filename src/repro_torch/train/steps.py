@@ -31,8 +31,12 @@ leaves over the dp axes only while the layer runs, reduce-scatters the
 gradients back to its shards, updates its shards alone, and decodes on
 its shard of the cache (the attention cache's sequence shard, a ring's
 slots, the state's channels or heads, whisper's frames).  The fused
-BP+UP path takes the gathered route: every leaf gathered whole, the
-rank's dp rows run whole, the result placed again.
+BP+UP step of the dense, vlm and ssm families takes the partitioned
+route too: each fused junction updates the rank's model shard of its
+weight and slots, gathered over the dp axes only while it runs, over
+every row of the batch (``partition.HeldJunction``).  The moe and audio
+families' fused steps take the gathered route: every leaf gathered
+whole, the whole batch run on every rank, the result placed again.
 """
 from __future__ import annotations
 
@@ -348,40 +352,56 @@ def make_dp_train_step(cfg: ArchConfig, optimizer: Optimizer, mean,
                                functools.partial(_dp_reduce, mean))
 
 
+# (strategy, family, attention) of the configs the partitioned route
+# runs, and of those whose fused BP+UP step it runs too (each junction a
+# single one: no MoE expert pair, no whisper on "sp")
+_PARTITIONED = (("tp", "dense", "full"), ("tp", "vlm", "sliding"),
+                ("tp", "moe", "full"), ("tp", "moe", "mla"),
+                ("tp", "ssm", "none"), ("tp", "hybrid", "full"),
+                ("sp", "audio", "full"))
+_FUSED_PARTITIONED = (("tp", "dense", "full"), ("tp", "vlm", "sliding"),
+                      ("tp", "ssm", "none"))
+
+
 def partitioned(cfg: ArchConfig, optimizer: Optimizer | None = None,
                 microbatches: int = 1) -> bool:
     """Whether the mesh steps run ``cfg`` on the partitioned route: the
     dense family with full attention, the vlm with its sliding window,
     the moe family with full attention or MLA, the ssm family and the
     hybrid (its shared block full attention) on the "tp" strategy, the
-    audio family on the "sp" strategy; off the fused path.  Everything
-    else is gathered."""
-    if (cfg.strategy, cfg.family, cfg.attn_kind) not in (
-            ("tp", "dense", "full"), ("tp", "vlm", "sliding"),
-            ("tp", "moe", "full"), ("tp", "moe", "mla"),
-            ("tp", "ssm", "none"), ("tp", "hybrid", "full"),
-            ("sp", "audio", "full")):
+    audio family on the "sp" strategy.  Of those, a fused BP+UP step
+    (``fused_update_eligible``) only for the dense, vlm and ssm families;
+    the moe and audio families' fused steps are gathered (the hybrid is
+    never fused).  Everything else is gathered."""
+    key = (cfg.strategy, cfg.family, cfg.attn_kind)
+    if key not in _PARTITIONED:
         return False
-    return optimizer is None or not fused_update_eligible(
-        cfg, optimizer, microbatches)[0]
+    if optimizer is None or not fused_update_eligible(
+            cfg, optimizer, microbatches)[0]:
+        return True
+    return key in _FUSED_PARTITIONED
 
 
 def make_partitioned_train_step(cfg: ArchConfig, optimizer: Optimizer,
                                 part: partition.Partition,
                                 microbatches: int = 1):
-    """The two-pass step of one rank of a partitioned mesh, on local
-    trees: train_step(params, opt_state, rows, step[, lr_scale]) with the
+    """The step of one rank of a partitioned mesh, on local trees:
+    train_step(params, opt_state, rows, step[, lr_scale]) with the
     rank's shards of the params (its junction views in place,
     ``sharding.with_junction_views``) and of the optimizer state, and its
-    rows of the batch -> (new shards, new state shards, metrics).  The
-    loss runs under ``part`` (the model's partitioned route), its
-    gradient seeded with 1 / model (partition.py's convention); each
+    rows of the batch -> (new shards, new state shards, metrics); the
+    fused BP+UP step (``_make_partitioned_fused_step``) where
+    ``fused_update_eligible`` says so, else the two-pass step.  The
+    two-pass loss runs under ``part`` (the model's partitioned route),
+    its gradient seeded with 1 / model (partition.py's convention); each
     leaf's gradient arrives summed and averaged over the dp axes; the
     loss and metrics are averaged over the row axes; the optimizer
     updates the shards, its clip norm taken over every rank
     (``Partition.sq_sum``), and ``nonfinite`` counts the leaves whose
     gradient is not finite on some rank.  ``launch/dryrun.py`` runs it on
     ``meta`` shards with a ``ReckonedComm``."""
+    if fused_update_eligible(cfg, optimizer, microbatches)[0]:
+        return _make_partitioned_fused_step(cfg, optimizer, part)
     seed = None if part.m == 1 else 1.0 / part.m
 
     def train_step(params, opt_state, rows, step, lr_scale=None):
@@ -405,6 +425,91 @@ def make_partitioned_train_step(cfg: ArchConfig, optimizer: Optimizer,
     return train_step
 
 
+def _make_partitioned_fused_step(cfg: ArchConfig, optimizer: FusedOptimizer,
+                                 part: partition.Partition):
+    """``_make_fused_train_step`` on one rank of a partitioned mesh: the
+    context injected from the rank's local slot shards, the loss run
+    under ``part`` and seeded with 1 / model, as the two-pass step runs
+    it.  Each junction's backward updates the rank's model shard of its
+    weight and slots, gathered over the dp axes, over every row of the
+    batch (``partition.HeldJunction``); the hyp row's gs column carries
+    1 / the row groups, since each rank's loss is a mean over its own
+    rows (``merge``'s ``grad_scale`` does not: the FSDP adjoint already
+    averages the other leaves' gradients over the dp axes).
+    ``grad_clip``'s norm pre-pass is a two-pass partitioned backward
+    whose norm is taken over every rank (``Partition.sq_sum``), its scale
+    folded into the gs column and into merge as on one rank.  The whole
+    batch runs at once, whatever the microbatches (as one rank's fused
+    step runs it).  ``nonfinite`` is the one-rank count of non-finite
+    update tiles (``_fused_nonfinite``)."""
+    key = (cfg.strategy, cfg.family, cfg.attn_kind)
+    if key not in _FUSED_PARTITIONED:
+        raise ValueError(f"{cfg.name}: the partitioned route does not run "
+                         f"the fused step of {key} (its mesh step is "
+                         "gathered)")
+    seed = None if part.m == 1 else 1.0 / part.m
+
+    def train_step(params, opt_state, rows, step, lr_scale=None):
+        dev = params["embed"]["tok"].device
+        hyp = optimizer.hyp(step).to(dev)
+        grad_scale = None
+        if optimizer.grad_clip is not None:
+            with partition.use(part):
+                _, _, raw = _value_and_grad(cfg, params, rows, seed=seed)
+            with sharded_norm(part.sq_sum):
+                grad_scale, _ = global_norm_scale(raw, optimizer.grad_clip)
+            del raw
+            hyp[bsm.COL_GS] *= grad_scale
+        if lr_scale is not None:
+            hyp[bsm.COL_LR] *= float(lr_scale)
+        if part.n_rows > 1:
+            hyp[bsm.COL_GS] /= part.n_rows
+        aug = sl.inject_update_ctx(params, optimizer.slots(opt_state), hyp)
+        with partition.use(part):
+            loss, metrics, grads = _value_and_grad(cfg, aug, rows,
+                                                   fused=True, seed=seed)
+        new_params, new_opt = optimizer.merge(grads, opt_state, params, step,
+                                              lr_scale=lr_scale,
+                                              grad_scale=grad_scale)
+        loss = part.dp_mean(loss)
+        metrics = {k: part.dp_mean(v) if torch.is_tensor(v) else v
+                   for k, v in metrics.items()}
+        metrics = dict(metrics, loss=loss,
+                       nonfinite=_fused_nonfinite(part, aug))
+        return new_params, new_opt, metrics
+
+    return train_step
+
+
+def _fused_nonfinite(part: partition.Partition, aug) -> torch.Tensor:
+    """The partitioned fused step's count of non-finite update tiles, the
+    one-rank step's: a "col" junction's counts (the rank's output blocks)
+    summed over "model", a "rep" junction's (every model rank updated
+    the whole weight alike) taken once, nothing summed over the dp axes
+    (their ranks make the same update)."""
+    found = {"col": [], "rep": []}
+
+    def walk(t, spec):
+        if isinstance(t, dict):
+            if sl.UPDATE_HEALTH_LEAF in t:
+                found[partition.tp_kind(spec["w"])].append(
+                    t[sl.UPDATE_HEALTH_LEAF].float().sum())
+            for k, v in t.items():
+                if isinstance(v, (dict, list, tuple)):
+                    walk(v, spec[k])
+        elif isinstance(t, (list, tuple)):
+            for v, s in zip(t, spec):
+                walk(v, s)
+
+    walk(aug, part.specs)
+    col, rep = (torch.stack(v).sum() if v else None
+                for v in (found["col"], found["rep"]))
+    if col is not None:
+        col = part.comm.all_reduce(col, ("model",))
+    got = [v for v in (col, rep) if v is not None]
+    return sum(got[1:], got[0]) if got else torch.zeros(())
+
+
 def mesh_partition(cfg: ArchConfig, mesh, params,
                    batch=None) -> partition.Partition:
     """The ``Partition`` of this rank of ``mesh`` for ``params`` (placed
@@ -425,18 +530,20 @@ def make_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer, mesh,
     shard of every leaf at rest, and the step returns them placed as
     they came.  Where ``partitioned`` says so the step runs
     ``make_partitioned_train_step`` on the rank's shards (its junction
-    views built on the first call and kept) and its rows of the batch;
-    else ``make_gathered_mesh_train_step``."""
+    views built on the first call and kept) and its rows of the batch
+    (a fused step's rows of the whole batch, whatever the
+    microbatches); else ``make_gathered_mesh_train_step``."""
     if not partitioned(cfg, optimizer, microbatches):
         return make_gathered_mesh_train_step(cfg, optimizer, mesh,
                                              microbatches)
+    fused, _ = fused_update_eligible(cfg, optimizer, microbatches)
     views: dict = {}
 
     def train_step(params, opt_state, batch, step, lr_scale=None):
         part = mesh_partition(cfg, mesh, params, batch)
         local = sh.with_junction_views(partition.local_tree(params),
                                        part.specs, mesh, part.r, views)
-        rows, _ = _dp_rows(cfg, batch, mesh, microbatches)
+        rows, _ = _dp_rows(cfg, batch, mesh, 1 if fused else microbatches)
         run = make_partitioned_train_step(cfg, optimizer, part, microbatches)
         new_p, new_s, metrics = run(local, partition.local_tree(opt_state),
                                     rows, step, lr_scale)
@@ -448,8 +555,9 @@ def make_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer, mesh,
 
 def make_gathered_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer,
                                   mesh, microbatches: int = 1):
-    """The gathered route of ``make_mesh_train_step`` (the fused path,
-    and any config ``partitioned`` refuses): a step gathers the full
+    """The gathered route of ``make_mesh_train_step`` (any config
+    ``partitioned`` refuses: the moe and audio families' fused steps): a
+    step gathers the full
     tensors, runs the update and keeps this rank's shard of the new
     params and state (placed as the inputs were).  The two-pass path
     gives each data-parallel rank its rows of the batch

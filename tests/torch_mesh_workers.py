@@ -14,9 +14,22 @@ import torch.multiprocessing as mp
 def run_ranks(fn, world: int, *args) -> None:
     """fn(rank, *args) on ``world`` gloo ranks; raises if a rank raises
     (the others are stopped)."""
+    join_ranks(start_ranks(fn, world, *args))
+
+
+def start_ranks(fn, world: int, *args):
+    """``run_ranks`` without waiting: the ranks' context, for
+    ``join_ranks`` once the caller has done its own work meanwhile."""
     store = f"{args[0]}/store_{fn.__name__}"
-    mp.start_processes(_enter, args=(fn, world, store, args), nprocs=world,
-                       start_method="spawn")
+    return mp.start_processes(_enter, args=(fn, world, store, args),
+                              nprocs=world, join=False,
+                              start_method="spawn")
+
+
+def join_ranks(ctx) -> None:
+    """Wait for ``start_ranks``' ranks; raises if a rank raised."""
+    while not ctx.join():
+        pass
 
 
 def _enter(rank, fn, world, store, args):
@@ -120,11 +133,13 @@ def sharded_step(rank, d, dtypes, data, model):
 
 def fused_steps(rank, d, data, model, n_steps):
     """``n_steps`` fused Adam (clipped) steps of reduced sparse stablelm-3b
-    in fp32 on a (data, model) mesh; rank 0 writes the gathered params
-    and the losses to ``fused.npz``."""
+    in fp32 on a (data, model) mesh, through the gathered route
+    (``make_gathered_mesh_train_step``, which the moe and audio families'
+    fused steps take); rank 0 writes the gathered params and the losses
+    to ``fused.npz``."""
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.parallel import sharding as sh
-    from repro_torch.train.steps import make_mesh_train_step
+    from repro_torch.train.steps import make_gathered_mesh_train_step
 
     cfg, opt, params, batches = fused_case(n_steps)
     mesh = make_local_mesh(data, model, "cpu")
@@ -132,7 +147,7 @@ def fused_steps(rank, d, data, model, n_steps):
     placed = sh.place(params, specs, mesh)
     state = sh.place_state(opt.init(params), specs, mesh)
     del params
-    step = make_mesh_train_step(cfg, opt, mesh)
+    step = make_gathered_mesh_train_step(cfg, opt, mesh)
     losses = []
     for i, batch in enumerate(batches):
         placed, state, m = step(placed, state, batch, i)
@@ -1052,3 +1067,200 @@ def audio_partitioned_run(rank, d):
                        loss=float(m["loss"]),
                        logits=torch.stack(logits).float().numpy(),
                        tokens=torch.cat(out_tok, 1).numpy())
+
+
+# tests/test_torch_partitioned_fused.py: (arch, block, config changes) on
+# a 2 x 4 mesh, fp32 compute and params, FFN density 0.5: reduced
+# stablelm-3b at block 64 (wg / wi's 4 output blocks one a model rank,
+# "col"; wo's 2 do not divide the axis, "rep"), reduced llava at its
+# window of VLM_WINDOW (8 patches ahead of 28 tokens a row) and reduced
+# falcon-mamba (in_proj's 16 and out_proj's 4 output blocks split), each
+# through the fused steps of FUSED_OPTS, FUSED_STEPS of them
+FUSED_CASES = [("stablelm-3b", 64, {}),
+               ("llava-next-mistral-7b", 32, {"window": VLM_WINDOW}),
+               ("falcon-mamba-7b", 32, {})]
+FUSED_OPTS = ("adam_clip", "sgd_momentum")
+FUSED_STEPS = 3
+
+
+def fused_mesh_case(arch, block, changes):
+    """The reduced config of one partitioned fused case."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.core.sparsity import SparsityConfig
+    cfg = registry.get(arch).reduced().with_sparsity(
+        SparsityConfig(density=0.5, block=block, where="ffn"))
+    return dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                               fused_update=True, **changes)
+
+
+def fused_mesh_opt(kind):
+    """The port's fused optimizer of a FUSED_OPTS kind."""
+    from repro_torch.optim import constant_schedule, fused_adam, fused_sgd
+    if kind == "adam_clip":
+        return fused_adam(constant_schedule(1e-3), grad_clip=1.0)
+    return fused_sgd(constant_schedule(3e-2), momentum=0.9)
+
+
+def fused_mesh_batches(raw):
+    """The FUSED_STEPS batches an ``in_<case>.npz`` holds (popped)."""
+    out = []
+    for j in range(FUSED_STEPS):
+        b = {"tokens": raw.pop(f"batch{j}_tokens")}
+        if f"batch{j}_patches" in raw:
+            b["patches"] = raw.pop(f"batch{j}_patches")
+        out.append(b)
+    return out
+
+
+class JunctionGatherLog:
+    """What a rank holds of fused junctions gathered over the dp axes
+    (``partition.HeldJunction``'s weight, bias and slot gathers): their
+    count, the most bytes alive at once and the bytes alive now."""
+
+    def __init__(self):
+        import weakref
+
+        from repro_torch.parallel import partition
+        self.count, self.live, self.peak = 0, 0, 0
+        orig, log = partition.HeldJunction._gathered, self
+
+        def spy(held, name):
+            t = orig(held, name)
+            if t is not None and t is not held.leaves.get(name):
+                n = t.untyped_storage().nbytes()
+                log.count += 1
+                log.live += n
+                log.peak = max(log.peak, log.live)
+                weakref.finalize(t.untyped_storage(), log._free, n)
+            return t
+        partition.HeldJunction._gathered = spy
+
+    def _free(self, n):
+        self.live -= n
+
+
+def junction_budget(local, specs, mesh, n_slots) -> tuple[int, int]:
+    """(the largest fused junction's weight, bias and ``n_slots`` fp32
+    slots gathered over the dp axes, the most slot bytes of one unit's
+    junctions so gathered): bytes."""
+    from repro_torch.core import sparse_linear as sl
+    from repro_torch.parallel import sharding as sh
+    sizes = sh.axis_sizes(mesh)
+
+    def dp(spec):
+        n = 1
+        for e in spec:
+            for a in sh.spec_axes(e):
+                n *= sizes[a] if a != "model" else 1
+        return n
+
+    def junctions(t, s):
+        if isinstance(t, dict):
+            if sl.is_sparse(t):
+                yield t, s
+            for k, v in t.items():
+                if isinstance(v, (dict, list, tuple)):
+                    yield from junctions(v, s[k])
+        elif isinstance(t, (list, tuple)):
+            for v, q in zip(t, s):
+                yield from junctions(v, q)
+
+    def own(j, s):
+        tot = slots = 0
+        for k in ("w", "b"):
+            if k in j:
+                g = j[k].numel() * dp(s[k])
+                tot += g * j[k].element_size() + n_slots * 4 * g
+                slots += n_slots * 4 * g
+        return tot, slots
+
+    one, unit = 0, 0
+    for lp, ls in zip(local["layers"], specs["layers"]):
+        got = [own(j, s) for j, s in junctions(lp, ls)]
+        one = max([one] + [a for a, _ in got])
+        unit = max(unit, sum(b for _, b in got))
+    return one, unit
+
+
+def fused_partitioned_run(rank, d):
+    """Each FUSED_CASES case through each FUSED_OPTS optimizer on a 2 x 4
+    mesh, from the reference's carried weights and its FUSED_STEPS
+    batches (``in_<case>.npz``): the fused steps through
+    ``make_mesh_train_step``, the first counted under
+    ``DispatchCounter``, ``GatherLog`` and ``JunctionGatherLog``, each
+    rank's at-rest shards checked after every step.  Every rank writes
+    its logs to ``log_<case>_<opt>_<rank>.json``; rank 0 writes the
+    gathered params and slots, the losses and the nonfinite counts to
+    ``out_<case>_<opt>.npz``."""
+    import contextlib
+    import json
+
+    from repro_torch.convert import from_jax_params
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import partition
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.roofline import dispatch
+    from repro_torch.train import steps
+    from repro_torch.tree import tree_map
+
+    mesh = make_local_mesh(2, 4, "cpu")
+    log, jlog = GatherLog(), JunctionGatherLog()
+    for i, case in enumerate(FUSED_CASES):
+        cfg = fused_mesh_case(*case)
+        raw = dict(np.load(f"{d}/in_{i}.npz"))
+        batches = fused_mesh_batches(raw)
+        full = from_jax_params(_tree_from_flat(raw))
+        specs = sh.param_specs(cfg, full, mesh)
+        for kind in FUSED_OPTS:
+            opt = fused_mesh_opt(kind)
+            placed = sh.place(tree_map(lambda t: t.clone(), full), specs,
+                              mesh)
+            state = sh.place_state(opt.init(full), specs, mesh)
+            local = partition.local_tree(placed)
+            budget = unit_budget(local, specs, mesh)
+            one, unit_slots = junction_budget(local, specs, mesh,
+                                              len(opt.slot_keys()))
+            held = {"params": sh.held_bytes(placed)[0],
+                    "opt_state": sh.held_bytes(state)[0]}
+            step = steps.make_mesh_train_step(cfg, opt, mesh)
+            losses, nonfinite, at_rest = [], [], []
+            for j, batch in enumerate(batches):
+                log.sizes, log.peak, log.dtensor = [], log.live, []
+                start, jstart = log.live, jlog.live
+                jlog.count, jlog.peak = 0, jlog.live
+                log.armed = j == 0
+                with (dispatch.DispatchCounter() if j == 0
+                      else contextlib.nullcontext()) as c:
+                    placed, state, m = step(placed, state, batch, j)
+                log.armed = False
+                if j == 0:
+                    train = dict(
+                        _counts(c), gathers=len(log.sizes),
+                        largest=max(log.sizes), peak=log.peak - start,
+                        budget=budget, dtensor=log.dtensor,
+                        junction_gathers=jlog.count,
+                        junction_peak=jlog.peak - jstart,
+                        junction_left=jlog.live - jstart,
+                        junction_budget=one, unit_slots=unit_slots,
+                        held=held)
+                losses.append(float(m["loss"]))
+                nonfinite.append(float(m["nonfinite"]))
+                at_rest.append(bool(
+                    shard_counts(placed, specs, mesh) and all(
+                        shard_counts(state[k], specs, mesh)
+                        for k in opt.slot_keys())))
+            train["after"] = {"params": sh.held_bytes(placed)[0],
+                              "opt_state": sh.held_bytes(state)[0]}
+            train["at_rest"] = at_rest
+            train["nonfinite"] = nonfinite
+            gp = sh.gather(placed)
+            slots = {k: sh.gather(state[k]) for k in opt.slot_keys()}
+            with open(f"{d}/log_{i}_{kind}_{rank}.json", "w") as f:
+                json.dump(train, f)
+            if rank == 0:
+                _save_tree(f"{d}/out_{i}_{kind}.npz",
+                           {"params": gp, **slots},
+                           losses=np.asarray(losses),
+                           nonfinite=np.asarray(nonfinite))
