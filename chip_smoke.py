@@ -196,7 +196,9 @@ PyTorch built for CUDA.  It
    group): ``launch/train.py --devices 1 --data 1 --model 1`` (params and
    Adam placed by ``parallel/sharding.param_specs``) for 3 two-pass steps
    of stablelm-3b at full width and 2 layers, and the fused SGD step
-   under the same mesh (``make_mesh_train_step``), each against the same
+   under the same mesh (``make_mesh_train_step``, partitioned, and the
+   gathered route) for every family but the hybrid (``MESH_FUSED``: the
+   MoE's through the gated kernels), each against the same
    path without a mesh: losses and params bit for bit, exact launches,
    the bytes the rank holds at rest, each path's step time; then the
    partitioned route (``steps.partitioned``) under the same mesh for
@@ -4632,12 +4634,13 @@ def mesh_phase(P, card):
       for bit (one rank splits and sums nothing), exact launches, the
       bytes the rank holds at rest (the launcher's line);
     * the fused step (fused SGD with momentum, bf16 params) under the
-      same mesh for MESH_FUSED (stablelm-3b, llava-next-mistral-7b and
-      falcon-mamba-7b at full width, cut in depth), ``_mesh_fused``:
-      the partitioned route (``make_mesh_train_step``) and the gathered
-      one against the plain step, from the same weights and batches:
-      losses and params bit for bit, exact launches on the tensor cores
-      (no dw), the three step times.
+      same mesh for MESH_FUSED (stablelm-3b, llava-next-mistral-7b,
+      falcon-mamba-7b, qwen3-moe-30b-a3b, deepseek-v2-lite-16b and
+      whisper-base at full width, cut in depth), ``_mesh_fused``: the
+      partitioned route (``make_mesh_train_step``) and the gathered one
+      against the plain step, from the same weights and batches: losses
+      and params bit for bit, exact launches on the tensor cores (no dw,
+      no gated_dw), the three step times.
 
     * the partitioned route (``steps.partitioned``: the dense family,
       two-pass) under the same mesh, ``_mesh_partitioned``: train,
@@ -4885,14 +4888,14 @@ def _mesh_fused(P, cfg, mesh, card):
     """The fused step (fused SGD with momentum, bf16 params) under the
     one-rank ``mesh`` for ``cfg`` (a MESH_FUSED arch, sparse at full
     width, cut in depth): MESH_STEPS steps each through the partitioned
-    route (``make_mesh_train_step``: ``steps.partitioned`` gives it the
-    dense, vlm and ssm families' fused step), the gathered route
-    (``make_gathered_mesh_train_step``, which the moe and audio families'
-    fused steps take) and the plain fused step, from the same weights
-    and batches: losses and params bit for bit against the plain step on
-    both routes, exact launches of fwd, dx and update_dw on the tensor
-    cores and none of dw, the three median step times after the
-    first."""
+    route (``make_mesh_train_step``: ``steps.partitioned`` gives it
+    every family's fused step), the gathered route
+    (``make_gathered_mesh_train_step``) and the plain fused step, from
+    the same weights and batches: losses and params bit for bit against
+    the plain step on both routes, exact launches of fwd, dx and
+    update_dw (and of a MoE's gated_fwd, gated_dx and update_gated_dw)
+    on the tensor cores and none of dw or gated_dw, the three median
+    step times after the first."""
     cfg = dataclasses.replace(cfg, fused_update=True, param_dtype="bfloat16")
     opt = P.optim.fused_sgd(P.optim.cosine_schedule(3e-4, 20, 100),
                             momentum=0.9)
@@ -4935,8 +4938,9 @@ def _mesh_fused(P, cfg, mesh, card):
     want = _expected_launches(P, cfg, MESH_STEPS, "fused")
     want_tc = _expected_tc(P, cfg, want)
     counts = part[3]
-    sub = {k: counts[k] for k in FUSED_KEYS} | {
-        f"{k}_tc": counts[f"{k}_tc"] for k in FUSED_KEYS}
+    keys = FUSED_KEYS + (GATED_FUSED_KEYS if cfg.family == "moe" else ())
+    sub = {k: counts[k] for k in keys} | {
+        f"{k}_tc": counts[f"{k}_tc"] for k in keys}
     med = [statistics.median(r[2][1:]) * 1e3 for r in (part, gath, plain)]
     print(f"[mesh] fused SGD step under the one-rank mesh, {cfg.name} "
           f"layers={cfg.n_layers} {cfg.dtype}: losses {part[1]} against "
@@ -4951,9 +4955,9 @@ def _mesh_fused(P, cfg, mesh, card):
             "plain step")
     require({k: counts[k] for k in want} == want
             and all(counts[k] == plain[3][k] == gath[3][k] for k in sub)
-            and counts["junction_dw"] == 0
+            and counts["junction_dw"] == counts["junction_gated_dw"] == 0
             and all(counts[f"{k}_tc"] == want_tc[k] == want[k] > 0
-                    for k in FUSED_KEYS),
+                    for k in keys),
             f"{cfg.name}: mesh fused launches {counts} != {want}")
     del part, gath, plain
     torch.cuda.empty_cache()
@@ -4980,10 +4984,16 @@ MESH_VLM = ("llava-next-mistral-7b", {"n_layers": MESH_LAYERS,
 MESH_AUDIO = ("whisper-base", {})
 # the fused step's partitioned route: stablelm-3b and llava-next-mistral-
 # 7b at MESH_LAYERS layers (llava with MESH_VLM's patches),
-# falcon-mamba-7b at 2 of its 64
+# falcon-mamba-7b at 2 of its 64, qwen3-moe-30b-a3b at MESH_LAYERS of its
+# 48, deepseek-v2-lite-16b at its dense first layer and one MoE layer,
+# whisper-base whole on the "sp" strategy
 MESH_FUSED = ((MESH_ARCH, {"n_layers": MESH_LAYERS}), MESH_VLM,
-              ("falcon-mamba-7b", {"n_layers": MESH_LAYERS}))
+              ("falcon-mamba-7b", {"n_layers": MESH_LAYERS}),
+              ("qwen3-moe-30b-a3b", {"n_layers": MESH_LAYERS}),
+              ("deepseek-v2-lite-16b", {"n_layers": 2}), MESH_AUDIO)
 FUSED_KEYS = ("junction_fwd", "junction_dx", "junction_update_dw")
+GATED_FUSED_KEYS = ("junction_gated_fwd", "junction_gated_dx",
+                    "junction_update_gated_dw")
 DENSE_KEYS = ("junction_fwd", "junction_dx", "junction_dw")
 MOE_KEYS = DENSE_KEYS + ("junction_gated_fwd", "junction_gated_dx",
                          "junction_gated_dw")

@@ -33,7 +33,9 @@ unchanged on the rank's blocks, through its own pattern rows and reverse
 tables), row-parallel (a dense weight's in dim split: partial sums), or
 replicated.  A fused junction there carries its holder under ``"_held"``
 (``partition.HeldJunction``: the rank's shards, gathered where the
-kernels read them), which ``apply`` hands to the fused update.
+kernels read them), which ``apply`` hands to the fused update (a MoE
+dict its gate's and wo's under ``"_held_in"`` / ``"_held_out"``, which
+``models/moe._expert_ffn`` hands on).
 """
 from __future__ import annotations
 

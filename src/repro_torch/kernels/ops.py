@@ -134,27 +134,32 @@ class _Junction(torch.autograd.Function):
 
 
 class WholeJunction:
-    """The weight, bias and fp32 slots (mom, mom_b, vel, vel_b; None where
-    absent) of a fused junction as one rank holds them whole: the kernels
-    read them and update them in place.  The partitioned mesh steps hand
-    ``junction_train_update`` a holder of the same interface instead
-    (``parallel/partition.HeldJunction``), which gathers the rank's
-    shards where the kernels read them and places the update back."""
+    """The weights (w and the bias, or the gate's wg and wi) and fp32
+    slots (mom, mom_b, vel, vel_b, or the gate's mom_wg, mom_wi, vel_wg,
+    vel_wi; None where absent) of a fused junction as one rank holds them
+    whole: the kernels read them and update them in place.  The
+    partitioned mesh steps hand ``junction_train_update`` a holder of the
+    same interface instead (``parallel/partition.HeldJunction``), which
+    gathers the rank's shards where the kernels read them, gathers the
+    update's operands over the rows of every rank and places the update
+    back."""
 
-    def __init__(self, w, bias, slots):
-        self.w, self.bias, self.slot_vals = w, bias, slots
+    def __init__(self, weights: tuple, slots: tuple):
+        self.weight_vals, self.slot_vals = weights, slots
 
     def weights(self):
-        return self.w, self.bias
+        return self.weight_vals
 
     def slots(self):
         return self.slot_vals
 
-    def update_operands(self, x3, dy, res):
-        """(x, dy, the residual) over the rows the update sums over."""
-        return x3, dy, res
+    def update_operands(self, *ops):
+        """The row-major operands over the rows the update sums over:
+        (x, dy, the residual) of a plain junction, (x, dh, g, u) of the
+        gate."""
+        return ops
 
-    def commit(self, w, bias, slots):
+    def commit(self, weights, slots):
         """Keep the updated tensors (here they are the held ones)."""
 
 
@@ -193,7 +198,7 @@ class _JunctionUpdate(torch.autograd.Function):
                 x3, dy, idx, res, w5, lift(b) if ctx.has_bias else None, mom,
                 mom_b, ctx.hyp, vel=vel, vel_b=vel_b, act=ctx.act,
                 with_bias=ctx.has_bias, with_health=ctx.health is not None)
-            held.commit(w, b, slots)
+            held.commit((w, b), slots)
             if ctx.health is not None:
                 ctx.health.copy_(flags.to(ctx.health.dtype))
         return (dxv,) + (None,) * 10
@@ -230,30 +235,38 @@ class _GatedJunction(torch.autograd.Function):
 
 class _GatedJunctionUpdate(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x3, wg5, wi5, idx, rev_ob, rev_t, rev_cnt, slots, hyp,
+    def forward(ctx, x3, held, idx, rev_ob, rev_t, rev_cnt, single, hyp,
                 health):
-        h, g, u = bsm.gated_fwd(x3, wg5, wi5, idx, save_res=True)
-        # updated in place by the backward: attributes, not saved tensors
-        ctx.wg5, ctx.wi5, ctx.slots, ctx.hyp, ctx.health = (wg5, wi5, slots,
-                                                            hyp, health)
+        lift = _lifter(single)
+        wg, wi = held.weights()
+        h, g, u = bsm.gated_fwd(x3, lift(wg), lift(wi), idx, save_res=True)
+        ctx.lift = lift
+        # updated in place by the backward: their holder rides as an
+        # attribute, not as saved tensors
+        ctx.held, ctx.hyp, ctx.health = held, hyp, health
         ctx.save_for_backward(x3, g, u, idx, rev_ob, rev_t, rev_cnt)
         return h
 
     @staticmethod
     def backward(ctx, dh):
         x3, g, u, idx, rev_ob, rev_t, rev_cnt = ctx.saved_tensors
+        held, lift = ctx.held, ctx.lift
         dh = dh.contiguous()
+        wg, wi = held.weights()
+        wg5, wi5 = lift(wg), lift(wi)
         # BP reads the old weights: dx is queued before the update
-        dxv = bsm.gated_dx(dh, ctx.wg5, ctx.wi5, rev_ob, rev_t, rev_cnt, g,
-                           u)
-        mg, mi, vg, vi = ctx.slots
+        dxv = bsm.gated_dx(dh, wg5, wi5, rev_ob, rev_t, rev_cnt, g, u)
+        slots = held.slots()
+        mg, mi, vg, vi = (lift(s) for s in slots)
+        x3, dh, g, u = held.update_operands(x3, dh, g, u)
         with torch.no_grad():
             flags = bsm.update_gated_dw(
-                x3, dh, idx, g, u, ctx.wg5, ctx.wi5, mg, mi, ctx.hyp, vg=vg,
-                vi=vi, with_health=ctx.health is not None)
+                x3, dh, idx, g, u, wg5, wi5, mg, mi, ctx.hyp, vg=vg, vi=vi,
+                with_health=ctx.health is not None)
+            held.commit((wg, wi), slots)
             if ctx.health is not None:
                 ctx.health.copy_(flags.to(ctx.health.dtype))
-        return (dxv,) + (None,) * 9
+        return (dxv,) + (None,) * 8
 
 
 def _lift(x, w, bias):
@@ -366,10 +379,10 @@ def junction_train_update(x, w, idx, rev_ob, rev_t, rev_cnt, *, hyp,
     wi and the bias; the slots are fp32.  x must take part in autograd, or
     the backward, and with it the update, would never run.
 
-    ``held`` (a plain junction only): the holder of w, the bias and the
-    slots when they are a rank's shards on the partitioned mesh route
-    (``parallel/partition.HeldJunction``; w and the rest are then those
-    shards); by default a ``WholeJunction`` of the tensors given."""
+    ``held``: the holder of the weights (w and the bias, or wg and wi)
+    and the slots when they are a rank's shards on the partitioned mesh
+    route (``parallel/partition.HeldJunction``; w and the rest are then
+    those shards); by default a ``WholeJunction`` of the tensors given."""
     gated = wi is not None
     if gated and (bias is not None or act != "none"):
         raise ValueError("gated junction fixes act=silu-gate and takes no "
@@ -413,16 +426,14 @@ def junction_train_update(x, w, idx, rev_ob, rev_t, rev_cnt, *, hyp,
         raise ValueError(f"health must be ({E},) f32 zeros (one slot per "
                          f"junction unit), got shape {tuple(health.shape)}")
     hyp = bsm.normalize_hyp(hyp, E).to(x.device)
-    if gated and held is not None:
-        raise ValueError("a gated junction's fused update takes its tensors "
-                         "whole: no holder")
     if gated:
-        y = _GatedJunctionUpdate.apply(
-            x3.contiguous(), w5, wi5, idx, rev_ob, rev_t, rev_cnt,
-            (lift(mom), lift(mom_wi), lift(vel), lift(vel_wi)), hyp, health)
+        if held is None:
+            held = WholeJunction((w, wi), (mom, mom_wi, vel, vel_wi))
+        y = _GatedJunctionUpdate.apply(x3.contiguous(), held, idx, rev_ob,
+                                       rev_t, rev_cnt, single, hyp, health)
         return y.reshape(*lead, nob * bs) if single else y
     if held is None:
-        held = WholeJunction(w, bias, (
+        held = WholeJunction((w, bias), (
             mom, mom_b if bias is not None else None, vel,
             vel_b if bias is not None else None))
     y = _JunctionUpdate.apply(x3.contiguous(), held, idx, rev_ob, rev_t,

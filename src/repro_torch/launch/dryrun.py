@@ -56,13 +56,14 @@ backward) and Mamba-1's all-reduce of ``x_proj``'s partial products, the
 clip norm's and the metrics'. The model axis divides the compute as the
 specs say, and so does the memory: no leaf is gathered whole and the
 cache stays sharded.  A config ``steps.partitioned`` refuses (none of
-the registry's two-pass steps; the moe and audio families' fused steps)
-raises: it has no count.  ``--fused`` counts the train cells' fused
-BP+UP step instead (``fused_adam``, clip 1.0; records ``<cell>+fused``),
-for a variant whose params are in the compute dtype (``perf-sparse``):
-its norm pre-pass, then each fused junction's update over every row of
-the batch, x, the residual and dy all-gathered over the row axes
-(``partition.HeldJunction``), so its eager peak holds them.
+the registry's) raises: it has no count.  ``--fused`` counts the train
+cells' fused BP+UP step instead (``fused_adam``, clip 1.0; records
+``<cell>+fused``), for a variant whose params are in the compute dtype
+(``perf-sparse``): its norm pre-pass, then each fused junction's update
+over every row of the batch, x, the residual and dy all-gathered over
+the row axes (``partition.HeldJunction``; a MoE's experts their every
+row group's capacity slots, whisper's rows over "model" too where they
+split over it), so its eager peak holds them.
 
 Collectives follow ``roofline/dispatch.py``'s conventions (an
 all-gather, a reduce-scatter and an all-to-all count their output bytes,

@@ -34,10 +34,10 @@ step: on the two-pass path the ranks divide the work as the specs
 divide the leaves (tensor parallelism over "model", or whisper's
 sequence over "model", each layer gathered over "data" only while it
 runs, the gradients reduce-scattered back to the shards;
-``steps.partitioned``), and so does the fused path of the dense, vlm
-and ssm families (each fused junction's update over every row of the
-batch, its weight and slots gathered over "data" only while it runs);
-the moe and audio families' fused steps gather every leaf each step.
+``steps.partitioned``), and so does the fused path (each fused
+junction's update over every row of the batch, its weight and slots
+gathered over "data" only while it runs; a MoE's experts over every
+row group's capacity slots).
 The two-pass step gives each
 data-parallel rank its rows of the batch and averages the gradients
 over the data axis.  On

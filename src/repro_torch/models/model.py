@@ -956,9 +956,11 @@ def _embed_sp(part, params, tokens, pos: int = 0):
 def _enc_block_sp(part, lp, ls, x, F: int):
     """``_enc_block`` on the rank's frames of the ``F``: its leaves
     gathered over the dp axes, q on the rank's frames, k / v of every
-    frame (``attention.gqa_forward_sp``), the MLP on the rank's frames."""
+    frame (``attention.gqa_forward_sp``), the MLP on the rank's frames
+    (a fused junction's update gathers them over "model" where they are
+    split over it)."""
     cfg = part.cfg
-    v = part.gather(lp, ls)
+    v = part.gather(lp, ls, rows_over_model=part.seq_split(F))
     h = norm_apply(v["norm1"], x, cfg.norm, cfg.norm_eps)
     a, _ = attn.gqa_forward_sp(part, v["attn"], h, cfg, causal=False,
                                positions=torch.arange(F, device=x.device))
@@ -987,10 +989,12 @@ def _dec_block_sp(part, lp, ls, x, positions, enc, F: int, want: bool):
     the dp axes; self-attention's q on the rank's positions against k / v
     of every position; cross-attention's K / V projected on the rank's
     frames of the encoder output ``enc`` and gathered over "model"; the
-    MLP on the rank's positions.  Returns (x, the rank's {"k", "v", "ck",
-    "cv"} or None)."""
+    MLP on the rank's positions (a fused junction's update gathers them
+    over "model" where they are split over it).  Returns (x, the rank's
+    {"k", "v", "ck", "cv"} or None)."""
     cfg = part.cfg
-    v = part.gather(lp, ls)
+    v = part.gather(lp, ls, rows_over_model=part.seq_split(
+        positions.shape[0]))
     h = norm_apply(v["norm1"], x, cfg.norm, cfg.norm_eps)
     a, kv = attn.gqa_forward_sp(part, v["attn"], h, cfg, positions=positions)
     x = x + a

@@ -39,6 +39,7 @@ from repro_torch.core.sparsity import make_block_pattern
 from repro_torch.kernels import ops
 from repro_torch.kernels.block_sparse_matmul import act_fwd
 from repro_torch.models.layers import mlp_apply, mlp_init
+from repro_torch.parallel import partition
 
 Params = dict[str, Any]
 
@@ -123,12 +124,15 @@ def _expert_apply(w, idx, x):
     return y.reshape(G, E, C, nob * bs)
 
 
-def _expert_ffn(p: Params, xd, E: int):
+def _expert_ffn(p: Params, xd, E: int, window=None):
     """The expert FFNs through the junction kernels: xd [G, E, C, d] ->
     [G, E, C, d].  When the fused-update context rides in the dict (a
     fused train step), both junctions run through
     ``ops.junction_train_update`` and their backward updates wg, wi and wo
-    in place."""
+    in place; on the partitioned route through the holders
+    ``Partition.gather`` put in the dict (``"_held_in"``, ``"_held_out"``),
+    told the rank's ``window`` of dispatch groups where it runs on one
+    (``moe_apply_tp``)."""
     G, _, C, D = xd.shape
     xe = xd.movedim(1, 0).reshape(E, G * C, D)
     pin = [p[k] for k in sl.MOE_PATTERN_LEAVES if "_in" in k]
@@ -144,13 +148,18 @@ def _expert_ffn(p: Params, xd, E: int):
                                  x_scale=p.get("x_scale_out"))
     elif sl.UPDATE_HYP_LEAF in p:
         hyp = p[sl.UPDATE_HYP_LEAF]
+        held = [p.get(k) for k in ("_held_in", "_held_out")]
+        if window is not None and held[0] is not None:
+            held = [h.windowed(*window) for h in held]
         h = ops.junction_train_update(
             xe, p["wg"], *pin, wi=p["wi"], hyp=hyp, mom=p.get("mom_wg"),
             mom_wi=p.get("mom_wi"), vel=p.get("vel_wg"),
-            vel_wi=p.get("vel_wi"), health=p.get("upd_health_in"))
+            vel_wi=p.get("vel_wi"), health=p.get("upd_health_in"),
+            held=held[0])
         ye = ops.junction_train_update(
             h, p["wo"], *pout, hyp=hyp, mom=p.get("mom_wo"),
-            vel=p.get("vel_wo"), health=p.get("upd_health_out"))
+            vel=p.get("vel_wo"), health=p.get("upd_health_out"),
+            held=held[1])
     else:
         h = ops.junction_matmul(xe, p["wg"], *pin, wi=p["wi"])
         ye = ops.junction_matmul(h, p["wo"], *pout)
@@ -210,10 +219,10 @@ def _dispatch_combine(top_p, pos, keep, C: int):
             torch.einsum("GgK,GgKEC->GgEC", top_p, kept))
 
 
-def _experts(p: Params, xd, cfg: ArchConfig):
+def _experts(p: Params, xd, cfg: ArchConfig, window=None):
     """The expert FFNs on xd [G, E, C, D], E the experts ``p`` holds ->
     [G, E, C, D] in xd's dtype.  Sparse experts run through the junction
-    kernels unless ``cfg.engine`` is "jnp"."""
+    kernels unless ``cfg.engine`` is "jnp" (``window``: ``_expert_ffn``'s)."""
     E, dtype = xd.shape[1], xd.dtype
     if "idx_in" not in p:
         h = (act_fwd(torch.einsum("GECd,Edf->GECf", xd, p["wg"].to(dtype)),
@@ -222,7 +231,7 @@ def _experts(p: Params, xd, cfg: ArchConfig):
         return torch.einsum("GECf,Efd->GECd", h, p["wo"].to(dtype))
     # pre-defined-sparse experts (the paper's technique)
     if ops.resolve_engine(cfg.engine) == "pallas":
-        return _expert_ffn(p, xd, E)
+        return _expert_ffn(p, xd, E, window)
     if "wgq" in p:      # quantized experts, the plain int8 forms
         xs_in, xs_out = p.get("x_scale_in"), p.get("x_scale_out")
         gq = qz.expert_apply_int8(p["wgq"], p["wg_scale"], p["idx_in"], xd,
@@ -291,7 +300,11 @@ def moe_apply_tp(part, p: Params, x, cfg: ArchConfig):
     position depends on its expert's column of the mask only), so the
     combine is a partial sum over experts, fp32, summed over "model" in
     the residual.  Where the experts are replicated every rank computes
-    them all and the combine is whole ("full")."""
+    them all and the combine is whole ("full").  A fused train step's
+    experts update over the capacity slots of every row group (the
+    holders ``Partition.gather`` put in ``p``): the rank's groups in rank
+    order, or its window of groups (T tokens a row group, groups of g,
+    capacity C) folded onto the global groups."""
     mo = cfg.moe
     B, S, D = x.shape
     E, K = mo.num_experts, mo.top_k
@@ -313,8 +326,7 @@ def moe_apply_tp(part, p: Params, x, cfg: ArchConfig):
         pos, keep = _slots(_one_hot(top_e - e0, El), C)
     else:   # the groups [a, a + n) of the global tokens hold the rank's
         o = part.row_at * T
-        a = o // g * g
-        n = -(-(o + T) // g) * g - a
+        a, n = partition.group_window(o, T, g)
         every = part.rows_gather(top_e.reshape(T, K))    # global order
         pos, keep = _slots(_one_hot(every[a:a + n].reshape(n // g, g, K)
                                     - e0, El), C)
@@ -330,7 +342,7 @@ def moe_apply_tp(part, p: Params, x, cfg: ArchConfig):
         dispatch, combine, xt = (_windowed(t[0], o - a, n, g)
                                  for t in (dispatch, combine, xt))
     xd = torch.einsum("GgEC,Ggd->GECd", dispatch.to(x.dtype), xt)
-    ye = _experts(p, xd, cfg)
+    ye = _experts(p, xd, cfg, None if own else (T, g, C))
     if El < E:                  # partial over the experts: fp32 sums
         y, layout = torch.einsum("GgEC,GECd->Ggd", combine.to(
             x.dtype).float(), ye.float()), "partial"

@@ -56,7 +56,13 @@ shard of its weight, bias and slots through a ``HeldJunction``, which
 gathers them over the dp axes only inside the junction's forward and
 backward, and its update sums over every row of the batch, as the
 reference's partitioner runs ``update_dw`` on operands gathered over the
-batch; every dp rank of a model column makes the same update.
+batch; every dp rank of a model column makes the same update.  A MoE's
+experts (nothing split over the dp axes) update over every row group's
+capacity slots, each slot once, in global group order
+(``_fused_experts``; windows of groups that cross the row groups folded
+by ``fold_windows``); whisper's junctions on "sp" over the rows of every
+rank of the row axes and, where the unit's rows split over it,
+"model".
 
 ``MeshComm`` issues the collectives on a ``DeviceMesh`` (the functional
 collectives, one axis at a time, the last mesh axis first when
@@ -69,6 +75,7 @@ runs the same ops as the plain step.
 from __future__ import annotations
 
 import contextlib
+import copy
 import math
 import threading
 
@@ -374,28 +381,59 @@ class _Regather:
 
 
 class HeldJunction:
-    """A fused junction's weight, bias and optimizer slots as a rank of
+    """A fused junction's weights, bias and optimizer slots as a rank of
     the partitioned route holds them: its shards (``leaves``, each with
-    its ``_Plan``; a slot takes its weight's or bias's), which
-    ``ops.junction_train_update`` reads through this holder.  Each read
-    gathers them over the dp axes anew (the forward, then the backward's
-    dx and update), so no gathered copy outlives its use, however long
-    the autograd graph keeps the holder.  The update runs over every row
-    of the batch, as the reference's partitioner runs the kernel on
-    operands gathered over the batch: x, the saved residual and dy are
-    all-gathered over the row axes in rank order, the global row order
-    (a "rep" junction's dy, partial on each model rank, all-reduced over
-    "model" in fp32 first), so every dp rank of a model column makes the
-    same update; the rank's piece of each updated tensor is then copied
-    back into its shard.  With one rank on the axes nothing is issued
-    and the kernels update the shards themselves."""
+    its ``_Plan``; a slot takes its weight's), which
+    ``ops.junction_train_update`` reads through this holder.  ``names``
+    are the weight leaves the kernels read: ("w", "b") of a single
+    junction, ("wg", "wi") of a MoE expert gate, ("wo", None) of its
+    out junction; their slots are ``sparse_linear.FUSED_MOM`` /
+    ``FUSED_VEL``'s names of them.  Each read gathers them over the dp
+    axes anew (the forward, then the backward's dx and update), so no
+    gathered copy outlives its use, however long the autograd graph
+    keeps the holder.
 
-    SLOT_OF = {"w": "w", "b": "b", "mom_w": "w", "mom_b": "b",
-               "vel_w": "w", "vel_b": "b"}
+    The update runs over every row of the batch, as the reference's
+    partitioner runs the kernel on operands gathered over the batch: its
+    row-major operands ((x, dy, the residual), or the gate's (x, dh, g,
+    u)) are all-gathered over ``axes`` (the row axes, and "model" where
+    the unit's rows, whisper's positions or frames on "sp", are split
+    over it) in rank order; where dy is partial on each model rank
+    (``reduce_model``: a "rep" junction that every model rank runs on the
+    same rows, or experts replicated over "model") it is all-reduced
+    over "model" in fp32 first.  MoE experts whose dispatch groups cross
+    the row groups run on windows of whole groups (``windowed``): the
+    windows are gathered and folded onto their global groups.  Every dp
+    rank of a model column so makes the same update; the rank's piece of
+    each updated tensor is then copied back into its shard.  With one
+    rank on the axes nothing is issued and the kernels update the shards
+    themselves."""
 
-    def __init__(self, part, leaves: dict, plans: dict, rep: bool):
-        self.part, self.leaves, self.plans = part, leaves, plans
-        self.rep = rep
+    def __init__(self, part, tree, spec_tree, names: tuple,
+                 reduce_model: bool, axes: tuple):
+        self.part, self.names = part, names
+        self.slot_names = (tuple(sl.FUSED_MOM.get(n) for n in names)
+                           + tuple(sl.FUSED_VEL.get(n) for n in names))
+        of = {n: n for n in names if n is not None} | {
+            s: n for s, n in zip(self.slot_names, names + names)
+            if s is not None}
+        self.leaves = {k: tree[k] for k in of if k in tree}
+        self.plans = {k: _Plan(spec_tree[of[k]], part) for k in self.leaves}
+        self.reduce_model, self.axes = reduce_model, axes
+        self.fold = None
+
+    def windowed(self, T: int, g: int, C: int):
+        """This holder for experts run on windows of whole dispatch groups
+        (``moe.moe_apply_tp`` where a group crosses the row groups): each
+        row group holds ``T`` tokens, a group ``g`` tokens and an expert
+        ``C`` capacity slots a group.  The operands' slots of a window
+        are folded onto their global groups by exact sums: another row
+        group's slot holds an exact zero there."""
+        out = copy.copy(self)
+        wins = [group_window(q * T, T, g) for q in range(self.part.n_rows)]
+        out.fold = ([(a // g * C, n // g * C) for a, n in wins],
+                    self.part.n_rows * T // g * C)
+        return out
 
     def _gathered(self, name):
         t = self.leaves.get(name)
@@ -407,33 +445,63 @@ class HeldJunction:
         return out
 
     def weights(self):
-        return self._gathered("w"), self._gathered("b")
+        return tuple(self._gathered(n) for n in self.names)
 
     def slots(self):
-        return tuple(self._gathered(k)
-                     for k in ("mom_w", "mom_b", "vel_w", "vel_b"))
+        return tuple(self._gathered(k) for k in self.slot_names)
 
-    def update_operands(self, x3, dy, res):
-        part = self.part
-        if self.rep and part.m > 1:
-            dy = part.comm.all_reduce(dy.float(), ("model",)).to(dy.dtype)
-        if not part.row_axes:
-            return x3, dy, res
-        got = tuple(None if t is None else
-                    part.comm.all_gather(t, part.row_axes, 1)
-                    for t in (x3, dy, res))
+    def update_operands(self, *ops):
+        part, comm = self.part, self.part.comm
+        dy = ops[1]
+        if self.reduce_model and part.m > 1:
+            dy = comm.all_reduce(dy.float(), ("model",)).to(dy.dtype)
+        ops = (ops[0], dy) + ops[2:]
+        if comm.size(self.axes) == 1:
+            return ops
+        got = tuple(None if t is None else self._rows(t) for t in ops)
         part.note_rows(got)
         return got
 
-    def commit(self, w, bias, slots):
-        got = dict(zip(("w", "b", "mom_w", "mom_b", "vel_w", "vel_b"),
-                       (w, bias) + tuple(slots)))
+    def _rows(self, t):
+        """``t``'s rows (dim 1) of every rank of ``axes``."""
+        comm = self.part.comm
+        if self.fold is None:
+            return comm.all_gather(t, self.axes, 1)
+        wins, total = self.fold
+        L = max(n for _, n in wins)
+        if t.shape[1] < L:      # windows differ in length: pad to the most
+            t = torch.cat([t, t.new_zeros((t.shape[0], L - t.shape[1],
+                                           *t.shape[2:]))], 1)
+        got = comm.all_gather(t, self.axes, 1)
+        return fold_windows(got, wins, L, total)
+
+    def commit(self, weights, slots):
+        got = dict(zip(self.names + self.slot_names, weights + slots))
         for name, shard in self.leaves.items():
             plan = self.plans[name]
             if plan.dp and got[name] is not shard:
                 n = shard.shape[plan.dp_dim]
                 at = self.part.comm.index(plan.dp)
                 shard.copy_(got[name].narrow(plan.dp_dim, at * n, n))
+
+
+def group_window(o: int, T: int, g: int) -> tuple[int, int]:
+    """(a, n): the dispatch groups of ``g`` tokens that the tokens [o, o +
+    T) lie in, as the token range [a, a + n)."""
+    a = o // g * g
+    return a, -(-(o + T) // g) * g - a
+
+
+def fold_windows(got, wins: list, L: int, total: int):
+    """The windows of every row group, gathered in rank order along dim 1
+    (``got``: each ``L`` slots long, padded at the end), folded onto the
+    ``total`` global slots: window q's first ``wins[q][1]`` slots added at
+    slot ``wins[q][0]``.  Each slot is one token's at most, and every
+    other window holds an exact zero there, so the sums are exact."""
+    out = got.new_zeros((got.shape[0], total, *got.shape[2:]))
+    for q, (s, n) in enumerate(wins):
+        out[:, s:s + n] += got[:, q * L:q * L + n]
+    return out
 
 
 class _Plan:
@@ -488,7 +556,8 @@ class Partition:
         the row axes (x, dy, the residual or None): a hook for the dry
         run, which records the largest."""
 
-    def gather(self, tree, spec_tree, shared: SharedUses | None = None):
+    def gather(self, tree, spec_tree, shared: SharedUses | None = None,
+               rows_over_model: bool = False):
         """A unit (a layer, the embedding, a norm) ready to run: each
         float leaf through its FSDP gather, each linear container tagged
         with its tensor-parallel kind ``"_tp"`` ("col", "row", "rep") and
@@ -498,11 +567,15 @@ class Partition:
         the unit runs that many times a step and its leaves' gradients
         are summed over the uses before they are reduced.  A junction
         dict that carries the fused update's context is not gathered
-        here: ``_fused_junction``."""
+        here: ``_fused_junction`` (a MoE expert pair: ``_fused_experts``);
+        ``rows_over_model``: the unit runs on the rank's share of its rows
+        (whisper's positions or frames split over "model" on "sp")."""
         if isinstance(tree, dict):
             if sl.UPDATE_HYP_LEAF in tree:
-                return self._fused_junction(tree, spec_tree)
-            out = {k: self.gather(v, spec_tree[k], shared)
+                if "idx_in" in tree:
+                    return self._fused_experts(tree, spec_tree, shared)
+                return self._fused_junction(tree, spec_tree, rows_over_model)
+            out = {k: self.gather(v, spec_tree[k], shared, rows_over_model)
                    for k, v in tree.items()}
             if "w" in tree and torch.is_tensor(tree["w"]):
                 out["_tp"] = tp_kind(spec_tree["w"])
@@ -510,7 +583,7 @@ class Partition:
                                    sh.spec_axes(spec_tree["b"][0]))
             return out
         if isinstance(tree, (list, tuple)):
-            return type(tree)(self.gather(v, s, shared)
+            return type(tree)(self.gather(v, s, shared, rows_over_model)
                               for v, s in zip(tree, spec_tree))
         if not (torch.is_tensor(tree) and tree.is_floating_point()):
             return tree
@@ -519,27 +592,48 @@ class Partition:
             return tree
         return _LeafGather.apply(tree, self, plan, shared, id(tree))
 
-    def _fused_junction(self, tree, spec_tree):
+    def _fused_junction(self, tree, spec_tree, rows_over_model: bool):
         """A junction dict that carries the fused update's context
         (``sparse_linear.inject_update_ctx``), ready to run: its shards,
         pattern views, hyp row and health leaf as they are, tagged as
         ``gather`` tags a linear container, and its holder under
         ``"_held"`` (``HeldJunction``), through which the kernels gather
-        and update it."""
-        if not sl.is_sparse(tree):
-            raise ValueError("the partitioned route's fused update takes "
-                             "single junctions: a MoE expert pair's runs "
-                             "on the gathered route")
+        and update it.  Its update's rows: over the row axes, and over
+        "model" where the unit's rows are split over it
+        (``rows_over_model``); else a "rep" junction's dy, partial on each
+        model rank, is all-reduced over "model" first."""
         kind = tp_kind(spec_tree["w"])
         b_split = "b" in tree and "model" in sh.spec_axes(spec_tree["b"][0])
         if "b" in tree and b_split != (kind == "col"):
             raise ValueError("a fused junction's bias must split over "
                              "\"model\" as its output blocks do")
-        leaves = {k: tree[k] for k in HeldJunction.SLOT_OF if k in tree}
-        plans = {k: _Plan(spec_tree[HeldJunction.SLOT_OF[k]], self)
-                 for k in leaves}
-        return dict(tree, _tp=kind, _b_split=b_split,
-                    _held=HeldJunction(self, leaves, plans, kind == "rep"))
+        held = HeldJunction(
+            self, tree, spec_tree, ("w", "b"),
+            kind == "rep" and not rows_over_model,
+            self.row_axes + (("model",) if rows_over_model else ()))
+        return dict(tree, _tp=kind, _b_split=b_split, _held=held)
+
+    def _fused_experts(self, tree, spec_tree, shared):
+        """A MoE dict that carries the fused update's context, ready to
+        run: the router and the shared experts through ``gather``, the
+        expert weights and their slots as the rank holds them (its E /
+        model experts, nothing split over the dp axes), and a holder for
+        the gate (``"_held_in"``: wg, wi) and for wo (``"_held_out"``),
+        whose update runs over every row group's capacity slots; where
+        the experts are replicated over "model" every model rank runs
+        them all on the same rows, its dh partial."""
+        if sl.is_quantized(tree):
+            raise ValueError("quantized experts inside a fused train step: "
+                             "the int8 datapath is inference only")
+        out = {k: v if sl.fused_owned(k) else
+               self.gather(v, spec_tree[k], shared)
+               for k, v in tree.items()}
+        rep = "model" not in sh.spec_axes(spec_tree["wg"][0])
+        out["_held_in"] = HeldJunction(self, tree, spec_tree, ("wg", "wi"),
+                                       rep, self.row_axes)
+        out["_held_out"] = HeldJunction(self, tree, spec_tree, ("wo", None),
+                                        rep, self.row_axes)
+        return out
 
     @contextlib.contextmanager
     def kept(self):

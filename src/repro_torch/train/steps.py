@@ -31,12 +31,12 @@ leaves over the dp axes only while the layer runs, reduce-scatters the
 gradients back to its shards, updates its shards alone, and decodes on
 its shard of the cache (the attention cache's sequence shard, a ring's
 slots, the state's channels or heads, whisper's frames).  The fused
-BP+UP step of the dense, vlm and ssm families takes the partitioned
-route too: each fused junction updates the rank's model shard of its
-weight and slots, gathered over the dp axes only while it runs, over
-every row of the batch (``partition.HeldJunction``).  The moe and audio
-families' fused steps take the gathered route: every leaf gathered
-whole, the whole batch run on every rank, the result placed again.
+BP+UP step takes the partitioned route too: each fused junction updates
+the rank's model shard of its weight and slots, gathered over the dp
+axes only while it runs, over every row of the batch
+(``partition.HeldJunction``; a MoE's experts, the rank's, over every row
+group's capacity slots).  A config outside the route takes the gathered
+one: every leaf gathered whole, the result placed again.
 """
 from __future__ import annotations
 
@@ -353,14 +353,11 @@ def make_dp_train_step(cfg: ArchConfig, optimizer: Optimizer, mean,
 
 
 # (strategy, family, attention) of the configs the partitioned route
-# runs, and of those whose fused BP+UP step it runs too (each junction a
-# single one: no MoE expert pair, no whisper on "sp")
+# runs, two-pass and fused alike (the hybrid is never fused)
 _PARTITIONED = (("tp", "dense", "full"), ("tp", "vlm", "sliding"),
                 ("tp", "moe", "full"), ("tp", "moe", "mla"),
                 ("tp", "ssm", "none"), ("tp", "hybrid", "full"),
                 ("sp", "audio", "full"))
-_FUSED_PARTITIONED = (("tp", "dense", "full"), ("tp", "vlm", "sliding"),
-                      ("tp", "ssm", "none"))
 
 
 def partitioned(cfg: ArchConfig, optimizer: Optimizer | None = None,
@@ -369,17 +366,10 @@ def partitioned(cfg: ArchConfig, optimizer: Optimizer | None = None,
     dense family with full attention, the vlm with its sliding window,
     the moe family with full attention or MLA, the ssm family and the
     hybrid (its shared block full attention) on the "tp" strategy, the
-    audio family on the "sp" strategy.  Of those, a fused BP+UP step
-    (``fused_update_eligible``) only for the dense, vlm and ssm families;
-    the moe and audio families' fused steps are gathered (the hybrid is
-    never fused).  Everything else is gathered."""
-    key = (cfg.strategy, cfg.family, cfg.attn_kind)
-    if key not in _PARTITIONED:
-        return False
-    if optimizer is None or not fused_update_eligible(
-            cfg, optimizer, microbatches)[0]:
-        return True
-    return key in _FUSED_PARTITIONED
+    audio family on the "sp" strategy, with any optimizer: a fused BP+UP
+    step (``fused_update_eligible``) as well as the two-pass one.
+    Everything else is gathered."""
+    return (cfg.strategy, cfg.family, cfg.attn_kind) in _PARTITIONED
 
 
 def make_partitioned_train_step(cfg: ArchConfig, optimizer: Optimizer,
@@ -436,17 +426,19 @@ def _make_partitioned_fused_step(cfg: ArchConfig, optimizer: FusedOptimizer,
     1 / the row groups, since each rank's loss is a mean over its own
     rows (``merge``'s ``grad_scale`` does not: the FSDP adjoint already
     averages the other leaves' gradients over the dp axes).
+    A MoE's experts update the rank's experts over every row group's
+    capacity slots, whisper's junctions over the rows of every rank of
+    the row axes and, where the unit's rows split over it, "model".
     ``grad_clip``'s norm pre-pass is a two-pass partitioned backward
     whose norm is taken over every rank (``Partition.sq_sum``), its scale
     folded into the gs column and into merge as on one rank.  The whole
     batch runs at once, whatever the microbatches (as one rank's fused
     step runs it).  ``nonfinite`` is the one-rank count of non-finite
     update tiles (``_fused_nonfinite``)."""
-    key = (cfg.strategy, cfg.family, cfg.attn_kind)
-    if key not in _FUSED_PARTITIONED:
+    if not partitioned(cfg):
         raise ValueError(f"{cfg.name}: the partitioned route does not run "
-                         f"the fused step of {key} (its mesh step is "
-                         "gathered)")
+                         f"{(cfg.strategy, cfg.family, cfg.attn_kind)} "
+                         "(its mesh step is gathered)")
     seed = None if part.m == 1 else 1.0 / part.m
 
     def train_step(params, opt_state, rows, step, lr_scale=None):
@@ -483,10 +475,12 @@ def _make_partitioned_fused_step(cfg: ArchConfig, optimizer: FusedOptimizer,
 
 def _fused_nonfinite(part: partition.Partition, aug) -> torch.Tensor:
     """The partitioned fused step's count of non-finite update tiles, the
-    one-rank step's: a "col" junction's counts (the rank's output blocks)
-    summed over "model", a "rep" junction's (every model rank updated
-    the whole weight alike) taken once, nothing summed over the dp axes
-    (their ranks make the same update)."""
+    one-rank step's: the counts of a "col" junction (the rank's output
+    blocks) and of experts split over "model" (the rank's experts) summed
+    over "model", those of a "rep" junction and of replicated experts
+    (every model rank updated the whole weight alike) taken once, as are
+    whisper's on "sp", nothing summed over the dp axes (their ranks make
+    the same update)."""
     found = {"col": [], "rep": []}
 
     def walk(t, spec):
@@ -494,6 +488,10 @@ def _fused_nonfinite(part: partition.Partition, aug) -> torch.Tensor:
             if sl.UPDATE_HEALTH_LEAF in t:
                 found[partition.tp_kind(spec["w"])].append(
                     t[sl.UPDATE_HEALTH_LEAF].float().sum())
+            if sl.MOE_HEALTH_LEAVES[0] in t:
+                split = "model" in sh.spec_axes(spec["wg"][0])
+                found["col" if split else "rep"] += [
+                    t[k].float().sum() for k in sl.MOE_HEALTH_LEAVES]
             for k, v in t.items():
                 if isinstance(v, (dict, list, tuple)):
                     walk(v, spec[k])
@@ -556,8 +554,7 @@ def make_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer, mesh,
 def make_gathered_mesh_train_step(cfg: ArchConfig, optimizer: Optimizer,
                                   mesh, microbatches: int = 1):
     """The gathered route of ``make_mesh_train_step`` (any config
-    ``partitioned`` refuses: the moe and audio families' fused steps): a
-    step gathers the full
+    ``partitioned`` refuses): a step gathers the full
     tensors, runs the update and keeps this rank's shard of the new
     params and state (placed as the inputs were).  The two-pass path
     gives each data-parallel rank its rows of the batch

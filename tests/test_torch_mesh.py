@@ -15,11 +15,11 @@ reference.
   its full numel over the product of the axes its spec shards, and a
   hinted DTensor anchor lands sharded (dp, "model").
 * The fused path's gathered route (``make_gathered_mesh_train_step``,
-  which the moe and audio families' fused steps take; reduced sparse
+  which a config outside the partitioned route takes; reduced sparse
   stablelm-3b, fp32, clipped fused Adam, 2 steps) on a 2 x 2 mesh equals
-  one rank bit for bit: every rank runs the whole batch.  The dense,
-  vlm and ssm families' fused steps take the partitioned route
-  (tests/test_torch_partitioned_fused.py).
+  one rank bit for bit: every rank runs the whole batch.  Every family's
+  fused step takes the partitioned route
+  (tests/test_torch_partitioned_fused*.py).
 * The mesh step at world size 1 equals the plain step bit for bit, on
   the two-pass and the fused path.
 * ``launch/train.py --device cpu --reduce --sparse --devices 4 --data 2

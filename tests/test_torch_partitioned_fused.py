@@ -5,12 +5,12 @@ gathered over the dp axes, over every row of the batch,
 ``partition.HeldJunction``) against one rank, the JAX reference and the
 dry run's reckoning, on the CPU.
 
-* ``steps.partitioned`` admits a fused step of ("tp", "dense", "full"),
-  ("tp", "vlm", "sliding") and ("tp", "ssm", "none"), and refuses a fused
-  moe (full attention or MLA) or audio step, whose mesh steps stay
-  gathered while their two-pass steps stay partitioned; the hybrid is
-  never fused.  The partitioned fused step raises for a family it does
-  not serve, as does a fused MoE expert pair on the partitioned route.
+* ``steps.partitioned`` admits the fused step of every family whose
+  two-pass step it admits (the moe and audio families' in
+  tests/test_torch_partitioned_fused_moe.py and
+  tests/test_torch_partitioned_fused_audio.py); the hybrid is never
+  fused.  The partitioned fused step raises for a config outside the
+  route, and a fused step's quantized expert pair raises on it.
 * 8 gloo ranks on a 2 x 4 (data x model) mesh run ``FUSED_CASES``
   (tests/torch_mesh_workers.py), fp32, FFN density 0.5: reduced
   stablelm-3b at block 64, so that ``wg`` / ``wi`` (4 output blocks, one a
@@ -221,8 +221,8 @@ def _noise_slack(got_m, want_m, lr):
 @pytest.mark.parametrize("arch,fused_route", [
     ("stablelm-3b", True), ("qwen2-72b", True),
     ("llava-next-mistral-7b", True), ("falcon-mamba-7b", True),
-    ("qwen3-moe-30b-a3b", False), ("deepseek-v2-lite-16b", False),
-    ("whisper-base", False)])
+    ("qwen3-moe-30b-a3b", True), ("deepseek-v2-lite-16b", True),
+    ("whisper-base", True)])
 def test_fused_step_route_by_family(arch, fused_route):
     cfg = dataclasses.replace(
         treg.get(arch).reduced().with_sparsity(
@@ -248,26 +248,36 @@ def test_hybrid_is_never_fused():
     assert steps.partitioned(cfg, opt)      # its two-pass step
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "whisper-base"])
-def test_partitioned_fused_step_refuses_what_it_cannot_serve(arch):
+@pytest.mark.parametrize("what", ["outside_the_route", "quantized_experts"])
+def test_partitioned_fused_step_refuses_what_it_cannot_serve(what):
+    """The partitioned fused step refuses a config outside the route's
+    (a dense model on the "sp" strategy), and a fused step's quantized
+    expert pair raises on the route."""
+    arch = "stablelm-3b" if what == "outside_the_route" else \
+        "qwen3-moe-30b-a3b"
     cfg = dataclasses.replace(
         treg.get(arch).reduced().with_sparsity(
             SparsityConfig(density=0.5, block=32, where="ffn")),
         dtype="float32", param_dtype="float32", fused_update=True)
     mesh = AbstractMesh(MESH, ("data", "model"))
+    if what == "outside_the_route":
+        cfg = dataclasses.replace(cfg, strategy="sp")
+        assert not steps.partitioned(cfg, fused_mesh_opt("adam_clip"))
+        part = partition.Partition(cfg, partition.ReckonedComm(mesh), {})
+        with pytest.raises(ValueError, match="gathered"):
+            steps.make_partitioned_train_step(
+                cfg, fused_mesh_opt("adam_clip"), part)
+        return
     params = TM.init(cfg, 0, "meta")
     specs = sh.param_specs(cfg, params, mesh)
     part = partition.Partition(cfg, partition.ReckonedComm(mesh), specs)
-    with pytest.raises(ValueError, match="gathered"):
-        steps.make_partitioned_train_step(cfg, fused_mesh_opt("adam_clip"),
-                                          part)
-    if cfg.family == "moe":     # a fused expert pair on the route raises
-        opt = fused_mesh_opt("sgd_momentum")
-        aug = sl.inject_update_ctx(params, opt.slots(opt.init(params)),
-                                   opt.hyp(0))
-        moe = aug["layers"][0]["moe"]
-        with pytest.raises(ValueError, match="gathered route"):
-            part.gather(moe, specs["layers"][0]["moe"])
+    opt = fused_mesh_opt("sgd_momentum")
+    aug = sl.inject_update_ctx(params, opt.slots(opt.init(params)),
+                               opt.hyp(0))
+    moe = dict(aug["layers"][0]["moe"])
+    moe["wgq"] = moe.pop("wg").to(torch.int8)
+    with pytest.raises(ValueError, match="inference only"):
+        part.gather(moe, specs["layers"][0]["moe"])
 
 
 def test_stablelm_case_has_col_and_rep_junctions():

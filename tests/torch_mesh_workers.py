@@ -1108,8 +1108,9 @@ def fused_mesh_batches(raw):
     out = []
     for j in range(FUSED_STEPS):
         b = {"tokens": raw.pop(f"batch{j}_tokens")}
-        if f"batch{j}_patches" in raw:
-            b["patches"] = raw.pop(f"batch{j}_patches")
+        for k in ("patches", "frames"):
+            if f"batch{j}_{k}" in raw:
+                b[k] = raw.pop(f"batch{j}_{k}")
         out.append(b)
     return out
 
@@ -1144,7 +1145,8 @@ class JunctionGatherLog:
 def junction_budget(local, specs, mesh, n_slots) -> tuple[int, int]:
     """(the largest fused junction's weight, bias and ``n_slots`` fp32
     slots gathered over the dp axes, the most slot bytes of one unit's
-    junctions so gathered): bytes."""
+    junctions so gathered), over the layers, a MoE model's dense first
+    layers and whisper's encoder layers: bytes."""
     from repro_torch.core import sparse_linear as sl
     from repro_torch.parallel import sharding as sh
     sizes = sh.axis_sizes(mesh)
@@ -1177,90 +1179,225 @@ def junction_budget(local, specs, mesh, n_slots) -> tuple[int, int]:
         return tot, slots
 
     one, unit = 0, 0
-    for lp, ls in zip(local["layers"], specs["layers"]):
-        got = [own(j, s) for j, s in junctions(lp, ls)]
-        one = max([one] + [a for a, _ in got])
-        unit = max(unit, sum(b for _, b in got))
+    stacks = [(local[k], specs[k]) for k in ("dense_layers", "layers")
+              if k in local]
+    if "encoder" in local:                  # whisper's encoder
+        stacks.append((local["encoder"]["layers"],
+                       specs["encoder"]["layers"]))
+    for layers, lspecs in stacks:
+        for lp, ls in zip(layers, lspecs):
+            got = [own(j, s) for j, s in junctions(lp, ls)]
+            one = max([one] + [a for a, _ in got])
+            unit = max(unit, sum(b for _, b in got))
     return one, unit
 
 
 def fused_partitioned_run(rank, d):
     """Each FUSED_CASES case through each FUSED_OPTS optimizer on a 2 x 4
     mesh, from the reference's carried weights and its FUSED_STEPS
-    batches (``in_<case>.npz``): the fused steps through
+    batches (``in_<case>.npz``), through ``fused_mesh_runs``."""
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(2, 4, "cpu")
+    logs = (GatherLog(), JunctionGatherLog())
+    for i, case in enumerate(FUSED_CASES):
+        fused_mesh_runs(rank, d, mesh, i, fused_mesh_case(*case), FUSED_OPTS,
+                        logs)
+
+
+def fused_mesh_runs(rank, d, mesh, i, cfg, kinds, logs, blocks=None):
+    """Case ``i`` (``cfg``) through each optimizer of ``kinds`` on
+    ``mesh``, from the reference's carried weights and its FUSED_STEPS
+    batches (``in_<i>.npz``): the fused steps through
     ``make_mesh_train_step``, the first counted under
-    ``DispatchCounter``, ``GatherLog`` and ``JunctionGatherLog``, each
-    rank's at-rest shards checked after every step.  Every rank writes
-    its logs to ``log_<case>_<opt>_<rank>.json``; rank 0 writes the
-    gathered params and slots, the losses and the nonfinite counts to
-    ``out_<case>_<opt>.npz``."""
+    ``DispatchCounter`` and ``logs`` (a ``GatherLog`` and a
+    ``JunctionGatherLog``), each rank's at-rest shards checked after
+    every step; ``blocks`` (an ``ExpertOperandLog``) records the first
+    step's expert update operands.  Every rank writes its logs to
+    ``log_<i>_<opt>_<rank>.json`` (and the operands to
+    ``blocks_<i>_<opt>_<rank>.npz``); rank 0 writes the gathered params
+    and slots, the losses and the nonfinite counts to
+    ``out_<i>_<opt>.npz``."""
     import contextlib
     import json
 
     from repro_torch.convert import from_jax_params
-    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.parallel import partition
     from repro_torch.parallel import sharding as sh
     from repro_torch.roofline import dispatch
     from repro_torch.train import steps
     from repro_torch.tree import tree_map
 
-    mesh = make_local_mesh(2, 4, "cpu")
-    log, jlog = GatherLog(), JunctionGatherLog()
-    for i, case in enumerate(FUSED_CASES):
-        cfg = fused_mesh_case(*case)
-        raw = dict(np.load(f"{d}/in_{i}.npz"))
-        batches = fused_mesh_batches(raw)
-        full = from_jax_params(_tree_from_flat(raw))
-        specs = sh.param_specs(cfg, full, mesh)
-        for kind in FUSED_OPTS:
-            opt = fused_mesh_opt(kind)
-            placed = sh.place(tree_map(lambda t: t.clone(), full), specs,
-                              mesh)
-            state = sh.place_state(opt.init(full), specs, mesh)
-            local = partition.local_tree(placed)
-            budget = unit_budget(local, specs, mesh)
-            one, unit_slots = junction_budget(local, specs, mesh,
-                                              len(opt.slot_keys()))
-            held = {"params": sh.held_bytes(placed)[0],
-                    "opt_state": sh.held_bytes(state)[0]}
-            step = steps.make_mesh_train_step(cfg, opt, mesh)
-            losses, nonfinite, at_rest = [], [], []
-            for j, batch in enumerate(batches):
-                log.sizes, log.peak, log.dtensor = [], log.live, []
-                start, jstart = log.live, jlog.live
-                jlog.count, jlog.peak = 0, jlog.live
-                log.armed = j == 0
-                with (dispatch.DispatchCounter() if j == 0
-                      else contextlib.nullcontext()) as c:
-                    placed, state, m = step(placed, state, batch, j)
-                log.armed = False
+    log, jlog = logs
+    raw = dict(np.load(f"{d}/in_{i}.npz"))
+    batches = fused_mesh_batches(raw)
+    full = from_jax_params(_tree_from_flat(raw))
+    specs = sh.param_specs(cfg, full, mesh)
+    for kind in kinds:
+        opt = fused_mesh_opt(kind)
+        placed = sh.place(tree_map(lambda t: t.clone(), full), specs, mesh)
+        state = sh.place_state(opt.init(full), specs, mesh)
+        local = partition.local_tree(placed)
+        budget = unit_budget(local, specs, mesh)
+        one, unit_slots = junction_budget(local, specs, mesh,
+                                          len(opt.slot_keys()))
+        held = {"params": sh.held_bytes(placed)[0],
+                "opt_state": sh.held_bytes(state)[0]}
+        step = steps.make_mesh_train_step(cfg, opt, mesh)
+        losses, nonfinite, at_rest = [], [], []
+        for j, batch in enumerate(batches):
+            log.sizes, log.peak, log.dtensor = [], log.live, []
+            start, jstart = log.live, jlog.live
+            jlog.count, jlog.peak = 0, jlog.live
+            log.armed = j == 0
+            if blocks is not None:
+                blocks.calls, blocks.armed = [], j == 0
+            with (dispatch.DispatchCounter() if j == 0
+                  else contextlib.nullcontext()) as c:
+                placed, state, m = step(placed, state, batch, j)
+            log.armed = False
+            if blocks is not None:
+                blocks.armed = False
                 if j == 0:
-                    train = dict(
-                        _counts(c), gathers=len(log.sizes),
-                        largest=max(log.sizes), peak=log.peak - start,
-                        budget=budget, dtensor=log.dtensor,
-                        junction_gathers=jlog.count,
-                        junction_peak=jlog.peak - jstart,
-                        junction_left=jlog.live - jstart,
-                        junction_budget=one, unit_slots=unit_slots,
-                        held=held)
-                losses.append(float(m["loss"]))
-                nonfinite.append(float(m["nonfinite"]))
-                at_rest.append(bool(
-                    shard_counts(placed, specs, mesh) and all(
-                        shard_counts(state[k], specs, mesh)
-                        for k in opt.slot_keys())))
-            train["after"] = {"params": sh.held_bytes(placed)[0],
-                              "opt_state": sh.held_bytes(state)[0]}
-            train["at_rest"] = at_rest
-            train["nonfinite"] = nonfinite
-            gp = sh.gather(placed)
-            slots = {k: sh.gather(state[k]) for k in opt.slot_keys()}
-            with open(f"{d}/log_{i}_{kind}_{rank}.json", "w") as f:
-                json.dump(train, f)
-            if rank == 0:
-                _save_tree(f"{d}/out_{i}_{kind}.npz",
-                           {"params": gp, **slots},
-                           losses=np.asarray(losses),
-                           nonfinite=np.asarray(nonfinite))
+                    blocks.save(f"{d}/blocks_{i}_{kind}_{rank}.npz")
+            if j == 0:
+                train = dict(
+                    _counts(c), gathers=len(log.sizes),
+                    largest=max(log.sizes), peak=log.peak - start,
+                    budget=budget, dtensor=log.dtensor,
+                    junction_gathers=jlog.count,
+                    junction_peak=jlog.peak - jstart,
+                    junction_left=jlog.live - jstart,
+                    junction_budget=one, unit_slots=unit_slots,
+                    held=held)
+            losses.append(float(m["loss"]))
+            nonfinite.append(float(m["nonfinite"]))
+            at_rest.append(bool(
+                shard_counts(placed, specs, mesh) and all(
+                    shard_counts(state[k], specs, mesh)
+                    for k in opt.slot_keys())))
+        train["after"] = {"params": sh.held_bytes(placed)[0],
+                          "opt_state": sh.held_bytes(state)[0]}
+        train["at_rest"] = at_rest
+        train["nonfinite"] = nonfinite
+        gp = sh.gather(placed)
+        slots = {k: sh.gather(state[k]) for k in opt.slot_keys()}
+        with open(f"{d}/log_{i}_{kind}_{rank}.json", "w") as f:
+            json.dump(train, f)
+        if rank == 0:
+            _save_tree(f"{d}/out_{i}_{kind}.npz", {"params": gp, **slots},
+                       losses=np.asarray(losses),
+                       nonfinite=np.asarray(nonfinite))
+
+
+# tests/test_torch_partitioned_fused_moe.py: (arch, MoE config changes,
+# the FUSED_OPTS it runs) on a 2 x 4 mesh, fp32, FFN density 0.5 at
+# block 32, PART_B x PART_S a step: reduced qwen3-moe (8 experts, 2 a
+# model rank), the same with 6 experts (replicated: "model" does not
+# divide them), with a dispatch group of 128 tokens (it crosses both data
+# ranks' rows) at capacity factor 0.5 (choices dropped), and reduced
+# deepseek-v2-lite (MLA, its dense first layer, shared experts); then
+# FOLD_CASE on a 4 x 2 mesh: FOLD_B x FOLD_S, 48 tokens a row group in
+# groups of 64, so that the ranks' windows of whole groups are 64, 128,
+# 128 and 64 tokens long
+FUSED_MOE_CASES = [
+    ("qwen3-moe-30b-a3b", {}, FUSED_OPTS),
+    ("qwen3-moe-30b-a3b", {"num_experts": 6}, ("sgd_momentum",)),
+    ("qwen3-moe-30b-a3b", {"group_size": 128, "capacity_factor": 0.5},
+     ("adam_clip",)),
+    ("deepseek-v2-lite-16b", {}, FUSED_OPTS)]
+FOLD_CASE = ("qwen3-moe-30b-a3b", {}, ("sgd_momentum",))
+FOLD_B, FOLD_S = 4, 48
+
+
+def fused_moe_case(arch, changes):
+    """The reduced config of one partitioned fused MoE case."""
+    import dataclasses
+    cfg = fused_mesh_case(arch, 32, {})
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            **changes))
+
+
+class ExpertOperandLog:
+    """While ``armed``: the operands each MoE expert junction's fused
+    update sums over, in call order: the gate's (x, dh, g, u)
+    (``bsm.update_gated_dw``) and wo's (h, dy) (``bsm.update_dw`` of
+    more than one unit).  ``restore`` puts the kernels' entries back."""
+
+    KEYS = {"gate": ("x", "dh", "g", "u"), "out": ("x", "dy")}
+
+    def __init__(self):
+        from repro_torch.kernels import block_sparse_matmul as bsm
+        self.calls, self.armed = [], False
+        self._orig = og, ou = bsm.update_gated_dw, bsm.update_dw
+        log = self
+
+        def gated(x, dh, idx, g, u, *a, **k):
+            if log.armed:
+                log.calls.append(("gate", [t.detach().float().clone()
+                                           for t in (x, dh, g, u)]))
+            return og(x, dh, idx, g, u, *a, **k)
+
+        def plain(x, dy, *a, **k):
+            if log.armed and x.shape[0] > 1:
+                log.calls.append(("out", [t.detach().float().clone()
+                                          for t in (x, dy)]))
+            return ou(x, dy, *a, **k)
+        bsm.update_gated_dw, bsm.update_dw = gated, plain
+
+    def restore(self):
+        from repro_torch.kernels import block_sparse_matmul as bsm
+        bsm.update_gated_dw, bsm.update_dw = self._orig
+
+    def arrays(self):
+        """{"<call>_<kind>_<operand>": array} of the recorded calls."""
+        return {f"{n}_{kind}_{k}": t.numpy()
+                for n, (kind, ts) in enumerate(self.calls)
+                for k, t in zip(self.KEYS[kind], ts)}
+
+    def save(self, path):
+        np.savez(path, **self.arrays())
+
+
+def fused_moe_run(rank, d):
+    """Each FUSED_MOE_CASES case through its optimizers on a 2 x 4 mesh,
+    then FOLD_CASE (``in_fold.npz``) on a 4 x 2 mesh, through
+    ``fused_mesh_runs``, each first step's expert update operands
+    recorded (``ExpertOperandLog``)."""
+    from repro_torch.launch.mesh import make_local_mesh
+    logs = (GatherLog(), JunctionGatherLog())
+    blocks = ExpertOperandLog()
+    mesh = make_local_mesh(2, 4, "cpu")
+    for i, (arch, changes, kinds) in enumerate(FUSED_MOE_CASES):
+        fused_mesh_runs(rank, d, mesh, i, fused_moe_case(arch, changes),
+                        kinds, logs, blocks)
+    fold = make_local_mesh(4, 2, "cpu")
+    fused_mesh_runs(rank, d, fold, "fold", fused_moe_case(*FOLD_CASE[:2]),
+                    FOLD_CASE[2], logs, blocks)
+
+
+# tests/test_torch_partitioned_fused_audio.py: (positions, config
+# changes, the FUSED_OPTS it runs) of reduced whisper-base on a 2 x 4
+# mesh on the "sp" strategy, fp32, FFN density 0.5 at block 32, PART_B
+# rows a step: 64 positions (16 a model rank) and 16 frames (4 a model
+# rank); 66 positions, which "model" does not divide (every position on
+# every rank, the frames still split); and 64 positions with 18 frames,
+# which it does not divide (the frames whole on every rank, as the
+# production model's 1500 frames on 16)
+FUSED_AUDIO_CASES = [(64, {}, FUSED_OPTS), (66, {}, ("sgd_momentum",)),
+                     (64, {"enc_frames": 18}, ("adam_clip",))]
+
+
+def fused_audio_case(changes):
+    """The reduced whisper-base config of one partitioned fused case."""
+    return fused_mesh_case("whisper-base", 32, changes)
+
+
+def fused_audio_run(rank, d):
+    """Each FUSED_AUDIO_CASES case through its optimizers on a 2 x 4 mesh,
+    through ``fused_mesh_runs``."""
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(2, 4, "cpu")
+    logs = (GatherLog(), JunctionGatherLog())
+    for i, case in enumerate(FUSED_AUDIO_CASES):
+        fused_mesh_runs(rank, d, mesh, i, fused_audio_case(case[1]), case[2],
+                        logs)
